@@ -2,6 +2,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU with the CUDA toolkit; skips "
+        "where torch.cuda.is_available() is false")
+
+
 @pytest.fixture()
 def rng():
     """Fresh deterministic generator per test.
