@@ -14,17 +14,29 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        kernel ``fused_topk_packed`` (ternary);
 * ``hdc_quickstart`` — HDC associative-memory recall, dot top-1 over
                        10 x 8192 class hypervectors, 64 queries
-                       (auto-packed): kernel ``fused_topk_packed``.
+                       (auto-packed): kernel ``fused_topk_packed``;
+* ``forest_acam``    — decision-forest inference through
+                       ``CamForestClassifier.predict``: 512 random trees
+                       of depth 8 over 64 features (131,072 aCAM interval
+                       rows), 1024 queries: kernel ``acam_match``;
+* ``range_threshold`` — TH-mode range search (``RangePlan``) on the KNN
+                       gallery: eucl with tau the median 5th-nearest
+                       squared distance, and hamming on float cells
+                       (``pack=None`` on the cuda backend) with tau the
+                       median 10th-nearest distance: kernel
+                       ``range_match``.
 
 For each phase it sets the kernels' launch counts to 0, runs the path,
 reads the counts (a kernel of the path with no launch fails the run),
 checks the results, then calls the kernel wrapper and its plain PyTorch
 version on the operands of the path's first micro-batch and compares
-them (bit-identical for the integer metrics; eucl: every candidate
-value within ``EUCL_RTOL``/``EUCL_ATOL``, and every candidate and result
-index swap confirmed as a float64 near-tie), and times kernel, plain version and one PyTorch library call
-with CUDA events (medians).  The last two lines of standard output are
-the ``{"kernels": [...]}`` record and ``{"ok": true, "device": ...}``.
+them (bit-identical for the integer metrics and the interval match;
+eucl: every candidate value within ``EUCL_RTOL``/``EUCL_ATOL``, and every
+candidate and result index swap, or every range-match disagreement,
+confirmed as a float64 near-tie), and times kernel, plain version and
+one PyTorch library call with CUDA events (medians).  The last two lines
+of standard output are the ``{"kernels": [...]}`` record and
+``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present,
 when ``src/repro_torch`` is not beside it, or when any phase fails.
@@ -50,9 +62,19 @@ EUCL_RTOL, EUCL_ATOL = 1e-5, 0.1
 #: H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, HBM3
 FP32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
-#: 32-bit population counts per clock per SM, compute capability 9.0
-#: (CUDA C++ Programming Guide, arithmetic instruction throughput table)
+#: 32-bit population counts and compares per clock per SM, compute
+#: capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+#: throughput table)
 POPC_PER_CLOCK_PER_SM = 16
+COMPARES_PER_CLOCK_PER_SM = 64
+#: the forest_acam workload: random_forest(default_rng(7), **FOREST),
+#: FOREST_QUERIES N(0, 1) queries from default_rng(8)
+FOREST = dict(n_trees=512, depth=8, dim=64, n_classes=8, feature_frac=0.5)
+FOREST_QUERIES = 1024
+#: keyword arguments of knn_dataset() (its defaults: 180,000 x 1024)
+KNN_DATA = {}
+#: rows of each result checked against a plain oracle on the host
+FOREST_CHECKED_ROWS = 256
 
 
 def log(obj) -> None:
@@ -156,8 +178,12 @@ class Smoke:
         self.props = props
         self.popc_per_s = (POPC_PER_CLOCK_PER_SM * props.multi_processor_count
                            * max_clock_mhz * 1e6)
+        self.compare_per_s = (COMPARES_PER_CLOCK_PER_SM
+                              * props.multi_processor_count
+                              * max_clock_mhz * 1e6)
         self.kernels = {}        # name -> record for the final line
         self.failed = []
+        self.topk = {}           # phase -> (values, indices) of its result
 
     # -- the main path, counted ---------------------------------------------
 
@@ -180,9 +206,17 @@ class Smoke:
         if counts[expect] < 1:
             raise RuntimeError(f"{name}: kernel {expect} was not launched "
                                f"on the main path: {counts}")
-        if not (torch.equal(out[0], out2[0]) and torch.equal(out[1], out2[1])):
+        pairs = zip(out, out2) if isinstance(out, tuple) else [(out, out2)]
+        if not all(torch.equal(a, b) for a, b in pairs):
             raise RuntimeError(f"{name}: a repeated call changed the result")
         return out, counts, t1 - t0, t2 - t1
+
+    def only(self, name, counts, expect, launches):
+        """Fail unless the path launched ``expect`` exactly ``launches``
+        times and no other kernel at all."""
+        want = {k: (launches if k == expect else 0) for k in counts}
+        if counts != want:
+            raise RuntimeError(f"{name}: launches {counts}, expected {want}")
 
     def profile(self, prog, inputs, top: int = 6):
         """Where one warm call's time goes: ``torch.profiler`` over a
@@ -257,6 +291,28 @@ class Smoke:
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
 
+    def range_bound_ms(self, q, p):
+        """B4: the float decomposition's FLOP against the bytes of its
+        operands and its (M, N) bool output."""
+        m, d = q.shape
+        n = p.shape[0]
+        flops = 2.0 * m * n * d + 2.0 * (m + n) * d
+        bytes_ = 4.0 * (m * d + n * d) + 1.0 * m * n
+        t_ops, t_mem = flops / FP32_PEAK_FLOPS, bytes_ / HBM_BYTES_PER_S
+        return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
+            else "bytes"
+
+    def acam_bound_ms(self, q, lo):
+        """B3: two compares per (query, row, dim) cell against the bytes of
+        q, lo, hi and the (M, N) bool output."""
+        m, d = q.shape
+        n = lo.shape[0]
+        compares = 2.0 * m * n * d
+        bytes_ = 4.0 * (m * d + 2 * n * d) + 1.0 * m * n
+        t_ops, t_mem = compares / self.compare_per_s, bytes_ / HBM_BYTES_PER_S
+        return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
+            else "bytes"
+
     def packed_bound_ms(self, q, p, care, out_cols):
         m, lanes = q.shape
         n = p.shape[0]
@@ -285,9 +341,10 @@ def phase_knn_eucl(s: Smoke, data):
     (v, i), counts, first_s, second_s = s.drive("knn_eucl", prog, [qt, gt],
                                                 "fused_topk")
     prof = s.profile(prog, [qt, gt])
-    if v.shape != (624, 5) or i.dtype != torch.int32 or \
+    if v.shape != (q.shape[0], 5) or i.dtype != torch.int32 or \
             not bool(torch.isfinite(v).all()):
         raise RuntimeError(f"knn_eucl: bad result {v.shape} {i.dtype}")
+    s.topk["knn_eucl"] = (v, i)
 
     args, kw = s.kernel_operands(prog, [qt, gt])
     qp, pp = args
@@ -304,7 +361,7 @@ def phase_knn_eucl(s: Smoke, data):
                                   "knn_eucl candidates")
     # end to end: the plain version's candidates through the same merge
     pv, pi = ops._merge(want[0], want[1], kw["k"], kw["largest"])
-    pv, pi = pv[:624], pi[:624]
+    pv, pi = pv[:q.shape[0]], pi[:q.shape[0]]
     tol = EUCL_ATOL + EUCL_RTOL * pv.abs()
     if not bool(((v - pv).abs() <= tol).all()):
         raise RuntimeError(f"knn_eucl: values off the plain version by "
@@ -360,6 +417,7 @@ def _packed_phase(s: Smoke, name, data, care):
     prof = s.profile(prog, inputs)
     if v.shape != (q.shape[0], k) or not bool(torch.isfinite(v).all()):
         raise RuntimeError(f"{name}: bad result {v.shape}")
+    s.topk[name] = (v, i)
 
     args, kw = s.kernel_operands(prog, inputs)
     got = cam_search.fused_topk_packed(*args, **kw)
@@ -448,6 +506,203 @@ def phase_hdc_quickstart(s: Smoke):
          "profile": prof})
 
 
+def phase_forest_acam(s: Smoke):
+    import numpy as np
+    import torch
+    from repro_torch.core import ArchSpec, CamType
+    from repro_torch.forest import CamForestClassifier, random_forest
+    from repro_torch.kernels import acam, ops
+    t0 = time.perf_counter()
+    trees = random_forest(np.random.default_rng(7), **FOREST)
+    clf = CamForestClassifier(trees, dim=FOREST["dim"]).compile(
+        ArchSpec(rows=64, cols=64, cam_type=CamType.ACAM),
+        batch_hint=FOREST_QUERIES)
+    compile_s = time.perf_counter() - t0
+    plan = clf.plan
+    n = clf.intervals.n_rows
+    x = np.random.default_rng(8).standard_normal(
+        (FOREST_QUERIES, FOREST["dim"])).astype(np.float32)
+    xt = torch.from_numpy(x).cuda()
+    pred, counts, first_s, second_s = s.drive("forest_acam", clf.predict,
+                                              [xt], "acam_match")
+    s.only("forest_acam", counts, "acam_match",
+           -(-FOREST_QUERIES // plan.batch))
+    prof = s.profile(clf.predict, [xt])
+    match = clf.matches(xt)
+
+    # the first micro-batch's operands, as the plan hands them to the kernel
+    chunk = torch.nn.functional.pad(xt[:plan.batch],
+                                    (0, 0, 0, max(0, plan.batch - len(xt))))
+    qp = ops.pad_to_blocks(chunk, 1, acam.ACAM_BLOCK_D)
+    lo, hi = plan._prepared_patterns(clf._lo, clf._hi)
+    got = acam.acam_match(qp, lo, hi, n_valid=n)
+    want = acam.acam_match_reference(qp, lo, hi, n_valid=n)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise RuntimeError("forest_acam: kernel and plain version differ in "
+                           f"{int((got != want).sum())} places")
+    rows = min(len(xt), plan.batch)
+    if not torch.equal(match[:rows], want[:rows]):
+        raise RuntimeError("forest_acam: the plan's match matrix differs "
+                           "from the plain version")
+    per_query = match.sum(1)
+    if not bool((per_query == FOREST["n_trees"]).all()):
+        raise RuntimeError(f"forest_acam: queries match "
+                           f"{int(per_query.min())}..{int(per_query.max())} "
+                           f"rows, not one leaf per tree")
+    checked = FOREST_CHECKED_ROWS
+    ref_pred = clf.predict_reference(x[:checked])
+    if not np.array_equal(pred[:checked].cpu().numpy(), ref_pred):
+        raise RuntimeError("forest_acam: predictions differ from the tree "
+                           "traversal")
+
+    bound, by = s.acam_bound_ms(qp, lo)
+    ms = cuda_ms(lambda: acam.acam_match(qp, lo, hi, n_valid=n), 10)
+    plain_ms = cuda_ms(
+        lambda: acam.acam_match_reference(qp, lo, hi, n_valid=n), 3)
+    s.record("acam_match", "src/repro_torch/kernels/csrc/acam_match.cu",
+             "src/repro/kernels/acam.py:121", counts["acam_match"], 0.0, ms,
+             plain_ms, bound, by, None)
+    s.kernels["acam_match"]["library_note"] = (
+        "no single PyTorch call computes an interval match")
+    rep = clf.cost_report()
+    log({"phase": "forest_acam", "ok": True, "launches": counts,
+         "compile_s": compile_s, "first_call_s": first_s,
+         "second_call_s": second_s,
+         "kernel_shape": {"q": list(qp.shape), "lo": list(lo.shape)},
+         "rows": n, "wildcard_frac": clf.intervals.wildcard_frac,
+         "match_bit_identical": True, "matches_per_query": FOREST["n_trees"],
+         "predictions_equal_traversal_rows": checked,
+         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+         "bound_ms": bound, "bound_by": by,
+         "cost_report": {"latency_us": rep.latency_us,
+                         "energy_uj": rep.energy_uj, "power_w": rep.power_w},
+         "profile": prof})
+
+
+def range_module(T, cd, m, n, dim, metric, tau, value_bits):
+    """cim program for a TH-mode range search (``dist <= tau``): the
+    traced front end has no range pattern, so it enters the pipeline at
+    compile_module, like hamming_module."""
+    mod = T.Module("range_search", [T.TensorType((m, dim)),
+                                    T.TensorType((n, dim))])
+    a = mod.arguments
+    b = T.Builder(mod.body)
+    dev = cd.make_acquire(b)
+    exe = cd.make_execute(b, dev.result, list(a),
+                          [T.TensorType((m, n), "i1")])
+    blk = exe.region().block()
+    rs = cd.make_range_search(blk, a[0], patterns=a[1], metric=metric,
+                              threshold=tau, below=True,
+                              extra_attrs={"value_bits": value_bits})
+    cd.make_yield(blk, rs.results)
+    cd.make_release(b, dev.result)
+    b.ret(exe.results)
+    return mod
+
+
+def _range_part(s: Smoke, name, metric, tau, inputs, value_bits):
+    """Drive one range program on the main path and hold its kernel
+    against the plain version on the first micro-batch's operands.
+    Returns (main-path match, kernel match, plain match, the kernel's
+    (q, p, kwargs), the path's launches, the phase record)."""
+    import torch
+    import repro_torch.core as T
+    from repro_torch.core import ArchSpec, compile_module
+    from repro_torch.core import cim_dialect as cd
+    from repro_torch.kernels import acam, ops
+    qt, gt = inputs
+    mod = range_module(T, cd, qt.shape[0], gt.shape[0], gt.shape[1], metric,
+                       tau, value_bits)
+    prog = compile_module(mod, ArchSpec(rows=64, cols=64))
+    plan = prog.engine_plan
+    if plan.packed or plan.backend != "cuda":
+        raise RuntimeError(f"{name}: expected a float-cell cuda plan")
+    hit, counts, first_s, second_s = s.drive(name, prog, inputs,
+                                             "range_match")
+    s.only(name, counts, "range_match", -(-qt.shape[0] // plan.batch))
+    prof = s.profile(prog, inputs)
+    chunk = torch.nn.functional.pad(
+        qt[:plan.batch], (0, 0, 0, max(0, plan.batch - qt.shape[0])))
+    (pp,) = plan._prepared_patterns(gt)
+    qp = ops.pad_to_blocks(chunk, 1, 8)
+    kw = dict(metric=metric, threshold=tau, below=True,
+              to_logical="identity", dim=gt.shape[1], n_valid=gt.shape[0])
+    got = acam.range_match(qp, pp, **kw)
+    want = acam.range_match_reference(qp, pp, **kw)
+    torch.cuda.synchronize()
+    rows = min(qt.shape[0], plan.batch)
+    if not torch.equal(hit[:rows], got[:rows]):
+        raise RuntimeError(f"{name}: the main path and the kernel differ")
+    info = {"launches": counts, "first_call_s": first_s,
+            "second_call_s": second_s, "tau": tau,
+            "kernel_shape": {"q": list(qp.shape), "p": list(pp.shape)},
+            "matches_per_query_mean": float(hit.sum(1).float().mean()),
+            "profile": prof}
+    return hit, got, want, (qp, pp, kw), counts["range_match"], info
+
+
+def phase_range_threshold(s: Smoke, data):
+    import torch
+    from repro_torch.kernels import acam
+    g, _, q, _ = data
+    gt, qt = torch.from_numpy(g).cuda(), torch.from_numpy(q).cuda()
+
+    # (a) eucl: tau = median 5th-nearest squared distance of knn_eucl
+    kv, ki = s.topk["knn_eucl"]
+    tau = float(kv[:, 4].median())
+    hit, got, want, (qp, pp, kw), launches, info_a = _range_part(
+        s, "range_eucl", "eucl", tau, [qt, gt], 8)
+    tol = EUCL_ATOL + EUCL_RTOL * abs(tau)
+    rows, cols = (got != want).nonzero(as_tuple=True)
+    d64 = ((qp[rows].double() - pp[cols].double()) ** 2).sum(1)
+    if not bool(((d64 - tau).abs() <= tol).all()):
+        j = int(((d64 - tau).abs() > tol).nonzero()[0, 0])
+        raise RuntimeError(f"range_eucl: kernel and plain version differ at "
+                           f"({int(rows[j])}, {int(cols[j])}), not a float64 "
+                           f"near-tie: {float(d64[j])} vs tau {tau}")
+    top = ki[:, :5].long()                     # knn top-5 below tau - tol
+    dtop = ((qt[:, None, :].double() - gt[top].double()) ** 2).sum(-1)
+    sure = dtop < tau - tol
+    if not bool(hit.gather(1, top)[sure].all()):
+        raise RuntimeError("range_eucl: a knn top-5 row well inside tau "
+                           "was not matched")
+    bound, by = s.range_bound_ms(qp, pp)
+    ms = cuda_ms(lambda: acam.range_match(qp, pp, **kw), 10)
+    plain_ms = cuda_ms(lambda: acam.range_match_reference(qp, pp, **kw), 5)
+    library_ms = cuda_ms(lambda: torch.cdist(qp, pp).square_() <= tau, 5)
+    s.record("range_match", "src/repro_torch/kernels/csrc/range_match.cu",
+             "src/repro/kernels/acam.py:193", launches,
+             float((got != want).any()), ms, plain_ms, bound, by, library_ms)
+    s.kernels["range_match"]["mismatches_float64_near_ties"] = int(rows.numel())
+    log(dict(info_a, phase="range_threshold", part="eucl", ok=True,
+             disagreements_float64_near_ties=int(rows.numel()),
+             knn_top5_inside_tau=int(sure.sum()), ms=ms, plain_ms=plain_ms,
+             library_ms=library_ms, bound_ms=bound, bound_by=by))
+    del hit, got, want, qp, pp
+
+    # (b) hamming on float cells: pack=None demotes on the cuda backend
+    hv, hi_ = s.topk["hamming_packed"]
+    tau = float(hv[:, 9].median())
+    gb, qb = (gt > 0).float(), (qt > 0).float()
+    del gt, qt
+    hit, got, want, (qp, pp, kw), launches, info_b = _range_part(
+        s, "range_hamming", "hamming", tau, [qb, gb], 1)
+    if not torch.equal(got, want):
+        raise RuntimeError("range_hamming: kernel and plain version differ")
+    inside = hv <= tau
+    if not bool(hit.gather(1, hi_.long())[inside].all()):
+        raise RuntimeError("range_hamming: a packed top-10 row within tau "
+                           "was not matched")
+    ms = cuda_ms(lambda: acam.range_match(qp, pp, **kw), 10)
+    s.record("range_match", "src/repro_torch/kernels/csrc/range_match.cu",
+             "src/repro/kernels/acam.py:193", launches, 0.0, None, None,
+             None, "operations", None)
+    log(dict(info_b, phase="range_threshold", part="hamming", ok=True,
+             bit_identical=True, packed_top10_inside_tau=int(inside.sum()),
+             ms=ms))
+
+
 def main() -> None:
     try:
         import torch
@@ -489,7 +744,7 @@ def main() -> None:
 
     from repro_torch.data import knn_dataset
     t0 = time.perf_counter()
-    data = knn_dataset()                       # 180,000 x 1024, 624 queries
+    data = knn_dataset(**KNN_DATA)             # 180,000 x 1024, 624 queries
     log({"phase": "data", "seconds": time.perf_counter() - t0,
          "gallery": list(data[0].shape), "queries": list(data[2].shape)})
 
@@ -498,7 +753,9 @@ def main() -> None:
                lambda: _packed_phase(s, "hamming_packed", data, False)),
               ("tcam_ternary",
                lambda: _packed_phase(s, "tcam_ternary", data, True)),
-              ("hdc_quickstart", lambda: phase_hdc_quickstart(s))]
+              ("hdc_quickstart", lambda: phase_hdc_quickstart(s)),
+              ("forest_acam", lambda: phase_forest_acam(s)),
+              ("range_threshold", lambda: phase_range_threshold(s, data))]
     for name, run in phases:
         t0 = time.perf_counter()
         try:
@@ -512,7 +769,8 @@ def main() -> None:
         log({"phase_seconds": {name: time.perf_counter() - t0}})
     if s.failed:
         fail(f"failed phases: {s.failed}")
-    order = ["fused_topk_packed", "fused_topk_packed_ternary", "fused_topk"]
+    order = ["fused_topk_packed", "fused_topk_packed_ternary", "fused_topk",
+             "acam_match", "range_match"]
     print(smi, flush=True)
     log({"kernels": [s.kernels[n] for n in order]})
     log({"ok": True, "device": {"platform": "gpu",

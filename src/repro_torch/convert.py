@@ -12,19 +12,23 @@ same program; these two functions carry the other two.
   the ``"torch"`` backend's, element for element.  A ``"pallas"`` plan
   pads the gallery to its own blocks; given ``spec``, the operands are
   re-padded to the ``"cuda"`` kernels' blocks, which makes them equal to
-  what the port's own prepare produces.
+  what the port's own prepare produces.  Range plans are carried the
+  same way: an interval plan's padded ``(lo, hi)`` float32 pair (with
+  its ``±inf`` wildcards) and a threshold plan's padded encoded
+  patterns (or, from ``"jnp"``, their tiles and packed lanes).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .core.arch import ArchSpec
-from .core.engine.spec import SimilaritySpec
+from .core.engine.spec import RangeSpec, SimilaritySpec
 from .kernels import packing as kpack
+from .kernels.acam import ACAM_BLOCK_D
 from .kernels.cam_search import BLOCK_K, window_rows
 from .kernels.ops import pad_to_blocks
 
@@ -45,7 +49,8 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
 
 def prepared_from_reference(arrays: Sequence[np.ndarray], *, packed: bool,
                             backend: str,
-                            spec: Optional[SimilaritySpec] = None
+                            spec: Optional[Union[SimilaritySpec,
+                                                 RangeSpec]] = None
                             ) -> Tuple[torch.Tensor, ...]:
     """The port's prepared operands for a reference plan's.
 
@@ -53,7 +58,11 @@ def prepared_from_reference(arrays: Sequence[np.ndarray], *, packed: bool,
     (from a reference ``"jnp"`` plan) or ``"cuda"`` (from ``"pallas"``).
     For ``"cuda"`` with ``spec`` given, each operand is cut to its
     logical extent (``spec.n`` rows, the dim's floats or lanes) and
-    padded to the kernels' blocks.  The tensors are on the CPU.
+    padded to the kernels' blocks: a window multiple of rows for a
+    search, no row padding for a range plan, and the inner dimension to
+    :data:`~.kernels.cam_search.BLOCK_K` (threshold, search) or
+    :data:`~.kernels.acam.ACAM_BLOCK_D` (interval).  The tensors are on
+    the CPU.
     """
     if backend not in ("torch", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -64,7 +73,12 @@ def prepared_from_reference(arrays: Sequence[np.ndarray], *, packed: bool,
             raise ValueError(f"a {'packed' if packed else 'float'} plan's "
                              f"operands cannot be {a.dtype}")
         t = _to_tensor(a)
-        if backend == "cuda" and spec is not None:
+        if backend == "cuda" and isinstance(spec, RangeSpec):
+            if packed:
+                raise ValueError("the cuda range kernels take float cells")
+            block = ACAM_BLOCK_D if spec.mode == "interval" else BLOCK_K
+            t = pad_to_blocks(t[:spec.n, :spec.dim], 1, block)
+        elif backend == "cuda" and spec is not None:
             cols = kpack.lanes(spec.dim) if packed else spec.dim
             t = pad_to_blocks(t[:spec.n, :cols],
                               window_rows(min(spec.k, spec.n)), BLOCK_K)

@@ -14,8 +14,9 @@ Public API::
 from .arch import (AccessMode, ArchSpec, CamType, Metric, OptimizationTarget,
                    PAPER_BASE_ARCH, SearchType, kazemi_arch)
 from .compiler import C4CAMCompiler, CompiledCamProgram, compile_fn, compile_module
-from .engine import (PendingSearch, PlanBase, SearchPlan, SimilaritySpec,
-                     clear_plan_cache, get_plan, plan_cache_stats,
+from .engine import (PendingSearch, PlanBase, RangePlan, RangeSpec,
+                     SearchPlan, SimilaritySpec, clear_plan_cache,
+                     extract_range_spec, get_plan, plan_cache_stats,
                      spec_digest)
 from .ir import Block, Builder, IRError, Module, Operation, Pass, PassManager, TensorType, Value, verify
 from .torch_dialect import TracedTensor, trace
@@ -24,7 +25,8 @@ __all__ = [
     "AccessMode", "ArchSpec", "CamType", "Metric", "OptimizationTarget",
     "PAPER_BASE_ARCH", "SearchType", "kazemi_arch",
     "C4CAMCompiler", "CompiledCamProgram", "compile_fn", "compile_module",
-    "PendingSearch", "PlanBase", "SearchPlan", "SimilaritySpec",
+    "PendingSearch", "PlanBase", "RangePlan", "RangeSpec", "SearchPlan",
+    "SimilaritySpec", "extract_range_spec",
     "clear_plan_cache", "get_plan", "plan_cache_stats", "spec_digest",
     "Block", "Builder", "IRError", "Module", "Operation", "Pass",
     "PassManager", "TensorType", "Value", "verify",

@@ -9,16 +9,17 @@
 and returns a :class:`CompiledCamProgram` bundling every IR snapshot,
 the :class:`~repro_torch.core.passes.cam_map.MappingPlan`s, a cost report
 from the Eva-CAM-analog model (:mod:`repro_torch.camsim`), and — for pure
-similarity programs — a cached :class:`~repro_torch.core.engine.SearchPlan`
-that executes the search.
+similarity or range programs — a cached
+:class:`~repro_torch.core.engine.SearchPlan` or
+:class:`~repro_torch.core.engine.RangePlan` that executes the search.
 
 ``backend="cuda"`` (the default) runs the hand-written Hopper kernels;
-``backend="torch"`` the eager reference-tiled tournament.  ``device=None``
+``backend="torch"`` the eager reference-tiled path.  ``device=None``
 means the GPU and raises where CUDA is absent; pass ``device="cpu"`` to
 run on the CPU (the ``"cuda"`` backend then runs the kernels' plain
-versions).  Programs without an engine plan need the IR interpreter
-(``core/executor.py``), which a later slice of the port brings; calling
-them raises ``NotImplementedError``.
+versions).  Programs without an engine plan run through the op-by-op IR
+interpreter (:func:`~repro_torch.core.executor.execute_module`) with the
+program's backend and device.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from .arch import ArchSpec, CamType
 from .engine import PlanBase, get_plan, resolve_device
+from .executor import execute_module
 from .ir import Module, PassManager
 from .passes import (CamMap, CimToCam, CompulsoryPartition, FuseExecuteBlocks,
                      SimilarityMatching, TorchToCim)
@@ -35,12 +37,6 @@ from .passes.cam_map import MappingPlan
 from .torch_dialect import trace
 
 __all__ = ["CompiledCamProgram", "compile_module", "compile_fn", "C4CAMCompiler"]
-
-_NO_INTERPRETER = (
-    "this program has no engine plan (it is not a pure similarity search) "
-    "and needs the op-by-op IR interpreter, core/executor.py, which is not "
-    "ported to repro_torch yet")
-
 
 @dataclass
 class CompiledCamProgram:
@@ -55,21 +51,29 @@ class CompiledCamProgram:
     backend: str = "cuda"
     engine_plan: Optional[PlanBase] = None
     shards: int = 1
+    #: where inputs are moved and results returned
+    device: Any = None
 
     def __call__(self, *inputs):
-        """Execute the program through its compiled search plan:
-        ``(values float32, indices int32)`` tensors on the plan's device."""
-        if self.engine_plan is None:
-            raise NotImplementedError(_NO_INTERPRETER)
-        return self.engine_plan.execute(*inputs)
+        """Execute the program: through its compiled plan when it has one
+        (``(values float32, indices int32)`` for a search, the boolean
+        match matrix for a range program), else through the IR
+        interpreter; tensors on the program's device."""
+        if self.engine_plan is not None:
+            return self.engine_plan.execute(*inputs)
+        return execute_module(self.stages["cim_partitioned"], *inputs,
+                              backend=self.backend, device=self.device)
 
     def execute_interpreted(self, *inputs):
-        """Op-by-op interpretation of the partitioned IR."""
-        raise NotImplementedError(_NO_INTERPRETER)
+        """Op-by-op interpretation of the partitioned IR (the tiled
+        oracles: tests the explicit tiled IR)."""
+        return execute_module(self.stages["cim_partitioned"], *inputs,
+                              backend="torch", device=self.device)
 
     def execute_unplanned(self, *inputs):
         """The interpreter walk with the configured backend."""
-        raise NotImplementedError(_NO_INTERPRETER)
+        return execute_module(self.stages["cim_partitioned"], *inputs,
+                              backend=self.backend, device=self.device)
 
     def cost_report(self):
         from ..camsim import CostModel
@@ -129,7 +133,8 @@ def compile_module(module: Module, arch: ArchSpec, *,
         plans=ctx.get("plans", []),
         matched_patterns=ctx.get("matched_patterns", []),
         backend=backend, engine_plan=engine_plan,
-        shards=engine_plan.shards if engine_plan is not None else 1)
+        shards=engine_plan.shards if engine_plan is not None else 1,
+        device=dev)
 
 
 def compile_fn(fn: Callable, example_inputs: Sequence[Any], arch: ArchSpec,

@@ -18,10 +18,14 @@ from ...obs.trace import trace_span, tracer
 from ..envcfg import env_int
 from ..ir import Module
 from .base import PlanBase, _pick_batch, resolve_device
-from .executables import (_build_cuda_executable, _build_scan_executable,
-                          _build_tiny_executable)
-from .plans import SearchPlan
-from .spec import _resolve_pack, extract_plan_spec
+from .executables import (_build_cuda_executable,
+                          _build_range_cuda_executable,
+                          _build_range_scan_executable, _build_scan_executable,
+                          _build_tiny_executable,
+                          _build_tiny_range_executable)
+from .plans import RangePlan, SearchPlan
+from .spec import RangeSpec, _resolve_pack, extract_plan_spec, \
+    extract_range_spec
 
 #: the port's backends: eager reference-tiled, and the CUDA kernels
 BACKENDS = ("torch", "cuda")
@@ -98,7 +102,14 @@ def get_plan(module: Module, *, backend: str = "cuda",
     returned; ``None`` means the current CUDA device, and raises when
     CUDA is absent (pass ``device="cpu"`` to run on the CPU).
 
-    Returns ``None`` when the module is not a pure similarity program.
+    Range programs (:class:`~.spec.RangeSpec`) get a
+    :class:`~.plans.RangePlan`.  The ``"cuda"`` range kernels take float
+    cells, so ``pack=None`` there runs the float path and ``pack=True``
+    raises; the ``"torch"`` backend packs binary/bipolar range programs
+    as it does searches.
+
+    Returns ``None`` when the module is neither a pure similarity nor a
+    pure range program.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
@@ -108,12 +119,23 @@ def get_plan(module: Module, *, backend: str = "cuda",
             "sharded plans are not ported to repro_torch yet")
     try:
         spec = extract_plan_spec(module)
+        if spec is None:
+            spec = extract_range_spec(module)
     except Exception:       # malformed/exotic IR: no engine plan
         spec = None
     if spec is None:
         return None
+    is_range = isinstance(spec, RangeSpec)
     packed = _resolve_pack(spec, pack)
-    if spec.care_arg is not None and not packed and backend == "cuda":
+    if is_range and backend == "cuda" and packed:
+        # the range kernels take float cells; the packed popcount range
+        # path lives in the "torch" executable
+        if pack:
+            raise ValueError(
+                "packed range search requires the 'torch' backend")
+        packed = False
+    if getattr(spec, "care_arg", None) is not None and not packed \
+            and backend == "cuda":
         raise ValueError(
             "ternary (care-masked) search on the cuda backend requires "
             "packed execution; pass pack=True (and unset "
@@ -127,17 +149,28 @@ def get_plan(module: Module, *, backend: str = "cuda",
     tiny = _tiny_plan(spec, backend, 1)
     with trace_span("plan.compile",
                     args=None if not tracer.enabled else
-                    {"family": "search", "backend": backend, "batch": b,
-                     "shards": 1, "packed": packed, "device": str(dev)}):
-        if backend == "cuda":
+                    {"family": "range" if is_range else "search",
+                     "backend": backend, "batch": b, "shards": 1,
+                     "packed": packed, "device": str(dev)}):
+        if is_range:
+            if backend == "cuda":
+                prepare, chunk_fn = _build_range_cuda_executable(spec, b)
+            elif tiny:
+                prepare, chunk_fn = _build_tiny_range_executable(spec, b,
+                                                                 packed)
+            else:
+                prepare, chunk_fn = _build_range_scan_executable(spec, b,
+                                                                 packed)
+        elif backend == "cuda":
             prepare, chunk_fn = _build_cuda_executable(spec, b, packed)
         elif tiny:
             prepare, chunk_fn = _build_tiny_executable(spec, b, packed)
         else:
             prepare, chunk_fn = _build_scan_executable(spec, b, packed)
-        plan = SearchPlan(spec=spec, backend=backend, batch=b, device=dev,
-                          packed=packed, tiny=tiny,
-                          _prepare=prepare, _chunk_fn=chunk_fn)
+        cls = RangePlan if is_range else SearchPlan
+        plan = cls(spec=spec, backend=backend, batch=b, device=dev,
+                   packed=packed, tiny=tiny,
+                   _prepare=prepare, _chunk_fn=chunk_fn)
     return _cache_insert(key, plan)
 
 

@@ -17,9 +17,15 @@ Two backends:
   :func:`~repro_torch.kernels.cam_search.fused_topk_packed` followed by
   the stable candidate merge.
 
+Range plans (:class:`~.spec.RangeSpec`) have both backends too: the
+``"torch"`` row-tile scan (every stored row keeps its own match line, no
+tournament) and the ``"cuda"`` path, one launch of
+:func:`~repro_torch.kernels.acam.acam_match` (interval) or
+:func:`~repro_torch.kernels.acam.range_match` (threshold) per chunk.
+
 Numerical contract: bit-identical results for the integer metrics
-(hamming / dot / cos through bipolar packing / ternary), float tolerance
-for eucl — as pinned by :mod:`repro_torch.kernels.ref`.
+(hamming / dot / cos through bipolar packing / ternary / interval),
+float tolerance for eucl — as pinned by :mod:`repro_torch.kernels.ref`.
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ import torch
 from ...kernels import ops as kops
 from ...kernels import packing as kpack
 from ...kernels import ref as kref
+from ...kernels.acam import ACAM_BLOCK_D
 from ...kernels.cam_search import BLOCK_K, window_rows
-from .spec import SimilaritySpec, _bits, _encode, _metric_values
+from .spec import RangeSpec, SimilaritySpec, _bits, _encode, _metric_values
 
 #: elements of one row-tile group's largest intermediate in the torch
 #: backend's tournament (the (batch, rows, cells) compare or XOR block)
@@ -265,5 +272,163 @@ def _build_cuda_executable(spec: SimilaritySpec, batch: int,
         v, i = merge(*args, **kw)
         v, i = kref.pad_candidates(v, i, k, phys_largest)
         return to_logical(v, float(spec.dim)), i
+
+    return prepare, chunk_fn
+
+
+# ---------------------------------------------------------------------------
+# Range-search executables (boolean match: TH threshold / aCAM interval)
+# ---------------------------------------------------------------------------
+
+
+def _range_col_fn(spec: RangeSpec, packed: bool) -> Callable:
+    """Per-column-tile partial value of a range program over a group of
+    row tiles: ``f(qc (B, X), leaves (g, tr, X)) -> (B, g, tr)`` float32.
+
+    Threshold mode accumulates the physical distances of the search path
+    (packed popcounts included); interval mode accumulates aCAM
+    violation counts.  Both are additive over column tiles.
+    """
+    if spec.mode == "interval":
+        def dist(qc, flat):
+            return kref.acam_violations(qc, flat[0], flat[1])
+    elif packed:
+        def dist(qc, flat):
+            return kref.packed_distances(qc, flat[0])
+    else:
+        phys_metric, _, _ = _metric_values(spec.metric, True)
+
+        def dist(qc, flat):
+            return kref.distances(qc, flat[0], phys_metric)
+
+    def f(qc, pr):
+        g, tr = pr[0].shape[:2]
+        flat = [x.reshape(g * tr, x.shape[-1]) for x in pr]
+        return dist(qc, flat).reshape(qc.shape[0], g, tr)
+
+    return f
+
+
+def _range_compare(spec: RangeSpec) -> Callable:
+    """Value block -> boolean match block, in the logical metric domain."""
+    if spec.mode == "interval":
+        return lambda d: d == 0
+    _, to_logical, _ = _metric_values(spec.metric, True)
+    tau, below, dim = spec.threshold, spec.below, float(spec.dim)
+    if below:
+        return lambda d: to_logical(d, dim) <= tau
+    return lambda d: to_logical(d, dim) >= tau
+
+
+def _range_tile_scan(spec: RangeSpec, col_fn: Callable) -> Callable:
+    """Row-tile scan of a range program: ``scan(qt, pt)`` accumulates each
+    row tile's physical value over the column tiles (left to right, as
+    the reference's scan does), compares it, and returns the
+    ``(batch, n_tiles * tile_rows)`` match block.  No tournament: every
+    stored row keeps its own match line.
+
+    Row tiles run in groups to bound the Python loop; a group's values
+    are integers except for eucl, whose groups are single row tiles so
+    that every float operation has the shapes of
+    :func:`~repro_torch.kernels.ref.tiled_distances` (the interpreter's
+    oracle) and the two stay bit-identical.
+    """
+    tr = spec.tile_rows
+    compare = _range_compare(spec)
+    single = spec.mode == "threshold" and \
+        _metric_values(spec.metric, True)[0] == "eucl"
+
+    def scan(qt, pt):
+        batch, gc = qt.shape[1], qt.shape[0]
+        cells = max(x.shape[-1] for x in pt)
+        g = 1 if single else max(1, _GROUP_ELEMS // (batch * tr * cells))
+        hits = []
+        for t0 in range(0, pt[0].shape[0], g):
+            tiles = tuple(x[t0:t0 + g] for x in pt)      # (g, gc, tr, X)
+            dist = None
+            for c in range(gc):                          # horizontal merge
+                part = col_fn(qt[c], tuple(x[:, c] for x in tiles))
+                dist = part if dist is None else dist + part
+            hits.append(compare(dist).reshape(batch, -1))
+        return torch.cat(hits, dim=-1)
+
+    return scan
+
+
+def _lay_range_patterns(pats, spec: RangeSpec, gr_total: int,
+                        packed: bool) -> Tuple[torch.Tensor, ...]:
+    """Stored operands laid out as per-subarray tiles: ``(patterns,)``
+    or ``(lo, hi)``, each ``(gr_total, gc, tr, X)``.  Zero padding is
+    interval-safe: padded dims carry ``q = lo = hi = 0`` (never a
+    violation) and padded rows land beyond ``spec.n``, where finalize
+    slices them off."""
+    leaves = []
+    for p in pats:
+        leaves.extend(_lay_patterns(p, None, spec, gr_total, packed))
+    return tuple(leaves)
+
+
+def _build_range_scan_executable(spec: RangeSpec, batch: int,
+                                 packed: bool = False):
+    """(prepare, chunk_fn) for the ``"torch"`` range path: ``chunk_fn``
+    returns the ``(batch, grid_rows * tile_rows)`` boolean match block."""
+    gr = spec.grid_rows
+    scan = _range_tile_scan(spec, _range_col_fn(spec, packed))
+
+    def prepare(*pats):
+        return _lay_range_patterns(pats, spec, gr, packed)
+
+    def chunk_fn(q, pt):
+        return scan(_layout_queries(q, spec, packed), pt)
+
+    return prepare, chunk_fn
+
+
+def _build_tiny_range_executable(spec: RangeSpec, batch: int,
+                                 packed: bool = False):
+    """Dense one-tile executable for tiny range plans (the forest
+    small-program case) — the range twin of
+    :func:`_build_tiny_executable`."""
+    return _build_range_scan_executable(_dense_spec(spec), batch,
+                                        packed=packed)
+
+
+def _build_range_cuda_executable(spec: RangeSpec, batch: int):
+    """(prepare, chunk_fn) driving the interval and threshold kernels.
+
+    The stored operands are encoded and zero-padded once, in the inner
+    dimension only, to the kernel's block (behind the pattern memo); the
+    kernels take any row count and mask rows at or past ``n``.  Each
+    chunk is one launch returning its ``(batch, n)`` ``torch.bool``
+    match block: the threshold (or the ``violations == 0`` test) happens
+    in the kernel.  Float cells only — a packed range plan is the
+    ``"torch"`` backend's.
+    """
+    n, dim = spec.n, spec.dim
+    if spec.mode == "interval":
+        def prepare(lo, hi):
+            return tuple(kops.pad_to_blocks(x.to(torch.float32), 1,
+                                            ACAM_BLOCK_D) for x in (lo, hi))
+
+        def chunk_fn(q, pp):
+            qp = kops.pad_to_blocks(q.to(torch.float32), 1, ACAM_BLOCK_D)
+            return kops.acam_match_prepadded(qp, pp[0], pp[1], n_valid=n)
+
+        return prepare, chunk_fn
+
+    metric = spec.metric
+    phys_metric, _, _ = _metric_values(metric, True)
+    to_logical = "bipolar" if metric in ("dot", "cos") else "identity"
+
+    def prepare(p):
+        pe = _encode(p, metric).to(torch.float32)
+        return (kops.pad_to_blocks(pe, 1, BLOCK_K),)
+
+    def chunk_fn(q, pp):
+        qp = kops.pad_to_blocks(_encode(q, metric).to(torch.float32), 1,
+                                BLOCK_K)
+        return kops.cam_range_match_prepadded(
+            qp, pp[0], metric=phys_metric, threshold=spec.threshold,
+            below=spec.below, to_logical=to_logical, dim=dim, n_valid=n)
 
     return prepare, chunk_fn

@@ -4,8 +4,9 @@ A *spec* is the frozen, hashable structural summary of a partitioned
 ``cim`` program — metric, k, tile geometry, operand wiring and output
 shapes.  Two modules with equal specs compile to interchangeable
 executables; the spec (plus backend / micro-batch / packing / device)
-*is* the plan-cache key.  This slice carries the top-k family,
-:class:`SimilaritySpec`; range programs come with a later slice.
+*is* the plan-cache key.  Two families: top-k search
+(:class:`SimilaritySpec`) and boolean range match (:class:`RangeSpec`,
+threshold or aCAM interval).
 
 Also here: the metric/encoding helpers mapping the physical CAM domain
 (hamming counts) to the logical metric domain.
@@ -140,6 +141,48 @@ class SimilaritySpec:
     in_dtypes: Tuple[str, ...] = ("f32", "f32")
 
 
+@dataclass(frozen=True)
+class RangeSpec:
+    """Structural summary of a partitioned range-search program.
+
+    The second plan family: boolean match search (paper TH mode /
+    analog-CAM interval match) instead of top-k.  Being a distinct
+    frozen type, its cache keys never collide with a similarity plan's.
+    """
+
+    #: "threshold" (distance vs tau) or "interval" (aCAM lo/hi cells)
+    mode: str
+    #: logical metric for threshold mode; the sentinel "interval" for
+    #: interval mode (not packable, encoding is a passthrough)
+    metric: str
+    threshold: float           # static: part of the plan key
+    below: bool                # True: match iff value <= tau; False: >=
+    tile_rows: int
+    dims_per_tile: int
+    grid_rows: int
+    grid_cols: int
+    m: int                     # traced query count (batch hint only)
+    n: int                     # stored rows
+    dim: int
+    query_arg: int
+    #: module-argument positions of the stored operands — (patterns,)
+    #: for threshold mode, (lo, hi) for interval mode
+    pattern_args: Tuple[int, ...]
+    out_shape: Tuple[int, ...]
+    in_dtypes: Tuple[str, ...] = ("f32", "f32")
+
+    def __post_init__(self):
+        # the spec is the plan-cache key and the digest's source: + 0.0
+        # folds -0.0 into +0.0 (equal in Python, different repr), and a
+        # NaN threshold (unequal to itself, matches nothing) is refused
+        t = float(self.threshold)
+        if t != t:
+            raise ValueError(
+                "RangeSpec threshold must not be NaN (a NaN threshold "
+                "matches no row and poisons the plan-cache key)")
+        object.__setattr__(self, "threshold", t + 0.0)
+
+
 # ---------------------------------------------------------------------------
 # Stable spec digests
 # ---------------------------------------------------------------------------
@@ -179,6 +222,7 @@ def spec_digest(spec) -> str:
 
 
 _SIM_OPS = {"cim.similarity", "cim.tiled_similarity"}
+_RANGE_OPS = {"cim.range_search", "cim.tiled_range_search"}
 _TILE_OPS = {"cim.search_tile", "cim.merge_partial", "cim.topk_tile",
              "cim.reshape_result"}
 
@@ -288,3 +332,74 @@ def _spec_from_unrolled(body, arg_pos) -> Optional[SimilaritySpec]:
         out_v_shape=tuple(fin.results[0].type.shape),
         out_i_shape=tuple(fin.results[1].type.shape),
         in_dtypes=(q.type.dtype, p.type.dtype))
+
+
+def extract_range_spec(module: Module) -> Optional[RangeSpec]:
+    """Return the spec if ``module`` is a pure range-search program.
+
+    Accepted shape mirrors :func:`extract_plan_spec` with a single
+    ``cim.range_search`` / ``cim.tiled_range_search`` (one ``i1``
+    result) in the execute body, operands fed straight from module
+    arguments.  Anything else returns ``None``.
+    """
+    args = module.arguments
+    arg_pos = {id(a): i for i, a in enumerate(args)}
+    execute = None
+    ret = None
+    for op in module.body.operations:
+        if op.name in ("cim.acquire", "cim.release"):
+            continue
+        if op.name == "cim.execute":
+            if execute is not None:
+                return None
+            execute = op
+            continue
+        if op.name == "func.return":
+            ret = op
+            continue
+        return None
+    if execute is None or ret is None or len(execute.results) != 1:
+        return None
+    if [id(v) for v in ret.operands] != [id(r) for r in execute.results]:
+        return None
+
+    body = execute.body_ops()
+    if len(body) != 2:
+        return None
+    rs, yld = body
+    if rs.name not in _RANGE_OPS or yld.name != "cim.yield":
+        return None
+    if [id(v) for v in yld.operands] != [id(r) for r in rs.results]:
+        return None
+    if any(id(v) not in arg_pos for v in rs.operands):
+        return None
+    a = rs.attributes
+    mode = a.get("mode", "threshold")
+    if mode == "interval":
+        if len(rs.operands) != 3:
+            return None
+        metric = "interval"
+    else:
+        if len(rs.operands) != 2 or "metric" not in a:
+            return None
+        metric = a["metric"]
+    q = rs.operands[0]
+    stored = rs.operands[1]
+    n, dim = stored.type.shape[-2], stored.type.shape[-1]
+    tr = int(a.get("tile_rows", 0)) or n
+    dpt = int(a.get("dims_per_tile", 0)) or dim
+    gr = int(a.get("grid_rows", 0)) or -(-n // tr)
+    gc = int(a.get("grid_cols", 0)) or -(-dim // dpt)
+    m = 1
+    for d in q.type.shape[:-1]:
+        m *= d
+    return RangeSpec(
+        mode=mode, metric=metric,
+        threshold=float(a.get("threshold", 0.0)),
+        below=bool(a.get("below", True)),
+        tile_rows=tr, dims_per_tile=dpt, grid_rows=gr, grid_cols=gc,
+        m=m, n=n, dim=dim,
+        query_arg=arg_pos[id(q)],
+        pattern_args=tuple(arg_pos[id(v)] for v in rs.operands[1:]),
+        out_shape=tuple(rs.results[0].type.shape),
+        in_dtypes=tuple(v.type.dtype for v in rs.operands))

@@ -5,7 +5,12 @@
                  (XOR + popcount, binary or ternary); CUDA sources in
                  `csrc/`, built by `build`; plain PyTorch versions beside
                  each kernel.
-* `ops`        — padding and the final stable candidate merge.
+* `acam`       — analog-CAM range search: the interval match (aCAM
+                 `lo <= q <= hi` cells) and the thresholded distance
+                 (TH sensing), each writing a boolean match matrix;
+                 plain PyTorch versions beside each kernel.
+* `ops`        — padding, the final stable candidate merge, and the
+                 range entry points.
 * `packing`    — 32-cell int32 lane packing and popcount.
 * `ref`        — plain PyTorch oracles (the reference package's
                  `repro.kernels.ref` contract).

@@ -32,7 +32,9 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build", "load",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> its translation unit in csrc/
 SOURCES = {"fused_topk": "fused_topk.cu",
-           "fused_topk_packed": "fused_topk_packed.cu"}
+           "fused_topk_packed": "fused_topk_packed.cu",
+           "acam_match": "acam_match.cu",
+           "range_match": "range_match.cu"}
 #: headers every source includes (part of each library's hash)
 _HEADERS = ("fused_topk_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -70,7 +70,8 @@ _POS_BIG = 3.0e38
 
 #: launches per kernel since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"fused_topk": 0, "fused_topk_packed": 0,
-                            "fused_topk_packed_ternary": 0}
+                            "fused_topk_packed_ternary": 0,
+                            "acam_match": 0, "range_match": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -207,13 +208,19 @@ def _check(name: str, q: torch.Tensor, p: torch.Tensor,
                          f"launch grid; split the batch")
 
 
-def _bind(lib: ctypes.CDLL, fn: str, n_ptrs: int, n_ints: int):
-    """The C entry point with its argument types set (pointers and the
-    stream as c_void_p: a plain int would be cut to 32 bits)."""
+def _args(n_ptrs: int, n_ints: int) -> list:
+    """ctypes argument types of an entry point taking ``n_ptrs`` pointers,
+    ``n_ints`` ints and the stream (pointers and the stream as c_void_p:
+    a plain int would be cut to 32 bits)."""
+    return [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + \
+        [ctypes.c_void_p]
+
+
+def _bind(lib: ctypes.CDLL, fn: str, argtypes: list):
+    """The C entry point ``fn`` with its argument types set."""
     f = getattr(lib, fn)
     if f.argtypes is None:
-        f.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                      + [ctypes.c_void_p])
+        f.argtypes = argtypes
         f.restype = ctypes.c_int
         lib.c4cam_error_string.argtypes = [ctypes.c_int]
         lib.c4cam_error_string.restype = ctypes.c_char_p
@@ -255,7 +262,7 @@ def fused_topk(q: torch.Tensor, p: torch.Tensor, *, metric: str, k: int,
     if q.shape[0] == 0:
         return out_v, out_i
     lib = build.load("fused_topk")
-    launch = _bind(lib, "c4cam_fused_topk_f32", 4, 8)
+    launch = _bind(lib, "c4cam_fused_topk_f32", _args(4, 8))
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), p.data_ptr(), out_v.data_ptr(),
                      out_i.data_ptr(), q.shape[0], p.shape[0], q.shape[1],
@@ -287,7 +294,7 @@ def fused_topk_packed(q: torch.Tensor, p: torch.Tensor,
     if q.shape[0] == 0:
         return out_v, out_i
     lib = build.load("fused_topk_packed")
-    launch = _bind(lib, "c4cam_fused_topk_packed", 5, 7)
+    launch = _bind(lib, "c4cam_fused_topk_packed", _args(5, 7))
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), p.data_ptr(),
                      None if care is None else care.data_ptr(),

@@ -12,6 +12,9 @@ candidate merge: a stable sort of the (M, n_windows * k) candidates on
 their key.  Windows are in ascending row order and candidates within a
 window in (key desc, index asc) order, so the stable sort resolves ties
 to the lower global row index, matching the reference.
+
+The range entry points (:func:`acam_match`, :func:`cam_range_match`)
+are one launch each: the kernel writes the boolean match matrix itself.
 """
 
 from __future__ import annotations
@@ -20,11 +23,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import acam as kacam
 from . import ref as kref
 from .cam_search import BLOCK_K, fused_topk, fused_topk_packed, window_rows
 
 __all__ = ["pad_to_blocks", "cam_topk_prepadded",
-           "cam_topk_packed_prepadded", "cam_topk", "cam_topk_packed"]
+           "cam_topk_packed_prepadded", "cam_topk", "cam_topk_packed",
+           "acam_match_prepadded", "acam_match",
+           "cam_range_match_prepadded", "cam_range_match"]
 
 
 def pad_to_blocks(x: torch.Tensor, mult0: int, mult1: int) -> torch.Tensor:
@@ -95,3 +101,52 @@ def cam_topk_packed(qbits: torch.Tensor, pbits: torch.Tensor,
     vals, idx = cam_topk_packed_prepadded(qp, pp, cp, k=k_eff,
                                           largest=largest, n_valid=n)
     return kref.pad_candidates(vals, idx, k, largest)
+
+
+# ---------------------------------------------------------------------------
+# aCAM range search (interval + fused threshold match)
+# ---------------------------------------------------------------------------
+
+
+def acam_match_prepadded(qp: torch.Tensor, lop: torch.Tensor,
+                         hip: torch.Tensor, *, n_valid: int) -> torch.Tensor:
+    """Interval-match launch for operands whose inner dimension is padded
+    to :data:`~.acam.ACAM_BLOCK_D` (zero padding: ``q = lo = hi = 0``
+    never violates).  Returns the (M, N) ``torch.bool`` matrix."""
+    return kacam.acam_match(qp, lop, hip, n_valid=n_valid)
+
+
+def acam_match(queries: torch.Tensor, lo: torch.Tensor,
+               hi: torch.Tensor) -> torch.Tensor:
+    """(M, N) boolean aCAM interval match through the interval kernel;
+    semantics pinned by :func:`ref.acam_match` (bit for bit)."""
+    d = kacam.ACAM_BLOCK_D
+    return acam_match_prepadded(
+        pad_to_blocks(queries.to(torch.float32), 1, d),
+        pad_to_blocks(lo.to(torch.float32), 1, d),
+        pad_to_blocks(hi.to(torch.float32), 1, d), n_valid=lo.shape[0])
+
+
+def cam_range_match_prepadded(qp: torch.Tensor, pp: torch.Tensor, *,
+                              metric: str, threshold: float, below: bool,
+                              to_logical: str, dim: int,
+                              n_valid: int) -> torch.Tensor:
+    """Fused threshold-match launch for operands whose inner dimension is
+    padded to :data:`~.cam_search.BLOCK_K`; (M, N) ``torch.bool``."""
+    return kacam.range_match(qp, pp, metric=metric, threshold=threshold,
+                             below=below, to_logical=to_logical, dim=dim,
+                             n_valid=n_valid)
+
+
+def cam_range_match(queries: torch.Tensor, patterns: torch.Tensor, *,
+                    metric: str, threshold: float,
+                    below: bool = True) -> torch.Tensor:
+    """(M, N) boolean threshold match with the threshold fused in the
+    kernel (only the match matrix leaves it); the physical-metric
+    contract of :func:`ref.cam_range` on hamming / dot / eucl."""
+    return cam_range_match_prepadded(
+        pad_to_blocks(queries.to(torch.float32), 1, BLOCK_K),
+        pad_to_blocks(patterns.to(torch.float32), 1, BLOCK_K),
+        metric=metric, threshold=threshold, below=below,
+        to_logical="identity", dim=queries.shape[-1],
+        n_valid=patterns.shape[0])

@@ -32,7 +32,8 @@ from .packing import popcount32
 
 __all__ = ["distances", "packed_distances", "ternary_distances",
            "tile_distance", "tiled_distances", "cam_topk",
-           "cam_topk_ternary", "cam_topk_tiled", "merge_topk",
+           "cam_topk_ternary", "cam_exact", "cam_range", "acam_match",
+           "acam_violations", "cam_topk_tiled", "merge_topk",
            "pad_candidates", "stable_topk"]
 
 #: index of a losing (padding) candidate slot
@@ -110,6 +111,49 @@ def cam_topk_ternary(queries: torch.Tensor, patterns: torch.Tensor,
     """TCAM wildcard best-match: top-k by care-masked Hamming distance."""
     return _topk_with_ties(ternary_distances(queries, patterns, care), k,
                            largest)
+
+
+def cam_exact(queries: torch.Tensor, patterns: torch.Tensor, *,
+              metric: str = "hamming") -> torch.Tensor:
+    """(M, N) boolean exact-match matrix (distance == 0)."""
+    return distances(queries, patterns, metric) == 0
+
+
+def cam_range(queries: torch.Tensor, patterns: torch.Tensor,
+              threshold: float, *, metric: str = "hamming") -> torch.Tensor:
+    """(M, N) boolean threshold-match matrix (distance <= threshold).
+
+    The paper's TH sensing mode: ties are *inclusive*.  For similarity
+    metrics (``dot``/``cos``) the same ``<=`` contract holds on the
+    similarity value; the engine's ``below=False`` range programs ask
+    for ``>=`` instead.  The threshold is compared in float32.
+    """
+    return distances(queries, patterns, metric) <= threshold
+
+
+def acam_violations(queries: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor) -> torch.Tensor:
+    """(M, N) count of interval violations per (query, row) pair.
+
+    ``lo``/``hi``: (N, D) per-row interval bounds of an analog CAM; a
+    cell violates when ``q < lo or q > hi``.  A wildcard dimension is
+    the full range ``[-inf, +inf]`` and can never be violated; a NaN
+    query cell violates nothing.  Counts are small integers in float32
+    (exact) and additive over dimension tiles.
+    """
+    q = queries.to(torch.float32)[:, None, :]
+    viol = (q < lo.to(torch.float32)[None, :, :]) | \
+        (q > hi.to(torch.float32)[None, :, :])
+    return viol.sum(-1).to(torch.float32)
+
+
+def acam_match(queries: torch.Tensor, lo: torch.Tensor,
+               hi: torch.Tensor) -> torch.Tensor:
+    """(M, N) boolean aCAM interval-match matrix: row ``j`` matches query
+    ``i`` iff ``lo[j, d] <= q[i, d] <= hi[j, d]`` for every ``d`` (no
+    violation) — pure comparisons and integer counts, so the result is
+    tiling-invariant."""
+    return acam_violations(queries, lo, hi) == 0
 
 
 def tile_distance(q_t: torch.Tensor, p_t: torch.Tensor,

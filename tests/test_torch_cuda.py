@@ -17,6 +17,7 @@ import torch
 
 import repro_torch.core as T
 from repro_torch.core import cim_dialect as cd
+from repro_torch.kernels import acam as tacam
 from repro_torch.kernels import cam_search as tcs
 
 pytestmark = pytest.mark.gpu
@@ -94,7 +95,8 @@ def test_launch_counts_and_refusals(cuda):
     tcs.fused_topk_packed(q, p, k=3, largest=False, n_valid=100)
     tcs.fused_topk_packed(q, p, p, k=3, largest=False, n_valid=100)
     assert tcs.LAUNCHES == {"fused_topk": 0, "fused_topk_packed": 1,
-                            "fused_topk_packed_ternary": 1}
+                            "fused_topk_packed_ternary": 1,
+                            "acam_match": 0, "range_match": 0}
     with pytest.raises(ValueError, match="queries on"):
         tcs.fused_topk_packed(q, p.cpu(), k=3, largest=False, n_valid=100)
 
@@ -159,3 +161,193 @@ def test_main_path_on_the_card_matches_cpu(cuda, metric, rng):
         _assert_eucl_close(ins[0], ins[1], wv, wi, gv, gi)
     else:
         assert np.array_equal(gv, wv) and np.array_equal(gi, wi)
+
+
+# ---------------------------------------------------------------------------
+# range search: B3 (interval) and B4 (threshold)
+# ---------------------------------------------------------------------------
+
+
+def _intervals(rng, m, n, dim, constrained=0.3):
+    """Queries + (lo, hi) with +-inf wildcards, a NaN query cell, and
+    cells exactly on a bound."""
+    q = rng.standard_normal((m, dim)).astype(np.float32)
+    lo = np.full((n, dim), -np.inf, np.float32)
+    hi = np.full((n, dim), np.inf, np.float32)
+    sel = rng.random((n, dim)) < constrained
+    lo[sel] = (rng.standard_normal(sel.sum()) - 1.5).astype(np.float32)
+    hi[sel] = lo[sel] + 3.0
+    lo[0] = q[0]                       # inclusive bounds: row 0 holds q 0
+    hi[0] = q[0]
+    if m > 1:
+        q[1, 3] = np.nan               # a NaN cell adds no violation
+    return q, lo, hi
+
+
+@pytest.mark.parametrize("m,n,dim,n_valid", [(150, 300, 64, 300),
+                                             (37, 130, 16, 97),
+                                             (1, 5, 112, 5)])
+def test_acam_kernel_matches_plain(cuda, m, n, dim, n_valid, rng):
+    q, lo, hi = _intervals(rng, m, n, dim)
+    qt, lot, hit = (torch.from_numpy(x).to(cuda) for x in (q, lo, hi))
+    got = tacam.acam_match(qt, lot, hit, n_valid=n_valid)
+    torch.cuda.synchronize()
+    want = tacam.acam_match_reference(qt, lot, hit, n_valid=n_valid)
+    assert got.dtype == torch.bool and got.shape == (m, n)
+    assert torch.equal(got, want)
+    assert bool(got[0, 0]) and 0 < int(got.sum()) < got.numel()
+
+
+@pytest.mark.parametrize("metric,to_logical", [("hamming", "identity"),
+                                               ("hamming", "bipolar"),
+                                               ("dot", "identity"),
+                                               ("eucl", "identity")])
+@pytest.mark.parametrize("below", [True, False])
+def test_range_kernel_matches_plain(cuda, metric, to_logical, below, rng):
+    m, n, dim, n_valid = 150, 333, 72, 301
+    if metric == "eucl":
+        q = rng.standard_normal((m, dim)).astype(np.float32)
+        p = rng.standard_normal((n, dim)).astype(np.float32)
+        tau = 140.0
+    elif metric == "dot":                       # bipolar +-1 cells
+        q = np.where(rng.random((m, dim)) > 0.5, 1, -1).astype(np.float32)
+        p = np.where(rng.random((n, dim)) > 0.5, 1, -1).astype(np.float32)
+        tau = 4.0
+    else:
+        q = (rng.random((m, dim)) > 0.5).astype(np.float32)
+        p = (rng.random((n, dim)) > 0.5).astype(np.float32)
+        tau = 36.0 if to_logical == "identity" else 0.0
+    qt, pt = torch.from_numpy(q).to(cuda), torch.from_numpy(p).to(cuda)
+    kw = dict(metric=metric, threshold=tau, below=below,
+              to_logical=to_logical, dim=dim, n_valid=n_valid)
+    got = tacam.range_match(qt, pt, **kw)
+    torch.cuda.synchronize()
+    want = tacam.range_match_reference(qt, pt, **kw)
+    assert got.dtype == torch.bool and got.shape == (m, n)
+    assert 0 < int(want.sum()) < want.numel()
+    if metric != "eucl":
+        assert torch.equal(got, want)
+        return
+    rows, cols = (got != want).nonzero(as_tuple=True)
+    q64, p64 = qt.double(), pt.double()
+    d64 = ((q64[rows] - p64[cols]) ** 2).sum(1)
+    assert bool(((d64 - tau).abs() <= EUCL_ATOL + EUCL_RTOL * tau).all())
+
+
+def test_range_kernels_refuse_bad_operands(cuda):
+    q = torch.zeros((4, 16), device=cuda)
+    p = torch.zeros((10, 16), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tacam.acam_match(q[:, :8].contiguous(), p[:, :8].contiguous(),
+                         p[:, :8].contiguous(), n_valid=10)
+    with pytest.raises(ValueError, match="float32"):
+        tacam.acam_match(q.double(), p, p, n_valid=10)
+    with pytest.raises(ValueError, match="queries on"):
+        tacam.range_match(q, p.cpu(), metric="eucl", threshold=1.0,
+                          below=True, to_logical="identity", dim=16,
+                          n_valid=10)
+    with pytest.raises(ValueError, match="contiguous"):
+        tacam.range_match(q, p.T.contiguous().T, metric="eucl",
+                          threshold=1.0, below=True, to_logical="identity",
+                          dim=16, n_valid=10)
+    with pytest.raises(ValueError, match="n_valid"):
+        tacam.acam_match(q, p, p, n_valid=11)
+    tcs.reset_launch_counts()
+    tacam.acam_match(q, p, p, n_valid=10)
+    tacam.range_match(q, p, metric="dot", threshold=0.0, below=True,
+                      to_logical="identity", dim=16, n_valid=10)
+    assert tcs.LAUNCHES["acam_match"] == 1 and tcs.LAUNCHES["range_match"] == 1
+
+
+@pytest.mark.parametrize("metric", ["hamming", "dot", "eucl"])
+def test_ops_range_entry_points_pad_ragged_dims(cuda, metric, rng):
+    """Ragged inner dimensions (70) go through the ops wrappers' padding
+    and equal the plain versions on the CPU."""
+    from repro_torch.kernels import ops as tops
+    q, lo, hi = _intervals(rng, 41, 203, 70)
+    want = tops.acam_match(*map(torch.from_numpy, (q, lo, hi)))
+    got = tops.acam_match(*(torch.from_numpy(x).to(cuda) for x in (q, lo, hi)))
+    assert torch.equal(got.cpu(), want)
+    if metric == "eucl":
+        a = rng.standard_normal((41, 70)).astype(np.float32)
+        b = rng.standard_normal((203, 70)).astype(np.float32)
+        tau = 135.0
+    else:
+        a = (rng.random((41, 70)) > 0.5).astype(np.float32)
+        b = (rng.random((203, 70)) > 0.5).astype(np.float32)
+        tau = 35.0 if metric == "hamming" else 14.0
+    kw = dict(metric=metric, threshold=tau)
+    want = tops.cam_range_match(torch.from_numpy(a), torch.from_numpy(b), **kw)
+    got = tops.cam_range_match(torch.from_numpy(a).to(cuda),
+                               torch.from_numpy(b).to(cuda), **kw).cpu()
+    if metric != "eucl":
+        assert torch.equal(got, want)
+    else:
+        rows, cols = (got != want).nonzero(as_tuple=True)
+        d64 = ((torch.from_numpy(a).double()[rows]
+                - torch.from_numpy(b).double()[cols]) ** 2).sum(1)
+        assert bool(((d64 - tau).abs() <= EUCL_ATOL + EUCL_RTOL * tau).all())
+
+
+def _range_program(m, n, dim, interval, metric="hamming", tau=0.0):
+    mod = T.Module("rng", [T.TensorType((m, dim))]
+                   + [T.TensorType((n, dim))] * (2 if interval else 1))
+    a = mod.arguments
+    b = T.Builder(mod.body)
+    dev = cd.make_acquire(b)
+    exe = cd.make_execute(b, dev.result, list(a),
+                          [T.TensorType((m, n), "i1")])
+    blk = exe.region().block()
+    if interval:
+        rs = cd.make_range_search(blk, a[0], lo=a[1], hi=a[2],
+                                  extra_attrs={"value_bits": 1})
+    else:
+        rs = cd.make_range_search(blk, a[0], patterns=a[1], metric=metric,
+                                  threshold=tau, below=True,
+                                  extra_attrs={"value_bits": 1})
+    cd.make_yield(blk, rs.results)
+    cd.make_release(b, dev.result)
+    b.ret(exe.results)
+    return mod
+
+
+@pytest.mark.parametrize("case", ["interval", "hamming", "cos"])
+def test_range_main_path_on_the_card_matches_cpu(cuda, case, rng):
+    m, n, dim = 37, 300, 70
+    arch = T.ArchSpec(rows=64, cols=64)
+    cam = T.CamType.ACAM if case == "interval" else T.CamType.TCAM
+    if case == "interval":
+        ins = list(_intervals(rng, m, n, dim, constrained=0.05))
+        ins[0][1, 3] = 0.0                      # no NaN on the main path
+        mod = _range_program(m, n, dim, True)
+        expect = "acam_match"
+    else:
+        ins = [(rng.random((m, dim)) > 0.5).astype(np.float32),
+               (rng.random((n, dim)) > 0.5).astype(np.float32)]
+        tau = 33.0 if case == "hamming" else 4.0
+        mod = _range_program(m, n, dim, False, case, tau)
+        expect = "range_match"
+    want = T.compile_module(mod, arch, cam_type=cam, device="cpu")(*ins)
+    tcs.reset_launch_counts()
+    prog = T.compile_module(mod, arch, cam_type=cam)
+    got = prog(*[torch.from_numpy(x).to(cuda) for x in ins])
+    assert tcs.LAUNCHES[expect] == 1 and not prog.engine_plan.packed
+    assert got.device.type == "cuda" and got.dtype == torch.bool
+    assert torch.equal(got.cpu(), want) and 0 < int(want.sum())
+
+
+def test_forest_on_the_card_matches_traversal(cuda, rng):
+    from repro_torch.forest import CamForestClassifier, random_forest
+    trees = random_forest(rng, n_trees=40, dim=24, depth=5, n_classes=6,
+                          feature_frac=0.5)
+    x = rng.standard_normal((300, 24)).astype(np.float32)
+    clf = CamForestClassifier(trees, dim=24).compile(
+        T.ArchSpec(rows=64, cols=64, cam_type=T.CamType.ACAM),
+        batch_hint=128)
+    tcs.reset_launch_counts()
+    pred = clf.predict(x)
+    assert tcs.LAUNCHES["acam_match"] == 3          # 300 queries / 128
+    assert pred.device.type == "cuda" and pred.dtype == torch.int32
+    np.testing.assert_array_equal(pred.cpu().numpy(),
+                                  clf.predict_reference(x))
+    assert bool((clf.matches(x).sum(1) == 40).all())

@@ -251,9 +251,18 @@ def test_refusals(rng):
     add = T.compile_fn(lambda a, b: a.add(b), [(8, 8), (8, 8)],
                        T.ArchSpec(rows=16, cols=16), device="cpu")
     assert add.engine_plan is None
+    # no engine plan: the IR interpreter runs it (it refuses unknown
+    # backends and, without CUDA, the default device)
+    ones = np.ones((8, 8), np.float32)
     for call in (add, add.execute_interpreted, add.execute_unplanned):
-        with pytest.raises(NotImplementedError, match="executor"):
-            call(np.ones((8, 8), np.float32), np.ones((8, 8), np.float32))
+        assert torch.equal(call(ones, ones)[0], torch.full((8, 8), 2.0))
+    from repro_torch.core.executor import execute_module
+    with pytest.raises(ValueError, match="backend"):
+        execute_module(add.stages["cim_partitioned"], ones, ones,
+                       backend="pallas", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            execute_module(add.stages["cim_partitioned"], ones, ones)
 
 
 def test_pick_batch_matches_reference(monkeypatch):
@@ -270,6 +279,9 @@ def test_import_loads_neither_jax_nor_repro():
             "for m in pkgutil.walk_packages(repro_torch.__path__, "
             "'repro_torch.'):\n"
             "    __import__(m.name)\n"
+            "for m in ('repro_torch.forest.forest', "
+            "'repro_torch.core.executor', 'repro_torch.kernels.acam'):\n"
+            "    assert m in sys.modules, m\n"
             "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(len([n for n in sys.modules if n.startswith('repro_torch')]),"
