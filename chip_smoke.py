@@ -24,7 +24,22 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        squared distance, and hamming on float cells
                        (``pack=None`` on the cuda backend) with tau the
                        median 10th-nearest distance: kernel
-                       ``range_match``.
+                       ``range_match``;
+* ``hdc_mnist``      — the paper's HDC/MNIST-8k through ``HdcClassifier``:
+                       60,000 training and 10,000 test samples of 784
+                       features encoded to 8192 dims (kernel
+                       ``hdc_encode``), one-shot fit, packed
+                       classification (``fused_topk_packed``) and three
+                       retraining epochs whose touched class rows go
+                       through ``SearchPlan.update_rows``;
+* ``gallery_update`` — ``update_rows`` on the KNN gallery: 1 % of its rows
+                       (18 runs of 100) replaced, ``donate=False`` and
+                       ``donate=True``, on the eucl plan (``fused_topk``)
+                       and the packed hamming plan (``fused_topk_packed``),
+                       each result bit-identical to a fresh plan's;
+* ``distance_ops``   — the public distance API (``ops.cam_distances`` /
+                       ``cam_exact`` / ``cam_range``) on the KNN data:
+                       kernel ``distance``.
 
 For each phase it sets the kernels' launch counts to 0, runs the path,
 reads the counts (a kernel of the path with no launch fails the run),
@@ -75,6 +90,29 @@ FOREST_QUERIES = 1024
 KNN_DATA = {}
 #: rows of each result checked against a plain oracle on the host
 FOREST_CHECKED_ROWS = 256
+#: the hdc_mnist workload: hdc_mnist_dataset(**HDC_MNIST), classes, dims,
+#: levels and retraining epochs (the paper's HDC/MNIST-8k).  At 28 x 28
+#: the dataset's default class overlap (0.55) separates every class (a
+#: one-shot test accuracy of 1.0, so retraining pushes no row); 0.8 puts
+#: one-shot training mid-range, where retraining moves class rows
+HDC_MNIST = dict(n_train=60000, n_test=10000, side=28, overlap=0.8)
+HDC_CLASSES, HDC_DIM, HDC_LEVELS, HDC_EPOCHS = 10, 8192, 16, 3
+#: test rows checked against the dense (M, F, H) oracle, and its chunk
+HDC_DENSE_ROWS, HDC_DENSE_CHUNK = 256, 16
+#: rows checked against the IR interpreter (one micro-batch)
+HDC_INTERPRETED_ROWS = 1024
+#: device memory the phase may add at its peak (2 GB of training
+#: encodings plus temporaries)
+HDC_PEAK_GB = 6.0
+#: gallery_update: UPDATE_RUNS runs of UPDATE_RUN consecutive rows, drawn
+#: from default_rng(UPDATE_SEED)
+UPDATE_RUNS, UPDATE_RUN, UPDATE_SEED = 18, 100, 13
+#: integer multiply-add class instructions per clock per SM (IMAD, and
+#: IDP4A: four int8 products summed into an int32), compute capability 9.0
+#: (CUDA C++ Programming Guide, arithmetic instruction throughput table)
+IMAD_PER_CLOCK_PER_SM = 64
+#: int8 products per IDP4A
+DP4A_PRODUCTS = 4
 
 
 def log(obj) -> None:
@@ -181,6 +219,8 @@ class Smoke:
         self.compare_per_s = (COMPARES_PER_CLOCK_PER_SM
                               * props.multi_processor_count
                               * max_clock_mhz * 1e6)
+        self.imad_per_s = (IMAD_PER_CLOCK_PER_SM * props.multi_processor_count
+                           * max_clock_mhz * 1e6)
         self.kernels = {}        # name -> record for the final line
         self.failed = []
         self.topk = {}           # phase -> (values, indices) of its result
@@ -310,6 +350,32 @@ class Smoke:
         compares = 2.0 * m * n * d
         bytes_ = 4.0 * (m * d + 2 * n * d) + 1.0 * m * n
         t_ops, t_mem = compares / self.compare_per_s, bytes_ / HBM_BYTES_PER_S
+        return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
+            else "bytes"
+
+    def distance_bound_ms(self, q, p):
+        """B6: the float decomposition's FLOP against the bytes of its
+        operands and its (M, N) float32 output."""
+        m, d = q.shape
+        n = p.shape[0]
+        flops = 2.0 * m * n * d + 2.0 * (m + n) * d
+        bytes_ = 4.0 * (m * d + n * d) + 4.0 * m * n
+        t_ops, t_mem = flops / FP32_PEAK_FLOPS, bytes_ / HBM_BYTES_PER_S
+        return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
+            else "bytes"
+
+    def hdc_bound_ms(self, q, keys, levels):
+        """B5: one int8 bind-and-add step per (query, feature, dim), four
+        to an IDP4A at the integer multiply-add rate, against the bytes of
+        the int32 ids, the keys and levels as the kernel takes them, and
+        the float32 output."""
+        m, f = q.shape
+        h = keys.shape[1]
+        instructions = float(m) * f * h / DP4A_PRODUCTS
+        bytes_ = (4.0 * m * f + keys.element_size() * keys.numel()
+                  + levels.element_size() * levels.numel() + 4.0 * m * h)
+        t_ops, t_mem = (instructions / self.imad_per_s,
+                        bytes_ / HBM_BYTES_PER_S)
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
 
@@ -703,6 +769,365 @@ def phase_range_threshold(s: Smoke, data):
              ms=ms))
 
 
+def host_ms(fn):
+    """Host-clock milliseconds of ``fn()`` to a synchronise, and its
+    result."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def phase_hdc_mnist(s: Smoke):
+    import numpy as np
+    import torch
+    from repro_torch.data import hdc_mnist_dataset
+    from repro_torch.hdc import HdcClassifier
+    from repro_torch.kernels import cam_search
+    from repro_torch.kernels import hdc_encode as khdc
+    from repro_torch.kernels import ref as kref
+    t0 = time.perf_counter()
+    xtr_np, ytr, xte_np, yte = hdc_mnist_dataset(**HDC_MNIST)
+    xtr = torch.from_numpy(xtr_np).cuda()     # features held on the card
+    xte = torch.from_numpy(xte_np).cuda()
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    clf = HdcClassifier(xtr.shape[1], HDC_CLASSES, dim=HDC_DIM,
+                        n_levels=HDC_LEVELS, seed=0)
+    item = clf.item
+    yte_t = torch.from_numpy(yte).cuda().long()
+
+    # -- the main path, counted: encode, fit, compile, predict, retrain --
+    cam_search.reset_launch_counts()
+    encode_train_ms, enc_tr = host_ms(lambda: clf.encode(xtr))
+    encode_test_ms, enc_te = host_ms(lambda: clf.encode(xte))
+    fit_ms, _ = host_ms(lambda: clf.fit(y=ytr, encoded=enc_tr))
+    clf.compile(batch_hint=1024)
+    plan = clf.plan
+    if not plan.packed or plan.backend != "cuda" or \
+            plan.device.type != "cuda":
+        raise RuntimeError(f"hdc_mnist: expected a packed cuda plan, got "
+                           f"{clf.summary()}")
+    predict_first_ms, pred = host_ms(lambda: clf.predict(encoded=enc_te))
+    predict_ms, pred2 = host_ms(lambda: clf.predict(encoded=enc_te))
+    if not torch.equal(pred, pred2):
+        raise RuntimeError("hdc_mnist: a repeated predict changed the result")
+    want = clf.predict_reference(encoded=enc_te)
+    if not torch.equal(pred, want):
+        raise RuntimeError(f"hdc_mnist: predictions differ from the dense "
+                           f"oracle in {int((pred != want).sum())} rows")
+    rows = HDC_INTERPRETED_ROWS
+    if not torch.equal(pred[:rows],
+                       clf.predict_interpreted(encoded=enc_te[:rows])):
+        raise RuntimeError("hdc_mnist: predictions differ from the IR "
+                           "interpreter")
+    acc0 = float((pred.long() == yte_t).float().mean())
+
+    epochs = []
+    update_ms = []
+    update = plan.update_rows
+
+    def timed_update(*args, **kw):        # host clock of each row update
+        ms, out = host_ms(lambda: update(*args, **kw))
+        update_ms.append(ms)
+        return out
+
+    plan.update_rows = timed_update
+    try:
+        for _ in range(HDC_EPOCHS):
+            fb0 = plan.row_update_fallbacks
+            n_upd = len(update_ms)
+            ep_ms, (train_acc, pushed) = host_ms(
+                lambda: clf.retrain_epoch(encoded=enc_tr, y=ytr))
+            if plan.row_update_fallbacks != fb0:
+                raise RuntimeError("hdc_mnist: a row update fell back")
+            hits0, miss0 = plan.pattern_hits, plan.pattern_misses
+            pred = clf.predict(encoded=enc_te)
+            if plan.pattern_hits != hits0 + 1 or \
+                    plan.pattern_misses != miss0:
+                raise RuntimeError("hdc_mnist: predict after an update was "
+                                   "not a pattern-memo hit")
+            if not torch.equal(pred, clf.predict_reference(encoded=enc_te)):
+                raise RuntimeError("hdc_mnist: predictions after an update "
+                                   "differ from the dense oracle")
+            epochs.append({
+                "train_accuracy_before": train_acc, "rows_pushed": pushed,
+                "test_accuracy_after": float(
+                    (pred.long() == yte_t).float().mean()),
+                "epoch_ms": ep_ms,
+                "update_rows_ms": update_ms[n_upd:]})
+    finally:
+        del plan.update_rows
+    if not update_ms or sum(e["rows_pushed"] for e in epochs) == 0:
+        raise RuntimeError("hdc_mnist: retraining pushed no row, so "
+                           "update_rows went unexercised")
+    counts = dict(cam_search.LAUNCHES)
+    for name in ("hdc_encode", "fused_topk_packed"):
+        if counts[name] < 1:
+            raise RuntimeError(f"hdc_mnist: kernel {name} was not launched "
+                               f"on the main path: {counts}")
+    if counts["hdc_encode"] != 2:
+        raise RuntimeError(f"hdc_mnist: expected two encode launches, got "
+                           f"{counts}")
+    prof = s.profile(lambda e: clf.predict(encoded=e), [enc_te])
+    encode_prof = s.profile(clf.encode, [xte])
+    encode_second_ms, enc_again = host_ms(lambda: clf.encode(xte))
+    if not torch.equal(enc_again, enc_te):
+        raise RuntimeError("hdc_mnist: a repeated encode changed the result")
+    del enc_again
+
+    # -- B5 against its plain version and the dense oracle -----------------
+    keys8, levels8 = item._keys_i8, item._levels_i8
+    q_te = torch.from_numpy(item.quantize(xte_np)).cuda()
+    chunk = 8192
+    for x, enc in ((xtr_np, enc_tr), (xte_np, enc_te)):
+        for s0 in range(0, x.shape[0], chunk):
+            q = torch.from_numpy(item.quantize(x[s0:s0 + chunk])).cuda()
+            if not torch.equal(item.level_ids(x[s0:s0 + chunk]), q):
+                raise RuntimeError(
+                    f"hdc_mnist: the device quantisation differs from "
+                    f"numpy's in rows {s0}..{s0 + chunk}")
+            plain = khdc.hdc_encode_reference(q, item._keys_t,
+                                              item._levels_t)
+            if not torch.equal(enc[s0:s0 + chunk], plain):
+                raise RuntimeError(
+                    f"hdc_mnist: the encode kernel differs from its plain "
+                    f"version in {int((enc[s0:s0 + chunk] != plain).sum())} "
+                    f"cells of rows {s0}..{s0 + chunk}")
+    for s0 in range(0, HDC_DENSE_ROWS, HDC_DENSE_CHUNK):
+        dense = kref.hdc_encode(q_te[s0:s0 + HDC_DENSE_CHUNK], item._keys_t,
+                                item._levels_t)
+        if not torch.equal(enc_te[s0:s0 + HDC_DENSE_CHUNK], dense):
+            raise RuntimeError("hdc_mnist: the encoding differs from the "
+                               "dense oracle")
+    ties = int((khdc.hdc_sums_reference(q_te, item._keys_t, item._levels_t)
+                == 0).sum())
+    if ties == 0:
+        raise RuntimeError("hdc_mnist: no exact-zero sum in the test set; "
+                           "the tie contract went unexercised")
+
+    bound, by = s.hdc_bound_ms(q_te, keys8, levels8)
+    ms = cuda_ms(lambda: khdc.hdc_encode(q_te, keys8, levels8), 10)
+    plain_ms = cuda_ms(lambda: khdc.hdc_encode_reference(
+        q_te, item._keys_t, item._levels_t), 3)
+    s.record("hdc_encode", "src/repro_torch/kernels/csrc/hdc_encode.cu",
+             "src/repro/kernels/hdc_encode.py:87", counts["hdc_encode"], 0.0,
+             ms, plain_ms, bound, by, None)
+    s.kernels["hdc_encode"]["library_note"] = (
+        "no single PyTorch call computes a signed gathered bundle")
+    s.record("fused_topk_packed",
+             "src/repro_torch/kernels/csrc/fused_topk_packed.cu",
+             "src/repro/kernels/cam_search.py:304",
+             counts["fused_topk_packed"], 0.0, None, None, None,
+             "operations", None)
+    del enc_tr, enc_te
+    peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    if peak_gb > HDC_PEAK_GB:
+        raise RuntimeError(f"hdc_mnist: the phase held {peak_gb:.2f} GB "
+                           f"at its peak, over {HDC_PEAK_GB} GB")
+    log({"phase": "hdc_mnist", "ok": True, "launches": counts,
+         "data_s": data_s, "train": list(xtr.shape), "test": list(xte.shape),
+         "dim": HDC_DIM, "levels": HDC_LEVELS, "plan": clf.summary(),
+         "encode_bit_identical_rows": xtr.shape[0] + xte.shape[0],
+         "dense_oracle_rows": HDC_DENSE_ROWS,
+         "interpreted_rows": HDC_INTERPRETED_ROWS,
+         "exact_zero_sums_test": ties,
+         "encode_train_ms": encode_train_ms,
+         "encode_ms_per_10k_rows": encode_test_ms * 1e4 / xte.shape[0],
+         "encode_second_call_ms_per_10k_rows":
+             encode_second_ms * 1e4 / xte.shape[0],
+         "fit_ms": fit_ms, "predict_first_ms": predict_first_ms,
+         "predict_ms_per_10k_rows": predict_ms * 1e4 / xte.shape[0],
+         "one_shot_test_accuracy": acc0, "epochs": epochs,
+         "phase_peak_gb": peak_gb, "predict_profile": prof,
+         "encode_profile": encode_prof,
+         "kernel_shape": {"q": list(q_te.shape), "keys": list(keys8.shape),
+                          "levels": list(levels8.shape)},
+         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+         "bound_ms": bound, "bound_by": by})
+
+
+def _update_part(s: Smoke, name, build, qt, gt, rows, new):
+    """``update_rows`` on one plan, both ``donate`` settings: each update
+    must leave the next execute a memo hit with no fallback, bit-identical
+    to a fresh plan on the mutated gallery; the old gallery keeps its old
+    result.  Returns (launches, record)."""
+    import torch
+    from repro_torch.core import clear_plan_cache
+    from repro_torch.kernels import cam_search
+    prog = build()
+    plan = prog.engine_plan
+    cam_search.reset_launch_counts()
+    before = prog(qt, gt)
+    fb0 = plan.row_update_fallbacks
+    upd_ms, g1 = host_ms(lambda: plan.update_rows(gt, rows, new))
+    hits0, miss0 = plan.pattern_hits, plan.pattern_misses
+    out1 = prog(qt, g1)
+    hit1 = (plan.pattern_hits, plan.pattern_misses) == (hits0 + 1, miss0)
+    old = prog(qt, gt)
+    g2 = gt.clone()
+    prog(qt, g2)                                  # prepares the copy
+    don_ms, g2r = host_ms(lambda: plan.update_rows(g2, rows, new,
+                                                   donate=True))
+    hits0, miss0 = plan.pattern_hits, plan.pattern_misses
+    out2 = prog(qt, g2)
+    hit2 = (plan.pattern_hits, plan.pattern_misses) == (hits0 + 1, miss0)
+    # second calls: the same rows again, from the updated galleries
+    upd2_ms, g1b = host_ms(lambda: plan.update_rows(g1, rows, new))
+    don2_ms, _ = host_ms(lambda: plan.update_rows(g2, rows, new,
+                                                  donate=True))
+    counts = dict(cam_search.LAUNCHES)
+    if not (hit1 and hit2) or plan.row_update_fallbacks != fb0:
+        raise RuntimeError(f"{name}: an update was not memo-seeded (hits "
+                           f"{hit1}, {hit2}; fallbacks "
+                           f"{plan.row_update_fallbacks - fb0})")
+    if g2r is not g2 or not torch.equal(g1, g2):
+        raise RuntimeError(f"{name}: the donated update differs")
+    if not all(torch.equal(a, b) for a, b in zip(old, before)):
+        raise RuntimeError(f"{name}: the old gallery lost its old result")
+    clear_plan_cache()
+    fresh_prog = build()
+    fresh_plan = fresh_prog.engine_plan
+    fresh = fresh_prog(qt, g1.clone())
+    for got, what in ((out1, "donate=False"), (out2, "donate=True")):
+        if not all(torch.equal(a, b) for a, b in zip(got, fresh)):
+            raise RuntimeError(f"{name}: after the {what} update the result "
+                               f"differs from a fresh plan's")
+    fresh_plan._prepare(g1b)
+    prep_ms, _ = host_ms(lambda: fresh_plan._prepare(g1b))
+    del g1, g1b, g2, fresh
+    return counts, {"update_ms_donate_false": [upd_ms, upd2_ms],
+                    "update_ms_donate_true": [don_ms, don2_ms],
+                    "full_prepare_ms": prep_ms,
+                    "bit_identical_to_fresh_plan": True,
+                    "memo_hit_after_update": True,
+                    "old_gallery_keeps_old_result": True}
+
+
+def phase_gallery_update(s: Smoke, data):
+    import numpy as np
+    import torch
+    import repro_torch.core as T
+    from repro_torch.core import ArchSpec, compile_fn, compile_module
+    from repro_torch.core import cim_dialect as cd
+    g, g_labels, q, _ = data
+    n, dim = g.shape
+    rng = np.random.default_rng(UPDATE_SEED)
+    starts = np.sort(rng.choice(n // UPDATE_RUN, UPDATE_RUNS,
+                                replace=False)) * UPDATE_RUN
+    rows = (starts[:, None] + np.arange(UPDATE_RUN)).reshape(-1)
+    gt, qt = torch.from_numpy(g).cuda(), torch.from_numpy(q).cuda()
+    # new rows from the gallery's distribution: their class mean + N(0, 1)
+    labels = torch.from_numpy(g_labels).cuda().long()
+    means = torch.stack([gt[labels == c].mean(0)
+                         for c in range(int(labels.max()) + 1)])
+    noise = torch.from_numpy(
+        rng.standard_normal((rows.size, dim)).astype(np.float32)).cuda()
+    new = means[labels[torch.from_numpy(rows).cuda()]] + noise
+    arch = ArchSpec(rows=64, cols=64)
+
+    counts_a, rec_a = _update_part(
+        s, "gallery_update_eucl",
+        lambda: compile_fn(knn_kernel, [q, g], arch, value_bits=8), qt, gt,
+        rows, new)
+    gb, qb = (gt > 0).float(), (qt > 0).float()
+    del gt, qt
+    counts_b, rec_b = _update_part(
+        s, "gallery_update_packed",
+        lambda: compile_module(hamming_module(T, cd, q.shape[0], n, dim, 10,
+                                              False), arch, value_bits=1),
+        qb, gb, rows, (new > 0).float())
+    if counts_a["fused_topk"] < 1 or counts_b["fused_topk_packed"] < 1:
+        raise RuntimeError(f"gallery_update: a kernel of the path was not "
+                           f"launched: {counts_a} {counts_b}")
+    s.record("fused_topk", "src/repro_torch/kernels/csrc/fused_topk.cu",
+             "src/repro/kernels/cam_search.py:200", counts_a["fused_topk"],
+             0.0, None, None, None, "operations", None)
+    s.record("fused_topk_packed",
+             "src/repro_torch/kernels/csrc/fused_topk_packed.cu",
+             "src/repro/kernels/cam_search.py:304",
+             counts_b["fused_topk_packed"], 0.0, None, None, None,
+             "operations", None)
+    log({"phase": "gallery_update", "ok": True,
+         "rows_updated": int(rows.size), "runs": UPDATE_RUNS,
+         "eucl": dict(rec_a, launches=counts_a),
+         "packed": dict(rec_b, launches=counts_b)})
+
+
+def phase_distance_ops(s: Smoke, data):
+    import torch
+    from repro_torch.kernels import cam_search, ops
+    g, _, q, _ = data
+    gt, qt = torch.from_numpy(g).cuda(), torch.from_numpy(q).cuda()
+    gb, qb = (gt > 0).float(), (qt > 0).float()
+    launches = 0
+
+    def counted(fn):
+        nonlocal launches
+        cam_search.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        if cam_search.LAUNCHES["distance"] != 1 or \
+                sum(cam_search.LAUNCHES.values()) != 1:
+            raise RuntimeError(f"distance_ops: expected one distance "
+                               f"launch, got {cam_search.LAUNCHES}")
+        launches += 1
+        return out
+
+    d = counted(lambda: ops.cam_distances(qt, gt, metric="eucl"))
+    prof = s.profile(lambda a, b: ops.cam_distances(a, b, metric="eucl"),
+                     [qt, gt])
+    dh = counted(lambda: ops.cam_distances(qb, gb, metric="hamming"))
+    exact = counted(lambda: ops.cam_exact(qb, gb))
+    tau = float(dh.median())
+    within = counted(lambda: ops.cam_range(qb, gb, tau))
+    if tuple(d.shape) != (q.shape[0], g.shape[0]) or \
+            not bool(torch.isfinite(d).all()):
+        raise RuntimeError(f"distance_ops: bad result {tuple(d.shape)}")
+    plain = cam_search.distance_reference(qt, gt, metric="eucl")
+    off = (d - plain).abs()
+    if not bool((off <= EUCL_ATOL + EUCL_RTOL * plain.abs()).all()):
+        raise RuntimeError(f"distance_ops: eucl off the plain version by "
+                           f"{float(off.max())}")
+    err = float(off.max())
+    del plain, off
+    plain_h = cam_search.distance_reference(qb, gb, metric="hamming")
+    if not torch.equal(dh, plain_h):
+        raise RuntimeError("distance_ops: hamming differs from the plain "
+                           "version")
+    if not (torch.equal(exact, plain_h == 0)
+            and torch.equal(within, plain_h <= tau)):
+        raise RuntimeError("distance_ops: cam_exact / cam_range differ from "
+                           "the plain version's comparisons")
+    exact_pairs, within_pairs = int(exact.sum()), int(within.sum())
+    del plain_h, exact, within, dh
+
+    bound, by = s.distance_bound_ms(qt, gt)
+    ms = cuda_ms(lambda: cam_search.distance(qt, gt, metric="eucl"), 10)
+    plain_ms = cuda_ms(lambda: cam_search.distance_reference(
+        qt, gt, metric="eucl"), 5)
+    library_ms = cuda_ms(lambda: torch.cdist(qt, gt) ** 2, 5)
+    ham_ms = cuda_ms(lambda: cam_search.distance(qb, gb, metric="hamming"),
+                     10)
+    ham_library_ms = cuda_ms(lambda: torch.cdist(qb, gb, p=0), 3)
+    s.record("distance", "src/repro_torch/kernels/csrc/distance.cu",
+             "src/repro/kernels/cam_search.py:351", launches, err, ms,
+             plain_ms, bound, by, library_ms)
+    log({"phase": "distance_ops", "ok": True, "launches": launches,
+         "shape": [q.shape[0], g.shape[0], g.shape[1]],
+         "output_mb": 4e-6 * q.shape[0] * g.shape[0],
+         "eucl_max_abs_err": err, "hamming_bit_identical": True,
+         "hamming_tau": tau, "exact_pairs": exact_pairs,
+         "within_tau_pairs": within_pairs,
+         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+         "hamming_ms": ham_ms, "hamming_library_ms_cdist_p0": ham_library_ms,
+         "bound_ms": bound, "bound_by": by, "profile": prof})
+
+
 def main() -> None:
     try:
         import torch
@@ -755,7 +1180,10 @@ def main() -> None:
                lambda: _packed_phase(s, "tcam_ternary", data, True)),
               ("hdc_quickstart", lambda: phase_hdc_quickstart(s)),
               ("forest_acam", lambda: phase_forest_acam(s)),
-              ("range_threshold", lambda: phase_range_threshold(s, data))]
+              ("range_threshold", lambda: phase_range_threshold(s, data)),
+              ("hdc_mnist", lambda: phase_hdc_mnist(s)),
+              ("gallery_update", lambda: phase_gallery_update(s, data)),
+              ("distance_ops", lambda: phase_distance_ops(s, data))]
     for name, run in phases:
         t0 = time.perf_counter()
         try:
@@ -770,7 +1198,7 @@ def main() -> None:
     if s.failed:
         fail(f"failed phases: {s.failed}")
     order = ["fused_topk_packed", "fused_topk_packed_ternary", "fused_topk",
-             "acam_match", "range_match"]
+             "acam_match", "range_match", "hdc_encode", "distance"]
     print(smi, flush=True)
     log({"kernels": [s.kernels[n] for n in order]})
     log({"ok": True, "device": {"platform": "gpu",

@@ -6,9 +6,12 @@ tested against it on the same inputs.  It imports ``torch`` and never
 ``jax`` or anything of ``repro``.
 
 Ported so far: the compiler front end and pass pipeline
-(:mod:`repro_torch.core`), the ``SearchPlan`` top-k engine with its
-``"torch"`` (eager, reference-tiled) and ``"cuda"`` (hand-written
-Hopper kernels) backends, the cost model (:mod:`repro_torch.camsim`),
+(:mod:`repro_torch.core`), the ``SearchPlan`` top-k and ``RangePlan``
+engines with their ``"torch"`` (eager, reference-tiled) and ``"cuda"``
+(hand-written Hopper kernels) backends and incremental gallery mutation
+(``update_rows``), the IR interpreter, decision forests
+(:mod:`repro_torch.forest`), HDC encoding and classification
+(:mod:`repro_torch.hdc`), the cost model (:mod:`repro_torch.camsim`),
 span tracing (:mod:`repro_torch.obs`) and the synthetic datasets
 (:mod:`repro_torch.data`).  The CUDA kernels under
 ``repro_torch/kernels/csrc`` are compiled with ``nvcc`` at their first

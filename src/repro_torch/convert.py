@@ -5,6 +5,8 @@ its spec and its prepared gallery.  The spec is rebuilt by compiling the
 same program; these two functions carry the other two.
 
 * :func:`arch_from_reference` reads the reference's ``ArchSpec.to_json()``.
+* :func:`hdc_classifier_from_reference` rebuilds a trained reference
+  ``HdcClassifier`` from its state: class sums, keys and levels.
 * :func:`prepared_from_reference` turns the reference plan's prepared
   operands (``PlanBase._prepared_patterns`` in the reference, as numpy
   arrays) into the port's tensors: uint32 lanes become int32 bit
@@ -32,7 +34,8 @@ from .kernels.acam import ACAM_BLOCK_D
 from .kernels.cam_search import BLOCK_K, window_rows
 from .kernels.ops import pad_to_blocks
 
-__all__ = ["arch_from_reference", "prepared_from_reference"]
+__all__ = ["arch_from_reference", "prepared_from_reference",
+           "hdc_classifier_from_reference"]
 
 
 def arch_from_reference(arch_json: str) -> ArchSpec:
@@ -84,3 +87,26 @@ def prepared_from_reference(arrays: Sequence[np.ndarray], *, packed: bool,
                               window_rows(min(spec.k, spec.n)), BLOCK_K)
         out.append(t)
     return tuple(out)
+
+
+def hdc_classifier_from_reference(class_sums: np.ndarray, keys: np.ndarray,
+                                  levels: np.ndarray, *, lo: float,
+                                  hi: float, device=None):
+    """A port :class:`~repro_torch.hdc.HdcClassifier` holding a trained
+    reference classifier's state (numpy ``class_sums`` (C, H) integers,
+    ``keys`` (F, H), ``levels`` (L, H), and the quantisation range
+    ``[lo, hi]``) on ``device`` (``None``: the GPU).  It encodes and
+    predicts as the reference does; call ``compile`` before ``predict``.
+    """
+    from .hdc import HdcClassifier, ItemMemory
+
+    sums = np.asarray(class_sums)
+    if sums.ndim != 2 or sums.shape[1] != np.shape(keys)[1]:
+        raise ValueError(f"class sums {sums.shape} do not match keys "
+                         f"{np.shape(keys)}")
+    if not np.array_equal(sums, np.round(sums)):
+        raise ValueError("class sums must be integers")
+    item = ItemMemory.from_arrays(keys, levels, lo=lo, hi=hi, device=device)
+    clf = HdcClassifier.from_item_memory(item, sums.shape[0])
+    clf.class_sums.copy_(torch.from_numpy(sums.astype(np.int64)))
+    return clf

@@ -5,8 +5,8 @@ The package follows the reference's layering:
 * :mod:`.spec` — the frozen plan specs (:class:`SimilaritySpec`,
   :class:`RangeSpec`) and the structural IR analysis
   (:func:`extract_plan_spec`, :func:`extract_range_spec`).
-* :mod:`.base` — :class:`PlanBase`: micro-batched dispatch and the
-  pattern-prep memo.
+* :mod:`.base` — :class:`PlanBase`: micro-batched dispatch, the
+  pattern-prep memo and the ``update_rows`` relay.
 * :mod:`.executables` — the ``"torch"`` (eager reference-tiled) and
   ``"cuda"`` (hand-written kernels) backends.
 * :mod:`.plans` — the leaf families :class:`SearchPlan` (top-k) and
@@ -14,11 +14,12 @@ The package follows the reference's layering:
 * :mod:`.cache` — the process-wide plan cache behind :func:`get_plan` /
   :func:`plan_cache_stats` / :func:`clear_plan_cache`.
 
-Composite and hierarchical plans, sharding, gallery mutation and fault
-injection come with later slices of the port.
+Composite and hierarchical plans, sharding and fault injection come
+with later slices of the port.
 """
 
-from .base import PendingSearch, PlanBase, _as_2d, _pick_batch, resolve_device
+from .base import (PendingSearch, PlanBase, _as_2d, _pick_batch,
+                   _update_enabled, resolve_device)
 from .cache import clear_plan_cache, get_plan, plan_cache_stats
 from .plans import RangePlan, SearchPlan
 from .spec import (RangeSpec, SimilaritySpec, _bits, _check_binary_cells,

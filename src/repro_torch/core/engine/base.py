@@ -3,14 +3,16 @@
 A *plan* is a compiled, cached, reusable executable for one program
 shape.  Its lifecycle: ``prepare`` (encode/pack/lay out the stored
 operands, memoised per source tensor) → ``dispatch`` (micro-batched
-chunk execution) → ``finalize`` (ragged slicing / output shaping).
+chunk execution) → ``finalize`` (ragged slicing / output shaping) →
+``update_rows`` (row-granular incremental re-layout).
 
 :class:`PlanBase` owns that lifecycle: the spec, backend, micro-batch,
 packing, device, telemetry counters, the pattern-memo LRU and its
-locks, and the dispatch skeleton.  Leaf families override only how
-stored operands are wired from the module arguments, how a chunk result
-is recorded, and how chunks finalize.  Gallery mutation
-(``update_rows``) and fault injection come with later slices.
+locks, the dispatch skeleton and the ``update_rows`` relay
+(:meth:`PlanBase._mutate_stored`, :meth:`PlanBase._seed_updated_memo`).
+Leaf families override only how stored operands are wired from the
+module arguments, how a chunk result is recorded, and how chunks
+finalize.  Fault injection comes with a later slice.
 """
 
 from __future__ import annotations
@@ -18,12 +20,13 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ...obs.trace import trace_span, tracer
-from ..envcfg import env_int
+from ..envcfg import env_flag, env_int
 from .spec import _check_binary_cells
 
 __all__ = ["PlanBase", "PendingSearch"]
@@ -38,6 +41,13 @@ def _pick_batch(m: int) -> int:
     while b < min(max(m, 1), cap):
         b *= 2
     return min(b, cap)
+
+
+def _update_enabled() -> bool:
+    """``REPRO_ENGINE_UPDATE`` kill switch for the incremental update
+    path: ``off``/``0`` makes ``update_rows`` still apply the mutation
+    but skip the memo rewrite, so the next dispatch prepares in full."""
+    return env_flag("REPRO_ENGINE_UPDATE", True)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -97,16 +107,32 @@ def _src_ident(x: torch.Tensor) -> Tuple:
             str(x.device), x._version)
 
 
+def _memo_insert(plan, srcs: Tuple[Any, ...], prepared) -> None:
+    """Insert a prepared layout into the plan's pattern memo (LRU).
+
+    The entry keeps strong references to its sources so their ids cannot
+    be recycled while it lives; the entries of the same tensors' older
+    versions (an in-place edit) are dropped.
+    """
+    key = tuple(_src_ident(s) for s in srcs)
+    stale = tuple(k[:-1] for k in key)
+    with plan._pattern_lock:
+        for old in [k for k in plan._pattern_cache
+                    if tuple(s[:-1] for s in k) == stale]:
+            del plan._pattern_cache[old]
+        plan._pattern_cache[key] = (srcs, prepared)
+        while len(plan._pattern_cache) > plan._pattern_cache_slots():
+            plan._pattern_cache.popitem(last=False)
+            plan.pattern_evictions += 1
+
+
 def _memoised_prepare(plan, srcs: Tuple[Any, ...], run: Callable[[], Any],
                       check: Callable[[], None]):
     """Per-plan pattern-prep memoisation.
 
     Only tensors are memoised: a numpy array can be mutated in place
     without trace, so it is prepared again on every call (and counted as
-    a miss).  An entry keeps strong references to its sources so their
-    ids cannot be recycled while it lives; inserting the prepared layout
-    of an edited tensor drops the entries of its older versions.
-    ``check`` runs only when actually preparing.
+    a miss).  ``check`` runs only when actually preparing.
     """
     if not all(isinstance(s, torch.Tensor) for s in srcs):
         with plan._pattern_lock:
@@ -125,17 +151,21 @@ def _memoised_prepare(plan, srcs: Tuple[Any, ...], run: Callable[[], Any],
                     {"plan": type(plan).__name__, "n": plan.spec.n}):
         check()
         prepared = run()
-    stale = tuple(k[:-1] for k in key)
     with plan._pattern_lock:
         plan.pattern_misses += 1
-        for old in [k for k in plan._pattern_cache
-                    if tuple(s[:-1] for s in k) == stale]:
-            del plan._pattern_cache[old]
-        plan._pattern_cache[key] = (srcs, prepared)
-        while len(plan._pattern_cache) > plan._pattern_cache_slots():
-            plan._pattern_cache.popitem(last=False)
-            plan.pattern_evictions += 1
+    _memo_insert(plan, srcs, prepared)
     return prepared
+
+
+def _shape(x) -> Tuple[int, ...]:
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+
+
+def _index_array(indices) -> np.ndarray:
+    """Row indices of an update as a host int64 array (at least 1-D)."""
+    if isinstance(indices, torch.Tensor):
+        indices = indices.detach().cpu().numpy()
+    return np.atleast_1d(np.asarray(indices, np.int64))
 
 
 @dataclass
@@ -147,6 +177,9 @@ class PlanBase:
     batch: int
     _prepare: Callable = field(repr=False)
     _chunk_fn: Callable = field(repr=False)
+    #: ``row_update(prepared, new_srcs, idx, donate)`` of the executable:
+    #: re-lays only the rows (or row tiles) an ``update_rows`` touches
+    _row_update: Optional[Callable] = field(default=None, repr=False)
     #: where the prepared operands live and the results are returned
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     shards: int = 1
@@ -159,6 +192,9 @@ class PlanBase:
     pattern_hits: int = 0
     pattern_misses: int = 0
     pattern_evictions: int = 0
+    row_updates: int = 0
+    rows_updated: int = 0
+    row_update_fallbacks: int = 0
     # pattern-counter values already folded into the process-wide
     # retained stats when the plan cache evicted this plan
     _retired_hits: int = field(default=0, repr=False)
@@ -267,3 +303,94 @@ class PlanBase:
         """Run the plan on exactly the compiled module's arguments; the
         results are tensors on the plan's device."""
         return self.finalize(self.dispatch(*inputs, faults=faults))
+
+    # -- gallery mutation (update_rows relay machinery) --------------------
+
+    def _validate_update(self, idx: np.ndarray, *new_rows) -> None:
+        spec = self.spec
+        if idx.ndim != 1:
+            raise ValueError(f"indices must be 1-D, got shape {idx.shape}")
+        if idx.size == 0:
+            return
+        if idx.min() < 0 or idx.max() >= spec.n:
+            raise ValueError(
+                f"row indices out of range for an n={spec.n} gallery")
+        if np.unique(idx).size != idx.size:
+            # a scatter with duplicate indices has no defined winner
+            raise ValueError("duplicate row indices in update_rows")
+        for nr in new_rows:
+            if _shape(nr) != (idx.size, spec.dim):
+                raise ValueError(
+                    f"new rows shape {_shape(nr)} != "
+                    f"({idx.size}, {spec.dim})")
+
+    def _seed_updated_memo(self, old_srcs: Tuple[Any, ...], old_key,
+                           new_srcs: Tuple[torch.Tensor, ...],
+                           idx: np.ndarray, donate: bool) -> None:
+        """Derive the mutated sources' prepared layout from the old one.
+
+        Incremental only when the old layout is memoised (tensor sources
+        that were prepared and not evicted) and the update path is
+        enabled; otherwise a counted fallback, and the next dispatch
+        prepares the new sources in full.  ``old_key`` is the old
+        sources' memo key, taken before the mutation (an in-place update
+        moves the version counter it holds).
+
+        ``donate``: the old entry is popped and its prepared leaves are
+        rewritten in place; otherwise the row update writes fresh leaves
+        and the old entry, still serving the old gallery, is untouched.
+        """
+        with self._stats_lock:
+            self.row_updates += 1
+            self.rows_updated += int(idx.size)
+        if self._row_update is None or not _update_enabled() or \
+                not all(isinstance(s, torch.Tensor) for s in old_srcs):
+            with self._stats_lock:
+                self.row_update_fallbacks += 1
+            return
+        with self._pattern_lock:
+            if donate:       # the old layout must not outlive its buffers
+                hit = self._pattern_cache.pop(old_key, None)
+            else:
+                hit = self._pattern_cache.get(old_key)
+        if hit is None:
+            with self._stats_lock:
+                self.row_update_fallbacks += 1
+            return
+        prepared = self._row_update(hit[-1], new_srcs, idx, donate)
+        _memo_insert(self, new_srcs, prepared)
+
+    def _mutate_stored(self, olds: Tuple[Any, ...], news: Tuple[Any, ...],
+                       idx: np.ndarray, donate: bool
+                       ) -> Tuple[torch.Tensor, ...]:
+        """Scatter the ``news`` row blocks into the leading stored
+        operands and seed the mutated sources' memo entry.  Operands
+        beyond ``len(news)`` (a ternary plan's care mask) pass through
+        unchanged but stay part of the memo key.
+
+        ``donate=False`` returns new tensors (clone, then ``index_copy_``);
+        ``donate=True`` writes into the callers' tensors in place and
+        returns them.  A numpy operand becomes a tensor on the plan's
+        device (and the update counts as a fallback).
+        """
+        srcs = tuple(o if isinstance(o, torch.Tensor) else self._to_device(o)
+                     for o in olds)
+        if idx.size == 0:
+            return srcs
+        if self.packed and self.spec.metric == "hamming":
+            _check_binary_cells(news[0], "updated rows")
+        with torch.no_grad(), trace_span(
+                "plan.update_rows",
+                args=None if not tracer.enabled else
+                {"plan": type(self).__name__, "rows": int(idx.size),
+                 "donate": donate}):
+            old_key = tuple(_src_ident(s) for s in srcs)
+            upd = []
+            for g, nr in zip(srcs, news):
+                j = torch.as_tensor(idx, device=g.device)
+                rows = torch.as_tensor(nr, device=g.device).to(g.dtype)
+                dst = g if donate else g.clone()
+                upd.append(dst.index_copy_(0, j, rows))
+            upd = tuple(upd) + srcs[len(news):]
+            self._seed_updated_memo(olds, old_key, upd, idx, donate)
+            return upd

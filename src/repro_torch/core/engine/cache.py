@@ -154,23 +154,28 @@ def get_plan(module: Module, *, backend: str = "cuda",
                      "packed": packed, "device": str(dev)}):
         if is_range:
             if backend == "cuda":
-                prepare, chunk_fn = _build_range_cuda_executable(spec, b)
+                prepare, chunk_fn, row_update = \
+                    _build_range_cuda_executable(spec, b)
             elif tiny:
-                prepare, chunk_fn = _build_tiny_range_executable(spec, b,
-                                                                 packed)
+                prepare, chunk_fn, row_update = \
+                    _build_tiny_range_executable(spec, b, packed)
             else:
-                prepare, chunk_fn = _build_range_scan_executable(spec, b,
-                                                                 packed)
+                prepare, chunk_fn, row_update = \
+                    _build_range_scan_executable(spec, b, packed)
         elif backend == "cuda":
-            prepare, chunk_fn = _build_cuda_executable(spec, b, packed)
+            prepare, chunk_fn, row_update = _build_cuda_executable(spec, b,
+                                                                   packed)
         elif tiny:
-            prepare, chunk_fn = _build_tiny_executable(spec, b, packed)
+            prepare, chunk_fn, row_update = _build_tiny_executable(spec, b,
+                                                                   packed)
         else:
-            prepare, chunk_fn = _build_scan_executable(spec, b, packed)
+            prepare, chunk_fn, row_update = _build_scan_executable(spec, b,
+                                                                   packed)
         cls = RangePlan if is_range else SearchPlan
         plan = cls(spec=spec, backend=backend, batch=b, device=dev,
                    packed=packed, tiny=tiny,
-                   _prepare=prepare, _chunk_fn=chunk_fn)
+                   _prepare=prepare, _chunk_fn=chunk_fn,
+                   _row_update=row_update)
     return _cache_insert(key, plan)
 
 

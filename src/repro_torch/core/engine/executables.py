@@ -1,9 +1,15 @@
-"""Backend executables: the ``(prepare, chunk_fn)`` pairs a plan drives.
+"""Backend executables: the ``(prepare, chunk_fn, row_update)`` triples a
+plan drives.
 
 * ``prepare(*stored)`` encodes / packs / lays out the stored operands
   (hoisted behind the plan's pattern memo);
 * ``chunk_fn(q_chunk, prepared)`` executes one query micro-batch and
-  returns its top-k ``(values, indices)`` in the logical metric domain.
+  returns its top-k ``(values, indices)`` in the logical metric domain
+  (a boolean match block for range plans);
+* ``row_update(prepared, new_srcs, idx, donate)`` re-lays only the rows
+  (``"cuda"``) or row tiles (``"torch"``) a gallery mutation touches
+  (see ``PlanBase.update_rows``): in place when ``donate``, else into
+  fresh leaves.
 
 Two backends:
 
@@ -33,6 +39,7 @@ from __future__ import annotations
 from dataclasses import replace
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 from ...kernels import ops as kops
@@ -171,6 +178,79 @@ def _lay_patterns(p: torch.Tensor, care, spec: SimilaritySpec,
     return tuple(leaves)
 
 
+def _tile_rows_block(arr: torch.Tensor, tiles: torch.Tensor, tr: int,
+                     n: int) -> torch.Tensor:
+    """The ``(len(tiles) * tr, dim)`` row block covering whole row tiles
+    of a stored operand, with slots at or beyond row ``n`` zeroed —
+    exactly what a full prepare lays out for those tiles (it zero-pads
+    ragged rows after encoding, and every cell encoding maps 0 to 0)."""
+    row_ids = (tiles[:, None] * tr + torch.arange(
+        tr, device=tiles.device)).reshape(-1)
+    block = arr.index_select(0, row_ids.clamp(max=n - 1).to(arr.device))
+    return block.masked_fill((row_ids >= n).to(arr.device)[:, None], 0)
+
+
+def _scatter_leaves(prepared, fresh, at: torch.Tensor, donate: bool):
+    """Write ``fresh[i]`` into ``prepared[i]`` at the leading-axis
+    positions ``at``: in place when ``donate``, else into copies (the old
+    leaves keep serving the old gallery's memo entry)."""
+    out = []
+    for leaf, f in zip(prepared, fresh):
+        dst = leaf if donate else leaf.clone()
+        dst.index_copy_(0, at.to(leaf.device), f.to(leaf.device, leaf.dtype))
+        out.append(dst)
+    return tuple(out)
+
+
+def _tile_row_update(spec, packed: bool) -> Callable:
+    """Row-update closure of the tile-layout (``"torch"``) executables,
+    similarity and range: runs the same encode/pack/layout a full prepare
+    runs, on the touched row tiles only, and scatters them into the
+    leaves.  ``srcs`` are the post-mutation stored operands,
+    ``(gallery,)`` / ``(gallery, care)`` / ``(lo, hi)``.  A tiny plan's
+    dense spec has one tile: the whole gallery."""
+    def update(prepared, srcs, idx, donate=False):
+        tiles = torch.as_tensor(
+            np.unique(np.asarray(idx, np.int64) // spec.tile_rows),
+            device=prepared[0].device)
+        nt = tiles.shape[0]
+        tspec = replace(spec, n=nt * spec.tile_rows)
+        blocks = [_tile_rows_block(s, tiles, spec.tile_rows, spec.n)
+                  for s in srcs]
+        if isinstance(spec, SimilaritySpec):
+            fresh = _lay_patterns(blocks[0],
+                                  blocks[1] if len(blocks) > 1 else None,
+                                  tspec, nt, packed)
+        else:
+            fresh = _lay_range_patterns(blocks, tspec, nt, packed)
+        return _scatter_leaves(prepared, fresh, tiles, donate)
+
+    return update
+
+
+def _row_scatter_update(spec, packed: bool, interval: bool = False
+                        ) -> Callable:
+    """Row-update closure of the ``"cuda"`` executables, whose prepared
+    layout is the block-padded 2-D operand itself: encode (or pack) the
+    touched rows only, zero-pad their columns to the leaf's width as
+    prepare does, and scatter them; window-padding rows stay zero."""
+    def update(prepared, srcs, idx, donate=False):
+        j = torch.as_tensor(np.asarray(idx, np.int64))
+        fresh = []
+        for leaf, s in zip(prepared, srcs):
+            rows = s.index_select(0, j.to(s.device))
+            if packed:
+                enc = kpack.pack_bits(_bits(rows, spec.metric))
+            elif interval:
+                enc = rows.to(torch.float32)
+            else:
+                enc = _encode(rows, spec.metric).to(torch.float32)
+            fresh.append(_pad_last2(enc, 0, leaf.shape[1] - enc.shape[1]))
+        return _scatter_leaves(prepared, fresh, j, donate)
+
+    return update
+
+
 # ---------------------------------------------------------------------------
 # "torch" backend
 # ---------------------------------------------------------------------------
@@ -178,7 +258,8 @@ def _lay_patterns(p: torch.Tensor, care, spec: SimilaritySpec,
 
 def _build_scan_executable(spec: SimilaritySpec, batch: int,
                            packed: bool = False):
-    """(prepare, chunk_fn) for the ``"torch"`` (reference-tiled) backend.
+    """(prepare, chunk_fn, row_update) for the ``"torch"``
+    (reference-tiled) backend.
 
     ``chunk_fn`` mirrors ``kernels.ref.cam_topk_tiled`` — same partial-
     sum order, same stable per-tile top-k and tournament merges.  With
@@ -199,7 +280,7 @@ def _build_scan_executable(spec: SimilaritySpec, batch: int,
         v, i = scan(qt, pt, roffs)
         return to_logical(v, float(dim)), i
 
-    return prepare, chunk_fn
+    return prepare, chunk_fn, _tile_row_update(spec, packed)
 
 
 def _dense_spec(spec: SimilaritySpec) -> SimilaritySpec:
@@ -243,7 +324,8 @@ def _cuda_operands(spec: SimilaritySpec, packed: bool, q: torch.Tensor,
 
 def _build_cuda_executable(spec: SimilaritySpec, batch: int,
                            packed: bool = False):
-    """(prepare, chunk_fn) driving the hand-written CUDA kernels.
+    """(prepare, chunk_fn, row_update) driving the hand-written CUDA
+    kernels.
 
     Encoding (or packing) and block padding of the gallery run once per
     stored tensor, behind the plan's pattern memo; each chunk is one
@@ -273,7 +355,7 @@ def _build_cuda_executable(spec: SimilaritySpec, batch: int,
         v, i = kref.pad_candidates(v, i, k, phys_largest)
         return to_logical(v, float(spec.dim)), i
 
-    return prepare, chunk_fn
+    return prepare, chunk_fn, _row_scatter_update(spec, packed)
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +452,9 @@ def _lay_range_patterns(pats, spec: RangeSpec, gr_total: int,
 
 def _build_range_scan_executable(spec: RangeSpec, batch: int,
                                  packed: bool = False):
-    """(prepare, chunk_fn) for the ``"torch"`` range path: ``chunk_fn``
-    returns the ``(batch, grid_rows * tile_rows)`` boolean match block."""
+    """(prepare, chunk_fn, row_update) for the ``"torch"`` range path:
+    ``chunk_fn`` returns the ``(batch, grid_rows * tile_rows)`` boolean
+    match block."""
     gr = spec.grid_rows
     scan = _range_tile_scan(spec, _range_col_fn(spec, packed))
 
@@ -381,7 +464,7 @@ def _build_range_scan_executable(spec: RangeSpec, batch: int,
     def chunk_fn(q, pt):
         return scan(_layout_queries(q, spec, packed), pt)
 
-    return prepare, chunk_fn
+    return prepare, chunk_fn, _tile_row_update(spec, packed)
 
 
 def _build_tiny_range_executable(spec: RangeSpec, batch: int,
@@ -394,7 +477,8 @@ def _build_tiny_range_executable(spec: RangeSpec, batch: int,
 
 
 def _build_range_cuda_executable(spec: RangeSpec, batch: int):
-    """(prepare, chunk_fn) driving the interval and threshold kernels.
+    """(prepare, chunk_fn, row_update) driving the interval and threshold
+    kernels.
 
     The stored operands are encoded and zero-padded once, in the inner
     dimension only, to the kernel's block (behind the pattern memo); the
@@ -414,7 +498,8 @@ def _build_range_cuda_executable(spec: RangeSpec, batch: int):
             qp = kops.pad_to_blocks(q.to(torch.float32), 1, ACAM_BLOCK_D)
             return kops.acam_match_prepadded(qp, pp[0], pp[1], n_valid=n)
 
-        return prepare, chunk_fn
+        return prepare, chunk_fn, _row_scatter_update(spec, False,
+                                                      interval=True)
 
     metric = spec.metric
     phys_metric, _, _ = _metric_values(metric, True)
@@ -431,4 +516,4 @@ def _build_range_cuda_executable(spec: RangeSpec, batch: int):
             qp, pp[0], metric=phys_metric, threshold=spec.threshold,
             below=spec.below, to_logical=to_logical, dim=dim, n_valid=n)
 
-    return prepare, chunk_fn
+    return prepare, chunk_fn, _row_scatter_update(spec, False)

@@ -2,9 +2,10 @@
 :class:`RangePlan` (boolean range match).
 
 Thin subclasses of :class:`~.base.PlanBase` that define which module
-arguments are stored operands, the shape of a chunk record, and how
-chunks finalize into the module's output.  Sharded plans (and their
-cross-shard merge) and gallery mutation come with later slices.
+arguments are stored operands, the shape of a chunk record, how chunks
+finalize into the module's output, and the public ``update_rows``
+signature (the incremental-update relay is inherited).  Sharded plans
+and their cross-shard merge come with a later slice.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Tuple
 import torch
 
 from ...obs.trace import trace_span
-from .base import PendingSearch, PlanBase, _size
+from .base import PendingSearch, PlanBase, _index_array, _size
 
 __all__ = ["SearchPlan", "RangePlan"]
 
@@ -65,6 +66,40 @@ class SearchPlan(PlanBase):
         # runtime M differs from the traced shape: mirror _as_2d
         return v.reshape(lead + (k,)), i.reshape(lead + (k,))
 
+    def update_rows(self, gallery, indices, new_rows, care=None, *,
+                    donate: bool = False):
+        """Row-granular gallery mutation with incremental re-preparation.
+
+        Returns the updated gallery (a tensor) whose prepared layout was
+        derived from ``gallery``'s memoised layout by re-laying only the
+        rows (``"cuda"``) or row tiles (``"torch"``) that ``indices``
+        touch; results are bit-identical to a full prepare of the mutated
+        gallery.
+
+        ``donate=False`` returns a new tensor and writes fresh prepared
+        leaves: ``gallery`` and its memo entry stay as they were, so a
+        caller still holding the old gallery gets its old results.
+        ``donate=True`` writes the rows into ``gallery`` in place
+        (``index_copy_``), rewrites its prepared leaves in place, and
+        returns ``gallery``.
+
+        ``care`` must be the plan's care mask for ternary programs (the
+        memo keys on the (gallery, care) pair; the mask itself does not
+        change).  If ``gallery``'s layout is not memoised (a numpy
+        gallery, never dispatched, or evicted) or ``REPRO_ENGINE_UPDATE``
+        is off, the mutation still happens, ``row_update_fallbacks``
+        counts it, and the next dispatch prepares in full.
+        """
+        spec = self.spec
+        if (care is None) != (spec.care_arg is None):
+            raise ValueError("care mask must be passed iff the plan's "
+                             "program is ternary")
+        idx = _index_array(indices)
+        self._validate_update(idx, new_rows)
+        olds = (gallery,) if care is None else (gallery, care)
+        # only the gallery rows mutate; a ternary care mask passes through
+        return self._mutate_stored(olds, (new_rows,), idx, donate)[0]
+
 
 @dataclass
 class RangePlan(PlanBase):
@@ -104,7 +139,27 @@ class RangePlan(PlanBase):
 
     def update_rows(self, stored, indices, new_rows, care=None, *,
                     donate: bool = False):
-        """Row-granular mutation of the stored operands: not ported yet."""
-        raise NotImplementedError(
-            "RangePlan.update_rows (gallery mutation) is not ported to "
-            "repro_torch yet; prepare a new gallery instead")
+        """Row-granular mutation of a range plan's stored operands.
+
+        ``stored`` is the current stored content — the pattern tensor for
+        threshold mode, the ``(lo, hi)`` pair for interval mode — and
+        ``new_rows`` matches that structure with ``(len(indices), dim)``
+        row blocks.  Returns the updated operand(s) in the same structure,
+        memo-seeded incrementally exactly like
+        :meth:`SearchPlan.update_rows` (including the ``donate``
+        contract).
+        """
+        if care is not None:
+            raise ValueError("range plans have no care operand")
+        spec = self.spec
+        multi = len(spec.pattern_args) == 2
+        olds = tuple(stored) if multi else (stored,)
+        news = tuple(new_rows) if multi else (new_rows,)
+        if len(olds) != len(spec.pattern_args) or len(news) != len(olds):
+            raise ValueError(
+                f"expected {len(spec.pattern_args)} stored operand(s) "
+                f"and matching new-row block(s)")
+        idx = _index_array(indices)
+        self._validate_update(idx, *news)
+        upd = self._mutate_stored(olds, news, idx, donate)
+        return upd if multi else upd[0]

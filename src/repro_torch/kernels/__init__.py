@@ -2,15 +2,19 @@
 
 * `cam_search` — the paper's primitive: fused distance + block top-k,
                  float (hamming / dot / L2) and bit-packed
-                 (XOR + popcount, binary or ternary); CUDA sources in
-                 `csrc/`, built by `build`; plain PyTorch versions beside
-                 each kernel.
+                 (XOR + popcount, binary or ternary), and the full
+                 float distance matrix; CUDA sources in `csrc/`, built
+                 by `build`; plain PyTorch versions beside each kernel.
 * `acam`       — analog-CAM range search: the interval match (aCAM
                  `lo <= q <= hi` cells) and the thresholded distance
                  (TH sensing), each writing a boolean match matrix;
                  plain PyTorch versions beside each kernel.
-* `ops`        — padding, the final stable candidate merge, and the
-                 range entry points.
+* `hdc_encode` — HDC record-based hypervector encoding (the gather form
+                 of bind + majority bundle, int8 cells, int32 sums);
+                 plain PyTorch version beside it.
+* `ops`        — padding, the final stable candidate merge, the range
+                 entry points, the distance API (`cam_distances`,
+                 `cam_exact`, `cam_range`) and the HDC algebra.
 * `packing`    — 32-cell int32 lane packing and popcount.
 * `ref`        — plain PyTorch oracles (the reference package's
                  `repro.kernels.ref` contract).

@@ -34,7 +34,9 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"fused_topk": "fused_topk.cu",
            "fused_topk_packed": "fused_topk_packed.cu",
            "acam_match": "acam_match.cu",
-           "range_match": "range_match.cu"}
+           "range_match": "range_match.cu",
+           "hdc_encode": "hdc_encode.cu",
+           "distance": "distance.cu"}
 #: headers every source includes (part of each library's hash)
 _HEADERS = ("fused_topk_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -16,7 +16,10 @@ periphery — as (value, global row index) candidates:
 * :func:`fused_topk` — float cells, the decomposition above; replaces
   the reference's ``fused_topk_pallas``;
 * :func:`fused_topk_packed` — packed lanes, binary or ternary; replaces
-  ``fused_topk_packed_pallas``.
+  ``fused_topk_packed_pallas``;
+* :func:`distance` — the full (M, N) float32 distance matrix of the same
+  decomposition, no top-k (the public ``ops.cam_distances``); replaces
+  ``distance_pallas``.
 
 The candidate ordering is the reference's ``_extract_block_topk``:
 within a window, largest key first (key = value for ``largest``, else
@@ -44,7 +47,8 @@ from .packing import popcount32
 
 __all__ = ["METRIC_COEFFS", "BLOCK_K", "MAX_K", "LAUNCHES", "window_rows",
            "reset_launch_counts", "fused_topk", "fused_topk_reference",
-           "fused_topk_packed", "fused_topk_packed_reference"]
+           "fused_topk_packed", "fused_topk_packed_reference", "distance",
+           "distance_reference"]
 
 #: metric -> (alpha, beta, gamma, q_term, p_term)
 METRIC_COEFFS = {
@@ -71,7 +75,8 @@ _POS_BIG = 3.0e38
 #: launches per kernel since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"fused_topk": 0, "fused_topk_packed": 0,
                             "fused_topk_packed_ternary": 0,
-                            "acam_match": 0, "range_match": 0}
+                            "acam_match": 0, "range_match": 0,
+                            "hdc_encode": 0, "distance": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -162,6 +167,20 @@ def fused_topk_packed_reference(q: torch.Tensor, p: torch.Tensor,
             x = x & care[None, :, :]
         dist[s:s + step] = popcount32(x).sum(-1).to(torch.float32)
     return _block_topk(dist, k=k, largest=largest, n_valid=n_valid)
+
+
+def distance_reference(q: torch.Tensor, p: torch.Tensor, *,
+                       metric: str) -> torch.Tensor:
+    """Plain version of :func:`distance`: the decomposition with a
+    float32 matrix product (callers on a GPU keep TF32 off)."""
+    _check_distance(q, p, metric)
+    alpha, beta, gamma, qk, pk = METRIC_COEFFS[metric]
+    dist = alpha * (q @ p.T)
+    if beta:
+        dist = dist + beta * _term(q, qk).sum(1, keepdim=True)
+    if gamma:
+        dist = dist + gamma * _term(p, pk).sum(1)[None, :]
+    return dist
 
 
 # ---------------------------------------------------------------------------
@@ -306,3 +325,60 @@ def fused_topk_packed(q: torch.Tensor, p: torch.Tensor,
     _count("fused_topk_packed" if care is None
            else "fused_topk_packed_ternary")
     return out_v, out_i
+
+
+def _check_distance(q: torch.Tensor, p: torch.Tensor, metric: str) -> None:
+    if metric not in METRIC_COEFFS:
+        raise ValueError(f"distance: unsupported metric {metric!r}")
+    for what, t in (("queries", q), ("patterns", p)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 2:
+            raise ValueError(f"distance: {what} must be a 2-D tensor")
+        if t.dtype != torch.float32:
+            raise ValueError(f"distance: {what} must be torch.float32, got "
+                             f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"distance: {what} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"distance: {what} is on {t.device}, queries "
+                             f"on {q.device}")
+        if t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"distance: {what} must be 16-byte aligned")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"distance: unsupported device {q.device}")
+    inner = q.shape[1]
+    if p.shape[1] != inner:
+        raise ValueError(f"distance: operand widths differ: queries "
+                         f"{tuple(q.shape)}, patterns {tuple(p.shape)}")
+    if inner == 0 or inner % BLOCK_K:
+        raise ValueError(f"distance: inner dimension {inner} must be a "
+                         f"positive multiple of {BLOCK_K} (pad_to_blocks)")
+    if -(-q.shape[0] // 128) > 65535:
+        raise ValueError(f"distance: {q.shape[0]} query rows exceed the "
+                         f"launch grid; split the batch")
+
+
+def distance(q: torch.Tensor, p: torch.Tensor, *, metric: str
+             ) -> torch.Tensor:
+    """(M, N) float32 distance matrix of the decomposition for ``metric``
+    (hamming on {0, 1} cells, squared eucl, dot), no top-k.
+
+    ``q`` (M, D), ``p`` (N, D) float32, contiguous, D a multiple of
+    :data:`BLOCK_K` (zero padding is neutral); any M and N.  CPU tensors
+    run :func:`distance_reference`; CUDA tensors launch the kernel.
+    """
+    _check_distance(q, p, metric)
+    if q.device.type == "cpu":
+        return distance_reference(q, p, metric=metric)
+    out = torch.empty((q.shape[0], p.shape[0]), dtype=torch.float32,
+                      device=q.device)
+    if q.shape[0] == 0 or p.shape[0] == 0:
+        return out
+    lib = build.load("distance")
+    launch = _bind(lib, "c4cam_distance", _args(3, 4))
+    with torch.cuda.device(q.device):
+        err = launch(q.data_ptr(), p.data_ptr(), out.data_ptr(), q.shape[0],
+                     p.shape[0], q.shape[1], _METRIC_CODE[metric],
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_if_failed(lib, "distance", err)
+    _count("distance")
+    return out

@@ -15,6 +15,9 @@ to the lower global row index, matching the reference.
 
 The range entry points (:func:`acam_match`, :func:`cam_range_match`)
 are one launch each: the kernel writes the boolean match matrix itself.
+So are :func:`cam_distances` (the full float32 distance matrix; its
+:func:`cam_exact` and :func:`cam_range` compare it as the reference
+does) and :func:`hdc_encode` (HDC hypervector encoding).
 """
 
 from __future__ import annotations
@@ -24,13 +27,17 @@ from typing import Optional, Tuple
 import torch
 
 from . import acam as kacam
+from . import hdc_encode as khdc
 from . import ref as kref
-from .cam_search import BLOCK_K, fused_topk, fused_topk_packed, window_rows
+from .cam_search import (BLOCK_K, distance, fused_topk, fused_topk_packed,
+                         window_rows)
 
 __all__ = ["pad_to_blocks", "cam_topk_prepadded",
            "cam_topk_packed_prepadded", "cam_topk", "cam_topk_packed",
            "acam_match_prepadded", "acam_match",
-           "cam_range_match_prepadded", "cam_range_match"]
+           "cam_range_match_prepadded", "cam_range_match", "hdc_bind",
+           "hdc_bundle", "hdc_permute", "hdc_encode", "cam_distances",
+           "cam_exact", "cam_range"]
 
 
 def pad_to_blocks(x: torch.Tensor, mult0: int, mult1: int) -> torch.Tensor:
@@ -150,3 +157,51 @@ def cam_range_match(queries: torch.Tensor, patterns: torch.Tensor, *,
         metric=metric, threshold=threshold, below=below,
         to_logical="identity", dim=queries.shape[-1],
         n_valid=patterns.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# HDC hypervector encoding
+# ---------------------------------------------------------------------------
+
+#: bind / bundle / permute are plain tensor code in every path (the encode
+#: kernel inlines bind + bundle); one import surface for the HDC algebra
+hdc_bind = kref.hdc_bind
+hdc_bundle = kref.hdc_bundle
+hdc_permute = kref.hdc_permute
+
+
+def hdc_encode(level_idx: torch.Tensor, keys: torch.Tensor,
+               levels: torch.Tensor) -> torch.Tensor:
+    """(M, H) bipolar encodings through the encode kernel; bit-identical
+    to :func:`ref.hdc_encode` for ids in ``[0, L)`` (integer sums, sign
+    tie -> +1).  The kernel masks ragged queries, features and dims
+    itself, so nothing is padded here."""
+    return khdc.hdc_encode(level_idx.to(torch.int32), keys, levels)
+
+
+# ---------------------------------------------------------------------------
+# distance matrix, exact and threshold match
+# ---------------------------------------------------------------------------
+
+
+def cam_distances(queries: torch.Tensor, patterns: torch.Tensor, *,
+                  metric: str) -> torch.Tensor:
+    """(M, N) float32 distance matrix through the distance kernel: the
+    decomposition of ``metric`` (hamming on {0, 1} cells, squared eucl,
+    dot), inner dimension zero-padded to :data:`~.cam_search.BLOCK_K`."""
+    return distance(pad_to_blocks(queries.to(torch.float32), 1, BLOCK_K),
+                    pad_to_blocks(patterns.to(torch.float32), 1, BLOCK_K),
+                    metric=metric)
+
+
+def cam_exact(queries: torch.Tensor, patterns: torch.Tensor, *,
+              metric: str = "hamming") -> torch.Tensor:
+    """(M, N) boolean exact match: ``cam_distances(...) == 0``."""
+    return cam_distances(queries, patterns, metric=metric) == 0
+
+
+def cam_range(queries: torch.Tensor, patterns: torch.Tensor,
+              threshold: float, *, metric: str = "hamming") -> torch.Tensor:
+    """(M, N) boolean threshold match: ``cam_distances(...) <= threshold``
+    (inclusive, compared in float32)."""
+    return cam_distances(queries, patterns, metric=metric) <= threshold

@@ -34,7 +34,8 @@ __all__ = ["distances", "packed_distances", "ternary_distances",
            "tile_distance", "tiled_distances", "cam_topk",
            "cam_topk_ternary", "cam_exact", "cam_range", "acam_match",
            "acam_violations", "cam_topk_tiled", "merge_topk",
-           "pad_candidates", "stable_topk"]
+           "pad_candidates", "stable_topk", "hdc_bind", "hdc_bundle",
+           "hdc_permute", "hdc_encode"]
 
 #: index of a losing (padding) candidate slot
 PAD_INDEX = 2 ** 30
@@ -154,6 +155,50 @@ def acam_match(queries: torch.Tensor, lo: torch.Tensor,
     violation) — pure comparisons and integer counts, so the result is
     tiling-invariant."""
     return acam_violations(queries, lo, hi) == 0
+
+
+# ---------------------------------------------------------------------------
+# HDC hypervector algebra (bipolar {-1, +1} convention)
+# ---------------------------------------------------------------------------
+
+
+def hdc_bind(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise bind of bipolar hypervectors: multiplication (XOR in
+    the sign domain), so binding never changes the alphabet."""
+    return (a * b).to(torch.float32)
+
+
+def hdc_bundle(stack: torch.Tensor) -> torch.Tensor:
+    """Majority bundle along axis 0: sign of the elementwise sum, ties
+    (an even stack splitting evenly) to **+1** — the contract every
+    encode path and the classifier's associative memory share."""
+    s = stack.to(torch.float32).sum(0)
+    return torch.where(s >= 0, 1.0, -1.0).to(torch.float32)
+
+
+def hdc_permute(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """Cyclic permutation (roll) along the hypervector dimension."""
+    return torch.roll(x, shift, dims=-1)
+
+
+def hdc_encode(level_idx: torch.Tensor, keys: torch.Tensor,
+               levels: torch.Tensor) -> torch.Tensor:
+    """Record-based hypervector encoding — the semantic oracle.
+
+    ``level_idx`` (M, F) quantised feature levels, ``keys`` (F, H) and
+    ``levels`` (L, H) bipolar hypervectors.  Sample ``m`` is the majority
+    bundle over features of ``keys[f] * levels[level_idx[m, f]]``, tie ->
+    +1.  Builds the dense (M, F, H) bound tensor: oracle use only.  An id
+    outside ``[0, L)`` indexes as the reference's gather does (negative
+    ids wrap once, then ids clamp into range).
+    """
+    n_levels = levels.shape[0]
+    idx = level_idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n_levels, idx).clamp(0, n_levels - 1)
+    bound = keys[None, :, :].to(torch.float32) * \
+        levels.to(torch.float32)[idx]                       # (M, F, H)
+    s = bound.sum(1)
+    return torch.where(s >= 0, 1.0, -1.0).to(torch.float32)
 
 
 def tile_distance(q_t: torch.Tensor, p_t: torch.Tensor,

@@ -96,7 +96,8 @@ def test_launch_counts_and_refusals(cuda):
     tcs.fused_topk_packed(q, p, p, k=3, largest=False, n_valid=100)
     assert tcs.LAUNCHES == {"fused_topk": 0, "fused_topk_packed": 1,
                             "fused_topk_packed_ternary": 1,
-                            "acam_match": 0, "range_match": 0}
+                            "acam_match": 0, "range_match": 0,
+                            "hdc_encode": 0, "distance": 0}
     with pytest.raises(ValueError, match="queries on"):
         tcs.fused_topk_packed(q, p.cpu(), k=3, largest=False, n_valid=100)
 
@@ -351,3 +352,224 @@ def test_forest_on_the_card_matches_traversal(cuda, rng):
     np.testing.assert_array_equal(pred.cpu().numpy(),
                                   clf.predict_reference(x))
     assert bool((clf.matches(x).sum(1) == 40).all())
+
+
+# ---------------------------------------------------------------------------
+# B5 hdc_encode and B6 distance
+# ---------------------------------------------------------------------------
+
+
+def _bipolar_t(rng, *shape):
+    return torch.from_numpy(
+        np.where(rng.random(shape) < 0.5, -1.0, 1.0).astype(np.float32))
+
+
+@pytest.mark.parametrize("m,f,h,levels", [(9, 37, 70, 8), (130, 784, 1000, 16),
+                                          (64, 64, 128, 1), (200, 130, 257, 40)])
+def test_hdc_encode_kernel_matches_plain(cuda, m, f, h, levels, rng):
+    from repro_torch.kernels import hdc_encode as thdc
+    from repro_torch.kernels import ref as tref
+    q = torch.from_numpy(rng.integers(0, levels, (m, f)).astype(np.int32))
+    keys, lv = _bipolar_t(rng, f, h), _bipolar_t(rng, levels, h)
+    keys[3] = 0.0                     # the contract's zero cells
+    lv[0, :5] = 0.0
+    want = thdc.hdc_encode_reference(q, keys, lv)
+    before = tcs.LAUNCHES["hdc_encode"]
+    got = thdc.hdc_encode(q.to(cuda), keys.to(cuda), lv.to(cuda))
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["hdc_encode"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu(), tref.hdc_encode(q, keys, lv))
+    assert torch.equal(got, thdc.hdc_encode_reference(
+        q.to(cuda), keys.to(cuda), lv.to(cuda)))
+
+
+def test_hdc_encode_kernel_ties_and_out_of_range_ids(cuda, rng):
+    """Even F with key pairs that cancel forces exact zero sums (-> +1);
+    ids outside [0, L) contribute nothing."""
+    from repro_torch.kernels import hdc_encode as thdc
+    m, f, h, levels = 70, 64, 300, 4
+    keys = _bipolar_t(rng, f, h)
+    keys[f // 2:] = -keys[:f // 2]
+    lv = _bipolar_t(rng, levels, h)
+    q = rng.integers(0, levels, (m, f)).astype(np.int32)
+    q[:, f // 2:] = q[:, :f // 2]          # every sum is exactly zero
+    q[1, 5] = -1
+    q[2, 9] = levels + 3
+    qt = torch.from_numpy(q)
+    want = thdc.hdc_encode_reference(qt, keys, lv)
+    got = thdc.hdc_encode(qt.to(cuda), keys.to(cuda), lv.to(cuda)).cpu()
+    assert torch.equal(got, want)
+    assert bool((got[3:] == 1).all())
+
+
+def test_hdc_encode_kernel_refuses_bad_operands(cuda):
+    from repro_torch.kernels import hdc_encode as thdc
+    q = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    k = torch.ones((8, 16), device=cuda)
+    lv = torch.ones((3, 16), device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        thdc.hdc_encode(q.long(), k, lv)
+    with pytest.raises(ValueError, match="key rows"):
+        thdc.hdc_encode(q, k[:7], lv)
+    with pytest.raises(ValueError, match="width"):
+        thdc.hdc_encode(q, k, lv[:, :15])
+    with pytest.raises(ValueError, match="on cpu"):
+        thdc.hdc_encode(q, k.cpu(), lv)
+    with pytest.raises(ValueError, match="shared memory"):
+        thdc.hdc_encode(q, k, torch.ones((2000, 16), device=cuda))
+
+
+@pytest.mark.parametrize("lo,hi,n_levels", [(0.0, 1.0, 16), (-1.0, 2.5, 5),
+                                             (0.1, 0.7, 7)])
+def test_device_quantisation_matches_numpy_at_every_edge(cuda, lo, hi,
+                                                         n_levels, rng):
+    """On the card, the float32 quantisation gives the numpy reference's
+    level ids within 8 ulps of every bucket edge and on random features."""
+    from repro_torch.hdc import ItemMemory
+    im = ItemMemory(8, dim=64, n_levels=n_levels, lo=lo, hi=hi, device=cuda)
+    c = (np.float32(lo) + np.arange(n_levels + 1) * (hi - lo)
+         / n_levels).astype(np.float32)
+    steps = np.arange(-8, 9, dtype=np.float32)
+    pts = (c[:, None] + steps[None, :] * np.abs(np.spacing(c))[:, None])
+    pts = np.resize(pts.astype(np.float32).ravel(), (-(-pts.size // 8)) * 8)
+    span = hi - lo
+    rand = (rng.random((4096, 8)) * 1.4 * span + lo - 0.2 * span)
+    for x in (pts.reshape(-1, 8), rand.astype(np.float32)):
+        want = im.quantize(x)
+        got = im.level_ids(torch.from_numpy(x).to(cuda))
+        assert got.device.type == "cuda" and got.dtype == torch.int32
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        np.testing.assert_array_equal(im.level_ids(x).cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("metric", ["hamming", "dot", "eucl"])
+@pytest.mark.parametrize("m,n,dim", [(1, 1, 8), (150, 301, 72), (129, 640, 1024)])
+def test_distance_kernel_matches_plain(cuda, metric, m, n, dim, rng):
+    if metric == "eucl":
+        q = torch.from_numpy(rng.standard_normal((m, dim)).astype(np.float32))
+        p = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32))
+    elif metric == "dot":
+        q, p = _bipolar_t(rng, m, dim), _bipolar_t(rng, n, dim)
+    else:
+        q = torch.from_numpy((rng.random((m, dim)) > .5).astype(np.float32))
+        p = torch.from_numpy((rng.random((n, dim)) > .5).astype(np.float32))
+    want = tcs.distance_reference(q.to(cuda), p.to(cuda), metric=metric)
+    before = tcs.LAUNCHES["distance"]
+    got = tcs.distance(q.to(cuda), p.to(cuda), metric=metric)
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["distance"] == before + 1
+    if metric == "eucl":
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=EUCL_RTOL, atol=EUCL_ATOL)
+    else:
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), tcs.distance_reference(q, p,
+                                                             metric=metric))
+
+
+def test_ops_distance_entry_points_on_the_card(cuda, rng):
+    from repro_torch.kernels import ops as tops
+    q = torch.from_numpy((rng.random((33, 45)) > .5).astype(np.float32))
+    p = torch.from_numpy((rng.random((70, 45)) > .5).astype(np.float32))
+    p[5] = q[2]
+    d = tops.cam_distances(q.to(cuda), p.to(cuda), metric="hamming")
+    want = (q[:, None, :] != p[None, :, :]).sum(-1).float()
+    assert torch.equal(d.cpu(), want)
+    assert torch.equal(tops.cam_exact(q.to(cuda), p.to(cuda)).cpu(),
+                       want == 0)
+    assert torch.equal(tops.cam_range(q.to(cuda), p.to(cuda), 20.0).cpu(),
+                       want <= 20.0)
+
+
+def test_distance_kernel_refuses_bad_operands(cuda):
+    q = torch.zeros((4, 16), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tcs.distance(q[:, :12].contiguous(), q[:, :12].contiguous(),
+                     metric="dot")
+    with pytest.raises(ValueError, match="metric"):
+        tcs.distance(q, q, metric="cos")
+    with pytest.raises(ValueError, match="contiguous"):
+        tcs.distance(q.T[:8], q, metric="dot")
+    with pytest.raises(ValueError, match="float32"):
+        tcs.distance(q.double(), q, metric="dot")
+
+
+# ---------------------------------------------------------------------------
+# update_rows on the "cuda" backend: bit-identical to a fresh plan
+# ---------------------------------------------------------------------------
+
+
+def _mutable_program(case, rng, m, n, dim):
+    """(compile, queries, stored operands, new rows, care) for one plan
+    family on the card."""
+    arch = T.ArchSpec(rows=64, cols=64)
+    care = None
+    if case == "eucl":
+        q = rng.standard_normal((m, dim)).astype(np.float32)
+        g = rng.standard_normal((n, dim)).astype(np.float32)
+        return (lambda: T.compile_fn(_knn, [q, g], arch, value_bits=8), q,
+                (g,), (rng.standard_normal((4, dim)).astype(np.float32),),
+                None)
+    if case in ("packed", "ternary"):
+        q = (rng.random((m, dim)) > .5).astype(np.float32)
+        g = (rng.random((n, dim)) > .5).astype(np.float32)
+        if case == "ternary":
+            care = (rng.random((n, dim)) > .2).astype(np.int8)
+        return (lambda: T.compile_module(
+                    _hamming_module(m, n, dim, 10, case == "ternary"), arch,
+                    value_bits=1), q, (g,),
+                ((rng.random((4, dim)) > .5).astype(np.float32),), care)
+    if case == "interval":
+        q, lo, hi = _intervals(rng, m, n, dim)
+        return (lambda: T.compile_module(_range_program(m, n, dim, True),
+                                         arch, cam_type=T.CamType.ACAM),
+                q, (lo, hi),
+                (lo[:4] - 1.0, hi[:4] + 1.0), None)
+    q = rng.standard_normal((m, dim)).astype(np.float32)
+    g = rng.standard_normal((n, dim)).astype(np.float32)
+    return (lambda: T.compile_module(
+                _range_program(m, n, dim, False, metric="eucl",
+                               tau=2.0 * dim), arch), q, (g,),
+            (rng.standard_normal((4, dim)).astype(np.float32),), None)
+
+
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("case", ["eucl", "packed", "ternary", "interval",
+                                  "threshold"])
+def test_update_rows_on_the_card_matches_a_fresh_plan(cuda, case, donate,
+                                                      rng):
+    m, n, dim = 70, 700, 96
+    build, q, stored, new, care = _mutable_program(case, rng, m, n, dim)
+    T.clear_plan_cache()
+    prog = build()
+    plan = prog.engine_plan
+    assert plan.backend == "cuda" and plan.device.type == cuda.type
+    assert plan.packed == (case in ("packed", "ternary"))
+    qt = torch.from_numpy(q).to(cuda)
+    ts = tuple(torch.from_numpy(s).to(cuda) for s in stored)
+    extra = () if care is None else (torch.from_numpy(care).to(cuda),)
+    before = prog(qt, *ts, *extra)
+    idx = np.array([0, 1, 350, n - 1])
+    if len(ts) == 2:
+        out = plan.update_rows(ts, idx, new, donate=donate)
+    else:
+        out = (plan.update_rows(ts[0], idx, new[0],
+                                care=extra[0] if extra else None,
+                                donate=donate),)
+    assert all((a is b) == donate for a, b in zip(out, ts))
+    hits0, miss0 = plan.pattern_hits, plan.pattern_misses
+    got = prog(qt, *out, *extra)
+    assert plan.pattern_hits == hits0 + 1 and plan.pattern_misses == miss0
+    assert plan.row_update_fallbacks == 0
+    T.clear_plan_cache()
+    fresh = build()(qt, *(o.clone() for o in out), *extra)
+    got, fresh = (got, fresh) if isinstance(got, tuple) else ((got,),
+                                                              (fresh,))
+    for a, b in zip(got, fresh):
+        assert torch.equal(a, b)
+    if not donate:       # the old gallery still gives its old result
+        old = prog(qt, *ts, *extra)
+        for a, b in zip(old if isinstance(old, tuple) else (old,),
+                        before if isinstance(before, tuple) else (before,)):
+            assert torch.equal(a, b)

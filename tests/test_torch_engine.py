@@ -280,7 +280,9 @@ def test_import_loads_neither_jax_nor_repro():
             "'repro_torch.'):\n"
             "    __import__(m.name)\n"
             "for m in ('repro_torch.forest.forest', "
-            "'repro_torch.core.executor', 'repro_torch.kernels.acam'):\n"
+            "'repro_torch.core.executor', 'repro_torch.kernels.acam', "
+            "'repro_torch.hdc', 'repro_torch.hdc.classifier', "
+            "'repro_torch.kernels.hdc_encode'):\n"
             "    assert m in sys.modules, m\n"
             "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"

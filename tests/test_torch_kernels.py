@@ -345,3 +345,60 @@ def test_ops_cam_topk_match_reference(k, n, rng):
                                   tpack.pack_bits(care), k=k)
     assert np.array_equal(tv.numpy(), _np(rv))
     assert np.array_equal(ti.numpy(), _np(ri))
+
+
+# ---------------------------------------------------------------------------
+# distance matrix (B6's plain version) and its exact / threshold match
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("metric", ["hamming", "dot", "eucl"])
+def test_ops_cam_distances_match_pallas(metric, rng):
+    """``ops.cam_distances`` / ``cam_exact`` / ``cam_range`` against the
+    reference's Pallas distance kernel in interpret mode: hamming and dot
+    bit for bit, eucl within tolerance (another summation order)."""
+    m, n, dim = 9, 37, 70
+    if metric == "eucl":
+        q = rng.standard_normal((m, dim)).astype(np.float32)
+        p = rng.standard_normal((n, dim)).astype(np.float32)
+    else:
+        q = (rng.random((m, dim)) > 0.5).astype(np.float32)
+        p = (rng.random((n, dim)) > 0.5).astype(np.float32)
+        if metric == "dot":
+            q, p = 2 * q - 1, 2 * p - 1
+    p[4] = q[1]                            # an exact match
+    want = _np(rops.cam_distances(jnp.asarray(q), jnp.asarray(p),
+                                  metric=metric))
+    got = tops.cam_distances(_t(q), _t(p), metric=metric)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    tau = float(np.median(want))
+    if metric == "eucl":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+        # compare only where tau is not a float near-tie
+        sure = np.abs(want - tau) > 1e-3
+        np.testing.assert_array_equal(
+            tops.cam_range(_t(q), _t(p), tau, metric=metric).numpy()[sure],
+            (want <= tau)[sure])
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(
+            tops.cam_exact(_t(q), _t(p), metric=metric).numpy(),
+            _np(rops.cam_exact(jnp.asarray(q), jnp.asarray(p),
+                               metric=metric)))
+        np.testing.assert_array_equal(
+            tops.cam_range(_t(q), _t(p), tau, metric=metric).numpy(),
+            _np(rops.cam_range(jnp.asarray(q), jnp.asarray(p), tau,
+                               metric=metric)))
+    if metric == "hamming":
+        assert bool(tops.cam_exact(_t(q), _t(p)).numpy()[1, 4])
+
+
+def test_distance_wrapper_refuses_bad_operands():
+    q = torch.zeros((4, 16))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tcs.distance(q[:, :12].contiguous(), q[:, :12].contiguous(),
+                     metric="dot")
+    with pytest.raises(ValueError, match="metric"):
+        tcs.distance(q, q, metric="cos")
+    with pytest.raises(ValueError, match="widths"):
+        tcs.distance(q, torch.zeros((3, 8)), metric="dot")

@@ -308,8 +308,13 @@ def test_pack_demotion_and_refusal_on_cuda(rng):
     with pytest.raises(ValueError, match="packed"):
         T.get_plan(_programs("eucl", rng, 8, 64)[1], backend="torch",
                    pack=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="update_rows"):
-        floats.update_rows(ins[1], [0], ins[1][:1])
+    # gallery mutation on the demoted plan: memo-seeded, same matches as
+    # the packed plan on the mutated gallery
+    g = torch.from_numpy(ins[1].copy())
+    floats.execute(ins[0], g)
+    g2 = floats.update_rows(g, [0], ins[1][1:2])
+    assert floats.row_update_fallbacks == 0
+    assert torch.equal(floats.execute(ins[0], g2), packed.execute(ins[0], g2))
 
 
 def test_range_and_search_keys_never_collide(rng):
