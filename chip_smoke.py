@@ -39,7 +39,24 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        each result bit-identical to a fresh plan's;
 * ``distance_ops``   — the public distance API (``ops.cam_distances`` /
                        ``cam_exact`` / ``cam_range``) on the KNN data:
-                       kernel ``distance``.
+                       kernel ``distance``;
+* ``lm_serve``       — LM serving through ``launch.serve.Server``:
+                       qwen2.5-14b at full width and depth in bf16 (random
+                       weights from a seed), 4 prompts of 2048 tokens, 32
+                       new tokens each, decode batch 2, every attention
+                       call on kernel ``flash_attention`` (exactly
+                       48 x (4 prefills + 124 decode steps) launches), a
+                       second Server giving the same tokens; then the
+                       reference's prefill-then-decode contract in float32
+                       at full width and depth 4, and B7 against its plain
+                       version on the operands of layers 0 and 47 (from
+                       an untimed prefill and decode step of the first
+                       prompt) and at the ``decode_32k`` cache length
+                       (bf16 within 0.05, float32 within 2e-3), each bf16
+                       output also held to the Pallas kernel's own
+                       recurrence (scaled to the case: at most 0.1 % of
+                       the outputs beyond one bf16 step), timed beside
+                       ``scaled_dot_product_attention``.
 
 For each phase it sets the kernels' launch counts to 0, runs the path,
 reads the counts (a kernel of the path with no launch fails the run),
@@ -113,6 +130,26 @@ UPDATE_RUNS, UPDATE_RUN, UPDATE_SEED = 18, 100, 13
 IMAD_PER_CLOCK_PER_SM = 64
 #: int8 products per IDP4A
 DP4A_PRODUCTS = 4
+#: lm_serve: LM_ARCH (with LM_OVERRIDES, none on the card) served to
+#: SERVE_REQUESTS prompts of SERVE_PROMPT tokens, SERVE_NEW new tokens
+#: each, decode batch SERVE_BATCH; DECODE_TIMED_STEPS decode steps timed
+#: one by one; the float32 prefill-then-decode check at depth CHECK_LAYERS
+#: (CHECK_PREFILL prompt tokens, CHECK_DECODE steps); B7's decode against
+#: DECODE_32K_ROWS cache rows (launch/specs.py decode_32k), and in float32
+#: against at most F32_CUT_ROWS rows
+LM_ARCH, LM_OVERRIDES = "qwen2.5-14b", {}
+SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2, 2048, 32
+DECODE_TIMED_STEPS = 16
+CHECK_LAYERS, CHECK_PREFILL, CHECK_DECODE = 4, 512, 16
+DECODE_32K_ROWS, F32_CUT_ROWS = 32768, 4096
+#: B7 against its plain version: the reference's flash-test bounds
+B7_BF16_ATOL, B7_F32_ATOL = 0.05, 2e-3
+#: B7 in bf16 against the Pallas recurrence: the share of outputs more than
+#: one bf16 step (2**-7 of |want|) away, and the largest miss in units of
+#: max|v| (one bf16 step of a probability; tests/test_torch_cuda.py)
+B7_REC_BEYOND, B7_REC_MAX_OF_V = 1e-3, 2.0 ** -8
+#: H100 SXM bf16 tensor-core peak, dense (NVIDIA data sheet)
+BF16_PEAK_FLOPS = 989e12
 
 
 def log(obj) -> None:
@@ -258,10 +295,11 @@ class Smoke:
         if counts != want:
             raise RuntimeError(f"{name}: launches {counts}, expected {want}")
 
-    def profile(self, prog, inputs, top: int = 6):
+    def profile(self, prog, inputs, top: int = 6, classify=None):
         """Where one warm call's time goes: ``torch.profiler`` over a
-        call that ends in a synchronise; device time by kernel, and the
-        share of the wall window in which the device ran nothing."""
+        call that ends in a synchronise; device time by kernel (and by
+        ``classify(kernel name)`` where given), and the share of the wall
+        window in which the device ran nothing."""
         torch = self.torch
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -285,10 +323,24 @@ class Smoke:
         rows.sort(reverse=True)
         device_ms = sum(r[0] for r in rows)
         # negative when the summed device time exceeds the wall window
-        return {"wall_ms": wall_ms, "device_ms": device_ms,
-                "device_idle_share": 1 - device_ms / wall_ms,
-                "top": [{"ms": ms, "op": key[:80], "count": n}
-                        for ms, key, n in rows[:top]]}
+        out = {"wall_ms": wall_ms, "device_ms": device_ms,
+               "device_idle_share": 1 - device_ms / wall_ms,
+               "top": [{"ms": ms, "op": key[:80], "count": n}
+                       for ms, key, n in rows[:top]]}
+        if classify is not None:
+            split = {}
+            for ms, key, _ in rows:
+                c = classify(key)
+                split[c] = split.get(c, 0.0) + ms
+            out["by_class_ms"] = split
+            # the host side: operators by their own CPU time
+            host = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count)
+                           for e in prof.key_averages()
+                           if e.self_cpu_time_total > 0), reverse=True)
+            out["host_ms"] = sum(h[0] for h in host)
+            out["host_top"] = [{"ms": ms, "op": key[:60], "count": n}
+                               for ms, key, n in host[:top]]
+        return out
 
     def kernel_operands(self, prog, inputs):
         """The (args, kwargs) the path's first micro-batch hands its
@@ -1128,6 +1180,347 @@ def phase_distance_ops(s: Smoke, data):
          "bound_ms": bound, "bound_by": by, "profile": prof})
 
 
+# ---------------------------------------------------------------------------
+# lm_serve: LM serving of qwen2.5-14b through the port's Server (B7)
+# ---------------------------------------------------------------------------
+
+
+def _b7_class(key: str) -> str:
+    """Kernel class of a profiler row: B7, a matrix product, or other."""
+    low = key.lower()
+    if "flash_fwd" in low:
+        return "b7_flash_attention"
+    if any(w in low for w in ("gemm", "gemv", "cublas", "cutlass", "xmma",
+                              "nvjet", "matmul", "splitk")):
+        return "gemm"
+    return "other"
+
+
+def b7_bound_ms(q, k, kw):
+    """B7's bound: 4 * H * dh FLOP per visible (row, column) pair at the
+    bf16 tensor-core peak, against the bytes of q, o and the visible K/V
+    rows; both counted from this call's masks."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    kv_len = kw.get("kv_len") or k.shape[1]
+    q_start, prefix = kw.get("q_start", 0), kw.get("prefix_len", 0)
+    if kw.get("causal", True):
+        rows = [min(kv_len, max(q_start + r + 1, prefix)) for r in range(s)]
+    else:
+        rows = [kv_len] * s
+    flops = 4.0 * b * h * dh * sum(rows)
+    bytes_ = (2.0 * q.element_size() * b * s * h * dh
+              + 2.0 * k.element_size() * b * max(rows) * kvh * dh)
+    t_ops, t_mem = flops / BF16_PEAK_FLOPS, bytes_ / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
+        else "bytes"
+
+
+def b7_recurrence(q, k, v, *, causal=True, prefix_len=0, kv_len=None,
+                  q_start=0, block_k=64):
+    """The reference Pallas kernel's online softmax over kv tiles of
+    ``block_k`` rows, in eager float32, the unnormalised probabilities
+    rounded to v's dtype before the PV product: what B7 computes, up to
+    the order of its float32 sums."""
+    import torch
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    kv_len = k.shape[1] if kv_len is None else kv_len
+    scale = float(torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32))
+    qf = q.float().reshape(b, s, kvh, h // kvh, dh)
+    m = torch.full((b, kvh, h // kvh, s, 1), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, h // kvh, s, dh), device=q.device)
+    qi = q_start + torch.arange(s, device=q.device)[:, None]
+    for t0 in range(0, kv_len, block_k):
+        kt = k[:, t0:min(t0 + block_k, kv_len)].to(q.dtype).float()
+        ki = t0 + torch.arange(kt.shape[1], device=q.device)[None, :]
+        sc = torch.einsum("bqkgd,btkd->bkgqt", qf, kt) * scale
+        if causal:
+            sc = torch.where((ki <= qi) | (ki < prefix_len), sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bkgqt,btkd->bkgqd", p.to(v.dtype).float(),
+            v[:, t0:t0 + kt.shape[1]].float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+
+
+def sdpa_call(q, k, v, kw):
+    """The library yardstick for one B7 call: PyTorch's
+    ``scaled_dot_product_attention`` over the visible cache rows (timed
+    only; the port never calls it)."""
+    import torch
+    s = q.shape[1]
+    kv_len = kw.get("kv_len") or k.shape[1]
+    qt = q.transpose(1, 2)
+    kt, vt = k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
+    # one decode row sees every cached row; a prefill is causal from 0
+    causal = s > 1 and kw.get("causal", True)
+    if causal and (kw.get("q_start", 0) or kv_len != s
+                   or kw.get("prefix_len", 0)):
+        raise ValueError(f"sdpa_call: no yardstick for {kw}")
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+
+def phase_lm_serve(s: Smoke):
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cam_search
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import model as tm
+
+    # (a) serve, full model, bf16 ------------------------------------------
+    cfg = dataclasses.replace(get_config(LM_ARCH), **LM_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats()
+    init_ms, params = host_ms(lambda: tm.init_params(cfg, seed=0))
+    leaves = []
+    tm._tree_map(leaves.append, params)
+    n_params = sum(t.numel() for t in leaves)
+    params_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    dev = leaves[0].device
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT)
+               for _ in range(SERVE_REQUESTS)]
+    max_len = SERVE_PROMPT + SERVE_NEW + 1
+
+    def serve():
+        srv = Server(cfg, params, batch=SERVE_BATCH, max_len=max_len,
+                     temperature=0)
+        reqs = [Request(rid=r, prompt=p, max_new=SERVE_NEW)
+                for r, p in enumerate(prompts)]
+        for r in reqs:
+            srv.submit(r)
+        cam_search.reset_launch_counts()
+        torch.cuda.synchronize()
+        stats = srv.run()
+        torch.cuda.synchronize()
+        return [r.out for r in reqs], stats, dict(cam_search.LAUNCHES)
+
+    n_layers = cfg.n_layers
+    tokens, stats, counts = serve()
+    expect = n_layers * SERVE_REQUESTS * SERVE_NEW
+    s.only("lm_serve", counts, "flash_attention", expect)
+    if stats["completed"] != SERVE_REQUESTS or any(
+            len(t) != SERVE_NEW or not all(0 <= x < cfg.vocab for x in t)
+            for t in tokens):
+        raise RuntimeError(f"lm_serve: bad completions {stats}")
+    tokens2, stats2, counts2 = serve()
+    if tokens2 != tokens:
+        raise RuntimeError("lm_serve: a second Server gave other tokens")
+    s.only("lm_serve (second server)", counts2, "flash_attention", expect)
+
+    # B7's operands at the model's shapes: layers 0 and L-1 of an untimed
+    # prefill of request 0's prompt (calls 0 and L-1) and of its first
+    # decode step (calls L and 2L-1), on a cache of the Server's shape
+    toks = torch.as_tensor(prompts[0], device=dev)[None]
+    wanted = {0: "prefill_layer0", n_layers - 1: "prefill_last_layer",
+              n_layers: "decode_layer0", 2 * n_layers - 1: "decode_last_layer"}
+    captured, calls = {}, [0]
+    real_fa = fa.flash_attention
+
+    def capture(q, k, v, **kw):
+        if calls[0] in wanted:
+            captured[wanted[calls[0]]] = (q, k, v, dict(kw))
+        calls[0] += 1
+        return real_fa(q, k, v, **kw)
+
+    fa.flash_attention = capture
+    try:
+        lg, cache_c = tm.prefill(params, cfg, {"tokens": toks},
+                                 tm.init_decode_cache(cfg, 1, max_len))
+        tm.decode_step(params, cfg, torch.argmax(lg[:, -1], -1)[:, None],
+                       cache_c)
+    finally:
+        fa.flash_attention = real_fa
+    if calls[0] != 2 * n_layers or len(captured) != len(wanted):
+        raise RuntimeError(f"lm_serve: captured {sorted(captured)} of "
+                           f"{calls[0]} B7 calls")
+    if int(torch.argmax(lg[0, -1])) != tokens[0][0]:
+        raise RuntimeError("lm_serve: the capture run's first token is not "
+                           "the served one")
+    del cache_c
+
+    # per-step times, the prefill logits, and where the time goes
+    cache = tm.init_decode_cache(cfg, 1, max_len)
+    prefill_ms = []
+    for _ in range(3):
+        ms, (logits, cache2) = host_ms(
+            lambda: tm.prefill(params, cfg, {"tokens": toks}, cache))
+        prefill_ms.append(ms)
+    if tuple(logits.shape) != (1, 1, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"lm_serve: prefill logits {tuple(logits.shape)} "
+                           f"not finite")
+    nxt = torch.argmax(logits[:, -1], -1)[:, None]
+    decode_ms = []
+    for _ in range(DECODE_TIMED_STEPS):
+        ms, (lg, cache2) = host_ms(
+            lambda: tm.decode_step(params, cfg, nxt, cache2))
+        decode_ms.append(ms)
+        nxt = torch.argmax(lg[:, -1], -1)[:, None]
+    prof_prefill = s.profile(
+        lambda: tm.prefill(params, cfg, {"tokens": toks}, cache), [],
+        classify=_b7_class)
+    prof_decode = s.profile(
+        lambda: tm.decode_step(params, cfg, nxt, cache2), [],
+        classify=_b7_class)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    serve_log = {
+        "model": LM_ARCH, "layers": n_layers, "d_model": cfg.d_model,
+        "param_count_config": cfg.param_count(), "params": n_params,
+        "params_gb": params_gb, "init_ms": init_ms,
+        "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
+        "prompt": SERVE_PROMPT, "max_new": SERVE_NEW,
+        "b7_launches": counts["flash_attention"],
+        "run_wall_s": [stats["wall_s"], stats2["wall_s"]],
+        "tokens_per_s": [stats["tokens_per_s"], stats2["tokens_per_s"]],
+        "stats": {k: stats[k] for k in ("prefills", "decode_steps",
+                                        "tokens")},
+        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+        "decode_ms_median": statistics.median(decode_ms),
+        "peak_gb": peak_gb, "tokens_first_request": tokens[0][:8],
+        "profile_prefill": prof_prefill, "profile_decode": prof_decode}
+    del params, cache, cache2, logits, lg, leaves
+    torch.cuda.empty_cache()
+
+    # (c) B7 against its plain version at the model's shapes -------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(32)
+    kvh, dh = cfg.n_kv_heads, cfg.head_dim
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    rows = DECODE_32K_ROWS
+    captured["decode_32k"] = (rand(1, 1, cfg.n_heads, dh),
+                              rand(1, rows, kvh, dh), rand(1, rows, kvh, dh),
+                              dict(causal=True, q_start=rows - 1,
+                                   kv_len=rows))
+    checks, err_bf16 = {}, 0.0
+    for name, (q, k, v, kw) in captured.items():
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_reference(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= B7_BF16_ATOL:
+            raise RuntimeError(f"lm_serve: B7 {name} off its plain version "
+                               f"by {err} (bf16 bound {B7_BF16_ATOL})")
+        err_bf16 = max(err_bf16, err)
+        # the 0.05 ceiling is as large as a long decode's outputs: hold
+        # each case to the recurrence, in steps of its own outputs' size
+        rec = b7_recurrence(q, k, v, **kw).float()
+        off = (got.float() - rec).abs()
+        beyond = float((off > 1e-6 + 2.0 ** -7 * rec.abs()).float().mean())
+        rec_max, v_max = float(off.max()), float(v.float().abs().max())
+        if not (beyond <= B7_REC_BEYOND
+                and rec_max <= B7_REC_MAX_OF_V * v_max):
+            raise RuntimeError(
+                f"lm_serve: B7 {name} off the Pallas recurrence: "
+                f"{beyond:.2e} of outputs beyond one bf16 step (bound "
+                f"{B7_REC_BEYOND}), max {rec_max} (bound "
+                f"{B7_REC_MAX_OF_V * v_max})")
+        del rec, off
+        # float32 on the same shapes, the cache cut to F32_CUT_ROWS
+        cut = min(k.shape[1], F32_CUT_ROWS)
+        kw32 = dict(kw)
+        kw32["kv_len"] = min(kw["kv_len"], cut)
+        kw32["q_start"] = min(kw.get("q_start", 0),
+                              kw32["kv_len"] - q.shape[1])
+        q32, k32, v32 = (x.float() for x in (q, k[:, :cut], v[:, :cut]))
+        got32 = fa.flash_attention(q32, k32, v32, **kw32)
+        want32 = fa.flash_attention_reference(q32, k32, v32, **kw32)
+        err32 = float((got32 - want32).abs().max())
+        if not err32 <= B7_F32_ATOL:
+            raise RuntimeError(f"lm_serve: B7 {name} in float32 off its "
+                               f"plain version by {err32} (bound "
+                               f"{B7_F32_ATOL})")
+        checks[name] = {"q": list(q.shape), "kv": list(k.shape),
+                        "kw": kw, "max_abs_err": err,
+                        "max_abs_want": float(want.float().abs().max()),
+                        "recurrence_max_abs_err": rec_max,
+                        "recurrence_beyond_one_step": beyond,
+                        "f32_kv_rows": cut, "f32_max_abs_err": err32}
+    torch.cuda.synchronize()
+    shapes = {}
+    for name in ("prefill_layer0", "decode_layer0", "decode_32k"):
+        q, k, v, kw = captured[name]
+        bound, by = b7_bound_ms(q, k, kw)
+        lib = sdpa_call(q, k, v, kw)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - fa.flash_attention_reference(q, k, v, **kw)
+                         .float()).abs().max())
+        reps = 5 if q.shape[1] > 1 else 20
+        shapes[name] = {
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps),
+            "plain_ms": cuda_ms(
+                lambda: fa.flash_attention_reference(q, k, v, **kw), 3),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": cuda_ms(lib, reps),
+            "library_max_abs_err": lib_err}
+    pre = shapes["prefill_layer0"]
+    s.record("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:124",
+             counts["flash_attention"], err_bf16, pre["ms"],
+             pre["plain_ms"], pre["bound_ms"], pre["bound_by"],
+             pre["library_ms"])
+    s.kernels["flash_attention"]["shapes"] = shapes
+    del captured
+    torch.cuda.empty_cache()
+
+    # (b) cache consistency, full width, float32, reduced depth ----------
+    cfg32 = dataclasses.replace(cfg, n_layers=CHECK_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tm.init_params(cfg32, seed=0)
+    t = torch.as_tensor(prompts[0][:CHECK_PREFILL + CHECK_DECODE],
+                        device=dev)[None]
+    cam_search.reset_launch_counts()
+    full = tm.forward(p32, cfg32, {"tokens": t})
+    cache = tm.init_decode_cache(cfg32, 1, CHECK_PREFILL + CHECK_DECODE + 1)
+    lg, cache = tm.prefill(p32, cfg32, {"tokens": t[:, :CHECK_PREFILL]},
+                           cache)
+    outs = [lg]
+    for i in range(CHECK_PREFILL, CHECK_PREFILL + CHECK_DECODE):
+        lg, cache = tm.decode_step(p32, cfg32, t[:, i:i + 1], cache)
+        outs.append(lg)
+    torch.cuda.synchronize()
+    check_launches = cam_search.LAUNCHES["flash_attention"]
+    if check_launches != CHECK_LAYERS * (2 + CHECK_DECODE):
+        raise RuntimeError(f"lm_serve: float32 check launched B7 "
+                           f"{check_launches} times")
+    got = torch.cat(outs, dim=1)[0]
+    want = full[0, CHECK_PREFILL - 1:]
+    diff = (got - want).abs()
+    if not bool((diff <= 0.75 + 0.2 * want.abs()).all()):
+        raise RuntimeError(f"lm_serve: prefill+decode off forward by "
+                           f"{float(diff.max())}")
+    pick = got.argmax(-1)
+    at_pick = want.gather(-1, pick[:, None])[:, 0]
+    gap = want.max(-1).values - at_pick
+    flips = int((pick != want.argmax(-1)).sum())
+    if bool(((pick != want.argmax(-1)) & (gap >= 5e-3)).any()):
+        raise RuntimeError(f"lm_serve: argmax flips beyond near-ties: gaps "
+                           f"{gap.tolist()}")
+    del p32, cache, full
+    torch.cuda.empty_cache()
+    log({"phase": "lm_serve", "ok": True, **serve_log,
+         "b7_checks": checks, "b7_shapes": shapes,
+         "f32_check": {"layers": CHECK_LAYERS, "prefill": CHECK_PREFILL,
+                       "decode_steps": CHECK_DECODE,
+                       "b7_launches": check_launches,
+                       "max_abs_diff": float(diff.max()),
+                       "argmax_flips_near_ties": flips}})
+
+
 def main() -> None:
     try:
         import torch
@@ -1143,6 +1536,9 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions and
     torch.backends.cudnn.allow_tf32 = False         # yardsticks in float32
+    # bf16 products accumulate in float32, as the reference's
+    # preferred_element_type asks
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = nvidia_smi("name,power.limit")
     print(smi, flush=True)
     clock = nvidia_smi("clocks.max.sm")
@@ -1183,7 +1579,8 @@ def main() -> None:
               ("range_threshold", lambda: phase_range_threshold(s, data)),
               ("hdc_mnist", lambda: phase_hdc_mnist(s)),
               ("gallery_update", lambda: phase_gallery_update(s, data)),
-              ("distance_ops", lambda: phase_distance_ops(s, data))]
+              ("distance_ops", lambda: phase_distance_ops(s, data)),
+              ("lm_serve", lambda: phase_lm_serve(s))]
     for name, run in phases:
         t0 = time.perf_counter()
         try:
@@ -1198,7 +1595,8 @@ def main() -> None:
     if s.failed:
         fail(f"failed phases: {s.failed}")
     order = ["fused_topk_packed", "fused_topk_packed_ternary", "fused_topk",
-             "acam_match", "range_match", "hdc_encode", "distance"]
+             "acam_match", "range_match", "hdc_encode", "distance",
+             "flash_attention"]
     print(smi, flush=True)
     log({"kernels": [s.kernels[n] for n in order]})
     log({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,14 @@
-"""Carry a reference plan's state across to the port.
+"""Carry a reference plan's or model's state across to the port.
 
-There are no weights: what gives a plan its results is its architecture,
+A plan has no weights: what gives it its results is its architecture,
 its spec and its prepared gallery.  The spec is rebuilt by compiling the
 same program; these two functions carry the other two.
 
 * :func:`arch_from_reference` reads the reference's ``ArchSpec.to_json()``.
 * :func:`hdc_classifier_from_reference` rebuilds a trained reference
   ``HdcClassifier`` from its state: class sums, keys and levels.
+* :func:`lm_params_from_reference` turns the reference LM's parameter
+  pytree (numpy arrays) into the port's dict, key for key.
 * :func:`prepared_from_reference` turns the reference plan's prepared
   operands (``PlanBase._prepared_patterns`` in the reference, as numpy
   arrays) into the port's tensors: uint32 lanes become int32 bit
@@ -35,7 +37,7 @@ from .kernels.cam_search import BLOCK_K, window_rows
 from .kernels.ops import pad_to_blocks
 
 __all__ = ["arch_from_reference", "prepared_from_reference",
-           "hdc_classifier_from_reference"]
+           "hdc_classifier_from_reference", "lm_params_from_reference"]
 
 
 def arch_from_reference(arch_json: str) -> ArchSpec:
@@ -110,3 +112,24 @@ def hdc_classifier_from_reference(class_sums: np.ndarray, keys: np.ndarray,
     clf = HdcClassifier.from_item_memory(item, sums.shape[0])
     clf.class_sums.copy_(torch.from_numpy(sums.astype(np.int64)))
     return clf
+
+
+def lm_params_from_reference(params, cfg, *, device=None):
+    """The port's LM parameters for the reference's ``init_params``
+    pytree (nested dicts of numpy arrays, or arrays ``np.asarray``
+    takes): the same keys and shapes, in the dtype ``cfg.param_dtype``
+    names, on ``device`` (``None``: the GPU)."""
+    from .core.engine.base import resolve_device
+    from .models.layers import pdtype
+
+    dev = resolve_device(device)
+    dtype = pdtype(cfg)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        # via float32: numpy has no bfloat16 that torch reads (exact)
+        a = np.array(tree, dtype=np.float32)
+        return torch.from_numpy(a).to(device=dev, dtype=dtype)
+
+    return conv(params)

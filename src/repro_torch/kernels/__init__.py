@@ -12,6 +12,11 @@
 * `hdc_encode` — HDC record-based hypervector encoding (the gather form
                  of bind + majority bundle, int8 cells, int32 sums);
                  plain PyTorch version beside it.
+* `flash_attention` — the LM's attention forward (online softmax, GQA,
+                 causal / prefix / cache-length masks), every attention
+                 call of prefill, decode and the no-cache forward; plain
+                 PyTorch version (the reference's ``attn_core``) beside
+                 it.
 * `ops`        — padding, the final stable candidate merge, the range
                  entry points, the distance API (`cam_distances`,
                  `cam_exact`, `cam_range`) and the HDC algebra.

@@ -36,7 +36,8 @@ SOURCES = {"fused_topk": "fused_topk.cu",
            "acam_match": "acam_match.cu",
            "range_match": "range_match.cu",
            "hdc_encode": "hdc_encode.cu",
-           "distance": "distance.cu"}
+           "distance": "distance.cu",
+           "flash_attention": "flash_attention.cu"}
 #: headers every source includes (part of each library's hash)
 _HEADERS = ("fused_topk_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

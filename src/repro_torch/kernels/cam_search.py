@@ -76,7 +76,8 @@ _POS_BIG = 3.0e38
 LAUNCHES: Dict[str, int] = {"fused_topk": 0, "fused_topk_packed": 0,
                             "fused_topk_packed_ternary": 0,
                             "acam_match": 0, "range_match": 0,
-                            "hdc_encode": 0, "distance": 0}
+                            "hdc_encode": 0, "distance": 0,
+                            "flash_attention": 0}
 _COUNT_LOCK = threading.Lock()
 
 

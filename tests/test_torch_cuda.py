@@ -11,6 +11,8 @@ Tolerances: integer metrics bit-identical; eucl values within
 only between float64 near-ties.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ import repro_torch.core as T
 from repro_torch.core import cim_dialect as cd
 from repro_torch.kernels import acam as tacam
 from repro_torch.kernels import cam_search as tcs
+from repro_torch.kernels import flash_attention as tfa
 
 pytestmark = pytest.mark.gpu
 
@@ -97,7 +100,8 @@ def test_launch_counts_and_refusals(cuda):
     assert tcs.LAUNCHES == {"fused_topk": 0, "fused_topk_packed": 1,
                             "fused_topk_packed_ternary": 1,
                             "acam_match": 0, "range_match": 0,
-                            "hdc_encode": 0, "distance": 0}
+                            "hdc_encode": 0, "distance": 0,
+                            "flash_attention": 0}
     with pytest.raises(ValueError, match="queries on"):
         tcs.fused_topk_packed(q, p.cpu(), k=3, largest=False, n_valid=100)
 
@@ -573,3 +577,240 @@ def test_update_rows_on_the_card_matches_a_fresh_plan(cuda, case, donate,
         for a, b in zip(old if isinstance(old, tuple) else (old,),
                         before if isinstance(before, tuple) else (before,)):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# B7: attention forward (flash_attention.cu) and the LM on the card
+# ---------------------------------------------------------------------------
+
+#: the reference's bounds: float32 2e-3; 0.05 where a bfloat16 operand
+#: (or bfloat16-rounded probabilities) is involved
+B7_F32_ATOL, B7_BF16_ATOL = 2e-3, 0.05
+#: (S, T, kwargs) for each masking case
+B7_CASES = {
+    "causal": (77, 77, dict(causal=True)),
+    "full": (50, 133, dict(causal=False)),
+    "full_kv_len": (31, 133, dict(causal=False, kv_len=100)),
+    "prefix": (100, 100, dict(causal=True, prefix_len=40)),
+    "prefill_into_cache": (70, 200, dict(causal=True, kv_len=70)),
+    "decode": (1, 300, dict(causal=True, q_start=257, kv_len=258)),
+    "chunk": (9, 140, dict(causal=True, q_start=120, kv_len=129)),
+}
+B7_DTYPES = {"bf16": (torch.bfloat16, torch.bfloat16),
+             "f32": (torch.float32, torch.float32),
+             "f32_bf16_cache": (torch.float32, torch.bfloat16)}
+
+
+def _qkv(rng, b, s, t, h, kvh, dh, dtype, kv_dtype, device):
+    def make(shape, dt):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(device, dt)
+    return (make((b, s, h, dh), dtype), make((b, t, kvh, dh), kv_dtype),
+            make((b, t, kvh, dh), kv_dtype))
+
+
+@pytest.mark.parametrize("case", list(B7_CASES))
+@pytest.mark.parametrize("dtypes", list(B7_DTYPES))
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("g", [1, 2, 5])
+def test_flash_kernel_matches_plain(cuda, case, dtypes, dh, g, rng):
+    s, t, kw = B7_CASES[case]
+    dtype, kv_dtype = B7_DTYPES[dtypes]
+    q, k, v = _qkv(rng, 2, s, t, 2 * g, 2, dh, dtype, kv_dtype, cuda)
+    tcs.reset_launch_counts()
+    got = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["flash_attention"] == 1
+    want = tfa.flash_attention_reference(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    atol = B7_F32_ATOL if dtypes == "f32" else B7_BF16_ATOL
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtypes", list(B7_DTYPES))
+@pytest.mark.parametrize("dh", [16, 32])
+def test_flash_kernel_small_head_dims(cuda, dh, dtypes, rng):
+    dtype, kv_dtype = B7_DTYPES[dtypes]
+    q, k, v = _qkv(rng, 1, 40, 40, 10, 2, dh, dtype, kv_dtype, cuda)
+    got = tfa.flash_attention(q, k, v, causal=True)
+    want = tfa.flash_attention_reference(q, k, v, causal=True)
+    atol = B7_F32_ATOL if dtypes == "f32" else B7_BF16_ATOL
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_reads_a_strided_cache_view_up_to_kv_len(cuda, dtype,
+                                                              rng):
+    """k / v are one layer's view of a (layers, B, S_max, KV, dh) cache;
+    rows at or past kv_len hold NaN and must never be read."""
+    kv_len, s_max = 90, 160
+    q = torch.from_numpy(rng.standard_normal((2, 1, 10, 128)).astype(
+        np.float32)).to(cuda, dtype)
+    # stored (k/v, layers, S_max, B, KV, dh): a layer's (B, S_max, KV, dh)
+    # view steps over the batch inside the row stride
+    cache = torch.from_numpy(rng.standard_normal(
+        (2, 3, s_max, 2, 2, 128)).astype(np.float32)).to(cuda, torch.bfloat16)
+    cache[:, :, kv_len:] = float("nan")
+    k, v = cache[0, 1].transpose(0, 1), cache[1, 1].transpose(0, 1)
+    assert not k.is_contiguous() and k.shape == (2, s_max, 2, 128)
+    kw = dict(causal=True, q_start=kv_len - 1, kv_len=kv_len)
+    got = tfa.flash_attention(q, k, v, **kw)
+    want = tfa.flash_attention_reference(
+        q, k[:, :kv_len].contiguous(), v[:, :kv_len].contiguous(), **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=B7_BF16_ATOL,
+                               rtol=0)
+
+
+def test_flash_kernel_contract_violations_raise(cuda, rng):
+    q, k, v = _qkv(rng, 1, 8, 8, 4, 2, 48, torch.float32, torch.float32,
+                   cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q, k, v)
+    q, k, v = _qkv(rng, 1, 8, 8, 4, 2, 64, torch.float32, torch.float32,
+                   cuda)
+    with pytest.raises(ValueError, match="unit last stride"):
+        tfa.flash_attention(q.transpose(1, 3).contiguous().transpose(1, 3),
+                            k, v)
+    with pytest.raises(ValueError, match="dtypes"):
+        tfa.flash_attention(q.bfloat16(), k, v)
+    with pytest.raises(ValueError, match="is on"):
+        tfa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="kv_len"):
+        tfa.flash_attention(q, k, v, kv_len=9)
+
+
+def _small_lm(dtype):
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import reduced
+    cfg = reduced(get_config("qwen2.5-14b"), n_layers=3, n_heads=10,
+                  d_model=640, d_ff=512, vocab=512)
+    return dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+
+
+def test_lm_entry_points_on_the_card_launch_b7_per_layer(cuda):
+    """forward / prefill / decode_step on the card: one B7 launch per
+    layer and call, logits close to the same model on the CPU.  Float32,
+    TF32 off: ``forward`` within 1e-4.  Prefill and decode attend over
+    the bfloat16 cache with probabilities rounded to bfloat16, before
+    normalising on the card (the Pallas kernel's recurrence) and after it
+    on the CPU (``attn_core``), so their logits get the reference's bf16
+    attention bound, 0.05, and equal argmaxes."""
+    from repro_torch.models import model as tm
+    cfg = _small_lm("float32")
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (10, 2, 64)
+    cpu_params = tm.init_params(cfg, seed=0, device="cpu")
+    params = tm._tree_map(lambda t: t.to(cuda), cpu_params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 20)))
+
+    def run(p, dev):
+        t = toks.to(dev)
+        out = {}
+        tcs.reset_launch_counts()
+        out["forward"] = tm.forward(p, cfg, {"tokens": t})
+        launches = [tcs.LAUNCHES["flash_attention"]]
+        cache = tm.init_decode_cache(cfg, 2, 24, device=dev)
+        lg, cache = tm.prefill(p, cfg, {"tokens": t[:, :16]}, cache)
+        launches.append(tcs.LAUNCHES["flash_attention"])
+        outs = [lg]
+        for i in range(16, 20):
+            lg, cache = tm.decode_step(p, cfg, t[:, i:i + 1], cache)
+            outs.append(lg)
+        launches.append(tcs.LAUNCHES["flash_attention"])
+        out["serve"] = torch.cat(outs, dim=1)
+        return {k: v.cpu() for k, v in out.items()}, launches
+
+    got, launches = run(params, cuda)
+    assert launches == [3, 6, 6 + 4 * 3]
+    want, cpu_launches = run(cpu_params, torch.device("cpu"))
+    assert cpu_launches == [0, 0, 0]
+    torch.testing.assert_close(got["forward"], want["forward"], atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(got["serve"], want["serve"],
+                               atol=B7_BF16_ATOL, rtol=0)
+    assert torch.equal(got["serve"].argmax(-1), want["serve"].argmax(-1))
+
+
+def _pallas_recurrence(q, k, v, *, causal=True, prefix_len=0, kv_len=None,
+                       q_start=0, block_k=64):
+    """The reference Pallas kernel's online softmax over kv tiles of
+    ``block_k`` rows, in eager float32: the unnormalised probabilities
+    are rounded to v's dtype before the PV product (B7's numerics)."""
+    b, s, h, dh = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    kv_len = t if kv_len is None else kv_len
+    scale = float(torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32))
+    qf = q.float().reshape(b, s, kvh, h // kvh, dh)
+    m = torch.full((b, kvh, h // kvh, s, 1), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, h // kvh, s, dh), device=q.device)
+    qi = q_start + torch.arange(s, device=q.device)[:, None]
+    for t0 in range(0, t, block_k):
+        kt = k[:, t0:t0 + block_k].to(q.dtype).float()
+        ki = t0 + torch.arange(kt.shape[1], device=q.device)[None, :]
+        sc = torch.einsum("bqkgd,btkd->bkgqt", qf, kt) * scale
+        allow = ki < kv_len
+        if causal:
+            allow = allow & ((ki <= qi) | (ki < prefix_len))
+        sc = torch.where(allow, sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bkgqt,btkd->bkgqd", p.to(v.dtype).float(),
+            v[:, t0:t0 + block_k].float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", ["causal", "prefix", "decode", "chunk"])
+@pytest.mark.parametrize("dtypes", list(B7_DTYPES))
+def test_flash_kernel_follows_the_pallas_recurrence(cuda, case, dtypes,
+                                                    rng):
+    """Where bfloat16 probabilities make the kernel and the plain version
+    differ (up to the 0.05 bound), the kernel still follows the Pallas
+    kernel's own recurrence closely: float32 outputs within 1e-5.  In
+    bfloat16 the tensor cores sum the scores in another order, which can
+    flip a probability's bf16 rounding: rarely (at most 0.1 % of the
+    outputs more than one bf16 step away; the plain version's rounding
+    point moves about 15 % of them), and by at most one bf16 step of a
+    probability times the largest |v| each."""
+    s, t, kw = B7_CASES[case]
+    dtype, kv_dtype = B7_DTYPES[dtypes]
+    q, k, v = _qkv(rng, 2, s, t, 10, 2, 64, dtype, kv_dtype, cuda)
+    got = tfa.flash_attention(q, k, v, **kw)
+    want = _pallas_recurrence(q, k, v, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        off = (got.float() - want.float()).abs()
+        beyond = off > 1e-6 + 2 ** -7 * want.float().abs()
+        assert float(beyond.float().mean()) <= 1e-3
+        assert float(off.max()) <= 2 ** -8 * float(v.float().abs().max())
+
+
+def test_server_on_the_card_matches_cpu(cuda):
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import model as tm
+    cfg = _small_lm("float32")
+    cpu_params = tm.init_params(cfg, seed=3, device="cpu")
+    params = tm._tree_map(lambda t: t.to(cuda), cpu_params)
+
+    def serve(p, dev):
+        srv = tserve.Server(cfg, p, batch=2, max_len=20, device=dev)
+        rng = np.random.default_rng(2)
+        reqs = [tserve.Request(rid=i, prompt=rng.integers(1, cfg.vocab, 12),
+                               max_new=5) for i in range(3)]
+        for r in reqs:
+            srv.submit(r)
+        tcs.reset_launch_counts()
+        stats = srv.run()
+        return [r.out for r in reqs], stats, tcs.LAUNCHES["flash_attention"]
+
+    got, stats, launches = serve(params, cuda)
+    want, _, _ = serve(cpu_params, "cpu")
+    assert got == want
+    assert launches == cfg.n_layers * (stats["prefills"]
+                                       + stats["decode_steps"]) == 3 * 15

@@ -282,7 +282,9 @@ def test_import_loads_neither_jax_nor_repro():
             "for m in ('repro_torch.forest.forest', "
             "'repro_torch.core.executor', 'repro_torch.kernels.acam', "
             "'repro_torch.hdc', 'repro_torch.hdc.classifier', "
-            "'repro_torch.kernels.hdc_encode'):\n"
+            "'repro_torch.kernels.hdc_encode', 'repro_torch.models.model', "
+            "'repro_torch.launch.serve', 'repro_torch.configs', "
+            "'repro_torch.kernels.flash_attention'):\n"
             "    assert m in sys.modules, m\n"
             "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"

@@ -1,0 +1,150 @@
+"""Port B7 (attention forward) vs the reference, on the CPU: the plain
+version beside the CUDA kernel against ``flash_attention_pallas`` in
+interpret mode (as ``tests/test_flash_attention.py`` runs it) and against
+the reference's ``models.layers.attn_core``, on the same numpy inputs.
+
+Tolerances are the reference's own: 2e-3 in float32 (also for float32
+queries over a bfloat16 cache, the same algorithm on both sides) and 0.05
+where bfloat16 operands are involved (its bf16 flash test).
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.models.layers import attn_core
+from repro_torch.kernels import flash_attention as tfa
+
+F32_ATOL, BF16_ATOL = 2e-3, 0.05
+
+
+def _data(rng, b, s, t, h, kvh, dh):
+    q = rng.standard_normal((b, s, h, dh)).astype(np.float32)
+    k = rng.standard_normal((b, t, kvh, dh)).astype(np.float32)
+    v = rng.standard_normal((b, t, kvh, dh)).astype(np.float32)
+    return q, k, v
+
+
+def _port(q, k, v, dtype=torch.float32, kv_dtype=None, **kw):
+    kv_dtype = kv_dtype or dtype
+    out = tfa.flash_attention(torch.from_numpy(q).to(dtype),
+                              torch.from_numpy(k).to(kv_dtype),
+                              torch.from_numpy(v).to(kv_dtype), **kw)
+    assert out.dtype == dtype and out.shape == q.shape
+    return out.float().numpy()
+
+
+def _core(q, k, v, dtype=jnp.float32, kv_dtype=None, **kw):
+    kv_dtype = kv_dtype or dtype
+    b, s, h, dh = q.shape
+    out = attn_core(jnp.asarray(q, dtype), jnp.asarray(k, kv_dtype),
+                    jnp.asarray(v, kv_dtype), **kw)
+    return np.asarray(out.reshape(b, s, h, dh), np.float32)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 64, 64, 4, 2, 32), (1, 100, 100, 8, 8, 16),
+    (2, 32, 96, 4, 1, 64), (1, 257, 257, 2, 2, 128),
+    (1, 16, 512, 4, 4, 32), (1, 70, 90, 10, 2, 16),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_and_attn_core(shape, causal, rng):
+    q, k, v = _data(rng, *shape)
+    got = _port(q, k, v, causal=causal)
+    pallas = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    block_q=32, block_k=64)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=F32_ATOL)
+    np.testing.assert_allclose(got, _core(q, k, v, causal=causal),
+                               atol=F32_ATOL)
+
+
+def test_prefix_lm(rng):
+    q, k, v = _data(rng, 1, 32, 32, 2, 2, 16)
+    got = _port(q, k, v, causal=True, prefix_len=8)
+    pallas = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=True,
+                                    prefix_len=8, block_q=16, block_k=16)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=F32_ATOL)
+    np.testing.assert_allclose(
+        got, _core(q, k, v, causal=True, prefix_len=8), atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_kv_len_masking(causal, rng):
+    """Cache-style: only the first kv_len rows are valid."""
+    q, k, v = _data(rng, 1, 8, 64, 10, 2, 16)
+    got = _port(q, k, v, causal=causal, kv_len=40)
+    pallas = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    kv_len=40, block_q=8, block_k=16)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=F32_ATOL)
+    np.testing.assert_allclose(
+        got, _core(q, k, v, causal=causal, kv_len=40), atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("h,kvh", [(10, 2), (4, 4), (6, 1)])
+@pytest.mark.parametrize("q_start,s", [(37, 1), (20, 7)])
+def test_decode_and_chunk_rows_at_q_start(h, kvh, q_start, s, rng):
+    """Decode (S = 1) and a chunk of rows at global position q_start over
+    a cache of 48 rows with kv_len = q_start + S, GQA groups 5, 1, 6."""
+    q, k, v = _data(rng, 2, s, 48, h, kvh, 32)
+    kw = dict(causal=True, kv_len=q_start + s, q_start=q_start)
+    np.testing.assert_allclose(_port(q, k, v, **kw), _core(q, k, v, **kw),
+                               atol=F32_ATOL)
+
+
+def test_bf16(rng):
+    q, k, v = _data(rng, 1, 64, 64, 10, 2, 32)
+    got = _port(q, k, v, torch.bfloat16, causal=True)
+    bq, bk, bv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    pallas = flash_attention_pallas(bq, bk, bv, causal=True)
+    np.testing.assert_allclose(got, np.asarray(pallas, np.float32),
+                               atol=BF16_ATOL)
+    np.testing.assert_allclose(got, _core(q, k, v, jnp.bfloat16, causal=True),
+                               atol=BF16_ATOL)
+    np.testing.assert_allclose(got, _core(q, k, v, causal=True),
+                               atol=BF16_ATOL)
+
+
+def test_float32_queries_over_a_bf16_cache(rng):
+    """The float32 model's cache path: q float32, k/v bfloat16, the
+    probabilities rounded to bfloat16 on both sides."""
+    q, k, v = _data(rng, 1, 5, 40, 10, 2, 16)
+    kw = dict(causal=True, kv_len=30, q_start=25)
+    got = _port(q, k, v, torch.float32, torch.bfloat16, **kw)
+    want = _core(q, k, v, jnp.float32, jnp.bfloat16, **kw)
+    np.testing.assert_allclose(got, want, atol=F32_ATOL)
+
+
+def test_query_chunks_match_one_block(rng):
+    """Past _pick_q_chunk's threshold the plain version chunks queries;
+    each chunk's rows equal the same rows computed in one block."""
+    q, k, v = _data(rng, 1, 600, 3600, 2, 1, 16)
+    assert tfa._pick_q_chunk(600, 3600) == 512
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    whole = tfa.flash_attention_reference(qt, kt, vt, causal=True)
+    tail = tfa.flash_attention_reference(qt[:, 512:], kt, vt, causal=True,
+                                         q_start=512)
+    assert torch.equal(whole[:, 512:], tail)
+
+
+def test_cpu_wrapper_is_the_plain_version_and_checks(rng):
+    q, k, v = (torch.from_numpy(x) for x in _data(rng, 1, 6, 9, 4, 2, 16))
+    assert torch.equal(tfa.flash_attention(q, k, v, kv_len=7),
+                       tfa.flash_attention_reference(q, k, v, kv_len=7))
+    with pytest.raises(ValueError, match="kv_len"):
+        tfa.flash_attention(q, k, v, kv_len=10)
+    with pytest.raises(ValueError, match="kv_len"):
+        tfa.flash_attention(q, k, v, kv_len=0)
+    with pytest.raises(ValueError, match="multiple"):
+        tfa.flash_attention(q, k[:, :, :1].expand(1, 9, 3, 16).contiguous(),
+                            v[:, :, :1].expand(1, 9, 3, 16).contiguous())
+    with pytest.raises(ValueError, match="dtypes"):
+        tfa.flash_attention(q.bfloat16(), k, v)
+    with pytest.raises(ValueError, match="q_start"):
+        tfa.flash_attention(q, k, v, q_start=-1)
+    with pytest.raises(ValueError, match="disagree"):
+        tfa.flash_attention(q, k[..., :8], v[..., :8])
