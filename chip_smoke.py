@@ -54,8 +54,10 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        prompt) and at the ``decode_32k`` cache length
                        (bf16 within 0.05, float32 within 2e-3), each bf16
                        output also held to the Pallas kernel's own
-                       recurrence (scaled to the case: at most 0.1 % of
-                       the outputs beyond one bf16 step), timed beside
+                       recurrence at the route's kv tiles and splits
+                       (``flash_attention_recurrence``; scaled to the
+                       case: at most 0.1 % of the outputs beyond one bf16
+                       step), timed beside
                        ``scaled_dot_product_attention``.
 
 For each phase it sets the kernels' launch counts to 0, runs the path,
@@ -189,6 +191,20 @@ def cuda_ms(fn, reps: int) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def host_ms_per_call(fn, n: int) -> float:
+    """Mean host time of ``fn`` over ``n`` calls enqueued back to back
+    (no synchronise between them): what a call costs the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * took / n
 
 
 def eucl_index_swaps(q, p, got_i, want_i, what: str) -> int:
@@ -1216,39 +1232,6 @@ def b7_bound_ms(q, k, kw):
         else "bytes"
 
 
-def b7_recurrence(q, k, v, *, causal=True, prefix_len=0, kv_len=None,
-                  q_start=0, block_k=64):
-    """The reference Pallas kernel's online softmax over kv tiles of
-    ``block_k`` rows, in eager float32, the unnormalised probabilities
-    rounded to v's dtype before the PV product: what B7 computes, up to
-    the order of its float32 sums."""
-    import torch
-    b, s, h, dh = q.shape
-    kvh = k.shape[2]
-    kv_len = k.shape[1] if kv_len is None else kv_len
-    scale = float(torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32))
-    qf = q.float().reshape(b, s, kvh, h // kvh, dh)
-    m = torch.full((b, kvh, h // kvh, s, 1), -1e30, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((b, kvh, h // kvh, s, dh), device=q.device)
-    qi = q_start + torch.arange(s, device=q.device)[:, None]
-    for t0 in range(0, kv_len, block_k):
-        kt = k[:, t0:min(t0 + block_k, kv_len)].to(q.dtype).float()
-        ki = t0 + torch.arange(kt.shape[1], device=q.device)[None, :]
-        sc = torch.einsum("bqkgd,btkd->bkgqt", qf, kt) * scale
-        if causal:
-            sc = torch.where((ki <= qi) | (ki < prefix_len), sc, -1e30)
-        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
-        alpha, p = torch.exp(m - m_new), torch.exp(sc - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + torch.einsum(
-            "bkgqt,btkd->bkgqd", p.to(v.dtype).float(),
-            v[:, t0:t0 + kt.shape[1]].float())
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
-
-
 def sdpa_call(q, k, v, kw):
     """The library yardstick for one B7 call: PyTorch's
     ``scaled_dot_product_attention`` over the visible cache rows (timed
@@ -1415,8 +1398,11 @@ def phase_lm_serve(s: Smoke):
                                f"by {err} (bf16 bound {B7_BF16_ATOL})")
         err_bf16 = max(err_bf16, err)
         # the 0.05 ceiling is as large as a long decode's outputs: hold
-        # each case to the recurrence, in steps of its own outputs' size
-        rec = b7_recurrence(q, k, v, **kw).float()
+        # each case to the Pallas recurrence at its route's kv tiles and
+        # splits, in steps of its own outputs' size
+        route = fa.flash_route(q.shape, k.shape, q.dtype, **kw)
+        rec = fa.flash_attention_recurrence(
+            q, k, v, block_k=route.block_k, splits=route.splits, **kw).float()
         off = (got.float() - rec).abs()
         beyond = float((off > 1e-6 + 2.0 ** -7 * rec.abs()).float().mean())
         rec_max, v_max = float(off.max()), float(v.float().abs().max())
@@ -1443,7 +1429,9 @@ def phase_lm_serve(s: Smoke):
                                f"plain version by {err32} (bound "
                                f"{B7_F32_ATOL})")
         checks[name] = {"q": list(q.shape), "kv": list(k.shape),
-                        "kw": kw, "max_abs_err": err,
+                        "kw": kw, "route": route.name,
+                        "splits": route.splits, "block_k": route.block_k,
+                        "max_abs_err": err,
                         "max_abs_want": float(want.float().abs().max()),
                         "recurrence_max_abs_err": rec_max,
                         "recurrence_beyond_one_step": beyond,
@@ -1458,8 +1446,13 @@ def phase_lm_serve(s: Smoke):
                          - fa.flash_attention_reference(q, k, v, **kw)
                          .float()).abs().max())
         reps = 5 if q.shape[1] > 1 else 20
+        route = fa.flash_route(q.shape, k.shape, q.dtype, **kw)
         shapes[name] = {
+            "route": route.name, "splits": route.splits,
+            "block_k": route.block_k,
             "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps),
+            "host_ms": host_ms_per_call(
+                lambda: fa.flash_attention(q, k, v, **kw), reps),
             "plain_ms": cuda_ms(
                 lambda: fa.flash_attention_reference(q, k, v, **kw), 3),
             "bound_ms": bound, "bound_by": by,

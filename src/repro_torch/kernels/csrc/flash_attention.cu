@@ -8,31 +8,58 @@
 // h / (H / KV); scores q.k (k taken in q's precision) accumulated in float32
 // and scaled by 1/sqrt(dh); row s is global position q_start + s; column t
 // is visible when t < kv_len and, if causal, t <= q_start + s or
-// t < prefix_len; hidden scores are the finite -1e30; probabilities are
-// rounded to v's dtype before the PV product, which accumulates in float32;
-// the output, acc / max(l, 1e-30), is stored in q's dtype.
+// t < prefix_len; hidden scores are the reference's finite -1e30 (the bf16
+// kernels enter them as -inf, with the running max starting at -1e30: the
+// same probabilities, 0, and never e^0 on a split no column of which a
+// row sees); the unnormalised
+// probabilities are rounded to v's dtype before the PV product, which
+// accumulates in float32; the output, acc / max(l, 1e-30), is stored in q's
+// dtype.  No kernel reads a K / V row at or past kv_len, and none walks a kv
+// tile past the last column any of its rows can see (`col_end`).
 //
 // Bound on an H100 SXM: 4 * H * dh * (visible columns summed over rows)
 // FLOP at 989 TFLOP/s (bf16 tensor cores), against the bytes of q, o and
 // the visible K/V rows at 3.35 TB/s.  A 2048-token causal prefill of
 // qwen2.5-14b (40 heads, dh 128) is 4.3e10 FLOP, 0.043 ms: compute-bound;
-// a decode step reads 8.5 MB of cache for 2,080 rows, 2.5 us: memory-bound.
+// a decode step reads 8.4 MB of cache for 2,049 rows, 2.5 us, and a
+// 32,768-row decode 134 MB, 40 us: memory-bound.  The wrapper picks one of
+// three routes from the shape (flash_attention.py, `flash_route`):
 //
-// Design, a simple first version: the Pallas grid's sequential kv axis
-// (m, l and acc carried in VMEM scratch across grid steps) becomes a loop
-// inside one block.  A block owns (b, h, 64 query rows) and walks 64-row kv
-// tiles up to the last column any of its rows can see, so no tile wholly
-// past kv_len or the causal diagonal is read, and column 0 (visible to every
-// row) sits in the first tile: no row starts on a wholly masked tile.  A warp
-// whose rows are all past S skips the arithmetic (decode uses one row).
-//
-// * bf16 q over bf16 k / v (the served model): flash_fwd_mma_kernel, 4 warps
-//   of 16 rows on the tensor cores, mma.sync m16n8k16 with float32
-//   accumulators.  Q's fragments stay in registers; K and V tiles are copied
-//   as bf16 into padded shared memory (52 KB at dh 128); the probabilities
-//   are rounded to bf16 straight from the score fragments, which are the
-//   A fragments of the PV product, and V's B fragments come through
-//   ldmatrix.trans.
+// * bf16, more than 64 query rows per kv head (S * H / KV): prefill,
+//   flash_fwd_wgmma_kernel.  A block owns 128 query rows of one head, two
+//   consumer warpgroups of 64 rows, and one producer warp that keeps a
+//   3-stage ring of 128-row K / V tiles full by TMA (one mbarrier per
+//   stage for "full", one for "empty"; the tensor maps cover the strided
+//   (B, T, KV, dh) view with T cut to kv_len, so rows past it read as
+//   zeros and are never fetched) and hands its registers to the consumers
+//   (setmaxnreg).  S = Q K^T is wgmma m64n128k16 with Q and K from
+//   shared memory (K-major, swizzled as TMA wrote them: 128 B rows at
+//   dh >= 64, 64 B at dh 32, 32 B at dh 16); the score accumulators,
+//   rounded to bf16, are the A registers of O += P V (wgmma with V
+//   through the transposed-B descriptor).  A tile's softmax runs while the
+//   previous tile's P V is on the tensor cores, and the two warpgroups
+//   take turns to start their products (ping-pong), so one's softmax runs
+//   while the other's products do.  Only tiles that straddle the
+//   diagonal, kv_len or prefix_len are masked (one branch a tile); the
+//   longest causal query blocks launch first, so the causal tail is
+//   short; the output leaves through shared memory in 16-byte chunks.
+//   What bounds it: the softmax (an accurate expf, 8 instructions of ~15 a
+//   score, kept so that the probabilities round where the recurrence's
+//   do) on the CUDA cores, beside the tensor cores' share.
+// * bf16, at most 64 query rows per kv head: decode and short chunks,
+//   flash_fwd_splitkv_kernel + flash_fwd_splitkv_combine.  A block owns
+//   one kv head of one batch row and folds its H / KV query heads times
+//   S rows into the rows of one or four m16 tiles, so every K / V byte is
+//   read once per kv head.  The kv walk is cut into splits of whole
+//   64-row tiles, about two blocks an SM; each split runs the recurrence
+//   from m = -1e30 over its tiles through a 3-stage cp.async ring (no TMA:
+//   a decode call encodes no tensor map) with mma.sync m16n8k16, its 4
+//   warps taking 16 score columns and a quarter of dh each, and writes
+//   (m, l, acc) to float32 scratch.  The combine kernel merges the
+//   splits: m* = max m_i, l = sum l_i e^(m_i - m*), acc likewise,
+//   out = acc / max(l, 1e-30).  A split with no visible column for a row
+//   contributes m = -1e30, l = 0, acc = 0.  What bounds it: the bytes of
+//   the cache, and at short caches the two launches' latency.
 // * float32 q (the parity checks; over a float32 or the float32 model's
 //   bf16 cache): flash_fwd_kernel, 256 threads of float32 FMA on the CUDA
 //   cores (products of bf16 values are exact in float32).  Q, K, V and the
@@ -41,15 +68,17 @@
 //   the scores and tx + 16n of the accumulator; row max and sum reduce
 //   across the 16 threads of a half-warp.
 //
-// The bf16 kernel stages each K / V tile with cp.async, every copy of a tile
-// in flight at once; no load overlaps the arithmetic yet.  wgmma, TMA
-// pipelines, heads folded into the tile's rows and split-KV decoding are
-// later work.
+// The kv tile width of each route (128, 64, 64) is the recurrence's
+// block_k: a row's running max, and so the rounding point of its
+// probabilities, moves at tile (and split) boundaries, which the wrapper
+// exposes so that the checks follow the kernel.
+#include <cuda.h>          // CUtensorMap; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -59,6 +88,21 @@ constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kLdp = kBlockK + 4;   // padded row of the probability tile
 constexpr float kNegBig = -1e30f;
+
+// cudaFuncSetAttribute(kernel, max dynamic shared memory) once per kernel
+// and device; `done` holds a bit per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
 
 // 16-byte loads converted to float32.
 template <typename T> struct Vec;
@@ -251,13 +295,636 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 }
 
+template <int DH, typename TQ, typename TKV>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int H, int KV, int causal, int prefix_len, int kv_len, int q_start,
+           const long long* st, cudaStream_t stream) {
+  constexpr size_t kSmem = sizeof(float) * (3 * 64 * (DH + 4) + kBlockQ * kLdp);
+  auto kernel = flash_fwd_kernel<DH, TQ, TKV>;
+  static std::atomic<uint64_t> ready{0};
+  const cudaError_t err = allow_smem(kernel, kSmem, ready);
+  if (err != cudaSuccess) return int(err);
+  const float scale = float(1.0 / sqrt(double(DH)));
+  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
+  kernel<<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), static_cast<TQ*>(o), S, H, H / KV, causal,
+      prefix_len, kv_len, q_start, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], scale);
+  return int(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------------------
-// bf16 q over bf16 k / v: the tensor cores (mma.sync m16n8k16, f32 accumulate)
+// bf16 helpers shared by the tensor-core routes
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 4;                 // 16 query rows each
-constexpr int kMmaThreads = 32 * kMmaWarps;
 using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// Prefill: flash_fwd_wgmma_kernel (TMA ring, warp-specialised, wgmma)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kBlockQ = 128;       // two consumer warpgroups of 64 rows
+constexpr int kBlockK = 128;       // kv rows per tile (the Pallas default)
+constexpr int kStages = 3;         // K / V tiles in flight
+constexpr int kThreads = 384;      // warpgroups 0-1 consume, 2 produces
+constexpr int kConsumerWarps = 8;
+
+// Shared-memory geometry of a [128 rows][DH] bf16 tile as TMA writes it:
+// DH / kAtomCols column atoms, each [128 rows][kSwizzle bytes], swizzled.
+template <int DH>
+struct Geo {
+  static constexpr int kSwizzle = DH * 2 >= 128 ? 128 : DH * 2;
+  static constexpr int kAtomCols = kSwizzle / 2;
+  static constexpr int kAtoms = DH / kAtomCols;
+  static constexpr int kAtomBytes = 128 * kSwizzle;
+  static constexpr int kTileBytes = kAtoms * kAtomBytes;   // 128 x DH x 2
+  // wgmma descriptor layout type: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
+  static constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
+  // Q, kStages K and V tiles, 1 KB of alignment slack, the barriers
+  static constexpr size_t kSmem = size_t(1 + 2 * kStages) * kTileBytes + 1024 + 64;
+};
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle layout.
+template <int DH>
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | uint64_t((lbo >> 4) & 0x3FFF) << 16 |
+         uint64_t((sbo >> 4) & 0x3FFF) << 32 | Geo<DH>::kLayout << 62;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accesses of an accumulator across the
+// asynchronous wgmma that writes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+
+// d (64 x 128, float32) (+)= A B^T for bf16 A (64 x 16) and B (128 x 16)
+// in shared memory, both K-major (descriptors da, db); scale_d 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, float32) += A B for a bf16 A (64 x 16) in registers (the
+// m16n8k16 A fragment of each warp's 16 rows) and B (16 x N) in shared
+// memory, N-major (transposed; descriptor db).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// S = Q K^T for one warpgroup's 64 rows (at q_rows) and a K tile, over dh
+// in k-steps of 16 columns (32 bytes of an atom row).
+template <int DH>
+__device__ __forceinline__ void start_s(float (&sc)[64], uint32_t q_rows,
+                                        uint32_t kt) {
+  using G = Geo<DH>;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t off = (16 * kk / G::kAtomCols) * G::kAtomBytes +
+                         (16 * kk % G::kAtomCols) * 2;
+    wgmma_ss_n128(sc, desc<DH>(q_rows + off, 16, 8 * G::kSwizzle),
+                  desc<DH>(kt + off, 16, 8 * G::kSwizzle), kk > 0);
+  }
+}
+
+// O += P V: V's rows 16kk..16kk+15 of every atom, N-major.
+template <int DH>
+__device__ __forceinline__ void start_pv(float (&acc)[DH / 2],
+                                         const uint32_t (&pa)[kBlockK / 16][4],
+                                         uint32_t vt) {
+  using G = Geo<DH>;
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk)
+    wgmma_rs<DH>(acc, pa[kk],
+                 desc<DH>(vt + kk * 16 * G::kSwizzle, G::kAtomBytes, 8 * G::kSwizzle));
+}
+
+// The probabilities (already e^(S - m), float), rounded to bf16 into the A
+// registers of P V: k-step kk covers score blocks 2kk and 2kk + 1.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBlockK / 16][4],
+                                       const float (&sc)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+}
+
+// One thread's two rows: positions, masks, and the running max and sum
+// (this lane's share of each row's sum).
+struct Rows {
+  int p0, p1, full_end, kv_len, prefix_len, causal;
+  float m0 = kNegBig, m1 = kNegBig, l0 = 0.f, l1 = 0.f;
+
+  // Scale and mask the scores of the tile at column t0 (only a tile
+  // that straddles full_end is masked; hidden scores become -inf), move
+  // the running max, and replace each score by e^(score - max); a0, a1
+  // are the rows' rescale factors.
+  __device__ __forceinline__ void softmax(float (&sc)[64], int t0, float scale,
+                                          float& a0, float& a1, int t) {
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    if (t0 + kBlockK > full_end) {               // one branch for the tile
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = t0 + 8 * j + 2 * t + e;
+          const bool in = col < kv_len, pre = col < prefix_len;
+          const bool ok0 = in && (!causal || col <= p0 || pre);
+          const bool ok1 = in && (!causal || col <= p1 || pre);
+          sc[4 * j + e] = ok0 ? sc[4 * j + e] * scale : -INFINITY;
+          sc[4 * j + 2 + e] = ok1 ? sc[4 * j + 2 + e] * scale : -INFINITY;
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] *= scale;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {       // the 4 lanes of a row
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+    a0 = expf(m0 - n0);
+    a1 = expf(m1 - n1);
+    m0 = n0;
+    m1 = n1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = expf(sc[4 * j + e] - n0);
+        sc[4 * j + 2 + e] = expf(sc[4 * j + 2 + e] - n1);
+        sum0 += sc[4 * j + e];
+        sum1 += sc[4 * j + 2 + e];
+      }
+    l0 = l0 * a0 + sum0;
+    l1 = l1 * a1 + sum1;
+  }
+};
+
+// Block (h, b, z): query rows [s0, s0 + 128) of head h in batch row b,
+// with z = 0 taking the last query block, so the longest causal rows start
+// first.  Consumer warpgroup w owns rows 64w..64w+63; in it, warp u and
+// lane (g, t) = (lane / 4, lane % 4) hold rows 16u + g and 16u + g + 8 and,
+// of each 8-column block j of a score or output tile, columns 8j + 2t and
+// 8j + 2t + 1 (the wgmma accumulator layout; registers 4j + {0, 1} and
+// 4j + {2, 3}).
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ o, int S, int H, int group, int causal,
+                       int prefix_len, int kv_len, int q_start, float scale) {
+  using G = Geo<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms
+  const uint32_t sq = base;
+  const uint32_t sk = base + G::kTileBytes;                     // + stage tile
+  const uint32_t sv = sk + kStages * G::kTileBytes;
+  const uint32_t bars = sv + kStages * G::kTileBytes;
+  const uint32_t qbar = bars + 16 * kStages;
+  // full[s] = bars + 8 s, empty[s] = bars + 8 (kStages + s)
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int s0 = (gridDim.z - 1 - blockIdx.z) * kBlockQ;
+  const int rows = min(kBlockQ, S - s0);
+  int col_end = kv_len;            // the last column any row can see, + 1
+  if (causal) col_end = min(col_end, max(q_start + s0 + rows, prefix_len));
+  const int n_tiles = (col_end + kBlockK - 1) / kBlockK;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kStages + s), kConsumerWarps);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ---- producer: one thread starts every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      const int kvh = h / group;
+      mbar_expect_tx(qbar, G::kTileBytes);
+#pragma unroll
+      for (int a = 0; a < G::kAtoms; ++a)
+        tma_load_4d(sq + a * G::kAtomBytes, &tq, qbar, a * G::kAtomCols, h, s0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const uint32_t full = bars + 8 * st;
+        mbar_wait(bars + 8 * (kStages + st), ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * G::kTileBytes);
+#pragma unroll
+        for (int a = 0; a < G::kAtoms; ++a) {
+          const uint32_t off = st * G::kTileBytes + a * G::kAtomBytes;
+          tma_load_4d(sk + off, &tk, full, a * G::kAtomCols, kvh, i * kBlockK, b);
+          tma_load_4d(sv + off, &tv, full, a * G::kAtomCols, kvh, i * kBlockK, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    if (64 * wgi >= rows) {          // every row of this warpgroup is past S
+      for (int i = 0; i < n_tiles; ++i) {
+        mbar_wait(bars + 8 * (i % kStages), (i / kStages) & 1);
+        if (lane == 0) mbar_arrive(bars + 8 * (kStages + i % kStages));
+      }
+      return;
+    }
+    const int r0 = 64 * wgi + 16 * warp + g;                // rows r0, r0 + 8
+    Rows rw;
+    rw.p0 = q_start + s0 + r0;                              // their positions
+    rw.p1 = rw.p0 + 8;
+    // columns visible to every row of this warpgroup: [0, full_end)
+    rw.full_end = kv_len;
+    if (causal) rw.full_end = min(kv_len, max(q_start + s0 + 64 * wgi + 1, prefix_len));
+    rw.kv_len = kv_len;
+    rw.prefix_len = prefix_len;
+    rw.causal = causal;
+
+    float acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    float sc[64];
+    uint32_t pa[kBlockK / 16][4];
+    const uint32_t q_rows = sq + 64 * wgi * G::kSwizzle;
+    mbar_wait(qbar, 0);
+
+    // Tile i's softmax overlaps tile i - 1's P V on the tensor cores: S_i
+    // and P_{i-1} V_{i-1} are started together, S_i is awaited, its
+    // probabilities computed, then P V is awaited before the rescale.
+    // When both warpgroups have rows they take turns to start them (named
+    // barriers 3 and 4, warpgroup 0 first), so one's softmax runs while
+    // the other's products do.
+    const bool pingpong = rows > 64;
+    const int mine = 3 + wgi, other = 4 - wgi;
+    if (pingpong && wgi == 1) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+    auto turn = [&] {
+      if (pingpong) asm volatile("bar.sync %0, 256;\n" ::"r"(mine) : "memory");
+    };
+    auto pass = [&](bool last) {
+      if (pingpong && !(last && wgi == 1))
+        asm volatile("bar.arrive %0, 256;\n" ::"r"(other) : "memory");
+    };
+    mbar_wait(bars, 0);
+    fence_regs(sc);
+    turn();
+    wgmma_fence();
+    start_s<DH>(sc, q_rows, sk);
+    wgmma_commit();
+    pass(false);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    float a0, a1;
+    rw.softmax(sc, 0, scale, a0, a1, t);
+    pack_p(pa, sc);
+    for (int i = 1; i < n_tiles; ++i) {
+      const int st = i % kStages, prev = (i - 1) % kStages;
+      mbar_wait(bars + 8 * st, (i / kStages) & 1);
+      fence_regs(sc);
+      fence_regs(acc);
+      turn();
+      wgmma_fence();
+      start_s<DH>(sc, q_rows, sk + st * G::kTileBytes);
+      wgmma_commit();
+      start_pv<DH>(acc, pa, sv + prev * G::kTileBytes);
+      wgmma_commit();
+      pass(false);
+      wgmma_wait<1>();               // S_i is in
+      fence_regs(sc);
+      rw.softmax(sc, i * kBlockK, scale, a0, a1, t);
+      wgmma_wait<0>();               // P_{i-1} V_{i-1} is in
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (kStages + prev));
+      if (__any_sync(0xffffffffu, a0 != 1.f || a1 != 1.f)) {   // a max moved
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n) {
+          acc[4 * n] *= a0;
+          acc[4 * n + 1] *= a0;
+          acc[4 * n + 2] *= a1;
+          acc[4 * n + 3] *= a1;
+        }
+      }
+      pack_p(pa, sc);
+    }
+    {
+      const int last = (n_tiles - 1) % kStages;
+      fence_regs(acc);
+      turn();
+      wgmma_fence();
+      start_pv<DH>(acc, pa, sv + last * G::kTileBytes);
+      wgmma_commit();
+      pass(true);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (kStages + last));
+    }
+
+    float l0 = rw.l0, l1 = rw.l1;
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    // The output tile goes through this warpgroup's Q rows in shared
+    // memory (no wgmma reads them any more), 16-byte chunks XOR-swizzled
+    // by row, then out to global memory as whole 16-byte chunks of rows.
+    unsigned char* qs = smem_raw + (sq - smem_u32(smem_raw)) + 64 * wgi * G::kSwizzle;
+    constexpr int kChunks = G::kSwizzle / 16;        // 16-byte chunks a row
+    auto chunk = [&](int r, int c) {                 // row r, 8-column chunk c
+      return qs + (c / kChunks) * G::kAtomBytes + r * G::kSwizzle +
+             ((c % kChunks) ^ (r % kChunks)) * 16;
+    };
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * warp + g + 8 * half;
+      const float d = half ? d1 : d0;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+        *reinterpret_cast<uint32_t*>(chunk(r, n) + 4 * t) =
+            pack_bf16(acc[4 * n + 2 * half] / d, acc[4 * n + 2 * half + 1] / d);
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
+    for (int i = tid; i < 64 * (DH / 8); i += 128) {
+      const int r = i / (DH / 8), c = i % (DH / 8);
+      const int row = s0 + 64 * wgi + r;
+      if (row < S)
+        *reinterpret_cast<uint4*>(o + ((int64_t(blockIdx.y) * S + row) * H + h) * DH + 8 * c) =
+            *reinterpret_cast<const uint4*>(chunk(r, c));
+    }
+  }
+}
+
+}  // namespace wg
+
+// cuTensorMapEncodeTiled, fetched from the driver at first use (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A tensor map of a (B, L, NH, DH) bf16 view with strides (sb, sl, sh, 1)
+// elements, boxes of [128 rows][cols] of one head; rows at or past L read
+// as zeros.  A stride of an extent-1 dimension is never used: it is given
+// a legal value.
+bool encode(CUtensorMap* map, const void* ptr, int B, int L, int NH, int DH,
+            long long sb, long long sl, long long sh, int cols,
+            CUtensorMapSwizzle swizzle) {
+  EncodeTiled enc = encoder();
+  if (!enc) return false;
+  cuuint64_t dims[4] = {cuuint64_t(DH), cuuint64_t(NH), cuuint64_t(L), cuuint64_t(B)};
+  long long elem[3] = {sh, sl, sb};
+  cuuint64_t strides[3];
+  long long contiguous = DH;
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = cuuint64_t(2 * (dims[i + 1] == 1 ? contiguous : elem[i]));
+    contiguous = (dims[i + 1] == 1 ? contiguous : elem[i]) * (long long)dims[i + 1];
+  }
+  cuuint32_t box[4] = {cuuint32_t(cols), 1, 128, 1};
+  cuuint32_t estride[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+             strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int S, int H, int KV, int causal, int prefix_len, int kv_len,
+                 int q_start, const long long* st, cudaStream_t stream) {
+  using G = wg::Geo<DH>;
+  const CUtensorMapSwizzle sw = G::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : G::kSwizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, q, B, S, H, DH, st[0], st[1], st[2], G::kAtomCols, sw) ||
+      !encode(&tk, k, B, kv_len, KV, DH, st[3], st[4], st[5], G::kAtomCols, sw) ||
+      !encode(&tv, v, B, kv_len, KV, DH, st[6], st[7], st[8], G::kAtomCols, sw))
+    return int(cudaErrorInvalidValue);
+  auto kernel = wg::flash_fwd_wgmma_kernel<DH>;
+  static std::atomic<uint64_t> ready{0};
+  const cudaError_t err = allow_smem(kernel, G::kSmem, ready);
+  if (err != cudaSuccess) return int(err);
+  const float scale = float(1.0 / sqrt(double(DH)));
+  const dim3 grid(H, B, (S + wg::kBlockQ - 1) / wg::kBlockQ);
+  kernel<<<grid, wg::kThreads, G::kSmem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), S, H, H / KV, causal, prefix_len,
+      kv_len, q_start, scale);
+  return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Decode and short chunks: flash_fwd_splitkv_kernel + its combine
+// ---------------------------------------------------------------------------
+
+namespace sk {
+
+constexpr int kThreads = 128;      // 4 warps
+constexpr int kBlockK = 64;        // kv rows per tile; 16 score columns a warp
+constexpr int kStages = 3;         // cp.async ring depth: two blocks an SM at dh 128
+constexpr int kLdp = kBlockK + 8;  // padded row of the probability tile
+
+template <int DH, int RT>
+struct Smem {
+  static constexpr int kLd = DH + 8;   // padded tile row (bf16): no bank conflicts
+  static constexpr size_t kBytes =
+      sizeof(bf16) * (RT * 16 * kLd + 2 * kStages * kBlockK * kLd + RT * 16 * kLdp) +
+      sizeof(float) * 2 * 4 * RT * 16;
+};
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
                                          uint32_t b0, uint32_t b1) {
@@ -273,242 +940,407 @@ __device__ __forceinline__ uint32_t ld2(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// The A fragment of rows [0, 16) and columns [0, 16) of a row-major tile
+// with row stride ld (lane (g, t) reads rows g and g + 8).
+__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* tile, int ld,
+                                       int g, int t) {
+  const bf16* p = tile + g * ld + 2 * t;
+  a[0] = ld2(p);
+  a[1] = ld2(p + 8 * ld);
+  a[2] = ld2(p + 8);
+  a[3] = ld2(p + 8 * ld + 8);
 }
 
 // B fragments of two 8x8 bf16 blocks stacked in k, read transposed from a
 // row-major tile (lanes 0-15 give the 16 row addresses).
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
                                                   const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r0), "=r"(r1)
-               : "r"(addr));
+               : "r"(smem_u32(p)));
 }
 
-// Start copying rows [r0, r0 + 64) of one head into a [64][DH + 8] bf16
-// tile, 16 bytes per cp.async, all in flight at once; rows at or past
-// `r_end` are zero-filled (no byte is read for them).  Complete with
-// cp_async_wait_all() and a barrier.
+// Start copying rows [r0, r0 + 64) of one head into a [64][DH + 8] tile,
+// 16 bytes per cp.async; rows at or past r_end are zero-filled (no byte is
+// read for them).
 template <int DH>
-__device__ __forceinline__ void stage_bf16(bf16* tile, const bf16* src,
-                                           int64_t rs, int r0, int r_end) {
+__device__ __forceinline__ void stage(bf16* tile, const bf16* src, int64_t rs,
+                                      int r0, int r_end) {
   constexpr int kPerRow = DH / 8;
 #pragma unroll
-  for (int i = threadIdx.x; i < 64 * kPerRow; i += kMmaThreads) {
+  for (int i = threadIdx.x; i < kBlockK * kPerRow; i += kThreads) {
     const int r = i / kPerRow, c = (i % kPerRow) * 8;
     const int row = min(r0 + r, r_end - 1);       // an address inside the tensor
-    const unsigned dst = static_cast<unsigned>(
-        __cvta_generic_to_shared(tile + r * (DH + 8) + c));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :
-                 : "r"(dst), "l"(src + int64_t(row) * rs + c),
-                   "r"(r0 + r < r_end ? 16 : 0));
+                 : "r"(smem_u32(tile + r * (DH + 8) + c)),
+                   "l"(src + int64_t(row) * rs + c), "r"(r0 + r < r_end ? 16 : 0));
   }
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The same contract and recurrence as flash_fwd_kernel for bf16 q, k, v.
-// Warp w owns query rows 16w..16w+15 of the block's 64; lane (g, t) =
-// (lane / 4, lane % 4) holds rows g and g + 8 of them, and of each 8-column
-// score or output tile the columns 2t and 2t + 1 (the mma C fragment).  The
-// probabilities' C fragments are the A fragments of the PV product; V's B
-// fragments come from its row-major tile through ldmatrix.trans.
-template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int S,
-                     int H, int group, int causal, int prefix_len, int kv_len,
-                     int q_start, int64_t qsb, int64_t qss, int64_t qsh,
-                     int64_t ksb, int64_t kst, int64_t ksh, int64_t vsb,
-                     int64_t vst, int64_t vsh, float scale) {
-  constexpr int kLdk = DH + 8;        // padded tile row (bf16): no bank conflicts
-  constexpr int kSteps = DH / 16;     // k-steps of Q K^T
-  constexpr int kNt = DH / 8;         // 8-column tiles of the output
+// Block (split, kvh, b): kv tiles [split * split_tiles, + split_tiles) of
+// kv head kvh in batch row b, for its R = S * group query rows, row
+// r = s * group + j being query row s of head kvh * group + j.  RT m16
+// row tiles cover R (rows past R are zero).  Lane (g, t) holds rows
+// 16rt + g and 16rt + g + 8.  Warp w computes the scores of tile columns
+// [16w, 16w + 16) and the output columns [8 kNpw w, 8 kNpw (w + 1)); row
+// maxima and sums meet in shared memory, the probabilities too (the A
+// operand of P V).  Writes the split's m, l (float32) and unnormalised acc
+// to `part`: acc [B][KV][splits][R][DH], then m and l [B][KV][splits][R].
+template <int DH, int RT>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_splitkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, float* __restrict__ part,
+                         int S, int KV, int group, int causal, int prefix_len,
+                         int kv_len, int q_start, int split_tiles, int64_t qsb,
+                         int64_t qss, int64_t qsh, int64_t ksb, int64_t kst,
+                         int64_t ksh, int64_t vsb, int64_t vst, int64_t vsh,
+                         float scale) {
+  constexpr int kLd = DH + 8;
+  constexpr int kRows = 16 * RT;
+  constexpr int kNpw = DH >= 32 ? DH / 32 : 1;     // 8-column output tiles a warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kBlockQ][kLdk]
-  bf16* ks = qs + kBlockQ * kLdk;                 // [kBlockK][kLdk]
-  bf16* vs = ks + kBlockK * kLdk;                 // [kBlockK][kLdk]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kRows][kLd]
+  bf16* ks = qs + kRows * kLd;                    // [kStages][kBlockK][kLd]
+  bf16* vs = ks + kStages * kBlockK * kLd;        // [kStages][kBlockK][kLd]
+  bf16* ps = vs + kStages * kBlockK * kLd;        // [kRows][kLdp]
+  float* red_max = reinterpret_cast<float*>(ps + kRows * kLdp);   // [4][kRows]
+  float* red_sum = red_max + 4 * kRows;                           // [4][kRows]
 
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int R = S * group;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int s0 = blockIdx.x * kBlockQ;
-  const int rows = min(kBlockQ, S - s0);
-  const bool active = 16 * warp < rows;           // the warp has a row below S
-
-  const bf16* kb = k + b * ksb + (h / group) * ksh;
-  const bf16* vb = v + b * vsb + (h / group) * vsh;
-  stage_bf16<DH>(qs, q + b * qsb + h * qsh + int64_t(s0) * qss, qss, 0, rows);
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qa[kSteps][4];                         // A fragments of the warp's Q
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    const bf16* base = qs + (16 * warp + g) * kLdk + 16 * kk + 2 * t;
-    qa[kk][0] = ld2(base);
-    qa[kk][1] = ld2(base + 8 * kLdk);
-    qa[kk][2] = ld2(base + 8);
-    qa[kk][3] = ld2(base + 8 * kLdk + 8);
-  }
-
   int col_end = kv_len;
-  if (causal) col_end = min(col_end, max(q_start + s0 + rows, prefix_len));
-  const int qi0 = q_start + s0 + 16 * warp + g, qi1 = qi0 + 8;
+  if (causal) col_end = min(col_end, max(q_start + S, prefix_len));
+  const int n_tiles = (col_end + kBlockK - 1) / kBlockK;
+  const int tile0 = min(split * split_tiles, n_tiles);
+  const int n_here = min(tile0 + split_tiles, n_tiles) - tile0;
 
-  float m0 = kNegBig, m1 = kNegBig, l0 = 0.f, l1 = 0.f;   // rows g, g + 8
-  float acc[kNt][4];
+  const bf16* kb = k + b * ksb + kvh * ksh;
+  const bf16* vb = v + b * vsb + kvh * vsh;
+  for (int i = threadIdx.x; i < kRows * (DH / 8); i += kThreads) {
+    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (r < R)
+      x = *reinterpret_cast<const uint4*>(q + b * qsb + (r / group) * qss +
+                                          (kvh * group + r % group) * qsh + c);
+    *reinterpret_cast<uint4*>(qs + r * kLd + c) = x;
+  }
 #pragma unroll
-  for (int n = 0; n < kNt; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_here) {
+      stage<DH>(ks + s * kBlockK * kLd, kb, kst, (tile0 + s) * kBlockK, col_end);
+      stage<DH>(vs + s * kBlockK * kLd, vb, vst, (tile0 + s) * kBlockK, col_end);
+    }
+    cp_async_commit();
+  }
 
-  for (int t0 = 0; t0 < col_end; t0 += kBlockK) {
-    __syncthreads();                // the previous tile's readers are done
-    stage_bf16<DH>(ks, kb, kst, t0, col_end);
-    stage_bf16<DH>(vs, vb, vst, t0, col_end);
-    cp_async_wait_all();
+  float m[RT][2], l[RT][2], acc[RT][kNpw][4];
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      m[rt][hf] = kNegBig;
+      l[rt][hf] = 0.f;
+    }
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+    for (int n = 0; n < kNpw; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[rt][n][j] = 0.f;
+  const int col0 = kNpw * 8 * warp;               // this warp's output columns
+  const bool pv = col0 < DH;
+
+  for (int i = 0; i < n_here; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();              // tile i is in; tile i - 1's readers are done
+    {
+      const int nx = i + kStages - 1;
+      if (nx < n_here) {
+        const int slot = nx % kStages;
+        stage<DH>(ks + slot * kBlockK * kLd, kb, kst, (tile0 + nx) * kBlockK, col_end);
+        stage<DH>(vs + slot * kBlockK * kLd, vb, vst, (tile0 + nx) * kBlockK, col_end);
+      }
+      cp_async_commit();
+    }
+    const bf16* kt = ks + (i % kStages) * kBlockK * kLd;
+    const bf16* vt = vs + (i % kStages) * kBlockK * kLd;
+    const int t0 = (tile0 + i) * kBlockK;
+
+    float sc[RT][2][4];
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[rt][nt][j] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t kb0[2], kb1[2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const bf16* kr = kt + (16 * warp + 8 * nt + g) * kLd + 16 * kk + 2 * t;
+        kb0[nt] = ld2(kr);
+        kb1[nt] = ld2(kr + 8);
+      }
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt) {
+        uint32_t a[4];
+        load_a(a, qs + 16 * rt * kLd + 16 * kk, kLd, g, t);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) mma_bf16(sc[rt][nt], a, kb0[nt], kb1[nt]);
+      }
+    }
+    // scale, hide, and each row's max over this warp's 16 columns
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = 16 * rt + g + 8 * hf;
+        const int pos = q_start + row / group;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = t0 + 16 * warp + 8 * nt + 2 * t + e;
+            const bool ok = col < col_end && (!causal || col <= pos || col < prefix_len);
+            const float x = ok ? sc[rt][nt][2 * hf + e] * scale : -INFINITY;
+            sc[rt][nt][2 * hf + e] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        if (t == 0) red_max[warp * kRows + row] = mx;
+      }
     __syncthreads();
-    if (!active) continue;
-    float sc[8][4];                 // scores: 8 tiles of 8 kv columns
+    float alpha[RT][2];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = 16 * rt + g + 8 * hf;
+        float mx = red_max[row];
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        const bf16* kr = ks + (8 * nt + g) * kLdk + 16 * kk + 2 * t;
-        mma_bf16(sc[nt], qa[kk], ld2(kr), ld2(kr + 8));
+        for (int w = 1; w < 4; ++w) mx = fmaxf(mx, red_max[w * kRows + row]);
+        const float mn = fmaxf(m[rt][hf], mx);
+        alpha[rt][hf] = expf(m[rt][hf] - mn);
+        m[rt][hf] = mn;
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float p0 = expf(sc[rt][nt][2 * hf] - mn);
+          const float p1 = expf(sc[rt][nt][2 * hf + 1] - mn);
+          sum += p0 + p1;
+          *reinterpret_cast<uint32_t*>(ps + row * kLdp + 16 * warp + 8 * nt + 2 * t) =
+              pack_bf16(p0, p1);
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (t == 0) red_sum[warp * kRows + row] = sum;
+      }
+    __syncthreads();
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = 16 * rt + g + 8 * hf;
+        float sum = red_sum[row];
+#pragma unroll
+        for (int w = 1; w < 4; ++w) sum += red_sum[w * kRows + row];
+        l[rt][hf] = l[rt][hf] * alpha[rt][hf] + sum;
+      }
+    if (pv) {
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int n = 0; n < kNpw; ++n) {
+          acc[rt][n][0] *= alpha[rt][0];
+          acc[rt][n][1] *= alpha[rt][0];
+          acc[rt][n][2] *= alpha[rt][1];
+          acc[rt][n][3] *= alpha[rt][1];
+        }
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk) {
+        uint32_t vb0[kNpw], vb1[kNpw];
+#pragma unroll
+        for (int n = 0; n < kNpw; ++n)
+          ldmatrix_x2_trans(vb0[n], vb1[n],
+                            vt + (16 * kk + (lane & 15)) * kLd + col0 + 8 * n);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          uint32_t a[4];
+          load_a(a, ps + 16 * rt * kLdp + 16 * kk, kLdp, g, t);
+#pragma unroll
+          for (int n = 0; n < kNpw; ++n) mma_bf16(acc[rt][n], a, vb0[n], vb1[n]);
+        }
       }
     }
-    float mx0 = kNegBig, mx1 = kNegBig;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = t0 + 8 * nt + 2 * t + j;
-        const bool in = col < kv_len;
-        const bool ok0 = in && (!causal || col <= qi0 || col < prefix_len);
-        const bool ok1 = in && (!causal || col <= qi1 || col < prefix_len);
-        sc[nt][j] = ok0 ? sc[nt][j] * scale : kNegBig;
-        sc[nt][2 + j] = ok1 ? sc[nt][2 + j] * scale : kNegBig;
-        mx0 = fmaxf(mx0, sc[nt][j]);
-        mx1 = fmaxf(mx1, sc[nt][2 + j]);
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {       // the 4 lanes of a row
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - n0), a1 = expf(m1 - n1);
-    m0 = n0;
-    m1 = n1;
-    uint32_t pa[4][4];              // A fragments of P: 4 steps of 16 kv rows
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = expf(sc[nt][0] - n0), p1 = expf(sc[nt][1] - n0);
-      const float p2 = expf(sc[nt][2] - n1), p3 = expf(sc[nt][3] - n1);
-      sum0 += p0 + p1;
-      sum1 += p2 + p3;
-      pa[nt / 2][(nt & 1) * 2] = pack_bf16(p0, p1);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    l0 = l0 * a0 + sum0;            // this lane's share of the row sums
-    l1 = l1 * a1 + sum1;
-#pragma unroll
-    for (int n = 0; n < kNt; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < kNt; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vs + (16 * kk + (lane & 15)) * kLdk + 8 * n);
-        mma_bf16(acc[n], pa[kk], b0, b1);
-      }
   }
+  cp_async_wait<0>();
 
+  const int64_t total = int64_t(gridDim.z) * KV * gridDim.x * R;
+  const int64_t row0 = ((int64_t(b) * KV + kvh) * gridDim.x + split) * R;
+  float* pacc = part + row0 * DH;
+  float* pm = part + total * DH + row0;
+  float* pl = pm + total;
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  const int row0 = s0 + 16 * warp + g;
+  for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + 8 * half;
-    if (row >= S) continue;
-    const float d = half ? d1 : d0;
-    bf16* orow = o + ((int64_t(b) * S + row) * H + h) * DH + 2 * t;
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = 16 * rt + g + 8 * hf;
+      if (row >= R) continue;
+      if (pv)
 #pragma unroll
-    for (int n = 0; n < kNt; ++n)
-      *reinterpret_cast<uint32_t*>(orow + 8 * n) =
-          pack_bf16(acc[n][2 * half] / d, acc[n][2 * half + 1] / d);
-  }
+        for (int n = 0; n < kNpw; ++n)
+          *reinterpret_cast<float2*>(pacc + int64_t(row) * DH + col0 + 8 * n + 2 * t) =
+              make_float2(acc[rt][n][2 * hf], acc[rt][n][2 * hf + 1]);
+      if (warp == 0 && t == 0) {
+        pm[row] = m[rt][hf];
+        pl[row] = l[rt][hf];
+      }
+    }
 }
 
+// Block (r, kvh, b) merges the splits of folded row r and writes output
+// row s = r / group of head kvh * group + r % group.  The 4 warps find
+// m* and the weights e^(m_i - m*) over the splits together, then warp w
+// sums the acc rows of splits w, w + 4, ... (lane: columns lane + 32c),
+// and the four partial sums meet in shared memory.
 template <int DH>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int KV, int causal, int prefix_len, int kv_len,
-               int q_start, const long long* st, cudaStream_t stream) {
-  constexpr size_t kSmem = sizeof(bf16) * 3 * 64 * (DH + 8);
-  auto kernel = flash_fwd_mma_kernel<DH>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmem));
+__global__ void __launch_bounds__(128)
+flash_fwd_splitkv_combine(const float* __restrict__ part, bf16* __restrict__ o,
+                          int S, int H, int KV, int group, int n_splits) {
+  constexpr int kCols = (DH + 31) / 32;
+  extern __shared__ float wsm[];      // [n_splits] weights, then [4][DH] sums
+  __shared__ float red[4];
+  const int r = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int R = S * group;
+  const int64_t total = int64_t(gridDim.z) * KV * n_splits * R;
+  const int64_t row0 = (int64_t(b) * KV + kvh) * n_splits * R + r;
+  const float* pm = part + total * DH + row0;
+  const float* pl = pm + total;
+
+  float mx = kNegBig;
+  for (int i = threadIdx.x; i < n_splits; i += 128) {
+    wsm[i] = pm[int64_t(i) * R];
+    mx = fmaxf(mx, wsm[i]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  mx = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
+  __syncthreads();                    // red is reused below
+  float l = 0.f;
+  for (int i = threadIdx.x; i < n_splits; i += 128) {   // the thread's own m_i
+    const float w = expf(wsm[i] - mx);
+    wsm[i] = w;
+    l += pl[int64_t(i) * R] * w;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+  if (lane == 0) red[warp] = l;
+  __syncthreads();
+  l = red[0] + red[1] + red[2] + red[3];
+
+  float acc[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
+#pragma unroll 8
+  for (int i = warp; i < n_splits; i += 4) {
+    const float w = wsm[i];
+    const float* src = part + (row0 + int64_t(i) * R) * DH;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (lane + 32 * c < DH) acc[c] += src[lane + 32 * c] * w;
+  }
+  float* sums = wsm + n_splits;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c)
+    if (lane + 32 * c < DH) sums[warp * DH + lane + 32 * c] = acc[c];
+  __syncthreads();
+  if (threadIdx.x < DH) {
+    const int d = threadIdx.x;
+    const float a = (sums[d] + sums[DH + d]) + (sums[2 * DH + d] + sums[3 * DH + d]);
+    o[((int64_t(b) * S + r / group) * H + kvh * group + r % group) * DH + d] =
+        __float2bfloat16_rn(a / fmaxf(l, 1e-30f));
+  }
+}
+
+}  // namespace sk
+
+template <int DH, int RT>
+int launch_splitkv_rt(const void* q, const void* k, const void* v, void* o,
+                      void* part, int B, int S, int H, int KV, int causal,
+                      int prefix_len, int kv_len, int q_start, int split_tiles,
+                      int n_splits, const long long* st, cudaStream_t stream) {
+  constexpr size_t kSmem = sk::Smem<DH, RT>::kBytes;
+  auto kernel = sk::flash_fwd_splitkv_kernel<DH, RT>;
+  static std::atomic<uint64_t> ready{0};
+  cudaError_t err = allow_smem(kernel, kSmem, ready);
   if (err != cudaSuccess) return int(err);
   const float scale = float(1.0 / sqrt(double(DH)));
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  kernel<<<grid, kMmaThreads, kSmem, stream>>>(
+  const int group = H / KV;
+  kernel<<<dim3(n_splits, KV, B), sk::kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, H / KV, causal,
-      prefix_len, kv_len, q_start, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], scale);
-  return int(cudaGetLastError());
-}
-
-template <int DH, typename TQ, typename TKV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KV, int causal, int prefix_len, int kv_len, int q_start,
-           const long long* st, cudaStream_t stream) {
-  constexpr size_t kSmem = sizeof(float) * (3 * 64 * (DH + 4) + kBlockQ * kLdp);
-  auto kernel = flash_fwd_kernel<DH, TQ, TKV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmem));
+      static_cast<const bf16*>(v), static_cast<float*>(part), S, KV, group,
+      causal, prefix_len, kv_len, q_start, split_tiles, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], scale);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  const float scale = float(1.0 / sqrt(double(DH)));
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  kernel<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), static_cast<TQ*>(o), S, H, H / KV, causal,
-      prefix_len, kv_len, q_start, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], scale);
+  sk::flash_fwd_splitkv_combine<DH>
+      <<<dim3(S * group, KV, B), 128, sizeof(float) * (n_splits + 4 * DH), stream>>>(
+          static_cast<const float*>(part), static_cast<bf16*>(o), S, H, KV, group,
+          n_splits);
   return int(cudaGetLastError());
 }
 
-// launch<DH, TQ, TKV> (FMA) or, for bf16 q over bf16 k / v, launch_mma<DH>
+// one m16 row tile up to 16 folded rows, four up to 64
+template <int DH>
+int launch_splitkv(const void* q, const void* k, const void* v, void* o,
+                   void* part, int B, int S, int H, int KV, int causal,
+                   int prefix_len, int kv_len, int q_start, int split_tiles,
+                   int n_splits, const long long* st, cudaStream_t stream) {
+  if (S * (H / KV) <= 16)
+    return launch_splitkv_rt<DH, 1>(q, k, v, o, part, B, S, H, KV, causal,
+                                    prefix_len, kv_len, q_start, split_tiles,
+                                    n_splits, st, stream);
+  return launch_splitkv_rt<DH, 4>(q, k, v, o, part, B, S, H, KV, causal,
+                                  prefix_len, kv_len, q_start, split_tiles,
+                                  n_splits, st, stream);
+}
+
+// route 0: launch<DH, TQ, TKV> (FMA); 1: launch_wgmma<DH>; 2: launch_splitkv<DH>
 template <typename TQ, typename TKV>
-int by_dim(int dh, const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KV, int causal, int prefix_len, int kv_len,
-           int q_start, const long long* st, cudaStream_t s) {
-  constexpr bool kMma = std::is_same_v<TQ, bf16>;
-#define C4CAM_FLASH_CASE(D)                                                                 \
-  case D:                                                                                   \
-    if constexpr (kMma)                                                                     \
-      return launch_mma<D>(q, k, v, o, B, S, H, KV, causal, prefix_len, kv_len, q_start, st, s); \
-    else                                                                                    \
-      return launch<D, TQ, TKV>(q, k, v, o, B, S, H, KV, causal, prefix_len, kv_len, q_start, st, s);
+int by_dim(int dh, int route, const void* q, const void* k, const void* v,
+           void* o, void* part, int B, int S, int H, int KV, int causal,
+           int prefix_len, int kv_len, int q_start, int split_tiles,
+           int n_splits, const long long* st, cudaStream_t s) {
+  constexpr bool kBf16 = std::is_same_v<TQ, bf16>;
+#define C4CAM_FLASH_CASE(D)                                                         \
+  case D:                                                                           \
+    if constexpr (kBf16) {                                                          \
+      if (route == 1)                                                               \
+        return launch_wgmma<D>(q, k, v, o, B, S, H, KV, causal, prefix_len,         \
+                               kv_len, q_start, st, s);                             \
+      return launch_splitkv<D>(q, k, v, o, part, B, S, H, KV, causal, prefix_len,  \
+                               kv_len, q_start, split_tiles, n_splits, st, s);      \
+    } else {                                                                        \
+      return launch<D, TQ, TKV>(q, k, v, o, B, S, H, KV, causal, prefix_len,        \
+                                kv_len, q_start, st, s);                            \
+    }
   switch (dh) {
     C4CAM_FLASH_CASE(16)
     C4CAM_FLASH_CASE(32)
@@ -522,28 +1354,41 @@ int by_dim(int dh, const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q (B, S, H, dh), k / v (B, T, KV, dh) with unit last stride and 16-byte
-// aligned rows; strides in elements (q: b, s, h; k: b, t, h; v: b, t, h);
-// o (B, S, H, dh) contiguous, q's dtype.  q_bf16 / kv_bf16 pick bfloat16
-// over float32 (a bfloat16 q takes a bfloat16 k / v only).  kv_len in
-// 1..T.  Returns a cudaError_t code.
-extern "C" int c4cam_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-    int KV, int dh, int q_bf16, int kv_bf16, int causal, int prefix_len,
-    int kv_len, int q_start, long long qsb, long long qss, long long qsh,
-    long long ksb, long long kst, long long ksh, long long vsb, long long vst,
-    long long vsh, void* stream) {
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV || kv_len < 1 || prefix_len < 0 ||
-      q_start < 0 || H > 65535 || B > 65535)
+// aligned base pointers and strides; o (B, S, H, dh) contiguous, q's dtype.
+// p holds, in order: B, S, H, KV, dh, q_bf16, kv_bf16 (bfloat16 over
+// float32; a bfloat16 q takes a bfloat16 k / v only), causal, prefix_len,
+// kv_len (in 1..T), q_start, route (0 float32 FMA for a float32 q, 1
+// wgmma, 2 split-KV: both bf16, split-KV for S * H / KV <= 64), the
+// split's length in 64-row tiles and the split count (<= 4096; `part` is
+// float32 scratch of B * KV * splits * S * (H / KV) * (dh + 2) values),
+// then the strides in elements of q (b, s, h), k (b, t, h) and v (b, t, h).
+// Returns a cudaError_t code.
+extern "C" int c4cam_flash_attention(const void* q, const void* k, const void* v,
+                                     void* o, void* part, const long long* p,
+                                     void* stream) {
+  for (int i = 0; i < 14; ++i)
+    if (p[i] < 0 || p[i] > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  const int B = int(p[0]), S = int(p[1]), H = int(p[2]), KV = int(p[3]), dh = int(p[4]);
+  const int q_bf16 = int(p[5]), kv_bf16 = int(p[6]), causal = int(p[7]);
+  const int prefix_len = int(p[8]), kv_len = int(p[9]), q_start = int(p[10]);
+  const int route = int(p[11]), split_tiles = int(p[12]), n_splits = int(p[13]);
+  const long long* st = p + 14;
+  if (B <= 0 || S <= 0 || KV <= 0 || H % KV || kv_len < 1 || H > 65535 || B > 65535)
     return int(cudaErrorInvalidValue);
-  const long long st[9] = {qsb, qss, qsh, ksb, kst, ksh, vsb, vst, vsh};
+  const bool bf = q_bf16 && kv_bf16;
+  if (route > 2 || (route == 0) == bool(q_bf16) || (route && !bf) ||
+      (route == 2 && (S * (H / KV) > 64 || split_tiles < 1 || n_splits < 1 ||
+                      n_splits > 4096 || part == nullptr)))
+    return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && kv_bf16)
-    return by_dim<bf16, bf16>(dh, q, k, v, o, B, S, H, KV, causal, prefix_len, kv_len, q_start, st, s);
-  if (!q_bf16 && kv_bf16)
-    return by_dim<float, bf16>(dh, q, k, v, o, B, S, H, KV, causal, prefix_len, kv_len, q_start, st, s);
-  if (!q_bf16 && !kv_bf16)
-    return by_dim<float, float>(dh, q, k, v, o, B, S, H, KV, causal, prefix_len, kv_len, q_start, st, s);
-  return int(cudaErrorInvalidValue);
+  if (bf)
+    return by_dim<bf16, bf16>(dh, route, q, k, v, o, part, B, S, H, KV, causal,
+                              prefix_len, kv_len, q_start, split_tiles, n_splits, st, s);
+  if (kv_bf16)
+    return by_dim<float, bf16>(dh, route, q, k, v, o, part, B, S, H, KV, causal,
+                               prefix_len, kv_len, q_start, split_tiles, n_splits, st, s);
+  return by_dim<float, float>(dh, route, q, k, v, o, part, B, S, H, KV, causal,
+                              prefix_len, kv_len, q_start, split_tiles, n_splits, st, s);
 }
 
 extern "C" const char* c4cam_error_string(int err) {

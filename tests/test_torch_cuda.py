@@ -732,37 +732,21 @@ def test_lm_entry_points_on_the_card_launch_b7_per_layer(cuda):
     assert torch.equal(got["serve"].argmax(-1), want["serve"].argmax(-1))
 
 
-def _pallas_recurrence(q, k, v, *, causal=True, prefix_len=0, kv_len=None,
-                       q_start=0, block_k=64):
-    """The reference Pallas kernel's online softmax over kv tiles of
-    ``block_k`` rows, in eager float32: the unnormalised probabilities
-    are rounded to v's dtype before the PV product (B7's numerics)."""
-    b, s, h, dh = q.shape
-    t, kvh = k.shape[1], k.shape[2]
-    kv_len = t if kv_len is None else kv_len
-    scale = float(torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32))
-    qf = q.float().reshape(b, s, kvh, h // kvh, dh)
-    m = torch.full((b, kvh, h // kvh, s, 1), -1e30, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((b, kvh, h // kvh, s, dh), device=q.device)
-    qi = q_start + torch.arange(s, device=q.device)[:, None]
-    for t0 in range(0, t, block_k):
-        kt = k[:, t0:t0 + block_k].to(q.dtype).float()
-        ki = t0 + torch.arange(kt.shape[1], device=q.device)[None, :]
-        sc = torch.einsum("bqkgd,btkd->bkgqt", qf, kt) * scale
-        allow = ki < kv_len
-        if causal:
-            allow = allow & ((ki <= qi) | (ki < prefix_len))
-        sc = torch.where(allow, sc, -1e30)
-        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
-        alpha, p = torch.exp(m - m_new), torch.exp(sc - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + torch.einsum(
-            "bkgqt,btkd->bkgqd", p.to(v.dtype).float(),
-            v[:, t0:t0 + block_k].float())
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+def _recurrence(q, k, v, **kw):
+    """The Pallas recurrence at the tile width and kv splits of the route
+    the kernel takes for this call."""
+    route = tfa.flash_route(q.shape, k.shape, q.dtype, **kw)
+    return tfa.flash_attention_recurrence(q, k, v, block_k=route.block_k,
+                                          splits=route.splits, **kw)
+
+
+def _assert_follows_recurrence(got, want, v):
+    """bf16: at most 0.1 % of the outputs more than one bf16 step away,
+    none by more than one bf16 step of a probability times max|v|."""
+    off = (got.float() - want.float()).abs()
+    beyond = off > 1e-6 + 2 ** -7 * want.float().abs()
+    assert float(beyond.float().mean()) <= 1e-3
+    assert float(off.max()) <= 2 ** -8 * float(v.float().abs().max())
 
 
 @pytest.mark.parametrize("case", ["causal", "prefix", "decode", "chunk"])
@@ -781,14 +765,80 @@ def test_flash_kernel_follows_the_pallas_recurrence(cuda, case, dtypes,
     dtype, kv_dtype = B7_DTYPES[dtypes]
     q, k, v = _qkv(rng, 2, s, t, 10, 2, 64, dtype, kv_dtype, cuda)
     got = tfa.flash_attention(q, k, v, **kw)
-    want = _pallas_recurrence(q, k, v, **kw)
+    want = _recurrence(q, k, v, **kw)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     else:
-        off = (got.float() - want.float()).abs()
-        beyond = off > 1e-6 + 2 ** -7 * want.float().abs()
-        assert float(beyond.float().mean()) <= 1e-3
-        assert float(off.max()) <= 2 ** -8 * float(v.float().abs().max())
+        _assert_follows_recurrence(got, want, v)
+
+
+#: (B, S, T, H, KV, kwargs, route) at the split boundaries and the route
+#: threshold: S * H / KV query rows per kv head, at most
+#: FLASH_SPLITKV_ROWS (64) on the split-KV route
+B7_ROUTE_CASES = {
+    "long_cache": (1, 1, 4100, 10, 2,
+                   dict(causal=True, q_start=4096, kv_len=4097), "splitkv"),
+    "kv_len_inside_one_split": (1, 1, 4100, 10, 2,
+                                dict(causal=True, q_start=49, kv_len=50),
+                                "splitkv"),
+    "chunk_at_4000": (1, 9, 4100, 10, 2,
+                      dict(causal=True, q_start=4000, kv_len=4009),
+                      "splitkv"),
+    "at_threshold": (2, 16, 200, 8, 2,
+                     dict(causal=True, q_start=100, kv_len=116), "splitkv"),
+    "above_threshold": (2, 17, 200, 8, 2,
+                        dict(causal=True, q_start=100, kv_len=117), "wgmma"),
+    "served_gqa": (2, 1, 2100, 40, 8,
+                   dict(causal=True, q_start=2048, kv_len=2049), "splitkv"),
+    "long_prefill": (1, 300, 300, 4, 2, dict(causal=True), "wgmma"),
+}
+
+
+@pytest.mark.parametrize("case", list(B7_ROUTE_CASES))
+@pytest.mark.parametrize("dh", [16, 128])
+def test_flash_kernel_routes_and_split_boundaries(cuda, case, dh, rng):
+    """Each route, chosen by flash_route, against the plain version (0.05)
+    and against the Pallas recurrence at the route's own tile width and
+    kv splits (one bf16 step); one launch per call."""
+    b, s, t, h, kvh, kw, name = B7_ROUTE_CASES[case]
+    q, k, v = _qkv(rng, b, s, t, h, kvh, dh, torch.bfloat16, torch.bfloat16,
+                   cuda)
+    route = tfa.flash_route(q.shape, k.shape, q.dtype, **kw)
+    assert route.name == name
+    if name == "splitkv":
+        assert route.block_k == 64 and route.splits >= 1
+    else:
+        assert route.block_k == 128 and route.splits is None
+    tcs.reset_launch_counts()
+    got = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["flash_attention"] == 1
+    assert bool(torch.isfinite(got).all())
+    want = tfa.flash_attention_reference(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=B7_BF16_ATOL,
+                               rtol=0)
+    _assert_follows_recurrence(got, _recurrence(q, k, v, **kw), v)
+
+
+def test_flash_wgmma_reads_a_strided_cache_view_up_to_kv_len(cuda, rng):
+    """The prefill route's tensor maps cover a layer's strided view of a
+    stacked cache; rows at or past kv_len hold NaN and are never read."""
+    kv_len, s_max, s = 90, 160, 70
+    q = torch.from_numpy(rng.standard_normal((2, s, 10, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    cache = torch.from_numpy(rng.standard_normal(
+        (2, 3, s_max, 2, 2, 128)).astype(np.float32)).to(cuda, torch.bfloat16)
+    cache[:, :, kv_len:] = float("nan")
+    k, v = cache[0, 1].transpose(0, 1), cache[1, 1].transpose(0, 1)
+    kw = dict(causal=True, q_start=kv_len - s, kv_len=kv_len)
+    assert tfa.flash_route(q.shape, k.shape, q.dtype, **kw).name == "wgmma"
+    got = tfa.flash_attention(q, k, v, **kw)
+    kc, vc = k[:, :kv_len].contiguous(), v[:, :kv_len].contiguous()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(
+        got.float(), tfa.flash_attention_reference(q, kc, vc, **kw).float(),
+        atol=B7_BF16_ATOL, rtol=0)
+    _assert_follows_recurrence(got, _recurrence(q, kc, vc, **kw), v[:, :kv_len])
 
 
 def test_server_on_the_card_matches_cpu(cuda):

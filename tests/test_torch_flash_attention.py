@@ -148,3 +148,104 @@ def test_cpu_wrapper_is_the_plain_version_and_checks(rng):
         tfa.flash_attention(q, k, v, q_start=-1)
     with pytest.raises(ValueError, match="disagree"):
         tfa.flash_attention(q, k[..., :8], v[..., :8])
+
+
+# ---------------------------------------------------------------------------
+# The recurrence the CUDA routes follow (flash_attention_recurrence) and
+# the route rule (flash_route)
+# ---------------------------------------------------------------------------
+
+RECURRENCE_CASES = [
+    ((1, 200, 200, 4, 2, 32), dict(causal=True)),
+    ((2, 64, 300, 10, 2, 16), dict(causal=False, kv_len=250)),
+    ((1, 300, 300, 2, 1, 64), dict(causal=True)),
+    ((1, 48, 48, 4, 4, 16), dict(causal=True, prefix_len=20)),
+]
+
+
+def _beyond_one_bf16_step(got, want):
+    return float(np.mean(np.abs(got - want) > 1e-6 + 2.0 ** -7 * np.abs(want)))
+
+
+@pytest.mark.parametrize("shape,kw", RECURRENCE_CASES)
+def test_recurrence_follows_the_pallas_kernel(shape, kw, rng):
+    """Unsplit, at block_k 128, the helper is the Pallas kernel's own
+    recurrence: float32 within 1e-5; bf16 with at most 0.1 % of the
+    outputs beyond one bf16 step (the same rounding point)."""
+    q, k, v = _data(rng, *shape)
+    for dtype, jdtype in ((torch.float32, jnp.float32),
+                          (torch.bfloat16, jnp.bfloat16)):
+        got = tfa.flash_attention_recurrence(
+            *(torch.from_numpy(x).to(dtype) for x in (q, k, v)),
+            block_k=128, **kw).float().numpy()
+        want = np.asarray(flash_attention_pallas(
+            *(jnp.asarray(x, jdtype) for x in (q, k, v)), block_k=128,
+            interpret=True, **kw), np.float32)
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        else:
+            assert _beyond_one_bf16_step(got, want) <= 1e-3
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5, 64])
+@pytest.mark.parametrize("shape,kw", RECURRENCE_CASES + [
+    ((2, 1, 300, 10, 2, 32), dict(causal=True, q_start=260, kv_len=261)),
+    ((1, 9, 140, 10, 2, 16), dict(causal=True, q_start=120, kv_len=129)),
+])
+def test_split_recurrence_equals_the_unsplit_one(shape, kw, splits, rng):
+    """float32 over a float32 cache: the splits, each from m = -1e30 and
+    combined in float32, give the unsplit result within 1e-5 (also for
+    splits past the last visible tile, and rows a split cannot see)."""
+    q, k, v = (torch.from_numpy(x) for x in _data(rng, *shape))
+    whole = tfa.flash_attention_recurrence(q, k, v, block_k=64, **kw)
+    split = tfa.flash_attention_recurrence(q, k, v, block_k=64,
+                                           splits=splits, **kw)
+    assert bool(torch.isfinite(split).all())
+    torch.testing.assert_close(split, whole, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 1, 300, 10, 2, 32), dict(causal=True, q_start=260, kv_len=261)),
+    ((1, 9, 140, 10, 2, 16), dict(causal=True, q_start=120, kv_len=129)),
+    ((1, 40, 90, 8, 2, 16), dict(causal=False, kv_len=77)),
+])
+def test_split_recurrence_in_bf16_is_within_the_bf16_bound(shape, kw, rng):
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _data(rng, *shape))
+    got = tfa.flash_attention_recurrence(q, k, v, block_k=64, splits=3, **kw)
+    want = tfa.flash_attention_reference(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,t,kw,name", [
+    (1, 2048, 40, 8, 2081, dict(kv_len=2048), "wgmma"),
+    (1, 1, 40, 8, 2081, dict(q_start=2048, kv_len=2049), "splitkv"),
+    (2, 1, 40, 8, 2081, dict(q_start=2048, kv_len=2049), "splitkv"),
+    (1, 1, 40, 8, 32768, dict(q_start=32767, kv_len=32768), "splitkv"),
+    (2, 16, 8, 2, 200, dict(q_start=100, kv_len=116), "splitkv"),
+    (2, 17, 8, 2, 200, dict(q_start=100, kv_len=117), "wgmma"),
+    (1, 64, 4, 4, 64, dict(causal=False), "splitkv"),
+    (1, 65, 4, 4, 65, dict(causal=False), "wgmma"),
+])
+def test_route_rule(b, s, h, kvh, t, kw, name):
+    """bf16: split-KV up to FLASH_SPLITKV_ROWS query rows per kv head,
+    wgmma above; the splits cut the visible 64-row tiles into non-empty
+    runs over at most FLASH_SPLIT_BLOCKS blocks; float32 queries: FMA."""
+    route = tfa.flash_route((b, s, h, 128), (b, t, kvh, 128),
+                            torch.bfloat16, **kw)
+    assert route.name == name
+    assert route.block_k == tfa.FLASH_BLOCK_K[name]
+    assert tfa.flash_route((b, s, h, 128), (b, t, kvh, 128), torch.float32,
+                           **kw) == ("fma", tfa.FLASH_BLOCK_K["fma"], None)
+    if name == "wgmma":
+        assert s * h // kvh > tfa.FLASH_SPLITKV_ROWS and route.splits is None
+        return
+    assert s * h // kvh <= tfa.FLASH_SPLITKV_ROWS
+    end = tfa._col_end(s, kw.get("kv_len", t), kw.get("causal", True),
+                       kw.get("prefix_len", 0), kw.get("q_start", 0))
+    tiles = -(-end // route.block_k)
+    per = -(-tiles // route.splits)
+    assert (route.splits - 1) * per < tiles <= route.splits * per
+    assert route.splits == 1 or \
+        b * kvh * route.splits <= tfa.FLASH_SPLIT_BLOCKS
