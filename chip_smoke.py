@@ -24,7 +24,9 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        squared distance, and hamming on float cells
                        (``pack=None`` on the cuda backend) with tau the
                        median 10th-nearest distance: kernel
-                       ``range_match``;
+                       ``range_match`` (3xTF32 tensor cores; each eucl
+                       disagreement with the plain version is also
+                       replayed in the kernel's arithmetic);
 * ``hdc_mnist``      — the paper's HDC/MNIST-8k through ``HdcClassifier``:
                        60,000 training and 10,000 test samples of 784
                        features encoded to 8192 dims (kernel
@@ -68,7 +70,10 @@ them (bit-identical for the integer metrics and the interval match;
 eucl: every candidate value within ``EUCL_RTOL``/``EUCL_ATOL``, and every
 candidate and result index swap, or every range-match disagreement,
 confirmed as a float64 near-tie), and times kernel, plain version and
-one PyTorch library call with CUDA events (medians).  The last two lines
+one PyTorch library call with CUDA events (medians).  B1's record also
+holds its two main-path shapes under ``shapes`` (``knn`` and
+``hdc_predict``: route, event and device times, launches, the bound of
+the route's basis and the earlier popcount basis).  The last two lines
 of standard output are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": ...}``.
 
@@ -93,8 +98,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: eucl tolerance on squared distances of magnitude 2e3..1e4: float32
 #: sums of 1024 products in another order differ by ~0.05 at most here
 EUCL_RTOL, EUCL_ATOL = 1e-5, 0.1
-#: H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, HBM3
+#: H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA cores,
+#: TF32 and int8 on the tensor cores, HBM3
 FP32_PEAK_FLOPS = 67e12
+TF32_PEAK_FLOPS = 495e12
+INT8_PEAK_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 #: 32-bit population counts and compares per clock per SM, compute
 #: capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
@@ -205,6 +213,38 @@ def host_ms_per_call(fn, n: int) -> float:
     took = time.perf_counter() - t0
     torch.cuda.synchronize()
     return 1e3 * took / n
+
+
+def device_ms_per_call(fn, n: int) -> float:
+    """Device time of one call of ``fn``: ``torch.profiler`` over ``n``
+    calls, the device time of every kernel they launched over ``n`` (the
+    wrapper's host work, which CUDA events around one call include, is
+    left out)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in device_rows(prof)) / n
+
+
+def device_rows(prof):
+    """(device ms, name, count) of each device-side event of a
+    ``torch.profiler`` run (kernels, copies, sets) that took time."""
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.key, e.count))
+    return rows
 
 
 def eucl_index_swaps(q, p, got_i, want_i, what: str) -> int:
@@ -324,16 +364,8 @@ class Smoke:
             prog(*inputs)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        rows = []          # device-side events only: kernels, copies, sets
         try:
-            for e in prof.key_averages():
-                if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-                    continue
-                dev_us = getattr(e, "self_device_time_total", None)
-                if dev_us is None:
-                    dev_us = e.self_cuda_time_total
-                if dev_us > 0:
-                    rows.append((dev_us / 1e3, e.key, e.count))
+            rows = device_rows(prof)
         except (AttributeError, RuntimeError) as e:  # the profiler's API only
             return {"not_measured": repr(e)}
         rows.sort(reverse=True)
@@ -399,14 +431,18 @@ class Smoke:
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
 
-    def range_bound_ms(self, q, p):
-        """B4: the float decomposition's FLOP against the bytes of its
-        operands and its (M, N) bool output."""
+    def range_bound_ms(self, q, p, fp32_cuda_cores=False):
+        """B4: the product of its route, 3xTF32 on the tensor cores (three
+        products of 2 M N D FLOP at the TF32 peak; with
+        ``fp32_cuda_cores``, the earlier route's basis: one at the float32
+        CUDA-core peak), against the bytes of its operands and its (M, N)
+        bool output."""
         m, d = q.shape
         n = p.shape[0]
-        flops = 2.0 * m * n * d + 2.0 * (m + n) * d
         bytes_ = 4.0 * (m * d + n * d) + 1.0 * m * n
-        t_ops, t_mem = flops / FP32_PEAK_FLOPS, bytes_ / HBM_BYTES_PER_S
+        t_ops = 2.0 * m * n * d / FP32_PEAK_FLOPS if fp32_cuda_cores \
+            else 3 * 2.0 * m * n * d / TF32_PEAK_FLOPS
+        t_mem = bytes_ / HBM_BYTES_PER_S
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
 
@@ -447,16 +483,56 @@ class Smoke:
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
 
-    def packed_bound_ms(self, q, p, care, out_cols):
+    def packed_bound_ms(self, q, p, care, out_cols, n_valid, basis):
+        """B1's bound on ``basis``: ``"int8"``, its "mma" route (one int8
+        product of 2 M N 32L operations, binary or ternary, at the int8
+        tensor-core peak); ``"popc_live"``, its "rows" route (one popc
+        per (query, row, lane) of the rows below ``n_valid``, the only
+        rows it computes and reads); ``"popc"``, the earlier kernel's basis
+        (every row).  Against the bytes of the operands it reads and its
+        candidates."""
         m, lanes = q.shape
         n = p.shape[0]
-        popc = float(m) * n * lanes
-        bytes_ = 4.0 * (m * lanes + n * lanes * (2 if care is not None
-                                                  else 1)) \
+        rows = min(n, n_valid) if basis == "popc_live" else n
+        bytes_ = 4.0 * (m * lanes + rows * lanes * (2 if care is not None
+                                                     else 1)) \
             + 8.0 * m * out_cols
-        t_ops, t_mem = popc / self.popc_per_s, bytes_ / HBM_BYTES_PER_S
+        if basis == "int8":
+            t_ops = 2.0 * m * n * 32 * lanes / INT8_PEAK_OPS
+        else:
+            t_ops = float(m) * rows * lanes / self.popc_per_s
+        t_mem = bytes_ / HBM_BYTES_PER_S
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
+
+    def packed_shape(self, args, kw, launches):
+        """B1 at one main-path shape: its route, time, bound on the
+        route's basis and on the earlier popcount basis, plain and library
+        times."""
+        from repro_torch.kernels import cam_search
+        torch = self.torch
+        qp, pp, cp = args
+        k, n_valid = kw["k"], kw["n_valid"]
+        route = cam_search.packed_route(qp.shape[0], pp.shape[0], k,
+                                        self.props.multi_processor_count)
+        cols = (pp.shape[0] // cam_search.window_rows(k)) * k
+        bound, by = self.packed_bound_ms(
+            qp, pp, cp, cols, n_valid,
+            "int8" if route == "mma" else "popc_live")
+        old, old_by = self.packed_bound_ms(qp, pp, cp, cols, n_valid, "popc")
+        call = lambda: cam_search.fused_topk_packed(*args, **kw)  # noqa: E731
+        ms = cuda_ms(call, 20)
+        return {"route": route, "ms": ms, "launches": launches,
+                "device_ms": device_ms_per_call(call, 20),
+                "host_ms": host_ms_per_call(call, 20),
+                "bound_ms": bound, "bound_by": by,
+                "basis": "int8 tensor cores, 1,979 TOPS" if route == "mma"
+                else "popc of the rows below n_valid",
+                "bound_ms_popc_all_rows": old, "bound_by_popc_all_rows":
+                old_by,
+                "shape": {"q": list(qp.shape), "p": list(pp.shape), "k": k,
+                          "n_valid": n_valid,
+                          "largest": bool(kw["largest"])}}
 
 
 # ---------------------------------------------------------------------------
@@ -573,8 +649,8 @@ def _packed_phase(s: Smoke, name, data, care):
         raise RuntimeError(f"{name}: result differs from the float64 oracle")
 
     qp, pp, cp = args
-    bound, by = s.packed_bound_ms(qp, pp, cp, got[0].shape[1])
-    ms = cuda_ms(lambda: cam_search.fused_topk_packed(*args, **kw), 10)
+    shape = s.packed_shape(args, kw, counts[expect])
+    ms, bound, by = shape["ms"], shape["bound_ms"], shape["bound_by"]
     plain_ms = cuda_ms(
         lambda: cam_search.fused_topk_packed_reference(*args, **kw), 3)
     qpm = 2 * qb - 1
@@ -587,7 +663,12 @@ def _packed_phase(s: Smoke, name, data, care):
     s.record(expect, "src/repro_torch/kernels/csrc/fused_topk_packed.cu",
              "src/repro/kernels/cam_search.py:304", counts[expect], err, ms,
              plain_ms, bound, by, library_ms)
-    log({"phase": name, "ok": True, "launches": counts,
+    rec = s.kernels[expect]
+    rec.setdefault("shapes", {})["knn"] = dict(shape, plain_ms=plain_ms,
+                                               library_ms=library_ms)
+    rec["bound_basis"] = shape["basis"]
+    rec["bound_ms_popc_all_rows"] = shape["bound_ms_popc_all_rows"]
+    log({"phase": name, "ok": True, "launches": counts, "b1_knn": shape,
          "first_call_s": first_s, "second_call_s": second_s,
          "kernel_shape": {"q": list(qp.shape), "p": list(pp.shape),
                           "k": kw["k"]},
@@ -714,6 +795,62 @@ def phase_forest_acam(s: Smoke):
          "profile": prof})
 
 
+def tc_accumulate(acc, terms):
+    """One ``wgmma`` k-step into a float32 accumulator as the tensor cores
+    add it: ``acc`` (n,) and the step's exact products ``terms`` (n, 8,
+    float64) aligned to the largest exponent among them, each truncated
+    to 25 bits below it, summed, and the sum truncated (toward zero) to
+    float32."""
+    import torch
+    allv = torch.cat([acc.double()[:, None], terms], 1)
+    _, e = torch.frexp(allv)                       # |x| < 2^e
+    e = torch.where(allv == 0, -1000, e - 1).amax(1).clamp(min=-1000)
+    quantum = torch.ldexp(torch.ones_like(allv[:, 0]), e - 25)[:, None]
+    total = (torch.trunc(allv / quantum) * quantum).sum(1)
+    f = total.float()
+    over = f.double().abs() > total.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def b4_kernel_order(q, p):
+    """B4's squared eucl distance of row pairs ``(q[i], p[i])`` in the
+    kernel's order of operations: the 3xTF32 split (``acam.tf32_round``),
+    each k-step's eight products per term added to the float32
+    accumulator as the tensor cores add them (``tc_accumulate``; lo.hi,
+    hi.lo, hi.hi), the norms as its threads sum them (fused
+    multiply-adds), then ``(qn - 2 acc) + pn``."""
+    import torch
+    from repro_torch.kernels import acam
+    f32 = torch.float32
+    n, d = q.shape
+    qh, ph = acam.tf32_round(q), acam.tf32_round(p)
+    ql, pl = acam.tf32_round(q - qh), acam.tf32_round(p - ph)
+    acc = torch.zeros(n, dtype=f32, device=q.device)
+    for k0 in range(0, d, 8):
+        for a, b in ((ql, ph), (qh, pl), (qh, ph)):
+            acc = tc_accumulate(acc, a[:, k0:k0 + 8].double()
+                                * b[:, k0:k0 + 8].double())
+
+    def fma_sum(x, order):                 # pn += x * x, in `order`
+        acc_ = torch.zeros(n, dtype=f32, device=q.device)
+        for k in order:
+            v = x[:, k].double()
+            acc_ = (acc_.double() + v * v).to(f32)
+        return acc_
+
+    stages = range(0, d, 32)
+    # q: thread t of a quad holds columns 8 kk + t, 8 kk + t + 4
+    qp_ = [fma_sum(q, [s0 + 8 * kk + t + 4 * h for s0 in stages
+                       for kk in range(4) for h in range(2)
+                       if s0 + 8 * kk + t + 4 * h < d]) for t in range(4)]
+    qn = (qp_[0] + qp_[1]) + (qp_[2] + qp_[3])
+    # p: two threads a row, floats 16 h .. 16 h + 15 of each stage
+    pp_ = [fma_sum(p, [s0 + 16 * h + c for s0 in stages for c in range(16)
+                       if s0 + 16 * h + c < d]) for h in range(2)]
+    pn = pp_[0] + pp_[1]
+    return ((qn.double() - 2.0 * acc.double()).to(f32) + pn).to(f32)
+
+
 def range_module(T, cd, m, n, dim, metric, tau, value_bits):
     """cim program for a TH-mode range search (``dist <= tau``): the
     traced front end has no range pattern, so it enters the pipeline at
@@ -795,6 +932,19 @@ def phase_range_threshold(s: Smoke, data):
         raise RuntimeError(f"range_eucl: kernel and plain version differ at "
                            f"({int(rows[j])}, {int(cols[j])}), not a float64 "
                            f"near-tie: {float(d64[j])} vs tau {tau}")
+    # the kernel's own arithmetic: how many of the disagreements the 3xTF32
+    # split reproduces, as a float32 matrix product and in the kernel's order
+    emulated = acam.range_match_reference(qp, pp, tf32x3=True, **kw)
+    explained = int((emulated[rows, cols] == got[rows, cols]).sum())
+    del emulated
+    in_order = b4_kernel_order(qp[rows], pp[cols]) <= tau
+    explained_in_order = int((in_order == got[rows, cols]).sum())
+    if explained_in_order != int(rows.numel()):
+        raise RuntimeError(
+            f"range_eucl: {int(rows.numel()) - explained_in_order} of "
+            f"{int(rows.numel())} disagreements are not what the kernel's "
+            f"own arithmetic gives (b4_kernel_order): a wrong operand, not "
+            f"rounding")
     top = ki[:, :5].long()                     # knn top-5 below tau - tol
     dtop = ((qt[:, None, :].double() - gt[top].double()) ** 2).sum(-1)
     sure = dtop < tau - tol
@@ -802,15 +952,24 @@ def phase_range_threshold(s: Smoke, data):
         raise RuntimeError("range_eucl: a knn top-5 row well inside tau "
                            "was not matched")
     bound, by = s.range_bound_ms(qp, pp)
+    bound_fp32, _ = s.range_bound_ms(qp, pp, fp32_cuda_cores=True)
     ms = cuda_ms(lambda: acam.range_match(qp, pp, **kw), 10)
     plain_ms = cuda_ms(lambda: acam.range_match_reference(qp, pp, **kw), 5)
     library_ms = cuda_ms(lambda: torch.cdist(qp, pp).square_() <= tau, 5)
     s.record("range_match", "src/repro_torch/kernels/csrc/range_match.cu",
              "src/repro/kernels/acam.py:193", launches,
              float((got != want).any()), ms, plain_ms, bound, by, library_ms)
-    s.kernels["range_match"]["mismatches_float64_near_ties"] = int(rows.numel())
+    rec = s.kernels["range_match"]
+    rec["mismatches_float64_near_ties"] = int(rows.numel())
+    rec["mismatches_reproduced_by_tf32x3_emulation"] = explained
+    rec["mismatches_reproduced_in_kernel_order"] = explained_in_order
+    rec["bound_basis"] = "3xTF32 tensor cores, 495 TFLOP/s"
+    rec["bound_ms_fp32_cuda_cores"] = bound_fp32
     log(dict(info_a, phase="range_threshold", part="eucl", ok=True,
              disagreements_float64_near_ties=int(rows.numel()),
+             disagreements_reproduced_by_tf32x3_emulation=explained,
+             disagreements_reproduced_in_kernel_order=explained_in_order,
+             bound_ms_fp32_cuda_cores=bound_fp32,
              knn_top5_inside_tau=int(sure.sum()), ms=ms, plain_ms=plain_ms,
              library_ms=library_ms, bound_ms=bound, bound_by=by))
     del hit, got, want, qp, pp
@@ -978,6 +1137,26 @@ def phase_hdc_mnist(s: Smoke):
         raise RuntimeError("hdc_mnist: no exact-zero sum in the test set; "
                            "the tie contract went unexercised")
 
+    # -- B1 at the predict shape (one micro-batch of the test set) --------
+    import types
+    args, kw = s.kernel_operands(types.SimpleNamespace(engine_plan=plan),
+                                 [enc_te, clf._gallery])
+    got = cam_search.fused_topk_packed(*args, **kw)
+    want = cam_search.fused_topk_packed_reference(*args, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise RuntimeError("hdc_mnist: the packed kernel and its plain "
+                           "version differ at the predict shape")
+    b1_hdc = s.packed_shape(args, kw, counts["fused_topk_packed"])
+    b1_hdc["plain_ms"] = cuda_ms(
+        lambda: cam_search.fused_topk_packed_reference(*args, **kw), 5)
+    qpm = 2.0 * enc_te[:args[0].shape[0]].float() - 1
+    gpm = 2.0 * clf._gallery.float() - 1
+    b1_hdc["library_ms"] = cuda_ms(lambda: torch.matmul(qpm, gpm.T).topk(1),
+                                   20)
+    b1_hdc["bit_identical"] = True
+    del qpm, gpm, got, want
+
     bound, by = s.hdc_bound_ms(q_te, keys8, levels8)
     ms = cuda_ms(lambda: khdc.hdc_encode(q_te, keys8, levels8), 10)
     plain_ms = cuda_ms(lambda: khdc.hdc_encode_reference(
@@ -992,6 +1171,8 @@ def phase_hdc_mnist(s: Smoke):
              "src/repro/kernels/cam_search.py:304",
              counts["fused_topk_packed"], 0.0, None, None, None,
              "operations", None)
+    s.kernels["fused_topk_packed"].setdefault("shapes", {})[
+        "hdc_predict"] = b1_hdc
     del enc_tr, enc_te
     peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
     if peak_gb > HDC_PEAK_GB:
@@ -1012,6 +1193,7 @@ def phase_hdc_mnist(s: Smoke):
          "predict_ms_per_10k_rows": predict_ms * 1e4 / xte.shape[0],
          "one_shot_test_accuracy": acc0, "epochs": epochs,
          "phase_peak_gb": peak_gb, "predict_profile": prof,
+         "b1_hdc_predict": b1_hdc,
          "encode_profile": encode_prof,
          "kernel_shape": {"q": list(q_te.shape), "keys": list(keys8.shape),
                           "levels": list(levels8.shape)},
@@ -1120,6 +1302,9 @@ def phase_gallery_update(s: Smoke, data):
              "src/repro/kernels/cam_search.py:304",
              counts_b["fused_topk_packed"], 0.0, None, None, None,
              "operations", None)
+    knn = s.kernels["fused_topk_packed"].get("shapes", {}).get("knn")
+    if knn is not None:
+        knn["launches"] += counts_b["fused_topk_packed"]
     log({"phase": "gallery_update", "ok": True,
          "rows_updated": int(rows.size), "runs": UPDATE_RUNS,
          "eucl": dict(rec_a, launches=counts_a),

@@ -14,6 +14,9 @@ write a ``torch.bool`` (M, N) match matrix:
   :mod:`.cam_search`, mapped to the logical domain (identity, or the
   bipolar ``dim - 2h``) and compared against a threshold (``v <= tau``,
   or ``v >= tau`` with ``below=False``); replaces ``range_match_pallas``.
+  Its product runs on the tensor cores as 3xTF32; :func:`tf32_split_product`
+  is the same arithmetic in plain float32, which explains where the kernel
+  and the float32 plain version fall on either side of ``tau``.
 
 Rows at or beyond ``n_valid`` never match.  Zero padding of the inner
 dimension is safe for both: a padded dim carries ``q = lo = hi = 0`` (no
@@ -40,7 +43,8 @@ from .cam_search import (BLOCK_K, METRIC_COEFFS, _METRIC_CODE,
                          _raise_if_failed, _term)
 
 __all__ = ["ACAM_BLOCK_D", "acam_match", "acam_match_reference",
-           "range_match", "range_match_reference"]
+           "range_match", "range_match_reference", "tf32_round",
+           "tf32_split_product"]
 
 #: dims per shared-memory stage of the interval kernel: the inner
 #: dimension of its operands must be a positive multiple of it
@@ -107,16 +111,37 @@ def acam_match_reference(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     return out
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, the low 13 bits cleared: ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    # add half a TF32 unit to the magnitude's bits, then truncate
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split_product(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``q @ p.T`` as the range kernel's tensor cores take it (3xTF32):
+    each operand splits into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``,
+    and the product is ``lo_q hi_p + hi_q lo_p + hi_q hi_p``, each term a
+    float32 matrix product (callers on a GPU keep TF32 off).  On {0, 1}
+    and +-1 cells ``lo`` is 0 and the result equals ``q @ p.T``."""
+    qh, ph = tf32_round(q), tf32_round(p)
+    ql, pl = tf32_round(q - qh), tf32_round(p - ph)
+    return (ql @ ph.T + qh @ pl.T) + qh @ ph.T
+
+
 def range_match_reference(q: torch.Tensor, p: torch.Tensor, *, metric: str,
                           threshold: float, below: bool, to_logical: str,
-                          dim: int, n_valid: int) -> torch.Tensor:
+                          dim: int, n_valid: int,
+                          tf32x3: bool = False) -> torch.Tensor:
     """Plain version of :func:`range_match`: the decomposition with a
     float32 matrix product (callers on a GPU keep TF32 off), the logical
-    map, and the compare."""
+    map, and the compare.  ``tf32x3`` takes the product as the kernel's
+    tensor cores do (:func:`tf32_split_product`)."""
     _check_range_args(metric, to_logical)
     _check("range_match", {"queries": q, "patterns": p}, BLOCK_K, n_valid)
     alpha, beta, gamma, qk, pk = METRIC_COEFFS[metric]
-    dist = alpha * (q @ p.T)
+    dist = alpha * (tf32_split_product(q, p) if tf32x3 else q @ p.T)
     if beta:
         dist = dist + beta * _term(q, qk).sum(1, keepdim=True)
     if gamma:

@@ -16,7 +16,9 @@ periphery — as (value, global row index) candidates:
 * :func:`fused_topk` — float cells, the decomposition above; replaces
   the reference's ``fused_topk_pallas``;
 * :func:`fused_topk_packed` — packed lanes, binary or ternary; replaces
-  ``fused_topk_packed_pallas``;
+  ``fused_topk_packed_pallas``; two routes by shape
+  (:func:`packed_route`): int8 tensor-core products over unpacked lanes
+  when the grid fills the card, a warp per (query, window) otherwise;
 * :func:`distance` — the full (M, N) float32 distance matrix of the same
   decomposition, no top-k (the public ``ops.cam_distances``); replaces
   ``distance_pallas``.
@@ -46,7 +48,7 @@ from . import build
 from .packing import popcount32
 
 __all__ = ["METRIC_COEFFS", "BLOCK_K", "MAX_K", "LAUNCHES", "window_rows",
-           "reset_launch_counts", "fused_topk", "fused_topk_reference",
+           "packed_route", "reset_launch_counts", "fused_topk", "fused_topk_reference",
            "fused_topk_packed", "fused_topk_packed_reference", "distance",
            "distance_reference"]
 
@@ -99,6 +101,30 @@ def window_rows(k: int) -> int:
             f"k={k} is outside the CAM search kernels' range 1..{MAX_K} "
             f"(a window of at least k rows must fit in shared memory)")
     return _TILE_N * -(-k // _TILE_N)
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def packed_route(m: int, n: int, k: int, sms: int) -> str:
+    """The route of :func:`fused_topk_packed` on a card with ``sms``
+    streaming multiprocessors: ``"mma"`` (int8 tensor cores, 128 queries
+    x one 128-row window a block) when the window is 128 rows and that
+    grid has a block for every SM, else ``"rows"`` (a warp per (query,
+    window), which only computes rows below ``n_valid``)."""
+    window = window_rows(k)
+    if window == _TILE_N and -(-m // 128) * (n // window) >= sms:
+        return "mma"
+    return "rows"
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +330,7 @@ def fused_topk_packed(q: torch.Tensor, p: torch.Tensor,
     ``p`` (N, L), optional per-pattern TCAM ``care`` mask (N, L); the
     distance is ``popcount(q ^ p [& care])`` — integer arithmetic end to
     end, bit-identical to the reference.  Shape rules as
-    :func:`fused_topk`.
+    :func:`fused_topk`; the kernel's route is :func:`packed_route`.
     """
     _check("fused_topk_packed", q, p, care, torch.int32, k, n_valid)
     if q.device.type == "cpu":
@@ -314,13 +340,14 @@ def fused_topk_packed(q: torch.Tensor, p: torch.Tensor,
     if q.shape[0] == 0:
         return out_v, out_i
     lib = build.load("fused_topk_packed")
-    launch = _bind(lib, "c4cam_fused_topk_packed", _args(5, 7))
+    launch = _bind(lib, "c4cam_fused_topk_packed", _args(5, 8))
+    route = packed_route(q.shape[0], p.shape[0], k, _sm_count(q.device))
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), p.data_ptr(),
                      None if care is None else care.data_ptr(),
                      out_v.data_ptr(), out_i.data_ptr(), q.shape[0],
                      p.shape[0], q.shape[1], k, window_rows(k), n_valid,
-                     int(largest),
+                     int(largest), int(route == "mma"),
                      torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed(lib, "fused_topk_packed", err)
     _count("fused_topk_packed" if care is None

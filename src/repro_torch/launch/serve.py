@@ -88,8 +88,10 @@ class Server:
         self.stats["prefills"] += 1
         return int(self._sample(logits[:, -1])[0]), cache
 
-    def run(self) -> Dict[str, Any]:
-        """Processes the queue until all requests complete."""
+    def run(self, drain: bool = True) -> Dict[str, Any]:
+        """Processes the queue until all requests complete; with
+        ``drain=False``, returns after the first step that finds the
+        queue empty."""
         caches: List[Any] = [None] * self.batch
         t0 = time.perf_counter()
         completed: List[Request] = []
@@ -122,6 +124,8 @@ class Server:
                     completed.append(req)
                     self.slots[i] = None
                     caches[i] = None
+            if not drain and not self.queue:
+                break
         dt = time.perf_counter() - t0
         return {"completed": len(completed), "wall_s": dt,
                 "tokens_per_s": self.stats["tokens"] / max(dt, 1e-9),

@@ -166,7 +166,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
       attention spans the cache tensor with ``kv_len = len + S`` and
       ``q_start = len``: S > 1 is a prefill, S == 1 a decode step.
       Returns the same tensors with ``len + S``; ``len`` is a host int,
-      so the kernel gets ``kv_len`` without a device sync.
+      so the kernel gets ``kv_len`` without a device sync.  A write past
+      the cache's ``max_len`` rows raises ``ValueError`` before any row
+      is written (the reference's ``dynamic_update_slice`` would clamp
+      the start and overwrite the last rows).
     * ``prefix_len``: bidirectional prefix (prefix-LM).
     """
     b, s, _ = x.shape
@@ -182,6 +185,11 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q_start = 0
     if cache is not None:
         start = cache["len"]
+        max_len = cache["k"].shape[1]
+        if start + s > max_len:
+            raise ValueError(
+                f"attention: the KV cache holds len={start} rows and S={s} "
+                f"new ones would pass max_len={max_len}")
         cache["k"][:, start:start + s] = k.to(cache["k"].dtype)
         cache["v"][:, start:start + s] = v.to(cache["v"].dtype)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": start + s}

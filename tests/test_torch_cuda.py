@@ -67,6 +67,100 @@ def test_packed_kernel_matches_plain(cuda, ternary, k, largest, rng):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@pytest.mark.parametrize("ternary", [False, True])
+@pytest.mark.parametrize("largest", [False, True])
+def test_packed_kernel_at_the_hdc_predict_shape(cuda, ternary, largest, rng):
+    """The HDC classifier's predict shape: 1024 queries x 256 lanes
+    against one 128-row window of 10 classes, k = 1 (the classifier's
+    plan passes largest=False: bipolar dot through hamming)."""
+    q = _lanes(rng, 1024, 256).to(cuda)
+    p = _lanes(rng, 128, 256).to(cuda)
+    c = _lanes(rng, 128, 256).to(cuda) if ternary else None
+    assert tcs.packed_route(1024, 128, 1, _sms(cuda)) == "rows"
+    got = tcs.fused_topk_packed(q, p, c, k=1, largest=largest, n_valid=10)
+    torch.cuda.synchronize()
+    want = tcs.fused_topk_packed_reference(q, p, c, k=1, largest=largest,
+                                           n_valid=10)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].max()) < 10
+
+
+@pytest.mark.parametrize("route", ["mma", "rows"])
+@pytest.mark.parametrize("n_valid", [2047, 2048, 2049, 2111, 2112, 2113,
+                                     2175])
+def test_packed_kernel_n_valid_at_sub_tile_edges(cuda, route, n_valid, rng):
+    """n_valid on each side of a window edge (2048) and of a warp's
+    64-row half (2112), on both routes; 17 windows of 128 rows."""
+    m = 1024 if route == "mma" else 150
+    q = _lanes(rng, m, 32).to(cuda)
+    p = _lanes(rng, 17 * 128, 32).to(cuda)
+    assert tcs.packed_route(m, p.shape[0], 10, _sms(cuda)) == route
+    for care in (None, _lanes(rng, 17 * 128, 32).to(cuda)):
+        got = tcs.fused_topk_packed(q, p, care, k=10, largest=False,
+                                    n_valid=n_valid)
+        torch.cuda.synchronize()
+        want = tcs.fused_topk_packed_reference(q, p, care, k=10,
+                                               largest=False,
+                                               n_valid=n_valid)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("ternary", [False, True])
+@pytest.mark.parametrize("route", ["mma", "rows"])
+def test_packed_kernel_lanes_with_bit_31_set(cuda, ternary, route, rng):
+    """Lanes with bit 31 set (negative int32): all ones, the sign bit
+    alone, and random lanes forced negative, binary and ternary."""
+    m = 1024 if route == "mma" else 64
+    n = 17 * 128
+    q = _lanes(rng, m, 32)
+    p = _lanes(rng, n, 32)
+    q[::3] |= np.int32(-2 ** 31)
+    p[::2] |= np.int32(-2 ** 31)
+    q[1], p[5], p[7] = -1, -1, np.int32(-2 ** 31)
+    p[9] = q[1]                                  # distance 0 on row 9
+    c = None
+    if ternary:
+        c = _lanes(rng, n, 32)
+        c[::2] = -1
+        c = c.to(cuda)
+    q, p = q.to(cuda), p.to(cuda)
+    assert tcs.packed_route(m, n, 10, _sms(cuda)) == route
+    for largest in (False, True):
+        got = tcs.fused_topk_packed(q, p, c, k=10, largest=largest,
+                                    n_valid=n - 3)
+        torch.cuda.synchronize()
+        want = tcs.fused_topk_packed_reference(q, p, c, k=10,
+                                               largest=largest,
+                                               n_valid=n - 3)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("ternary", [False, True])
+@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("lanes", [8, 24, 40, 256])
+def test_packed_mma_route_lane_counts(cuda, ternary, k, lanes, rng):
+    """The "mma" route at lane counts other than one 32-lane stage: a
+    partial stage (8, 24), a restage with a partial one (40) and eight
+    full stages (256, an HDC gallery of 17 windows)."""
+    m, n = 1024, 17 * 128
+    q = _lanes(rng, m, lanes).to(cuda)
+    p = _lanes(rng, n, lanes).to(cuda)
+    c = _lanes(rng, n, lanes).to(cuda) if ternary else None
+    assert tcs.packed_route(m, n, k, _sms(cuda)) == "mma"
+    for largest in (False, True):
+        got = tcs.fused_topk_packed(q, p, c, k=k, largest=largest,
+                                    n_valid=n - 5)
+        torch.cuda.synchronize()
+        want = tcs.fused_topk_packed_reference(q, p, c, k=k,
+                                               largest=largest,
+                                               n_valid=n - 5)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("metric,largest", [("hamming", False),
                                             ("dot", True), ("eucl", False)])
 def test_float_kernel_matches_plain(cuda, metric, largest, rng):
@@ -237,6 +331,80 @@ def test_range_kernel_matches_plain(cuda, metric, to_logical, below, rng):
     q64, p64 = qt.double(), pt.double()
     d64 = ((q64[rows] - p64[cols]) ** 2).sum(1)
     assert bool(((d64 - tau).abs() <= EUCL_ATOL + EUCL_RTOL * tau).all())
+
+
+def _range_decomposition64(q, p, metric):
+    q64, p64 = q.double(), p.double()
+    dot = q64 @ p64.T
+    if metric == "dot":
+        return dot
+    f = (lambda x: x * x) if metric == "eucl" else (lambda x: x)
+    return -2 * dot + f(q64).sum(1, keepdim=True) + f(p64).sum(1)[None]
+
+
+def _assert_range_near_ties(got, want, q, p, metric, tau, dim, bipolar):
+    rows, cols = (got != want).nonzero(as_tuple=True)
+    d64 = _range_decomposition64(q, p, metric)[rows, cols]
+    v64 = dim - 2 * d64 if bipolar else d64
+    assert bool(((v64 - tau).abs() <= EUCL_ATOL + EUCL_RTOL * abs(tau))
+                .all()), (rows, cols, v64)
+
+
+@pytest.mark.parametrize("m,n,dim", [(70, 1005, 8), (130, 333, 1032),
+                                     (1, 129, 72), (257, 640, 40)])
+@pytest.mark.parametrize("metric", ["eucl", "hamming"])
+def test_range_kernel_ragged_shapes(cuda, m, n, dim, metric, rng):
+    """M ragged against the warpgroup's 64 rows, N not a multiple of the
+    128-row tile, D = 8, D = 1032 (not a multiple of the 32-float stage):
+    eucl within tolerance (near-ties only), {0, 1} hamming exact."""
+    if metric == "eucl":
+        q = rng.standard_normal((m, dim)).astype(np.float32)
+        p = rng.standard_normal((n, dim)).astype(np.float32)
+        tau = 2.0 * dim
+    else:
+        q = (rng.random((m, dim)) > 0.5).astype(np.float32)
+        p = (rng.random((n, dim)) > 0.5).astype(np.float32)
+        tau = dim / 2.0
+    qt, pt = torch.from_numpy(q).to(cuda), torch.from_numpy(p).to(cuda)
+    kw = dict(metric=metric, threshold=tau, below=True,
+              to_logical="identity", dim=dim, n_valid=n - 2)
+    got = tacam.range_match(qt, pt, **kw)
+    torch.cuda.synchronize()
+    want = tacam.range_match_reference(qt, pt, **kw)
+    assert got.shape == (m, n) and not got[:, n - 2:].any()
+    assert 0 < int(want.sum()) < want.numel()
+    if metric == "hamming":
+        assert torch.equal(got, want)
+    else:
+        _assert_range_near_ties(got, want, qt, pt, metric, tau, dim, False)
+
+
+@pytest.mark.parametrize("metric,to_logical", [("dot", "identity"),
+                                               ("hamming", "identity"),
+                                               ("hamming", "bipolar")])
+def test_range_kernel_on_non_binary_float_cells(cuda, metric, to_logical,
+                                                rng):
+    """dot and hamming on float cells that are neither {0, 1} nor +-1:
+    the 3xTF32 product holds the eucl tolerance, every disagreement a
+    float64 near-tie of tau."""
+    m, n, dim = 150, 700, 200
+    q = (rng.standard_normal((m, dim)) * 3).astype(np.float32)
+    p = (rng.standard_normal((n, dim)) * 3).astype(np.float32)
+    qt, pt = torch.from_numpy(q).to(cuda), torch.from_numpy(p).to(cuda)
+    d64 = _range_decomposition64(qt, pt, metric)
+    v64 = dim - 2 * d64 if to_logical == "bipolar" else d64
+    tau = float(v64.median())
+    kw = dict(metric=metric, threshold=tau, below=True,
+              to_logical=to_logical, dim=dim, n_valid=n)
+    got = tacam.range_match(qt, pt, **kw)
+    torch.cuda.synchronize()
+    want = tacam.range_match_reference(qt, pt, **kw)
+    assert 0 < int(want.sum()) < want.numel()
+    _assert_range_near_ties(got, want, qt, pt, metric, tau, dim,
+                            to_logical == "bipolar")
+    emulated = tacam.range_match_reference(qt, pt, tf32x3=True, **kw)
+    _assert_range_near_ties(got, emulated, qt, pt, metric, tau, dim,
+                            to_logical == "bipolar")
 
 
 def test_range_kernels_refuse_bad_operands(cuda):

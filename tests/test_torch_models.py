@@ -342,3 +342,29 @@ def test_prefill_then_decode_matches_forward():
     got = _port_serve(lm)
     np.testing.assert_allclose(got, want, atol=0.75, rtol=0.2)
     _assert_argmax_agrees(got, want)
+
+
+@pytest.mark.parametrize("case", ["decode", "prefill"])
+def test_cache_write_past_max_len_raises_before_writing(case):
+    """A prefill or decode step that would write past the cache's
+    ``max_len`` rows raises one ``ValueError`` naming ``len``, ``S`` and
+    ``max_len`` before any cache row is written (the reference's
+    ``dynamic_update_slice`` clamps the start and overwrites rows)."""
+    cfg = get_smoke_config("qwen2.5-14b")
+    params = tm.init_params(cfg, seed=0, device="cpu")
+    cache = tm.init_decode_cache(cfg, 1, 4, device="cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(5).integers(1, cfg.vocab, (1, 5)))
+    if case == "decode":
+        _, cache = tm.prefill(params, cfg, {"tokens": tokens[:, :3]}, cache)
+        _, cache = tm.decode_step(params, cfg, tokens[:, 3:4], cache)
+        assert cache["len"] == 4
+        step = lambda: tm.decode_step(params, cfg, tokens[:, 4:5], cache)
+        want = "len=4 rows and S=1 .* max_len=4"
+    else:
+        step = lambda: tm.prefill(params, cfg, {"tokens": tokens}, cache)
+        want = "len=0 rows and S=5 .* max_len=4"
+    k, v = cache["k"].clone(), cache["v"].clone()
+    with pytest.raises(ValueError, match=want):
+        step()
+    assert torch.equal(cache["k"], k) and torch.equal(cache["v"], v)

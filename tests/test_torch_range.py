@@ -245,6 +245,78 @@ def test_range_plain_matches_pallas(metric, to_logical, tau, below, rng):
         np.testing.assert_array_equal(got.numpy(), ref)
 
 
+def test_tf32_split_product_on_knn_scale_eucl_matches_pallas(rng):
+    """The range kernel's 3xTF32 arithmetic, emulated in float32 on the
+    CPU, against the Pallas kernel (interpret mode) on eucl data at the
+    smoke's value scale (the KNN gallery's class centres N(0, 4) plus
+    N(0, 1) noise, D = 1024, squared distances about 1,750 near tau):
+    every disagreement a float64 near-tie of tau."""
+    m, n, dim = 48, 300, 1024
+    centers = rng.standard_normal((2, dim)).astype(np.float32) * 2.0
+    q = centers[rng.integers(0, 2, m)] + \
+        rng.standard_normal((m, dim)).astype(np.float32)
+    p = centers[rng.integers(0, 2, n)] + \
+        rng.standard_normal((n, dim)).astype(np.float32)
+    d64 = ((q[:, None, :].astype(np.float64) - p[None]) ** 2).sum(-1)
+    tau = float(np.median(d64[d64 < np.median(d64)]))   # the near class
+    assert 1000 < tau < 2500
+    kw = dict(metric="eucl", threshold=tau, below=True,
+              to_logical="identity", dim=dim, n_valid=n)
+    ref = np.asarray(racam.range_match_pallas(
+        jnp.asarray(q), jnp.asarray(p), interpret=True, **kw)) != 0
+    qt, pt = torch.from_numpy(q), torch.from_numpy(p)
+    got = tacam.range_match_reference(qt, pt, tf32x3=True, **kw).numpy()
+    assert 0 < ref.sum() < ref.size
+    _near_ties_only(q, p, got, ref, tau)
+    prod = tacam.tf32_split_product(qt, pt).double()
+    exact = torch.from_numpy(q).double() @ torch.from_numpy(p).double().T
+    # the split keeps about 22 bits of each product: as close as float32
+    # sums (whose own rounding dominates here), far closer than one TF32
+    # product
+    plain = (qt @ pt.T).double()
+    tf32 = (tacam.tf32_round(qt) @ tacam.tf32_round(pt).T).double()
+    err = float((prod - exact).abs().max())
+    assert err <= 2 * float((plain - exact).abs().max())
+    assert 50 * err < float((tf32 - exact).abs().max())
+
+
+@pytest.mark.parametrize("cells", ["binary", "bipolar"])
+def test_tf32_split_product_is_exact_on_binary_and_bipolar_cells(cells,
+                                                                 rng):
+    """On {0, 1} and +-1 cells lo is 0: the split product equals the
+    float32 product and the match equals the Pallas kernel's."""
+    m, n, dim = 40, 300, 200
+    q, p = threshold_data(rng, "hamming", m, n, dim)
+    metric, tau, to_logical = "hamming", 98.0, "identity"
+    if cells == "bipolar":
+        q, p = 2 * q - 1, 2 * p - 1
+        metric, tau = "dot", 4.0
+    qt, pt = torch.from_numpy(q), torch.from_numpy(p)
+    assert torch.equal(tacam.tf32_round(qt), qt)
+    assert torch.equal(tacam.tf32_split_product(qt, pt), qt @ pt.T)
+    kw = dict(metric=metric, threshold=tau, below=True,
+              to_logical=to_logical, dim=dim, n_valid=n)
+    ref = np.asarray(racam.range_match_pallas(
+        jnp.asarray(q), jnp.asarray(p), interpret=True, **kw)) != 0
+    got = tacam.range_match_reference(qt, pt, tf32x3=True, **kw).numpy()
+    assert 0 < ref.sum() < ref.size
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """``tf32_round`` is ``cvt.rna.tf32.f32``: 10 mantissa bits, ties
+    away from zero, the low 13 bits cleared."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -23,
+                      one + 3 * ulp / 2, 0.0, -0.0], dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + 2 * ulp, 0.0,
+                         -0.0], dtype=torch.float32)
+    got = tacam.tf32_round(x)
+    assert torch.equal(got, want)
+    assert not bool((got.view(torch.int32) & 0x1FFF).any())
+
+
 # ---------------------------------------------------------------------------
 # RangePlan and the interpreter vs the reference
 # ---------------------------------------------------------------------------

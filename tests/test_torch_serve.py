@@ -39,13 +39,13 @@ def _requests(mod, vocab):
                         max_new=MAX_NEW) for r in range(N_REQ)]
 
 
-def _serve(mod, cfg, params, **kw):
+def _serve(mod, cfg, params, drain=True, **kw):
     srv = mod.Server(cfg, params, batch=BATCH, max_len=PROMPT + MAX_NEW + 1,
                      **kw)
     reqs = _requests(mod, cfg.vocab)
     for r in reqs:
         srv.submit(r)
-    out = srv.run()
+    out = srv.run(drain=drain)
     return [r.out for r in reqs], out
 
 
@@ -99,3 +99,20 @@ def test_server_defaults_to_the_gpu():
             tserve.Server(cfg, {}, batch=1, max_len=8)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tm.init_params(cfg)
+
+
+def test_run_without_drain_matches_reference():
+    """``run(drain=False)`` returns after the first step that finds the
+    queue empty, as the reference's does: the same tokens so far and the
+    same counts."""
+    rcfg = _f32(r_get_smoke_config("qwen2.5-14b"))
+    tcfg = _f32(get_smoke_config("qwen2.5-14b"))
+    rparams = rm.init_params(jax.random.PRNGKey(0), rcfg)
+    tparams = convert.lm_params_from_reference(
+        jax.tree.map(np.asarray, rparams), tcfg, device="cpu")
+    want, rstats = _serve(rserve, rcfg, rparams, drain=False)
+    got, tstats = _serve(tserve, tcfg, tparams, drain=False, device="cpu")
+    assert got == want
+    for key in ("completed", "prefills", "decode_steps", "tokens"):
+        assert tstats[key] == rstats[key], key
+    assert tstats["prefills"] == N_REQ and tstats["completed"] < N_REQ
