@@ -7,7 +7,12 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
 
 * ``knn_eucl``       — KNN, Euclidean top-5, 180,000 x 1024 gallery
                        (float32, 737 MB on the card), 624 queries:
-                       kernel ``fused_topk``;
+                       kernel ``fused_topk`` on its "wgmma" route (3xTF32
+                       tensor cores; each eucl index swap against the
+                       plain version is replayed in the kernel's
+                       arithmetic), timed at the 624 rows the path gives
+                       it and at the 1024-row padded shape of earlier
+                       runs;
 * ``hamming_packed`` — hamming top-10 on the same gallery binarised
                        ``> 0``: kernel ``fused_topk_packed``;
 * ``tcam_ternary``   — the same with a 10 % wildcard care mask:
@@ -26,11 +31,14 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        median 10th-nearest distance: kernel
                        ``range_match`` (3xTF32 tensor cores; each eucl
                        disagreement with the plain version is also
-                       replayed in the kernel's arithmetic);
+                       replayed in the kernel's arithmetic), on the 624
+                       rows the path gives it and on the 1024-row padded
+                       shape of earlier runs;
 * ``hdc_mnist``      — the paper's HDC/MNIST-8k through ``HdcClassifier``:
                        60,000 training and 10,000 test samples of 784
                        features encoded to 8192 dims (kernel
-                       ``hdc_encode``), one-shot fit, packed
+                       ``hdc_encode``, bit-sliced, on the item memory's
+                       bit planes), one-shot fit, packed
                        classification (``fused_topk_packed``) and three
                        retraining epochs whose touched class rows go
                        through ``SearchPlan.update_rows``;
@@ -140,6 +148,9 @@ UPDATE_RUNS, UPDATE_RUN, UPDATE_SEED = 18, 100, 13
 IMAD_PER_CLOCK_PER_SM = 64
 #: int8 products per IDP4A
 DP4A_PRODUCTS = 4
+#: 32-bit logical operations (LOP3) per clock per SM, compute capability
+#: 9.0 (CUDA C++ Programming Guide: 32-bit bitwise AND, OR, XOR)
+LOP_PER_CLOCK_PER_SM = 64
 #: lm_serve: LM_ARCH (with LM_OVERRIDES, none on the card) served to
 #: SERVE_REQUESTS prompts of SERVE_PROMPT tokens, SERVE_NEW new tokens
 #: each, decode batch SERVE_BATCH; DECODE_TIMED_STEPS decode steps timed
@@ -314,6 +325,8 @@ class Smoke:
                               * max_clock_mhz * 1e6)
         self.imad_per_s = (IMAD_PER_CLOCK_PER_SM * props.multi_processor_count
                            * max_clock_mhz * 1e6)
+        self.lop_per_s = (LOP_PER_CLOCK_PER_SM * props.multi_processor_count
+                          * max_clock_mhz * 1e6)
         self.kernels = {}        # name -> record for the final line
         self.failed = []
         self.topk = {}           # phase -> (values, indices) of its result
@@ -392,16 +405,12 @@ class Smoke:
 
     def kernel_operands(self, prog, inputs):
         """The (args, kwargs) the path's first micro-batch hands its
-        kernel wrapper, rebuilt from the plan's own prepared gallery."""
+        kernel wrapper, rebuilt from the plan's own prepared gallery (a
+        ragged micro-batch at its own row count, as the engine runs it)."""
         from repro_torch.core.engine.executables import _cuda_operands
-        torch = self.torch
         plan = prog.engine_plan
         spec = plan.spec
-        q = inputs[spec.query_arg]
-        chunk = q[:plan.batch]
-        if chunk.shape[0] < plan.batch:
-            chunk = torch.nn.functional.pad(
-                chunk, (0, 0, 0, plan.batch - chunk.shape[0]))
+        chunk = inputs[spec.query_arg][:plan.batch]
         srcs = plan._stored_sources(inputs)
         return _cuda_operands(spec, plan.packed, chunk,
                               plan._prepared_patterns(*srcs))
@@ -422,12 +431,20 @@ class Smoke:
 
     # -- bounds ---------------------------------------------------------------
 
-    def float_bound_ms(self, q, p, out_cols):
+    def float_bound_ms(self, q, p, out_cols, route="wgmma"):
+        """B2 on ``route``: ``"wgmma"``, three products of 2 M N D FLOP at
+        the TF32 tensor-core peak (3xTF32); ``"fma"``, one at the float32
+        CUDA-core peak (the earlier basis).  The norms are 2 (M + N) D
+        FLOP on the CUDA cores.  Against the bytes of its operands and its
+        candidates."""
         m, d = q.shape
         n = p.shape[0]
-        flops = 2.0 * m * n * d + 2.0 * (m + n) * d
         bytes_ = 4.0 * (m * d + n * d) + 8.0 * m * out_cols
-        t_ops, t_mem = flops / FP32_PEAK_FLOPS, bytes_ / HBM_BYTES_PER_S
+        if route == "wgmma":
+            t_ops = 3 * 2.0 * m * n * d / TF32_PEAK_FLOPS
+        else:
+            t_ops = (2.0 * m * n * d + 2.0 * (m + n) * d) / FP32_PEAK_FLOPS
+        t_mem = bytes_ / HBM_BYTES_PER_S
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
 
@@ -468,18 +485,26 @@ class Smoke:
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
 
-    def hdc_bound_ms(self, q, keys, levels):
-        """B5: one int8 bind-and-add step per (query, feature, dim), four
-        to an IDP4A at the integer multiply-add rate, against the bytes of
-        the int32 ids, the keys and levels as the kernel takes them, and
-        the float32 output."""
+    def hdc_bound_ms(self, q, planes, basis="bitsliced"):
+        """B5 on ``basis``: ``"bitsliced"``, its route's logical operations
+        per (query, feature, 32-dim word) as the kernel's loop counts them
+        (``hdc_logical_ops``) at the LOP3 rate; ``"idp4a"``, the earlier
+        gather form's basis (one int8 product per (query, feature, dim),
+        four to an IDP4A at the integer multiply-add rate).  Against the
+        bytes of the int32 ids, the bit planes and the float32 output."""
+        from repro_torch.kernels import hdc_encode as khdc
+        from repro_torch.kernels.packing import lanes
         m, f = q.shape
-        h = keys.shape[1]
-        instructions = float(m) * f * h / DP4A_PRODUCTS
-        bytes_ = (4.0 * m * f + keys.element_size() * keys.numel()
-                  + levels.element_size() * levels.numel() + 4.0 * m * h)
-        t_ops, t_mem = (instructions / self.imad_per_s,
-                        bytes_ / HBM_BYTES_PER_S)
+        h = planes.dim
+        if basis == "bitsliced":
+            steps = float(m) * (-(-f // 16) * 16) * lanes(h)
+            t_ops = steps * hdc_logical_ops(khdc.count_planes(f),
+                                            planes.has_zero) / self.lop_per_s
+        else:
+            t_ops = float(m) * f * h / DP4A_PRODUCTS / self.imad_per_s
+        bytes_ = (4.0 * m * f + 4.0 * planes.key_planes.numel()
+                  + 4.0 * planes.level_planes.numel() + 4.0 * m * h)
+        t_mem = bytes_ / HBM_BYTES_PER_S
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
 
@@ -577,27 +602,58 @@ def phase_knn_eucl(s: Smoke, data):
         raise RuntimeError(f"knn_eucl: values off the plain version by "
                            f"{float((v - pv).abs().max())}")
     swaps = eucl_index_swaps(qp, pp, i, pi, "knn_eucl result")
+    # ... and each of them is what the kernel's own arithmetic gives
+    _, cand_exact = b2_order_reproduced(qp, pp, got[0], got[1], want[1],
+                                        kw["k"], kw["largest"],
+                                        "knn_eucl candidates")
+    b2_order_reproduced(qp, pp, v, i, pi, kw["k"], kw["largest"],
+                        "knn_eucl result")
     gl = torch.from_numpy(g_labels).cuda().long()
     votes = gl[i.long()].sum(1)                  # two classes: 0 / 1
     acc5 = float(((votes >= 3).long().cpu().numpy() == q_labels).mean())
 
+    route = cam_search.float_route(kw["k"])
     out_cols = got[0].shape[1]
-    bound, by = s.float_bound_ms(qp, pp, out_cols)
-    ms = cuda_ms(lambda: cam_search.fused_topk(*args, **kw), 10)
+    batch = prog.engine_plan.batch
+    shapes = {}
+    # the rows the path gives the kernel, and the padded micro-batch that
+    # earlier runs gave it (the same queries, zero rows after them)
+    for name, qx in (("path", qp), (f"padded_{batch}",
+                                    torch.nn.functional.pad(
+                                        qp, (0, 0, 0, batch - qp.shape[0])))):
+        bound, by = s.float_bound_ms(qx, pp, out_cols)
+        fma_bound, _ = s.float_bound_ms(qx, pp, out_cols, "fma")
+        shapes[name] = {
+            "rows": qx.shape[0],
+            "ms": cuda_ms(lambda qx=qx: cam_search.fused_topk(qx, pp, **kw),
+                          10),
+            "bound_ms": bound, "bound_by": by,
+            "bound_ms_fp32_cuda_cores": fma_bound,
+            "library_ms": cuda_ms(lambda qx=qx: torch.cdist(qx, pp).topk(
+                5, largest=False), 5)}
+    path = shapes["path"]
+    ms, bound, by = path["ms"], path["bound_ms"], path["bound_by"]
+    library_ms = path["library_ms"]
     plain_ms = cuda_ms(lambda: cam_search.fused_topk_reference(*args, **kw),
                        5)
-    library_ms = cuda_ms(lambda: torch.cdist(qp, pp).topk(5, largest=False),
-                         5)
     s.record("fused_topk", "src/repro_torch/kernels/csrc/fused_topk.cu",
              "src/repro/kernels/cam_search.py:200", counts["fused_topk"], err,
              ms, plain_ms, bound, by, library_ms)
+    rec = s.kernels["fused_topk"]
+    rec["kernel_route"] = route
+    rec["bound_basis"] = "3xTF32 tensor cores, 495 TFLOP/s"
+    rec["bound_ms_fp32_cuda_cores"] = path["bound_ms_fp32_cuda_cores"]
+    rec["shapes"] = shapes
     log({"phase": "knn_eucl", "ok": True, "launches": counts,
          "first_call_s": first_s, "second_call_s": second_s,
          "kernel_shape": {"q": list(qp.shape), "p": list(pp.shape),
-                          "k": kw["k"]},
+                          "k": kw["k"]}, "kernel_route": route,
          "candidate_max_abs_err": err,
          "candidate_index_swaps_float64_near_ties": cand_swaps,
          "result_index_swaps_float64_near_ties": swaps,
+         "index_swaps_reproduced_in_kernel_order": True,
+         "swapped_candidates_equal_to_replay": cand_exact,
+         "shapes": shapes,
          "knn5_label_accuracy": acc5,
          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
          "bound_ms": bound, "bound_by": by, "profile": prof})
@@ -650,6 +706,10 @@ def _packed_phase(s: Smoke, name, data, care):
 
     qp, pp, cp = args
     shape = s.packed_shape(args, kw, counts[expect])
+    # the padded micro-batch of earlier runs (zero rows after the queries)
+    batch = prog.engine_plan.batch
+    padded = s.packed_shape((torch.nn.functional.pad(
+        qp, (0, 0, 0, batch - qp.shape[0])), pp, cp), kw, 0)
     ms, bound, by = shape["ms"], shape["bound_ms"], shape["bound_by"]
     plain_ms = cuda_ms(
         lambda: cam_search.fused_topk_packed_reference(*args, **kw), 3)
@@ -666,9 +726,11 @@ def _packed_phase(s: Smoke, name, data, care):
     rec = s.kernels[expect]
     rec.setdefault("shapes", {})["knn"] = dict(shape, plain_ms=plain_ms,
                                                library_ms=library_ms)
+    rec["shapes"][f"knn_padded_{batch}"] = padded
     rec["bound_basis"] = shape["basis"]
     rec["bound_ms_popc_all_rows"] = shape["bound_ms_popc_all_rows"]
     log({"phase": name, "ok": True, "launches": counts, "b1_knn": shape,
+         "b1_knn_padded": padded,
          "first_call_s": first_s, "second_call_s": second_s,
          "kernel_shape": {"q": list(qp.shape), "p": list(pp.shape),
                           "k": kw["k"]},
@@ -746,9 +808,7 @@ def phase_forest_acam(s: Smoke):
     match = clf.matches(xt)
 
     # the first micro-batch's operands, as the plan hands them to the kernel
-    chunk = torch.nn.functional.pad(xt[:plan.batch],
-                                    (0, 0, 0, max(0, plan.batch - len(xt))))
-    qp = ops.pad_to_blocks(chunk, 1, acam.ACAM_BLOCK_D)
+    qp = ops.pad_to_blocks(xt[:plan.batch], 1, acam.ACAM_BLOCK_D)
     lo, hi = plan._prepared_patterns(clf._lo, clf._hi)
     got = acam.acam_match(qp, lo, hi, n_valid=n)
     want = acam.acam_match_reference(qp, lo, hi, n_valid=n)
@@ -851,6 +911,52 @@ def b4_kernel_order(q, p):
     return ((qn.double() - 2.0 * acc.double()).to(f32) + pn).to(f32)
 
 
+def b2_order_reproduced(qp, pp, got_v, got_i, want_i, k, largest, what):
+    """Replay each eucl index swap of B2's "wgmma" route against its plain
+    version in the kernel's arithmetic (the pipeline it shares with B4, so
+    ``b4_kernel_order``): where the kernel put row ``a`` at a position
+    and the plain version row ``b``, the replayed distances must order
+    ``a`` and ``b`` (lower row first on equal distances) as the kernel's
+    list does (``b`` later in the same list of ``k``, or absent).  Raises
+    on a swap the replay does not give.  Returns (swaps, candidates whose
+    value equals the replayed distance exactly)."""
+    import torch
+    rows, cols = (got_i != want_i).nonzero(as_tuple=True)
+    if rows.numel() == 0:
+        return 0, 0
+    a, b = got_i[rows, cols].long(), want_i[rows, cols].long()
+    da = b4_kernel_order(qp[rows], pp[a])
+    db = b4_kernel_order(qp[rows], pp[b])
+    seg = (cols // k)[:, None] * k + torch.arange(k, device=cols.device)
+    in_list = got_i[rows[:, None], seg] == b[:, None].int()
+    pos_b = torch.where(in_list.any(1), in_list.int().argmax(1),
+                        torch.full_like(cols, k))
+    kernel_a_first = (cols % k) < pos_b
+    key_a, key_b = (da, db) if largest else (-da, -db)
+    replay_a_first = (key_a > key_b) | ((key_a == key_b) & (a < b))
+    bad = (kernel_a_first != replay_a_first).nonzero()
+    if bad.numel():
+        j = int(bad[0, 0])
+        raise RuntimeError(
+            f"{what}: swap at ({int(rows[j])}, {int(cols[j])}) is not what "
+            f"the kernel's own arithmetic gives (b4_kernel_order): rows "
+            f"{int(a[j])} {float(da[j])}, {int(b[j])} {float(db[j])}")
+    return int(rows.numel()), int((got_v[rows, cols] == da).sum())
+
+
+def hdc_logical_ops(planes: int, has_zero: bool) -> float:
+    """B5's logical operations per (query, feature, 32-dim word), as the
+    kernel's loop counts them (``csrc/hdc_encode.cu``): per 16 features a
+    LOP3 for each ``neg`` word (and an AND for each ``care`` word where
+    zero cells exist), 15 full adders of two LOP3 each, and two operations
+    per half adder of the ripple into planes 4 .. ``planes`` - 1; the care
+    counts, where counted, take a second tree."""
+    tree = 2 * 15 + 2 * (planes - 4)
+    if has_zero:
+        return (2 * 16 + 2 * tree) / 16
+    return (16 + tree) / 16
+
+
 def range_module(T, cd, m, n, dim, metric, tau, value_bits):
     """cim program for a TH-mode range search (``dist <= tau``): the
     traced front end has no range pattern, so it enters the pipeline at
@@ -893,10 +999,8 @@ def _range_part(s: Smoke, name, metric, tau, inputs, value_bits):
                                              "range_match")
     s.only(name, counts, "range_match", -(-qt.shape[0] // plan.batch))
     prof = s.profile(prog, inputs)
-    chunk = torch.nn.functional.pad(
-        qt[:plan.batch], (0, 0, 0, max(0, plan.batch - qt.shape[0])))
     (pp,) = plan._prepared_patterns(gt)
-    qp = ops.pad_to_blocks(chunk, 1, 8)
+    qp = ops.pad_to_blocks(qt[:plan.batch], 1, 8)   # the first micro-batch
     kw = dict(metric=metric, threshold=tau, below=True,
               to_logical="identity", dim=gt.shape[1], n_valid=gt.shape[0])
     got = acam.range_match(qp, pp, **kw)
@@ -906,7 +1010,7 @@ def _range_part(s: Smoke, name, metric, tau, inputs, value_bits):
     if not torch.equal(hit[:rows], got[:rows]):
         raise RuntimeError(f"{name}: the main path and the kernel differ")
     info = {"launches": counts, "first_call_s": first_s,
-            "second_call_s": second_s, "tau": tau,
+            "second_call_s": second_s, "tau": tau, "batch": plan.batch,
             "kernel_shape": {"q": list(qp.shape), "p": list(pp.shape)},
             "matches_per_query_mean": float(hit.sum(1).float().mean()),
             "profile": prof}
@@ -925,54 +1029,88 @@ def phase_range_threshold(s: Smoke, data):
     hit, got, want, (qp, pp, kw), launches, info_a = _range_part(
         s, "range_eucl", "eucl", tau, [qt, gt], 8)
     tol = EUCL_ATOL + EUCL_RTOL * abs(tau)
-    rows, cols = (got != want).nonzero(as_tuple=True)
-    d64 = ((qp[rows].double() - pp[cols].double()) ** 2).sum(1)
-    if not bool(((d64 - tau).abs() <= tol).all()):
-        j = int(((d64 - tau).abs() > tol).nonzero()[0, 0])
-        raise RuntimeError(f"range_eucl: kernel and plain version differ at "
-                           f"({int(rows[j])}, {int(cols[j])}), not a float64 "
-                           f"near-tie: {float(d64[j])} vs tau {tau}")
-    # the kernel's own arithmetic: how many of the disagreements the 3xTF32
-    # split reproduces, as a float32 matrix product and in the kernel's order
-    emulated = acam.range_match_reference(qp, pp, tf32x3=True, **kw)
-    explained = int((emulated[rows, cols] == got[rows, cols]).sum())
-    del emulated
-    in_order = b4_kernel_order(qp[rows], pp[cols]) <= tau
-    explained_in_order = int((in_order == got[rows, cols]).sum())
-    if explained_in_order != int(rows.numel()):
-        raise RuntimeError(
-            f"range_eucl: {int(rows.numel()) - explained_in_order} of "
-            f"{int(rows.numel())} disagreements are not what the kernel's "
-            f"own arithmetic gives (b4_kernel_order): a wrong operand, not "
-            f"rounding")
+
+    def disagreements(qx, got, want):
+        """The kernel's disagreements with the plain version: each a
+        float64 near-tie of tau, and each what the kernel's own arithmetic
+        gives in its order (``b4_kernel_order``); also how many the 3xTF32
+        split as a float32 matrix product reproduces."""
+        rows, cols = (got != want).nonzero(as_tuple=True)
+        d64 = ((qx[rows].double() - pp[cols].double()) ** 2).sum(1)
+        if not bool(((d64 - tau).abs() <= tol).all()):
+            j = int(((d64 - tau).abs() > tol).nonzero()[0, 0])
+            raise RuntimeError(
+                f"range_eucl: kernel and plain version differ at "
+                f"({int(rows[j])}, {int(cols[j])}), not a float64 near-tie: "
+                f"{float(d64[j])} vs tau {tau}")
+        emulated = acam.range_match_reference(qx, pp, tf32x3=True, **kw)
+        explained = int((emulated[rows, cols] == got[rows, cols]).sum())
+        del emulated
+        in_order = b4_kernel_order(qx[rows], pp[cols]) <= tau
+        explained_in_order = int((in_order == got[rows, cols]).sum())
+        if explained_in_order != int(rows.numel()):
+            raise RuntimeError(
+                f"range_eucl: {int(rows.numel()) - explained_in_order} of "
+                f"{int(rows.numel())} disagreements are not what the "
+                f"kernel's own arithmetic gives (b4_kernel_order): a wrong "
+                f"operand, not rounding")
+        return int(rows.numel()), explained, explained_in_order
+
+    n_dis, explained, explained_in_order = disagreements(qp, got, want)
+    # the padded micro-batch of earlier runs (zero rows after the queries)
+    batch = info_a["batch"]
+    qpad = torch.nn.functional.pad(qp, (0, 0, 0, batch - qp.shape[0]))
+    got_pad = acam.range_match(qpad, pp, **kw)
+    padded = disagreements(qpad, got_pad,
+                           acam.range_match_reference(qpad, pp, **kw))
+    if not torch.equal(got_pad[:qp.shape[0]], got):
+        raise RuntimeError("range_eucl: the padded rows changed the real "
+                           "rows' matches")
+    del got_pad
     top = ki[:, :5].long()                     # knn top-5 below tau - tol
     dtop = ((qt[:, None, :].double() - gt[top].double()) ** 2).sum(-1)
     sure = dtop < tau - tol
     if not bool(hit.gather(1, top)[sure].all()):
         raise RuntimeError("range_eucl: a knn top-5 row well inside tau "
                            "was not matched")
-    bound, by = s.range_bound_ms(qp, pp)
-    bound_fp32, _ = s.range_bound_ms(qp, pp, fp32_cuda_cores=True)
-    ms = cuda_ms(lambda: acam.range_match(qp, pp, **kw), 10)
+    shapes = {}
+    for name, qx in (("path", qp), (f"padded_{batch}", qpad)):
+        bound, by = s.range_bound_ms(qx, pp)
+        bound_fp32, _ = s.range_bound_ms(qx, pp, fp32_cuda_cores=True)
+        shapes[name] = {
+            "rows": qx.shape[0],
+            "ms": cuda_ms(lambda qx=qx: acam.range_match(qx, pp, **kw), 10),
+            "bound_ms": bound, "bound_by": by,
+            "bound_ms_fp32_cuda_cores": bound_fp32,
+            "library_ms": cuda_ms(
+                lambda qx=qx: torch.cdist(qx, pp).square_() <= tau, 5)}
+    shapes["path"]["disagreements"] = n_dis
+    shapes[f"padded_{batch}"]["disagreements"] = padded[0]
+    path = shapes["path"]
+    ms, bound, by = path["ms"], path["bound_ms"], path["bound_by"]
+    bound_fp32, library_ms = path["bound_ms_fp32_cuda_cores"], \
+        path["library_ms"]
     plain_ms = cuda_ms(lambda: acam.range_match_reference(qp, pp, **kw), 5)
-    library_ms = cuda_ms(lambda: torch.cdist(qp, pp).square_() <= tau, 5)
     s.record("range_match", "src/repro_torch/kernels/csrc/range_match.cu",
              "src/repro/kernels/acam.py:193", launches,
              float((got != want).any()), ms, plain_ms, bound, by, library_ms)
     rec = s.kernels["range_match"]
-    rec["mismatches_float64_near_ties"] = int(rows.numel())
+    rec["mismatches_float64_near_ties"] = n_dis
     rec["mismatches_reproduced_by_tf32x3_emulation"] = explained
     rec["mismatches_reproduced_in_kernel_order"] = explained_in_order
+    rec["mismatches_padded_shape"] = list(padded)
     rec["bound_basis"] = "3xTF32 tensor cores, 495 TFLOP/s"
     rec["bound_ms_fp32_cuda_cores"] = bound_fp32
+    rec["shapes"] = shapes
     log(dict(info_a, phase="range_threshold", part="eucl", ok=True,
-             disagreements_float64_near_ties=int(rows.numel()),
+             disagreements_float64_near_ties=n_dis,
              disagreements_reproduced_by_tf32x3_emulation=explained,
              disagreements_reproduced_in_kernel_order=explained_in_order,
-             bound_ms_fp32_cuda_cores=bound_fp32,
+             padded_disagreements_near_ties_emulated_in_order=list(padded),
+             bound_ms_fp32_cuda_cores=bound_fp32, shapes=shapes,
              knn_top5_inside_tau=int(sure.sum()), ms=ms, plain_ms=plain_ms,
              library_ms=library_ms, bound_ms=bound, bound_by=by))
-    del hit, got, want, qp, pp
+    del hit, got, want, qp, qpad, pp
 
     # (b) hamming on float cells: pack=None demotes on the cuda backend
     hv, hi_ = s.topk["hamming_packed"]
@@ -1108,7 +1246,9 @@ def phase_hdc_mnist(s: Smoke):
     del enc_again
 
     # -- B5 against its plain version and the dense oracle -----------------
-    keys8, levels8 = item._keys_i8, item._levels_i8
+    planes = item._planes                  # the kernel's bit planes
+    if planes.has_zero:
+        raise RuntimeError("hdc_mnist: the item memory holds zero cells")
     q_te = torch.from_numpy(item.quantize(xte_np)).cuda()
     chunk = 8192
     for x, enc in ((xtr_np, enc_tr), (xte_np, enc_te)):
@@ -1157,15 +1297,22 @@ def phase_hdc_mnist(s: Smoke):
     b1_hdc["bit_identical"] = True
     del qpm, gpm, got, want
 
-    bound, by = s.hdc_bound_ms(q_te, keys8, levels8)
-    ms = cuda_ms(lambda: khdc.hdc_encode(q_te, keys8, levels8), 10)
+    bound, by = s.hdc_bound_ms(q_te, planes)
+    bound_idp4a, _ = s.hdc_bound_ms(q_te, planes, "idp4a")
+    ms = cuda_ms(lambda: khdc.hdc_encode_planes(q_te, planes), 10)
     plain_ms = cuda_ms(lambda: khdc.hdc_encode_reference(
         q_te, item._keys_t, item._levels_t), 3)
     s.record("hdc_encode", "src/repro_torch/kernels/csrc/hdc_encode.cu",
              "src/repro/kernels/hdc_encode.py:87", counts["hdc_encode"], 0.0,
              ms, plain_ms, bound, by, None)
-    s.kernels["hdc_encode"]["library_note"] = (
+    rec = s.kernels["hdc_encode"]
+    rec["library_note"] = (
         "no single PyTorch call computes a signed gathered bundle")
+    rec["kernel_route"] = "bitsliced, no zero cell"
+    per_step = hdc_logical_ops(khdc.count_planes(q_te.shape[1]), False)
+    rec["bound_basis"] = (f"{per_step} LOP3 per (row, feature, word) at "
+                          f"64 a clock per SM")
+    rec["bound_ms_idp4a_basis"] = bound_idp4a
     s.record("fused_topk_packed",
              "src/repro_torch/kernels/csrc/fused_topk_packed.cu",
              "src/repro/kernels/cam_search.py:304",
@@ -1195,10 +1342,13 @@ def phase_hdc_mnist(s: Smoke):
          "phase_peak_gb": peak_gb, "predict_profile": prof,
          "b1_hdc_predict": b1_hdc,
          "encode_profile": encode_prof,
-         "kernel_shape": {"q": list(q_te.shape), "keys": list(keys8.shape),
-                          "levels": list(levels8.shape)},
+         "kernel_shape": {"q": list(q_te.shape),
+                          "key_planes": list(planes.key_planes.shape),
+                          "level_planes": list(planes.level_planes.shape)},
+         "kernel_route": "bitsliced, no zero cell",
          "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-         "bound_ms": bound, "bound_by": by})
+         "bound_ms": bound, "bound_by": by,
+         "bound_ms_idp4a_basis": bound_idp4a})
 
 
 def _update_part(s: Smoke, name, build, qt, gt, rows, new):

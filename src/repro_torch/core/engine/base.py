@@ -3,7 +3,7 @@
 A *plan* is a compiled, cached, reusable executable for one program
 shape.  Its lifecycle: ``prepare`` (encode/pack/lay out the stored
 operands, memoised per source tensor) → ``dispatch`` (micro-batched
-chunk execution) → ``finalize`` (ragged slicing / output shaping) →
+chunk execution) → ``finalize`` (chunk concatenation / output shaping) →
 ``update_rows`` (row-granular incremental re-layout).
 
 :class:`PlanBase` owns that lifecycle: the spec, backend, micro-batch,
@@ -11,8 +11,8 @@ packing, device, telemetry counters, the pattern-memo LRU and its
 locks, the dispatch skeleton and the ``update_rows`` relay
 (:meth:`PlanBase._mutate_stored`, :meth:`PlanBase._seed_updated_memo`).
 Leaf families override only how stored operands are wired from the
-module arguments, how a chunk result is recorded, and how chunks
-finalize.  Fault injection comes with a later slice.
+module arguments and how chunks finalize.  Fault injection comes with a
+later slice.
 """
 
 from __future__ import annotations
@@ -85,9 +85,9 @@ def _size(shape: Tuple[int, ...]) -> int:
 
 @dataclass
 class PendingSearch:
-    """A dispatched search: per-micro-batch chunk results
-    ``(values, indices, valid_rows)``, possibly still computing on the
-    device (kernels launch asynchronously on the current stream).
+    """A dispatched search: the chunk function's result for each
+    micro-batch, possibly still computing on the device (kernels launch
+    asynchronously on the current stream).
     :meth:`PlanBase.finalize` turns it into the final result."""
 
     plan: "PlanBase"
@@ -220,9 +220,6 @@ class PlanBase:
     def _stored_sources(self, inputs) -> Tuple[Any, ...]:
         raise NotImplementedError
 
-    def _chunk_entry(self, out, valid: int):
-        raise NotImplementedError
-
     def finalize(self, pending: "PendingSearch"):
         raise NotImplementedError
 
@@ -277,26 +274,13 @@ class PlanBase:
                  "m": m, "batch": self.batch}):
             pp = self._prepared_patterns(*srcs)
 
-            b = self.batch
-            if self.tiny and m <= b:
-                # the whole gallery is one dense tile and the queries fit
-                # one micro-batch: no chunk loop, padding or slicing
-                out = self._chunk_fn(q2, pp)
-                with self._stats_lock:
-                    self.chunks_run += 1
-                return PendingSearch(plan=self, m=m, lead=lead,
-                                     chunks=[self._chunk_entry(out, m)])
             chunks = []
-            for s in range(0, m, b):
-                chunk = q2[s:s + b]
-                valid = chunk.shape[0]
-                if valid < b:      # the ragged tail runs at the full batch
-                    chunk = torch.nn.functional.pad(chunk,
-                                                    (0, 0, 0, b - valid))
-                out = self._chunk_fn(chunk, pp)
+            for s in range(0, m, self.batch):
+                # the ragged tail runs at its own row count: rows are
+                # independent and nothing here is compiled per shape
+                chunks.append(self._chunk_fn(q2[s:s + self.batch], pp))
                 with self._stats_lock:
                     self.chunks_run += 1
-                chunks.append(self._chunk_entry(out, valid))
             return PendingSearch(plan=self, m=m, lead=lead, chunks=chunks)
 
     def execute(self, *inputs, faults=None):

@@ -25,9 +25,9 @@ __all__ = ["SearchPlan", "RangePlan"]
 class SearchPlan(PlanBase):
     """A compiled, reusable executable for one similarity-program shape.
 
-    Chunks hold ``(values, indices, valid_rows)``; finalize slices ragged
-    tails and shapes ``(values, indices)`` for the compiled module:
-    float32 values and int32 indices on the plan's device.
+    Chunks hold ``(values, indices)``; finalize concatenates them and
+    shapes them for the compiled module: float32 values and int32
+    indices on the plan's device.
     """
 
     family: str = field(default="search", repr=False)
@@ -38,20 +38,16 @@ class SearchPlan(PlanBase):
             return (inputs[spec.pattern_arg],)
         return (inputs[spec.pattern_arg], inputs[spec.care_arg])
 
-    def _chunk_entry(self, out, valid: int):
-        v, i = out
-        return (v, i, valid)
-
     def finalize(self, pending: "PendingSearch"):
-        """Materialise a dispatched search: ragged-tail slicing, chunk
-        concatenation, output shaping."""
+        """Materialise a dispatched search: chunk concatenation, output
+        shaping."""
         with trace_span("plan.finalize"):
             return self._finalize(pending)
 
     def _finalize(self, pending: "PendingSearch"):
         spec = self.spec
-        vs = [v[:valid] for v, _, valid in pending.chunks]
-        is_ = [i[:valid] for _, i, valid in pending.chunks]
+        vs = [v for v, _ in pending.chunks]
+        is_ = [i for _, i in pending.chunks]
         if not vs:      # zero queries: well-shaped empty result
             vs = [torch.zeros((0, spec.k), dtype=torch.float32,
                               device=self.device)]
@@ -108,7 +104,7 @@ class RangePlan(PlanBase):
     Same plan-cache citizenship, micro-batching, pattern memoisation and
     packing as :class:`SearchPlan`; the result is one ``(M, N)``
     ``torch.bool`` match matrix on the plan's device.  ``spec`` is a
-    :class:`~.spec.RangeSpec`; chunks hold ``(match, valid_rows)``.
+    :class:`~.spec.RangeSpec`; chunks hold the match blocks.
     """
 
     family: str = field(default="range", repr=False)
@@ -116,18 +112,15 @@ class RangePlan(PlanBase):
     def _stored_sources(self, inputs) -> Tuple:
         return tuple(inputs[i] for i in self.spec.pattern_args)
 
-    def _chunk_entry(self, out, valid: int):
-        return (out, valid)
-
     def finalize(self, pending: "PendingSearch"):
         """Materialise a dispatched range search into the boolean match
-        matrix: drop padded rows and chunks, shape for the module."""
+        matrix: drop the padded gallery rows, shape for the module."""
         with trace_span("plan.finalize"):
             return self._finalize(pending)
 
     def _finalize(self, pending: "PendingSearch"):
         spec = self.spec
-        outs = [hit[:valid, :spec.n] for hit, valid in pending.chunks]
+        outs = [hit[:, :spec.n] for hit in pending.chunks]
         if not outs:    # zero queries: well-shaped empty result
             outs = [torch.zeros((0, spec.n), dtype=torch.bool,
                                 device=self.device)]

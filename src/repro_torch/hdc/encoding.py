@@ -15,8 +15,9 @@ exactly as the reference draws them, so they are equal bit for bit.
 The memory's device picks the encode path: on a CUDA device the features
 are quantised there (:func:`quantize_levels`, the reference's float32
 operations) and encoded by the hand-written kernel
-(:func:`repro_torch.kernels.hdc_encode.hdc_encode`); on the CPU they are
-quantised in numpy and encoded by the kernel's plain version.  All sums
+(:func:`repro_torch.kernels.hdc_encode.hdc_encode_planes`, on bit
+planes built once); on the CPU they are quantised in numpy and encoded
+by the kernel's plain version.  All sums
 are small integers, exact in float32 and int32, so both paths emit the
 reference's hypervectors.
 """
@@ -94,8 +95,9 @@ class ItemMemory:
     """Key + level hypervector memories with a fixed quantisation range.
 
     Deterministic in ``seed``; the keys and levels live on ``device``
-    (``None``: the GPU) as float32 and as the int8 cells the encode
-    kernel reads, checked once to hold only -1, 0 and +1.  ``encode``
+    (``None``: the GPU) as float32 and as the bit planes the encode
+    kernel reads (:func:`~repro_torch.kernels.hdc_encode.hdc_planes`),
+    checked once to hold only -1, 0 and +1.  ``encode``
     takes ``(M, F)`` float features and returns ``(M, H)`` bipolar
     hypervectors, a float32 tensor on that device.
     """
@@ -144,8 +146,8 @@ class ItemMemory:
         self.device = resolve_device(device)
         self._keys_t = torch.from_numpy(keys).to(self.device)
         self._levels_t = torch.from_numpy(levels).to(self.device)
-        self._keys_i8 = self._keys_t.to(torch.int8)
-        self._levels_i8 = self._levels_t.to(torch.int8)
+        # the encode kernel's bit planes, built once: no launch repacks them
+        self._planes = khdc.hdc_planes(self._keys_t, self._levels_t)
 
     def _check_features(self, shape) -> None:
         if len(shape) != 2 or shape[1] != self.n_features:
@@ -178,5 +180,4 @@ class ItemMemory:
         """(M, F) features -> (M, H) bipolar hypervectors (float32 tensor
         on the memory's device): the encode kernel on a CUDA device, its
         plain version on the CPU."""
-        return khdc.hdc_encode(self.level_ids(x), self._keys_i8,
-                               self._levels_i8)
+        return khdc.hdc_encode_planes(self.level_ids(x), self._planes)

@@ -9,9 +9,9 @@
                  `lo <= q <= hi` cells) and the thresholded distance
                  (TH sensing), each writing a boolean match matrix;
                  plain PyTorch versions beside each kernel.
-* `hdc_encode` — HDC record-based hypervector encoding (the gather form
-                 of bind + majority bundle, int8 cells, int32 sums);
-                 plain PyTorch version beside it.
+* `hdc_encode` — HDC record-based hypervector encoding: bind as XOR of
+                 sign bit planes, majority bundle as bit-sliced
+                 carry-save counts; plain PyTorch version beside it.
 * `flash_attention` — the LM's attention forward (online softmax, GQA,
                  causal / prefix / cache-length masks), every attention
                  call of prefill, decode and the no-cache forward; plain

@@ -40,7 +40,8 @@ import torch
 from . import build
 from .cam_search import (BLOCK_K, METRIC_COEFFS, _METRIC_CODE,
                          _PACKED_CHUNK_ELEMS, _args, _bind, _count,
-                         _raise_if_failed, _term)
+                         _raise_if_failed, _term, tf32_round,
+                         tf32_split_product)
 
 __all__ = ["ACAM_BLOCK_D", "acam_match", "acam_match_reference",
            "range_match", "range_match_reference", "tf32_round",
@@ -109,25 +110,6 @@ def acam_match_reference(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         out[s:s + step] = ~((qc < lo[None]) | (qc > hi[None])).any(-1)
     out[:, n_valid:] = False
     return out
-
-
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
-    ties away from zero, the low 13 bits cleared: ``cvt.rna.tf32.f32``."""
-    bits = x.contiguous().view(torch.int32)
-    # add half a TF32 unit to the magnitude's bits, then truncate
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def tf32_split_product(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """``q @ p.T`` as the range kernel's tensor cores take it (3xTF32):
-    each operand splits into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``,
-    and the product is ``lo_q hi_p + hi_q lo_p + hi_q hi_p``, each term a
-    float32 matrix product (callers on a GPU keep TF32 off).  On {0, 1}
-    and +-1 cells ``lo`` is 0 and the result equals ``q @ p.T``."""
-    qh, ph = tf32_round(q), tf32_round(p)
-    ql, pl = tf32_round(q - qh), tf32_round(p - ph)
-    return (ql @ ph.T + qh @ pl.T) + qh @ ph.T
 
 
 def range_match_reference(q: torch.Tensor, p: torch.Tensor, *, metric: str,

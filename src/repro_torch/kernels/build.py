@@ -39,7 +39,7 @@ SOURCES = {"fused_topk": "fused_topk.cu",
            "distance": "distance.cu",
            "flash_attention": "flash_attention.cu"}
 #: headers every source includes (part of each library's hash)
-_HEADERS = ("fused_topk_common.cuh",)
+_HEADERS = ("fused_topk_common.cuh", "tf32_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

@@ -14,7 +14,9 @@ write each window's block-local top-k — the subarray's winner-take-all
 periphery — as (value, global row index) candidates:
 
 * :func:`fused_topk` — float cells, the decomposition above; replaces
-  the reference's ``fused_topk_pallas``;
+  the reference's ``fused_topk_pallas``; two routes by window
+  (:func:`float_route`): 3xTF32 tensor-core products on B4's pipeline for
+  128-row windows, float32 FMA for wider ones;
 * :func:`fused_topk_packed` — packed lanes, binary or ternary; replaces
   ``fused_topk_packed_pallas``; two routes by shape
   (:func:`packed_route`): int8 tensor-core products over unpacked lanes
@@ -48,7 +50,9 @@ from . import build
 from .packing import popcount32
 
 __all__ = ["METRIC_COEFFS", "BLOCK_K", "MAX_K", "LAUNCHES", "window_rows",
-           "packed_route", "reset_launch_counts", "fused_topk", "fused_topk_reference",
+           "packed_route", "float_route", "reset_launch_counts",
+           "tf32_round", "tf32_split_product", "fused_topk",
+           "fused_topk_reference",
            "fused_topk_packed", "fused_topk_packed_reference", "distance",
            "distance_reference"]
 
@@ -127,9 +131,37 @@ def packed_route(m: int, n: int, k: int, sms: int) -> str:
     return "rows"
 
 
+def float_route(k: int) -> str:
+    """The route of :func:`fused_topk`: ``"wgmma"`` (3xTF32 tensor cores,
+    128 queries x one window a block, the top-k selected from registers)
+    when the window is 128 rows (k <= 128), else ``"fma"`` (float32 FMA on
+    the CUDA cores, the window's keys in shared memory)."""
+    return "wgmma" if window_rows(k) == _TILE_N else "fma"
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, the low 13 bits cleared: ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    # add half a TF32 unit to the magnitude's bits, then truncate
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split_product(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``q @ p.T`` as the tensor-core kernels take it (3xTF32; B2's
+    "wgmma" route and B4): each operand splits into ``hi = tf32(x)`` and
+    ``lo = tf32(x - hi)``, and the product is ``lo_q hi_p + hi_q lo_p +
+    hi_q hi_p``, each term a float32 matrix product (callers on a GPU keep
+    TF32 off).  On {0, 1} and +-1 cells ``lo`` is 0 and the result equals
+    ``q @ p.T``."""
+    qh, ph = tf32_round(q), tf32_round(p)
+    ql, pl = tf32_round(q - qh), tf32_round(p - ph)
+    return (ql @ ph.T + qh @ pl.T) + qh @ ph.T
 
 
 def _block_topk(dist: torch.Tensor, *, k: int, largest: bool,
@@ -156,14 +188,16 @@ def _term(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def fused_topk_reference(q: torch.Tensor, p: torch.Tensor, *, metric: str,
-                         k: int, largest: bool, n_valid: int
+                         k: int, largest: bool, n_valid: int,
+                         tf32x3: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`fused_topk`: the same decomposition with a
     float32 matrix product (callers on a GPU keep TF32 off), then the
-    same window top-k."""
+    same window top-k.  ``tf32x3`` takes the product as the "wgmma"
+    route's tensor cores do (:func:`tf32_split_product`)."""
     _check("fused_topk", q, p, None, torch.float32, k, n_valid)
     alpha, beta, gamma, qk, pk = METRIC_COEFFS[metric]
-    dist = alpha * (q @ p.T)
+    dist = alpha * (tf32_split_product(q, p) if tf32x3 else q @ p.T)
     if beta:
         dist = dist + beta * _term(q, qk).sum(1, keepdim=True)
     if gamma:
@@ -296,7 +330,8 @@ def fused_topk(q: torch.Tensor, p: torch.Tensor, *, metric: str, k: int,
     ``q`` (M, D) and ``p`` (N, D) float32, contiguous, D a multiple of
     :data:`BLOCK_K`, N a multiple of ``window_rows(k)``; rows of ``p`` at
     or beyond ``n_valid`` are padding and never win.  CPU tensors run
-    :func:`fused_topk_reference`; CUDA tensors launch the kernel.
+    :func:`fused_topk_reference`; CUDA tensors launch the kernel on the
+    route :func:`float_route` picks.
     """
     if metric not in METRIC_COEFFS:
         raise ValueError(f"fused_topk: unsupported metric {metric!r}")
@@ -308,12 +343,12 @@ def fused_topk(q: torch.Tensor, p: torch.Tensor, *, metric: str, k: int,
     if q.shape[0] == 0:
         return out_v, out_i
     lib = build.load("fused_topk")
-    launch = _bind(lib, "c4cam_fused_topk_f32", _args(4, 8))
+    launch = _bind(lib, "c4cam_fused_topk_f32", _args(4, 9))
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), p.data_ptr(), out_v.data_ptr(),
                      out_i.data_ptr(), q.shape[0], p.shape[0], q.shape[1],
                      k, window_rows(k), n_valid, int(largest),
-                     _METRIC_CODE[metric],
+                     _METRIC_CODE[metric], int(float_route(k) == "wgmma"),
                      torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed(lib, "fused_topk", err)
     _count("fused_topk")

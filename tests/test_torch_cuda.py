@@ -185,6 +185,81 @@ def test_float_kernel_matches_plain(cuda, metric, largest, rng):
         assert np.array_equal(gv, wv) and np.array_equal(gi, wi)
 
 
+def _float_operands(rng, metric, m, rows, dim):
+    """Queries and a gallery for the float kernel: N(0, 1) cells for eucl,
+    {0, 1} for hamming, +-1 for dot; gallery rows 2 and 5 equal (a
+    planted exact tie) and every fourth row a copy of the one before."""
+    if metric == "eucl":
+        q = rng.standard_normal((m, dim)).astype(np.float32)
+        p = rng.standard_normal((rows, dim)).astype(np.float32)
+    else:
+        q = (rng.random((m, dim)) > 0.5).astype(np.float32)
+        p = (rng.random((rows, dim)) > 0.5).astype(np.float32)
+        if metric == "dot":
+            q, p = 2 * q - 1, 2 * p - 1
+    p[5] = p[2]
+    p[3::4] = p[2::4][:len(p[3::4])]
+    return q, p
+
+
+def _assert_float_kernel(metric, q, p, got, want):
+    gv, gi = got[0].cpu().numpy(), got[1].cpu().numpy()
+    wv, wi = want[0].cpu().numpy(), want[1].cpu().numpy()
+    if metric != "eucl":
+        assert np.array_equal(gv, wv) and np.array_equal(gi, wi)
+        return
+    _assert_eucl_close(q, p, wv, wi, gv, gi)
+    # equal rows get equal distances: the lower one ranks first
+    for r in range(gi.shape[0]):
+        row = list(gi[r])
+        for a in range(2, p.shape[0] - 1, 4):
+            if a in row and a + 1 in row:
+                assert row.index(a) < row.index(a + 1), (r, a)
+
+
+@pytest.mark.parametrize("metric,largest", [("hamming", False),
+                                            ("dot", True), ("eucl", False)])
+@pytest.mark.parametrize("k", [5, 128, 200, 384])
+@pytest.mark.parametrize("m", [1, 63, 624, 1024])
+def test_float_kernel_routes_match_plain(cuda, metric, largest, k, m, rng):
+    """Both routes of the float kernel ("wgmma" for 128-row windows,
+    "fma" for 256 and 384) against the plain version, at the query
+    counts the engine hands it (1, 63, the KNN's 624, a full batch)."""
+    window = tcs.window_rows(k)
+    assert tcs.float_route(k) == ("wgmma" if window == 128 else "fma")
+    rows = 3 * window
+    q, p = _float_operands(rng, metric, m, rows, 72)
+    qt, pt = torch.from_numpy(q).to(cuda), torch.from_numpy(p).to(cuda)
+    before = tcs.LAUNCHES["fused_topk"]
+    kw = dict(metric=metric, k=k, largest=largest, n_valid=rows - 17)
+    got = tcs.fused_topk(qt, pt, **kw)
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["fused_topk"] == before + 1
+    _assert_float_kernel(metric, q, p, got,
+                         tcs.fused_topk_reference(qt, pt, **kw))
+
+
+@pytest.mark.parametrize("metric", ["hamming", "eucl"])
+@pytest.mark.parametrize("k", [10, 200])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_float_kernel_n_valid_at_window_edges(cuda, metric, k, edge, rng):
+    """n_valid on each side of every window edge, and a single live row;
+    windows past n_valid give losing slots (value 3e38, the lowest rows
+    first)."""
+    window = tcs.window_rows(k)
+    rows = 3 * window
+    q, p = _float_operands(rng, metric, 150, rows, 40)
+    qt, pt = torch.from_numpy(q).to(cuda), torch.from_numpy(p).to(cuda)
+    for n_valid in [1] + [w * window + edge for w in (1, 2, 3)
+                          if 1 <= w * window + edge <= rows]:
+        kw = dict(metric=metric, k=k, largest=False, n_valid=n_valid)
+        got = tcs.fused_topk(qt, pt, **kw)
+        torch.cuda.synchronize()
+        want = tcs.fused_topk_reference(qt, pt, **kw)
+        assert torch.equal(got[0].abs() >= 3e38, want[0].abs() >= 3e38)
+        _assert_float_kernel(metric, q, p, got, want)
+
+
 def test_launch_counts_and_refusals(cuda):
     q = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
     p = torch.zeros((128, 8), dtype=torch.int32, device=cuda)
@@ -536,43 +611,86 @@ def _bipolar_t(rng, *shape):
         np.where(rng.random(shape) < 0.5, -1.0, 1.0).astype(np.float32))
 
 
+@pytest.mark.parametrize("zero_cells", [False, True])
 @pytest.mark.parametrize("m,f,h,levels", [(9, 37, 70, 8), (130, 784, 1000, 16),
-                                          (64, 64, 128, 1), (200, 130, 257, 40)])
-def test_hdc_encode_kernel_matches_plain(cuda, m, f, h, levels, rng):
+                                          (64, 64, 128, 1), (200, 130, 257, 40),
+                                          (300, 784, 8192, 16),
+                                          (70, 300, 4100, 16)])
+def test_hdc_encode_kernel_matches_plain(cuda, m, f, h, levels, zero_cells,
+                                         rng):
+    """Both routes of the bit-sliced kernel (no zero cell; zero key rows
+    and level cells) against the plain version, at HDC/MNIST's width (784
+    features, 8192 dims, 16 levels) and widths that are not a multiple of
+    32 dims or of a block's 1024."""
     from repro_torch.kernels import hdc_encode as thdc
     from repro_torch.kernels import ref as tref
     q = torch.from_numpy(rng.integers(0, levels, (m, f)).astype(np.int32))
     keys, lv = _bipolar_t(rng, f, h), _bipolar_t(rng, levels, h)
-    keys[3] = 0.0                     # the contract's zero cells
-    lv[0, :5] = 0.0
+    if zero_cells:                    # the contract's zero cells
+        keys[3] = 0.0
+        lv[0, :5] = 0.0
     want = thdc.hdc_encode_reference(q, keys, lv)
+    planes = thdc.hdc_planes(keys.to(cuda), lv.to(cuda))
+    assert planes.has_zero == zero_cells
     before = tcs.LAUNCHES["hdc_encode"]
-    got = thdc.hdc_encode(q.to(cuda), keys.to(cuda), lv.to(cuda))
+    got = thdc.hdc_encode_planes(q.to(cuda), planes)
     torch.cuda.synchronize()
     assert tcs.LAUNCHES["hdc_encode"] == before + 1
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got.cpu(), tref.hdc_encode(q, keys, lv))
     assert torch.equal(got, thdc.hdc_encode_reference(
         q.to(cuda), keys.to(cuda), lv.to(cuda)))
+    assert torch.equal(got, thdc.hdc_encode_bitsliced(q.to(cuda), planes))
+    raw = thdc.hdc_encode(q.to(cuda), keys.to(cuda).to(torch.int8),
+                          lv.to(cuda))
+    assert torch.equal(raw, got)
 
 
-def test_hdc_encode_kernel_ties_and_out_of_range_ids(cuda, rng):
+@pytest.mark.parametrize("zero_cells", [False, True])
+def test_hdc_encode_kernel_ties_and_out_of_range_ids(cuda, zero_cells, rng):
     """Even F with key pairs that cancel forces exact zero sums (-> +1);
-    ids outside [0, L) contribute nothing."""
+    ids outside [0, L) contribute nothing, on both routes."""
     from repro_torch.kernels import hdc_encode as thdc
     m, f, h, levels = 70, 64, 300, 4
     keys = _bipolar_t(rng, f, h)
     keys[f // 2:] = -keys[:f // 2]
     lv = _bipolar_t(rng, levels, h)
+    if zero_cells:                    # zero cells that keep every tie
+        lv[1, :40] = 0.0
     q = rng.integers(0, levels, (m, f)).astype(np.int32)
     q[:, f // 2:] = q[:, :f // 2]          # every sum is exactly zero
     q[1, 5] = -1
     q[2, 9] = levels + 3
     qt = torch.from_numpy(q)
     want = thdc.hdc_encode_reference(qt, keys, lv)
-    got = thdc.hdc_encode(qt.to(cuda), keys.to(cuda), lv.to(cuda)).cpu()
+    planes = thdc.hdc_planes(keys.to(cuda), lv.to(cuda))
+    assert planes.has_zero == zero_cells
+    got = thdc.hdc_encode_planes(qt.to(cuda), planes).cpu()
     assert torch.equal(got, want)
     assert bool((got[3:] == 1).all())
+
+
+@pytest.mark.parametrize("zero_cells", [False, True])
+@pytest.mark.parametrize("f", [255, 256, 1023, 1024, 4096])
+def test_hdc_encode_kernel_counts_at_their_widths(cuda, f, zero_cells, rng):
+    """Feature counts at each side of the kernel's count widths (8, 10,
+    12, 16 bit planes): rows whose products are all -1 (the largest
+    count), all +1, half and half (a tie when F is even), and random."""
+    from repro_torch.kernels import hdc_encode as thdc
+    h, levels = 200, 3
+    keys = torch.ones((f, h))
+    lv = torch.stack([torch.ones(h), -torch.ones(h), _bipolar_t(rng, 1, h)[0]])
+    if zero_cells:
+        lv[2, :10] = 0.0
+    q = torch.from_numpy(rng.integers(0, levels, (8, f)).astype(np.int32))
+    q[0] = 1                                   # every product -1
+    q[1] = 0                                   # every product +1
+    q[2, :f // 2], q[2, f // 2:] = 0, 1        # half and half
+    q[3, :f // 2 + 1], q[3, f // 2 + 1:] = 1, 0
+    planes = thdc.hdc_planes(keys.to(cuda), lv.to(cuda))
+    got = thdc.hdc_encode_planes(q.to(cuda), planes).cpu()
+    assert torch.equal(got, thdc.hdc_encode_reference(q, keys, lv))
+    assert bool((got[0] == -1).all()) and bool((got[1] == 1).all())
 
 
 def test_hdc_encode_kernel_refuses_bad_operands(cuda):
@@ -590,6 +708,13 @@ def test_hdc_encode_kernel_refuses_bad_operands(cuda):
         thdc.hdc_encode(q, k.cpu(), lv)
     with pytest.raises(ValueError, match="shared memory"):
         thdc.hdc_encode(q, k, torch.ones((2000, 16), device=cuda))
+    with pytest.raises(ValueError, match="16-bit"):
+        big = torch.zeros((1, 1 << 16), dtype=torch.int32, device=cuda)
+        thdc.hdc_encode(big, torch.ones((1 << 16, 16), device=cuda), lv)
+    with pytest.raises(ValueError, match="planes"):
+        planes = thdc.hdc_planes(k, lv)
+        thdc.hdc_encode_planes(q, thdc.HdcPlanes(
+            k, lv, planes.key_planes[:, :0], planes.level_planes, False))
 
 
 @pytest.mark.parametrize("lo,hi,n_levels", [(0.0, 1.0, 16), (-1.0, 2.5, 5),

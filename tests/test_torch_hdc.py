@@ -105,6 +105,91 @@ def test_encode_ids_outside_the_levels(rng):
                                   np.asarray(rref.hdc_encode(*args)))
 
 
+def _encode_case(rng, m, f, h, levels, *, zero_cells, ties, bad_ids):
+    """Level ids, keys and levels for one bit-plane case: ``zero_cells``
+    zeroes a key row and some level cells; ``ties`` (F even) makes every
+    second feature cancel the one before it, so exact zero sums are
+    everywhere; ``bad_ids`` puts ids -1 and L + 3 in."""
+    q = rng.integers(0, levels, size=(m, f)).astype(np.int32)
+    keys = _bipolar(rng, f, h)
+    lv = _bipolar(rng, levels, h)
+    if ties:
+        keys[f // 2:] = -keys[:f // 2]
+        q[:, f // 2:] = q[:, :f // 2]
+        q[:3] = rng.integers(0, levels, size=(3, f))    # some rows untied
+    if zero_cells:
+        keys[3] = 0.0
+        lv[0, :5] = 0.0
+        lv[-1, h // 2:] = 0.0
+    if bad_ids:
+        q[0, 3], q[1, 0], q[2, f - 1] = -1, levels + 3, -1
+    return q, keys, lv
+
+
+BITSLICED_CASES = [(9, 37, 70, 8), (12, 40, 96, 5), (20, 300, 257, 16),
+                   (6, 32, 64, 1)]
+
+
+@pytest.mark.parametrize("zero_cells", [False, True])
+@pytest.mark.parametrize("ties,bad_ids", [(False, False), (True, False),
+                                          (False, True), (True, True)])
+@pytest.mark.parametrize("m,f,h,levels", BITSLICED_CASES)
+def test_bitsliced_encode_matches_pallas(m, f, h, levels, zero_cells, ties,
+                                         bad_ids, rng):
+    """B5's bit planes and a torch run of its carry-save counting and
+    bit-sliced sign equal the Pallas kernel (interpret mode) bit for bit,
+    on both routes (no zero cell; zero key rows and level cells), with
+    exact ties (F even) and ids -1 and L + 3."""
+    if ties and f % 2:
+        f += 1
+    q, keys, lv = _encode_case(rng, m, f, h, levels, zero_cells=zero_cells,
+                               ties=ties, bad_ids=bad_ids)
+    want = np.asarray(rops.hdc_encode(jnp.asarray(q), jnp.asarray(keys),
+                                      jnp.asarray(lv)))
+    qt, kt, lt = (torch.from_numpy(x) for x in (q, keys, lv))
+    for cells in ((kt, lt), (kt.to(torch.int8), lt.to(torch.int8))):
+        planes = thdc.hdc_planes(*cells)
+        assert planes.has_zero == zero_cells
+        got = thdc.hdc_encode_bitsliced(qt, planes)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(
+            thdc.hdc_encode_planes(qt, planes).numpy(), want)
+    if ties and not bad_ids and not zero_cells:     # the ties are there
+        sums = thdc.hdc_sums_reference(qt, kt, lt)
+        assert bool((sums[3:] == 0).all())
+
+
+@pytest.mark.parametrize("h", [31, 32, 33, 96, 100])
+def test_bit_planes_hold_the_cells(h, rng):
+    """Bit ``i`` of word ``w`` is the cell of dim ``32 w + i``: sign set
+    for -1, care set for a nonzero cell, both clear past H; one zero level
+    row after the last."""
+    cells = rng.integers(-1, 2, size=(5, h)).astype(np.float32)
+    planes = thdc.hdc_planes(torch.from_numpy(cells[:3]),
+                             torch.from_numpy(cells[3:]))
+    w = -(-h // 32)
+    assert planes.key_planes.shape == (3, w, 2)
+    assert planes.level_planes.shape == (3, w, 2)
+    assert planes.key_planes.dtype == torch.int32
+    words = torch.cat([planes.key_planes, planes.level_planes[:2]])
+    bits = ((words[..., None] >> torch.arange(32, dtype=torch.int32)) & 1)
+    bits = bits.permute(0, 2, 1, 3).reshape(5, 2, w * 32).numpy()
+    np.testing.assert_array_equal(bits[:, 0, :h], cells < 0)
+    np.testing.assert_array_equal(bits[:, 1, :h], cells != 0)
+    assert not bits[:, :, h:].any()
+    assert not bool(planes.level_planes[2].any())
+    assert planes.has_zero == bool((cells == 0).any())
+
+
+def test_count_planes_cover_the_features():
+    assert [thdc.count_planes(f) for f in (1, 255, 256, 1023, 1024, 4095,
+                                           4096, 65535)] == \
+        [8, 8, 10, 10, 12, 12, 16, 16]
+    with pytest.raises(ValueError, match="16-bit"):
+        thdc.count_planes(65536)
+
+
 def test_encode_wrapper_refuses_bad_operands():
     q = torch.zeros((4, 8), dtype=torch.int32)
     k, lv = torch.ones((8, 16)), torch.ones((3, 16))
@@ -140,7 +225,10 @@ def test_item_memory_matches_reference():
         im, rim = ItemMemory(8, device="cpu", **kw), RItemMemory(8, **kw)
         np.testing.assert_array_equal(im.keys, rim.keys)
         np.testing.assert_array_equal(im.levels, rim.levels)
-        assert torch.equal(im._keys_i8.float(), torch.from_numpy(rim.keys))
+        planes = im._planes
+        assert torch.equal(planes.keys, torch.from_numpy(rim.keys))
+        assert torch.equal(planes.levels, torch.from_numpy(rim.levels))
+        assert not planes.has_zero          # +-1 keys and levels
     im, rim = ItemMemory(8, dim=256, n_levels=4, device="cpu"), \
         RItemMemory(8, dim=256, n_levels=4)
     x = np.array([[0.0, 0.1, 0.26, 0.5, 0.74, 0.99, 1.0, -5.0]], np.float32)
