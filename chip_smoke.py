@@ -23,7 +23,9 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
 * ``forest_acam``    — decision-forest inference through
                        ``CamForestClassifier.predict``: 512 random trees
                        of depth 8 over 64 features (131,072 aCAM interval
-                       rows), 1024 queries: kernel ``acam_match``;
+                       rows), 1024 queries: kernel ``acam_match`` (no
+                       compares: sign bits of FP32 differences), bound on
+                       its issue slots (``acam_issue_slots``);
 * ``range_threshold`` — TH-mode range search (``RangePlan``) on the KNN
                        gallery: eucl with tau the median 5th-nearest
                        squared distance, and hamming on float cells
@@ -49,7 +51,12 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        each result bit-identical to a fresh plan's;
 * ``distance_ops``   — the public distance API (``ops.cam_distances`` /
                        ``cam_exact`` / ``cam_range``) on the KNN data:
-                       kernel ``distance``;
+                       kernel ``distance`` (3xTF32 tensor cores); eucl
+                       held to the tolerance over the whole matrix, and
+                       one query row plus the ``REPLAY_FURTHEST`` entries
+                       furthest from the plain version equal bit for bit
+                       to the replay of the kernel's own arithmetic
+                       (``cam_search.tf32x3_kernel_eucl``);
 * ``lm_serve``       — LM serving through ``launch.serve.Server``:
                        qwen2.5-14b at full width and depth in bf16 (random
                        weights from a seed), 4 prompts of 2048 tokens, 32
@@ -117,6 +124,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: throughput table)
 POPC_PER_CLOCK_PER_SM = 16
 COMPARES_PER_CLOCK_PER_SM = 64
+#: warp instructions issued per clock per SM (four schedulers, one each),
+#: and threads per warp
+ISSUE_PER_CLOCK_PER_SM, WARP = 4, 32
 #: the forest_acam workload: random_forest(default_rng(7), **FOREST),
 #: FOREST_QUERIES N(0, 1) queries from default_rng(8)
 FOREST = dict(n_trees=512, depth=8, dim=64, n_classes=8, feature_frac=0.5)
@@ -125,6 +135,9 @@ FOREST_QUERIES = 1024
 KNN_DATA = {}
 #: rows of each result checked against a plain oracle on the host
 FOREST_CHECKED_ROWS = 256
+#: distance_ops: eucl entries furthest from the plain version that are
+#: replayed in the kernel's arithmetic (beside one query row's all)
+REPLAY_FURTHEST = 4096
 #: the hdc_mnist workload: hdc_mnist_dataset(**HDC_MNIST), classes, dims,
 #: levels and retraining epochs (the paper's HDC/MNIST-8k).  At 28 x 28
 #: the dataset's default class overlap (0.55) separates every class (a
@@ -327,6 +340,9 @@ class Smoke:
                            * max_clock_mhz * 1e6)
         self.lop_per_s = (LOP_PER_CLOCK_PER_SM * props.multi_processor_count
                           * max_clock_mhz * 1e6)
+        self.lane_slots_per_s = (ISSUE_PER_CLOCK_PER_SM * WARP
+                                 * props.multi_processor_count
+                                 * max_clock_mhz * 1e6)
         self.kernels = {}        # name -> record for the final line
         self.failed = []
         self.topk = {}           # phase -> (values, indices) of its result
@@ -463,25 +479,39 @@ class Smoke:
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
 
-    def acam_bound_ms(self, q, lo):
-        """B3: two compares per (query, row, dim) cell against the bytes of
-        q, lo, hi and the (M, N) bool output."""
+    def acam_bound_ms(self, q, lo, basis="issue"):
+        """B3 on ``basis``: ``"issue"``, its route's issue slots per
+        (query, row, dim) cell as the kernel's loop counts them
+        (``acam_issue_slots``) at four warp instructions per clock per SM;
+        ``"compares"``, the earlier kernel's basis (two compares per cell
+        at the compare rate).  Against the bytes of q, lo, hi and the
+        (M, N) bool output."""
         m, d = q.shape
         n = lo.shape[0]
-        compares = 2.0 * m * n * d
+        cells = float(m) * n * d
+        if basis == "issue":
+            t_ops = cells * acam_issue_slots() / self.lane_slots_per_s
+        else:
+            t_ops = 2.0 * cells / self.compare_per_s
         bytes_ = 4.0 * (m * d + 2 * n * d) + 1.0 * m * n
-        t_ops, t_mem = compares / self.compare_per_s, bytes_ / HBM_BYTES_PER_S
+        t_mem = bytes_ / HBM_BYTES_PER_S
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
 
-    def distance_bound_ms(self, q, p):
-        """B6: the float decomposition's FLOP against the bytes of its
-        operands and its (M, N) float32 output."""
+    def distance_bound_ms(self, q, p, fp32_cuda_cores=False):
+        """B6: the product of its route, 3xTF32 on the tensor cores (three
+        products of 2 M N D FLOP at the TF32 peak; with
+        ``fp32_cuda_cores``, the earlier route's basis: one at the float32
+        CUDA-core peak, with the norms), against the bytes of its operands
+        and its (M, N) float32 output."""
         m, d = q.shape
         n = p.shape[0]
-        flops = 2.0 * m * n * d + 2.0 * (m + n) * d
+        if fp32_cuda_cores:
+            t_ops = (2.0 * m * n * d + 2.0 * (m + n) * d) / FP32_PEAK_FLOPS
+        else:
+            t_ops = 3 * 2.0 * m * n * d / TF32_PEAK_FLOPS
         bytes_ = 4.0 * (m * d + n * d) + 4.0 * m * n
-        t_ops, t_mem = flops / FP32_PEAK_FLOPS, bytes_ / HBM_BYTES_PER_S
+        t_mem = bytes_ / HBM_BYTES_PER_S
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
 
@@ -832,14 +862,18 @@ def phase_forest_acam(s: Smoke):
                            "traversal")
 
     bound, by = s.acam_bound_ms(qp, lo)
+    bound_compares, _ = s.acam_bound_ms(qp, lo, basis="compares")
     ms = cuda_ms(lambda: acam.acam_match(qp, lo, hi, n_valid=n), 10)
     plain_ms = cuda_ms(
         lambda: acam.acam_match_reference(qp, lo, hi, n_valid=n), 3)
     s.record("acam_match", "src/repro_torch/kernels/csrc/acam_match.cu",
              "src/repro/kernels/acam.py:121", counts["acam_match"], 0.0, ms,
              plain_ms, bound, by, None)
-    s.kernels["acam_match"]["library_note"] = (
-        "no single PyTorch call computes an interval match")
+    rec = s.kernels["acam_match"]
+    rec["library_note"] = "no single PyTorch call computes an interval match"
+    rec["bound_basis"] = (f"{acam_issue_slots()} issue slots a cell (FADD, "
+                          f"LOP3), 4 warp instructions per clock per SM")
+    rec["bound_ms_compares"] = bound_compares
     rep = clf.cost_report()
     log({"phase": "forest_acam", "ok": True, "launches": counts,
          "compile_s": compile_s, "first_call_s": first_s,
@@ -850,83 +884,30 @@ def phase_forest_acam(s: Smoke):
          "predictions_equal_traversal_rows": checked,
          "ms": ms, "plain_ms": plain_ms, "library_ms": None,
          "bound_ms": bound, "bound_by": by,
+         "bound_ms_compares": bound_compares,
          "cost_report": {"latency_us": rep.latency_us,
                          "energy_uj": rep.energy_uj, "power_w": rep.power_w},
          "profile": prof})
 
 
-def tc_accumulate(acc, terms):
-    """One ``wgmma`` k-step into a float32 accumulator as the tensor cores
-    add it: ``acc`` (n,) and the step's exact products ``terms`` (n, 8,
-    float64) aligned to the largest exponent among them, each truncated
-    to 25 bits below it, summed, and the sum truncated (toward zero) to
-    float32."""
-    import torch
-    allv = torch.cat([acc.double()[:, None], terms], 1)
-    _, e = torch.frexp(allv)                       # |x| < 2^e
-    e = torch.where(allv == 0, -1000, e - 1).amax(1).clamp(min=-1000)
-    quantum = torch.ldexp(torch.ones_like(allv[:, 0]), e - 25)[:, None]
-    total = (torch.trunc(allv / quantum) * quantum).sum(1)
-    f = total.float()
-    over = f.double().abs() > total.abs()
-    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
-
-
-def b4_kernel_order(q, p):
-    """B4's squared eucl distance of row pairs ``(q[i], p[i])`` in the
-    kernel's order of operations: the 3xTF32 split (``acam.tf32_round``),
-    each k-step's eight products per term added to the float32
-    accumulator as the tensor cores add them (``tc_accumulate``; lo.hi,
-    hi.lo, hi.hi), the norms as its threads sum them (fused
-    multiply-adds), then ``(qn - 2 acc) + pn``."""
-    import torch
-    from repro_torch.kernels import acam
-    f32 = torch.float32
-    n, d = q.shape
-    qh, ph = acam.tf32_round(q), acam.tf32_round(p)
-    ql, pl = acam.tf32_round(q - qh), acam.tf32_round(p - ph)
-    acc = torch.zeros(n, dtype=f32, device=q.device)
-    for k0 in range(0, d, 8):
-        for a, b in ((ql, ph), (qh, pl), (qh, ph)):
-            acc = tc_accumulate(acc, a[:, k0:k0 + 8].double()
-                                * b[:, k0:k0 + 8].double())
-
-    def fma_sum(x, order):                 # pn += x * x, in `order`
-        acc_ = torch.zeros(n, dtype=f32, device=q.device)
-        for k in order:
-            v = x[:, k].double()
-            acc_ = (acc_.double() + v * v).to(f32)
-        return acc_
-
-    stages = range(0, d, 32)
-    # q: thread t of a quad holds columns 8 kk + t, 8 kk + t + 4
-    qp_ = [fma_sum(q, [s0 + 8 * kk + t + 4 * h for s0 in stages
-                       for kk in range(4) for h in range(2)
-                       if s0 + 8 * kk + t + 4 * h < d]) for t in range(4)]
-    qn = (qp_[0] + qp_[1]) + (qp_[2] + qp_[3])
-    # p: two threads a row, floats 16 h .. 16 h + 15 of each stage
-    pp_ = [fma_sum(p, [s0 + 16 * h + c for s0 in stages for c in range(16)
-                       if s0 + 16 * h + c < d]) for h in range(2)]
-    pn = pp_[0] + pp_[1]
-    return ((qn.double() - 2.0 * acc.double()).to(f32) + pn).to(f32)
-
-
 def b2_order_reproduced(qp, pp, got_v, got_i, want_i, k, largest, what):
     """Replay each eucl index swap of B2's "wgmma" route against its plain
-    version in the kernel's arithmetic (the pipeline it shares with B4, so
-    ``b4_kernel_order``): where the kernel put row ``a`` at a position
-    and the plain version row ``b``, the replayed distances must order
-    ``a`` and ``b`` (lower row first on equal distances) as the kernel's
-    list does (``b`` later in the same list of ``k``, or absent).  Raises
-    on a swap the replay does not give.  Returns (swaps, candidates whose
-    value equals the replayed distance exactly)."""
+    version in the kernel's arithmetic (the pipeline it shares with B4 and
+    B6, so ``cam_search.tf32x3_kernel_eucl``): where the kernel put row
+    ``a`` at a position and the plain version row ``b``, the replayed
+    distances must order ``a`` and ``b`` (lower row first on equal
+    distances) as the kernel's list does (``b`` later in the same list of
+    ``k``, or absent).  Raises on a swap the replay does not give.
+    Returns (swaps, candidates whose value equals the replayed distance
+    exactly)."""
     import torch
+    from repro_torch.kernels.cam_search import tf32x3_kernel_eucl
     rows, cols = (got_i != want_i).nonzero(as_tuple=True)
     if rows.numel() == 0:
         return 0, 0
     a, b = got_i[rows, cols].long(), want_i[rows, cols].long()
-    da = b4_kernel_order(qp[rows], pp[a])
-    db = b4_kernel_order(qp[rows], pp[b])
+    da = tf32x3_kernel_eucl(qp[rows], pp[a])
+    db = tf32x3_kernel_eucl(qp[rows], pp[b])
     seg = (cols // k)[:, None] * k + torch.arange(k, device=cols.device)
     in_list = got_i[rows[:, None], seg] == b[:, None].int()
     pos_b = torch.where(in_list.any(1), in_list.int().argmax(1),
@@ -939,9 +920,19 @@ def b2_order_reproduced(qp, pp, got_v, got_i, want_i, k, largest, what):
         j = int(bad[0, 0])
         raise RuntimeError(
             f"{what}: swap at ({int(rows[j])}, {int(cols[j])}) is not what "
-            f"the kernel's own arithmetic gives (b4_kernel_order): rows "
+            f"the kernel's own arithmetic gives (tf32x3_kernel_eucl): rows "
             f"{int(a[j])} {float(da[j])}, {int(b[j])} {float(db[j])}")
     return int(rows.numel()), int((got_v[rows, cols] == da).sum())
+
+
+def acam_issue_slots() -> float:
+    """B3's issue slots per (query, row, dim) cell, as the kernel's loop
+    counts them (``csrc/acam_match.cu``): per 4 dims of a (query, row)
+    pair, eight FADDs (``q - lo``, ``hi - q``) and four 3-input LOP3s that
+    fold their bits into the flag word.  The shared-memory loads (16 per
+    384 slots) and the staging are left out."""
+    fadd, lop3, dims = 8, 4, 4
+    return (fadd + lop3) / dims
 
 
 def hdc_logical_ops(planes: int, has_zero: bool) -> float:
@@ -1019,7 +1010,7 @@ def _range_part(s: Smoke, name, metric, tau, inputs, value_bits):
 
 def phase_range_threshold(s: Smoke, data):
     import torch
-    from repro_torch.kernels import acam
+    from repro_torch.kernels import acam, cam_search
     g, _, q, _ = data
     gt, qt = torch.from_numpy(g).cuda(), torch.from_numpy(q).cuda()
 
@@ -1033,7 +1024,7 @@ def phase_range_threshold(s: Smoke, data):
     def disagreements(qx, got, want):
         """The kernel's disagreements with the plain version: each a
         float64 near-tie of tau, and each what the kernel's own arithmetic
-        gives in its order (``b4_kernel_order``); also how many the 3xTF32
+        gives in its order (``tf32x3_kernel_eucl``); also how many the 3xTF32
         split as a float32 matrix product reproduces."""
         rows, cols = (got != want).nonzero(as_tuple=True)
         d64 = ((qx[rows].double() - pp[cols].double()) ** 2).sum(1)
@@ -1046,13 +1037,13 @@ def phase_range_threshold(s: Smoke, data):
         emulated = acam.range_match_reference(qx, pp, tf32x3=True, **kw)
         explained = int((emulated[rows, cols] == got[rows, cols]).sum())
         del emulated
-        in_order = b4_kernel_order(qx[rows], pp[cols]) <= tau
+        in_order = cam_search.tf32x3_kernel_eucl(qx[rows], pp[cols]) <= tau
         explained_in_order = int((in_order == got[rows, cols]).sum())
         if explained_in_order != int(rows.numel()):
             raise RuntimeError(
                 f"range_eucl: {int(rows.numel()) - explained_in_order} of "
                 f"{int(rows.numel())} disagreements are not what the "
-                f"kernel's own arithmetic gives (b4_kernel_order): a wrong "
+                f"kernel's own arithmetic gives (tf32x3_kernel_eucl): a wrong "
                 f"operand, not rounding")
         return int(rows.numel()), explained, explained_in_order
 
@@ -1497,7 +1488,26 @@ def phase_distance_ops(s: Smoke, data):
         raise RuntimeError(f"distance_ops: eucl off the plain version by "
                            f"{float(off.max())}")
     err = float(off.max())
-    del plain, off
+    worst_share = float((off / (EUCL_ATOL + EUCL_RTOL * plain.abs())).max())
+    mean_err = float((d.double() - plain.double()).mean())
+    # the kernel's own arithmetic, replayed: the query row holding the
+    # largest error (all its rows) and the REPLAY_FURTHEST entries
+    # furthest from the plain version
+    n = gt.shape[0]
+    flat = off.flatten()
+    far = flat.topk(REPLAY_FURTHEST).indices
+    row = int(far[0]) // n
+    rows = torch.cat([torch.full((n,), row, device=far.device), far // n])
+    cols = torch.cat([torch.arange(n, device=far.device), far % n])
+    del plain, off, flat
+    replay = cam_search.tf32x3_kernel_eucl(qt[rows], gt[cols])
+    replay_equal = int((replay == d[rows, cols]).sum())
+    if replay_equal != rows.numel():
+        raise RuntimeError(
+            f"distance_ops: {rows.numel() - replay_equal} of "
+            f"{rows.numel()} replayed eucl entries differ from the kernel's "
+            f"(tf32x3_kernel_eucl)")
+    del replay, rows, cols
     plain_h = cam_search.distance_reference(qb, gb, metric="hamming")
     if not torch.equal(dh, plain_h):
         raise RuntimeError("distance_ops: hamming differs from the plain "
@@ -1510,6 +1520,7 @@ def phase_distance_ops(s: Smoke, data):
     del plain_h, exact, within, dh
 
     bound, by = s.distance_bound_ms(qt, gt)
+    bound_fp32, _ = s.distance_bound_ms(qt, gt, fp32_cuda_cores=True)
     ms = cuda_ms(lambda: cam_search.distance(qt, gt, metric="eucl"), 10)
     plain_ms = cuda_ms(lambda: cam_search.distance_reference(
         qt, gt, metric="eucl"), 5)
@@ -1520,15 +1531,24 @@ def phase_distance_ops(s: Smoke, data):
     s.record("distance", "src/repro_torch/kernels/csrc/distance.cu",
              "src/repro/kernels/cam_search.py:351", launches, err, ms,
              plain_ms, bound, by, library_ms)
+    rec = s.kernels["distance"]
+    rec["bound_basis"] = "3xTF32 tensor cores, 495 TFLOP/s"
+    rec["bound_ms_fp32_cuda_cores"] = bound_fp32
+    rec["eucl_worst_share_of_tolerance"] = worst_share
+    rec["replayed_bit_identical"] = [replay_equal, row]
     log({"phase": "distance_ops", "ok": True, "launches": launches,
          "shape": [q.shape[0], g.shape[0], g.shape[1]],
          "output_mb": 4e-6 * q.shape[0] * g.shape[0],
-         "eucl_max_abs_err": err, "hamming_bit_identical": True,
+         "eucl_max_abs_err": err, "eucl_mean_err": mean_err,
+         "eucl_worst_share_of_tolerance": worst_share,
+         "replayed_bit_identical": replay_equal, "replayed_row": row,
+         "hamming_bit_identical": True,
          "hamming_tau": tau, "exact_pairs": exact_pairs,
          "within_tau_pairs": within_pairs,
          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
          "hamming_ms": ham_ms, "hamming_library_ms_cdist_p0": ham_library_ms,
-         "bound_ms": bound, "bound_by": by, "profile": prof})
+         "bound_ms": bound, "bound_by": by,
+         "bound_ms_fp32_cuda_cores": bound_fp32, "profile": prof})
 
 
 # ---------------------------------------------------------------------------

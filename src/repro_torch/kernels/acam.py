@@ -9,7 +9,10 @@ write a ``torch.bool`` (M, N) match matrix:
 
 * :func:`acam_match` — interval match: ``lo <= q <= hi`` in every
   dimension (``q < lo or q > hi`` is a violation; a row matches with
-  none); replaces the reference's ``acam_match_pallas``;
+  none); replaces the reference's ``acam_match_pallas``.  The kernel
+  tests no compare: it ORs the sign bits of ``q - lo`` and ``hi - q`` on
+  canonical operands; :func:`acam_match_signbits` is that arithmetic in
+  torch;
 * :func:`range_match` — the float distance decomposition of
   :mod:`.cam_search`, mapped to the logical domain (identity, or the
   bipolar ``dim - 2h``) and compared against a threshold (``v <= tau``,
@@ -44,6 +47,7 @@ from .cam_search import (BLOCK_K, METRIC_COEFFS, _METRIC_CODE,
                          tf32_split_product)
 
 __all__ = ["ACAM_BLOCK_D", "acam_match", "acam_match_reference",
+           "acam_match_signbits",
            "range_match", "range_match_reference", "tf32_round",
            "tf32_split_product"]
 
@@ -84,9 +88,6 @@ def _check(name: str, ops: dict, block: int, n_valid: int) -> None:
                          f"positive multiple of {block} (pad_to_blocks)")
     if n == 0 or not 1 <= n_valid <= n:
         raise ValueError(f"{name}: n_valid={n_valid} outside 1..{n}")
-    if -(-q.shape[0] // 128) > 65535:
-        raise ValueError(f"{name}: {q.shape[0]} query rows exceed the "
-                         f"launch grid; split the batch")
 
 
 # ---------------------------------------------------------------------------
@@ -94,22 +95,53 @@ def _check(name: str, ops: dict, block: int, n_valid: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def acam_match_reference(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                         *, n_valid: int) -> torch.Tensor:
-    """Plain version of :func:`acam_match`: ``not any(q < lo or q > hi)``
-    per (query, row), chunked over queries so the (queries, rows, dims)
-    compare block stays near 64 M elements at any gallery size."""
-    _check("acam_match", {"queries": q, "lo": lo, "hi": hi}, ACAM_BLOCK_D,
-           n_valid)
+def _interval_match(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                    n_valid: int, violates) -> torch.Tensor:
+    """``not any(violates(q, lo, hi))`` per (query, row) over the dims,
+    chunked over queries so the (queries, rows, dims) block stays near
+    64 M elements at any gallery size; rows at or past ``n_valid`` False."""
     m, dim = q.shape
     n = lo.shape[0]
     out = torch.empty((m, n), dtype=torch.bool, device=q.device)
     step = max(1, _PACKED_CHUNK_ELEMS // max(1, n * dim))
     for s in range(0, m, step):
-        qc = q[s:s + step, None, :]
-        out[s:s + step] = ~((qc < lo[None]) | (qc > hi[None])).any(-1)
+        out[s:s + step] = ~violates(q[s:s + step, None, :], lo[None],
+                                    hi[None]).any(-1)
     out[:, n_valid:] = False
     return out
+
+
+def acam_match_reference(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                         *, n_valid: int) -> torch.Tensor:
+    """Plain version of :func:`acam_match`: ``not any(q < lo or q > hi)``
+    per (query, row)."""
+    _check("acam_match", {"queries": q, "lo": lo, "hi": hi}, ACAM_BLOCK_D,
+           n_valid)
+    return _interval_match(q, lo, hi, n_valid,
+                           lambda x, a, b: (x < a) | (x > b))
+
+
+def _card_bits(x: torch.Tensor) -> torch.Tensor:
+    """The int32 bits of float32 ``x`` as the card's FADD leaves them:
+    ``x + 0`` (-0 becomes +0) and any NaN the positive 0x7FFFFFFF (a CPU
+    keeps a NaN's sign and payload)."""
+    return torch.where(torch.isnan(x), 0x7FFFFFFF,
+                       (x + 0.0).view(torch.int32))
+
+
+def acam_match_signbits(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                        *, n_valid: int) -> torch.Tensor:
+    """:func:`acam_match` in the kernel's arithmetic: operands made
+    canonical (``_card_bits``), then a pair matches iff no dimension sets
+    the sign bit of ``bits(q - lo) | bits(hi - q)``, the differences'
+    NaNs canonical too.  Equal to :func:`acam_match_reference` on every
+    input, signed zeros, NaNs, infinities and subnormals included."""
+    _check("acam_match", {"queries": q, "lo": lo, "hi": hi}, ACAM_BLOCK_D,
+           n_valid)
+    qc, loc, hic = (_card_bits(x).view(torch.float32) for x in (q, lo, hi))
+    return _interval_match(
+        qc, loc, hic, n_valid,
+        lambda x, a, b: (_card_bits(x - a) | _card_bits(b - x)) < 0)
 
 
 def range_match_reference(q: torch.Tensor, p: torch.Tensor, *, metric: str,

@@ -23,7 +23,11 @@ periphery — as (value, global row index) candidates:
   when the grid fills the card, a warp per (query, window) otherwise;
 * :func:`distance` — the full (M, N) float32 distance matrix of the same
   decomposition, no top-k (the public ``ops.cam_distances``); replaces
-  ``distance_pallas``.
+  ``distance_pallas``; 3xTF32 tensor-core products on the same pipeline.
+
+:func:`tf32_split_product` is the 3xTF32 product in plain float32 (the
+plain versions' ``tf32x3`` switch); :func:`tf32x3_kernel_eucl` replays
+the tensor cores' own accumulation (:func:`tc_accumulate`) bit for bit.
 
 The candidate ordering is the reference's ``_extract_block_topk``:
 within a window, largest key first (key = value for ``largest``, else
@@ -51,7 +55,8 @@ from .packing import popcount32
 
 __all__ = ["METRIC_COEFFS", "BLOCK_K", "MAX_K", "LAUNCHES", "window_rows",
            "packed_route", "float_route", "reset_launch_counts",
-           "tf32_round", "tf32_split_product", "fused_topk",
+           "tf32_round", "tf32_split_product", "tc_accumulate",
+           "tf32x3_kernel_eucl", "fused_topk",
            "fused_topk_reference",
            "fused_topk_packed", "fused_topk_packed_reference", "distance",
            "distance_reference"]
@@ -164,6 +169,69 @@ def tf32_split_product(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return (ql @ ph.T + qh @ pl.T) + qh @ ph.T
 
 
+def tc_accumulate(acc: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """One ``wgmma`` TF32 k-step into a float32 accumulator as the tensor
+    cores add it: ``acc`` (n,) plus the exact products of the TF32 rows
+    ``a`` and ``b`` (n, 8), all aligned to the largest exponent among the
+    accumulator's and the products' *nominal* ones (the sum of the
+    operands' exponents, before a significand product of 2 or more is
+    normalised), each truncated to 25 bits below it, summed, and the sum
+    truncated (toward zero) to float32."""
+    prod = a.double() * b.double()
+
+    def exponent(x):                               # floor(log2 |x|)
+        _, e = torch.frexp(x)
+        return torch.where(x == 0, -1000, e - 1)
+
+    nominal = torch.where(prod == 0, -1000,
+                          exponent(a.double()) + exponent(b.double()))
+    top = torch.maximum(nominal.amax(1), exponent(acc.double()))
+    allv = torch.cat([acc.double()[:, None], prod], 1)
+    quantum = torch.ldexp(torch.ones_like(allv[:, 0]), top - 25)[:, None]
+    total = (torch.trunc(allv / quantum) * quantum).sum(1)
+    f = total.float()
+    over = f.double().abs() > total.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def tf32x3_kernel_eucl(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The squared eucl distance of row pairs ``(q[i], p[i])`` as the
+    3xTF32 kernels (B2's "wgmma" route, B4, B6: ``tf32_wgmma.cuh``) compute
+    it, bit for bit: the split (:func:`tf32_round`), each k-step's eight
+    products per term added to the float32 accumulator as the tensor cores
+    add them (:func:`tc_accumulate`; lo.hi, hi.lo, hi.hi), the norms as the
+    kernels' threads sum them (fused multiply-adds), then
+    ``(qn - 2 acc) + pn``."""
+    f32 = torch.float32
+    n, d = q.shape
+    qh, ph = tf32_round(q), tf32_round(p)
+    ql, pl = tf32_round(q - qh), tf32_round(p - ph)
+    acc = torch.zeros(n, dtype=f32, device=q.device)
+    for k0 in range(0, d, 8):
+        for a, b in ((ql, ph), (qh, pl), (qh, ph)):
+            acc = tc_accumulate(acc, a[:, k0:k0 + 8], b[:, k0:k0 + 8])
+
+    def fma_sum(x, order):                 # pn += x * x, in `order`
+        acc_ = torch.zeros(n, dtype=f32, device=q.device)
+        for k in order:
+            v = x[:, k].double()
+            acc_ = (acc_.double() + v * v).to(f32)
+        return acc_
+
+    stages = range(0, d, 32)
+    # q: thread t of a quad holds columns 8 kk + t, 8 kk + t + 4
+    qp_ = [fma_sum(q, [s0 + 8 * kk + t + 4 * h for s0 in stages
+                       for kk in range(4) for h in range(2)
+                       if s0 + 8 * kk + t + 4 * h < d]) for t in range(4)]
+    qn = (qp_[0] + qp_[1]) + (qp_[2] + qp_[3])
+    # p: two threads a row, floats 16 h .. 16 h + 15 of each stage
+    pp_ = [fma_sum(p, [s0 + 16 * h + c for s0 in stages for c in range(16)
+                       if s0 + 16 * h + c < d]) for h in range(2)]
+    pn = pp_[0] + pp_[1]
+    return ((qn.double() - 2.0 * acc.double()).to(f32) + pn).to(f32)
+
+
 def _block_topk(dist: torch.Tensor, *, k: int, largest: bool,
                 n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-window top-k of an (M, N) distance block (N a window multiple)
@@ -230,13 +298,15 @@ def fused_topk_packed_reference(q: torch.Tensor, p: torch.Tensor,
     return _block_topk(dist, k=k, largest=largest, n_valid=n_valid)
 
 
-def distance_reference(q: torch.Tensor, p: torch.Tensor, *,
-                       metric: str) -> torch.Tensor:
+def distance_reference(q: torch.Tensor, p: torch.Tensor, *, metric: str,
+                       tf32x3: bool = False) -> torch.Tensor:
     """Plain version of :func:`distance`: the decomposition with a
-    float32 matrix product (callers on a GPU keep TF32 off)."""
+    float32 matrix product (callers on a GPU keep TF32 off).  ``tf32x3``
+    takes the product as the kernel's tensor cores do
+    (:func:`tf32_split_product`)."""
     _check_distance(q, p, metric)
     alpha, beta, gamma, qk, pk = METRIC_COEFFS[metric]
-    dist = alpha * (q @ p.T)
+    dist = alpha * (tf32_split_product(q, p) if tf32x3 else q @ p.T)
     if beta:
         dist = dist + beta * _term(q, qk).sum(1, keepdim=True)
     if gamma:
@@ -415,9 +485,6 @@ def _check_distance(q: torch.Tensor, p: torch.Tensor, metric: str) -> None:
     if inner == 0 or inner % BLOCK_K:
         raise ValueError(f"distance: inner dimension {inner} must be a "
                          f"positive multiple of {BLOCK_K} (pad_to_blocks)")
-    if -(-q.shape[0] // 128) > 65535:
-        raise ValueError(f"distance: {q.shape[0]} query rows exceed the "
-                         f"launch grid; split the batch")
 
 
 def distance(q: torch.Tensor, p: torch.Tensor, *, metric: str

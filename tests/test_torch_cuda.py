@@ -7,8 +7,10 @@ installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Tolerances: integer metrics bit-identical; eucl values within
-``rtol=1e-5, atol=1e-4`` (|d| < 300 at these widths) with index swaps
-only between float64 near-ties.
+``rtol=1e-5, atol=1e-4`` (|d| up to about 2,500 at these widths, D at
+most 1,032) with index swaps only between float64 near-ties; the 3xTF32
+kernels' eucl values also bit-identical to the replay of their own
+arithmetic (``cam_search.tf32x3_kernel_eucl``) where a test samples them.
 """
 
 import dataclasses
@@ -370,6 +372,75 @@ def test_acam_kernel_matches_plain(cuda, m, n, dim, n_valid, rng):
     assert got.dtype == torch.bool and got.shape == (m, n)
     assert torch.equal(got, want)
     assert bool(got[0, 0]) and 0 < int(got.sum()) < got.numel()
+
+
+def _f32(bits):
+    return float(np.array(bits, np.uint32).view(np.float32))
+
+
+_TINY, _MAX = 2.0 ** -126, float(np.finfo(np.float32).max)
+#: signed zeros, NaN of either sign (and a signalling one), infinities,
+#: subnormal operands and gaps, and bounds whose differences overflow
+ACAM_EDGE_VALUES = np.array(
+    [0.0, -0.0, 1.0, -1.0, np.nan, _f32(0xFFC00000), _f32(0x7F800001),
+     _f32(0xFFFFFFFF), np.inf, -np.inf, _MAX, -_MAX, 3e38, -3e38,
+     _TINY, -_TINY, _f32(0x00800001), _f32(0x00FFFFFF), 1e-45, 2e-45,
+     -1e-45, 3e-39, -3e-39], np.float32)
+
+
+def _acam_edges(rng, m, n, dim):
+    """Queries of edge values in every dim; rows with edge-value bounds
+    (lo <= hi or not) in two dims and wildcards elsewhere, a few rows all
+    wildcards."""
+    v = ACAM_EDGE_VALUES
+    q = v[(np.arange(m)[:, None] * 7 + np.arange(dim)[None] * 3) % v.size]
+    lo = np.full((n, dim), -np.inf, np.float32)
+    hi = np.full((n, dim), np.inf, np.float32)
+    for d in (0, dim // 2):
+        lo[:, d] = v[rng.integers(0, v.size, n)]
+        hi[:, d] = v[rng.integers(0, v.size, n)]
+    lo[::17], hi[::17] = -np.inf, np.inf
+    return q.astype(np.float32), lo, hi
+
+
+@pytest.mark.parametrize("m", [1, 37, 150])
+@pytest.mark.parametrize("n,dim", [(301, 32), (1003, 64)])
+def test_acam_kernel_edge_values(cuda, m, n, dim, rng):
+    """B3 (no compares: the sign bits of q - lo and hi - q on canonical
+    operands) bit-identical to its plain version and to numpy's IEEE
+    compares on signed zeros, NaN of either sign in q, lo and hi, +-inf
+    against wildcards and finite bounds, subnormal operands and gaps, and
+    overflowing differences; N not a multiple of 4 or of the 128-row
+    tile.  The card's FADD must give inf - inf and NaN operands a NaN of
+    sign 0 (no violation, as the compares give)."""
+    q, lo, hi = _acam_edges(rng, m, n, dim)
+    want = ~((q[:, None] < lo[None]) | (q[:, None] > hi[None])).any(-1)
+    want[:, n - 3:] = False
+    qt, lot, hit = (torch.from_numpy(x).to(cuda) for x in (q, lo, hi))
+    got = tacam.acam_match(qt, lot, hit, n_valid=n - 3)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got, tacam.acam_match_reference(qt, lot, hit,
+                                                       n_valid=n - 3))
+    assert torch.equal(got.cpu(), tacam.acam_match_signbits(
+        *map(torch.from_numpy, (q, lo, hi)), n_valid=n - 3))
+    assert 0 < int(got.sum()) < got.numel()
+
+
+def test_acam_kernel_nan_differences_have_sign_zero(cuda):
+    """Each violation test alone: one query value against one bound pair
+    in a single dimension (15 wildcard dims), so a NaN difference with its
+    sign bit set would show as a violation."""
+    v = ACAM_EDGE_VALUES
+    q = np.full((v.size, 16), 0.0, np.float32)
+    q[:, 0] = v
+    lo = np.full((v.size ** 2, 16), -np.inf, np.float32)
+    hi = np.full((v.size ** 2, 16), np.inf, np.float32)
+    lo[:, 0], hi[:, 0] = np.repeat(v, v.size), np.tile(v, v.size)
+    want = ~((q[:, None] < lo[None]) | (q[:, None] > hi[None])).any(-1)
+    got = tacam.acam_match(*(torch.from_numpy(x).to(cuda)
+                             for x in (q, lo, hi)), n_valid=lo.shape[0])
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 @pytest.mark.parametrize("metric,to_logical", [("hamming", "identity"),
@@ -763,6 +834,61 @@ def test_distance_kernel_matches_plain(cuda, metric, m, n, dim, rng):
         assert torch.equal(got, want)
         assert torch.equal(got.cpu(), tcs.distance_reference(q, p,
                                                              metric=metric))
+
+
+@pytest.mark.parametrize("metric", ["hamming", "dot", "eucl"])
+@pytest.mark.parametrize("m", [1, 129, 624])
+@pytest.mark.parametrize("dim", [72, 1024])
+def test_distance_kernel_tf32x3_route(cuda, metric, m, dim, rng):
+    """B6 on the 3xTF32 pipeline at N = 301 (a ragged last tile): {0, 1}
+    hamming and +-1 dot bit-identical to the plain version; eucl within
+    tolerance, and 300 entries (the 150 furthest from the plain version and
+    150 at random) bit-identical to the replay of the kernel's own
+    arithmetic (``tf32x3_kernel_eucl``)."""
+    n = 301
+    if metric == "eucl":
+        q = torch.from_numpy(rng.standard_normal((m, dim)).astype(np.float32))
+        p = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32))
+    elif metric == "dot":
+        q, p = _bipolar_t(rng, m, dim), _bipolar_t(rng, n, dim)
+    else:
+        q = torch.from_numpy((rng.random((m, dim)) > .5).astype(np.float32))
+        p = torch.from_numpy((rng.random((n, dim)) > .5).astype(np.float32))
+    qc, pc = q.to(cuda), p.to(cuda)
+    got = tcs.distance(qc, pc, metric=metric)
+    torch.cuda.synchronize()
+    want = tcs.distance_reference(qc, pc, metric=metric)
+    if metric != "eucl":
+        assert torch.equal(got, want)
+        return
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=EUCL_RTOL, atol=EUCL_ATOL)
+    flat = (got - want).abs().flatten()
+    pick = torch.cat([flat.topk(min(150, flat.numel())).indices,
+                      torch.from_numpy(rng.integers(0, flat.numel(), 150)
+                                       ).to(cuda)])
+    rows, cols = pick // n, pick % n
+    replay = tcs.tf32x3_kernel_eucl(qc[rows], pc[cols])
+    assert torch.equal(got[rows, cols], replay)
+
+
+def test_cam_exact_eucl_on_identical_rows(cuda, rng):
+    """Pinned: ``cam_exact(metric="eucl")`` on identical rows.  The 3xTF32
+    product truncates each k-step, so the norms (float32 sums) and the
+    product do not cancel: identical float rows get the small positive
+    distance the replay gives, and no exact match.  Integer-valued rows
+    (every partial sum exact) get 0 and match."""
+    from repro_torch.kernels import ops as tops
+    x = torch.from_numpy(rng.standard_normal((6, 72)).astype(np.float32))
+    xi = torch.from_numpy(rng.integers(-3, 4, (6, 72)).astype(np.float32))
+    for rows, exact in ((x, False), (xi, True)):
+        r = rows.to(cuda)
+        d = tops.cam_distances(r, r, metric="eucl").diagonal()
+        want = tcs.tf32x3_kernel_eucl(r, r)
+        assert torch.equal(d, want)
+        assert bool(((want == 0) if exact else (want > 0)).all())
+        assert torch.equal(tops.cam_exact(r, r, metric="eucl").diagonal(),
+                           torch.full((6,), exact, device=cuda))
 
 
 def test_ops_distance_entry_points_on_the_card(cuda, rng):

@@ -402,3 +402,79 @@ def test_distance_wrapper_refuses_bad_operands():
         tcs.distance(q, q, metric="cos")
     with pytest.raises(ValueError, match="widths"):
         tcs.distance(q, torch.zeros((3, 8)), metric="dot")
+
+
+@pytest.mark.parametrize("metric,cells", [("eucl", "normal"),
+                                          ("eucl", "knn_scale"),
+                                          ("hamming", "binary"),
+                                          ("dot", "bipolar")])
+def test_distance_tf32x3_plain_matches_pallas(metric, cells, rng):
+    """B6's arithmetic on the tensor cores (``distance_reference(...,
+    tf32x3=True)``, the 3xTF32 split as float32 products) against the
+    reference's Pallas distance kernel in interpret mode: eucl within the
+    tolerance, also at the smoke's value scale (class centres N(0, 4) plus
+    N(0, 1) noise, D = 1024); {0, 1} and +-1 cells bit for bit (their lo
+    halves are 0)."""
+    m, n, dim = 9, 37, 72
+    if cells == "knn_scale":
+        m, n, dim = 6, 40, 1024
+        centers = rng.standard_normal((2, dim)).astype(np.float32) * 2.0
+        q = centers[rng.integers(0, 2, m)] + \
+            rng.standard_normal((m, dim)).astype(np.float32)
+        p = centers[rng.integers(0, 2, n)] + \
+            rng.standard_normal((n, dim)).astype(np.float32)
+    elif cells == "normal":
+        q = rng.standard_normal((m, dim)).astype(np.float32)
+        p = rng.standard_normal((n, dim)).astype(np.float32)
+    else:
+        q = (rng.random((m, dim)) > 0.5).astype(np.float32)
+        p = (rng.random((n, dim)) > 0.5).astype(np.float32)
+        if cells == "bipolar":
+            q, p = 2 * q - 1, 2 * p - 1
+    want = _np(rcs.distance_pallas(jnp.asarray(q), jnp.asarray(p),
+                                   metric=metric, interpret=True))
+    got = tcs.distance_reference(_t(q), _t(p), metric=metric, tf32x3=True)
+    plain = tcs.distance_reference(_t(q), _t(p), metric=metric)
+    if metric == "eucl":
+        np.testing.assert_allclose(got.numpy(), want, rtol=EUCL_RTOL,
+                                   atol=EUCL_ATOL)
+        assert not torch.equal(got, plain)     # the split is not a no-op
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert torch.equal(got, plain)
+
+
+def test_tf32x3_kernel_eucl_replays_the_split_product(rng):
+    """The replay of the kernels' own accumulation (``tc_accumulate`` per
+    k-step) on row pairs: within the eucl tolerance of the float64
+    distance, and on integer cells exactly the integer distance."""
+    n, dim = 50, 72
+    q = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32))
+    p = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32))
+    got = tcs.tf32x3_kernel_eucl(q, p).double()
+    exact = ((q.double() - p.double()) ** 2).sum(1)
+    np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=EUCL_RTOL,
+                               atol=EUCL_ATOL)
+    qi = torch.from_numpy(rng.integers(-3, 4, (n, dim)).astype(np.float32))
+    pi = torch.from_numpy(rng.integers(-3, 4, (n, dim)).astype(np.float32))
+    assert torch.equal(tcs.tf32x3_kernel_eucl(qi, pi),
+                       ((qi - pi) ** 2).sum(1))
+    # one k-step: a product below 25 bits of the largest exponent is
+    # lost, and the sum is truncated toward zero (2 - 2^-24 is a float32
+    # tie that rounding to nearest would take to 2)
+    one = torch.tensor([1.0], dtype=torch.float32)
+    ones = torch.ones((1, 8))
+
+    def step(acc, *products):
+        a = torch.tensor([list(products) + [0.0] * (8 - len(products))])
+        return float(tcs.tc_accumulate(acc, a, ones))
+
+    assert step(one, 2.0 ** -30) == 1.0
+    assert step(2 * one, -2.0 ** -24) == 2 - 2.0 ** -23
+    # the window hangs from the nominal exponent: 1.5 * 1.5 = 2.25 has
+    # exponent 0 + 0 (not 1), so -2^-25 beside it survives the alignment
+    # (a window from 2.25's own exponent would drop it) and the sum
+    # truncates to the float32 below 2.25
+    a = torch.tensor([[1.5, -2.0 ** -13] + [0.0] * 6])
+    b = torch.tensor([[1.5, 2.0 ** -12] + [0.0] * 6])
+    assert float(tcs.tc_accumulate(torch.zeros(1), a, b)) == 2.25 - 2.0 ** -22

@@ -219,6 +219,105 @@ def test_acam_plain_matches_pallas(m, n, dim, n_valid, rng):
     assert not got[:, n_valid:].any() and 0 < ref.sum() < ref.size
 
 
+def _f32(bits):
+    return np.array(bits, np.uint32).view(np.float32)
+
+
+_TINY = np.float32(2.0 ** -126)                 # the least normal float32
+_MAX = np.finfo(np.float32).max
+#: edge values of each interval case; every value is a query and every
+#: ordered pair a row's (lo, hi) in dim 0 (dims 1..15 wildcards)
+ACAM_EDGES = {
+    "signed_zeros": [0.0, -0.0, 1.0, -1.0, _TINY, -_TINY],
+    "nan_either_sign": [np.nan, _f32(0xFFC00000), _f32(0x7F800001),
+                        _f32(0xFFFFFFFF), 0.0, -1.0, np.inf, -np.inf],
+    "infinities": [np.inf, -np.inf, 0.0, 1.0, -1.0, _MAX, -_MAX],
+    # normal operands a subnormal step apart
+    "subnormal_gaps": [_TINY, np.nextafter(_TINY, np.float32(1)),
+                       2 * _TINY, np.nextafter(2 * _TINY, np.float32(0)),
+                       -_TINY, np.nextafter(-_TINY, np.float32(-1)),
+                       np.float32(1.5) * _TINY, 0.0],
+    "overflowing_differences": [_MAX, -_MAX, np.float32(3e38),
+                                np.float32(-3e38), np.float32(2e38), 0.0],
+}
+
+
+def acam_edges(values, dim=16):
+    """Queries (each value in every dim) and rows (every ordered pair of
+    values as dim 0's bounds, wildcards elsewhere)."""
+    v = np.array(values, np.float32)
+    q = np.repeat(v[:, None], dim, 1)
+    lo = np.full((v.size ** 2, dim), -np.inf, np.float32)
+    hi = np.full((v.size ** 2, dim), np.inf, np.float32)
+    lo[:, 0] = np.repeat(v, v.size)
+    hi[:, 0] = np.tile(v, v.size)
+    return q, lo, hi
+
+
+def _ieee_match(q, lo, hi):
+    """numpy's IEEE compares: no violation in any dim."""
+    qq = q[:, None, :]
+    return ~((qq < lo[None]) | (qq > hi[None])).any(-1)
+
+
+@pytest.mark.parametrize("case", sorted(ACAM_EDGES))
+def test_acam_signbits_matches_pallas_on_edge_values(case):
+    """B3's arithmetic (canonical operands, the sign bits of ``q - lo``
+    and ``hi - q`` OR'ed: ``acam_match_signbits``) and the plain version
+    against the Pallas kernel (interpret mode), ``ref.acam_violations``
+    and numpy's IEEE compares: signed zeros on both sides of a bound, NaN
+    of either sign (and a signalling one) in q, lo and hi, infinities
+    against wildcards and finite bounds, subnormal gaps between normal
+    operands, differences that overflow."""
+    q, lo, hi = acam_edges(ACAM_EDGES[case])
+    n = lo.shape[0]
+    ieee = _ieee_match(q, lo, hi)
+    pallas = np.asarray(racam.acam_match_pallas(
+        *map(jnp.asarray, (q, lo, hi)), n_valid=n, interpret=True)) != 0
+    viol = np.asarray(rref.acam_violations(*map(jnp.asarray, (q, lo, hi))))
+    ops = [torch.from_numpy(x) for x in (q, lo, hi)]
+    twin = tacam.acam_match_signbits(*ops, n_valid=n).numpy()
+    plain = tacam.acam_match_reference(*ops, n_valid=n).numpy()
+    for got in (twin, plain, pallas, viol == 0):
+        np.testing.assert_array_equal(got, ieee)
+    assert 0 < ieee.sum() < ieee.size
+
+
+def test_acam_signbits_on_subnormal_operands():
+    """Subnormal operands: B3's arithmetic and the plain version against
+    numpy's IEEE compares.  (XLA on the CPU flushes subnormal operands to
+    zero, so the JAX reference is held to them on normal operands with
+    subnormal gaps above.)"""
+    sub = [np.float32(1e-45), np.float32(2e-45), np.float32(-1e-45),
+           np.float32(3e-39), np.float32(-3e-39), 0.0, -0.0, _TINY]
+    q, lo, hi = acam_edges(sub)
+    n = lo.shape[0]
+    ops = [torch.from_numpy(x) for x in (q, lo, hi)]
+    ieee = _ieee_match(q, lo, hi)
+    np.testing.assert_array_equal(
+        tacam.acam_match_signbits(*ops, n_valid=n).numpy(), ieee)
+    np.testing.assert_array_equal(
+        tacam.acam_match_reference(*ops, n_valid=n).numpy(), ieee)
+    assert 0 < ieee.sum() < ieee.size
+
+
+@pytest.mark.parametrize("m,n,dim,n_valid", [(40, 300, 70, 300),
+                                             (9, 137, 16, 100)])
+def test_acam_signbits_matches_pallas(m, n, dim, n_valid, rng):
+    """B3's arithmetic on interval data with wildcards and a NaN query
+    cell, padded to the kernel's 16-dim stages, against the Pallas kernel
+    (interpret mode)."""
+    q, lo, hi = interval_data(rng, m, n, dim, constrained=0.03)
+    q[min(1, m - 1), 2] = np.nan
+    ref = np.asarray(racam.acam_match_pallas(
+        *map(jnp.asarray, (q, lo, hi)), n_valid=n_valid, interpret=True))
+    d = tacam.ACAM_BLOCK_D
+    ops = [tops.pad_to_blocks(torch.from_numpy(x), 1, d) for x in (q, lo, hi)]
+    got = tacam.acam_match_signbits(*ops, n_valid=n_valid)
+    np.testing.assert_array_equal(got.numpy(), ref != 0)
+    assert 0 < ref.sum() < ref.size
+
+
 @pytest.mark.parametrize("metric,to_logical,tau", [
     ("hamming", "identity", 34.0), ("hamming", "bipolar", 2.0),
     ("dot", "identity", 4.0), ("eucl", "identity", 130.0)])
