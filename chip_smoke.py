@@ -184,6 +184,26 @@ B7_BF16_ATOL, B7_F32_ATOL = 0.05, 2e-3
 B7_REC_BEYOND, B7_REC_MAX_OF_V = 1e-3, 2.0 ** -8
 #: H100 SXM bf16 tensor-core peak, dense (NVIDIA data sheet)
 BF16_PEAK_FLOPS = 989e12
+#: cam_serve: CAM_CLIENTS client threads, each submitting CAM_REQUESTS
+#: requests of CAM_ROWS consecutive query rows one after another
+#: (8 x 6 x 13 = the 624 KNN queries); the faulted packed server's model;
+#: the hardened search's replicas, fault seeds and probabilities, and the
+#: gallery rows it stores: cut from 180,000 to a quarter, because each
+#: faulted execute corrupts every stored cell on the host (553 M at full
+#: size: 12-14 s a seed on the H100's host, 80 s for the part, against a
+#: 30 s budget); the forest update's share
+#: of rows and its racing clients (CAM_RACE_ROWS queries each); the
+#: healed interval plan's replicas,
+#: spares and model; the bound of every wait
+CAM_CLIENTS, CAM_REQUESTS, CAM_ROWS = 8, 6, 13
+CAM_SERVE_FAULTS = dict(seed=3, p_stuck=1e-3, p_flip=1e-3)
+CAM_HARDEN_REPLICAS, CAM_HARDEN_SEEDS = 3, range(4)
+CAM_HARDEN_FAULTS = dict(p_stuck=0.02, p_flip=0.01)
+CAM_HARDEN_ROWS = 45000
+CAM_UPDATE_FRAC, CAM_RACERS, CAM_RACE_ROWS = 0.01, 4, 64
+CAM_HEAL_REPLICAS, CAM_HEAL_SPARES = 2, 512
+CAM_HEAL_FAULTS = dict(seed=11, p_stuck=1e-5)
+CAM_WAIT_S = 600
 
 
 def log(obj) -> None:
@@ -1556,6 +1576,544 @@ def phase_distance_ops(s: Smoke, data):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# cam_serve: the single-device CAM search server, faults and hardening
+# ---------------------------------------------------------------------------
+
+
+def _serve_blocks(srv, q):
+    """CAM_CLIENTS threads, each submitting CAM_REQUESTS blocks of CAM_ROWS
+    consecutive rows of host queries ``q`` one after another.  Returns the
+    stacked (values, indices) in query order, each request's latency, and
+    the wall seconds of the whole run."""
+    import threading
+    import numpy as np
+    per = CAM_REQUESTS * CAM_ROWS
+    if CAM_CLIENTS * per != q.shape[0]:
+        raise RuntimeError(f"cam_serve: {CAM_CLIENTS} x {per} rows do not "
+                           f"cover the {q.shape[0]} queries")
+    out, lat, errs = {}, [], []
+
+    def client(c):
+        try:
+            for j in range(CAM_REQUESTS):
+                s0 = c * per + j * CAM_ROWS
+                res = srv.submit(q[s0:s0 + CAM_ROWS]).wait(CAM_WAIT_S)
+                if res.error is not None:
+                    raise res.error
+                out[s0] = (res.values, res.indices)
+                lat.append(res.latency_s)
+        except Exception as e:      # noqa: BLE001 — reported below
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CAM_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(CAM_WAIT_S)
+    wall = time.perf_counter() - t0
+    if errs or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"cam_serve: a client failed or hung: {errs[:1]}")
+    keys = sorted(out)
+    return (np.concatenate([out[k][0] for k in keys]),
+            np.concatenate([out[k][1] for k in keys]), lat, wall)
+
+
+def _server_health(name, srv):
+    """The server's snapshot; fails unless every batch was served by the
+    primary (the degraded chain must never hide a failing kernel)."""
+    h, snap = srv.health(), srv.snapshot()
+    if h["degraded_batches"] or h["backend_errors"] or \
+            h["breaker"]["state"] != "closed":
+        raise RuntimeError(f"{name}: served degraded: {h}")
+    return snap
+
+
+def _latency_ms(lat):
+    import numpy as np
+    return {"p50": 1e3 * float(np.percentile(lat, 50)),
+            "p99": 1e3 * float(np.percentile(lat, 99)),
+            "max": 1e3 * max(lat), "requests": len(lat)}
+
+
+def _snapshot_log(snap):
+    keep = ("requests", "queries", "batches", "avg_batch_fill", "p50_ms",
+            "p95_ms", "p99_ms", "queue_wait_p50_ms", "service_p50_ms",
+            "dispatch_p50_ms", "dispatch_p95_ms", "dispatch_p99_ms",
+            "gallery_updates", "rows_updated", "degraded_batches",
+            "backend_errors")
+    return {k: snap[k] for k in keep if k in snap}
+
+
+def _cam_serve_knn(s: Smoke, data):
+    """(a) the KNN eucl program served: B2."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ArchSpec, compile_fn
+    from repro_torch.kernels import cam_search
+    from repro_torch.serving import CamSearchServer
+    g, _, q, _ = data
+    gt = torch.from_numpy(g).cuda()
+    prog = compile_fn(knn_kernel, [q, g], ArchSpec(rows=64, cols=64),
+                      value_bits=8)
+    plan = prog.engine_plan
+    warm_ms, _ = host_ms(lambda: plan.warm(gt))
+    cam_search.reset_launch_counts()
+    with CamSearchServer(prog, gt, max_wait_ms=2.0) as srv:
+        v, i, lat, wall = _serve_blocks(srv, q)
+        snap = _server_health("cam_serve knn", srv)
+    counts = dict(cam_search.LAUNCHES)
+    if counts["fused_topk"] != snap["batches"]:
+        raise RuntimeError(f"cam_serve knn: {snap['batches']} batches but "
+                           f"launches {counts}")
+    direct_ms, (dv, di) = host_ms(lambda: plan.execute(q, gt))
+    if not (np.array_equal(v, dv.cpu().numpy())
+            and np.array_equal(i, di.cpu().numpy())):
+        raise RuntimeError("cam_serve knn: served results differ from the "
+                           "plan's direct call")
+    prev = s.topk.get("knn_eucl")
+    if prev is not None and not (torch.equal(dv, prev[0])
+                                 and torch.equal(di, prev[1])):
+        raise RuntimeError("cam_serve knn: the direct call differs from "
+                           "knn_eucl's")
+    # a batch of the served size: the host's dispatch (no wait for the
+    # device, so a hidden synchronise would show as host time near the
+    # device time) against the device time of the batch's work
+    rows = CAM_CLIENTS * CAM_ROWS
+    dispatch_host_ms = host_ms_per_call(lambda: plan.dispatch(q[:rows], gt),
+                                        20)
+    batch_device_ms = cuda_ms(lambda: plan.finalize(plan.dispatch(
+        q[:rows], gt)), 20)
+    s.record("fused_topk", "src/repro_torch/kernels/csrc/fused_topk.cu",
+             "src/repro/kernels/cam_search.py:200", counts["fused_topk"],
+             0.0, None, None, None, "operations", None)
+    return counts, {"launches": counts, "served_wall_ms": 1e3 * wall,
+                    "batch_rows": rows,
+                    "dispatch_host_ms": dispatch_host_ms,
+                    "batch_device_ms": batch_device_ms,
+                    "direct_wall_ms": direct_ms, "warm_ms": warm_ms,
+                    "batches": snap["batches"],
+                    "rows_per_batch": snap["avg_batch_fill"],
+                    "latency_ms": _latency_ms(lat),
+                    "snapshot": _snapshot_log(snap),
+                    "bit_identical_to_direct": True}
+
+
+def _packed_plan(data):
+    """The hamming top-10 program of ``hamming_packed`` (packed) and the
+    binarised KNN data on the card."""
+    import torch
+    import repro_torch.core as T
+    from repro_torch.core import ArchSpec, compile_module
+    from repro_torch.core import cim_dialect as cd
+    g, _, q, _ = data
+    gb = (torch.from_numpy(g).cuda() > 0).float()
+    qb = (q > 0).astype("float32")
+    prog = compile_module(hamming_module(T, cd, q.shape[0], g.shape[0],
+                                         g.shape[1], 10, False),
+                          ArchSpec(rows=64, cols=64), value_bits=1)
+    if not prog.engine_plan.packed:
+        raise RuntimeError("cam_serve: the hamming plan is not packed")
+    return prog.engine_plan, qb, gb
+
+
+def _cam_serve_faulted(s: Smoke, plan, qb, gb):
+    """(b) a faulted packed hamming server: B1 on the corrupted gallery."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine.executables import _cuda_operands
+    from repro_torch.faults import FaultModel
+    from repro_torch.kernels import cam_search, ops
+    from repro_torch.serving import CamSearchServer
+    fm = FaultModel(**CAM_SERVE_FAULTS)
+    warm_ms, _ = host_ms(lambda: plan.warm(gb, faults=fm))
+    cam_search.reset_launch_counts()
+    qu = qb[:CAM_ROWS]
+    with CamSearchServer(plan, gb, max_wait_ms=2.0, fault_model=fm) as srv:
+        v, i, lat, wall = _serve_blocks(srv, qb)
+        cells = srv.health()["fault_model"]["cells"]
+        update = _faulted_update(srv, plan, qu)
+        snap = _server_health("cam_serve faulted", srv)
+        updated = srv.gallery
+    counts = dict(cam_search.LAUNCHES)
+    if counts["fused_topk_packed"] != snap["batches"]:
+        raise RuntimeError(f"cam_serve faulted: {snap['batches']} batches "
+                           f"but launches {counts}")
+    want = tuple(x.cpu().numpy() for x in plan.execute(qu, updated,
+                                                        faults=fm))
+    for got in update.pop("results"):
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError("cam_serve faulted: a search after the live "
+                               "update differs from plan.execute(faults=) "
+                               "on the updated gallery")
+    del updated
+    dv, di = (x.cpu().numpy() for x in plan.execute(qb, gb, faults=fm))
+    if not (np.array_equal(v, dv) and np.array_equal(i, di)):
+        raise RuntimeError("cam_serve faulted: served results differ from "
+                           "plan.execute(faults=)")
+    # B1's plain version on the host-corrupted gallery, merged as the
+    # engine merges
+    corrupt_ms, (bad,) = host_ms(lambda: fm.corrupt_stored(
+        (gb.cpu().numpy(),), plan.spec))
+    pp = plan._prepare(torch.from_numpy(bad).cuda())
+    args, kw = _cuda_operands(plan.spec, True, torch.from_numpy(qb).cuda(),
+                              pp)
+    pv, pi = ops._merge(*cam_search.fused_topk_packed_reference(*args, **kw),
+                        kw["k"], kw["largest"])
+    if not (np.array_equal(v, pv.cpu().numpy())
+            and np.array_equal(i, pi.cpu().numpy())):
+        raise RuntimeError("cam_serve faulted: served results differ from "
+                           "B1's plain version on the corrupted gallery")
+    clean = plan.execute(qb, gb)
+    null = plan.execute(qb, gb, faults=FaultModel(p_stuck=0))
+    if not (torch.equal(clean[0], null[0]) and torch.equal(clean[1], null[1])):
+        raise RuntimeError("cam_serve faulted: FaultModel(p_stuck=0) differs "
+                           "from faults=None")
+    changed = int((clean[1].cpu().numpy() != i).any(axis=1).sum())
+    s.record("fused_topk_packed",
+             "src/repro_torch/kernels/csrc/fused_topk_packed.cu",
+             "src/repro/kernels/cam_search.py:304",
+             counts["fused_topk_packed"], 0.0, None, None, None,
+             "operations", None)
+    return counts, {"launches": counts, "model": CAM_SERVE_FAULTS,
+                    "cells": cells, "warm_ms": warm_ms,
+                    "host_corruption_ms": corrupt_ms,
+                    "served_wall_ms": 1e3 * wall,
+                    "batches": snap["batches"],
+                    "latency_ms": _latency_ms(lat),
+                    "rows_changed_by_faults": changed,
+                    "live_update": update,
+                    "equal_to_plan_execute_faults": True,
+                    "bit_identical_to_b1_plain_on_corrupted": True,
+                    "null_model_bit_identical": True}
+
+
+def _faulted_update(srv, plan, qu):
+    """One live ``update_gallery`` of 1 % of the rows on the faulted
+    server, then two searches of ``qu``.  The engine's row update
+    rewrites only the clean layout, so the first batch after it corrupts
+    and prepares the whole gallery again, inside its dispatch and under
+    the gallery's read lock: its latency is the stall every client sees.
+    The second batch hits the memo."""
+    import numpy as np
+    n, dim = plan.spec.n, plan.spec.dim
+    rng = np.random.default_rng(CAM_SERVE_FAULTS["seed"])
+    rows = np.sort(rng.choice(n, int(CAM_UPDATE_FRAC * n), replace=False))
+    new = (rng.random((rows.size, dim)) > 0.5).astype(np.float32)
+    fb0 = plan.row_update_fallbacks
+    update_ms, _ = host_ms(lambda: srv.update_gallery(rows, new))
+    first_ms, first = host_ms(lambda: srv.search(qu, timeout=CAM_WAIT_S))
+    next_ms, nxt = host_ms(lambda: srv.search(qu, timeout=CAM_WAIT_S))
+    return {"rows": int(rows.size), "update_ms": update_ms,
+            "first_search_ms": first_ms, "next_search_ms": next_ms,
+            "row_update_fallbacks": plan.row_update_fallbacks - fb0,
+            "results": [first, nxt]}
+
+
+def _cam_serve_hardened(s: Smoke, plan, qb, gb):
+    """(c) ``HardenedPlan`` search: 3 replicas of the binarised gallery
+    (B1 on its int8 "mma" route at k' = 30), top-k agreement with the
+    clean result against the raw faulted plan."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.engine import get_plan, module_for_spec
+    from repro_torch.faults import FaultModel, HardenedPlan
+    from repro_torch.kernels import cam_search
+    t_part = time.perf_counter()
+    reduced = None
+    if CAM_HARDEN_ROWS is not None:        # the cut, where one was needed
+        reduced = {"gallery_rows": [CAM_HARDEN_ROWS, int(plan.spec.n)]}
+        plan = get_plan(module_for_spec(dataclasses.replace(
+            plan.spec, n=CAM_HARDEN_ROWS)), backend=plan.backend,
+            pack=plan.packed)
+        gb = gb[:CAM_HARDEN_ROWS].contiguous()
+    k = plan.spec.k
+    hp = HardenedPlan(plan, replicas=CAM_HARDEN_REPLICAS, spares=0)
+    route = cam_search.packed_route(
+        qb.shape[0], -(-hp.n_phys // 128) * 128, hp.plan.spec.k,
+        s.props.multi_processor_count)
+    if route != "mma" or hp.plan.spec.k != CAM_HARDEN_REPLICAS * k:
+        raise RuntimeError(f"cam_serve hardened: k'={hp.plan.spec.k} takes "
+                           f"B1's {route!r} route")
+    prep_ms, _ = host_ms(lambda: hp.prepare(gb))
+    corrupt_ms, _ = host_ms(lambda: FaultModel(
+        seed=0, **CAM_HARDEN_FAULTS).corrupt_stored(hp._clean, hp.phys_spec))
+    one = HardenedPlan(plan, replicas=1, spares=0)
+    one.prepare(gb)
+    cam_search.reset_launch_counts()
+    clean = tuple(x.cpu().numpy() for x in plan.execute(qb, gb))
+    got1 = one.execute(qb)
+    raw_scores, rep_scores, seed_ms = [], [], []
+
+    def agree(a):
+        return float(np.mean([len(set(a[r]) & set(clean[1][r])) / k
+                              for r in range(a.shape[0])]))
+
+    for seed in CAM_HARDEN_SEEDS:
+        fm = FaultModel(seed=seed, **CAM_HARDEN_FAULTS)
+        t0 = time.perf_counter()
+        raw = plan.execute(qb, gb, faults=fm)[1].cpu().numpy()
+        t1 = time.perf_counter()
+        _, rep_i = hp.execute(qb, faults=fm)
+        seed_ms.append({"raw_execute_ms": 1e3 * (t1 - t0),
+                        "hardened_execute_ms":
+                            1e3 * (time.perf_counter() - t1)})
+        raw_scores.append(agree(raw))
+        rep_scores.append(agree(rep_i))
+    counts = dict(cam_search.LAUNCHES)
+    if counts["fused_topk_packed"] < 1:
+        raise RuntimeError(f"cam_serve hardened: B1 not launched: {counts}")
+    if not (np.array_equal(got1[0], clean[0])
+            and np.array_equal(got1[1], clean[1])):
+        raise RuntimeError("cam_serve hardened: one replica differs from "
+                           "the raw plan")
+    if not np.mean(rep_scores) > np.mean(raw_scores):
+        raise RuntimeError(f"cam_serve hardened: agreement {rep_scores} not "
+                           f"above the raw plan's {raw_scores}")
+    s.record("fused_topk_packed",
+             "src/repro_torch/kernels/csrc/fused_topk_packed.cu",
+             "src/repro/kernels/cam_search.py:304",
+             counts["fused_topk_packed"], 0.0, None, None, None,
+             "operations", None)
+    out = {"launches": counts, "replicas": CAM_HARDEN_REPLICAS,
+           "n_phys": hp.n_phys, "k_phys": hp.plan.spec.k, "b1_route": route,
+           "prepare_ms": prep_ms, "host_corruption_ms": corrupt_ms,
+           "per_seed_ms": seed_ms,
+           "agreement_raw": raw_scores, "agreement_hardened": rep_scores,
+           "replicas_1_bit_identical": True,
+           "part_s": time.perf_counter() - t_part}
+    if reduced is not None:
+        out["reduced"] = reduced
+    del hp, one
+    return counts, out
+
+
+def _cam_serve_forest(s: Smoke):
+    """(d) the forest's interval rows served (B3), a live update of 1 % of
+    them racing 4 clients, and ``HardenedPlan.heal`` on the intervals."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core import ArchSpec, CamType, clear_plan_cache
+    from repro_torch.core.engine import get_plan, module_for_spec
+    from repro_torch.faults import FaultModel, HardenedPlan
+    from repro_torch.forest import CamForestClassifier, random_forest
+    from repro_torch.kernels import cam_search
+    from repro_torch.serving import CamSearchServer
+    trees = random_forest(np.random.default_rng(7), **FOREST)
+    clf = CamForestClassifier(trees, dim=FOREST["dim"]).compile(
+        ArchSpec(rows=64, cols=64, cam_type=CamType.ACAM),
+        batch_hint=FOREST_QUERIES)
+    plan = clf.plan
+    n, dim = clf._lo.shape
+    x = np.random.default_rng(8).standard_normal(
+        (FOREST_QUERIES, FOREST["dim"])).astype(np.float32)
+    rng = np.random.default_rng(9)
+    rows = np.sort(rng.choice(n, int(CAM_UPDATE_FRAC * n), replace=False))
+    new_lo = np.full((rows.size, dim), -np.inf, np.float32)   # wildcards:
+    new_hi = np.full((rows.size, dim), np.inf, np.float32)    # match all
+    # the comparisons' match matrices: the clean intervals, and the new
+    # ones through a fresh plan (a full prepare), before the counted run
+    old = plan.execute(x, clf._lo, clf._hi).cpu().numpy()
+    lo2, hi2 = clf._lo.clone(), clf._hi.clone()
+    ridx = torch.from_numpy(rows).cuda()
+    lo2[ridx] = torch.from_numpy(new_lo).cuda()
+    hi2[ridx] = torch.from_numpy(new_hi).cuda()
+    clear_plan_cache()
+    fresh = get_plan(module_for_spec(plan.spec), backend=plan.backend)
+    if fresh is plan:
+        raise RuntimeError("cam_serve forest: no fresh plan")
+    new = fresh.execute(x, lo2, hi2).cpu().numpy()
+    del fresh, lo2, hi2
+    old_r, new_r = old[:CAM_RACE_ROWS], new[:CAM_RACE_ROWS]
+    if np.array_equal(old_r, new_r):
+        raise RuntimeError("cam_serve forest: the update is invisible")
+    xr = x[:CAM_RACE_ROWS]
+    seen, errs = [], []
+    stop = threading.Event()
+
+    def racer():
+        try:
+            while not stop.is_set():
+                got = srv.match(xr, timeout=CAM_WAIT_S)
+                seen.append("old" if np.array_equal(got, old_r) else
+                            "new" if np.array_equal(got, new_r) else "torn")
+        except Exception as e:          # noqa: BLE001 — reported below
+            errs.append(e)
+
+    cam_search.reset_launch_counts()
+    with CamSearchServer(plan, (clf._lo.clone(), clf._hi.clone()),
+                         max_wait_ms=2.0) as srv:
+        match_ms, before = host_ms(lambda: srv.match(x, timeout=CAM_WAIT_S))
+        threads = [threading.Thread(target=racer) for _ in range(CAM_RACERS)]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + CAM_WAIT_S
+        while len(seen) < CAM_RACERS and not errs and \
+                time.perf_counter() < deadline:
+            time.sleep(0.001)
+        update_ms, _ = host_ms(lambda: srv.update_gallery(
+            rows, (new_lo, new_hi)))
+        n_before = len(seen)
+        while "new" not in seen[n_before:] and not errs and \
+                time.perf_counter() < deadline:
+            time.sleep(0.001)
+        stop.set()
+        for t in threads:
+            t.join(CAM_WAIT_S)
+        after = srv.match(x, timeout=CAM_WAIT_S)
+        snap = _server_health("cam_serve forest", srv)
+    if errs or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"cam_serve forest: a racer failed: {errs[:1]}")
+    served_counts = dict(cam_search.LAUNCHES)
+    # heal the clean intervals onto spares, then run under the model
+    cam_search.reset_launch_counts()
+    hp = HardenedPlan(plan, replicas=CAM_HEAL_REPLICAS,
+                      spares=CAM_HEAL_SPARES)
+    prep_ms, _ = host_ms(lambda: hp.prepare(clf._lo, clf._hi))
+    fm = FaultModel(**CAM_HEAL_FAULTS)
+    heal_ms, report = host_ms(lambda: hp.heal(fm))
+    healed_ms, healed = host_ms(lambda: hp.execute(x, faults=fm))
+    heal_counts = dict(cam_search.LAUNCHES)
+    counts = {k: served_counts[k] + heal_counts[k] for k in served_counts}
+    if served_counts["acam_match"] != snap["batches"] or \
+            heal_counts["acam_match"] < 1:
+        raise RuntimeError(f"cam_serve forest: launches {served_counts} "
+                           f"{heal_counts}, batches {snap['batches']}")
+    if not np.array_equal(before, old):
+        raise RuntimeError("cam_serve forest: served matches differ from "
+                           "the plan's direct call")
+    if not np.array_equal(after, new):
+        raise RuntimeError("cam_serve forest: matches after the update "
+                           "differ from a fresh plan's on the new intervals")
+    n_old, n_new = seen.count("old"), seen.count("new")
+    if n_old + n_new != len(seen) or not n_old or not n_new:
+        raise RuntimeError(f"cam_serve forest: {len(seen)} racing matches, "
+                           f"{n_old} old, {n_new} new: a torn update or an "
+                           f"unraced one")
+    if not (report.detected > 0 and report.remapped > 0):
+        raise RuntimeError(f"cam_serve forest: heal found nothing: {report}")
+    healed_equal = None
+    if report.unrepairable == 0:
+        healed_equal = bool(np.array_equal(healed, old))
+        if not healed_equal:
+            raise RuntimeError("cam_serve forest: the healed plan under the "
+                               "model differs from the clean match matrix")
+    s.record("acam_match", "src/repro_torch/kernels/csrc/acam_match.cu",
+             "src/repro/kernels/acam.py:121", counts["acam_match"], 0.0,
+             None, None, None, "operations", None)
+    return counts, {
+        "launches": counts, "rows": int(n), "queries": FOREST_QUERIES,
+        "match_ms": match_ms, "update_rows": int(rows.size),
+        "update_ms": update_ms, "racing_matches": len(seen),
+        "racing_old": n_old, "racing_new": n_new,
+        "after_update_bit_identical_to_fresh_plan": True,
+        "snapshot": _snapshot_log(snap),
+        "heal": {"replicas": CAM_HEAL_REPLICAS, "spares": CAM_HEAL_SPARES,
+                 "model": CAM_HEAL_FAULTS, "n_phys": hp.n_phys,
+                 "report": dict(vars(report)), "prepare_ms": prep_ms,
+                 "heal_ms": heal_ms, "execute_ms": healed_ms,
+                 "healed_equal_to_clean": healed_equal,
+                 "b3_launches": heal_counts["acam_match"]}}
+
+
+def _cam_serve_hdc(s: Smoke):
+    """(e) HDC/MNIST-8k retrained through a live server: B5 encodes, B1
+    searches, ``update_gallery`` pushes the rows; equal to offline."""
+    import numpy as np
+    import torch
+    from repro_torch.data import hdc_mnist_dataset
+    from repro_torch.hdc import HdcClassifier
+    from repro_torch.kernels import cam_search
+    from repro_torch.serving import CamSearchServer
+    xtr_np, ytr, xte_np, yte = hdc_mnist_dataset(**HDC_MNIST)
+    xtr, xte = torch.from_numpy(xtr_np).cuda(), torch.from_numpy(xte_np).cuda()
+
+    def classifier():
+        return HdcClassifier(xtr.shape[1], HDC_CLASSES, dim=HDC_DIM,
+                             n_levels=HDC_LEVELS, seed=0)
+
+    served = classifier()
+    cam_search.reset_launch_counts()
+    enc_tr, enc_te = served.encode(xtr), served.encode(xte)
+    served.fit(y=ytr, encoded=enc_tr).compile(batch_hint=1024)
+    epochs = []
+    with CamSearchServer(served.plan, served.gallery,
+                         max_wait_ms=1.0) as srv:
+        for _ in range(HDC_EPOCHS):
+            ms, (acc, pushed) = host_ms(lambda: served.retrain_epoch(
+                encoded=enc_tr, y=ytr, server=srv))
+            epochs.append({"train_accuracy_before": acc,
+                           "rows_pushed": pushed, "epoch_ms": ms})
+        _, idx = srv.search(enc_te, timeout=CAM_WAIT_S)
+        snap = _server_health("cam_serve hdc", srv)
+    counts = dict(cam_search.LAUNCHES)
+    if counts["hdc_encode"] != 2 or counts["fused_topk_packed"] < 1:
+        raise RuntimeError(f"cam_serve hdc: launches {counts}")
+    offline = classifier()
+    offline.fit(y=ytr, encoded=enc_tr).compile(batch_hint=1024)
+    want = [offline.retrain_epoch(encoded=enc_tr, y=ytr)
+            for _ in range(HDC_EPOCHS)]
+    pred = offline.predict(encoded=enc_te).cpu().numpy()
+    if [(e["train_accuracy_before"], e["rows_pushed"]) for e in epochs] \
+            != want:
+        raise RuntimeError(f"cam_serve hdc: served epochs {epochs} differ "
+                           f"from offline {want}")
+    if not torch.equal(served.class_sums, offline.class_sums):
+        raise RuntimeError("cam_serve hdc: class sums differ from offline")
+    if not np.array_equal(idx[:, 0].astype(np.int32), pred):
+        raise RuntimeError("cam_serve hdc: test predictions differ from "
+                           "offline")
+    if snap["plan"]["row_update_fallbacks"] or \
+            sum(e["rows_pushed"] for e in epochs) == 0:
+        raise RuntimeError(f"cam_serve hdc: updates {snap['plan']}, "
+                           f"epochs {epochs}")
+    s.record("hdc_encode", "src/repro_torch/kernels/csrc/hdc_encode.cu",
+             "src/repro/kernels/hdc_encode.py:87", counts["hdc_encode"], 0.0,
+             None, None, None, "operations", None)
+    s.record("fused_topk_packed",
+             "src/repro_torch/kernels/csrc/fused_topk_packed.cu",
+             "src/repro/kernels/cam_search.py:304",
+             counts["fused_topk_packed"], 0.0, None, None, None,
+             "operations", None)
+    return counts, {"launches": counts, "epochs": epochs,
+                    "test_accuracy": float((pred == yte).mean()),
+                    "snapshot": _snapshot_log(snap),
+                    "row_update_fallbacks": 0,
+                    "class_sums_equal_offline": True,
+                    "predictions_equal_offline": True}
+
+
+def phase_cam_serve(s: Smoke, data):
+    """The serving slice: the KNN eucl program served to concurrent
+    clients (B2), a faulted packed hamming server (B1), hardened search
+    (B1), the forest's intervals served with a live update and healed
+    (B3), and HDC retrained against the server (B5, B1).  Each part sets
+    the launch counts to 0 before its path and reads them after it."""
+    import torch
+    parts = {}
+    t0 = time.perf_counter()
+    _, parts["knn"] = _cam_serve_knn(s, data)
+    parts["knn"]["part_s"] = time.perf_counter() - t0
+    plan, qb, gb = _packed_plan(data)
+    t0 = time.perf_counter()
+    _, parts["faulted"] = _cam_serve_faulted(s, plan, qb, gb)
+    parts["faulted"]["part_s"] = time.perf_counter() - t0
+    _, parts["hardened"] = _cam_serve_hardened(s, plan, qb, gb)
+    del gb
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, parts["forest"] = _cam_serve_forest(s)
+    parts["forest"]["part_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, parts["hdc"] = _cam_serve_hdc(s)
+    parts["hdc"]["part_s"] = time.perf_counter() - t0
+    log({"phase": "cam_serve", "ok": True, **parts})
+
+
 def _b7_class(key: str) -> str:
     """Kernel class of a profiler row: B7, a matrix product, or other."""
     low = key.lower()
@@ -1928,6 +2486,7 @@ def main() -> None:
               ("hdc_mnist", lambda: phase_hdc_mnist(s)),
               ("gallery_update", lambda: phase_gallery_update(s, data)),
               ("distance_ops", lambda: phase_distance_ops(s, data)),
+              ("cam_serve", lambda: phase_cam_serve(s, data)),
               ("lm_serve", lambda: phase_lm_serve(s))]
     for name, run in phases:
         t0 = time.perf_counter()

@@ -3,8 +3,9 @@
 The package follows the reference's layering:
 
 * :mod:`.spec` — the frozen plan specs (:class:`SimilaritySpec`,
-  :class:`RangeSpec`) and the structural IR analysis
-  (:func:`extract_plan_spec`, :func:`extract_range_spec`).
+  :class:`RangeSpec`), the structural IR analysis
+  (:func:`extract_plan_spec`, :func:`extract_range_spec`) and its
+  inverse (:func:`module_for_spec`).
 * :mod:`.base` — :class:`PlanBase`: micro-batched dispatch, the
   pattern-prep memo and the ``update_rows`` relay.
 * :mod:`.executables` — the ``"torch"`` (eager reference-tiled) and
@@ -14,8 +15,9 @@ The package follows the reference's layering:
 * :mod:`.cache` — the process-wide plan cache behind :func:`get_plan` /
   :func:`plan_cache_stats` / :func:`clear_plan_cache`.
 
-Composite and hierarchical plans, sharding and fault injection come
-with later slices of the port.
+Fault injection rides on dispatch (``faults=``, see
+:mod:`repro_torch.faults`); composite and hierarchical plans and
+sharding come with later slices of the port.
 """
 
 from .base import (PendingSearch, PlanBase, _as_2d, _pick_batch,
@@ -24,11 +26,12 @@ from .cache import clear_plan_cache, get_plan, plan_cache_stats
 from .plans import RangePlan, SearchPlan
 from .spec import (RangeSpec, SimilaritySpec, _bits, _check_binary_cells,
                    _encode, _metric_values, _resolve_pack, extract_plan_spec,
-                   extract_range_spec, spec_digest, spec_fingerprint)
+                   extract_range_spec, module_for_spec, spec_digest,
+                   spec_fingerprint)
 
 __all__ = [
     "SimilaritySpec", "RangeSpec", "PlanBase", "SearchPlan", "RangePlan",
     "PendingSearch", "extract_plan_spec", "extract_range_spec", "get_plan",
     "resolve_device", "plan_cache_stats", "clear_plan_cache", "spec_digest",
-    "spec_fingerprint",
+    "spec_fingerprint", "module_for_spec",
 ]

@@ -8,11 +8,12 @@ chunk execution) → ``finalize`` (chunk concatenation / output shaping) →
 
 :class:`PlanBase` owns that lifecycle: the spec, backend, micro-batch,
 packing, device, telemetry counters, the pattern-memo LRU and its
-locks, the dispatch skeleton and the ``update_rows`` relay
-(:meth:`PlanBase._mutate_stored`, :meth:`PlanBase._seed_updated_memo`).
-Leaf families override only how stored operands are wired from the
-module arguments and how chunks finalize.  Fault injection comes with a
-later slice.
+locks, the dispatch skeleton, the fault hooks (:func:`_normalize_faults`
+and host-side corruption before the prepare) and the ``update_rows``
+relay (:meth:`PlanBase._mutate_stored`,
+:meth:`PlanBase._seed_updated_memo`).  Leaf families override only how
+stored operands are wired from the module arguments and how chunks
+finalize.
 """
 
 from __future__ import annotations
@@ -48,6 +49,34 @@ def _update_enabled() -> bool:
     path: ``off``/``0`` makes ``update_rows`` still apply the mutation
     but skip the memo rewrite, so the next dispatch prepares in full."""
     return env_flag("REPRO_ENGINE_UPDATE", True)
+
+
+def _normalize_faults(faults):
+    """Validate/normalise a dispatch-time fault model.
+
+    The engine duck-types the model (``is_null`` /
+    ``corrupt_stored(srcs, spec)``, hashable) so ``repro_torch.core``
+    never imports ``repro_torch.faults``.  Null models normalise to
+    ``None``: ``FaultModel(p_stuck=0)`` takes exactly the clean code path
+    (same memo key, same prepared layout, bit-identical results).  The
+    model is not part of the plan-cache key: faults corrupt the stored
+    sources host-side before the prepare, and the executables never see
+    them.
+    """
+    if faults is None:
+        return None
+    if not hasattr(faults, "is_null") or not hasattr(faults, "corrupt_stored"):
+        raise TypeError(
+            f"faults must be a repro_torch.faults.FaultModel-like object, "
+            f"got {type(faults).__name__}")
+    return None if faults.is_null else faults
+
+
+def _host(x) -> np.ndarray:
+    """A stored operand as a host numpy array (the fault model's domain)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -107,19 +136,29 @@ def _src_ident(x: torch.Tensor) -> Tuple:
             str(x.device), x._version)
 
 
-def _memo_insert(plan, srcs: Tuple[Any, ...], prepared) -> None:
+def _memo_key(srcs: Tuple[Any, ...], faults) -> Tuple:
+    """Pattern-memo key: each source's identity, then the fault model
+    (``None`` for the clean layout)."""
+    return tuple(_src_ident(s) for s in srcs) + (faults,)
+
+
+def _memo_insert(plan, srcs: Tuple[Any, ...], prepared, faults=None) -> None:
     """Insert a prepared layout into the plan's pattern memo (LRU).
 
     The entry keeps strong references to its sources so their ids cannot
     be recycled while it lives; the entries of the same tensors' older
-    versions (an in-place edit) are dropped.
+    versions (an in-place edit), clean or faulted, are dropped.
+    ``faults`` joins the key: a faulted layout never shadows the clean
+    one (or another model's).
     """
-    key = tuple(_src_ident(s) for s in srcs)
-    stale = tuple(k[:-1] for k in key)
+    key = _memo_key(srcs, faults)
+    stale = tuple(i[:-1] for i in key[:-1])
     with plan._pattern_lock:
         for old in [k for k in plan._pattern_cache
-                    if tuple(s[:-1] for s in k) == stale]:
+                    if tuple(i[:-1] for i in k[:-1]) == stale
+                    and k[:-1] != key[:-1]]:
             del plan._pattern_cache[old]
+        plan._pattern_cache.pop(key, None)
         plan._pattern_cache[key] = (srcs, prepared)
         while len(plan._pattern_cache) > plan._pattern_cache_slots():
             plan._pattern_cache.popitem(last=False)
@@ -127,19 +166,22 @@ def _memo_insert(plan, srcs: Tuple[Any, ...], prepared) -> None:
 
 
 def _memoised_prepare(plan, srcs: Tuple[Any, ...], run: Callable[[], Any],
-                      check: Callable[[], None]):
+                      check: Callable[[], None], faults=None):
     """Per-plan pattern-prep memoisation.
 
     Only tensors are memoised: a numpy array can be mutated in place
     without trace, so it is prepared again on every call (and counted as
-    a miss).  ``check`` runs only when actually preparing.
+    a miss).  ``check`` runs only when actually preparing.  ``faults``
+    (a normalised fault model or ``None``) is part of the key: repeated
+    dispatches with one model hit one corrupted layout while the clean
+    entry stays untouched.
     """
     if not all(isinstance(s, torch.Tensor) for s in srcs):
         with plan._pattern_lock:
             plan.pattern_misses += 1
         check()
         return run()
-    key = tuple(_src_ident(s) for s in srcs)
+    key = _memo_key(srcs, faults)
     with plan._pattern_lock:
         hit = plan._pattern_cache.get(key)
         if hit is not None:
@@ -153,7 +195,7 @@ def _memoised_prepare(plan, srcs: Tuple[Any, ...], run: Callable[[], Any],
         prepared = run()
     with plan._pattern_lock:
         plan.pattern_misses += 1
-    _memo_insert(plan, srcs, prepared)
+    _memo_insert(plan, srcs, prepared, faults)
     return prepared
 
 
@@ -228,9 +270,25 @@ class PlanBase:
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
 
-    def _prepared_patterns(self, *srcs):
+    def _queries_to_device(self, q) -> torch.Tensor:
+        """Queries on the plan's device.  Host rows bound for a CUDA
+        device go through pinned memory without a wait: a synchronous
+        copy would hold the caller (a serving batcher) until the device
+        had finished every earlier launch on the stream."""
+        if self.device.type != "cuda" or not isinstance(q, np.ndarray):
+            return self._to_device(q)
+        host = torch.from_numpy(np.ascontiguousarray(q)).pin_memory()
+        return host.to(self.device, non_blocking=True)
+
+    def _prepared_patterns(self, *srcs, faults=None):
         """Encode + lay out the stored operands, memoised per source
-        tensor (see :func:`_memoised_prepare`)."""
+        tensor (see :func:`_memoised_prepare`).
+
+        ``faults`` (already normalised) corrupts the stored sources on
+        the host, in numpy, *before* the prepare: the realised cells are
+        the reference package's own, and the executables never see the
+        model.
+        """
         def check():
             # packing collapses non-binary alphabets silently: guard the
             # gallery whenever it is actually prepared
@@ -238,9 +296,43 @@ class PlanBase:
                 _check_binary_cells(srcs[0], "patterns")
 
         def run():
+            if faults is not None:
+                use = faults.corrupt_stored(tuple(_host(s) for s in srcs),
+                                            self.spec)
+                return self._prepare(*(self._to_device(u) for u in use))
             return self._prepare(*(self._to_device(s) for s in srcs))
 
-        return _memoised_prepare(self, tuple(srcs), run, check)
+        return _memoised_prepare(self, tuple(srcs), run, check, faults)
+
+    def warm(self, *stored, faults=None) -> Tuple[torch.Tensor, ...]:
+        """Prime the pattern memo for ``stored`` without dispatching.
+
+        Converts the stored operands to tensors on the plan's device
+        (numpy inputs would bypass the memo), prepares them once, and
+        returns the converted source tuple: callers that keep serving
+        from exactly these tensors hit the memo on every later dispatch.
+        """
+        faults = _normalize_faults(faults)
+        srcs = tuple(self._to_device(s) for s in stored)
+        with torch.no_grad():
+            self._prepared_patterns(*srcs, faults=faults)
+        return srcs
+
+    def counters(self) -> dict:
+        """Consistent copy of the plan's telemetry counters: execution
+        counters under the stats lock, pattern-memo counters under the
+        memo lock."""
+        with self._stats_lock:
+            out = {"executions": self.executions,
+                   "chunks_run": self.chunks_run,
+                   "row_updates": self.row_updates,
+                   "rows_updated": self.rows_updated,
+                   "row_update_fallbacks": self.row_update_fallbacks}
+        with self._pattern_lock:
+            out.update(pattern_hits=self.pattern_hits,
+                       pattern_misses=self.pattern_misses,
+                       pattern_evictions=self.pattern_evictions)
+        return out
 
     # -- dispatch / execute ------------------------------------------------
 
@@ -248,13 +340,16 @@ class PlanBase:
         """Enqueue the plan's chunks without waiting for device results.
 
         Thread-safe: the memo and the counters have their own locks.
-        ``faults`` must be ``None``: fault injection comes with a later
-        slice of the port.
+        Every launch goes to the calling thread's current CUDA stream.
+
+        ``faults`` injects a device-fault model (see
+        :mod:`repro_torch.faults`): the stored operands are corrupted on
+        the host before the prepare, the queries and executables stay
+        clean.  A null model is normalised away, so
+        ``faults=FaultModel(p_stuck=0)`` is bit-identical to
+        ``faults=None``.
         """
-        if faults is not None:
-            raise NotImplementedError(
-                "fault injection (repro.faults) is not ported to "
-                "repro_torch yet; pass faults=None")
+        faults = _normalize_faults(faults)
         with self._stats_lock:
             self.executions += 1
         spec = self.spec
@@ -265,14 +360,14 @@ class PlanBase:
         if self.packed and spec.metric == "hamming" and not (
                 isinstance(q_src, torch.Tensor) and q_src.is_cuda):
             _check_binary_cells(q_src, "queries")
-        q2, lead = _as_2d(self._to_device(q_src))
+        q2, lead = _as_2d(self._queries_to_device(q_src))
         m = q2.shape[0]
         with torch.no_grad(), trace_span(
                 "plan.dispatch",
                 args=None if not tracer.enabled else
                 {"plan": type(self).__name__, "family": self.family,
                  "m": m, "batch": self.batch}):
-            pp = self._prepared_patterns(*srcs)
+            pp = self._prepared_patterns(*srcs, faults=faults)
 
             chunks = []
             for s in range(0, m, self.batch):
@@ -285,7 +380,8 @@ class PlanBase:
 
     def execute(self, *inputs, faults=None):
         """Run the plan on exactly the compiled module's arguments; the
-        results are tensors on the plan's device."""
+        results are tensors on the plan's device.  ``faults`` is
+        forwarded to :meth:`dispatch`."""
         return self.finalize(self.dispatch(*inputs, faults=faults))
 
     # -- gallery mutation (update_rows relay machinery) --------------------
@@ -323,6 +419,10 @@ class PlanBase:
         ``donate``: the old entry is popped and its prepared leaves are
         rewritten in place; otherwise the row update writes fresh leaves
         and the old entry, still serving the old gallery, is untouched.
+
+        Only the clean (``faults=None``) entry is rewritten: fault draws
+        are position-keyed, so a faulted layout is prepared again in full
+        on the next faulted dispatch.
         """
         with self._stats_lock:
             self.row_updates += 1
@@ -368,7 +468,7 @@ class PlanBase:
                 args=None if not tracer.enabled else
                 {"plan": type(self).__name__, "rows": int(idx.size),
                  "donate": donate}):
-            old_key = tuple(_src_ident(s) for s in srcs)
+            old_key = _memo_key(srcs, None)
             upd = []
             for g, nr in zip(srcs, news):
                 j = torch.as_tensor(idx, device=g.device)

@@ -403,3 +403,70 @@ def extract_range_spec(module: Module) -> Optional[RangeSpec]:
         pattern_args=tuple(arg_pos[id(v)] for v in rs.operands[1:]),
         out_shape=tuple(rs.results[0].type.shape),
         in_dtypes=tuple(v.type.dtype for v in rs.operands))
+
+
+def module_for_spec(spec, m: Optional[int] = None) -> Module:
+    """Synthesise a ``cim`` module whose extracted spec matches ``spec``.
+
+    Round-trips a plan spec back to IR: a single fused similarity /
+    range-search op with the spec's tile geometry injected as op
+    attributes (``extract_plan_spec`` / ``extract_range_spec`` read
+    ``tile_rows`` / ``dims_per_tile`` off the fused op, so the
+    partition pass need not run).  Module arguments are in canonical
+    order — query, stored operand(s)[, care] — which is also the
+    argument order of every partitioned module in this repo.
+
+    This is what lets the hardening layer compile a *physical* plan
+    (replicated/spare rows — a different ``n``) for an existing logical
+    spec, and the serving layer rebuild an interpreter-executable module
+    for its degraded fallback chain, without keeping the original module
+    object around.
+
+    A composite spec (anything exposing ``flat_spec``: the reference's
+    ``HierarchicalSpec``) raises: hierarchical plans are not ported yet
+    (ROADMAP Queue A item 4).
+    """
+    if hasattr(spec, "flat_spec"):
+        raise NotImplementedError(
+            "composite (hierarchical) specs are not ported to repro_torch "
+            "yet (ROADMAP Queue A item 4)")
+    from ..cim_dialect import (make_acquire, make_execute, make_range_search,
+                               make_release, make_similarity, make_yield)
+    from ..ir import Builder, TensorType
+
+    m = spec.m if m is None else int(m)
+    n, dim = spec.n, spec.dim
+    geom = {"tile_rows": spec.tile_rows, "dims_per_tile": spec.dims_per_tile}
+    is_range = isinstance(spec, RangeSpec)
+    interval = is_range and spec.mode == "interval"
+    n_stored = 3 if (interval or getattr(spec, "care_arg", None) is not None) \
+        else 2
+    arg_types = [TensorType((m, dim))] + \
+        [TensorType((n, dim)) for _ in range(n_stored - 1)]
+    mod = Module("spec_synth", arg_types)
+    b = Builder(mod.body)
+    dev = make_acquire(b)
+    if is_range:
+        out_types = [TensorType((m, n), "i1")]
+    else:
+        out_types = [TensorType((m, spec.k)), TensorType((m, spec.k), "i32")]
+    exe = make_execute(b, dev.result, list(mod.arguments), out_types)
+    blk = exe.region().block()
+    if interval:
+        q_a, lo_a, hi_a = mod.arguments
+        op = make_range_search(blk, q_a, lo=lo_a, hi=hi_a, extra_attrs=geom)
+    elif is_range:
+        q_a, p_a = mod.arguments
+        op = make_range_search(blk, q_a, patterns=p_a, metric=spec.metric,
+                               threshold=spec.threshold, below=spec.below,
+                               extra_attrs=geom)
+    else:
+        q_a, p_a = mod.arguments[0], mod.arguments[1]
+        care_a = mod.arguments[2] if n_stored == 3 else None
+        op = make_similarity(blk, q_a, p_a, metric=spec.metric, k=spec.k,
+                             largest=spec.largest, care=care_a,
+                             extra_attrs=geom)
+    make_yield(blk, op.results)
+    make_release(b, dev.result)
+    b.ret(exe.results)
+    return mod

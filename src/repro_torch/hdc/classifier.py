@@ -12,8 +12,8 @@ Retraining is the perceptron-style HDC update: each misclassified
 encoding is subtracted from the predicted class's accumulator and added
 to the true class's.  Only the touched classes' AM rows change, and
 :meth:`HdcClassifier.retrain_epoch` pushes just those rows through
-:meth:`SearchPlan.update_rows`.  Retraining against a serving loop comes
-with the serving slice of the port.
+:meth:`SearchPlan.update_rows` — or, against live traffic, through a
+:class:`~repro_torch.serving.CamSearchServer`'s ``update_gallery``.
 """
 
 from __future__ import annotations
@@ -236,22 +236,34 @@ class HdcClassifier:
 
     def retrain_epoch(self, x=None, y=None, *, encoded=None,
                       server=None) -> Tuple[float, int]:
-        """One retraining epoch through the compiled plan; returns
-        (pre-update accuracy, number of AM rows pushed).  The touched
-        rows go back through ``plan.update_rows``.  ``server`` (retraining
-        against live traffic) comes with the serving slice of the port.
+        """One retraining epoch; returns (pre-update accuracy, number of
+        AM rows pushed).
+
+        Predictions come from the live path — the attached
+        ``CamSearchServer`` when given (so retraining competes with real
+        traffic), the compiled plan otherwise — and the touched AM rows
+        go back through ``server.update_gallery`` / ``plan.update_rows``,
+        i.e. the gallery mutates between micro-batches while the server
+        keeps serving.
         """
-        if server is not None:
-            raise NotImplementedError(
-                "retraining through a CamSearchServer is not ported to "
-                "repro_torch yet; pass server=None")
         self._require_compiled()
         enc = self._encodings(x, encoded)
         y = self._labels(y)
-        preds = self.predict(encoded=enc).to(torch.int64)
+        if server is not None:
+            _, idx = server.search(enc)
+            preds = torch.as_tensor(idx[:, 0], device=self.device).to(
+                torch.int64)
+        else:
+            preds = self.predict(encoded=enc).to(torch.int64)
         acc = int((preds == y).sum()) / y.shape[0]
         changed = self.retrain_step(enc, y, preds)
-        self._refresh_gallery(changed)
+        if changed.size:
+            if server is not None:
+                rows = self.am()[torch.as_tensor(changed, device=self.device)]
+                server.update_gallery(changed, rows)
+                self._gallery = server.gallery
+            else:
+                self._refresh_gallery(changed)
         return acc, int(changed.size)
 
     def summary(self) -> dict:

@@ -45,6 +45,7 @@ from .cam_search import (BLOCK_K, METRIC_COEFFS, _METRIC_CODE,
                          _PACKED_CHUNK_ELEMS, _args, _bind, _count,
                          _raise_if_failed, _term, tf32_round,
                          tf32_split_product)
+from .ref import row_product
 
 __all__ = ["ACAM_BLOCK_D", "acam_match", "acam_match_reference",
            "acam_match_signbits",
@@ -155,7 +156,8 @@ def range_match_reference(q: torch.Tensor, p: torch.Tensor, *, metric: str,
     _check_range_args(metric, to_logical)
     _check("range_match", {"queries": q, "patterns": p}, BLOCK_K, n_valid)
     alpha, beta, gamma, qk, pk = METRIC_COEFFS[metric]
-    dist = alpha * (tf32_split_product(q, p) if tf32x3 else q @ p.T)
+    dist = alpha * (tf32_split_product(q, p) if tf32x3
+                    else row_product(q, p))
     if beta:
         dist = dist + beta * _term(q, qk).sum(1, keepdim=True)
     if gamma:

@@ -52,6 +52,7 @@ import torch
 
 from . import build
 from .packing import popcount32
+from .ref import row_product
 
 __all__ = ["METRIC_COEFFS", "BLOCK_K", "MAX_K", "LAUNCHES", "window_rows",
            "packed_route", "float_route", "reset_launch_counts",
@@ -265,7 +266,8 @@ def fused_topk_reference(q: torch.Tensor, p: torch.Tensor, *, metric: str,
     route's tensor cores do (:func:`tf32_split_product`)."""
     _check("fused_topk", q, p, None, torch.float32, k, n_valid)
     alpha, beta, gamma, qk, pk = METRIC_COEFFS[metric]
-    dist = alpha * (tf32_split_product(q, p) if tf32x3 else q @ p.T)
+    dist = alpha * (tf32_split_product(q, p) if tf32x3
+                    else row_product(q, p))
     if beta:
         dist = dist + beta * _term(q, qk).sum(1, keepdim=True)
     if gamma:
@@ -306,7 +308,8 @@ def distance_reference(q: torch.Tensor, p: torch.Tensor, *, metric: str,
     (:func:`tf32_split_product`)."""
     _check_distance(q, p, metric)
     alpha, beta, gamma, qk, pk = METRIC_COEFFS[metric]
-    dist = alpha * (tf32_split_product(q, p) if tf32x3 else q @ p.T)
+    dist = alpha * (tf32_split_product(q, p) if tf32x3
+                    else row_product(q, p))
     if beta:
         dist = dist + beta * _term(q, qk).sum(1, keepdim=True)
     if gamma:

@@ -30,7 +30,7 @@ import torch
 
 from .packing import popcount32
 
-__all__ = ["distances", "packed_distances", "ternary_distances",
+__all__ = ["row_product", "distances", "packed_distances", "ternary_distances",
            "tile_distance", "tiled_distances", "cam_topk",
            "cam_topk_ternary", "cam_exact", "cam_range", "acam_match",
            "acam_violations", "cam_topk_tiled", "merge_topk",
@@ -39,6 +39,30 @@ __all__ = ["distances", "packed_distances", "ternary_distances",
 
 #: index of a losing (padding) candidate slot
 PAD_INDEX = 2 ** 30
+
+#: rows per call of :func:`row_product` on the CPU
+CPU_ROW_BLOCK = 16
+
+
+def row_product(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``q @ p.T`` where each row's result depends on that row alone.
+
+    On the CPU the BLAS picks its blocking, and with it the summation
+    order, from the call's row count: one query row can round one way in
+    a call of 7 rows and another way in a call of 13, and a served batch
+    would disagree with a direct call of the same rows.  So on the CPU
+    the rows go through in calls of :data:`CPU_ROW_BLOCK` rows, the last
+    one zero-padded, and every row sees one call shape.  On the card it
+    is one call (the kernels there compute each row alone).
+    """
+    if q.device.type != "cpu" or q.shape[0] == 0:
+        return q @ p.T
+    m = q.shape[0]
+    q = torch.nn.functional.pad(q, (0, 0, 0, -m % CPU_ROW_BLOCK)) \
+        .contiguous()
+    pt = p.T
+    return torch.cat([q[s:s + CPU_ROW_BLOCK] @ pt
+                      for s in range(0, q.shape[0], CPU_ROW_BLOCK)])[:m]
 
 
 def distances(queries: torch.Tensor, patterns: torch.Tensor,
@@ -50,18 +74,18 @@ def distances(queries: torch.Tensor, patterns: torch.Tensor,
         # mismatch count; inputs {0,1}
         return (q[:, None, :] != p[None, :, :]).sum(-1).to(torch.float32)
     if metric == "dot":
-        return q @ p.T
+        return row_product(q, p)
     if metric == "eucl":
         # squared L2 via expansion (matches tiled partial-sum accumulation)
         qq = (q * q).sum(-1, keepdim=True)
         pp = (p * p).sum(-1)
-        return qq + pp[None, :] - 2.0 * (q @ p.T)
+        return qq + pp[None, :] - 2.0 * row_product(q, p)
     if metric == "cos":
         qn = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True),
                              min=1e-12)
         pn = p / torch.clamp(torch.linalg.norm(p, dim=-1, keepdim=True),
                              min=1e-12)
-        return qn @ pn.T
+        return row_product(qn, pn)
     raise ValueError(f"unknown metric {metric!r}")
 
 
@@ -208,11 +232,11 @@ def tile_distance(q_t: torch.Tensor, p_t: torch.Tensor,
     if metric == "hamming":
         return (q_t[:, None, :] != p_t[None, :, :]).sum(-1).to(torch.float32)
     if metric == "dot":
-        return q_t @ p_t.T
+        return row_product(q_t, p_t)
     if metric == "eucl":
         qq = (q_t * q_t).sum(-1, keepdim=True)
         ppv = (p_t * p_t).sum(-1)
-        return qq + ppv[None, :] - 2.0 * (q_t @ p_t.T)
+        return qq + ppv[None, :] - 2.0 * row_product(q_t, p_t)
     raise ValueError(f"tiled path does not support metric {metric!r}")
 
 

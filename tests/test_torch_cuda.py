@@ -1283,3 +1283,234 @@ def test_server_on_the_card_matches_cpu(cuda):
     assert got == want
     assert launches == cfg.n_layers * (stats["prefills"]
                                        + stats["decode_steps"]) == 3 * 15
+
+
+# ---------------------------------------------------------------------------
+# serving and faults on the card
+# ---------------------------------------------------------------------------
+
+
+def _served(cuda, metric, rng, n=3000, dim=256):
+    """(plan on the card, host queries, gallery tensor on the card)."""
+    from repro_torch.core.engine import get_plan
+    if metric == "eucl":
+        prog = T.compile_fn(_knn, [rng.standard_normal((64, dim)).astype(
+            np.float32), rng.standard_normal((n, dim)).astype(np.float32)],
+            T.ArchSpec(rows=64, cols=64), value_bits=8)
+        plan = prog.engine_plan
+        q = rng.standard_normal((52, dim)).astype(np.float32)
+        g = rng.standard_normal((n, dim)).astype(np.float32)
+    else:
+        plan = get_plan(T.compile_module(
+            _hamming_module(64, n, dim, 10, False), T.ArchSpec(rows=64,
+                                                               cols=64),
+            value_bits=1).stages["cim_partitioned"])
+        q = (rng.random((52, dim)) > 0.5).astype(np.float32)
+        g = (rng.random((n, dim)) > 0.5).astype(np.float32)
+    assert plan.device.type == "cuda" and plan.backend == "cuda"
+    return plan, q, torch.from_numpy(g).to(cuda)
+
+
+@pytest.mark.parametrize("metric", ["eucl", "hamming"])
+def test_served_results_equal_direct_on_the_card(cuda, metric, rng):
+    """Batching changes scheduling, never arithmetic: each request's rows
+    served from coalesced batches equal the plan's direct call bit for
+    bit (the kernels compute each query row alone), and no batch was
+    served degraded."""
+    import threading
+    from repro_torch.serving import CamSearchServer
+    plan, q, g = _served(cuda, metric, rng)
+    want_v, want_i = (x.cpu().numpy() for x in plan.execute(q, g))
+    expect = "fused_topk" if metric == "eucl" else "fused_topk_packed"
+    blocks = np.array_split(np.arange(len(q)), 13)
+    got = {}
+    tcs.reset_launch_counts()
+    with CamSearchServer(plan, g, max_wait_ms=2.0) as srv:
+        def client(c):
+            got[c] = srv.search(q[blocks[c]], timeout=120)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(len(blocks))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        h, snap = srv.health(), srv.snapshot()
+    assert tcs.LAUNCHES[expect] >= 1
+    for c, rows in enumerate(blocks):
+        np.testing.assert_array_equal(got[c][1], want_i[rows])
+        np.testing.assert_array_equal(got[c][0], want_v[rows])
+    assert h["degraded_batches"] == 0 and h["backend_errors"] == 0
+    assert h["breaker"]["state"] == "closed"
+    assert snap["requests"] == len(blocks) and snap["plan"]["device"] == \
+        str(plan.device)
+
+
+def test_update_after_dispatch_keeps_the_batch_on_the_old_gallery(cuda,
+                                                                   rng):
+    """An in-place update (``donate=True``) enqueued after a batch's
+    dispatch, but before its finalize, leaves that batch on the old
+    gallery: plan-level, and through the server with the writer on a
+    stream of its own (the server runs it on the server's stream)."""
+    import threading
+    from repro_torch.serving import CamSearchServer
+    plan, q, g = _served(cuda, "hamming", rng, n=40000)
+    n, dim = g.shape
+    rows = np.arange(0, n, 3)
+    new = (rng.random((rows.size, dim)) > 0.5).astype(np.float32)
+    old = tuple(x.cpu() for x in plan.execute(q, g.clone()))
+    g2 = g.clone()
+    fresh = g.clone()
+    fresh[torch.from_numpy(rows).to(cuda)] = torch.from_numpy(new).to(cuda)
+    want_new = tuple(x.cpu() for x in plan.execute(q, fresh))
+    assert not torch.equal(old[1], want_new[1])
+
+    plan.execute(q, g2)                       # memoise g2's layout
+    pending = plan.dispatch(q, g2)
+    plan.update_rows(g2, rows, new, donate=True)
+    got = tuple(x.cpu() for x in plan.finalize(pending))
+    assert torch.equal(got[0], old[0]) and torch.equal(got[1], old[1])
+    after = tuple(x.cpu() for x in plan.execute(q, g2))
+    assert torch.equal(after[1], want_new[1])
+
+    gate = threading.Event()
+    with CamSearchServer(plan, g.clone()) as srv:
+        complete = srv._complete_one
+
+        def held(item):
+            assert gate.wait(120)
+            complete(item)
+
+        srv._complete_one = held
+        req = srv.submit(q)
+        for _ in range(12000):
+            if srv.stats["batches"] >= 1:
+                break
+            threading.Event().wait(0.01)
+        assert srv.stats["batches"] >= 1
+        side = torch.cuda.Stream(device=cuda)
+        with torch.cuda.stream(side):
+            srv.update_gallery(rows, new, donate=True)
+        gate.set()
+        res = req.wait(timeout=120)
+        later = srv.search(q, timeout=120)
+    np.testing.assert_array_equal(res.indices, old[1].numpy())
+    np.testing.assert_array_equal(res.values, old[0].numpy())
+    np.testing.assert_array_equal(later[1], want_new[1].numpy())
+
+
+@pytest.mark.parametrize("metric", ["eucl", "hamming"])
+def test_faulted_cuda_equals_plain_on_corrupted_sources(cuda, metric, rng):
+    """A fault model on the ``"cuda"`` backend corrupts the host sources
+    before the prepare: the kernels' result equals the plain versions
+    (the same plan on the CPU) on the corrupted gallery, and a null model
+    is bit-identical to none."""
+    from repro_torch.core.engine import get_plan, module_for_spec
+    from repro_torch.faults import FaultModel
+    plan, q, g = _served(cuda, metric, rng)
+    fm = FaultModel(seed=3, p_stuck=1e-3, p_flip=1e-3,
+                    sigma=0.02 if metric == "eucl" else 0.0)
+    got = tuple(x.cpu().numpy() for x in plan.execute(q, g, faults=fm))
+    corrupted, = fm.corrupt_stored((g.cpu().numpy(),), plan.spec)
+    on_card = tuple(x.cpu().numpy() for x in plan.execute(
+        q, torch.from_numpy(corrupted).to(cuda)))
+    np.testing.assert_array_equal(got[0], on_card[0])
+    np.testing.assert_array_equal(got[1], on_card[1])
+    cpu_plan = get_plan(module_for_spec(plan.spec), backend="cuda",
+                        pack=plan.packed, device="cpu")
+    plain = tuple(x.numpy() for x in cpu_plan.execute(q, corrupted))
+    if metric == "eucl":
+        _assert_eucl_close(q, corrupted, plain[0], plain[1], *got)
+    else:
+        np.testing.assert_array_equal(got[0], plain[0])
+        np.testing.assert_array_equal(got[1], plain[1])
+    clean = tuple(x.cpu().numpy() for x in plan.execute(q, g))
+    null = tuple(x.cpu().numpy() for x in plan.execute(
+        q, g, faults=FaultModel(p_stuck=0)))
+    np.testing.assert_array_equal(null[0], clean[0])
+    np.testing.assert_array_equal(null[1], clean[1])
+
+
+def test_failing_primary_is_counted_not_hidden(cuda, rng):
+    """A plan on the card has no fallback level: a result that cannot be
+    read (where a failing launch surfaces) fails its batch, and a
+    dispatch that fails its retries fails its batch; both are counted in
+    ``backend_errors`` and show in ``health()``, and no plain version
+    answers for the kernel.  Later batches are served by the kernels."""
+    from repro_torch.serving import CamSearchServer
+    from repro_torch.serving.resilience import BREAKER_THRESHOLD, \
+        MAX_RETRIES
+    plan, q, g = _served(cuda, "hamming", rng)
+    want = tuple(x.cpu().numpy() for x in plan.execute(q, g))
+
+    def broken(pending):
+        raise RuntimeError("an illegal memory access was encountered")
+
+    plan.finalize = broken
+    try:
+        with CamSearchServer(plan, g) as srv:
+            with pytest.raises(RuntimeError, match="illegal memory"):
+                srv.search(q, timeout=120)
+            h = srv.health()
+    finally:
+        del plan.finalize
+    assert h["backend_errors"] == 1 and h["degraded_batches"] == 0
+    assert h["fallback_levels"] == []
+    assert h["breaker"]["consecutive_failures"] == 1
+    assert srv.stats["errors"] == 1
+
+    dead = {"primary": True}
+
+    def injector(level):
+        if dead[level]:
+            raise RuntimeError("dead kernel")
+
+    with CamSearchServer(plan, g, fault_injector=injector) as srv:
+        with pytest.raises(RuntimeError, match="dead kernel"):
+            srv.search(q, timeout=120)
+        h = srv.health()
+        dead["primary"] = False
+        got = srv.search(q, timeout=120)
+        after = srv.health()
+    assert h["backend_errors"] == MAX_RETRIES + 1
+    assert h["retries"] == MAX_RETRIES and h["degraded_batches"] == 0
+    assert h["fallback_levels"] == []
+    if MAX_RETRIES + 1 >= BREAKER_THRESHOLD:
+        assert h["breaker"]["state"] == "open" and h["status"] == "degraded"
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert after["breaker"]["state"] == "closed"
+    assert after["degraded_batches"] == 0 and after["breaker_skips"] == 0
+
+
+def test_hardened_plans_on_the_card(cuda, rng):
+    """``HardenedPlan`` over ``"cuda"`` plans: one replica is the raw
+    plan bit for bit; healing an interval plan remaps rows through the
+    card's ``update_rows`` and, fully healed, matches the clean plan."""
+    from repro_torch.faults import FaultModel, HardenedPlan
+    plan, q, g = _served(cuda, "hamming", rng)
+    hp = HardenedPlan(plan, replicas=1)
+    hp.prepare(g)
+    assert hp.plan.device == plan.device
+    raw = tuple(x.cpu().numpy() for x in plan.execute(q, g))
+    for a, b in zip(hp.execute(q), raw):
+        np.testing.assert_array_equal(a, b)
+    m, n, dim = 40, 700, 24
+    rplan = T.compile_module(_range_program(m, n, dim, True),
+                             T.ArchSpec(rows=64, cols=64),
+                             cam_type=T.CamType.ACAM).engine_plan
+    assert rplan.backend == "cuda" and rplan.device.type == "cuda"
+    qi, lo, hi = _intervals(rng, m, n, dim, constrained=0.05)
+    qi[1, 3] = 0.0
+    hp = HardenedPlan(rplan, replicas=2, spares=128)
+    hp.prepare(lo, hi)
+    fm = FaultModel(seed=11, p_stuck=2e-3)
+    report = hp.heal(fm)
+    assert report.detected > 0 and report.remapped > 0
+    if report.unrepairable == 0:
+        np.testing.assert_array_equal(
+            hp.execute(qi, faults=fm),
+            rplan.execute(torch.from_numpy(qi).to(cuda),
+                          torch.from_numpy(lo).to(cuda),
+                          torch.from_numpy(hi).to(cuda)).cpu().numpy())

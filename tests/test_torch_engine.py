@@ -244,7 +244,7 @@ def test_refusals(rng):
     with pytest.raises(NotImplementedError, match="sharded"):
         tprog(device="cpu", shards=2)
     prog = tprog(device="cpu")
-    with pytest.raises(NotImplementedError, match="fault"):
+    with pytest.raises(TypeError, match="FaultModel"):   # not a model
         prog.engine_plan.execute(*ins, faults=object())
     with pytest.raises(ValueError, match="binary"):
         prog(ins[0] * 2, *ins[1:])

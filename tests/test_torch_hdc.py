@@ -370,6 +370,45 @@ def test_retrain_step_moves_mass_between_touched_classes(small_problem):
     assert clf.retrain_step(enc, y, y).size == 0      # a perfect batch
 
 
+def test_classifier_served_retraining_matches_offline(small_problem):
+    """Retraining through a live ``CamSearchServer`` (search, then
+    ``update_gallery``) follows the offline trajectory exactly, and both
+    follow the reference's."""
+    from repro_torch.serving import CamSearchServer
+
+    (xtr, ytr), (xte, _), C, F = small_problem
+    ref = RClassifier(F, C, dim=512, n_levels=8, seed=0)
+    ref.fit(xtr, ytr).compile(RArch(rows=8, cols=64), batch_hint=64)
+    offline = HdcClassifier(F, C, dim=512, n_levels=8, seed=0, device="cpu")
+    offline.fit(xtr, ytr).compile(TArch(rows=8, cols=64), batch_hint=64)
+    served = HdcClassifier(F, C, dim=512, n_levels=8, seed=0, device="cpu")
+    served.fit(xtr, ytr).compile(TArch(rows=8, cols=64), batch_hint=64)
+
+    enc_tr = offline.encode(xtr)
+    enc_r = ref.encode(xtr)
+    trajectory = [offline.retrain_epoch(xtr, ytr, encoded=enc_tr)
+                  for _ in range(3)]
+    want = [ref.retrain_epoch(xtr, ytr, encoded=enc_r) for _ in range(3)]
+    assert trajectory == want
+    with CamSearchServer(served.plan, served.gallery,
+                         max_wait_ms=1.0) as srv:
+        got = [served.retrain_epoch(xtr, ytr, encoded=enc_tr, server=srv)
+               for _ in range(3)]
+        _, idx = srv.search(served.encode(xte), timeout=60)
+        snap = srv.snapshot()
+    # same deterministic update trajectory -> identical AMs/predictions
+    assert got == trajectory
+    assert torch.equal(served.class_sums, offline.class_sums)
+    np.testing.assert_array_equal(served.class_sums.numpy(), ref.class_sums)
+    np.testing.assert_array_equal(idx[:, 0].astype(np.int32),
+                                  offline.predict(xte).numpy())
+    np.testing.assert_array_equal(idx[:, 0].astype(np.int32),
+                                  ref.predict(xte))
+    assert snap["plan"]["row_update_fallbacks"] == 0
+    assert sum(n for _, n in got) > 0
+    assert snap["gallery_updates"] > 0 and snap["rows_updated"] > 0
+
+
 def test_classifier_from_reference_state(small_problem):
     (xtr, ytr), (xte, _), C, F = small_problem
     ref = RClassifier(F, C, dim=256, n_levels=8, lo=-0.5, hi=1.5, seed=4)
@@ -393,8 +432,10 @@ def test_classifier_refusals(small_problem):
     with pytest.raises(RuntimeError, match="compile"):
         clf.predict(np.zeros((1, F), np.float32))
     clf.fit(xtr, ytr).compile(TArch(rows=8, cols=64), batch_hint=16)
-    with pytest.raises(NotImplementedError, match="server"):
-        clf.retrain_epoch(xtr, ytr, server=object())
+    sums = clf.class_sums.clone()
+    with pytest.raises(AttributeError, match="search"):
+        clf.retrain_epoch(xtr, ytr, server=object())    # not a server
+    assert torch.equal(clf.class_sums, sums)            # nothing applied
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             HdcClassifier(F, C, dim=64)    # the GPU unless asked otherwise
