@@ -57,6 +57,24 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        furthest from the plain version equal bit for bit
                        to the replay of the kernel's own arithmetic
                        (``cam_search.tf32x3_kernel_eucl``);
+* ``hier_search``    — the hierarchical two-stage search
+                       (``get_hierarchical_plan``, the ``"torch"`` backend:
+                       no hand-written kernel on its path): (a) the
+                       reference's ``benchmarks/bench_hier.py`` geometry
+                       (packed hamming top-10 over a clustered 131,072 x
+                       256 gallery, 64 queries, 128 clusters, k-means 4
+                       iterations) at nprobe 4, 8, 16 and 128, the last
+                       bit-identical to flat B1 and to the flat ``"torch"``
+                       plan, recall monotone in nprobe; a 1 % row update
+                       with reassignment and an overflow re-layout, each
+                       equal to a fresh layout with the same centroids;
+                       (c) the nprobe-8 plan served to 8 client threads,
+                       equal to the direct call; (b) eucl top-5 at the KNN
+                       shape (default clusters, nprobe clusters // 8 and
+                       clusters), the latter within the eucl tolerance of
+                       flat B2, and two prepares giving bit-identical
+                       centroids.  B1 and B2 launch only as the flat
+                       oracles;
 * ``lm_serve``       — LM serving through ``launch.serve.Server``:
                        qwen2.5-14b at full width and depth in bf16 (random
                        weights from a seed), 4 prompts of 2048 tokens, 32
@@ -204,6 +222,22 @@ CAM_UPDATE_FRAC, CAM_RACERS, CAM_RACE_ROWS = 0.01, 4, 64
 CAM_HEAL_REPLICAS, CAM_HEAL_SPARES = 2, 512
 CAM_HEAL_FAULTS = dict(seed=11, p_stuck=1e-5)
 CAM_WAIT_S = 600
+#: the hier_search phase, (a): benchmarks/bench_hier.py's geometry
+#: (_clustered_gallery(default_rng(0), 131072, 256, 128), 64 perturbed
+#: gallery rows as queries, ArchSpec(rows=128, cols=128), packed hamming)
+HIER_N, HIER_DIM, HIER_CENTERS, HIER_FLIP = 131072, 256, 128, 0.05
+HIER_QUERIES, HIER_K, HIER_CLUSTERS, HIER_ITERS = 64, 10, 128, 4
+HIER_NPROBES = (4, 8, 16)
+HIER_TIMED_CALLS = 5
+#: (a)'s row update: 1 % of the rows with reassignment, then rows copied
+#: from one row, enough to overflow its cluster's tiles
+HIER_UPDATE_FRAC, HIER_OVERFLOW_ROWS = 0.01, 8192
+#: (c): the nprobe-8 plan served, 8 client threads x 2 requests x 4 rows
+#: = (a)'s 64 queries
+HIER_SERVE_NPROBE, HIER_SERVE_REQUESTS, HIER_SERVE_ROWS = 8, 2, 4
+#: (b): a call past this many seconds on the KNN data is timed again on
+#: the first HIER_EUCL_CUT_ROWS queries (the cut listed under "reduced")
+HIER_EUCL_LIMIT_S, HIER_EUCL_CUT_ROWS = 30.0, 64
 
 
 def log(obj) -> None:
@@ -422,6 +456,7 @@ class Smoke:
         # negative when the summed device time exceeds the wall window
         out = {"wall_ms": wall_ms, "device_ms": device_ms,
                "device_idle_share": 1 - device_ms / wall_ms,
+               "device_ops": sum(r[2] for r in rows),
                "top": [{"ms": ms, "op": key[:80], "count": n}
                        for ms, key, n in rows[:top]]}
         if classify is not None:
@@ -1581,24 +1616,24 @@ def phase_distance_ops(s: Smoke, data):
 # ---------------------------------------------------------------------------
 
 
-def _serve_blocks(srv, q):
-    """CAM_CLIENTS threads, each submitting CAM_REQUESTS blocks of CAM_ROWS
-    consecutive rows of host queries ``q`` one after another.  Returns the
-    stacked (values, indices) in query order, each request's latency, and
-    the wall seconds of the whole run."""
+def _serve_blocks(srv, q, requests=CAM_REQUESTS, rows=CAM_ROWS):
+    """CAM_CLIENTS threads, each submitting ``requests`` blocks of
+    ``rows`` consecutive rows of host queries ``q`` one after another.
+    Returns the stacked (values, indices) in query order, each request's
+    latency, and the wall seconds of the whole run."""
     import threading
     import numpy as np
-    per = CAM_REQUESTS * CAM_ROWS
+    per = requests * rows
     if CAM_CLIENTS * per != q.shape[0]:
-        raise RuntimeError(f"cam_serve: {CAM_CLIENTS} x {per} rows do not "
+        raise RuntimeError(f"serve: {CAM_CLIENTS} x {per} rows do not "
                            f"cover the {q.shape[0]} queries")
     out, lat, errs = {}, [], []
 
     def client(c):
         try:
-            for j in range(CAM_REQUESTS):
-                s0 = c * per + j * CAM_ROWS
-                res = srv.submit(q[s0:s0 + CAM_ROWS]).wait(CAM_WAIT_S)
+            for j in range(requests):
+                s0 = c * per + j * rows
+                res = srv.submit(q[s0:s0 + rows]).wait(CAM_WAIT_S)
                 if res.error is not None:
                     raise res.error
                 out[s0] = (res.values, res.indices)
@@ -1615,7 +1650,7 @@ def _serve_blocks(srv, q):
         t.join(CAM_WAIT_S)
     wall = time.perf_counter() - t0
     if errs or any(t.is_alive() for t in threads):
-        raise RuntimeError(f"cam_serve: a client failed or hung: {errs[:1]}")
+        raise RuntimeError(f"serve: a client failed or hung: {errs[:1]}")
     keys = sorted(out)
     return (np.concatenate([out[k][0] for k in keys]),
             np.concatenate([out[k][1] for k in keys]), lat, wall)
@@ -2114,6 +2149,317 @@ def phase_cam_serve(s: Smoke, data):
     log({"phase": "cam_serve", "ok": True, **parts})
 
 
+def clustered_gallery(rng, n, dim, centers, flip=HIER_FLIP):
+    """Binary rows drawn around ``centers`` prototypes, as
+    ``benchmarks/bench_hier.py::_clustered_gallery`` draws them (that
+    module imports JAX, so the smoke keeps its own copy)."""
+    protos = (rng.random((centers, dim)) > 0.5)
+    owner = rng.integers(centers, size=n)
+    rows = protos[owner] ^ (rng.random((n, dim)) < flip)
+    return rows.astype("float32")
+
+
+def _hier_fresh(plan, hs, gallery, assign):
+    """Results source for "a fresh plan with the same centroids": the
+    state a full layout builds for ``assign`` with ``hs``'s centroids."""
+    from repro_torch.core.engine import hier
+    return hier._hier_state(plan.spec, plan.packed, gallery, hs.centroid_src,
+                            hs.coarse_prepared, assign)
+
+
+def _recall(got_i, want_i, k):
+    got, want = got_i.cpu().numpy(), want_i.cpu().numpy()
+    return float(sum(len(set(map(int, a)) & set(map(int, b)))
+                     for a, b in zip(got, want)) / (k * want.shape[0]))
+
+
+def _wall_ms(call):
+    """Median host ms of ``call`` to a synchronise, after one warm call."""
+    import torch
+    call()
+    times = []
+    for _ in range(HIER_TIMED_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _stage_ms(plan, q, g):
+    """The ``hier.coarse`` / ``hier.probe`` spans of one traced call (each
+    stage waits for its device work while tracing)."""
+    import torch
+    from repro_torch.obs import trace
+    trace.tracer.clear()
+    trace.enable()
+    try:
+        plan.execute(q, g)
+        torch.cuda.synchronize()
+    finally:
+        trace.stop()
+    st = trace.span_stats()
+    trace.tracer.clear()
+    return {k: st[span]["total_ms"] for k, span in
+            (("coarse_ms", "hier.coarse"), ("probe_ms", "hier.probe"))
+            if span in st}
+
+
+def _probe_bound(plan, q, hs):
+    """The probe's least time: the bytes of the tiles this run's queries
+    probe (each query's occupied tiles of its nprobe clusters, read once)
+    over the card's memory rate."""
+    _, ci = plan.coarse._chunk_fn(q, hs.coarse_prepared)
+    tiles = int(hs.cnt[ci.long()].sum())
+    leaf = hs.leaves[0]
+    tile_bytes = leaf[0].numel() * leaf.element_size()
+    return {"probed_tiles": tiles, "tile_bytes": tile_bytes,
+            "bound_ms": 1e3 * tiles * tile_bytes / HBM_BYTES_PER_S,
+            "bound_by": "bytes"}
+
+
+def _hier_kernels_idle(name):
+    """Fail if the hierarchical plan launched a hand-written kernel: it
+    runs the "torch" backend (its twin of the reference's "jnp")."""
+    from repro_torch.kernels import cam_search
+    if any(cam_search.LAUNCHES.values()):
+        raise RuntimeError(f"{name}: the hierarchical path launched "
+                           f"kernels: {dict(cam_search.LAUNCHES)}")
+
+
+def _hier_bench(s: Smoke):
+    """(a) the reference's hierarchical benchmark geometry: packed hamming
+    over a clustered 131,072 x 256 gallery, flat B1 as the oracle."""
+    import numpy as np
+    import torch
+    import repro_torch.core as T
+    from repro_torch.core import ArchSpec, compile_module
+    from repro_torch.core import cim_dialect as cd
+    from repro_torch.core.engine import get_hierarchical_plan, hier
+    from repro_torch.kernels import cam_search
+    rng = np.random.default_rng(0)
+    g = clustered_gallery(rng, HIER_N, HIER_DIM, HIER_CENTERS)
+    qi = rng.choice(HIER_N, size=HIER_QUERIES, replace=False)
+    q = (g[qi].astype(bool)
+         ^ (rng.random((HIER_QUERIES, HIER_DIM)) < HIER_FLIP)) \
+        .astype(np.float32)
+    gt, qt = torch.from_numpy(g).cuda(), torch.from_numpy(q).cuda()
+    prog = compile_module(hamming_module(T, cd, HIER_QUERIES, HIER_N,
+                                         HIER_DIM, HIER_K, False),
+                          ArchSpec(rows=128, cols=128), value_bits=1)
+    flat, mod = prog.engine_plan, prog.stages["cim_partitioned"]
+    if not flat.packed or flat.backend != "cuda":
+        raise RuntimeError("hier_search: the flat plan is not packed B1")
+    cam_search.reset_launch_counts()
+    fv, fi = flat.execute(qt, gt)                     # the flat oracle
+    oracle = cam_search.LAUNCHES["fused_topk_packed"]
+    tv, ti = T.get_plan(mod, backend="torch").execute(qt, gt)
+    if not (torch.equal(fv, tv) and torch.equal(fi, ti)):
+        raise RuntimeError("hier_search: flat B1 != flat torch")
+    flat_ms = _wall_ms(lambda: flat.execute(qt, gt))
+    out = {"oracle_launches": {"fused_topk_packed": oracle},
+           "flat_b1_wall_ms": flat_ms,
+           "flat_profile": s.profile(flat.execute, [qt, gt]), "nprobe": {}}
+    plans = {}
+    for nprobe in HIER_NPROBES + (HIER_CLUSTERS,):
+        plan = get_hierarchical_plan(mod, clusters=HIER_CLUSTERS,
+                                     nprobe=nprobe, kmeans_iters=HIER_ITERS)
+        plans[nprobe] = plan
+        cam_search.reset_launch_counts()
+        prep_ms, _ = host_ms(lambda: plan.warm(gt))
+        hs = plan._prepared_patterns(gt)
+        v, i = plan.execute(qt, gt)
+        torch.cuda.synchronize()
+        _hier_kernels_idle(f"hier_search nprobe={nprobe}")
+        rec = {"prepare_s": prep_ms / 1e3, "budget": hs.budget,
+               "tpc": hs.tpc, "recall": _recall(i, fi, HIER_K)}
+        if nprobe == HIER_CLUSTERS:
+            if not (torch.equal(v, fv) and torch.equal(i, fi)):
+                raise RuntimeError("hier_search: nprobe = clusters is not "
+                                   "bit-identical to flat B1")
+            rec["bit_identical_to_flat_b1_and_torch"] = True
+        rec["wall_ms"] = _wall_ms(lambda: plan.execute(qt, gt))
+        rec["stages"] = _stage_ms(plan, qt, gt)
+        rec["profile"] = s.profile(plan.execute, [qt, gt])
+        rec["probe_bound"] = _probe_bound(plan, qt, hs)
+        out["nprobe"][nprobe] = rec
+    recalls = [out["nprobe"][n]["recall"] for n in HIER_NPROBES] + [1.0]
+    if any(a > b for a, b in zip(recalls, recalls[1:])) or \
+            out["nprobe"][HIER_CLUSTERS]["recall"] != 1.0:
+        raise RuntimeError(f"hier_search: recall not monotone: {recalls}")
+    cents = [plans[n]._prepared_patterns(gt).centroid_src for n in plans]
+    if not all(torch.equal(c, cents[0]) for c in cents):
+        raise RuntimeError("hier_search: one seed gave different centroids")
+
+    # (c) served: the nprobe-8 plan behind a CamSearchServer, 8 clients
+    plan = plans[HIER_SERVE_NPROBE]
+    from repro_torch.serving import CamSearchServer
+    cam_search.reset_launch_counts()
+    dv, di = plan.execute(qt, gt)
+    with CamSearchServer(plan, gt, max_wait_ms=2.0) as srv:
+        sv, si, lat, wall = _serve_blocks(srv, q, HIER_SERVE_REQUESTS,
+                                          HIER_SERVE_ROWS)
+        snap = _server_health("hier_search served", srv)
+        if [name for name, _ in srv._levels()] != ["primary"]:
+            raise RuntimeError("hier_search: a server on the card has a "
+                               "degraded level below its primary")
+    if not (np.array_equal(sv, dv.cpu().numpy())
+            and np.array_equal(si, di.cpu().numpy())):
+        raise RuntimeError("hier_search: served results differ from the "
+                           "plan's direct call")
+    out["served"] = {"nprobe": HIER_SERVE_NPROBE,
+                     "served_wall_ms": 1e3 * wall,
+                     "batches": snap["batches"],
+                     "rows_per_batch": snap["avg_batch_fill"],
+                     "latency_ms": _latency_ms(lat),
+                     "snapshot": _snapshot_log(snap),
+                     "bit_identical_to_direct": True}
+
+    # the row update: 1 % of the rows, reassigned to the stored centroids
+    rs = np.random.default_rng(21)
+    n_upd = int(round(HIER_UPDATE_FRAC * HIER_N))
+    idx = np.sort(rs.choice(HIER_N, size=n_upd, replace=False))
+    src = rs.choice(HIER_N, size=n_upd, replace=False)
+    new = (g[src].astype(bool)
+           ^ (rs.random((n_upd, HIER_DIM)) < HIER_FLIP)).astype(np.float32)
+    hs0 = plan._prepared_patterns(gt)
+    fb = plan.row_update_fallbacks
+    upd_ms, g2 = host_ms(lambda: plan.update_rows(gt, idx, new))
+    hs1 = plan._prepared_patterns(g2)
+    want_a = hs0.assign.copy()
+    want_a[idx] = hier._assign_rows(torch.from_numpy(new).cuda(),
+                                    hs0.centroid_src, "hamming")
+    fresh = _hier_fresh(plan, hs0, g2, want_a)
+    got = plan.execute(qt, g2)
+    want = plan._chunk_fn(qt, fresh)
+    if plan.row_update_fallbacks != fb or \
+            not np.array_equal(hs1.assign, want_a) or \
+            not (torch.equal(got[0], want[0])
+                 and torch.equal(got[1], want[1])):
+        raise RuntimeError("hier_search: the row update differs from a "
+                           "fresh layout with the same centroids")
+    moved = int((hs1.assign != hs0.assign).sum())
+    # ... then rows copied from one row, past its cluster's capacity
+    idx2 = np.arange(HIER_OVERFLOW_ROWS)
+    new2 = np.tile(g[HIER_N - 1], (HIER_OVERFLOW_ROWS, 1))
+    ovf_ms, g3 = host_ms(lambda: plan.update_rows(g2, idx2, new2))
+    hs2 = plan._prepared_patterns(g3)
+    want_a[idx2] = hier._assign_rows(torch.from_numpy(new2).cuda(),
+                                     hs0.centroid_src, "hamming")
+    got = plan.execute(qt, g3)
+    want = plan._chunk_fn(qt, _hier_fresh(plan, hs0, g3, want_a))
+    if hs2.tpc <= hs1.tpc or hs2.centroid_src is not hs0.centroid_src or \
+            plan.row_update_fallbacks != fb or \
+            not (torch.equal(got[0], want[0])
+                 and torch.equal(got[1], want[1])):
+        raise RuntimeError("hier_search: the overflow re-layout differs "
+                           "from a fresh layout with the same centroids")
+    _hier_kernels_idle("hier_search served and updated")
+    out["update"] = {"rows": n_upd, "moved_rows": moved,
+                     "update_ms": upd_ms, "budget_after": hs1.budget,
+                     "equal_to_fresh_layout": True,
+                     "overflow_rows": HIER_OVERFLOW_ROWS,
+                     "overflow_ms": ovf_ms, "tpc": [hs1.tpc, hs2.tpc],
+                     "overflow_equal_to_fresh_layout": True,
+                     "row_update_fallbacks": plan.row_update_fallbacks - fb}
+    return out
+
+
+def _hier_eucl(s: Smoke, data):
+    """(b) eucl at the KNN shape against flat B2: default clusters,
+    nprobe = clusters // 8 and nprobe = clusters."""
+    import torch
+    from repro_torch.core import ArchSpec, compile_fn
+    from repro_torch.core.engine import get_hierarchical_plan
+    from repro_torch.kernels import cam_search
+    g, _, q, _ = data
+    gt, qt = torch.from_numpy(g).cuda(), torch.from_numpy(q).cuda()
+    prog = compile_fn(knn_kernel, [q, g], ArchSpec(rows=64, cols=64),
+                      value_bits=8)
+    flat, mod = prog.engine_plan, prog.stages["cim_partitioned"]
+    cam_search.reset_launch_counts()
+    fv, fi = flat.execute(qt, gt)                     # the flat oracle
+    out = {"oracle_launches": {"fused_topk": cam_search.LAUNCHES[
+        "fused_topk"]},
+           "flat_b2_wall_ms": _wall_ms(lambda: flat.execute(qt, gt))}
+    full = get_hierarchical_plan(mod, nprobe=10 ** 9)
+    clusters = full.spec.clusters
+    part = get_hierarchical_plan(mod, nprobe=clusters // 8)
+    out.update(clusters=clusters, reduced=[])
+    cam_search.reset_launch_counts()
+    prep_ms, _ = host_ms(lambda: part.warm(gt))
+    hs = part._prepared_patterns(gt)
+    again = part._prepare(gt)             # a second prepare of one gallery
+    if not (torch.equal(again.centroid_src, hs.centroid_src)
+            and (again.assign == hs.assign).all()):
+        raise RuntimeError("hier_search: two prepares of the KNN gallery "
+                           "gave different centroids")
+    del again
+    sizes = torch.bincount(torch.from_numpy(hs.assign).long(),
+                           minlength=clusters)
+    for name, plan in (("partial", part), ("all", full)):
+        if plan is full:
+            plan.warm(gt)
+        t_ms, (v, i) = host_ms(lambda: plan.execute(qt, gt))
+        _hier_kernels_idle(f"hier_search eucl {name}")
+        st = plan._prepared_patterns(gt)
+        qw = qt
+        if t_ms > 1e3 * HIER_EUCL_LIMIT_S:        # time the cut queries
+            qw = qt[:HIER_EUCL_CUT_ROWS]
+            out["reduced"].append(f"{name}: timed on {HIER_EUCL_CUT_ROWS} "
+                                  f"of {qt.shape[0]} queries (one call of "
+                                  f"all took {t_ms / 1e3:.1f} s)")
+        rec = {"nprobe": plan.spec.nprobe, "first_call_ms": t_ms,
+               "budget": st.budget, "tpc": st.tpc,
+               "recall": _recall(i, fi, 5), "timed_rows": qw.shape[0],
+               "wall_ms": _wall_ms(lambda: plan.execute(qw, gt)),
+               "stages": _stage_ms(plan, qw, gt),
+               "probe_bound": _probe_bound(plan, qw, st)}
+        if plan is full:
+            off = (v - fv).abs()
+            if not bool((off <= EUCL_ATOL + EUCL_RTOL * fv.abs()).all()):
+                raise RuntimeError(f"hier_search: eucl off flat B2 by "
+                                   f"{float(off.max())}")
+            rec["max_abs_err_vs_flat_b2"] = float(off.max())
+            rec["eucl_index_swaps"] = eucl_index_swaps(
+                qt, gt, i, fi, "hier_search eucl nprobe = clusters")
+        out[name] = rec
+    out.update(prepare_s=prep_ms / 1e3, centroids_repeat=True,
+               cluster_rows={"max": int(sizes.max()),
+                             "mean": float(sizes.float().mean()),
+                             "empty": int((sizes == 0).sum())})
+    return out
+
+
+def phase_hier_search(s: Smoke, data):
+    """The hierarchical two-stage search on the "torch" backend (no
+    hand-written kernel on its path): (a) the reference's benchmark
+    geometry against flat B1, with (c) the served nprobe-8 plan and the
+    row updates; (b) eucl at the KNN shape against flat B2.  B1 and B2
+    launch only as the flat oracles (counted from 0 around each oracle
+    call), and every hierarchical call is checked to launch no kernel."""
+    import torch
+    parts = {}
+    t0 = time.perf_counter()
+    parts["bench"] = _hier_bench(s)
+    parts["bench"]["part_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parts["eucl"] = _hier_eucl(s, data)
+    parts["eucl"]["part_s"] = time.perf_counter() - t0
+    s.record("fused_topk_packed",
+             "src/repro_torch/kernels/csrc/fused_topk_packed.cu",
+             "src/repro/kernels/cam_search.py:304",
+             parts["bench"]["oracle_launches"]["fused_topk_packed"], 0.0,
+             None, None, None, "operations", None)
+    s.record("fused_topk", "src/repro_torch/kernels/csrc/fused_topk.cu",
+             "src/repro/kernels/cam_search.py:200",
+             parts["eucl"]["oracle_launches"]["fused_topk"], 0.0, None,
+             None, None, "operations", None)
+    log({"phase": "hier_search", "ok": True, **parts})
+
+
 def _b7_class(key: str) -> str:
     """Kernel class of a profiler row: B7, a matrix product, or other."""
     low = key.lower()
@@ -2487,6 +2833,7 @@ def main() -> None:
               ("gallery_update", lambda: phase_gallery_update(s, data)),
               ("distance_ops", lambda: phase_distance_ops(s, data)),
               ("cam_serve", lambda: phase_cam_serve(s, data)),
+              ("hier_search", lambda: phase_hier_search(s, data)),
               ("lm_serve", lambda: phase_lm_serve(s))]
     for name, run in phases:
         t0 = time.perf_counter()

@@ -14,15 +14,22 @@ The package follows the reference's layering:
   :class:`RangePlan` (boolean threshold / aCAM interval match).
 * :mod:`.cache` — the process-wide plan cache behind :func:`get_plan` /
   :func:`plan_cache_stats` / :func:`clear_plan_cache`.
+* :mod:`.composite` — the plan-graph layer: :class:`CompositePlan`
+  (plans built from other plans) and :class:`HierarchicalSpec`.
+* :mod:`.hier` — :class:`HierarchicalPlan`: IVF-style two-stage search
+  (coarse centroid ``SearchPlan`` -> fine probing of the selected
+  cluster tiles), built via :func:`get_hierarchical_plan`.
 
 Fault injection rides on dispatch (``faults=``, see
-:mod:`repro_torch.faults`); composite and hierarchical plans and
-sharding come with later slices of the port.
+:mod:`repro_torch.faults`); sharding comes with a later slice of the
+port.
 """
 
 from .base import (PendingSearch, PlanBase, _as_2d, _pick_batch,
                    _update_enabled, resolve_device)
 from .cache import clear_plan_cache, get_plan, plan_cache_stats
+from .composite import CompositePlan, HierarchicalSpec
+from .hier import HierarchicalPlan, get_hierarchical_plan
 from .plans import RangePlan, SearchPlan
 from .spec import (RangeSpec, SimilaritySpec, _bits, _check_binary_cells,
                    _encode, _metric_values, _resolve_pack, extract_plan_spec,
@@ -30,8 +37,9 @@ from .spec import (RangeSpec, SimilaritySpec, _bits, _check_binary_cells,
                    spec_fingerprint)
 
 __all__ = [
-    "SimilaritySpec", "RangeSpec", "PlanBase", "SearchPlan", "RangePlan",
+    "SimilaritySpec", "RangeSpec", "HierarchicalSpec", "PlanBase",
+    "SearchPlan", "RangePlan", "CompositePlan", "HierarchicalPlan",
     "PendingSearch", "extract_plan_spec", "extract_range_spec", "get_plan",
-    "resolve_device", "plan_cache_stats", "clear_plan_cache", "spec_digest",
-    "spec_fingerprint", "module_for_spec",
+    "get_hierarchical_plan", "resolve_device", "plan_cache_stats",
+    "clear_plan_cache", "spec_digest", "spec_fingerprint", "module_for_spec",
 ]

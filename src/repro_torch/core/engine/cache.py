@@ -3,16 +3,19 @@
 Keys are ``(spec, backend, batch, shards, packed, unroll, device)`` —
 the reference's key plus the device the plan's prepared operands live
 on.  ``shards`` and ``unroll`` are always 1: sharded plans are not
-ported, and eager PyTorch has no scan to unroll.  Recompiling the same program, or a different program with
-identical structure (what a DSE sweep over optimization targets
-produces), returns the *same* plan object.
+ported, and eager PyTorch has no scan to unroll.  The spec is a frozen
+dataclass — :class:`~.spec.SimilaritySpec`, :class:`~.spec.RangeSpec`
+or :class:`~.composite.HierarchicalSpec` — so keys of different
+families never collide.  Recompiling the same program, or a different
+program with identical structure (what a DSE sweep over optimization
+targets produces), returns the *same* plan object.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 from ...obs.trace import trace_span, tracer
 from ..envcfg import env_int
@@ -75,6 +78,20 @@ def _cache_insert(key: Tuple, plan: PlanBase) -> PlanBase:
             _, evicted = _PLAN_CACHE.popitem(last=False)
             _retire_plan(evicted)
     return plan
+
+
+def _lookup_or_insert(key: Tuple, build: Callable[[], PlanBase]) -> PlanBase:
+    """Shared cache participation for plan factories outside this module
+    (the hierarchical family): counted lookup, build on a miss, canonical
+    insert with the same LRU and race semantics as ``get_plan``."""
+    plan = _cache_lookup(key)
+    if plan is not None:
+        return plan
+    with trace_span("plan.compile",
+                    args=None if not tracer.enabled else
+                    {"key": repr(key[1:])}):
+        built = build()
+    return _cache_insert(key, built)
 
 
 def _tiny_plan(spec, backend: str, shards: int) -> bool:

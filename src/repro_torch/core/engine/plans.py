@@ -21,6 +21,28 @@ from .base import PendingSearch, PlanBase, _index_array, _size
 __all__ = ["SearchPlan", "RangePlan"]
 
 
+def _finalize_topk(plan: PlanBase, pending: "PendingSearch"):
+    """Top-k chunks ``(values, indices)`` -> the module's outputs: chunk
+    concatenation and output shaping (shared with the composite plans,
+    whose chunks are search-shaped too)."""
+    spec = plan.spec
+    vs = [v for v, _ in pending.chunks]
+    is_ = [i for _, i in pending.chunks]
+    if not vs:      # zero queries: well-shaped empty result
+        vs = [torch.zeros((0, spec.k), dtype=torch.float32,
+                          device=plan.device)]
+        is_ = [torch.zeros((0, spec.k), dtype=torch.int32,
+                           device=plan.device)]
+    v = vs[0] if len(vs) == 1 else torch.cat(vs, dim=0)
+    i = is_[0] if len(is_) == 1 else torch.cat(is_, dim=0)
+
+    m, lead, k = pending.m, pending.lead, spec.k
+    if m * k == _size(spec.out_v_shape):
+        return v.reshape(spec.out_v_shape), i.reshape(spec.out_i_shape)
+    # runtime M differs from the traced shape: mirror _as_2d
+    return v.reshape(lead + (k,)), i.reshape(lead + (k,))
+
+
 @dataclass
 class SearchPlan(PlanBase):
     """A compiled, reusable executable for one similarity-program shape.
@@ -42,25 +64,7 @@ class SearchPlan(PlanBase):
         """Materialise a dispatched search: chunk concatenation, output
         shaping."""
         with trace_span("plan.finalize"):
-            return self._finalize(pending)
-
-    def _finalize(self, pending: "PendingSearch"):
-        spec = self.spec
-        vs = [v for v, _ in pending.chunks]
-        is_ = [i for _, i in pending.chunks]
-        if not vs:      # zero queries: well-shaped empty result
-            vs = [torch.zeros((0, spec.k), dtype=torch.float32,
-                              device=self.device)]
-            is_ = [torch.zeros((0, spec.k), dtype=torch.int32,
-                               device=self.device)]
-        v = vs[0] if len(vs) == 1 else torch.cat(vs, dim=0)
-        i = is_[0] if len(is_) == 1 else torch.cat(is_, dim=0)
-
-        m, lead, k = pending.m, pending.lead, spec.k
-        if m * k == _size(spec.out_v_shape):
-            return v.reshape(spec.out_v_shape), i.reshape(spec.out_i_shape)
-        # runtime M differs from the traced shape: mirror _as_2d
-        return v.reshape(lead + (k,)), i.reshape(lead + (k,))
+            return _finalize_topk(self, pending)
 
     def update_rows(self, gallery, indices, new_rows, care=None, *,
                     donate: bool = False):

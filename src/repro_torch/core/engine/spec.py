@@ -6,7 +6,8 @@ shapes.  Two modules with equal specs compile to interchangeable
 executables; the spec (plus backend / micro-batch / packing / device)
 *is* the plan-cache key.  Two families: top-k search
 (:class:`SimilaritySpec`) and boolean range match (:class:`RangeSpec`,
-threshold or aCAM interval).
+threshold or aCAM interval); the composite
+:class:`~.composite.HierarchicalSpec` wraps a similarity spec.
 
 Also here: the metric/encoding helpers mapping the physical CAM domain
 (hamming counts) to the logical metric domain.
@@ -422,14 +423,13 @@ def module_for_spec(spec, m: Optional[int] = None) -> Module:
     for its degraded fallback chain, without keeping the original module
     object around.
 
-    A composite spec (anything exposing ``flat_spec``: the reference's
-    ``HierarchicalSpec``) raises: hierarchical plans are not ported yet
-    (ROADMAP Queue A item 4).
+    A composite spec (anything exposing a ``flat_spec`` attribute, e.g.
+    ``HierarchicalSpec``) synthesises the module of its *flat
+    equivalent* — the exact search the composite approximates — which is
+    what the serving fallback chain and the hardening layer execute when
+    the composite plan itself is unavailable.
     """
-    if hasattr(spec, "flat_spec"):
-        raise NotImplementedError(
-            "composite (hierarchical) specs are not ported to repro_torch "
-            "yet (ROADMAP Queue A item 4)")
+    spec = getattr(spec, "flat_spec", spec)
     from ..cim_dialect import (make_acquire, make_execute, make_range_search,
                                make_release, make_similarity, make_yield)
     from ..ir import Builder, TensorType

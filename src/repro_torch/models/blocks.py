@@ -5,7 +5,7 @@ reference's ``models/blocks.py``, dense part).
 ``apply_dense_block(p, x, cfg, *, ...)`` returns ``(x, new_cache)``.
 Residual structure is pre-norm.  The MoE, Mamba2, xLSTM, encoder and
 cross-attention blocks come with their families (ROADMAP Queue A item
-12).
+8).
 """
 
 from __future__ import annotations

@@ -3,14 +3,15 @@
 The dense family (decoder-only, identical pre-norm blocks) runs here;
 ``init_params``, ``init_decode_cache`` and the three entry points raise
 ``NotImplementedError`` for the others (moe, hybrid, ssm, vlm, audio),
-which come with ROADMAP Queue A item 12.  Layer stacks keep the
+which come with ROADMAP Queue A item 8.  Layer stacks keep the
 reference's stacked ``(n_layers, ...)`` tensors, so a layer is a view
 and ``convert.lm_params_from_reference`` is a tree map; the reference's
 ``lax.scan`` over layers is a Python loop.
 
 Three public entry points:
 
-* ``forward(params, cfg, batch)``              -> logits (teacher forcing)
+* ``forward(params, cfg, batch[, return_hidden])`` -> logits (teacher
+  forcing), or the post-final-norm hidden state
 * ``prefill(params, cfg, batch, cache)``       -> (last logits, cache)
 * ``decode_step(params, cfg, tokens, cache)``  -> (logits, cache)
 
@@ -23,6 +24,7 @@ reads the device to learn the cache length.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -43,11 +45,7 @@ def _require_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue A item 12); the port runs the dense family")
-    if cfg.rope == "none":
-        raise NotImplementedError(
-            f"{cfg.name}: absolute (sinusoidal) positions come with the "
-            f"audio family (ROADMAP Queue A item 12)")
+            f"(ROADMAP Queue A item 8); the port runs the dense family")
 
 
 # ---------------------------------------------------------------------------
@@ -161,17 +159,40 @@ def _positions(start: int, b: int, s: int, device) -> torch.Tensor:
     return torch.arange(start, start + s, device=device).expand(b, s)
 
 
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, S) int -> (B, S, d) float32 sinusoidal position embedding."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Token embeddings, plus absolute (sinusoidal) positions for a model
+    configured without RoPE."""
+    x = embed(params["embed"], tokens, cfg)
+    if cfg.rope == "none":
+        x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
+    return x
+
+
 def forward(params: Params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            batch: Dict[str, torch.Tensor],
+            return_hidden: bool = False) -> torch.Tensor:
     """Full-sequence float32 logits (teacher forcing);
-    ``batch["tokens"]``: (B, S)."""
+    ``batch["tokens"]``: (B, S).  ``return_hidden=True`` returns the
+    post-final-norm hidden state (B, S, d_model) instead."""
     _require_dense(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(0, b, s, tokens.device)
-    x = embed(params["embed"], tokens, cfg)
+    x = _embed_tokens(params, tokens, cfg, positions)
     x, _ = _run_dense_stack(params["blocks"], x, cfg, positions=positions)
     x = apply_norm(params["final_norm"], x, cfg)
+    if return_hidden:
+        return x
     return unembed_logits(params["embed"], x, cfg)
 
 
@@ -184,7 +205,7 @@ def prefill(params: Params, cfg: ModelConfig,
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(0, b, s, tokens.device)
-    x = embed(params["embed"], tokens, cfg)
+    x = _embed_tokens(params, tokens, cfg, positions)
     x, cache = _run_dense_stack(params["blocks"], x, cfg,
                                 positions=positions, cache=cache)
     x = apply_norm(params["final_norm"], x[:, -1:], cfg)
@@ -197,7 +218,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     _require_dense(cfg)
     b, s = tokens.shape
     positions = _positions(cache["len"], b, s, tokens.device)
-    x = embed(params["embed"], tokens, cfg)
+    x = _embed_tokens(params, tokens, cfg, positions)
     x, cache = _run_dense_stack(params["blocks"], x, cfg,
                                 positions=positions, cache=cache)
     x = apply_norm(params["final_norm"], x, cfg)

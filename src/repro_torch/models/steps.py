@@ -1,6 +1,6 @@
 """Serve steps (the port of the reference's ``models/steps.py``, serve
 part): plain callables in place of the functions the reference jits.
-The train step comes with the optimizer (ROADMAP Queue A item 12)."""
+The train step comes with the optimizer (ROADMAP Queue A item 8)."""
 
 from __future__ import annotations
 

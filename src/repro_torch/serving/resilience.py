@@ -13,10 +13,11 @@ mixes in:
   exponential backoff per level, breaker gating of the primary, and
   the synchronous finalize-failure rescue.
 
-Only a plan on the CPU has a degraded chain: the ``"torch"`` backend
-(below a ``"cuda"`` primary, whose wrappers run their plain versions
-there), then the ``"torch"`` backend unpacked (for packed primaries),
-then the IR interpreter.  A plan on the card has no level below it: a
+Only a plan on the CPU has a degraded chain: the exact flat search
+(below a hierarchical primary), the ``"torch"`` backend (below a
+``"cuda"`` primary, whose wrappers run their plain versions there), then
+the ``"torch"`` backend unpacked (for packed primaries), then the IR
+interpreter.  A plan on the card has no level below it: a
 dispatch that fails its retries, or a result that cannot be read, fails
 the batch, is counted in ``backend_errors`` and shows in ``health()``,
 so no plain version ever answers for a failing kernel.  Every degraded
@@ -233,17 +234,16 @@ class _ResilienceMixin:
 
     def _build_fallbacks(self) -> List[Tuple[str, Any]]:
         """Degraded chain below the primary plan, most- to least-capable:
-        ``"torch"`` (for a ``"cuda"`` primary) → ``"torch"`` unpacked (for
-        packed primaries) → IR interpreter, on the CPU only; a plan on
-        the card gets none.  Every level is an ordinary plan-cache
+        the exact flat search ``"torch-flat"`` (for a composite primary)
+        → ``"torch"`` (for a ``"cuda"`` primary) → ``"torch"`` unpacked
+        (for packed primaries) → IR interpreter, on the CPU only; a plan
+        on the card gets none.  Every level is an ordinary plan-cache
         citizen compiled for the same spec/batch.  The reference's
-        composite level (a flat exact search under a hierarchical
-        primary) waits for the hierarchical plan, and its single-device
-        level (under a sharded primary) for sharding (ROADMAP Queue A
-        items 4 and 5)."""
+        single-device level (under a sharded primary) waits for sharding
+        (ROADMAP Queue A item 5)."""
         if self.plan.device.type != "cpu":
             return []
-        from ..core.engine import get_plan, module_for_spec
+        from ..core.engine import CompositePlan, get_plan, module_for_spec
         spec = self.plan.spec
         mod = module_for_spec(spec)
         chain: List[Tuple[str, Any]] = []
@@ -258,6 +258,10 @@ class _ResilienceMixin:
                     all(p is not e for _, e in chain):
                 chain.append((name, p))
 
+        if isinstance(self.plan, CompositePlan):
+            # composite primaries degrade to the *exact* flat search
+            # first — module_for_spec resolved the flat equivalent above
+            add("torch-flat", backend="torch", pack=self.plan.packed)
         if self.plan.backend == "cuda":
             add("torch", backend="torch", pack=self.plan.packed)
         if self.plan.packed:

@@ -1514,3 +1514,50 @@ def test_hardened_plans_on_the_card(cuda, rng):
             rplan.execute(torch.from_numpy(qi).to(cuda),
                           torch.from_numpy(lo).to(cuda),
                           torch.from_numpy(hi).to(cuda)).cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# hierarchical two-stage search (the "torch" backend on the card)
+# ---------------------------------------------------------------------------
+
+
+def test_hier_on_the_card_equals_flat_and_repeats_centroids(cuda, rng):
+    """nprobe = clusters on the card is bit-identical to flat B1 (packed
+    hamming) and within the eucl tolerance of flat B2; the probe launches
+    no hand-written kernel; a server over the plan has no degraded level;
+    two prepares of one eucl gallery give bit-identical centroids (the
+    cluster sums run in a fixed order)."""
+    from repro_torch.core.engine import get_hierarchical_plan
+    arch = T.ArchSpec(rows=32, cols=64)
+    q = (rng.random((37, 100)) > 0.5).astype(np.float32)
+    g = (rng.random((900, 100)) > 0.5).astype(np.float32)
+    prog = T.compile_module(_hamming_module(37, 900, 100, 10, False), arch,
+                            value_bits=1)
+    qt, gt = torch.from_numpy(q).to(cuda), torch.from_numpy(g).to(cuda)
+    fv, fi = prog(qt, gt)
+    hier = get_hierarchical_plan(prog.stages["cim_partitioned"], clusters=9,
+                                 nprobe=9)
+    assert hier.device.type == "cuda" and hier.coarse.device == hier.device
+    tcs.reset_launch_counts()
+    hv, hi = hier.execute(qt, gt)
+    assert not any(tcs.LAUNCHES.values())
+    assert torch.equal(hv, fv) and torch.equal(hi, fi)
+    from repro_torch.serving import CamSearchServer
+    with CamSearchServer(hier, gt) as srv:          # no chain on the card
+        assert [name for name, _ in srv._levels()] == ["primary"]
+        sv, si = srv.search(q)
+    assert np.array_equal(si, fi.cpu().numpy())
+
+    qe = rng.standard_normal((37, 96)).astype(np.float32)
+    ge = rng.standard_normal((900, 96)).astype(np.float32)
+    prog = T.compile_fn(_knn, [qe, ge], arch, value_bits=8)
+    qt, gt = torch.from_numpy(qe).to(cuda), torch.from_numpy(ge).to(cuda)
+    fv, fi = prog(qt, gt)
+    hier = get_hierarchical_plan(prog.stages["cim_partitioned"], clusters=12,
+                                 nprobe=12)
+    hv, hi = hier.execute(qt, gt)
+    _assert_eucl_close(qe, ge, fv.cpu().numpy(), fi.cpu().numpy(),
+                       hv.cpu().numpy(), hi.cpu().numpy())
+    a, b = hier._prepare(gt), hier._prepare(gt)
+    assert torch.equal(a.centroid_src, b.centroid_src)
+    assert np.array_equal(a.assign, b.assign)

@@ -344,14 +344,17 @@ def test_module_for_spec_round_trips(case):
 
 
 def test_module_for_spec_refuses_a_composite_spec():
+    """A composite spec (anything exposing ``flat_spec``) is no longer
+    refused: it synthesises the module of its flat equivalent, as the
+    reference's does."""
     _, plan = _search()
 
     @dataclasses.dataclass(frozen=True)
     class Composite:
         flat_spec: object
 
-    with pytest.raises(NotImplementedError, match="item 4"):
-        module_for_spec(Composite(plan.spec))
+    got = extract_plan_spec(module_for_spec(Composite(plan.spec)))
+    assert dataclasses.asdict(got) == dataclasses.asdict(plan.spec)
 
 
 # -- HardenedPlan ---------------------------------------------------------

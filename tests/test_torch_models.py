@@ -42,8 +42,10 @@ NEAR_TIE = 5e-3
 B, S, N_PREFILL = 2, 12, 8
 
 
-def _cfgs(dtype):
+def _cfgs(dtype, rope=None):
     kw = dict(param_dtype=dtype, compute_dtype=dtype)
+    if rope is not None:
+        kw["rope"] = rope
     ref = dataclasses.replace(
         r_reduced(r_get_config("qwen2.5-14b"), n_heads=10, d_model=160), **kw)
     port = dataclasses.replace(
@@ -62,10 +64,11 @@ def _ref_fns(cfg):
 
 
 @functools.lru_cache(maxsize=None)
-def _lm(dtype):
+def _lm(dtype, rope=None):
     """The model, its parameters on both sides, tokens and the
-    reference's jitted entry points, built once per dtype."""
-    rcfg, tcfg = _cfgs(dtype)
+    reference's jitted entry points, built once per dtype (and
+    ``rope`` override)."""
+    rcfg, tcfg = _cfgs(dtype, rope)
     assert (tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim) == (10, 2, 16)
     rparams = rm.init_params(jax.random.PRNGKey(3), rcfg)
     np_params = jax.tree.map(np.asarray, rparams)
@@ -188,9 +191,9 @@ def test_other_families_raise_not_implemented():
     for arch in ("deepseek-moe-16b", "zamba2-2.7b", "xlstm-125m",
                  "paligemma-3b", "whisper-medium"):
         cfg = get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="Queue A item 12"):
+        with pytest.raises(NotImplementedError, match="Queue A item 8"):
             tm.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue A item 12"):
+        with pytest.raises(NotImplementedError, match="Queue A item 8"):
             tm.init_decode_cache(cfg, 1, 8, device="cpu")
         toks = torch.zeros((1, 4), dtype=torch.int64)
         for call in (lambda: tm.forward({}, cfg, {"tokens": toks}),
@@ -198,10 +201,6 @@ def test_other_families_raise_not_implemented():
                      lambda: tm.decode_step({}, cfg, toks[:, :1], {})):
             with pytest.raises(NotImplementedError, match=cfg.family):
                 call()
-    # a dense model with absolute positions waits for the audio family
-    cfg = dataclasses.replace(get_smoke_config("qwen2.5-14b"), rope="none")
-    with pytest.raises(NotImplementedError, match="sinusoidal"):
-        tm.init_params(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +328,42 @@ def test_forward_matches_reference(lm):
 
 def test_prefill_and_decode_match_reference(lm):
     _assert_logits_close(_port_serve(lm), _ref_serve(lm), lm["dtype"])
+
+
+def test_absolute_positions_match_reference():
+    """A dense model configured without RoPE adds the sinusoidal
+    position embedding to its tokens (the reference's ``_embed_tokens``),
+    at the decode offset by the cache's ``len`` too: ``forward``,
+    ``prefill`` and ``decode_step`` in float32."""
+    lm = _lm("float32", "none")
+    assert lm["tcfg"].rope == "none"
+    pos = torch.from_numpy(np.broadcast_to(np.arange(S), (B, S)).copy())
+    np.testing.assert_allclose(
+        tm._sinusoidal(pos, 160).numpy(),
+        np.asarray(rm._sinusoidal(jnp.asarray(pos.numpy()), 160)),
+        atol=1e-6)
+    want = np.asarray(lm["fns"]["forward"](
+        lm["rparams"], jnp.asarray(lm["tokens"], jnp.int32)), np.float32)
+    got = tm.forward(lm["tparams"], lm["tcfg"],
+                     {"tokens": torch.from_numpy(lm["tokens"])}).numpy()
+    _assert_logits_close(got, want, "float32")
+    _assert_logits_close(_port_serve(lm), _ref_serve(lm), "float32")
+
+
+@pytest.mark.parametrize("rope", [None, "none"])
+def test_forward_return_hidden_matches_reference(rope):
+    """``forward(return_hidden=True)``: the post-final-norm hidden state
+    (the reference's train-step input), float32."""
+    lm = _lm("float32", rope)
+    want = np.asarray(rm.forward(
+        lm["rparams"], lm["rcfg"],
+        {"tokens": jnp.asarray(lm["tokens"], jnp.int32)}, train=False,
+        return_hidden=True), np.float32)
+    got = tm.forward(lm["tparams"], lm["tcfg"],
+                     {"tokens": torch.from_numpy(lm["tokens"])},
+                     return_hidden=True).numpy()
+    assert got.shape == (B, S, lm["tcfg"].d_model)
+    np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=F32_TOL)
 
 
 def test_prefill_then_decode_matches_forward():

@@ -12,6 +12,12 @@ float64 near-ties.  A null fault model is bit-identical to no model, and
 a real one equals the clean port plan on the reference model's corrupted
 sources.  The sweep is split into ``CHUNKS`` interleaved chunks, the
 cases of one parametrised test; every failure message carries the case.
+
+The hierarchical family rides along (``_draw_hier_case``, its seeds,
+``HIER_CASES``, in ``HIER_CHUNKS`` chunks): at ``nprobe == clusters``
+the port's two-stage plan equals its flat plan, at the partial
+``nprobe = clusters // 2`` it equals the reference's two-stage plan, and
+recall against the flat result is monotone in ``nprobe``.
 """
 
 import numpy as np
@@ -23,12 +29,15 @@ from repro.faults import FaultModel as RFaultModel
 from repro_torch.core import cim_dialect as tcd
 from repro_torch.core.executor import execute_module
 from repro_torch.faults import FaultModel
-from test_parity_fuzz import (SIM_CASES, _data_for, _draw_sim_case,
-                              _sim_module, _ternary_module)
+from test_parity_fuzz import (HIER_CASES, SIM_CASES, _data_for,
+                              _draw_hier_case, _draw_sim_case, _sim_module,
+                              _ternary_module)
 from test_torch_kernels import _assert_eucl_close
 
 #: the sweep's cases, split into this many parametrised chunks
 CHUNKS = 12
+#: the hierarchical sweep's chunks
+HIER_CHUNKS = 4
 
 
 def _cases():
@@ -145,3 +154,45 @@ def test_fuzz_similarity_family_matches_reference(chunk):
     cases = _cases()
     for i, case in cases[chunk::CHUNKS]:
         _run(i, case)
+
+
+def _run_hier(i, case):
+    """The reference's ``_run_hier_case`` through both packages."""
+    rng = np.random.default_rng(np.random.SeedSequence([40817, i]))
+    m, n, dim, k = case["m"], case["n"], case["dim"], case["k"]
+    metric, c, pack = case["metric"], case["clusters"], case["pack"]
+    q, p = _data_for(rng, metric, m, n, dim)
+    mod = _port_module(dict(case, care=False))
+    rmod = _ref_module(dict(case, care=False))
+    flat = T.get_plan(mod, backend="torch", pack=pack, device="cpu")
+    fv, fi = (x.numpy() for x in flat.execute(q, p))
+    flat_sets = [set(map(int, row)) for row in fi]
+    recalls = []
+    for nprobe in sorted({1, max(1, c // 2), c}):
+        hp = T.get_hierarchical_plan(mod, clusters=c, nprobe=nprobe,
+                                     pack=pack, device="cpu")
+        hv, hi = (x.numpy() for x in hp.execute(q, p))
+        if nprobe == max(1, c // 2):
+            # a partial probe depends on the centroids and the coarse
+            # ranking: the reference's plan here (its jit is the sweep's
+            # cost, so the other nprobe are held to the port's flat plan)
+            rp = R.get_hierarchical_plan(rmod, clusters=c, nprobe=nprobe,
+                                         pack=pack)
+            _assert_same(case, q, p, (hv, hi), rp.execute(q, p),
+                         f"hier nprobe={nprobe}: port!=reference")
+        if nprobe == c:
+            _assert_same(case, q, p, (hv, hi), (fv, fi), "hier!=flat")
+        recalls.append(np.mean([
+            len(set(map(int, row)) & fs) / max(len(fs), 1)
+            for row, fs in zip(hi, flat_sets)]))
+    assert all(a <= b + 1e-9 for a, b in zip(recalls, recalls[1:])), \
+        f"recall not monotone in nprobe: {recalls} {case}"
+    assert recalls[-1] > 1.0 - 1e-9, f"nprobe=all recall {recalls} {case}"
+
+
+@pytest.mark.parametrize("chunk", range(HIER_CHUNKS))
+def test_fuzz_hierarchical_family_matches_reference(chunk):
+    master = np.random.default_rng(40817)
+    cases = [(i, _draw_hier_case(master)) for i in range(HIER_CASES)]
+    for i, case in cases[chunk::HIER_CHUNKS]:
+        _run_hier(i, case)
