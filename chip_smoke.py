@@ -238,6 +238,30 @@ HIER_SERVE_NPROBE, HIER_SERVE_REQUESTS, HIER_SERVE_ROWS = 8, 2, 4
 #: (b): a call past this many seconds on the KNN data is timed again on
 #: the first HIER_EUCL_CUT_ROWS queries (the cut listed under "reduced")
 HIER_EUCL_LIMIT_S, HIER_EUCL_CUT_ROWS = 30.0, 64
+#: queue_c: C1's top-k on the default backend past the kernels' window
+#: (MAX_K = 384): eucl and packed hamming at the KNN shape; C3's B5 cases
+#: through ItemMemory.encode, (rows, features, dims, levels, route): a
+#: 256 x 256 image (65,536 features, the 32 count planes), 512 levels
+#: (the level planes from global memory), 2,100,000 rows (past one grid
+#: dimension's 65,535 blocks of 32 rows: 2.15 GB of output) and
+#: HDC/MNIST-8k's test set, which keeps the bit-sliced route
+QUEUE_C_EUCL_K, QUEUE_C_PACKED_K = 500, 400
+QUEUE_C_HDC = {"wide_features": (256, 65536, 8192, 16, "wide"),
+               "many_levels": (2000, 784, 8192, 512, "global"),
+               "many_rows": (2_100_000, 16, 256, 16, "bitsliced"),
+               "mnist_shape": (10000, 784, 8192, 16, "bitsliced")}
+#: sharded: shards on cuda:0 stand-ins (launch.mesh.forced_devices)
+SHARDS = 4
+#: gateway_serve: client threads per tenant, requests per client and rows
+#: per request (4 x 12 x 13 = the 624 KNN queries); hamming_gold's token
+#: bucket (rows a second, burst) and priority; the isolation victim's
+#: requests; failover requests per client and the kill's delay; the
+#: maintenance sweep; a rejected submit's back-off
+GW_CLIENTS, GW_REQUESTS, GW_ROWS = 4, 12, 13
+GW_GOLD_RATE, GW_GOLD_BURST, GW_GOLD_PRIORITY = 2000.0, 104, 5
+GW_VICTIM_REPS = 60
+GW_FAILOVER_REPS, GW_KILL_AFTER_S = 30, 0.05
+GW_MAINT_MS, GW_BACKOFF_S = 10.0, 0.002
 
 
 def log(obj) -> None:
@@ -570,20 +594,34 @@ class Smoke:
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
 
+    def distance_topk_bound_ms(self, q, p, k):
+        """B6's top-k route (``k > MAX_K``): the product on the tensor
+        cores as 3xTF32 (three products of 2 M N D FLOP at the TF32
+        peak), against the bytes of its operands and its (M, k) values
+        and indices; the (M, N) matrix between the two steps is not part
+        of the function's input or output."""
+        m, d = q.shape
+        n = p.shape[0]
+        t_ops = 3 * 2.0 * m * n * d / TF32_PEAK_FLOPS
+        bytes_ = 4.0 * (m * d + n * d) + 8.0 * m * k
+        t_mem = bytes_ / HBM_BYTES_PER_S
+        return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
+            else "bytes"
+
     def hdc_bound_ms(self, q, planes, basis="bitsliced"):
         """B5 on ``basis``: ``"bitsliced"``, its route's logical operations
         per (query, feature, 32-dim word) as the kernel's loop counts them
-        (``hdc_logical_ops``) at the LOP3 rate; ``"idp4a"``, the earlier
+        (``hdc_logical_ops``) with the fewest count planes the features
+        need (``hdc_count_bits``) at the LOP3 rate; ``"idp4a"``, the earlier
         gather form's basis (one int8 product per (query, feature, dim),
         four to an IDP4A at the integer multiply-add rate).  Against the
         bytes of the int32 ids, the bit planes and the float32 output."""
-        from repro_torch.kernels import hdc_encode as khdc
         from repro_torch.kernels.packing import lanes
         m, f = q.shape
         h = planes.dim
         if basis == "bitsliced":
             steps = float(m) * (-(-f // 16) * 16) * lanes(h)
-            t_ops = steps * hdc_logical_ops(khdc.count_planes(f),
+            t_ops = steps * hdc_logical_ops(hdc_count_bits(f),
                                             planes.has_zero) / self.lop_per_s
         else:
             t_ops = float(m) * f * h / DP4A_PRODUCTS / self.imad_per_s
@@ -990,6 +1028,13 @@ def acam_issue_slots() -> float:
     return (fadd + lop3) / dims
 
 
+def hdc_count_bits(n_features: int) -> int:
+    """The fewest bit planes a count of ``n_features`` needs (at least
+    the 4 a 16-feature adder tree writes below its carry): the bound's
+    basis, whatever wider plane count the kernel's route keeps."""
+    return max(4, int(n_features).bit_length())
+
+
 def hdc_logical_ops(planes: int, has_zero: bool) -> float:
     """B5's logical operations per (query, feature, 32-dim word), as the
     kernel's loop counts them (``csrc/hdc_encode.cu``): per 16 features a
@@ -1355,7 +1400,7 @@ def phase_hdc_mnist(s: Smoke):
     rec["library_note"] = (
         "no single PyTorch call computes a signed gathered bundle")
     rec["kernel_route"] = "bitsliced, no zero cell"
-    per_step = hdc_logical_ops(khdc.count_planes(q_te.shape[1]), False)
+    per_step = hdc_logical_ops(hdc_count_bits(q_te.shape[1]), False)
     rec["bound_basis"] = (f"{per_step} LOP3 per (row, feature, word) at "
                           f"64 a clock per SM")
     rec["bound_ms_idp4a_basis"] = bound_idp4a
@@ -1604,6 +1649,263 @@ def phase_distance_ops(s: Smoke, data):
          "hamming_ms": ham_ms, "hamming_library_ms_cdist_p0": ham_library_ms,
          "bound_ms": bound, "bound_by": by,
          "bound_ms_fp32_cuda_cores": bound_fp32, "profile": prof})
+
+
+# ---------------------------------------------------------------------------
+# queue_c: the repaired refusals (k > MAX_K on the card, B5's size limits)
+# ---------------------------------------------------------------------------
+
+
+def _knn_k(k):
+    """``benchmarks/table2_knn.py``'s KNN program at top-``k``."""
+    def knn(q, gallery):
+        diff = q.unsqueeze(1).sub(gallery)
+        return diff.norm(p=2, dim=-1).topk(k, largest=False)
+    return knn
+
+
+def matrix_kernel_operands(prog, inputs):
+    """The (args, kwargs) the path's first micro-batch hands
+    ``cam_search.topk_by_distance`` on the matrix route (``k > MAX_K``),
+    rebuilt from the plan's own prepared gallery."""
+    from repro_torch.core.engine.spec import _bits, _encode, _metric_values
+    from repro_torch.kernels import ops
+    plan = prog.engine_plan
+    spec = plan.spec
+    chunk = inputs[spec.query_arg][:plan.batch]
+    pp = plan._prepared_patterns(*plan._stored_sources(inputs))
+    phys_metric, _, largest = _metric_values(spec.metric, spec.largest)
+    if plan.packed:
+        qe = _bits(chunk, spec.metric).float()
+        metric = "dot" if len(pp) > 1 else "hamming"
+    else:
+        qe, metric = _encode(chunk, spec.metric).float(), phys_metric
+    qp = ops.pad_to_blocks(qe, 1, 8)
+    return ((qp, pp[0], pp[1] if len(pp) > 1 else None),
+            dict(metric=metric, k=min(spec.k, spec.n), largest=largest,
+                 n_valid=spec.n))
+
+
+def _queue_c_eucl(s: Smoke, data):
+    """C1, eucl: top-500 at the KNN shape on the default ("cuda") backend,
+    B6's matrix and the (value, row id) selection, against the "torch"
+    backend on the card and the wrapper against its plain version."""
+    import torch
+    from repro_torch.core import ArchSpec, compile_fn
+    from repro_torch.kernels import cam_search
+    g, _, q, _ = data
+    gt, qt = torch.from_numpy(g).cuda(), torch.from_numpy(q).cuda()
+    k = QUEUE_C_EUCL_K
+    prog = compile_fn(_knn_k(k), [q, g], ArchSpec(rows=64, cols=64),
+                      value_bits=8)
+    (v, i), counts, first_s, second_s = s.drive(
+        "queue_c eucl", prog, [qt, gt], "distance_topk")
+    s.only("queue_c eucl", counts, "distance_topk", 1)
+    route = cam_search.float_route(k)
+    if route != "matrix" or v.shape != (q.shape[0], k) or \
+            not bool(torch.isfinite(v).all()):
+        raise RuntimeError(f"queue_c eucl: route {route}, result "
+                           f"{tuple(v.shape)}")
+    torch_ms, (tv, ti) = host_ms(lambda: compile_fn(
+        _knn_k(k), [q, g], ArchSpec(rows=64, cols=64), value_bits=8,
+        backend="torch")(qt, gt))
+    tol = EUCL_ATOL + EUCL_RTOL * tv.abs()
+    if not bool(((v - tv).abs() <= tol).all()):
+        raise RuntimeError(f"queue_c eucl: values off the torch backend by "
+                           f"{float((v - tv).abs().max())}")
+    swaps = eucl_index_swaps(qt, gt, i, ti, "queue_c eucl vs torch")
+    args, kw = matrix_kernel_operands(prog, [qt, gt])
+    got = cam_search.topk_by_distance(*args, **kw)
+    want = cam_search.topk_by_distance_reference(*args, **kw)
+    torch.cuda.synchronize()
+    off = (got[0] - want[0]).abs()
+    if not bool((off <= EUCL_ATOL + EUCL_RTOL * want[0].abs()).all()):
+        raise RuntimeError(f"queue_c eucl: wrapper off its plain version "
+                           f"by {float(off.max())}")
+    err = float(off.max())
+    plain_swaps = eucl_index_swaps(args[0], args[1], got[1], want[1],
+                                   "queue_c eucl vs plain")
+    qp, pp, _ = args
+    bound, by = s.distance_topk_bound_ms(qp, pp, k)
+    ms = cuda_ms(lambda: cam_search.topk_by_distance(*args, **kw), 10)
+    plain_ms = cuda_ms(lambda: cam_search.topk_by_distance_reference(
+        *args, **kw), 3)
+    library_ms = cuda_ms(lambda: torch.cdist(qp, pp).topk(k, largest=False),
+                         3)
+    distance_ms = cuda_ms(lambda: cam_search.distance(qp, pp, metric="eucl"),
+                          10)
+    s.record("distance_topk", "src/repro_torch/kernels/csrc/distance.cu",
+             "src/repro/kernels/cam_search.py:200", counts["distance_topk"],
+             err, ms, plain_ms, bound, by, library_ms)
+    rec = s.kernels["distance_topk"]
+    rec.update(kernel_route="matrix: B6, then the (value, row id) "
+                            "selection in plain PyTorch",
+               bound_basis="3xTF32 tensor cores, 495 TFLOP/s; the output "
+                           "(M, k) values and indices",
+               distance_ms=distance_ms,
+               shape={"q": list(qp.shape), "p": list(pp.shape), "k": k})
+    return {"k": k, "route": route, "launches": counts,
+            "first_call_s": first_s, "second_call_s": second_s,
+            "torch_backend_ms": torch_ms,
+            "index_swaps_vs_torch_float64_near_ties": swaps,
+            "wrapper_max_abs_err": err,
+            "wrapper_index_swaps_float64_near_ties": plain_swaps,
+            "ms": ms, "distance_ms": distance_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": by}
+
+
+def _queue_c_packed(s: Smoke, data):
+    """C1, packed hamming: top-400 at the KNN shape on the default
+    backend (the packed plan's bits through B6), bit-identical to the
+    "torch" backend (packed popcount tournament) and to the plain
+    version."""
+    import torch
+    import repro_torch.core as T
+    from repro_torch.core import ArchSpec, compile_module
+    from repro_torch.core import cim_dialect as cd
+    from repro_torch.kernels import cam_search
+    from repro_torch.kernels.packing import pack_bits
+    g, _, q, _ = data
+    gb = (torch.from_numpy(g).cuda() > 0).float()
+    qb = (torch.from_numpy(q).cuda() > 0).float()
+    k = QUEUE_C_PACKED_K
+    mod = hamming_module(T, cd, q.shape[0], g.shape[0], g.shape[1], k, False)
+    prog = compile_module(mod, ArchSpec(rows=64, cols=64), value_bits=1)
+    if not prog.engine_plan.packed:
+        raise RuntimeError("queue_c packed: the plan is not packed")
+    (v, i), counts, _, _ = s.drive("queue_c packed", prog, [qb, gb],
+                                   "distance_topk")
+    s.only("queue_c packed", counts, "distance_topk", 1)
+    route = cam_search.packed_route(q.shape[0], g.shape[0], k,
+                                    s.props.multi_processor_count)
+    torch_ms, (tv, ti) = host_ms(lambda: compile_module(
+        mod, ArchSpec(rows=64, cols=64), value_bits=1,
+        backend="torch")(qb, gb))
+    if route != "matrix" or not (torch.equal(v, tv) and torch.equal(i, ti)):
+        raise RuntimeError(f"queue_c packed: route {route}; bit-identical "
+                           f"to the torch backend: values "
+                           f"{torch.equal(v, tv)}, indices "
+                           f"{torch.equal(i, ti)}")
+    args, kw = matrix_kernel_operands(prog, [qb, gb])
+    got = cam_search.topk_by_distance(*args, **kw)
+    want = cam_search.topk_by_distance_reference(*args, **kw)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise RuntimeError("queue_c packed: wrapper and plain version "
+                           "differ")
+    qp, pp, _ = args
+    ms = cuda_ms(lambda: cam_search.topk_by_distance(*args, **kw), 10)
+    plain_ms = cuda_ms(lambda: cam_search.topk_by_distance_reference(
+        *args, **kw), 3)
+    qpm, gpm = 2 * qp - 1, 2 * pp - 1
+    library_ms = cuda_ms(lambda: torch.matmul(qpm, gpm.T).topk(k), 3)
+    del qpm, gpm
+    # B1's function (packed lanes in, (M, k) out) on its int8 basis: the
+    # route runs it as 3xTF32 products on unpacked bits instead
+    bound, by = s.packed_bound_ms(pack_bits(qp), pack_bits(pp), None, k,
+                                  kw["n_valid"], "int8")
+    s.record("distance_topk_packed",
+             "src/repro_torch/kernels/csrc/distance.cu",
+             "src/repro/kernels/cam_search.py:304", counts["distance_topk"],
+             0.0, ms, plain_ms, bound, by, library_ms)
+    s.kernels["distance_topk_packed"].update(
+        kernel_route="matrix: B6 on the unpacked bits (3xTF32), then the "
+                     "(value, row id) selection in plain PyTorch",
+        bound_basis="int8 tensor cores, 1,979 TOPS, on the packed lanes; "
+                    "the output (M, k) values and indices",
+        library_note="+-1 float matmul + topk",
+        shape={"q": list(qp.shape), "p": list(pp.shape), "k": k})
+    return {"k": k, "route": route, "launches": counts,
+            "bit_identical_to_torch_backend": True,
+            "wrapper_bit_identical_to_plain": True,
+            "torch_backend_ms": torch_ms, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": by}
+
+
+def _queue_c_hdc(s: Smoke):
+    """C3: B5 where it refused before — 65,536 features (a 256 x 256
+    image) to 8192 dims, 512 levels, and 2,100,000 rows in one call —
+    each through ``ItemMemory.encode`` on the card, bit-identical to the
+    plain version; and HDC/MNIST-8k's test set on the bit-sliced route."""
+    import numpy as np
+    import torch
+    from repro_torch.hdc import ItemMemory
+    from repro_torch.kernels import cam_search
+    from repro_torch.kernels import hdc_encode as khdc
+    out = {}
+    rng = np.random.default_rng(21)
+    for name, (m, f, h, levels, expect) in QUEUE_C_HDC.items():
+        item = ItemMemory(f, dim=h, n_levels=levels, seed=5)
+        x = rng.random((m, f), dtype=np.float32)
+        cam_search.reset_launch_counts()
+        enc_ms, enc = host_ms(lambda: item.encode(x))
+        counts = dict(cam_search.LAUNCHES)
+        route = khdc.hdc_route(f, levels)
+        want_key = "hdc_encode" if route == "bitsliced" else \
+            "hdc_encode_wide"
+        s.only(f"queue_c {name}", counts, want_key, 1)
+        if route != expect:
+            raise RuntimeError(f"queue_c {name}: route {route}, expected "
+                               f"{expect}")
+        q = item.level_ids(x)
+        want = khdc.hdc_encode_reference(q, item._keys_t, item._levels_t)
+        if not torch.equal(enc, want) or enc.shape != (m, h):
+            raise RuntimeError(f"queue_c {name}: the encoding differs from "
+                               f"the plain version")
+        del want
+        ms = cuda_ms(lambda: khdc.hdc_encode_planes(q, item._planes), 5)
+        bound, by = s.hdc_bound_ms(q, item._planes)
+        entry = {"rows": m, "features": f, "dim": h, "levels": levels,
+                 "route": route, "launches": counts[want_key],
+                 "encode_host_ms": enc_ms, "ms": ms, "bound_ms": bound,
+                 "bound_by": by, "bit_identical_to_plain": True,
+                 "output_gb": 4e-9 * m * h}
+        if name == "wide_features":
+            plain_ms = cuda_ms(lambda: khdc.hdc_encode_reference(
+                q, item._keys_t, item._levels_t), 3)
+            entry["plain_ms"] = plain_ms
+            s.record("hdc_encode_wide",
+                     "src/repro_torch/kernels/csrc/hdc_encode.cu",
+                     "src/repro/kernels/hdc_encode.py:87", 0, 0.0, ms,
+                     plain_ms, bound, by, None)
+            rec = s.kernels["hdc_encode_wide"]
+            per_step = hdc_logical_ops(hdc_count_bits(f), False)
+            rec.update(kernel_route="32 count planes (F >= 2**16); level "
+                                    "planes from global memory past 476 "
+                                    "levels",
+                       library_note="no single PyTorch call computes a "
+                                    "signed gathered bundle",
+                       shape={"q": [m, f], "dim": h, "levels": levels},
+                       bound_basis=f"{per_step} LOP3 per (row, feature, "
+                                   f"word) at 64 a clock per SM, "
+                                   f"{hdc_count_bits(f)} count planes")
+        if route != "bitsliced":
+            s.kernels["hdc_encode_wide"]["launches"] += counts[want_key]
+        else:
+            s.record("hdc_encode", "src/repro_torch/kernels/csrc/hdc_encode.cu",
+                     "src/repro/kernels/hdc_encode.py:87", counts[want_key],
+                     0.0, None, None, None, "operations", None)
+        out[name] = entry
+        del item, x, enc, q
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_queue_c(s: Smoke, data):
+    """The repaired refusals on the card: C1 (k > MAX_K on the
+    default backend: B6 and the composite-key selection, eucl k = 500 and
+    packed hamming k = 400 at the KNN shape) and C3 (B5 at 65,536
+    features, 512 levels and 2,100,000 rows), each part's launch counts
+    set to 0 before it and read after it."""
+    import torch
+    parts = {}
+    for name, run in (("eucl_k500", lambda: _queue_c_eucl(s, data)),
+                      ("hamming_k400", lambda: _queue_c_packed(s, data)),
+                      ("hdc", lambda: _queue_c_hdc(s))):
+        t0 = time.perf_counter()
+        parts[name] = run()
+        parts[name]["part_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    log({"phase": "queue_c", "ok": True, **parts})
 
 
 # ---------------------------------------------------------------------------
@@ -2460,6 +2762,595 @@ def phase_hier_search(s: Smoke, data):
     log({"phase": "hier_search", "ok": True, **parts})
 
 
+# ---------------------------------------------------------------------------
+# sharded: shard counts clamp; 4 shards on cuda:0 stand-ins
+# ---------------------------------------------------------------------------
+
+
+def _sharded_pair(name, one, sh, qt, gt, integer):
+    """One unsharded and one sharded ``"torch"`` plan on the same inputs:
+    no hand-written kernel may launch, and the results must agree
+    (bit for bit on an integer metric; eucl within the tolerance with
+    index swaps only at float64 near-ties, reported).  Returns the
+    sharded result and its timings."""
+    import torch
+    from repro_torch.kernels import cam_search
+    cam_search.reset_launch_counts()
+    one_ms, a = host_ms(lambda: one.execute(qt, gt))
+    sh_ms, b = host_ms(lambda: sh.execute(qt, gt))
+    if any(cam_search.LAUNCHES.values()):
+        raise RuntimeError(f"sharded {name}: the torch backend launched "
+                           f"kernels: {dict(cam_search.LAUNCHES)}")
+    out = {"unsharded_ms": one_ms, "sharded_ms": sh_ms}
+    if integer:
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise RuntimeError(f"sharded {name}: 4 shards differ from the "
+                               f"unsharded plan")
+        out["bit_identical_to_unsharded"] = True
+    else:
+        tol = EUCL_ATOL + EUCL_RTOL * a[0].abs()
+        if not bool(((a[0] - b[0]).abs() <= tol).all()):
+            raise RuntimeError(f"sharded {name}: values off the unsharded "
+                               f"plan by {float((a[0] - b[0]).abs().max())}")
+        out["index_swaps_float64_near_ties"] = eucl_index_swaps(
+            qt, gt, b[1], a[1], f"sharded {name}")
+        out["values_bit_identical"] = bool(torch.equal(a[0], b[0]))
+    return b, out
+
+
+def phase_sharded(s: Smoke, data):
+    """Sharded plans on the card: ``shards=8`` clamps to this host's
+    device count; the ``"cuda"`` backend refuses sharding; through the
+    mesh test hook (``launch.mesh.forced_devices(4, "cuda:0")``) 4-shard
+    ``"torch"`` plans at the KNN shape (packed hamming, also held to flat
+    B1, with a sharded 1 % ``update_rows``; eucl) and a 4-shard
+    hierarchical plan at ``bench_hier``'s geometry, each against its
+    unsharded plan.  No hand-written kernel is on these paths: B1 runs
+    only as the flat oracle."""
+    import numpy as np
+    import torch
+    import repro_torch.core as T
+    from repro_torch.core import ArchSpec, compile_fn, compile_module
+    from repro_torch.core import cim_dialect as cd
+    from repro_torch.core.engine import get_hierarchical_plan, get_plan
+    from repro_torch.launch.mesh import forced_devices
+    g, _, q, _ = data
+    out = {"device_count": torch.cuda.device_count()}
+    gb = (torch.from_numpy(g).cuda() > 0).float()
+    qb = (torch.from_numpy(q).cuda() > 0).float()
+    mod = hamming_module(T, cd, q.shape[0], g.shape[0], g.shape[1], 10,
+                         False)
+    prog = compile_module(mod, ArchSpec(rows=64, cols=64), value_bits=1)
+    mod = prog.stages["cim_partitioned"]
+    clamped = get_plan(mod, backend="torch", shards=8)
+    if clamped.shards != torch.cuda.device_count() or (
+            clamped.shards == 1 and clamped is not get_plan(
+                mod, backend="torch")):
+        raise RuntimeError(f"sharded: shards=8 gave {clamped.shards} on a "
+                           f"{torch.cuda.device_count()}-card host")
+    try:
+        get_plan(mod, backend="cuda", shards=8)
+    except ValueError as e:
+        if "'torch'" not in str(e):
+            raise
+    else:
+        raise RuntimeError("sharded: the cuda backend took shards=8")
+    out["clamp"] = {"requested": 8, "plan_shards": clamped.shards,
+                    "cuda_backend_refused": True}
+
+    # packed hamming, 4 shards on cuda:0 stand-ins
+    t0 = time.perf_counter()
+    one = get_plan(mod, backend="torch")
+    with forced_devices(SHARDS, "cuda:0"):
+        sh = get_plan(mod, backend="torch", shards=SHARDS)
+    if sh.shards != SHARDS or not sh.packed:
+        raise RuntimeError(f"sharded: plan shards {sh.shards}")
+    (v, i), rec = _sharded_pair("hamming", one, sh, qb, gb, True)
+    fv, fi = prog.engine_plan.execute(qb, gb)                  # flat B1
+    if not (torch.equal(v, fv) and torch.equal(i, fi)):
+        raise RuntimeError("sharded hamming: 4 shards differ from flat B1")
+    rec["bit_identical_to_flat_b1"] = True
+    rng = np.random.default_rng(17)
+    rows = np.sort(rng.choice(g.shape[0], int(0.01 * g.shape[0]),
+                              replace=False))
+    new = torch.from_numpy((rng.random((rows.size, g.shape[1])) > 0.5)
+                           .astype(np.float32)).cuda()
+    upd_ms, g2 = host_ms(lambda: sh.update_rows(gb, rows, new))
+    if sh.row_update_fallbacks:
+        raise RuntimeError("sharded hamming: update_rows fell back")
+    (v2, i2), after = _sharded_pair("hamming after update", one, sh, qb, g2,
+                                    True)
+    fv2, fi2 = prog.engine_plan.execute(qb, g2.clone())
+    if not (torch.equal(v2, fv2) and torch.equal(i2, fi2)):
+        raise RuntimeError("sharded hamming: after update_rows, 4 shards "
+                           "differ from flat B1 on a fresh gallery")
+    rec.update(update_rows=int(rows.size), update_ms=upd_ms,
+               after_update=after, part_s=time.perf_counter() - t0)
+    out["hamming_k10"] = rec
+    del gb, g2, new
+    torch.cuda.empty_cache()
+
+    # eucl at the KNN shape
+    t0 = time.perf_counter()
+    gt, qt = torch.from_numpy(g).cuda(), torch.from_numpy(q).cuda()
+    eprog = compile_fn(knn_kernel, [q, g], ArchSpec(rows=64, cols=64),
+                       value_bits=8, backend="torch")
+    emod = eprog.stages["cim_partitioned"]
+    with forced_devices(SHARDS, "cuda:0"):
+        esh = get_plan(emod, backend="torch", shards=SHARDS)
+    _, rec = _sharded_pair("eucl", eprog.engine_plan, esh, qt, gt, False)
+    rec.update(rows=g.shape[0], part_s=time.perf_counter() - t0)
+    out["eucl_k5"] = rec
+    del gt
+    torch.cuda.empty_cache()
+
+    # the hierarchical plan at bench_hier's geometry
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    hg = clustered_gallery(rng, HIER_N, HIER_DIM, HIER_CENTERS)
+    qi = rng.choice(HIER_N, size=HIER_QUERIES, replace=False)
+    hq = (hg[qi].astype(bool)
+          ^ (rng.random((HIER_QUERIES, HIER_DIM)) < HIER_FLIP)) \
+        .astype(np.float32)
+    hgt, hqt = torch.from_numpy(hg).cuda(), torch.from_numpy(hq).cuda()
+    hmod = hamming_module(T, cd, HIER_QUERIES, HIER_N, HIER_DIM, HIER_K,
+                          False)
+    hprog = compile_module(hmod, ArchSpec(rows=128, cols=128),
+                           value_bits=1)
+    hmod = hprog.stages["cim_partitioned"]
+    out["hier"] = {}
+    for nprobe in (HIER_SERVE_NPROBE, HIER_CLUSTERS):
+        kw = dict(clusters=HIER_CLUSTERS, nprobe=nprobe,
+                  kmeans_iters=HIER_ITERS)
+        h1 = get_hierarchical_plan(hmod, **kw)
+        with forced_devices(SHARDS, "cuda:0"):
+            h4 = get_hierarchical_plan(hmod, shards=SHARDS, **kw)
+        if h4.shards != SHARDS:
+            raise RuntimeError(f"sharded hier: plan shards {h4.shards}")
+        (v, i), rec = _sharded_pair(f"hier nprobe={nprobe}", h1, h4, hqt,
+                                    hgt, True)
+        if nprobe == HIER_CLUSTERS:
+            fv, fi = hprog.engine_plan.execute(hqt, hgt)
+            if not (torch.equal(v, fv) and torch.equal(i, fi)):
+                raise RuntimeError("sharded hier: nprobe = clusters is not "
+                                   "bit-identical to flat B1")
+            rec["bit_identical_to_flat_b1"] = True
+        rec["wall_ms"] = _wall_ms(lambda: h4.execute(hqt, hgt))
+        rec["unsharded_wall_ms"] = _wall_ms(lambda: h1.execute(hqt, hgt))
+        out["hier"][nprobe] = rec
+    out["hier"]["part_s"] = time.perf_counter() - t0
+    log({"phase": "sharded", "ok": True, "shards": SHARDS, **out})
+
+
+# ---------------------------------------------------------------------------
+# gateway_serve: the multi-tenant gateway over replica sets (B1, B2, B3)
+# ---------------------------------------------------------------------------
+
+
+def _gw_search(gw, tenant, q, priority=0):
+    """One request through the gateway, retried while admission rejects
+    it (a rate-limited tenant backs off); returns the settled result."""
+    from repro_torch.serving import AdmissionError
+    deadline = time.perf_counter() + CAM_WAIT_S
+    while True:
+        try:
+            return gw.submit(tenant, q, priority=priority).wait(CAM_WAIT_S)
+        except AdmissionError:
+            if time.perf_counter() > deadline:
+                raise
+            time.sleep(GW_BACKOFF_S)
+
+
+def _gw_clients(gw, work, clients=GW_CLIENTS):
+    """``clients`` threads per tenant in ``work`` (tenant -> (queries,
+    oracle, priority)), each sending its share of the queries as
+    GW_ROWS-row requests.  Every result must equal the tenant's oracle
+    rows; returns the per-tenant latencies and the wall seconds."""
+    import threading
+    import numpy as np
+    lat = {t: [] for t in work}
+    errs = []
+
+    def client(tenant, c):
+        q, oracle, prio = work[tenant]
+        per = q.shape[0] // clients
+        try:
+            for s0 in range(c * per, (c + 1) * per, GW_ROWS):
+                res = _gw_search(gw, tenant, q[s0:s0 + GW_ROWS], prio)
+                if res.error is not None:
+                    raise res.error
+                got = res.matches if res.matches is not None \
+                    else res.indices
+                want = oracle[s0:s0 + GW_ROWS]
+                if not np.array_equal(got, want) or (
+                        res.values is not None and not np.array_equal(
+                            res.values, oracle.values[s0:s0 + GW_ROWS])):
+                    raise RuntimeError(f"gateway {tenant}: rows {s0}.. "
+                                       f"differ from the direct call")
+                lat[tenant].append(res.latency_s)
+        except Exception as e:          # noqa: BLE001 — reported below
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(t, c))
+               for t in work for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(CAM_WAIT_S)
+    wall = time.perf_counter() - t0
+    if errs or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"gateway: a client failed or hung: {errs[:1]}")
+    return lat, wall
+
+
+class _Oracle(object):
+    """Direct-call results as host numpy: ``[rows]`` gives the indices
+    (or the match rows), ``.values`` the values."""
+
+    def __init__(self, out):
+        if isinstance(out, tuple):
+            self.values, self.main = (x.cpu().numpy() for x in out)
+        else:
+            self.values, self.main = None, out.cpu().numpy()
+
+    def __getitem__(self, rows):
+        return self.main[rows]
+
+
+def _p95_ms(lat):
+    import numpy as np
+    return 1e3 * float(np.percentile(lat, 95))
+
+
+def _drive_victim(search, q, reps):
+    """``reps`` sequential GW_ROWS-row requests; their latencies."""
+    out = []
+    for r in range(reps):
+        s0 = (r * GW_ROWS) % (q.shape[0] - GW_ROWS)
+        t0 = time.perf_counter()
+        search(q[s0:s0 + GW_ROWS])
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _flood(submit, stop_evt, counters, inflight=32):
+    """The hot tenant's flood, bounded in flight (bench_multitenant's)."""
+    from repro_torch.serving import AdmissionError, TenantUnavailable
+    pending = []
+    while not stop_evt.is_set():
+        try:
+            pending.append(submit())
+            counters["accepted"] += 1
+        except (AdmissionError, TenantUnavailable):
+            counters["rejected"] += 1
+            time.sleep(1e-3)
+        while len(pending) >= inflight:
+            res = pending.pop(0).wait(CAM_WAIT_S)
+            if getattr(res, "error", None) is not None and \
+                    not isinstance(res.error, AdmissionError):
+                counters["errors"] += 1
+    for h in pending:
+        res = h.wait(CAM_WAIT_S)
+        if getattr(res, "error", None) is not None and \
+                not isinstance(res.error, AdmissionError):
+            counters["errors"] += 1
+
+
+def _gw_isolation(gw, q, qb, knn_plan, ham_plan, gt, gb):
+    """bench_multitenant's isolation: the ``knn`` victim's p95 alone and
+    while ``hamming_gold`` floods past its token bucket; then the same
+    victim on a bare ``CamSearchServer`` while a bare hamming server on
+    the same card takes the flood with no admission layer."""
+    import threading
+    from repro_torch.serving import CamSearchServer
+
+    def victim(x):
+        res = gw.submit("knn", x).wait(CAM_WAIT_S)
+        if res.error is not None:
+            raise res.error
+
+    solo = _drive_victim(victim, q, GW_VICTIM_REPS)
+    stop, counters = threading.Event(), {"accepted": 0, "rejected": 0,
+                                         "errors": 0}
+    hot_q = qb[:2 * GW_ROWS]
+    flooders = [threading.Thread(target=_flood, args=(
+        lambda: gw.submit("hamming_gold", hot_q, priority=GW_GOLD_PRIORITY),
+        stop, counters)) for _ in range(2)]
+    for f in flooders:
+        f.start()
+    flooded = _drive_victim(victim, q, GW_VICTIM_REPS)
+    stop.set()
+    for f in flooders:
+        f.join(CAM_WAIT_S)
+    with CamSearchServer(knn_plan, gt, max_wait_ms=2.0) as vs, \
+            CamSearchServer(ham_plan, gb, max_wait_ms=2.0) as hs:
+        bare_solo = _drive_victim(lambda x: vs.search(x, CAM_WAIT_S), q,
+                                  GW_VICTIM_REPS)
+        stop2, naive = threading.Event(), {"accepted": 0, "rejected": 0,
+                                           "errors": 0}
+        flooders = [threading.Thread(target=_flood, args=(
+            lambda: hs.submit(hot_q), stop2, naive)) for _ in range(2)]
+        for f in flooders:
+            f.start()
+        bare_flooded = _drive_victim(lambda x: vs.search(x, CAM_WAIT_S), q,
+                                     GW_VICTIM_REPS)
+        stop2.set()
+        for f in flooders:
+            f.join(CAM_WAIT_S)
+        for srv in (vs, hs):
+            _server_health("gateway_serve bare", srv)
+    if counters["errors"] or naive["errors"]:
+        raise RuntimeError(f"gateway isolation: flood errors "
+                           f"{counters} {naive}")
+    rec = {"victim_solo_p95_ms": _p95_ms(solo),
+           "victim_flooded_p95_ms": _p95_ms(flooded),
+           "bare_solo_p95_ms": _p95_ms(bare_solo),
+           "bare_flooded_p95_ms": _p95_ms(bare_flooded),
+           "hot_accepted": counters["accepted"],
+           "hot_rejected": counters["rejected"],
+           "bare_hot_accepted": naive["accepted"]}
+    rec["gateway_factor"] = rec["victim_flooded_p95_ms"] / \
+        rec["victim_solo_p95_ms"]
+    rec["bare_factor"] = rec["bare_flooded_p95_ms"] / rec["bare_solo_p95_ms"]
+    return rec
+
+
+def _gw_failover(gw, q, oracle):
+    """bench_multitenant's failover: GW_CLIENTS bit-checking clients on
+    ``knn``; replica 0 killed mid-traffic; zero failed requests,
+    failovers, and the maintenance loop drains, rebuilds and readmits
+    the replica before the part ends."""
+    import threading
+    import numpy as np
+    errors, lat = [], {"before": [], "after": []}
+    killed = threading.Event()
+    per = q.shape[0] // GW_CLIENTS
+    barrier = threading.Barrier(GW_CLIENTS + 1)
+    before = gw.health()["tenants"]["knn"]["stats"]["failovers"]
+
+    def client(c):
+        barrier.wait()
+        for r in range(GW_FAILOVER_REPS):
+            s0 = c * per + (r * GW_ROWS) % (per - GW_ROWS)
+            t0 = time.perf_counter()
+            res = gw.submit("knn", q[s0:s0 + GW_ROWS]).wait(CAM_WAIT_S)
+            if res.error is not None:
+                errors.append(repr(res.error))
+                continue
+            lat["after" if killed.is_set() else "before"].append(
+                time.perf_counter() - t0)
+            if not (np.array_equal(res.indices, oracle[s0:s0 + GW_ROWS])
+                    and np.array_equal(res.values,
+                                       oracle.values[s0:s0 + GW_ROWS])):
+                errors.append(f"mismatch at {s0}")
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(GW_CLIENTS)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    time.sleep(GW_KILL_AFTER_S)
+    gw.kill_replica("knn", 0)
+    killed.set()
+    for t in threads:
+        t.join(CAM_WAIT_S)
+    t0 = time.perf_counter()
+    healed = False
+    while time.perf_counter() - t0 < CAM_WAIT_S:
+        reps = gw.health()["tenants"]["knn"]["replicas"]["replicas"]
+        if all(r["state"] == "serving" for r in reps) and \
+                any(r["rebuilds"] > 0 for r in reps):
+            healed = True
+            break
+        time.sleep(0.01)
+    heal_s = time.perf_counter() - t0
+    h = gw.health()["tenants"]["knn"]
+    failovers = h["stats"]["failovers"] - before
+    post = gw.submit("knn", q[:GW_ROWS]).wait(CAM_WAIT_S)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"gateway failover: {len(errors)} failed or "
+                           f"mismatched requests: {errors[:3]}")
+    if failovers <= 0:
+        raise RuntimeError("gateway failover: the kill landed between "
+                           "requests: no failover")
+    if not healed:
+        raise RuntimeError("gateway failover: the killed replica was not "
+                           "rebuilt and readmitted")
+    if post.error is not None or not np.array_equal(post.indices,
+                                                    oracle[:GW_ROWS]):
+        raise RuntimeError("gateway failover: after the heal the result "
+                           "differs from the direct call")
+    return {"clients": GW_CLIENTS, "requests": GW_CLIENTS * GW_FAILOVER_REPS,
+            "failed": 0, "failovers": failovers,
+            "healed": healed, "heal_wait_s": heal_s,
+            "p50_before_kill_ms": _latency_ms(lat["before"])["p50"]
+            if lat["before"] else None,
+            "p99_after_kill_ms": _latency_ms(lat["after"])["p99"]
+            if lat["after"] else None,
+            "replicas": [{k: r[k] for k in ("state", "generation",
+                                            "rebuilds", "heals", "drains",
+                                            "device_group")}
+                         for r in h["replicas"]["replicas"]]}
+
+
+def _gw_update(gw, plan, qb, gb):
+    """A live ``update_gallery`` of 1 % of ``hamming``'s rows racing its
+    clients: every result equals the version-A or the version-B oracle,
+    and every request submitted after the update returns sees B (on the
+    shared ``hamming_gold`` tenant too)."""
+    import threading
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(23)
+    n, dim = gb.shape
+    rows = np.sort(rng.choice(n, int(0.01 * n), replace=False))
+    new = (rng.random((rows.size, dim)) > 0.5).astype(np.float32)
+    qr = qb[:GW_ROWS]
+    want_a = plan.execute(qr, gb)[1].cpu().numpy()
+    gb2 = gb.clone()
+    gb2[torch.from_numpy(rows).cuda()] = torch.from_numpy(new).cuda()
+    want_b = plan.execute(qr, gb2)[1].cpu().numpy()
+    del gb2
+    if np.array_equal(want_a, want_b):
+        raise RuntimeError("gateway update: the update is invisible")
+    seen, errs = [], []
+    stop = threading.Event()
+
+    def racer():
+        try:
+            while not stop.is_set():
+                res = _gw_search(gw, "hamming", qr)
+                if res.error is not None:
+                    raise res.error
+                seen.append("a" if np.array_equal(res.indices, want_a) else
+                            "b" if np.array_equal(res.indices, want_b) else
+                            "torn")
+        except Exception as e:          # noqa: BLE001 — reported below
+            errs.append(e)
+
+    threads = [threading.Thread(target=racer) for _ in range(GW_CLIENTS)]
+    for t in threads:
+        t.start()
+    deadline = time.perf_counter() + CAM_WAIT_S
+    while len(seen) < GW_CLIENTS and not errs and \
+            time.perf_counter() < deadline:
+        time.sleep(0.001)
+    update_ms, count = host_ms(lambda: gw.update_gallery("hamming", rows,
+                                                         new))
+    after = [_gw_search(gw, t, qr) for t in ("hamming", "hamming_gold")]
+    n_before = len(seen)
+    while "b" not in seen[n_before:] and not errs and \
+            time.perf_counter() < deadline:
+        time.sleep(0.001)
+    stop.set()
+    for t in threads:
+        t.join(CAM_WAIT_S)
+    if errs or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"gateway update: a racer failed: {errs[:1]}")
+    if any(r.error is not None or not np.array_equal(r.indices, want_b)
+           for r in after):
+        raise RuntimeError("gateway update: a request after the update "
+                           "did not read its write")
+    if "torn" in seen or "a" not in seen or "b" not in seen:
+        raise RuntimeError(f"gateway update: {seen.count('a')} A, "
+                           f"{seen.count('b')} B, {seen.count('torn')} "
+                           f"mixed results")
+    return {"rows": int(count), "update_ms": update_ms,
+            "racing_results": len(seen), "version_a": seen.count("a"),
+            "version_b": seen.count("b"), "read_your_writes": True}
+
+
+def phase_gateway_serve(s: Smoke, data):
+    """One ``CamServingGateway`` with four tenants at the smoke's widths:
+    ``knn`` (``knn_eucl``'s program and gallery, B2, 2 replicas),
+    ``hamming`` (``hamming_packed``'s, B1, 2 replicas), ``hamming_gold``
+    (``share_with="hamming"``, its own rate and priority) and ``forest``
+    (``forest_acam``'s interval rows, ``match``, B3, 2 replicas);
+    ``benchmarks/bench_multitenant.py``'s three experiments (aggregate,
+    isolation, failover) and a live 1 % update racing its clients.  Fails
+    on any mismatch against the direct plan calls, any unexpected error,
+    or any degraded batch."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ArchSpec, CamType, compile_fn
+    from repro_torch.forest import CamForestClassifier, random_forest
+    from repro_torch.kernels import cam_search
+    from repro_torch.serving import CamServingGateway
+    g, _, q, _ = data
+    gt = torch.from_numpy(g).cuda()
+    knn = compile_fn(knn_kernel, [q, g], ArchSpec(rows=64, cols=64),
+                     value_bits=8).engine_plan
+    ham, qb, gb = _packed_plan(data)
+    trees = random_forest(np.random.default_rng(7), **FOREST)
+    clf = CamForestClassifier(trees, dim=FOREST["dim"]).compile(
+        ArchSpec(rows=64, cols=64, cam_type=CamType.ACAM),
+        batch_hint=FOREST_QUERIES)
+    x = np.random.default_rng(8).standard_normal(
+        (FOREST_QUERIES, FOREST["dim"])).astype(np.float32)
+    rows = GW_CLIENTS * GW_REQUESTS * GW_ROWS
+    qk, qh, xf = q[:rows], qb[:rows], x[:rows]
+    oracles = {"knn": _Oracle(knn.execute(qk, gt)),
+               "hamming": _Oracle(ham.execute(qh, gb)),
+               "forest": _Oracle(clf.plan.execute(xf, clf._lo, clf._hi))}
+    oracles["hamming_gold"] = oracles["hamming"]
+    cam_search.reset_launch_counts()
+    out = {}
+    gw = CamServingGateway(maint_ms=GW_MAINT_MS)
+    try:
+        t0 = time.perf_counter()
+        gw.register_tenant("knn", knn, gt, replicas=2, unhealthy_k=2,
+                           server_kwargs={"max_wait_ms": 2.0})
+        gw.register_tenant("hamming", ham, gb, replicas=2,
+                           server_kwargs={"max_wait_ms": 2.0})
+        gw.register_tenant("hamming_gold", share_with="hamming",
+                           rate=GW_GOLD_RATE, burst=GW_GOLD_BURST,
+                           queue_limit=4, max_outstanding=2)
+        gw.register_tenant("forest", clf.plan, (clf._lo, clf._hi),
+                           replicas=2, server_kwargs={"max_wait_ms": 2.0})
+        out["register_s"] = time.perf_counter() - t0
+
+        # (1) aggregate: 4 tenants x GW_CLIENTS clients, 13-row requests
+        work = {"knn": (qk, oracles["knn"], 0),
+                "hamming": (qh, oracles["hamming"], 0),
+                "hamming_gold": (qh, oracles["hamming"], GW_GOLD_PRIORITY),
+                "forest": (xf, oracles["forest"], 0)}
+        lat, wall = _gw_clients(gw, work)
+        out["aggregate"] = {
+            "wall_s": wall, "rows": 4 * rows,
+            "rows_per_s": 4 * rows / wall,
+            "latency_ms": {t: _latency_ms(v) for t, v in lat.items()},
+            "bit_identical_to_direct": True}
+        # (2) isolation, (3) failover, then the live update
+        t0 = time.perf_counter()
+        out["isolation"] = _gw_isolation(gw, q, qb, knn, ham, gt, gb)
+        out["isolation"]["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["failover"] = _gw_failover(gw, qk, oracles["knn"])
+        out["failover"]["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["update"] = _gw_update(gw, ham, qb, gb)
+        out["update"]["part_s"] = time.perf_counter() - t0
+        snap = gw.snapshot()
+    finally:
+        gw.stop()
+    counts = dict(cam_search.LAUNCHES)
+    for name in ("fused_topk", "fused_topk_packed", "acam_match"):
+        if counts[name] < 1:
+            raise RuntimeError(f"gateway_serve: kernel {name} was not "
+                               f"launched: {counts}")
+    tenants = {}
+    for t, e in snap["tenants"].items():
+        servers = [sv for sv in e["servers"] if sv is not None]
+        degraded = sum(sv["degraded_batches"] for sv in servers)
+        # the only failures allowed: hamming_gold's flood shed by its own
+        # admission budget
+        if degraded or e["stats"]["failed"] != e["stats"]["shed"]:
+            raise RuntimeError(f"gateway_serve {t}: {degraded} degraded "
+                               f"batches, {e['stats']['failed']} failed "
+                               f"requests ({e['stats']['shed']} shed)")
+        batches = sum(sv["batches"] for sv in servers)
+        tenants[t] = {"stats": e["stats"], "latency": e["latency"],
+                      "batches": batches,
+                      "rows_per_batch": sum(sv["batched_rows"]
+                                            for sv in servers)
+                      / max(1, batches),
+                      "replicas": [{k: r[k] for k in
+                                    ("state", "generation", "rebuilds",
+                                     "heals", "failures")}
+                                   for r in e["replicas"]["replicas"]]}
+    for name, src, ref in (
+            ("fused_topk", "fused_topk.cu", "cam_search.py:200"),
+            ("fused_topk_packed", "fused_topk_packed.cu",
+             "cam_search.py:304"),
+            ("acam_match", "acam_match.cu", "acam.py:121")):
+        s.record(name, f"src/repro_torch/kernels/csrc/{src}",
+                 f"src/repro/kernels/{ref}", counts[name], 0.0, None, None,
+                 None, "operations", None)
+    log({"phase": "gateway_serve", "ok": True, "launches": counts,
+         "tenants": tenants, **out})
+
+
 def _b7_class(key: str) -> str:
     """Kernel class of a profiler row: B7, a matrix product, or other."""
     low = key.lower()
@@ -2832,8 +3723,11 @@ def main() -> None:
               ("hdc_mnist", lambda: phase_hdc_mnist(s)),
               ("gallery_update", lambda: phase_gallery_update(s, data)),
               ("distance_ops", lambda: phase_distance_ops(s, data)),
+              ("queue_c", lambda: phase_queue_c(s, data)),
               ("cam_serve", lambda: phase_cam_serve(s, data)),
+              ("gateway_serve", lambda: phase_gateway_serve(s, data)),
               ("hier_search", lambda: phase_hier_search(s, data)),
+              ("sharded", lambda: phase_sharded(s, data)),
               ("lm_serve", lambda: phase_lm_serve(s))]
     for name, run in phases:
         t0 = time.perf_counter()
@@ -2849,7 +3743,8 @@ def main() -> None:
     if s.failed:
         fail(f"failed phases: {s.failed}")
     order = ["fused_topk_packed", "fused_topk_packed_ternary", "fused_topk",
-             "acam_match", "range_match", "hdc_encode", "distance",
+             "acam_match", "range_match", "hdc_encode", "hdc_encode_wide",
+             "distance", "distance_topk", "distance_topk_packed",
              "flash_attention"]
     print(smi, flush=True)
     log({"kernels": [s.kernels[n] for n in order]})

@@ -11,7 +11,12 @@ queries, 180,000 x 1024 gallery) at the shapes the smoke gives them:
   ``tau`` the median over the queries of the 5th-nearest squared distance
   in float64 (rounded to float32; printed, so two runs can be seen to use
   the same one); and on the binarised data as float-cell hamming;
-* B6 ``distance``, eucl and hamming, at 624 rows.
+* B6 ``distance``, eucl and hamming, at 624 rows;
+* B5 ``hdc_encode_planes`` at HDC/MNIST-8k's test shape (10,000 x 784
+  features -> 8192 dims, 16 levels, an ``ItemMemory`` of seed 0, features
+  from ``default_rng(3)``), with its median CUDA-event time over 50
+  launches (``b5_ms``): two trees timed in one call, in turns, compare
+  the route they share.
 
 For each it prints the SHA-256 of the output's bytes and, for B4 eucl,
 the disagreements with the plain version.  Equal digests from two trees
@@ -27,6 +32,7 @@ import argparse
 import hashlib
 import json
 import os
+import statistics
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -34,6 +40,31 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 def digest(t) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def hdc_encode_record(torch) -> dict:
+    """B5 at HDC/MNIST-8k's test shape: digest and median event ms."""
+    import numpy as np
+    from repro_torch.hdc import ItemMemory
+    from repro_torch.kernels import hdc_encode as khdc
+    item = ItemMemory(784, dim=8192, n_levels=16, seed=0)
+    x = np.random.default_rng(3).random((10000, 784), dtype=np.float32)
+    q = item.level_ids(x)
+
+    def call():
+        return khdc.hdc_encode_planes(q, item._planes)
+
+    enc = call()
+    times = []
+    for _ in range(50):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        call()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return {"sha256": digest(enc), "b5_ms": statistics.median(times)}
 
 
 def main() -> None:
@@ -74,6 +105,7 @@ def main() -> None:
     for metric, a, b in (("eucl", qp, pp), ("hamming", qb, gb)):
         out[f"distance_{metric}_624"] = {
             "sha256": digest(cam_search.distance(a, b, metric=metric))}
+    out["hdc_encode_mnist"] = hdc_encode_record(torch)
     text = json.dumps(out)
     print(text)
     if args.out:

@@ -21,8 +21,8 @@ The package follows the reference's layering:
   cluster tiles), built via :func:`get_hierarchical_plan`.
 
 Fault injection rides on dispatch (``faults=``, see
-:mod:`repro_torch.faults`); sharding comes with a later slice of the
-port.
+:mod:`repro_torch.faults`); ``shards=`` splits a ``"torch"`` plan's row
+tiles over :func:`repro_torch.launch.mesh.make_data_mesh`'s devices.
 """
 
 from .base import (PendingSearch, PlanBase, _as_2d, _pick_batch,

@@ -2,8 +2,9 @@
 
 Keys are ``(spec, backend, batch, shards, packed, unroll, device)`` —
 the reference's key plus the device the plan's prepared operands live
-on.  ``shards`` and ``unroll`` are always 1: sharded plans are not
-ported, and eager PyTorch has no scan to unroll.  The spec is a frozen
+on.  ``shards`` is the clamped shard count (:func:`_normalize_shards`);
+``unroll`` is always 1 (eager PyTorch has no scan to unroll).  The spec
+is a frozen
 dataclass — :class:`~.spec.SimilaritySpec`, :class:`~.spec.RangeSpec`
 or :class:`~.composite.HierarchicalSpec` — so keys of different
 families never collide.  Recompiling the same program, or a different
@@ -21,9 +22,12 @@ from ...obs.trace import trace_span, tracer
 from ..envcfg import env_int
 from ..ir import Module
 from .base import PlanBase, _pick_batch, resolve_device
+from ...launch.mesh import device_count, make_data_mesh
 from .executables import (_build_cuda_executable,
                           _build_range_cuda_executable,
-                          _build_range_scan_executable, _build_scan_executable,
+                          _build_range_scan_executable,
+                          _build_range_sharded_executable,
+                          _build_scan_executable, _build_sharded_executable,
                           _build_tiny_executable,
                           _build_tiny_range_executable)
 from .plans import RangePlan, SearchPlan
@@ -56,6 +60,27 @@ def _retire_plan(plan: PlanBase) -> None:
         plan._retired_hits = plan.pattern_hits
         plan._retired_misses = plan.pattern_misses
         plan._retired_evictions = plan.pattern_evictions
+
+
+def _normalize_shards(shards: Optional[int], device) -> int:
+    """Effective shard count: ``None``/<=1 means unsharded; requests are
+    clamped to the device count of ``device``'s type
+    (:func:`~repro_torch.launch.mesh.device_count`: the CUDA devices, one
+    CPU), so a plan asking for 8-way sharding on a one-card host is the
+    unsharded plan."""
+    if shards is None or shards <= 1:
+        return 1
+    return max(1, min(int(shards), device_count(device.type)))
+
+
+def _check_shard_backend(shards: Optional[int], backend: str) -> None:
+    """Sharded plans run the eager ``"torch"`` backend only.  Checked on
+    the *requested* count, before clamping, so the refusal does not
+    depend on how many devices this host has (the reference refuses
+    ``"pallas"`` the same way)."""
+    if shards is not None and shards > 1 and backend != "torch":
+        raise ValueError(
+            f"sharded plans require the 'torch' backend, got {backend!r}")
 
 
 def _cache_lookup(key: Tuple) -> Optional[PlanBase]:
@@ -118,6 +143,12 @@ def get_plan(module: Module, *, backend: str = "cuda",
     ``device``: where the prepared gallery lives and results are
     returned; ``None`` means the current CUDA device, and raises when
     CUDA is absent (pass ``device="cpu"`` to run on the CPU).
+    ``shards > 1`` (``"torch"`` backend only; another backend raises
+    ``ValueError`` before any clamping) splits the gallery's row tiles
+    over :func:`~repro_torch.launch.mesh.make_data_mesh`'s devices, each
+    shard's candidates merged on ``device`` in shard order; the count is
+    clamped to the device count of ``device``'s type and the clamped
+    count joins the cache key.
 
     Range programs (:class:`~.spec.RangeSpec`) get a
     :class:`~.plans.RangePlan`.  The ``"cuda"`` range kernels take float
@@ -131,9 +162,6 @@ def get_plan(module: Module, *, backend: str = "cuda",
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
-    if shards is not None and shards > 1:
-        raise NotImplementedError(
-            "sharded plans are not ported to repro_torch yet")
     try:
         spec = extract_plan_spec(module)
         if spec is None:
@@ -142,6 +170,7 @@ def get_plan(module: Module, *, backend: str = "cuda",
         spec = None
     if spec is None:
         return None
+    _check_shard_backend(shards, backend)
     is_range = isinstance(spec, RangeSpec)
     packed = _resolve_pack(spec, pack)
     if is_range and backend == "cuda" and packed:
@@ -158,19 +187,25 @@ def get_plan(module: Module, *, backend: str = "cuda",
             "packed execution; pass pack=True (and unset "
             "REPRO_ENGINE_PACK=off if the kill switch disabled auto-pack)")
     dev = resolve_device(device)
+    s = _normalize_shards(shards, dev)
     b = batch or _pick_batch(spec.m)
-    key = (spec, backend, b, 1, packed, 1, str(dev))
+    key = (spec, backend, b, s, packed, 1, str(dev))
     plan = _cache_lookup(key)
     if plan is not None:
         return plan
-    tiny = _tiny_plan(spec, backend, 1)
+    tiny = _tiny_plan(spec, backend, s)
     with trace_span("plan.compile",
                     args=None if not tracer.enabled else
                     {"family": "range" if is_range else "search",
-                     "backend": backend, "batch": b, "shards": 1,
+                     "backend": backend, "batch": b, "shards": s,
                      "packed": packed, "device": str(dev)}):
+        mesh = make_data_mesh(s, dev) if s > 1 else None
         if is_range:
-            if backend == "cuda":
+            if mesh is not None:
+                prepare, chunk_fn, row_update = \
+                    _build_range_sharded_executable(spec, b, mesh, dev,
+                                                    packed)
+            elif backend == "cuda":
                 prepare, chunk_fn, row_update = \
                     _build_range_cuda_executable(spec, b)
             elif tiny:
@@ -179,6 +214,9 @@ def get_plan(module: Module, *, backend: str = "cuda",
             else:
                 prepare, chunk_fn, row_update = \
                     _build_range_scan_executable(spec, b, packed)
+        elif mesh is not None:
+            prepare, chunk_fn, row_update = _build_sharded_executable(
+                spec, b, mesh, dev, packed)
         elif backend == "cuda":
             prepare, chunk_fn, row_update = _build_cuda_executable(spec, b,
                                                                    packed)
@@ -190,7 +228,7 @@ def get_plan(module: Module, *, backend: str = "cuda",
                                                                    packed)
         cls = RangePlan if is_range else SearchPlan
         plan = cls(spec=spec, backend=backend, batch=b, device=dev,
-                   packed=packed, tiny=tiny,
+                   shards=s, packed=packed, tiny=tiny,
                    _prepare=prepare, _chunk_fn=chunk_fn,
                    _row_update=row_update)
     return _cache_insert(key, plan)

@@ -23,6 +23,13 @@ Two backends:
   :func:`~repro_torch.kernels.cam_search.fused_topk_packed` followed by
   the stable candidate merge.
 
+Sharded plans (``"torch"`` only) split the gallery's row tiles over a
+mesh of devices (:func:`~repro_torch.launch.mesh.make_data_mesh`): shard
+``d`` holds tiles ``[d tps, (d+1) tps)`` on ``mesh[d]`` and runs the same
+tile tournament (or range scan) over them; the candidate lists merge on
+the plan's device at finalize (:func:`merge_shard_candidates`), the
+match blocks concatenate in shard order.
+
 Range plans (:class:`~.spec.RangeSpec`) have both backends too: the
 ``"torch"`` row-tile scan (every stored row keeps its own match line, no
 tournament) and the ``"cuda"`` path, one launch of
@@ -37,7 +44,7 @@ float tolerance for eucl — as pinned by :mod:`repro_torch.kernels.ref`.
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Callable, Tuple
+from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +53,8 @@ from ...kernels import ops as kops
 from ...kernels import packing as kpack
 from ...kernels import ref as kref
 from ...kernels.acam import ACAM_BLOCK_D
-from ...kernels.cam_search import BLOCK_K, window_rows
+from ...kernels.cam_search import (BLOCK_K, MAX_K, topk_by_distance,
+                                   window_rows)
 from .spec import RangeSpec, SimilaritySpec, _bits, _encode, _metric_values
 
 #: elements of one row-tile group's largest intermediate in the torch
@@ -202,20 +210,20 @@ def _scatter_leaves(prepared, fresh, at: torch.Tensor, donate: bool):
     return tuple(out)
 
 
-def _tile_row_update(spec, packed: bool) -> Callable:
+def _tile_row_update(spec, packed: bool, tps=None) -> Callable:
     """Row-update closure of the tile-layout (``"torch"``) executables,
     similarity and range: runs the same encode/pack/layout a full prepare
     runs, on the touched row tiles only, and scatters them into the
     leaves.  ``srcs`` are the post-mutation stored operands,
     ``(gallery,)`` / ``(gallery, care)`` / ``(lo, hi)``.  A tiny plan's
-    dense spec has one tile: the whole gallery."""
+    dense spec has one tile: the whole gallery.  ``tps`` (sharded plans:
+    row tiles per shard) lands each rewritten tile on its owning shard."""
     def update(prepared, srcs, idx, donate=False):
-        tiles = torch.as_tensor(
-            np.unique(np.asarray(idx, np.int64) // spec.tile_rows),
-            device=prepared[0].device)
+        tiles = np.unique(np.asarray(idx, np.int64) // spec.tile_rows)
+        t_dev = torch.as_tensor(tiles, device=srcs[0].device)
         nt = tiles.shape[0]
         tspec = replace(spec, n=nt * spec.tile_rows)
-        blocks = [_tile_rows_block(s, tiles, spec.tile_rows, spec.n)
+        blocks = [_tile_rows_block(s, t_dev, spec.tile_rows, spec.n)
                   for s in srcs]
         if isinstance(spec, SimilaritySpec):
             fresh = _lay_patterns(blocks[0],
@@ -223,7 +231,9 @@ def _tile_row_update(spec, packed: bool) -> Callable:
                                   tspec, nt, packed)
         else:
             fresh = _lay_range_patterns(blocks, tspec, nt, packed)
-        return _scatter_leaves(prepared, fresh, tiles, donate)
+        if tps is not None:
+            return _scatter_shards(prepared, fresh, tiles, tps, donate)
+        return _scatter_leaves(prepared, fresh, t_dev, donate)
 
     return update
 
@@ -300,6 +310,101 @@ def _build_tiny_executable(spec: SimilaritySpec, batch: int,
 
 
 # ---------------------------------------------------------------------------
+# sharded "torch" executables
+# ---------------------------------------------------------------------------
+
+
+def _place_shards(leaves: Tuple[torch.Tensor, ...], mesh: List[torch.device],
+                  tps: int) -> Tuple[Tuple[torch.Tensor, ...], ...]:
+    """Split leaves with ``len(mesh) * tps`` row tiles into per-shard leaf
+    tuples, shard ``d`` (tiles ``[d tps, (d+1) tps)``) on ``mesh[d]``.
+    On the leaves' own device a shard is a view: no copy."""
+    return tuple(tuple(x[d * tps:(d + 1) * tps].to(dev) for x in leaves)
+                 for d, dev in enumerate(mesh))
+
+
+def _scatter_shards(prepared, fresh: Tuple[torch.Tensor, ...],
+                    tiles: np.ndarray, tps: int, donate: bool):
+    """Write re-laid row tiles ``fresh`` (global tile ids ``tiles``) into
+    their owning shards' leaves: in place when ``donate``, else into
+    copies of every shard (so no two memo entries share a leaf)."""
+    out = []
+    for d, leaves in enumerate(prepared):
+        sel = np.flatnonzero(tiles // tps == d)
+        if sel.size == 0 and donate:
+            out.append(leaves)
+            continue
+        loc = torch.as_tensor(tiles[sel] - d * tps, dtype=torch.int64)
+        part = tuple(f.index_select(0, torch.as_tensor(sel, device=f.device))
+                     for f in fresh)
+        out.append(_scatter_leaves(leaves, part, loc, donate))
+    return tuple(out)
+
+
+def _build_sharded_executable(spec: SimilaritySpec, batch: int,
+                              mesh: List[torch.device], device: torch.device,
+                              packed: bool = False):
+    """(prepare, chunk_fn, row_update) sharding the gallery's row tiles
+    over ``mesh``.
+
+    Shard ``d`` holds row tiles ``[d tps, (d+1) tps)`` of the padded
+    gallery (``tps = ceil(grid_rows / shards)``) on ``mesh[d]`` and runs
+    the single-device tile tournament over them with their global row
+    offsets.  ``chunk_fn`` returns the per-shard candidate lists
+    ``(shards, batch, k)`` on ``device`` (logical values: the conversion
+    is monotone, so the merge may run on them with the logical polarity);
+    :func:`merge_shard_candidates` merges them at finalize.  Padding tiles
+    from the uneven split lie beyond ``grid_rows * tile_rows``: the
+    tournament gives them the losing sentinels (value ``∓inf``, index
+    ``2**30``), so the sharded plan's output equals the unsharded one's
+    even when ``n < k`` leaves losing slots visible.
+    """
+    _, to_logical, _ = _metric_values(spec.metric, spec.largest)
+    tr, gr, dim = spec.tile_rows, spec.grid_rows, spec.dim
+    shards = len(mesh)
+    tps = -(-gr // shards)                  # row tiles per shard
+    scan = _tile_tournament(spec, _col_dist_fn(spec, packed))
+
+    def prepare(p, care=None):
+        return _place_shards(_lay_patterns(p, care, spec, shards * tps,
+                                           packed), mesh, tps)
+
+    def chunk_fn(q, shards_pt):
+        qt = _layout_queries(q, spec, packed)
+        vs, is_ = [], []
+        for d, pt in enumerate(shards_pt):
+            dev = mesh[d]
+            roffs = (d * tps + torch.arange(tps, device=dev,
+                                            dtype=torch.int32)) * tr
+            v, i = scan(qt.to(dev, non_blocking=True), pt, roffs)
+            vs.append(to_logical(v, float(dim)).to(device))
+            is_.append(i.to(device))
+        return torch.stack(vs), torch.stack(is_)          # (S, B, k)
+
+    return prepare, chunk_fn, _tile_row_update(spec, packed, tps)
+
+
+def merge_shard_candidates(values: torch.Tensor, indices: torch.Tensor, *,
+                           k: int, largest: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-shard top-k of ``(shards, batch, k)`` candidate lists ->
+    ``(batch, k)``, on their device.
+
+    Identical to folding :func:`~repro_torch.kernels.ref.merge_topk` over
+    the shards in ascending order: concatenation in shard order is
+    ascending global-row order, and a stable selection on the (negated,
+    for ``largest``) values breaks ties toward the lower global index.
+    No arithmetic happens here, so integer-metric results stay
+    bit-identical to the single-device plan.
+    """
+    s, b, kk = values.shape
+    vv = values.permute(1, 0, 2).reshape(b, s * kk)
+    ii = indices.permute(1, 0, 2).reshape(b, s * kk)
+    sel = kref.stable_topk(vv if largest else -vv, k)
+    return torch.gather(vv, -1, sel), torch.gather(ii, -1, sel)
+
+
+# ---------------------------------------------------------------------------
 # "cuda" backend
 # ---------------------------------------------------------------------------
 
@@ -329,9 +434,13 @@ def _build_cuda_executable(spec: SimilaritySpec, batch: int,
 
     Encoding (or packing) and block padding of the gallery run once per
     stored tensor, behind the plan's pattern memo; each chunk is one
-    kernel launch plus the stable candidate merge.  Raises ``ValueError``
-    when ``min(k, n)`` exceeds the kernels' ``MAX_K``.
+    kernel launch plus the stable candidate merge.  When ``min(k, n)``
+    exceeds the kernels' ``MAX_K`` (no window fits), the plan is built on
+    the matrix route instead (:func:`_build_matrix_executable`): the
+    shape picks it here, never a failure.
     """
+    if min(spec.k, spec.n) > MAX_K:
+        return _build_matrix_executable(spec, packed)
     metric, k = spec.metric, spec.k
     _, to_logical, phys_largest = _metric_values(metric, spec.largest)
     window = window_rows(min(k, spec.n))
@@ -356,6 +465,61 @@ def _build_cuda_executable(spec: SimilaritySpec, batch: int,
         return to_logical(v, float(spec.dim)), i
 
     return prepare, chunk_fn, _row_scatter_update(spec, packed)
+
+
+def _matrix_leaves(spec: SimilaritySpec, packed: bool, p: torch.Tensor,
+                   care=None) -> Tuple[torch.Tensor, ...]:
+    """The matrix route's prepared operands for stored rows: the encoded
+    float cells, or for a packed plan the cells' {0, 1} bits (with a care
+    mask, ``care - 2 bits care`` and the per-row ``sum(bits care)``; see
+    :func:`~repro_torch.kernels.ops.matrix_operands`), inner dimension
+    padded to :data:`BLOCK_K`."""
+    if packed:
+        _, pp, bias = kops.matrix_operands(
+            _bits(p, spec.metric), None if care is None else care != 0)
+        return (pp,) if bias is None else (pp, bias)
+    return (kops.pad_to_blocks(_encode(p, spec.metric).to(torch.float32), 1,
+                               BLOCK_K),)
+
+
+def _build_matrix_executable(spec: SimilaritySpec, packed: bool):
+    """(prepare, chunk_fn, row_update) of the ``"cuda"`` backend for
+    ``min(k, n) > MAX_K``: each chunk is one launch of the distance kernel
+    over the whole gallery and one selection by (value, lowest row id)
+    (:func:`~repro_torch.kernels.cam_search.topk_by_distance`).  A
+    packed plan searches its cells' bits as floats (hamming, or a
+    ternary's ``dot`` plus a per-row bias), exact integers: the same
+    results as the packed kernel's.  The row update re-encodes the
+    touched rows and scatters them."""
+    phys_metric, to_logical, phys_largest = _metric_values(spec.metric,
+                                                           spec.largest)
+    k, n = spec.k, spec.n
+    ternary = spec.care_arg is not None
+    mat_metric = ("dot" if ternary else "hamming") if packed else phys_metric
+
+    def prepare(p, care=None):
+        return _matrix_leaves(spec, packed, p, care)
+
+    def chunk_fn(q, pp):
+        if packed:
+            qe = _bits(q, spec.metric).to(torch.float32)
+        else:
+            qe = _encode(q, spec.metric).to(torch.float32)
+        qp = kops.pad_to_blocks(qe, 1, BLOCK_K)
+        v, i = topk_by_distance(
+            qp, pp[0], pp[1] if len(pp) > 1 else None, metric=mat_metric,
+            k=min(k, n), largest=phys_largest, n_valid=n)
+        v, i = kref.pad_candidates(v, i, k, phys_largest)
+        return to_logical(v, float(spec.dim)), i
+
+    def row_update(prepared, srcs, idx, donate=False):
+        j = torch.as_tensor(np.asarray(idx, np.int64))
+        rows = [s.index_select(0, j.to(s.device)) for s in srcs]
+        fresh = _matrix_leaves(spec, packed, rows[0],
+                               rows[1] if len(rows) > 1 else None)
+        return _scatter_leaves(prepared, fresh, j, donate)
+
+    return prepare, chunk_fn, row_update
 
 
 # ---------------------------------------------------------------------------
@@ -474,6 +638,33 @@ def _build_tiny_range_executable(spec: RangeSpec, batch: int,
     :func:`_build_tiny_executable`."""
     return _build_range_scan_executable(_dense_spec(spec), batch,
                                         packed=packed)
+
+
+def _build_range_sharded_executable(spec: RangeSpec, batch: int,
+                                    mesh: List[torch.device],
+                                    device: torch.device,
+                                    packed: bool = False):
+    """(prepare, chunk_fn, row_update) sharding a range plan's stored
+    rows over ``mesh``: the row split of :func:`_build_sharded_executable`,
+    with per-shard boolean match blocks ``(shards, batch, tps *
+    tile_rows)`` that concatenate in shard order (ascending global row
+    order) at finalize; range search has no cross-shard tournament."""
+    gr, tr = spec.grid_rows, spec.tile_rows
+    shards = len(mesh)
+    tps = -(-gr // shards)
+    scan = _range_tile_scan(spec, _range_col_fn(spec, packed))
+
+    def prepare(*pats):
+        return _place_shards(_lay_range_patterns(pats, spec, shards * tps,
+                                                 packed), mesh, tps)
+
+    def chunk_fn(q, shards_pt):
+        qt = _layout_queries(q, spec, packed)
+        hits = [scan(qt.to(dev, non_blocking=True), pt).to(device)
+                for dev, pt in zip(mesh, shards_pt)]
+        return torch.stack(hits)                  # (S, B, tps * tr)
+
+    return prepare, chunk_fn, _tile_row_update(spec, packed, tps)
 
 
 def _build_range_cuda_executable(spec: RangeSpec, batch: int):

@@ -47,7 +47,14 @@ order (never atomics, whose order changes from run to run), so two
 prepares of one gallery give bit-identical centroids on the card.  For
 the packable metrics the cells are {0, 1}: the sums are exact integers,
 and centroids and assignments equal the reference's bit for bit.
-Sharded probing waits for the sharded plans (``shards > 1`` raises).
+
+Sharding splits the *fine tile axis* over a mesh of devices
+(:func:`~repro_torch.launch.mesh.make_data_mesh`): each shard holds
+``1/shards`` of the cluster tiles and probes only the candidate tiles it
+owns (foreign candidates mask to sentinels).  The shards' candidate lists
+merge on the plan's device by the same composite order
+(:func:`_merge_hier_shards`: probing order is not ascending-row order,
+unlike the flat shard merge).
 """
 
 from __future__ import annotations
@@ -59,14 +66,18 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from ...kernels.cam_search import order_key as _order_key
 from ...kernels.packing import lanes, popcount32
 from ...obs.trace import trace_span, tracer
 from ..envcfg import env_int
+from ...launch.mesh import make_data_mesh
 from .base import _index_array, _pick_batch, resolve_device
-from .cache import _lookup_or_insert, get_plan
+from .cache import (_check_shard_backend, _lookup_or_insert,
+                    _normalize_shards, get_plan)
 from .composite import CompositePlan, HierarchicalSpec
-from .executables import _lay_patterns, _layout_queries, _scatter_leaves
-from .plans import SearchPlan
+from .executables import (_lay_patterns, _layout_queries, _place_shards,
+                          _scatter_leaves, _scatter_shards)
+from .plans import SearchPlan, _finalize_topk
 from .spec import (SimilaritySpec, _PACKABLE_METRICS, _bits, _metric_values,
                    _resolve_pack, extract_plan_spec, module_for_spec)
 
@@ -255,8 +266,11 @@ class HierState:
 
     centroid_src: torch.Tensor         # (clusters, dim) raw-domain
     coarse_prepared: Any               # coarse plan's prepared leaves
-    leaves: Tuple[torch.Tensor, ...]   # ((T, gc, tr, X),)
-    row_ids: torch.Tensor              # (T, tr) int32, device
+    #: ``((T, gc, tr, X),)``; sharded: one such tuple per shard, ``tps``
+    #: tiles each, on the shard's device
+    leaves: Tuple[Any, ...]
+    #: ``(T, tr)`` int32; sharded: one ``(tps, tr)`` tensor per shard
+    row_ids: Any
     assign: np.ndarray                 # (n,) int32
     slot_of: np.ndarray                # (n,) int64 flat slot index
     row_ids_h: np.ndarray              # (T, tr) int32, host master
@@ -266,19 +280,47 @@ class HierState:
     budget: int                        # probe steps per query
 
 
+def _shard_rids(row_h: np.ndarray, mesh, tps: int) -> Tuple[torch.Tensor, ...]:
+    """The slot -> row-id map split into ``len(mesh)`` shards of ``tps``
+    tiles (padding tiles all ``_SENT``), shard ``d`` on ``mesh[d]``."""
+    t, tr = row_h.shape
+    rid = np.full((len(mesh) * tps, tr), _SENT, np.int32)
+    rid[:t] = row_h
+    return tuple(torch.as_tensor(rid[d * tps:(d + 1) * tps], device=dev)
+                 for d, dev in enumerate(mesh))
+
+
+def _shard_state(leaves: Tuple[torch.Tensor, ...], row_h: np.ndarray, mesh):
+    """Fine leaves and row ids of a full layout, split over ``mesh``:
+    ``tps = ceil(T / shards)`` tiles a shard, the padding tiles zero
+    leaves with ``_SENT`` row ids."""
+    t = row_h.shape[0]
+    tps = -(-t // len(mesh))
+    pad_t = len(mesh) * tps - t
+    if pad_t:
+        leaves = tuple(torch.nn.functional.pad(
+            x, (0, 0) * (x.dim() - 1) + (0, pad_t)) for x in leaves)
+    return _place_shards(leaves, mesh, tps), _shard_rids(row_h, mesh, tps)
+
+
 def _hier_state(spec_h: HierarchicalSpec, packed: bool, g: torch.Tensor,
-                cent_src: torch.Tensor, cpp, assign: np.ndarray) -> HierState:
+                cent_src: torch.Tensor, cpp, assign: np.ndarray,
+                mesh=None) -> HierState:
     """The state a full layout builds for ``assign`` with the given
     centroids (and their coarse-prepared leaves): what ``prepare`` builds
     after k-means, and an overflow re-layout builds with the stored
-    centroids."""
+    centroids.  ``mesh``: a sharded plan's devices (the leaves and row
+    ids split over them)."""
     fine = spec_h.fine
     row_h, slot_of, tpc, cnt_h = _layout_from_assign(
         assign, spec_h.clusters, fine.tile_rows, fine.n)
     rid = torch.as_tensor(row_h, device=g.device)
+    leaves = _leaves_from_rows(g, rid, fine, packed)
+    if mesh is not None:
+        leaves, rid = _shard_state(leaves, row_h, mesh)
     return HierState(
         centroid_src=cent_src, coarse_prepared=cpp,
-        leaves=_leaves_from_rows(g, rid, fine, packed), row_ids=rid,
+        leaves=leaves, row_ids=rid,
         assign=assign, slot_of=slot_of, row_ids_h=row_h, tpc=tpc,
         cnt=torch.as_tensor(cnt_h, dtype=torch.int64, device=g.device),
         cnt_h=cnt_h, budget=_probe_budget(cnt_h, spec_h.nprobe, tpc))
@@ -327,16 +369,6 @@ def _batched_tile_dist(fine: SimilaritySpec, packed: bool):
 _GROUP_BUDGET = 1 << 24
 
 
-def _order_key(skey: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
-    """One int64 per candidate ordered as (skey, gid): the float's
-    order-preserving bits in the high word, the row id (< 2**31) in the
-    low one.  ``+ 0.0`` folds -0.0 into +0.0, as the reference's sort
-    does; NaN never occurs (distances are finite or ±inf)."""
-    bits = (skey + 0.0).contiguous().view(torch.int32)
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    return (ordered.to(torch.int64) << 32) | gid.to(torch.int64)
-
-
 def _select(k: int, ks, kg, kd):
     """The k smallest candidates by (skey, gid), in that order.  Live row
     ids are distinct per query (a query probes each tile at most once),
@@ -372,45 +404,37 @@ def _probe_prefix(ci: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(torch.cumsum(pc, dim=1), (1, 0))
 
 
-def _hier_probe(spec_h: HierarchicalSpec, packed: bool):
-    """The fine probe: ``probe(q, ci, leaf, rid, cnt, tpc, budget)`` ->
-    logical ``(values, indices)``.
+def _probe_steps(spec_h: HierarchicalSpec, packed: bool):
+    """The candidate-tile loop shared by the single-device and sharded
+    probes: ``run(qt, gather, bsz, budget, dev)`` folds ``budget`` probe
+    steps, where ``gather(ss) -> (tiles (B, G, gc, tr, X), row_ids (B, G,
+    tr))`` fetches steps ``ss``' candidate tiles (``_SENT`` ids for dead
+    or foreign steps).
 
-    Each step probes one *occupied* tile of one probed cluster per
-    query: the prefix map (:func:`_step_to_tile`) packs the ragged
-    per-cluster tile lists into a dense schedule of ``budget`` steps.
-    Steps run in groups: each gathers ``G`` candidate tiles per query
-    and folds their ``G * tile_rows`` candidates, with the running top-k,
+    Steps run in groups: each gathers ``G`` candidate tiles per query and
+    folds their ``G * tile_rows`` candidates, with the running top-k,
     through one composite-order selection truncated to k.  ``G`` is the
     largest group whose gathered slab fits ``_GROUP_BUDGET`` elements
     (the selection is associative, so the grouping never changes the
-    result).
+    result).  Returns the physical ``(values, row ids)``.
     """
     fine = spec_h.fine
-    nprobe = spec_h.nprobe
-    _, to_logical, phys_largest = _metric_values(fine.metric, fine.largest)
+    _, _, phys_largest = _metric_values(fine.metric, fine.largest)
     tr, k, gc = fine.tile_rows, fine.k, fine.grid_cols
     lose = -float("inf") if phys_largest else float("inf")
     tile_dist = _batched_tile_dist(fine, packed)
     #: slab width (elements) of one gathered tile row, all column tiles
     wpr = gc * (lanes(fine.dims_per_tile) if packed else fine.dims_per_tile)
 
-    def probe(q, ci, leaf, rid, cnt, tpc, budget):
-        qt = _layout_queries(q, fine, packed).transpose(0, 1)  # (B, gc, X)
-        bsz, dev = q.shape[0], q.device
-        ci = ci.to(torch.int64)
-        pre = _probe_prefix(ci, cnt)
+    def run(qt, gather, bsz, budget, dev):
         ks = torch.full((bsz, k), float("inf"), device=dev)
         kg = torch.full((bsz, k), _SENT, dtype=torch.int32, device=dev)
         kd = torch.full((bsz, k), lose, device=dev)
         group = max(1, min(budget, _GROUP_BUDGET // max(1, bsz * tr * wpr)))
         for s0 in range(0, budget, group):
             ss = torch.arange(s0, min(s0 + group, budget), device=dev)
-            p, j, live = _step_to_tile(ss, pre, nprobe)
-            c = torch.gather(ci, 1, p)
-            tile = torch.clamp(c * tpc + j, 0, leaf.shape[0] - 1)
-            rg = torch.where(live[..., None], rid[tile], _SENT)  # (B,G,tr)
-            dist = tile_dist(qt, leaf[tile])              # (B, G, tr)
+            tiles, rg = gather(ss)                       # rg (B, G, tr)
+            dist = tile_dist(qt, tiles)                   # (B, G, tr)
             dist, rg = dist.reshape(bsz, -1), rg.reshape(bsz, -1)
             valid = rg < _SENT
             sk = torch.where(valid, -dist if phys_largest else dist,
@@ -419,9 +443,98 @@ def _hier_probe(spec_h: HierarchicalSpec, packed: bool):
             ks, kg, kd = _select(k, torch.cat([ks, sk], dim=-1),
                                  torch.cat([kg, rg], dim=-1),
                                  torch.cat([kd, dd], dim=-1))
+        return kd, kg
+
+    return run
+
+
+def _hier_probe(spec_h: HierarchicalSpec, packed: bool):
+    """The fine probe: ``probe(q, ci, leaf, rid, cnt, tpc, budget)`` ->
+    logical ``(values, indices)``.
+
+    Each step probes one *occupied* tile of one probed cluster per
+    query: the prefix map (:func:`_step_to_tile`) packs the ragged
+    per-cluster tile lists into a dense schedule of ``budget`` steps,
+    folded by :func:`_probe_steps`.
+    """
+    fine = spec_h.fine
+    nprobe = spec_h.nprobe
+    _, to_logical, _ = _metric_values(fine.metric, fine.largest)
+    run = _probe_steps(spec_h, packed)
+
+    def probe(q, ci, leaf, rid, cnt, tpc, budget):
+        qt = _layout_queries(q, fine, packed).transpose(0, 1)  # (B, gc, X)
+        ci = ci.to(torch.int64)
+        pre = _probe_prefix(ci, cnt)
+
+        def gather(ss):
+            p, j, live = _step_to_tile(ss, pre, nprobe)
+            c = torch.gather(ci, 1, p)
+            tile = torch.clamp(c * tpc + j, 0, leaf.shape[0] - 1)
+            return leaf[tile], torch.where(live[..., None], rid[tile], _SENT)
+
+        kd, kg = run(qt, gather, q.shape[0], budget, q.device)
         return to_logical(kd, float(fine.dim)), kg
 
     return probe
+
+
+def _hier_probe_sharded(spec_h: HierarchicalSpec, packed: bool, mesh,
+                        device: torch.device):
+    """The sharded fine probe: ``probe(q, ci, leaves, rids, cnt, tpc,
+    budget)`` with one leaf and one row-id tensor per shard.  Each shard
+    walks the whole step schedule on its device but gathers only the
+    candidate tiles it owns (foreign ones mask to sentinels) and emits its
+    own (B, k) list; the lists come back stacked ``(shards, B, k)`` on
+    ``device`` for :func:`_merge_hier_shards`."""
+    fine = spec_h.fine
+    nprobe = spec_h.nprobe
+    _, to_logical, _ = _metric_values(fine.metric, fine.largest)
+    run = _probe_steps(spec_h, packed)
+
+    def probe(q, ci, leaves, rids, cnt, tpc, budget):
+        qt = _layout_queries(q, fine, packed).transpose(0, 1)
+        vs, is_ = [], []
+        for d, (leaf, rid) in enumerate(zip(leaves, rids)):
+            dev, tps = mesh[d], leaf.shape[0]
+            ci_d = ci.to(dev, torch.int64)
+            pre = _probe_prefix(ci_d, cnt.to(dev))
+
+            def gather(ss, d=d, leaf=leaf, rid=rid, ci_d=ci_d, pre=pre,
+                       tps=tps):
+                p, j, live = _step_to_tile(ss, pre, nprobe)
+                loc = torch.gather(ci_d, 1, p) * tpc + j - d * tps
+                own = live & (loc >= 0) & (loc < tps)
+                loc = torch.clamp(loc, 0, tps - 1)
+                return leaf[loc], torch.where(own[..., None], rid[loc], _SENT)
+
+            kd, kg = run(qt.to(dev, non_blocking=True), gather, q.shape[0],
+                         budget, dev)
+            vs.append(to_logical(kd, float(fine.dim)).to(device))
+            is_.append(kg.to(device))
+        return torch.stack(vs), torch.stack(is_)
+
+    return probe
+
+
+def _merge_hier_shards(values: torch.Tensor, indices: torch.Tensor, *,
+                       k: int, largest: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-shard merge of hierarchical candidates ``(shards, B, k)``.
+
+    Unlike :func:`~.executables.merge_shard_candidates` (where shard
+    order *is* ascending global-row order, so a stable value selection
+    suffices), hierarchical shards hold permuted rows: the tie-break must
+    be the explicit global row id.  One selection on the composite key
+    (value key, row id) reproduces the flat tournament's order exactly;
+    no arithmetic happens, so integer-metric results stay bit-identical.
+    """
+    s, b, kk = values.shape
+    vv = values.permute(1, 0, 2).reshape(b, s * kk)
+    ii = indices.permute(1, 0, 2).reshape(b, s * kk)
+    _, pos = torch.topk(_order_key(-vv if largest else vv, ii), k, dim=-1,
+                        largest=False, sorted=True)
+    return torch.gather(vv, -1, pos), torch.gather(ii, -1, pos)
 
 
 def _sync_if_traced(x: torch.Tensor) -> None:
@@ -438,7 +551,7 @@ def _sync_if_traced(x: torch.Tensor) -> None:
 
 
 def _build_hier_executable(spec_h: HierarchicalSpec, coarse: SearchPlan,
-                           packed: bool):
+                           packed: bool, mesh=None, device=None):
     """The hierarchical (prepare, chunk_fn, row_update) triple.
 
     ``prepare`` runs k-means on the gallery's device and the slot layout
@@ -446,16 +559,18 @@ def _build_hier_executable(spec_h: HierarchicalSpec, coarse: SearchPlan,
     ``chunk_fn`` runs the coarse plan's chunk function, then the fine
     probe, with no host synchronisation between the stages.
     ``row_update`` is the reassigning incremental relay described on
-    :class:`HierState`.
+    :class:`HierState`.  ``mesh``: a sharded plan's devices (the fine
+    tiles split over them, :func:`_hier_probe_sharded`).
     """
     fine = spec_h.fine
     tr = fine.tile_rows
-    probe = _hier_probe(spec_h, packed)
+    probe = _hier_probe(spec_h, packed) if mesh is None else \
+        _hier_probe_sharded(spec_h, packed, mesh, device)
 
     def prepare(g):
         cent_src, assign = _kmeans(g, spec_h)
         cpp = coarse._prepared_patterns(cent_src)
-        return _hier_state(spec_h, packed, g, cent_src, cpp, assign)
+        return _hier_state(spec_h, packed, g, cent_src, cpp, assign, mesh)
 
     def chunk_fn(q, hs):
         with trace_span("hier.coarse"):
@@ -464,23 +579,31 @@ def _build_hier_executable(spec_h: HierarchicalSpec, coarse: SearchPlan,
         with trace_span("hier.probe",
                         args=None if not tracer.enabled else
                         {"budget": hs.budget, "tpc": hs.tpc}):
-            out = probe(q, ci, hs.leaves[0], hs.row_ids, hs.cnt, hs.tpc,
+            fine_leaf = hs.leaves[0] if mesh is None else \
+                [lv[0] for lv in hs.leaves]
+            out = probe(q, ci, fine_leaf, hs.row_ids, hs.cnt, hs.tpc,
                         hs.budget)
             _sync_if_traced(out[0])
             return out
 
     # -- incremental row update -------------------------------------------
 
-    def relay(leaves, rid, g, tiles, donate):
+    def relay(leaves, row_h, g, tiles, donate):
         """Re-lay the touched tiles from the (mutated) gallery through
-        the *new* slot map and write them into the prepared leaves — the
-        same encode/pack/layout a full prepare runs, on ``len(tiles)``
-        tiles."""
+        the *new* slot map (host ``row_h``) and write them into the
+        prepared leaves (a sharded plan's: into each tile's owning
+        shard) — the same encode/pack/layout a full prepare runs, on
+        ``len(tiles)`` tiles."""
         nt = tiles.shape[0]
         lspec = replace(fine, n=nt * tr, grid_rows=nt)
-        fresh = _lay_patterns(_gather_rows(g, rid[tiles], fine.n), None,
+        rid_t = torch.as_tensor(row_h[tiles], device=g.device)
+        fresh = _lay_patterns(_gather_rows(g, rid_t, fine.n), None,
                               lspec, nt, packed)
-        return _scatter_leaves(leaves, fresh, tiles, donate)
+        if mesh is not None:
+            tps = leaves[0][0].shape[0]
+            return _scatter_shards(leaves, fresh, tiles, tps, donate)
+        return _scatter_leaves(leaves, fresh,
+                               torch.as_tensor(tiles, device=g.device), donate)
 
     def row_update(hs, new_srcs, idx, donate=False):
         g_new = new_srcs[0]
@@ -523,12 +646,14 @@ def _build_hier_executable(spec_h: HierarchicalSpec, coarse: SearchPlan,
             fresh_assign = hs.assign.copy()
             fresh_assign[idxa] = a_new
             return _hier_state(spec_h, packed, g_new, hs.centroid_src,
-                               hs.coarse_prepared, fresh_assign)
-        rid_new = torch.as_tensor(row_h, device=g_new.device)
-        rid = hs.row_ids.copy_(rid_new) if donate else rid_new
-        tiles = torch.as_tensor(sorted(touched), dtype=torch.int64,
-                                device=g_new.device)
-        leaves = relay(tuple(hs.leaves), rid, g_new, tiles, donate)
+                               hs.coarse_prepared, fresh_assign, mesh)
+        if mesh is not None:
+            rid = _shard_rids(row_h, mesh, hs.row_ids[0].shape[0])
+        else:
+            rid_new = torch.as_tensor(row_h, device=g_new.device)
+            rid = hs.row_ids.copy_(rid_new) if donate else rid_new
+        tiles = np.asarray(sorted(touched), np.int64)
+        leaves = relay(tuple(hs.leaves), row_h, g_new, tiles, donate)
         # occupancy maintenance: a moved row can extend its new
         # cluster's occupied prefix or (with holes filled later) let an
         # old one shrink — recompute the prefix for touched clusters
@@ -576,6 +701,12 @@ class HierarchicalPlan(CompositePlan):
 
     def _stored_sources(self, inputs) -> Tuple:
         return (inputs[self.spec.pattern_arg],)
+
+    def finalize(self, pending):
+        """Search-shaped finalize with the hierarchical shard merge
+        (composite-key selection instead of the shard-order value sort)."""
+        with trace_span("plan.finalize"):
+            return _finalize_topk(self, pending, merge=_merge_hier_shards)
 
     def update_rows(self, gallery, indices, new_rows, care=None, *,
                     donate: bool = False):
@@ -649,9 +780,12 @@ def get_hierarchical_plan(program, *, clusters: Optional[int] = None,
     included) and the device.  ``device``: as for ``get_plan`` (``None``
     is the current CUDA device and raises without CUDA).
 
+    ``shards > 1`` splits the fine tiles over
+    :func:`~repro_torch.launch.mesh.make_data_mesh`'s devices, clamped
+    as :func:`~.cache.get_plan` clamps (the clamped count joins the key).
+
     Restrictions: the ``"torch"`` backend only (the probing stage is a
-    gather-heavy scan with no fused kernel yet), no ternary programs, no
-    sharding.
+    gather-heavy scan with no fused kernel yet) and no ternary programs.
     """
     if isinstance(program, HierarchicalSpec):
         fine = program.fine
@@ -676,9 +810,7 @@ def get_hierarchical_plan(program, *, clusters: Optional[int] = None,
     if fine.care_arg is not None:
         raise ValueError("hierarchical search does not support ternary "
                          "(care-masked) programs")
-    if shards is not None and shards > 1:
-        raise NotImplementedError(
-            "sharded plans are not ported to repro_torch yet")
+    _check_shard_backend(shards, backend)
     if clusters is None:
         clusters = _default_clusters(fine)
     clusters = max(1, min(int(clusters), fine.n))
@@ -690,16 +822,18 @@ def get_hierarchical_plan(program, *, clusters: Optional[int] = None,
                               kmeans_iters=int(kmeans_iters), seed=int(seed))
     packed = _resolve_pack(fine, pack)
     dev = resolve_device(device)
+    s = _normalize_shards(shards, dev)
     b = batch or _pick_batch(fine.m)
-    key = (spec_h, backend, b, 1, packed, str(dev))
+    key = (spec_h, backend, b, s, packed, str(dev))
 
     def build():
         coarse = get_plan(module_for_spec(_coarse_spec(spec_h)),
                           backend="torch", batch=b, pack=packed, device=dev)
         prepare, chunk_fn, row_update = _build_hier_executable(
-            spec_h, coarse, packed)
+            spec_h, coarse, packed,
+            make_data_mesh(s, dev) if s > 1 else None, dev)
         return HierarchicalPlan(
-            spec=spec_h, backend=backend, batch=b, device=dev, shards=1,
+            spec=spec_h, backend=backend, batch=b, device=dev, shards=s,
             packed=packed, _prepare=prepare, _chunk_fn=chunk_fn,
             _row_update=row_update, stages=(coarse,))
 

@@ -3,9 +3,9 @@
 
 Thin subclasses of :class:`~.base.PlanBase` that define which module
 arguments are stored operands, the shape of a chunk record, how chunks
-finalize into the module's output, and the public ``update_rows``
-signature (the incremental-update relay is inherited).  Sharded plans
-and their cross-shard merge come with a later slice.
+finalize into the module's output (a sharded plan merges its shards'
+candidates, or concatenates their match blocks, first), and the public
+``update_rows`` signature (the incremental-update relay is inherited).
 """
 
 from __future__ import annotations
@@ -17,17 +17,24 @@ import torch
 
 from ...obs.trace import trace_span
 from .base import PendingSearch, PlanBase, _index_array, _size
+from .executables import merge_shard_candidates
 
 __all__ = ["SearchPlan", "RangePlan"]
 
 
-def _finalize_topk(plan: PlanBase, pending: "PendingSearch"):
-    """Top-k chunks ``(values, indices)`` -> the module's outputs: chunk
-    concatenation and output shaping (shared with the composite plans,
-    whose chunks are search-shaped too)."""
+def _finalize_topk(plan: PlanBase, pending: "PendingSearch",
+                   merge=merge_shard_candidates):
+    """Top-k chunks ``(values, indices)`` -> the module's outputs: the
+    cross-shard ``merge`` of a sharded plan's ``(shards, batch, k)``
+    chunks, chunk concatenation and output shaping (shared with the
+    composite plans, whose chunks are search-shaped too)."""
     spec = plan.spec
-    vs = [v for v, _ in pending.chunks]
-    is_ = [i for _, i in pending.chunks]
+    chunks = pending.chunks
+    if plan.shards > 1:
+        chunks = [merge(v, i, k=spec.k, largest=spec.largest)
+                  for v, i in chunks]
+    vs = [v for v, _ in chunks]
+    is_ = [i for _, i in chunks]
     if not vs:      # zero queries: well-shaped empty result
         vs = [torch.zeros((0, spec.k), dtype=torch.float32,
                           device=plan.device)]
@@ -47,9 +54,10 @@ def _finalize_topk(plan: PlanBase, pending: "PendingSearch"):
 class SearchPlan(PlanBase):
     """A compiled, reusable executable for one similarity-program shape.
 
-    Chunks hold ``(values, indices)``; finalize concatenates them and
-    shapes them for the compiled module: float32 values and int32
-    indices on the plan's device.
+    Chunks hold ``(values, indices)`` (per shard, ``(shards, batch, k)``,
+    for a sharded plan); finalize merges shards, concatenates chunks and
+    shapes them for the compiled module: float32 values and int32 indices
+    on the plan's device.
     """
 
     family: str = field(default="search", repr=False)
@@ -61,8 +69,8 @@ class SearchPlan(PlanBase):
         return (inputs[spec.pattern_arg], inputs[spec.care_arg])
 
     def finalize(self, pending: "PendingSearch"):
-        """Materialise a dispatched search: chunk concatenation, output
-        shaping."""
+        """Materialise a dispatched search: cross-shard merge (sharded
+        plans), chunk concatenation, output shaping."""
         with trace_span("plan.finalize"):
             return _finalize_topk(self, pending)
 
@@ -118,13 +126,19 @@ class RangePlan(PlanBase):
 
     def finalize(self, pending: "PendingSearch"):
         """Materialise a dispatched range search into the boolean match
-        matrix: drop the padded gallery rows, shape for the module."""
+        matrix: concatenate per-shard blocks (shard order is ascending
+        global row order: no tournament), drop the padded gallery rows,
+        shape for the module."""
         with trace_span("plan.finalize"):
             return self._finalize(pending)
 
     def _finalize(self, pending: "PendingSearch"):
         spec = self.spec
-        outs = [hit[:, :spec.n] for hit in pending.chunks]
+        outs = []
+        for hit in pending.chunks:
+            if self.shards > 1:                       # (S, B, cols)
+                hit = hit.permute(1, 0, 2).reshape(hit.shape[1], -1)
+            outs.append(hit[:, :spec.n])
         if not outs:    # zero queries: well-shaped empty result
             outs = [torch.zeros((0, spec.n), dtype=torch.bool,
                                 device=self.device)]

@@ -33,9 +33,9 @@ wrapped plan's device, where the range vote also runs.  ``execute``
 returns host numpy arrays, the reference's output type.
 
 The search family's physical plan asks for ``replicas * k + spares``
-candidates.  On the ``"cuda"`` backend that count must fit the kernels'
-window (``kernels.cam_search.MAX_K``): ``get_plan`` raises the same
-``ValueError`` here as for any plan with a larger ``k``.
+candidates.  On the ``"cuda"`` backend a count beyond the kernels' window
+(``kernels.cam_search.MAX_K``) takes the matrix route, as any plan with a
+larger ``k`` does.
 """
 
 import zlib
@@ -125,10 +125,10 @@ class HardenedPlan:
     :func:`~repro_torch.core.engine.module_for_spec`, keeps the clean
     stored content plus per-row checksums on the host, and maps physical
     results back to logical rows with a majority/median vote.  The
-    physical plan is an ordinary plan-cache citizen: backend, packing
-    and device are inherited from the wrapped plan (backend and packing
-    may be overridden), and fault injection happens through the same
-    ``faults=`` dispatch hook as everywhere else.
+    physical plan is an ordinary plan-cache citizen: backend, packing,
+    sharding and device are inherited from the wrapped plan (backend,
+    packing and sharding may be overridden), and fault injection happens
+    through the same ``faults=`` dispatch hook as everywhere else.
 
     Physical layout: replica ``r`` of logical row ``j`` lives at
     physical row ``r * n + j``; spares occupy the tail.  ``logical_of``
@@ -139,7 +139,7 @@ class HardenedPlan:
 
     def __init__(self, plan, *, replicas: int = 1, spares: int = 0,
                  guard: float = 0.0, backend: Optional[str] = None,
-                 pack: Optional[bool] = None):
+                 pack: Optional[bool] = None, shards: Optional[int] = None):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
         if spares < 0:
@@ -167,6 +167,8 @@ class HardenedPlan:
             module_for_spec(phys_spec),
             backend=plan.backend if backend is None else backend,
             pack=plan.packed if pack is None else pack,
+            shards=(plan.shards if plan.shards > 1 else None)
+            if shards is None else shards,
             device=plan.device)
         assert self.plan is not None
         self.phys_spec = self.plan.spec

@@ -24,6 +24,10 @@ periphery — as (value, global row index) candidates:
 * :func:`distance` — the full (M, N) float32 distance matrix of the same
   decomposition, no top-k (the public ``ops.cam_distances``); replaces
   ``distance_pallas``; 3xTF32 tensor-core products on the same pipeline.
+* :func:`topk_by_distance` — the search route for ``k > MAX_K``, where no
+  window fits in shared memory: :func:`distance`'s kernel writes the
+  (M, N) matrix and one selection by (value, lowest row id) takes the
+  top-k (:func:`float_route` / :func:`packed_route` return ``"matrix"``).
 
 :func:`tf32_split_product` is the 3xTF32 product in plain float32 (the
 plain versions' ``tf32x3`` switch); :func:`tf32x3_kernel_eucl` replays
@@ -58,7 +62,8 @@ __all__ = ["METRIC_COEFFS", "BLOCK_K", "MAX_K", "LAUNCHES", "window_rows",
            "packed_route", "float_route", "reset_launch_counts",
            "tf32_round", "tf32_split_product", "tc_accumulate",
            "tf32x3_kernel_eucl", "fused_topk",
-           "fused_topk_reference",
+           "fused_topk_reference", "topk_by_distance",
+           "topk_by_distance_reference", "order_key",
            "fused_topk_packed", "fused_topk_packed_reference", "distance",
            "distance_reference"]
 
@@ -88,7 +93,8 @@ _POS_BIG = 3.0e38
 LAUNCHES: Dict[str, int] = {"fused_topk": 0, "fused_topk_packed": 0,
                             "fused_topk_packed_ternary": 0,
                             "acam_match": 0, "range_match": 0,
-                            "hdc_encode": 0, "distance": 0,
+                            "hdc_encode": 0, "hdc_encode_wide": 0,
+                            "distance": 0, "distance_topk": 0,
                             "flash_attention": 0}
 _COUNT_LOCK = threading.Lock()
 
@@ -126,11 +132,15 @@ def _sm_count(device: torch.device) -> int:
 
 
 def packed_route(m: int, n: int, k: int, sms: int) -> str:
-    """The route of :func:`fused_topk_packed` on a card with ``sms``
-    streaming multiprocessors: ``"mma"`` (int8 tensor cores, 128 queries
+    """The route of a packed search on a card with ``sms`` streaming
+    multiprocessors: ``"matrix"`` (:func:`topk_by_distance` on the cells'
+    bits) when ``k`` exceeds :data:`MAX_K`; otherwise
+    :func:`fused_topk_packed`'s ``"mma"`` (int8 tensor cores, 128 queries
     x one 128-row window a block) when the window is 128 rows and that
     grid has a block for every SM, else ``"rows"`` (a warp per (query,
     window), which only computes rows below ``n_valid``)."""
+    if k > MAX_K:
+        return "matrix"
     window = window_rows(k)
     if window == _TILE_N and -(-m // 128) * (n // window) >= sms:
         return "mma"
@@ -138,10 +148,14 @@ def packed_route(m: int, n: int, k: int, sms: int) -> str:
 
 
 def float_route(k: int) -> str:
-    """The route of :func:`fused_topk`: ``"wgmma"`` (3xTF32 tensor cores,
-    128 queries x one window a block, the top-k selected from registers)
-    when the window is 128 rows (k <= 128), else ``"fma"`` (float32 FMA on
-    the CUDA cores, the window's keys in shared memory)."""
+    """The route of a float search: ``"matrix"`` (:func:`topk_by_distance`)
+    when ``k`` exceeds :data:`MAX_K`; otherwise :func:`fused_topk`'s
+    ``"wgmma"`` (3xTF32 tensor cores, 128 queries x one window a block,
+    the top-k selected from registers) when the window is 128 rows (k <=
+    128), else ``"fma"`` (float32 FMA on the CUDA cores, the window's keys
+    in shared memory)."""
+    if k > MAX_K:
+        return "matrix"
     return "wgmma" if window_rows(k) == _TILE_N else "fma"
 
 
@@ -315,6 +329,57 @@ def distance_reference(q: torch.Tensor, p: torch.Tensor, *, metric: str,
     if gamma:
         dist = dist + gamma * _term(p, pk).sum(1)[None, :]
     return dist
+
+
+def order_key(skey: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
+    """One int64 per candidate ordered as (skey, gid): the float's
+    order-preserving bits in the high word, the row id (< 2**31) in the
+    low one.  ``+ 0.0`` folds -0.0 into +0.0, as a sort does; NaN never
+    occurs (distances are finite or +-inf)."""
+    bits = (skey + 0.0).contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return (ordered.to(torch.int64) << 32) | gid.to(torch.int64)
+
+
+def _select_from_matrix(dist: torch.Tensor, *, k: int, largest: bool,
+                        n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (M, k) best of an (M, N) distance matrix by (value, lowest row
+    id): one int64 key per entry (:func:`order_key`), so ``torch.topk``
+    meets no tie; rows at or beyond ``n_valid`` lose."""
+    gid = torch.arange(dist.shape[1], device=dist.device, dtype=torch.int32)
+    skey = -dist if largest else dist
+    skey = torch.where(gid[None, :] < n_valid, skey, float("inf"))
+    _, pos = torch.topk(order_key(skey, gid[None, :]), k, dim=-1,
+                        largest=False, sorted=True)
+    return torch.gather(dist, -1, pos), pos.to(torch.int32)
+
+
+def _check_matrix_topk(q, p, bias, k: int, n_valid: int) -> None:
+    if bias is not None and (bias.dim() != 1 or bias.shape[0] != p.shape[0]
+                             or bias.dtype != torch.float32
+                             or bias.device != p.device):
+        raise ValueError("topk_by_distance: bias must be a float32 (N,) "
+                         "tensor on the patterns' device")
+    if not 1 <= n_valid <= p.shape[0]:
+        raise ValueError(f"topk_by_distance: n_valid={n_valid} outside "
+                         f"1..{p.shape[0]}")
+    if not 1 <= k <= n_valid:
+        raise ValueError(f"topk_by_distance: k={k} outside 1..{n_valid}")
+
+
+def topk_by_distance_reference(q: torch.Tensor, p: torch.Tensor,
+                               bias: Optional[torch.Tensor] = None, *,
+                               metric: str, k: int, largest: bool,
+                               n_valid: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`topk_by_distance`:
+    :func:`distance_reference` (plus ``bias``), then the same selection."""
+    _check_distance(q, p, metric)
+    _check_matrix_topk(q, p, bias, k, n_valid)
+    dist = distance_reference(q, p, metric=metric)
+    if bias is not None:
+        dist = dist + bias[None, :]
+    return _select_from_matrix(dist, k=k, largest=largest, n_valid=n_valid)
 
 
 # ---------------------------------------------------------------------------
@@ -502,6 +567,40 @@ def distance(q: torch.Tensor, p: torch.Tensor, *, metric: str
     _check_distance(q, p, metric)
     if q.device.type == "cpu":
         return distance_reference(q, p, metric=metric)
+    return _launch_distance(q, p, metric, "distance")
+
+
+def topk_by_distance(q: torch.Tensor, p: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None, *, metric: str,
+                     k: int, largest: bool, n_valid: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, k) best rows by (value, lowest row id), for any ``k`` up to
+    ``n_valid``: the search route where ``k`` exceeds :data:`MAX_K`.
+
+    The distance kernel writes the (M, N) matrix of ``metric``'s
+    decomposition (operands as :func:`distance` takes them), ``bias``
+    (N,) is added to every row when given (a ternary search: ``dot``
+    against ``care - 2 p care`` plus ``sum(p care)``), rows at or beyond
+    ``n_valid`` lose, and one selection over an int64 key per entry
+    (:func:`order_key`) takes the top ``k``, sorted.  On {0, 1} and +-1
+    cells every entry is an exact integer, so hamming, dot and ternary
+    results are bit-identical to the reference.  CPU tensors run
+    :func:`topk_by_distance_reference`; CUDA tensors launch the kernel
+    (counted as ``"distance_topk"``).
+    """
+    _check_distance(q, p, metric)
+    _check_matrix_topk(q, p, bias, k, n_valid)
+    if q.device.type == "cpu":
+        return topk_by_distance_reference(q, p, bias, metric=metric, k=k,
+                                          largest=largest, n_valid=n_valid)
+    dist = _launch_distance(q, p, metric, "distance_topk")
+    if bias is not None:
+        dist += bias[None, :]
+    return _select_from_matrix(dist, k=k, largest=largest, n_valid=n_valid)
+
+
+def _launch_distance(q: torch.Tensor, p: torch.Tensor, metric: str,
+                     count_as: str) -> torch.Tensor:
     out = torch.empty((q.shape[0], p.shape[0]), dtype=torch.float32,
                       device=q.device)
     if q.shape[0] == 0 or p.shape[0] == 0:
@@ -513,5 +612,5 @@ def distance(q: torch.Tensor, p: torch.Tensor, *, metric: str
                      p.shape[0], q.shape[1], _METRIC_CODE[metric],
                      torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed(lib, "distance", err)
-    _count("distance")
+    _count(count_as)
     return out

@@ -53,6 +53,21 @@
 // key planes of a feature stay in registers across the rows.  The output is
 // written as float4 stores of 512 contiguous bytes a warp, each lane taking
 // its words' sign masks by shuffle.
+//
+// Size limits lifted (the reference's encode has none):
+// * rows: the row blocks run over gridDim.y and gridDim.z (65,535 each), so
+//   any int M fits one launch; a block past M exits before its first
+//   barrier.
+// * features: F >= 2^16 counts in 32 bit planes (kPlanes 32, any int F),
+//   compiled at one block an SM so the counters may take up to 255
+//   registers.
+// * levels: where the (L + 1) x 32 level words of a block do not fit in
+//   shared memory beside the stages (more than 476 levels), the inner loop
+//   reads them from global memory (the table stays in L2) through the
+//   read-only path; the staged ids then hold level-row indices, not byte
+//   offsets.
+// Each route counts the same integers: every one is bit-identical to the
+// reference.
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -128,9 +143,9 @@ constexpr int kIdStage = kBlockM * kChunkF * 4;
 constexpr int kLevelsAt = 2 * kKeyStage + 2 * kIdStage + kBlockM * 4;
 
 // kCare: the zero-cell route (care counted); kPlanes: count bits, F <
-// 2^kPlanes.
-template <bool kCare, int kPlanes>
-__global__ void __launch_bounds__(kThreads, 2)
+// 2^kPlanes; kGlobal: the level planes are read from global memory.
+template <bool kCare, int kPlanes, bool kGlobal>
+__global__ void __launch_bounds__(kThreads, kPlanes > 16 ? 1 : 2)
 hdc_encode_kernel(const int* __restrict__ q, const uint2* __restrict__ key_planes,
                   const uint2* __restrict__ level_planes, float* __restrict__ out,
                   int M, int F, int H, int W, int L) {
@@ -146,7 +161,8 @@ hdc_encode_kernel(const int* __restrict__ q, const uint2* __restrict__ key_plane
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.y * kBlockM;
+  const int m0 = (blockIdx.y + blockIdx.z * gridDim.y) * kBlockM;
+  if (m0 >= M) return;                       // block-uniform, before barriers
   const int w0 = blockIdx.x * kWords;
 
   // the next stage's ids and key planes are copied while this one is counted
@@ -185,17 +201,19 @@ hdc_encode_kernel(const int* __restrict__ q, const uint2* __restrict__ key_plane
         bad = 1;
         v = L;
       }
-      q_s[i] = v * kWords * int(sizeof(uint2));
+      q_s[i] = kGlobal ? v : v * kWords * int(sizeof(uint2));
     }
     return bad;
   };
 
   issue(0, 0);
-  for (int i = tid; i < (L + 1) * kWords; i += kThreads) {
-    const int l = i / kWords, w = w0 + i % kWords;
-    const uint2 v = w < W ? level_planes[size_t(l) * W + w] : make_uint2(0u, 0u);
-    l_pair[i] = v;
-    l_sign[i] = v.x;
+  if constexpr (!kGlobal) {
+    for (int i = tid; i < (L + 1) * kWords; i += kThreads) {
+      const int l = i / kWords, w = w0 + i % kWords;
+      const uint2 v = w < W ? level_planes[size_t(l) * W + w] : make_uint2(0u, 0u);
+      l_pair[i] = v;
+      l_sign[i] = v.x;
+    }
   }
   if (tid < kBlockM) bad_s[tid] = 0;
   __syncthreads();
@@ -211,6 +229,9 @@ hdc_encode_kernel(const int* __restrict__ q, const uint2* __restrict__ key_plane
 
   const unsigned char* pair_lane = reinterpret_cast<const unsigned char*>(l_pair + lane);
   const unsigned char* sign_lane = reinterpret_cast<const unsigned char*>(l_sign + lane);
+  // the global route's column of this lane (a lane past W reads a real
+  // word; its output is never written)
+  const uint2* g_lane = level_planes + min(w0 + lane, W - 1);
   const int f_pad = (F + kGroup - 1) / kGroup * kGroup;
   // no zero cell and every id of the stage in range: sign words suffice
   bool fast = !__syncthreads_or(offsets(0)) && !kCare;
@@ -240,12 +261,18 @@ hdc_encode_kernel(const int* __restrict__ q, const uint2* __restrict__ key_plane
         uint32_t x[kGroup], y[kGroup];
         if (fast) {
 #pragma unroll
-          for (int i = 0; i < kGroup; ++i)
-            x[i] = ks[i] ^ *reinterpret_cast<const uint32_t*>(sign_lane + (off[i] >> 1));
+          for (int i = 0; i < kGroup; ++i) {
+            if constexpr (kGlobal)
+              x[i] = ks[i] ^ __ldg(reinterpret_cast<const unsigned int*>(
+                                 g_lane + size_t(off[i]) * W));
+            else
+              x[i] = ks[i] ^ *reinterpret_cast<const uint32_t*>(sign_lane + (off[i] >> 1));
+          }
         } else {
 #pragma unroll
           for (int i = 0; i < kGroup; ++i) {
-            const uint2 lv = *reinterpret_cast<const uint2*>(pair_lane + off[i]);
+            const uint2 lv = kGlobal ? __ldg(g_lane + size_t(off[i]) * W)
+                                     : *reinterpret_cast<const uint2*>(pair_lane + off[i]);
             if constexpr (kCare) {
               y[i] = kc[i] & lv.y;
               x[i] = lop3<kXorAnd>(ks[i], lv.x, y[i]);
@@ -312,28 +339,37 @@ hdc_encode_kernel(const int* __restrict__ q, const uint2* __restrict__ key_plane
   }
 }
 
-template <bool kCare, int kPlanes>
+template <bool kCare, int kPlanes, bool kGlobal>
 int launch(const int* q, const uint2* kp, const uint2* lp, float* out, int M, int F,
            int H, int W, int L, cudaStream_t s) {
-  auto kernel = hdc_encode_kernel<kCare, kPlanes>;
-  const int dyn = kLevelsAt + (L + 1) * kWords * int(sizeof(uint2) + sizeof(uint32_t));
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  auto kernel = hdc_encode_kernel<kCare, kPlanes, kGlobal>;
+  const long long dyn =
+      kLevelsAt +
+      (kGlobal ? 0LL : (L + 1LL) * kWords * int(sizeof(uint2) + sizeof(uint32_t)));
+  if (dyn > 232448) return int(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(dyn));
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((W + kWords - 1) / kWords, (M + kBlockM - 1) / kBlockM);
-  if (grid.y > 65535) return int(cudaErrorInvalidValue);
-  kernel<<<grid, kThreads, dyn, s>>>(q, kp, lp, out, M, F, H, W, L);
+  // row blocks over y, then z: 65,535 x 65,535 blocks of 32 rows
+  const long long rblocks = (M + kBlockM - 1) / kBlockM;
+  const unsigned gy = unsigned(rblocks < 65535 ? rblocks : 65535);
+  const dim3 grid((W + kWords - 1) / kWords, gy, unsigned((rblocks + gy - 1) / gy));
+  kernel<<<grid, kThreads, int(dyn), s>>>(q, kp, lp, out, M, F, H, W, L);
   return int(cudaGetLastError());
 }
 
 template <bool kCare>
 int launch_planes(const int* q, const uint2* kp, const uint2* lp, float* out, int M,
-                  int F, int H, int W, int L, cudaStream_t s) {
-  if (F < (1 << 8)) return launch<kCare, 8>(q, kp, lp, out, M, F, H, W, L, s);
-  if (F < (1 << 10)) return launch<kCare, 10>(q, kp, lp, out, M, F, H, W, L, s);
-  if (F < (1 << 12)) return launch<kCare, 12>(q, kp, lp, out, M, F, H, W, L, s);
-  if (F < (1 << 16)) return launch<kCare, 16>(q, kp, lp, out, M, F, H, W, L, s);
-  return int(cudaErrorInvalidValue);
+                  int F, int H, int W, int L, int global_levels, cudaStream_t s) {
+  if (global_levels) {
+    if (F < (1 << 16)) return launch<kCare, 16, true>(q, kp, lp, out, M, F, H, W, L, s);
+    return launch<kCare, 32, true>(q, kp, lp, out, M, F, H, W, L, s);
+  }
+  if (F < (1 << 8)) return launch<kCare, 8, false>(q, kp, lp, out, M, F, H, W, L, s);
+  if (F < (1 << 10)) return launch<kCare, 10, false>(q, kp, lp, out, M, F, H, W, L, s);
+  if (F < (1 << 12)) return launch<kCare, 12, false>(q, kp, lp, out, M, F, H, W, L, s);
+  if (F < (1 << 16)) return launch<kCare, 16, false>(q, kp, lp, out, M, F, H, W, L, s);
+  return launch<kCare, 32, false>(q, kp, lp, out, M, F, H, W, L, s);
 }
 
 }  // namespace
@@ -341,17 +377,19 @@ int launch_planes(const int* q, const uint2* kp, const uint2* lp, float* out, in
 // q (M, F) int32; key_planes (F, W, 2) and level_planes (L + 1, W, 2)
 // int32 (sign, care) words, row-major, W = ceil(H / 32), bits past H and
 // level row L zero; out (M, H) float32.  care: 0 when no cell of keys or
-// levels is zero.  Returns a cudaError_t code.
+// levels is zero.  global_levels: read the level planes from global memory
+// (when they do not fit in shared memory).  Returns a cudaError_t code.
 extern "C" int c4cam_hdc_encode(const int* q, const int* key_planes,
                                 const int* level_planes, float* out, int M, int F,
-                                int H, int W, int L, int care, void* stream) {
+                                int H, int W, int L, int care, int global_levels,
+                                void* stream) {
   if (M <= 0 || F <= 0 || H <= 0 || L <= 0 || W != (H + 31) / 32)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint2* kp = reinterpret_cast<const uint2*>(key_planes);
   const uint2* lp = reinterpret_cast<const uint2*>(level_planes);
-  return care ? launch_planes<true>(q, kp, lp, out, M, F, H, W, L, s)
-              : launch_planes<false>(q, kp, lp, out, M, F, H, W, L, s);
+  return care ? launch_planes<true>(q, kp, lp, out, M, F, H, W, L, global_levels, s)
+              : launch_planes<false>(q, kp, lp, out, M, F, H, W, L, global_levels, s);
 }
 
 extern "C" const char* c4cam_error_string(int err) {

@@ -24,13 +24,20 @@ levels[l]``, chunked over queries so no (M, F, H) tensor is built; and
 :func:`hdc_encode_bitsliced` runs the kernel's own arithmetic (the same
 planes, the same carry-save tree, the same compare) in torch.
 
+The kernel takes any row count, feature count and level count: rows
+beyond one grid dimension run on the next, F >= 2**16 counts in 32 bit
+planes, and level planes that do not fit in a block's shared memory are
+read from global memory (:func:`hdc_route` names the route; every route
+counts the same integers).
+
 Contract: ``level_idx`` (M, F) int32; ``keys`` (F, H) and ``levels``
 (L, H) with every value in {-1, 0, +1} (float32 or int8), where the sums
 are small integers and every version is exact, hence bit-identical.  An
 id outside ``[0, L)`` contributes nothing, as in the reference kernel's
 one-hot.  A wrapper runs the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  Each launch adds one to
-:data:`.cam_search.LAUNCHES` (``"hdc_encode"``).
+:data:`.cam_search.LAUNCHES`: ``"hdc_encode"`` on the shared-memory route
+of up to 16 count planes, ``"hdc_encode_wide"`` on the others.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ from .packing import LANE_BITS, lanes, pack_bits
 
 __all__ = ["HdcPlanes", "hdc_planes", "hdc_encode", "hdc_encode_planes",
            "hdc_encode_reference", "hdc_encode_bitsliced",
-           "hdc_sums_reference", "count_planes", "HDC_SMEM_LIMIT"]
+           "hdc_sums_reference", "count_planes", "hdc_route",
+           "HDC_SMEM_LIMIT"]
 
 #: the most shared memory a block can use on an H100 (227 KB)
 HDC_SMEM_LIMIT = 232448
@@ -90,12 +98,26 @@ class HdcPlanes:
 
 def count_planes(n_features: int) -> int:
     """Bit planes of the kernel's counts for ``n_features`` features (a
-    count reaches ``n_features``): 8, 10, 12 or 16."""
-    for planes in (8, 10, 12, 16):
+    count reaches ``n_features``): 8, 10, 12, 16, or 32 from 2**16
+    features on (any int32 feature count)."""
+    for planes in (8, 10, 12, 16, 32):
         if n_features < 1 << planes:
             return planes
-    raise ValueError(f"hdc_encode: {n_features} features exceed the "
-                     f"kernel's 16-bit counts")
+    raise ValueError(f"hdc_encode: {n_features} features exceed int32")
+
+
+def hdc_route(n_features: int, n_levels: int) -> str:
+    """The kernel's route for ``n_features`` features and ``n_levels``
+    levels: ``"bitsliced"`` (counts in up to 16 bit planes, the level
+    planes in shared memory), or ``"wide"`` (32 count planes,
+    ``n_features >= 2**16``), ``"global"`` (the level planes read from
+    global memory: they do not fit in shared memory) or ``"wide+global"``.
+    """
+    wide = count_planes(n_features) > 16
+    glob = _smem_bytes(n_levels) > HDC_SMEM_LIMIT
+    if wide and glob:
+        return "wide+global"
+    return "wide" if wide else "global" if glob else "bitsliced"
 
 
 def _sign_care(cells: torch.Tensor) -> torch.Tensor:
@@ -282,37 +304,29 @@ def hdc_encode_planes(level_idx: torch.Tensor,
 
     CPU tensors run :func:`hdc_encode_reference` on the planes' cells;
     CUDA tensors launch the kernel, on its no-zero-cell route unless
-    ``planes.has_zero``.  Raises when the level planes of a block do not
-    fit in shared memory, or F reaches 2**16.
+    ``planes.has_zero``, on the route :func:`hdc_route` names.
     """
     _check_planes(level_idx, planes)
     if level_idx.device.type == "cpu":
         return hdc_encode_reference(level_idx, planes.keys, planes.levels)
     n_levels = planes.n_levels
-    if _smem_bytes(n_levels) > HDC_SMEM_LIMIT:
-        raise ValueError(
-            f"hdc_encode: {n_levels} levels x 32 words do not fit in a "
-            f"block's shared memory ({_smem_bytes(n_levels)} > "
-            f"{HDC_SMEM_LIMIT} bytes)")
     m, f = level_idx.shape
     h = planes.dim
-    count_planes(f)
-    if -(-m // _BLOCK_ROWS) > 65535:
-        raise ValueError(f"hdc_encode: {m} query rows exceed the launch "
-                         f"grid; split the batch")
+    route = hdc_route(f, n_levels)
     q = level_idx.contiguous()
     out = torch.empty((m, h), dtype=torch.float32, device=q.device)
     if m == 0:
         return out
     lib = build.load("hdc_encode")
-    launch = _bind(lib, "c4cam_hdc_encode", _args(4, 6))
+    launch = _bind(lib, "c4cam_hdc_encode", _args(4, 7))
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), planes.key_planes.data_ptr(),
                      planes.level_planes.data_ptr(), out.data_ptr(), m, f, h,
                      lanes(h), n_levels, int(planes.has_zero),
+                     int(route.endswith("global")),
                      torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_failed(lib, "hdc_encode", err)
-    _count("hdc_encode")
+    _count("hdc_encode" if route == "bitsliced" else "hdc_encode_wide")
     return out
 
 

@@ -1,1 +1,2 @@
-"""Launch layer: drivers (the serving loop so far)."""
+"""Launch layer: the LM serving loop (:mod:`.serve`) and the data mesh
+of sharded search plans (:mod:`.mesh`)."""

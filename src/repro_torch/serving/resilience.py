@@ -234,13 +234,13 @@ class _ResilienceMixin:
 
     def _build_fallbacks(self) -> List[Tuple[str, Any]]:
         """Degraded chain below the primary plan, most- to least-capable:
-        the exact flat search ``"torch-flat"`` (for a composite primary)
-        → ``"torch"`` (for a ``"cuda"`` primary) → ``"torch"`` unpacked
-        (for packed primaries) → IR interpreter, on the CPU only; a plan
-        on the card gets none.  Every level is an ordinary plan-cache
-        citizen compiled for the same spec/batch.  The reference's
-        single-device level (under a sharded primary) waits for sharding
-        (ROADMAP Queue A item 5)."""
+        the exact flat search ``"torch-flat"`` (for a composite primary,
+        sharded as the primary is) → ``"torch-single"`` (the unsharded
+        plan, for a sharded primary) → ``"torch"`` (for a ``"cuda"``
+        primary) → ``"torch"`` unpacked (for packed primaries) → IR
+        interpreter, on the CPU only; a plan on the card gets none.  Every
+        level is an ordinary plan-cache citizen compiled for the same
+        spec/batch."""
         if self.plan.device.type != "cpu":
             return []
         from ..core.engine import CompositePlan, get_plan, module_for_spec
@@ -261,7 +261,10 @@ class _ResilienceMixin:
         if isinstance(self.plan, CompositePlan):
             # composite primaries degrade to the *exact* flat search
             # first — module_for_spec resolved the flat equivalent above
-            add("torch-flat", backend="torch", pack=self.plan.packed)
+            add("torch-flat", backend="torch", pack=self.plan.packed,
+                shards=self.plan.shards)
+        if self.plan.shards > 1:
+            add("torch-single", backend="torch", pack=self.plan.packed)
         if self.plan.backend == "cuda":
             add("torch", backend="torch", pack=self.plan.packed)
         if self.plan.packed:

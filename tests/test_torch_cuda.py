@@ -271,7 +271,8 @@ def test_launch_counts_and_refusals(cuda):
     assert tcs.LAUNCHES == {"fused_topk": 0, "fused_topk_packed": 1,
                             "fused_topk_packed_ternary": 1,
                             "acam_match": 0, "range_match": 0,
-                            "hdc_encode": 0, "distance": 0,
+                            "hdc_encode": 0, "hdc_encode_wide": 0,
+                            "distance": 0, "distance_topk": 0,
                             "flash_attention": 0}
     with pytest.raises(ValueError, match="queries on"):
         tcs.fused_topk_packed(q, p.cpu(), k=3, largest=False, n_valid=100)
@@ -777,11 +778,17 @@ def test_hdc_encode_kernel_refuses_bad_operands(cuda):
         thdc.hdc_encode(q, k, lv[:, :15])
     with pytest.raises(ValueError, match="on cpu"):
         thdc.hdc_encode(q, k.cpu(), lv)
-    with pytest.raises(ValueError, match="shared memory"):
-        thdc.hdc_encode(q, k, torch.ones((2000, 16), device=cuda))
-    with pytest.raises(ValueError, match="16-bit"):
-        big = torch.zeros((1, 1 << 16), dtype=torch.int32, device=cuda)
-        thdc.hdc_encode(big, torch.ones((1 << 16, 16), device=cuda), lv)
+    # 2000 levels (past shared memory) and 2**16 features (past 16-bit
+    # counts) were refused; they now take the wide routes, exactly
+    many = torch.ones((2000, 16), device=cuda)
+    assert torch.equal(thdc.hdc_encode(q, k, many).cpu(),
+                       thdc.hdc_encode_reference(q.cpu(), k.cpu(),
+                                                 many.cpu()))
+    big = torch.zeros((1, 1 << 16), dtype=torch.int32, device=cuda)
+    wide = torch.ones((1 << 16, 16), device=cuda)
+    assert torch.equal(thdc.hdc_encode(big, wide, lv).cpu(),
+                       thdc.hdc_encode_reference(big.cpu(), wide.cpu(),
+                                                 lv.cpu()))
     with pytest.raises(ValueError, match="planes"):
         planes = thdc.hdc_planes(k, lv)
         thdc.hdc_encode_planes(q, thdc.HdcPlanes(
@@ -1561,3 +1568,190 @@ def test_hier_on_the_card_equals_flat_and_repeats_centroids(cuda, rng):
     a, b = hier._prepare(gt), hier._prepare(gt)
     assert torch.equal(a.centroid_src, b.centroid_src)
     assert np.array_equal(a.assign, b.assign)
+
+
+# ---------------------------------------------------------------------------
+# k > MAX_K (the matrix route), B5's wide routes, sharding, the gateway
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("metric,largest", [("hamming", False),
+                                            ("eucl", False), ("dot", True)])
+@pytest.mark.parametrize("k", [tcs.MAX_K + 1, 700])
+def test_matrix_route_matches_plain(cuda, metric, largest, k, rng):
+    """B6's matrix plus the (value, lowest row id) selection against its
+    plain version: bit-identical on {0, 1} cells, eucl within tolerance
+    with near-tie swaps only; one ``distance_topk`` launch a call."""
+    m, n, dim = 70, 1500, 72
+    if metric == "eucl":
+        q = torch.from_numpy(rng.standard_normal((m, dim)).astype(np.float32))
+        p = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32))
+    else:
+        q = torch.from_numpy((rng.random((m, dim)) > 0.5).astype(np.float32))
+        p = torch.from_numpy((rng.random((n, dim)) > 0.5).astype(np.float32))
+    bias = torch.from_numpy(rng.integers(0, 3, n).astype(np.float32)) \
+        if metric == "dot" else None
+    kw = dict(metric=metric, k=k, largest=largest, n_valid=n - 9)
+    before = tcs.LAUNCHES["distance_topk"]
+    got = tcs.topk_by_distance(q.to(cuda), p.to(cuda),
+                               None if bias is None else bias.to(cuda), **kw)
+    assert tcs.LAUNCHES["distance_topk"] == before + 1
+    want = tcs.topk_by_distance_reference(q, p, bias, **kw)
+    gv, gi = got[0].cpu().numpy(), got[1].cpu().numpy()
+    if metric == "eucl":
+        _assert_eucl_close(q.numpy(), p.numpy(), want[0].numpy(),
+                           want[1].numpy(), gv, gi)
+    else:
+        assert np.array_equal(gv, want[0].numpy())
+        assert np.array_equal(gi, want[1].numpy())
+    assert int(gi.max()) < n - 9
+
+
+@pytest.mark.parametrize("metric", ["hamming", "ternary", "eucl"])
+def test_matrix_route_main_path_on_the_card(cuda, metric, rng):
+    """``compile_module`` with k = 400 on the ``"cuda"`` backend (packed
+    hamming and ternary, eucl): the route is picked by shape, counted,
+    and equal to the ``"torch"`` backend on the card."""
+    m, n, dim, k = 40, 3000, 96, 400
+    care = metric == "ternary"
+    if metric == "eucl":
+        q = rng.standard_normal((m, dim)).astype(np.float32)
+        g = rng.standard_normal((n, dim)).astype(np.float32)
+        prog = lambda **kw: T.compile_fn(_knn_k(k), [q, g],  # noqa: E731
+                                         T.ArchSpec(rows=64, cols=64), **kw)
+    else:
+        q = (rng.random((m, dim)) > 0.5).astype(np.float32)
+        g = (rng.random((n, dim)) > 0.5).astype(np.float32)
+        mod = _hamming_module(m, n, dim, k, care)
+        prog = lambda **kw: T.compile_module(  # noqa: E731
+            mod, T.ArchSpec(rows=64, cols=64), value_bits=1, **kw)
+    ins = [q, g] + ([(rng.random((n, dim)) > 0.2).astype(np.int8)]
+                    if care else [])
+    tcs.reset_launch_counts()
+    got = prog()(*ins)
+    assert tcs.LAUNCHES["distance_topk"] == 1
+    assert sum(tcs.LAUNCHES.values()) == 1
+    want = prog(backend="torch")(*ins)
+    gv, gi = got[0].cpu().numpy(), got[1].cpu().numpy()
+    wv, wi = want[0].cpu().numpy(), want[1].cpu().numpy()
+    if metric == "eucl":
+        _assert_eucl_close(q, g, wv, wi, gv, gi)
+    else:
+        assert np.array_equal(gv, wv) and np.array_equal(gi, wi)
+
+
+def _knn_k(k):
+    def knn(q, gallery):
+        d = q.unsqueeze(1).sub(gallery).norm(p=2, dim=-1)
+        return d.topk(k, largest=False)
+    return knn
+
+
+@pytest.mark.parametrize("m,f,h,levels,zero_cells", [
+    (40, 65536, 256, 4, False),       # the 32 count planes
+    (40, 65536, 96, 3, True),
+    (300, 784, 1000, 512, False),     # the level planes in global memory
+    (300, 784, 1000, 600, True),
+    (17, 65552, 64, 480, False),      # both
+])
+def test_hdc_encode_wide_routes_match_plain(cuda, m, f, h, levels,
+                                            zero_cells, rng):
+    from repro_torch.kernels import hdc_encode as thdc
+    hi = 2 if zero_cells else 1
+    keys = torch.from_numpy(rng.choice([-1, 1, 0][:hi + 1], (f, h))
+                            .astype(np.float32))
+    lv = torch.from_numpy(rng.choice([-1, 1, 0][:hi + 1], (levels, h))
+                          .astype(np.float32))
+    q = torch.from_numpy(rng.integers(0, levels, (m, f)).astype(np.int32))
+    planes = thdc.hdc_planes(keys.to(cuda), lv.to(cuda))
+    assert thdc.hdc_route(f, levels) != "bitsliced"
+    before = tcs.LAUNCHES["hdc_encode_wide"]
+    got = thdc.hdc_encode_planes(q.to(cuda), planes).cpu()
+    assert tcs.LAUNCHES["hdc_encode_wide"] == before + 1
+    # the plain version on the card (exact integer sums; TF32 off)
+    want = thdc.hdc_encode_reference(q.to(cuda), keys.to(cuda), lv.to(cuda))
+    assert torch.equal(got, want.cpu())
+
+
+def test_hdc_encode_rows_past_one_grid_dimension(cuda, rng):
+    """More than 65,535 row blocks (2,097,120 rows) in one launch: the
+    rows run on the grid's third dimension, bit-identical to the plain
+    version on the rows on both sides of the seam and at the end."""
+    from repro_torch.kernels import hdc_encode as thdc
+    m, f, h, levels = 2_100_000, 16, 64, 8
+    keys = torch.from_numpy(rng.choice([-1.0, 1.0], (f, h))
+                            .astype(np.float32))
+    lv = torch.from_numpy(rng.choice([-1.0, 1.0], (levels, h))
+                          .astype(np.float32))
+    q = torch.from_numpy(rng.integers(0, levels, (m, f)).astype(np.int32))
+    planes = thdc.hdc_planes(keys.to(cuda), lv.to(cuda))
+    got = thdc.hdc_encode_planes(q.to(cuda), planes)
+    for rows in (slice(0, 4096), slice(2_097_120 - 2048, 2_097_120 + 2048),
+                 slice(m - 4096, m)):
+        assert torch.equal(got[rows].cpu(),
+                           thdc.hdc_encode_reference(q[rows], keys, lv))
+    assert thdc.hdc_route(f, levels) == "bitsliced"
+
+
+@pytest.mark.parametrize("metric", ["hamming", "eucl"])
+def test_sharded_plan_on_cuda_standins(cuda, metric, rng):
+    """Four shards on ``cuda:0`` stand-ins (the mesh test hook) equal the
+    unsharded ``"torch"`` plan on the card, before and after a sharded
+    ``update_rows``; a real shard request on a one-card host clamps."""
+    from repro_torch.launch.mesh import forced_devices
+    m, n, dim, k = 20, 1100, 64, 7
+    if metric == "eucl":
+        q = rng.standard_normal((m, dim)).astype(np.float32)
+        g = rng.standard_normal((n, dim)).astype(np.float32)
+        prog = lambda **kw: T.compile_fn(_knn_k(k), [q, g],  # noqa: E731
+                                         T.ArchSpec(rows=64, cols=64),
+                                         backend="torch", **kw)
+    else:
+        q = (rng.random((m, dim)) > 0.5).astype(np.float32)
+        g = (rng.random((n, dim)) > 0.5).astype(np.float32)
+        mod = _hamming_module(m, n, dim, k, False)
+        prog = lambda **kw: T.compile_module(  # noqa: E731
+            mod, T.ArchSpec(rows=64, cols=64), value_bits=1,
+            backend="torch", **kw)
+    one = prog().engine_plan
+    if torch.cuda.device_count() == 1:
+        assert prog(shards=4).engine_plan is one
+    with forced_devices(4, cuda):
+        sh = prog(shards=4).engine_plan
+    assert sh.shards == 4
+    gt = torch.from_numpy(g).to(cuda)
+    for a, b in zip(sh.execute(q, gt), one.execute(q, gt)):
+        assert torch.equal(a, b)
+    idx = np.arange(0, n, 97)
+    g2 = sh.update_rows(gt, idx, g[idx[::-1]])
+    assert sh.row_update_fallbacks == 0
+    for a, b in zip(sh.execute(q, g2), one.execute(q, g2.clone())):
+        assert torch.equal(a, b)
+
+
+def test_gateway_on_the_card_fails_over(cuda, rng):
+    """A gateway tenant on the card: served equals direct (B2), a killed
+    replica's batches fail (no degraded chain on the card) and every
+    request fails over to the healthy one, then the replica is rebuilt
+    and readmitted."""
+    from repro_torch.serving import CamServingGateway
+    n, dim = 2000, 64
+    g = rng.standard_normal((n, dim)).astype(np.float32)
+    q = rng.standard_normal((13, dim)).astype(np.float32)
+    prog = T.compile_fn(_knn, [q, g], T.ArchSpec(rows=64, cols=64))
+    want = tuple(x.cpu().numpy() for x in prog.engine_plan.execute(q, g))
+    with CamServingGateway(maint_ms=0.0) as gw:
+        gw.register_tenant("t", prog, g, replicas=2, unhealthy_k=2)
+        v, i = gw.search("t", q, timeout=60)
+        assert np.array_equal(v, want[0]) and np.array_equal(i, want[1])
+        gw.kill_replica("t", 0)
+        for _ in range(6):
+            res = gw.submit("t", q).wait(60)
+            assert res.error is None and np.array_equal(res.indices, want[1])
+        h = gw.health()["tenants"]["t"]
+        assert h["stats"]["failovers"] > 0 and h["stats"]["failed"] == 0
+        rep = gw.check_tenant("t")
+        assert [x["mode"] for x in rep["healed"]] == ["rebuild"]
+        assert all(r["state"] == "serving"
+                   for r in gw.health()["tenants"]["t"]["replicas"]
+                   ["replicas"])

@@ -26,6 +26,7 @@ from repro_torch.core.engine import _pick_batch
 from repro_torch.kernels import cam_search as tcs
 from test_torch_frontend import hamming_module, hdc_similarity, knn_kernel
 from test_torch_kernels import _assert_eucl_close
+from test_torch_update_rows import sim_module
 
 PAIRS = [("jnp", "torch"), ("pallas", "cuda")]
 
@@ -126,7 +127,9 @@ def test_lead_dims_and_zero_queries(rng):
 
 def test_cuda_backend_large_k_window(rng):
     """k above one 128-row window: the cuda backend's plain path widens
-    its window and still equals the reference."""
+    its window and still equals the reference; past ``MAX_K`` no window
+    fits and the plan takes the matrix route (chosen by shape), still
+    equal to the reference bit for bit."""
     m, n, dim, k = 6, 700, 64, 150
     rm = hamming_module(R, rcd, m, n, dim, k)
     tm = hamming_module(T, tcd, m, n, dim, k)
@@ -137,9 +140,58 @@ def test_cuda_backend_large_k_window(rng):
     port = T.compile_module(tm, arch_t, value_bits=1, backend="cuda",
                             device="cpu")(q, g)
     _assert_results("hamming", [q, g], ref, port)
-    too_big = hamming_module(T, tcd, m, n, dim, tcs.MAX_K + 1)
-    with pytest.raises(ValueError, match="range"):
-        T.compile_module(too_big, arch_t, value_bits=1, device="cpu")
+    big = tcs.MAX_K + 1
+    assert tcs.packed_route(m, n, big, 132) == "matrix"
+    ref = R.compile_module(hamming_module(R, rcd, m, n, dim, big), arch_r,
+                           value_bits=1, backend="jnp")(q, g)
+    port = T.compile_module(hamming_module(T, tcd, m, n, dim, big), arch_t,
+                            value_bits=1, device="cpu")(q, g)
+    assert port[1].shape == (m, big)
+    _assert_results("hamming", [q, g], ref, port)
+
+
+@pytest.mark.parametrize("metric,pack", [
+    ("eucl", None), ("hamming", None), ("hamming", False), ("dot", None),
+    ("dot", False), ("ternary", None)])
+def test_cuda_matrix_route_matches_reference(metric, pack, rng):
+    """k = 400 (> MAX_K) on the ``"cuda"`` backend: the distance kernel's
+    matrix and one (value, lowest row id) selection, packed or not (a
+    ternary search on the cuda backend is packed), against the
+    reference's ``"jnp"`` plan: bit-identical on the integer metrics,
+    eucl within its tolerance with near-tie swaps only."""
+    m, n, dim, k = 5, 600, 40, 400
+    if metric == "eucl":
+        q = rng.standard_normal((m, dim)).astype(np.float32)
+        g = rng.standard_normal((n, dim)).astype(np.float32)
+    else:
+        q = (rng.random((m, dim)) > 0.5).astype(np.float32)
+        g = (rng.random((n, dim)) > 0.5).astype(np.float32)
+    ins = [q, g]
+    if metric == "ternary":
+        ins.append((rng.random((n, dim)) > 0.2).astype(np.int8))
+    rmod = sim_module(R, rcd, "hamming" if metric == "ternary" else metric,
+                      k, metric == "dot", m, n, dim,
+                      R.ArchSpec(rows=64, cols=64), care=metric == "ternary")
+    tmod = sim_module(T, tcd, "hamming" if metric == "ternary" else metric,
+                      k, metric == "dot", m, n, dim,
+                      T.ArchSpec(rows=64, cols=64), care=metric == "ternary")
+    rplan = R.get_plan(rmod, backend="jnp", pack=pack)
+    tplan = T.get_plan(tmod, backend="cuda", pack=pack, device="cpu")
+    assert tplan.packed == rplan.packed
+    assert tcs.float_route(k) == "matrix"
+    _assert_results(metric, ins, rplan.execute(*ins), tplan.execute(*ins))
+    # the route's row update equals a fresh prepare of the mutated gallery
+    gt = torch.from_numpy(g.copy())
+    care = torch.from_numpy(ins[2]) if metric == "ternary" else None
+    stored = (gt,) if care is None else (gt, care)
+    tplan.execute(q, *stored)
+    idx = np.array([0, 17, n - 1])
+    new = (rng.random((3, dim)) > 0.5).astype(np.float32)
+    g2 = tplan.update_rows(gt, idx, new, care=care)
+    assert tplan.row_update_fallbacks == 0
+    got = tplan.execute(q, g2, *stored[1:])
+    want = tplan.execute(q, g2.clone(), *stored[1:])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +273,42 @@ def test_prepared_round_trip(metric, rng):
                 assert not a[rows:].any() and not b[rows:].any()
 
 
+@pytest.mark.parametrize("metric", ["eucl", "hamming", "ternary"])
+def test_prepared_round_trip_matrix_route(metric, rng):
+    """A ``"pallas"`` plan's prepared operands at k = 400 carried to the
+    ``"cuda"`` plan's matrix route (float cells, or packed lanes as their
+    bits with a ternary's care folded in) equal the port's own prepare,
+    and the plan runs on them."""
+    m, n, dim, k = 4, 500, 40, 400
+    cell = metric if metric != "ternary" else "hamming"
+    if metric == "eucl":
+        q = rng.standard_normal((m, dim)).astype(np.float32)
+        g = rng.standard_normal((n, dim)).astype(np.float32)
+    else:
+        q = (rng.random((m, dim)) > 0.5).astype(np.float32)
+        g = (rng.random((n, dim)) > 0.5).astype(np.float32)
+    stored = [g] + ([(rng.random((n, dim)) > 0.2).astype(np.int8)]
+                    if metric == "ternary" else [])
+    care = metric == "ternary"
+    rplan = R.get_plan(sim_module(R, rcd, cell, k, False, m, n, dim,
+                                  R.ArchSpec(rows=64, cols=64), care=care),
+                       backend="pallas")
+    tplan = T.get_plan(sim_module(T, tcd, cell, k, False, m, n, dim,
+                                  T.ArchSpec(rows=64, cols=64), care=care),
+                       backend="cuda", device="cpu")
+    arrays = [np.asarray(a) for a in rplan._prepared_patterns(
+        *(jnp.asarray(x) for x in stored))]
+    got = convert.prepared_from_reference(arrays, packed=rplan.packed,
+                                          backend="cuda", spec=tplan.spec)
+    mine = tplan._prepared_patterns(*(torch.from_numpy(x) for x in stored))
+    assert len(got) == len(mine)
+    for a, b in zip(got, mine):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    want = tplan.execute(q, *stored)
+    out = tplan._chunk_fn(torch.from_numpy(q), got)
+    assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
 # ---------------------------------------------------------------------------
 # refusals and the device contract
 # ---------------------------------------------------------------------------
@@ -241,8 +329,15 @@ def test_refusals(rng):
         tprog(device="cpu", pack=False)
     with pytest.raises(ValueError, match="backend"):
         tprog(device="cpu", backend="jnp")
-    with pytest.raises(NotImplementedError, match="sharded"):
+    # sharding: the "cuda" backend refuses it on the requested count,
+    # before clamping, naming "torch" (the reference refuses "pallas");
+    # "torch" clamps to this device type's count (one CPU): the
+    # unsharded plan, as the reference's clamped plan is
+    with pytest.raises(ValueError, match="'torch' backend"):
         tprog(device="cpu", shards=2)
+    sh = tprog(device="cpu", backend="torch", shards=2)
+    assert sh.engine_plan.shards == 1 and sh.shards == 1
+    assert sh.engine_plan is tprog(device="cpu", backend="torch").engine_plan
     prog = tprog(device="cpu")
     with pytest.raises(TypeError, match="FaultModel"):   # not a model
         prog.engine_plan.execute(*ins, faults=object())

@@ -490,19 +490,31 @@ def test_hardened_validates_inputs(rng):
 
 
 def test_hardened_candidates_beyond_the_cuda_window_raise_like_get_plan():
-    """On the ``"cuda"`` backend the physical plan's ``R k + spares``
-    candidates must fit the kernels' window: past ``MAX_K`` the
-    constructor raises the ``ValueError`` that ``get_plan`` gives for any
-    such ``k``; the ``"torch"`` backend has no window."""
-    _, plan = _search("hamming", n=200, k=3, backend="cuda", pack=True)
+    """On the ``"cuda"`` backend a physical plan whose ``R k + spares``
+    candidates pass the kernels' window (``MAX_K``) takes the matrix
+    route, as ``get_plan`` does for any such ``k`` (it no longer raises):
+    the hardened search equals the ``"torch"`` backend's and the
+    reference's hardened search bit for bit."""
+    rplan, plan = _search("hamming", n=200, k=3, backend="cuda", pack=True)
     spares = MAX_K - 3 * plan.spec.k + 1
-    with pytest.raises(ValueError, match="outside the CAM search kernels"):
-        HardenedPlan(plan, replicas=3, spares=spares)
-    with pytest.raises(ValueError, match="outside the CAM search kernels"):
-        T.get_plan(module_for_spec(dataclasses.replace(
-            plan.spec, n=3 * plan.spec.n + spares,
-            k=3 * plan.spec.k + spares)), backend="cuda", device="cpu")
-    hp = HardenedPlan(plan, replicas=3, spares=spares - 1)
-    assert hp.plan.spec.k == MAX_K
-    assert HardenedPlan(plan, replicas=3, spares=spares,
-                        backend="torch").plan.spec.k == MAX_K + 1
+    hp = HardenedPlan(plan, replicas=3, spares=spares)
+    assert hp.plan.spec.k == MAX_K + 1 and hp.plan.backend == "cuda"
+    flat = T.get_plan(module_for_spec(dataclasses.replace(
+        plan.spec, n=3 * plan.spec.n + spares,
+        k=3 * plan.spec.k + spares)), backend="cuda", device="cpu")
+    assert flat is hp.plan
+    assert HardenedPlan(plan, replicas=3, spares=spares - 1
+                        ).plan.spec.k == MAX_K
+    ht = HardenedPlan(plan, replicas=3, spares=spares, backend="torch")
+    assert ht.plan.spec.k == MAX_K + 1
+    hr = RHardenedPlan(rplan, replicas=3, spares=spares)
+    rng = np.random.default_rng(5)
+    q = (rng.random((6, 32)) > 0.5).astype(np.float32)
+    p = (rng.random((200, 32)) > 0.5).astype(np.float32)
+    for h in (hp, ht, hr):
+        h.prepare(p)
+    want = tuple(np.asarray(x) for x in hr.execute(q))
+    for h in (hp, ht):
+        got = h.execute(q)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])

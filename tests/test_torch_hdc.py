@@ -183,11 +183,17 @@ def test_bit_planes_hold_the_cells(h, rng):
 
 
 def test_count_planes_cover_the_features():
+    """Counts reach F: up to 16 planes below 2**16 features, 32 from
+    there on (the wide route; it no longer raises), and the route names
+    follow features and levels."""
     assert [thdc.count_planes(f) for f in (1, 255, 256, 1023, 1024, 4095,
-                                           4096, 65535)] == \
-        [8, 8, 10, 10, 12, 12, 16, 16]
-    with pytest.raises(ValueError, match="16-bit"):
-        thdc.count_planes(65536)
+                                           4096, 65535, 65536, 2**30)] == \
+        [8, 8, 10, 10, 12, 12, 16, 16, 32, 32]
+    assert thdc.hdc_route(784, 16) == "bitsliced"
+    assert thdc.hdc_route(65536, 16) == "wide"
+    assert thdc.hdc_route(784, 512) == "global"
+    assert thdc.hdc_route(65536, 512) == "wide+global"
+    assert thdc.hdc_route(784, 476) == "bitsliced"
 
 
 def test_encode_wrapper_refuses_bad_operands():
@@ -439,3 +445,54 @@ def test_classifier_refusals(small_problem):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             HdcClassifier(F, C, dim=64)    # the GPU unless asked otherwise
+
+
+# ---------------------------------------------------------------------------
+# B5's size limits, lifted: wide feature counts and many levels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_features,n_levels,dim", [
+    (65536, 4, 40),          # 256 x 256 features: the 32-plane counts
+    (96, 512, 64),           # more levels than a block's shared memory
+    (65552, 477, 33),        # both
+])
+def test_encode_beyond_the_old_limits_matches_reference(n_features,
+                                                        n_levels, dim, rng):
+    """Feature counts from 2**16 on and more than 476 levels (which the
+    kernel once refused) encode as the reference's ``ItemMemory.encode``
+    does, bit for bit: the plain version, and the kernel's own bit-sliced
+    counting with its 32 count planes."""
+    im = ItemMemory(n_features, dim=dim, n_levels=n_levels, seed=2,
+                    device="cpu")
+    rim = RItemMemory(n_features, dim=dim, n_levels=n_levels, seed=2)
+    x = rng.random((2, n_features)).astype(np.float32)
+    want = rim.encode(x)
+    np.testing.assert_array_equal(im.encode(x).numpy(), want)
+    q = im.level_ids(x)
+    np.testing.assert_array_equal(
+        thdc.hdc_encode_bitsliced(q, im._planes).numpy(), want)
+    assert thdc.hdc_route(n_features, n_levels) != "bitsliced"
+
+
+def test_encode_wide_ties_and_zero_cells_match_reference(rng):
+    """The 32-plane count with zero cells (the care route) against the
+    reference's oracle; with +-1 cells and an even F, rows whose features
+    split evenly tie to +1."""
+    f, h, levels = 65536, 36, 3
+    keys = rng.integers(-1, 2, size=(f, h)).astype(np.float32)
+    lv = rng.integers(-1, 2, size=(levels, h)).astype(np.float32)
+    q = rng.integers(0, levels, size=(2, f)).astype(np.int32)
+    want = np.asarray(rref.hdc_encode(jnp.asarray(q), jnp.asarray(keys),
+                                      jnp.asarray(lv)))
+    planes = thdc.hdc_planes(torch.from_numpy(keys), torch.from_numpy(lv))
+    assert planes.has_zero
+    qt = torch.from_numpy(q)
+    np.testing.assert_array_equal(
+        thdc.hdc_encode_bitsliced(qt, planes).numpy(), want)
+    np.testing.assert_array_equal(
+        thdc.hdc_encode_planes(qt, planes).numpy(), want)
+    ones = torch.ones((f, h))
+    tie = thdc.hdc_planes(ones, torch.stack([ones[0], -ones[0]]))
+    half = torch.tensor([[0, 1] * (f // 2)], dtype=torch.int32)
+    assert bool((thdc.hdc_encode_bitsliced(half, tie) == 1.0).all())

@@ -16,8 +16,8 @@ near-ties between two centroids.
 
 Also here: the hierarchical parts of ``tests/test_plan_cache_keys.py``
 and ``tests/test_env.py::test_hier_nprobe_strict_and_applied``.
-``tests/test_hier.py::test_hier_sharded_multi_device`` has no twin yet:
-sharded plans wait for ROADMAP Queue A item 5 (``shards > 1`` raises).
+``tests/test_hier.py::test_hier_sharded_multi_device`` is twinned in
+``tests/test_torch_sharded.py``.
 """
 
 import dataclasses
@@ -146,8 +146,10 @@ def test_factory_contracts(rng):
     # unsupported axes raise instead of silently degrading
     with pytest.raises(ValueError, match="'torch' backend"):
         t_hier(mod, backend="cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        t_hier(mod, shards=2, device="cpu")
+    # a shard request clamps to this device type's count (one CPU): the
+    # unsharded plan, as the reference's clamped plan is
+    one = t_hier(mod, shards=2, device="cpu")
+    assert one.shards == 1 and one is t_hier(mod, device="cpu")
     tern = _port_module(dict(m=4, n=64, dim=32, k=3, metric="hamming",
                              largest=False, care=True, unroll=64, rows=16,
                              cols=32))
