@@ -112,8 +112,10 @@ of standard output are the ``{"kernels": [...]}`` record and
 
 It exits non-zero, printing no result, when no CUDA device is present,
 when ``src/repro_torch`` is not beside it, or when any phase fails.
+Phase names as arguments run only those phases (the kernels line then
+holds only the records they made):
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [phase ...]
 """
 
 from __future__ import annotations
@@ -246,6 +248,8 @@ HIER_EUCL_LIMIT_S, HIER_EUCL_CUT_ROWS = 30.0, 64
 #: dimension's 65,535 blocks of 32 rows: 2.15 GB of output) and
 #: HDC/MNIST-8k's test set, which keeps the bit-sliced route
 QUEUE_C_EUCL_K, QUEUE_C_PACKED_K = 500, 400
+#: the served micro-batch (a gateway request's rows) on the matrix route
+QUEUE_C_SMALL_ROWS = 13
 QUEUE_C_HDC = {"wide_features": (256, 65536, 8192, 16, "wide"),
                "many_levels": (2000, 784, 8192, 512, "global"),
                "many_rows": (2_100_000, 16, 256, 16, "bitsliced"),
@@ -454,7 +458,12 @@ class Smoke:
     def only(self, name, counts, expect, launches):
         """Fail unless the path launched ``expect`` exactly ``launches``
         times and no other kernel at all."""
-        want = {k: (launches if k == expect else 0) for k in counts}
+        self.exactly(name, counts, {expect: launches})
+
+    def exactly(self, name, counts, launches):
+        """Fail unless the path launched each kernel of ``launches`` (a
+        name -> count dict) that many times and no other kernel at all."""
+        want = {k: launches.get(k, 0) for k in counts}
         if counts != want:
             raise RuntimeError(f"{name}: launches {counts}, expected {want}")
 
@@ -604,6 +613,26 @@ class Smoke:
         n = p.shape[0]
         t_ops = 3 * 2.0 * m * n * d / TF32_PEAK_FLOPS
         bytes_ = 4.0 * (m * d + n * d) + 8.0 * m * k
+        t_mem = bytes_ / HBM_BYTES_PER_S
+        return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
+            else "bytes"
+
+    def select_bound_ms(self, m, n_valid, k):
+        """K1s: the n_valid live columns of the (M, N) float32 matrix read
+        once and the (M, k) values and indices written, at the HBM rate
+        (it does no arithmetic beyond a few integer operations a key)."""
+        bytes_ = 4.0 * m * n_valid + 8.0 * m * k
+        return 1e3 * bytes_ / HBM_BYTES_PER_S, "bytes"
+
+    def packed_distance_bound_ms(self, q, p, care):
+        """K1p: one int8 product of 2 M N 32L operations at the int8
+        tensor-core peak, against the bytes of its lanes and its (M, N)
+        float32 output."""
+        m, lanes = q.shape
+        n = p.shape[0]
+        t_ops = 2.0 * m * n * 32 * lanes / INT8_PEAK_OPS
+        bytes_ = 4.0 * (m * lanes + n * lanes * (2 if care is not None
+                                                 else 1)) + 4.0 * m * n
         t_mem = bytes_ / HBM_BYTES_PER_S
         return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
             else "bytes"
@@ -1664,32 +1693,40 @@ def _knn_k(k):
     return knn
 
 
-def matrix_kernel_operands(prog, inputs):
-    """The (args, kwargs) the path's first micro-batch hands
-    ``cam_search.topk_by_distance`` on the matrix route (``k > MAX_K``),
-    rebuilt from the plan's own prepared gallery."""
-    from repro_torch.core.engine.spec import _bits, _encode, _metric_values
-    from repro_torch.kernels import ops
-    plan = prog.engine_plan
-    spec = plan.spec
-    chunk = inputs[spec.query_arg][:plan.batch]
-    pp = plan._prepared_patterns(*plan._stored_sources(inputs))
-    phys_metric, _, largest = _metric_values(spec.metric, spec.largest)
-    if plan.packed:
-        qe = _bits(chunk, spec.metric).float()
-        metric = "dot" if len(pp) > 1 else "hamming"
-    else:
-        qe, metric = _encode(chunk, spec.metric).float(), phys_metric
-    qp = ops.pad_to_blocks(qe, 1, 8)
-    return ((qp, pp[0], pp[1] if len(pp) > 1 else None),
-            dict(metric=metric, k=min(spec.k, spec.n), largest=largest,
-                 n_valid=spec.n))
+def _select_part(s: Smoke, what, dist, k, largest, n_valid):
+    """K1s on one matrix of the route: bit for bit against its plain
+    version, then its time, the plain version's and ``torch.topk``'s on
+    the same matrix, and its bound."""
+    import torch
+    from repro_torch.kernels import cam_search
+    kw = dict(k=k, largest=largest, n_valid=n_valid)
+    got = cam_search.topk_select(dist, **kw)
+    want = cam_search.topk_select_reference(dist, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1])):
+        raise RuntimeError(f"queue_c {what}: topk_select differs from its "
+                           f"plain version")
+    m = dist.shape[0]
+    bound, by = s.select_bound_ms(m, n_valid, k)
+    live = dist[:, :n_valid]
+    return {"rows": m, "cols": dist.shape[1], "n_valid": n_valid, "k": k,
+            "split": cam_search.select_split(
+                m, k, n_valid, s.props.multi_processor_count),
+            "bit_identical_to_plain": True,
+            "ms": cuda_ms(lambda: cam_search.topk_select(dist, **kw), 20),
+            "plain_ms": cuda_ms(lambda: cam_search.topk_select_reference(
+                dist, **kw), 5),
+            "library_ms": cuda_ms(lambda: torch.topk(live, k, largest=largest),
+                                  5),
+            "bound_ms": bound, "bound_by": by}
 
 
 def _queue_c_eucl(s: Smoke, data):
     """C1, eucl: top-500 at the KNN shape on the default ("cuda") backend,
-    B6's matrix and the (value, row id) selection, against the "torch"
-    backend on the card and the wrapper against its plain version."""
+    B6's matrix and K1s, against the "torch" backend on the card; the
+    route against its plain version, K1s on B6's matrix against its own
+    bit for bit, each at the 624 queries and at a 13-row micro-batch."""
     import torch
     from repro_torch.core import ArchSpec, compile_fn
     from repro_torch.kernels import cam_search
@@ -1700,7 +1737,7 @@ def _queue_c_eucl(s: Smoke, data):
                       value_bits=8)
     (v, i), counts, first_s, second_s = s.drive(
         "queue_c eucl", prog, [qt, gt], "distance_topk")
-    s.only("queue_c eucl", counts, "distance_topk", 1)
+    s.exactly("queue_c eucl", counts, {"distance_topk": 1, "topk_select": 1})
     route = cam_search.float_route(k)
     if route != "matrix" or v.shape != (q.shape[0], k) or \
             not bool(torch.isfinite(v).all()):
@@ -1714,57 +1751,83 @@ def _queue_c_eucl(s: Smoke, data):
         raise RuntimeError(f"queue_c eucl: values off the torch backend by "
                            f"{float((v - tv).abs().max())}")
     swaps = eucl_index_swaps(qt, gt, i, ti, "queue_c eucl vs torch")
-    args, kw = matrix_kernel_operands(prog, [qt, gt])
-    got = cam_search.topk_by_distance(*args, **kw)
-    want = cam_search.topk_by_distance_reference(*args, **kw)
+    (qp, pp), kw = s.kernel_operands(prog, [qt, gt])
+    got = cam_search.topk_by_distance(qp, pp, **kw)
+    want = cam_search.topk_by_distance_reference(qp, pp, **kw)
     torch.cuda.synchronize()
     off = (got[0] - want[0]).abs()
     if not bool((off <= EUCL_ATOL + EUCL_RTOL * want[0].abs()).all()):
         raise RuntimeError(f"queue_c eucl: wrapper off its plain version "
                            f"by {float(off.max())}")
     err = float(off.max())
-    plain_swaps = eucl_index_swaps(args[0], args[1], got[1], want[1],
+    plain_swaps = eucl_index_swaps(qp, pp, got[1], want[1],
                                    "queue_c eucl vs plain")
-    qp, pp, _ = args
-    bound, by = s.distance_topk_bound_ms(qp, pp, k)
-    ms = cuda_ms(lambda: cam_search.topk_by_distance(*args, **kw), 10)
-    plain_ms = cuda_ms(lambda: cam_search.topk_by_distance_reference(
-        *args, **kw), 3)
-    library_ms = cuda_ms(lambda: torch.cdist(qp, pp).topk(k, largest=False),
-                         3)
-    distance_ms = cuda_ms(lambda: cam_search.distance(qp, pp, metric="eucl"),
-                          10)
+    del got, want, off
+    n_valid = kw["n_valid"]
+    parts = {}
+    for rows in (qp.shape[0], QUEUE_C_SMALL_ROWS):
+        qr = qp[:rows].contiguous()
+        bound, by = s.distance_topk_bound_ms(qr, pp, k)
+        d = cam_search.distance(qr, pp, metric="eucl")
+        sel = _select_part(s, f"eucl {rows} rows", d, k, kw["largest"],
+                           n_valid)
+        del d
+        parts[rows] = {
+            "ms": cuda_ms(lambda: cam_search.topk_by_distance(qr, pp, **kw),
+                          10),
+            "distance_ms": cuda_ms(
+                lambda: cam_search.distance(qr, pp, metric="eucl"), 10),
+            "plain_ms": cuda_ms(lambda: cam_search.topk_by_distance_reference(
+                qr, pp, **kw), 3),
+            "library_ms": cuda_ms(
+                lambda: torch.cdist(qr, pp).topk(k, largest=False), 3),
+            "bound_ms": bound, "bound_by": by, "topk_select": sel}
+        torch.cuda.empty_cache()
+    big, small = parts[qp.shape[0]], parts[QUEUE_C_SMALL_ROWS]
     s.record("distance_topk", "src/repro_torch/kernels/csrc/distance.cu",
              "src/repro/kernels/cam_search.py:200", counts["distance_topk"],
-             err, ms, plain_ms, bound, by, library_ms)
+             err, big["ms"], big["plain_ms"], big["bound_ms"],
+             big["bound_by"], big["library_ms"])
     rec = s.kernels["distance_topk"]
-    rec.update(kernel_route="matrix: B6, then the (value, row id) "
-                            "selection in plain PyTorch",
+    rec.update(kernel_route="matrix: B6 (distance.cu, 3xTF32) writes the "
+                            "(M, N) matrix, K1s (topk_select.cu) selects",
                bound_basis="3xTF32 tensor cores, 495 TFLOP/s; the output "
                            "(M, k) values and indices",
-               distance_ms=distance_ms,
+               distance_ms=big["distance_ms"], rows_13=small,
                shape={"q": list(qp.shape), "p": list(pp.shape), "k": k})
+    sel = big["topk_select"]
+    s.record("topk_select", "src/repro_torch/kernels/csrc/topk_select.cu",
+             "src/repro/kernels/cam_search.py:200", counts["topk_select"],
+             0.0, sel["ms"], sel["plain_ms"], sel["bound_ms"],
+             sel["bound_by"], sel["library_ms"])
+    s.kernels["topk_select"].update(
+        kernel_route="radix select, 11-bit digits, then a stable LSD sort "
+                     "of the k pairs; clusters of select_split blocks a row",
+        bound_basis="the (M, n_valid) float32 read once, the (M, k) output "
+                    "written, 3.35 TB/s",
+        library_note="torch.topk on the same matrix (its tie order is not "
+                     "the reference's)",
+        eucl=sel, eucl_13_rows=small["topk_select"])
     return {"k": k, "route": route, "launches": counts,
             "first_call_s": first_s, "second_call_s": second_s,
             "torch_backend_ms": torch_ms,
             "index_swaps_vs_torch_float64_near_ties": swaps,
             "wrapper_max_abs_err": err,
             "wrapper_index_swaps_float64_near_ties": plain_swaps,
-            "ms": ms, "distance_ms": distance_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound, "bound_by": by}
+            "rows_624": big, "rows_13": small}
 
 
 def _queue_c_packed(s: Smoke, data):
     """C1, packed hamming: top-400 at the KNN shape on the default
-    backend (the packed plan's bits through B6), bit-identical to the
-    "torch" backend (packed popcount tournament) and to the plain
-    version."""
+    backend (K1p on the packed lanes, then K1s), bit-identical to the
+    "torch" backend (packed popcount tournament) and, with K1p and K1s
+    each, to the plain versions; a 13-row micro-batch through the same
+    program; the prepared gallery's bytes."""
     import torch
     import repro_torch.core as T
     from repro_torch.core import ArchSpec, compile_module
     from repro_torch.core import cim_dialect as cd
     from repro_torch.kernels import cam_search
-    from repro_torch.kernels.packing import pack_bits
     g, _, q, _ = data
     gb = (torch.from_numpy(g).cuda() > 0).float()
     qb = (torch.from_numpy(q).cuda() > 0).float()
@@ -1774,8 +1837,9 @@ def _queue_c_packed(s: Smoke, data):
     if not prog.engine_plan.packed:
         raise RuntimeError("queue_c packed: the plan is not packed")
     (v, i), counts, _, _ = s.drive("queue_c packed", prog, [qb, gb],
-                                   "distance_topk")
-    s.only("queue_c packed", counts, "distance_topk", 1)
+                                   "packed_distance")
+    s.exactly("queue_c packed", counts, {"packed_distance": 1,
+                                         "topk_select": 1})
     route = cam_search.packed_route(q.shape[0], g.shape[0], k,
                                     s.props.multi_processor_count)
     torch_ms, (tv, ti) = host_ms(lambda: compile_module(
@@ -1786,39 +1850,111 @@ def _queue_c_packed(s: Smoke, data):
                            f"to the torch backend: values "
                            f"{torch.equal(v, tv)}, indices "
                            f"{torch.equal(i, ti)}")
-    args, kw = matrix_kernel_operands(prog, [qb, gb])
-    got = cam_search.topk_by_distance(*args, **kw)
-    want = cam_search.topk_by_distance_reference(*args, **kw)
+    small = QUEUE_C_SMALL_ROWS
+    (sv, si), small_counts, _, _ = s.drive(
+        "queue_c packed 13 rows", prog, [qb[:small], gb], "packed_distance")
+    s.exactly("queue_c packed 13 rows", small_counts,
+              {"packed_distance": 1, "topk_select": 1})
+    if not (torch.equal(sv, tv[:small]) and torch.equal(si, ti[:small])):
+        raise RuntimeError("queue_c packed: the 13-row call differs from "
+                           "the torch backend")
+    (qp, pp, cp), kw = s.kernel_operands(prog, [qb, gb])
+    prepared = prog.engine_plan._prepared_patterns(gb)
+    if any(x.dtype != torch.int32 for x in prepared):
+        raise RuntimeError("queue_c packed: the prepared gallery is not "
+                           "packed lanes")
+    prepared_mb = 1e-6 * sum(x.numel() * x.element_size() for x in prepared)
+    got = cam_search.topk_by_packed_distance(qp, pp, cp, **kw)
+    want = cam_search.topk_by_packed_distance_reference(qp, pp, cp, **kw)
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise RuntimeError("queue_c packed: wrapper and plain version "
                            "differ")
-    qp, pp, _ = args
-    ms = cuda_ms(lambda: cam_search.topk_by_distance(*args, **kw), 10)
-    plain_ms = cuda_ms(lambda: cam_search.topk_by_distance_reference(
-        *args, **kw), 3)
-    qpm, gpm = 2 * qp - 1, 2 * pp - 1
-    library_ms = cuda_ms(lambda: torch.matmul(qpm, gpm.T).topk(k), 3)
-    del qpm, gpm
-    # B1's function (packed lanes in, (M, k) out) on its int8 basis: the
-    # route runs it as 3xTF32 products on unpacked bits instead
-    bound, by = s.packed_bound_ms(pack_bits(qp), pack_bits(pp), None, k,
-                                  kw["n_valid"], "int8")
+    del got, want
+    n_valid = kw["n_valid"]
+    parts = {}
+    for rows in (qp.shape[0], small):
+        qr = qp[:rows].contiguous()
+        d = cam_search.packed_distance(qr, pp, cp)
+        if not torch.equal(d, cam_search.packed_distance_reference(qr, pp,
+                                                                   cp)):
+            raise RuntimeError(f"queue_c packed: packed_distance differs "
+                               f"from its plain version at {rows} rows")
+        sel = _select_part(s, f"packed {rows} rows", d, k, kw["largest"],
+                           n_valid)
+        del d
+        bound, by = s.packed_bound_ms(qr, pp, cp, k, n_valid, "int8")
+        dbound, dby = s.packed_distance_bound_ms(qr, pp, cp)
+        ones = torch.ones(qr.shape[1] * 32, device=qr.device)
+        qpm = 2 * ops_unpack(qr) - 1
+        gpm = 2 * ops_unpack(pp) - 1
+        dim = float(qpm.shape[1])
+        parts[rows] = {
+            "ms": cuda_ms(lambda: cam_search.topk_by_packed_distance(
+                qr, pp, cp, **kw), 10),
+            "plain_ms": cuda_ms(
+                lambda: cam_search.topk_by_packed_distance_reference(
+                    qr, pp, cp, **kw), 3),
+            "library_ms": cuda_ms(lambda: torch.matmul(qpm, gpm.T).topk(k),
+                                  3),
+            "bound_ms": bound, "bound_by": by,
+            "packed_distance": {
+                "ms": cuda_ms(lambda: cam_search.packed_distance(qr, pp, cp),
+                              20),
+                "plain_ms": cuda_ms(
+                    lambda: cam_search.packed_distance_reference(qr, pp, cp),
+                    3),
+                "library_ms": cuda_ms(lambda: torch.addmm(
+                    ones[:1] * (dim / 2), qpm, gpm.T, alpha=-0.5), 5),
+                "bound_ms": dbound, "bound_by": dby,
+                "bit_identical_to_plain": True},
+            "topk_select": sel}
+        del qpm, gpm, ones
+        torch.cuda.empty_cache()
+    big, sm = parts[qp.shape[0]], parts[small]
     s.record("distance_topk_packed",
-             "src/repro_torch/kernels/csrc/distance.cu",
-             "src/repro/kernels/cam_search.py:304", counts["distance_topk"],
-             0.0, ms, plain_ms, bound, by, library_ms)
+             "src/repro_torch/kernels/csrc/fused_topk_packed.cu",
+             "src/repro/kernels/cam_search.py:304", counts["packed_distance"],
+             0.0, big["ms"], big["plain_ms"], big["bound_ms"],
+             big["bound_by"], big["library_ms"])
     s.kernels["distance_topk_packed"].update(
-        kernel_route="matrix: B6 on the unpacked bits (3xTF32), then the "
-                     "(value, row id) selection in plain PyTorch",
+        kernel_route="matrix: K1p (fused_topk_packed.cu, int8 mma.sync on "
+                     "the packed lanes) writes the (M, N) matrix, K1s "
+                     "(topk_select.cu) selects",
         bound_basis="int8 tensor cores, 1,979 TOPS, on the packed lanes; "
                     "the output (M, k) values and indices",
         library_note="+-1 float matmul + topk",
+        prepared_mb=prepared_mb, rows_13=sm,
         shape={"q": list(qp.shape), "p": list(pp.shape), "k": k})
+    pd = big["packed_distance"]
+    s.record("packed_distance",
+             "src/repro_torch/kernels/csrc/fused_topk_packed.cu",
+             "src/repro/kernels/cam_search.py:304",
+             counts["packed_distance"] + small_counts["packed_distance"],
+             0.0, pd["ms"], pd["plain_ms"], pd["bound_ms"], pd["bound_by"],
+             pd["library_ms"])
+    s.kernels["packed_distance"].update(
+        kernel_route="packed_mma_kernel's int8 mma.sync products, the "
+                     "distance epilogue; the mma grid at every row count",
+        bound_basis="the larger of the int8 products at 1,979 TOPS and the "
+                    "lanes read and (M, N) float32 written at 3.35 TB/s",
+        library_note="addmm of the unpacked +-1 cells: (D - q.p) / 2",
+        rows_13=sm["packed_distance"])
+    s.kernels["topk_select"]["launches"] += counts["topk_select"] + \
+        small_counts["topk_select"]
+    s.kernels["topk_select"].update(packed=big["topk_select"],
+                                    packed_13_rows=sm["topk_select"])
     return {"k": k, "route": route, "launches": counts,
+            "launches_13_rows": small_counts,
             "bit_identical_to_torch_backend": True,
             "wrapper_bit_identical_to_plain": True,
-            "torch_backend_ms": torch_ms, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound, "bound_by": by}
+            "prepared_mb": prepared_mb, "torch_backend_ms": torch_ms,
+            "rows_624": big, "rows_13": sm}
+
+
+def ops_unpack(lanes):
+    """{0, 1} float32 cells of int32 lanes (LSB first)."""
+    from repro_torch.kernels.packing import LANE_BITS, unpack_bits
+    return unpack_bits(lanes, lanes.shape[1] * LANE_BITS).float()
 
 
 def _queue_c_hdc(s: Smoke):
@@ -1891,9 +2027,9 @@ def _queue_c_hdc(s: Smoke):
 
 
 def phase_queue_c(s: Smoke, data):
-    """The repaired refusals on the card: C1 (k > MAX_K on the
-    default backend: B6 and the composite-key selection, eucl k = 500 and
-    packed hamming k = 400 at the KNN shape) and C3 (B5 at 65,536
+    """The repaired refusals on the card: C1 (k > MAX_K on the default
+    backend: B6 or K1p, then K1s; eucl k = 500 and packed hamming k = 400
+    at the KNN shape, and a 13-row micro-batch) and C3 (B5 at 65,536
     features, 512 levels and 2,100,000 rows), each part's launch counts
     set to 0 before it and read after it."""
     import torch
@@ -3729,6 +3865,11 @@ def main() -> None:
               ("hier_search", lambda: phase_hier_search(s, data)),
               ("sharded", lambda: phase_sharded(s, data)),
               ("lm_serve", lambda: phase_lm_serve(s))]
+    wanted = sys.argv[1:]
+    unknown = set(wanted) - {name for name, _ in phases}
+    if unknown:
+        fail(f"unknown phases {sorted(unknown)}")
+    phases = [(n, run) for n, run in phases if not wanted or n in wanted]
     for name, run in phases:
         t0 = time.perf_counter()
         try:
@@ -3745,9 +3886,10 @@ def main() -> None:
     order = ["fused_topk_packed", "fused_topk_packed_ternary", "fused_topk",
              "acam_match", "range_match", "hdc_encode", "hdc_encode_wide",
              "distance", "distance_topk", "distance_topk_packed",
-             "flash_attention"]
+             "topk_select", "packed_distance", "flash_attention"]
     print(smi, flush=True)
-    log({"kernels": [s.kernels[n] for n in order]})
+    log({"kernels": [s.kernels[n] for n in order
+                     if not wanted or n in s.kernels]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

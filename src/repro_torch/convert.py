@@ -15,7 +15,8 @@ same program; these two functions carry the other two.
   patterns, float tiles pass through.  A ``"jnp"`` plan's tile layout is
   the ``"torch"`` backend's, element for element.  A ``"pallas"`` plan
   pads the gallery to its own blocks; given ``spec``, the operands are
-  re-padded to the ``"cuda"`` kernels' blocks, which makes them equal to
+  re-padded to the ``"cuda"`` kernels' blocks (past ``MAX_K``, the
+  matrix route's: packed lanes stay lanes), which makes them equal to
   what the port's own prepare produces.  Range plans are carried the
   same way: an interval plan's padded ``(lo, hi)`` float32 pair (with
   its ``±inf`` wildcards) and a threshold plan's padded encoded
@@ -33,8 +34,8 @@ from .core.arch import ArchSpec
 from .core.engine.spec import RangeSpec, SimilaritySpec
 from .kernels import packing as kpack
 from .kernels.acam import ACAM_BLOCK_D
-from .kernels.cam_search import BLOCK_K, MAX_K, window_rows
-from .kernels.ops import matrix_operands, pad_to_blocks
+from .kernels.cam_search import BLOCK_K, MAX_K, PACKED_ROWS, window_rows
+from .kernels.ops import pad_to_blocks
 
 __all__ = ["arch_from_reference", "prepared_from_reference",
            "hdc_classifier_from_reference", "lm_params_from_reference"]
@@ -64,7 +65,8 @@ def prepared_from_reference(arrays: Sequence[np.ndarray], *, packed: bool,
     For ``"cuda"`` with ``spec`` given, each operand is cut to its
     logical extent (``spec.n`` rows, the dim's floats or lanes) and
     padded to the kernels' blocks: a window multiple of rows for a
-    search, no row padding for a range plan, and the inner dimension to
+    search (past ``MAX_K``, the matrix route's row block), no row padding
+    for a range plan, and the inner dimension to
     :data:`~.kernels.cam_search.BLOCK_K` (threshold, search) or
     :data:`~.kernels.acam.ACAM_BLOCK_D` (interval).  The tensors are on
     the CPU.
@@ -84,32 +86,21 @@ def prepared_from_reference(arrays: Sequence[np.ndarray], *, packed: bool,
             block = ACAM_BLOCK_D if spec.mode == "interval" else BLOCK_K
             t = pad_to_blocks(t[:spec.n, :spec.dim], 1, block)
         elif backend == "cuda" and spec is not None:
-            if min(spec.k, spec.n) > MAX_K:
-                out.append(t)           # re-laid below, all operands at once
-                continue
             cols = kpack.lanes(spec.dim) if packed else spec.dim
-            t = pad_to_blocks(t[:spec.n, :cols],
-                              window_rows(min(spec.k, spec.n)), BLOCK_K)
+            t = pad_to_blocks(t[:spec.n, :cols], _cuda_rows(spec, packed),
+                              BLOCK_K)
         out.append(t)
-    if backend == "cuda" and isinstance(spec, SimilaritySpec) and \
-            min(spec.k, spec.n) > MAX_K:
-        return _matrix_from_reference(out, spec, packed)
     return tuple(out)
 
 
-def _matrix_from_reference(ts, spec: SimilaritySpec, packed: bool
-                           ) -> Tuple[torch.Tensor, ...]:
-    """The ``"cuda"`` matrix route's operands (``k > MAX_K``: no window)
-    from a ``"pallas"`` plan's padded ones: float cells cut to ``(n,
-    dim)``, or packed lanes unpacked to their bits (a care mask folded
-    into :func:`~.kernels.ops.matrix_operands`' pair), inner dimension
-    padded to :data:`BLOCK_K`."""
-    if not packed:
-        return (pad_to_blocks(ts[0][:spec.n, :spec.dim], 1, BLOCK_K),)
-    bits = [kpack.unpack_bits(t[:spec.n], spec.dim) for t in ts]
-    _, pp, bias = matrix_operands(bits[0], bits[1] if len(bits) > 1
-                                  else None)
-    return (pp,) if bias is None else (pp, bias)
+def _cuda_rows(spec: SimilaritySpec, packed: bool) -> int:
+    """The row block of a ``"cuda"`` search plan's prepared gallery: the
+    kernels' window, or past ``MAX_K`` (the matrix route, no window) the
+    packed distance kernel's row block for lanes and none for floats."""
+    k = min(spec.k, spec.n)
+    if k > MAX_K:
+        return PACKED_ROWS if packed else 1
+    return window_rows(k)
 
 
 def hdc_classifier_from_reference(class_sums: np.ndarray, keys: np.ndarray,

@@ -21,7 +21,10 @@ Two backends:
   or packed and padded once to the kernels' blocks, and each chunk is
   one launch of :func:`~repro_torch.kernels.cam_search.fused_topk` or
   :func:`~repro_torch.kernels.cam_search.fused_topk_packed` followed by
-  the stable candidate merge.
+  the stable candidate merge; past ``MAX_K`` (the matrix route) one
+  launch of the distance or packed distance kernel, then the selection
+  kernel (:func:`~repro_torch.kernels.cam_search.topk_by_distance`,
+  :func:`~repro_torch.kernels.cam_search.topk_by_packed_distance`).
 
 Sharded plans (``"torch"`` only) split the gallery's row tiles over a
 mesh of devices (:func:`~repro_torch.launch.mesh.make_data_mesh`): shard
@@ -53,7 +56,8 @@ from ...kernels import ops as kops
 from ...kernels import packing as kpack
 from ...kernels import ref as kref
 from ...kernels.acam import ACAM_BLOCK_D
-from ...kernels.cam_search import (BLOCK_K, MAX_K, topk_by_distance,
+from ...kernels.cam_search import (BLOCK_K, MAX_K, PACKED_ROWS,
+                                   topk_by_distance, topk_by_packed_distance,
                                    window_rows)
 from .spec import RangeSpec, SimilaritySpec, _bits, _encode, _metric_values
 
@@ -414,7 +418,9 @@ def _cuda_operands(spec: SimilaritySpec, packed: bool, q: torch.Tensor,
     """``(args, kwargs)`` of the kernel launch for one query chunk:
     :func:`~repro_torch.kernels.cam_search.fused_topk_packed` when
     ``packed``, else :func:`~repro_torch.kernels.cam_search.fused_topk`
-    (and of the ``ops.*_prepadded`` merge around it)."""
+    (and of the ``ops.*_prepadded`` merge around it); on the matrix route
+    the same operands go to ``topk_by_packed_distance`` /
+    ``topk_by_distance``."""
     phys_metric, _, phys_largest = _metric_values(spec.metric, spec.largest)
     kw = dict(k=min(spec.k, spec.n), largest=phys_largest, n_valid=spec.n)
     if packed:
@@ -435,91 +441,42 @@ def _build_cuda_executable(spec: SimilaritySpec, batch: int,
     Encoding (or packing) and block padding of the gallery run once per
     stored tensor, behind the plan's pattern memo; each chunk is one
     kernel launch plus the stable candidate merge.  When ``min(k, n)``
-    exceeds the kernels' ``MAX_K`` (no window fits), the plan is built on
-    the matrix route instead (:func:`_build_matrix_executable`): the
-    shape picks it here, never a failure.
+    exceeds the kernels' ``MAX_K`` (no window fits) the shape picks the
+    matrix route instead, never a failure: the same operands (float
+    cells, or packed lanes in rows padded to ``PACKED_ROWS``), and each
+    chunk is one launch of the distance kernel (or the packed distance
+    kernel) and one of the selection kernel.  The row update re-encodes
+    (or re-packs) the touched rows and scatters them.
     """
-    if min(spec.k, spec.n) > MAX_K:
-        return _build_matrix_executable(spec, packed)
     metric, k = spec.metric, spec.k
     _, to_logical, phys_largest = _metric_values(metric, spec.largest)
-    window = window_rows(min(k, spec.n))
+    matrix = min(k, spec.n) > MAX_K
+    if matrix:
+        rows = PACKED_ROWS if packed else 1
+        search = topk_by_packed_distance if packed else topk_by_distance
+    else:
+        rows = window_rows(min(k, spec.n))
+        search = (kops.cam_topk_packed_prepadded if packed
+                  else kops.cam_topk_prepadded)
 
     def prepare(p, care=None):
         if packed:
             pp = kops.pad_to_blocks(kpack.pack_bits(_bits(p, metric)),
-                                    window, BLOCK_K)
+                                    rows, BLOCK_K)
             if care is None:
                 return (pp,)
             return (pp, kops.pad_to_blocks(kpack.pack_bits(care != 0),
-                                           window, BLOCK_K))
+                                           rows, BLOCK_K))
         pe = _encode(p, metric).to(torch.float32)
-        return (kops.pad_to_blocks(pe, window, BLOCK_K),)
+        return (kops.pad_to_blocks(pe, rows, BLOCK_K),)
 
     def chunk_fn(q, pp):
         args, kw = _cuda_operands(spec, packed, q, pp)
-        merge = (kops.cam_topk_packed_prepadded if packed
-                 else kops.cam_topk_prepadded)
-        v, i = merge(*args, **kw)
+        v, i = search(*args, **kw)
         v, i = kref.pad_candidates(v, i, k, phys_largest)
         return to_logical(v, float(spec.dim)), i
 
     return prepare, chunk_fn, _row_scatter_update(spec, packed)
-
-
-def _matrix_leaves(spec: SimilaritySpec, packed: bool, p: torch.Tensor,
-                   care=None) -> Tuple[torch.Tensor, ...]:
-    """The matrix route's prepared operands for stored rows: the encoded
-    float cells, or for a packed plan the cells' {0, 1} bits (with a care
-    mask, ``care - 2 bits care`` and the per-row ``sum(bits care)``; see
-    :func:`~repro_torch.kernels.ops.matrix_operands`), inner dimension
-    padded to :data:`BLOCK_K`."""
-    if packed:
-        _, pp, bias = kops.matrix_operands(
-            _bits(p, spec.metric), None if care is None else care != 0)
-        return (pp,) if bias is None else (pp, bias)
-    return (kops.pad_to_blocks(_encode(p, spec.metric).to(torch.float32), 1,
-                               BLOCK_K),)
-
-
-def _build_matrix_executable(spec: SimilaritySpec, packed: bool):
-    """(prepare, chunk_fn, row_update) of the ``"cuda"`` backend for
-    ``min(k, n) > MAX_K``: each chunk is one launch of the distance kernel
-    over the whole gallery and one selection by (value, lowest row id)
-    (:func:`~repro_torch.kernels.cam_search.topk_by_distance`).  A
-    packed plan searches its cells' bits as floats (hamming, or a
-    ternary's ``dot`` plus a per-row bias), exact integers: the same
-    results as the packed kernel's.  The row update re-encodes the
-    touched rows and scatters them."""
-    phys_metric, to_logical, phys_largest = _metric_values(spec.metric,
-                                                           spec.largest)
-    k, n = spec.k, spec.n
-    ternary = spec.care_arg is not None
-    mat_metric = ("dot" if ternary else "hamming") if packed else phys_metric
-
-    def prepare(p, care=None):
-        return _matrix_leaves(spec, packed, p, care)
-
-    def chunk_fn(q, pp):
-        if packed:
-            qe = _bits(q, spec.metric).to(torch.float32)
-        else:
-            qe = _encode(q, spec.metric).to(torch.float32)
-        qp = kops.pad_to_blocks(qe, 1, BLOCK_K)
-        v, i = topk_by_distance(
-            qp, pp[0], pp[1] if len(pp) > 1 else None, metric=mat_metric,
-            k=min(k, n), largest=phys_largest, n_valid=n)
-        v, i = kref.pad_candidates(v, i, k, phys_largest)
-        return to_logical(v, float(spec.dim)), i
-
-    def row_update(prepared, srcs, idx, donate=False):
-        j = torch.as_tensor(np.asarray(idx, np.int64))
-        rows = [s.index_select(0, j.to(s.device)) for s in srcs]
-        fresh = _matrix_leaves(spec, packed, rows[0],
-                               rows[1] if len(rows) > 1 else None)
-        return _scatter_leaves(prepared, fresh, j, donate)
-
-    return prepare, chunk_fn, row_update
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,7 @@ SOURCES = {"fused_topk": "fused_topk.cu",
            "range_match": "range_match.cu",
            "hdc_encode": "hdc_encode.cu",
            "distance": "distance.cu",
+           "topk_select": "topk_select.cu",
            "flash_attention": "flash_attention.cu"}
 #: headers every source includes (part of each library's hash)
 _HEADERS = ("fused_topk_common.cuh", "tf32_wgmma.cuh")

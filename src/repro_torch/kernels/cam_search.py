@@ -24,10 +24,20 @@ periphery — as (value, global row index) candidates:
 * :func:`distance` — the full (M, N) float32 distance matrix of the same
   decomposition, no top-k (the public ``ops.cam_distances``); replaces
   ``distance_pallas``; 3xTF32 tensor-core products on the same pipeline.
-* :func:`topk_by_distance` — the search route for ``k > MAX_K``, where no
-  window fits in shared memory: :func:`distance`'s kernel writes the
-  (M, N) matrix and one selection by (value, lowest row id) takes the
-  top-k (:func:`float_route` / :func:`packed_route` return ``"matrix"``).
+* :func:`topk_select` — the (M, k) best entries of each row of an (M, N)
+  float32 matrix by (value, lowest column), sorted, for any ``k``: the
+  block top-k of ``fused_topk_pallas`` / ``fused_topk_packed_pallas``
+  where no window fits in shared memory (``k > MAX_K``); a radix select
+  (``csrc/topk_select.cu``);
+* :func:`packed_distance` — the (M, N) float32 matrix of
+  ``popcount(q ^ p [& care])``: :func:`fused_topk_packed`'s int8
+  tensor-core products with an epilogue that stores the distances in
+  place of the window top-k;
+* :func:`topk_by_distance` / :func:`topk_by_packed_distance` — the search
+  route for ``k > MAX_K`` (:func:`float_route` / :func:`packed_route`
+  return ``"matrix"``): :func:`distance`'s kernel, or
+  :func:`packed_distance`'s on the packed lanes, writes the (M, N) matrix
+  and :func:`topk_select` takes the top-k from it.
 
 :func:`tf32_split_product` is the 3xTF32 product in plain float32 (the
 plain versions' ``tf32x3`` switch); :func:`tf32x3_kernel_eucl` replays
@@ -55,15 +65,17 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import build
-from .packing import popcount32
-from .ref import row_product
+from .ref import packed_distances, row_product
 
 __all__ = ["METRIC_COEFFS", "BLOCK_K", "MAX_K", "LAUNCHES", "window_rows",
            "packed_route", "float_route", "reset_launch_counts",
            "tf32_round", "tf32_split_product", "tc_accumulate",
            "tf32x3_kernel_eucl", "fused_topk",
            "fused_topk_reference", "topk_by_distance",
-           "topk_by_distance_reference", "order_key",
+           "topk_by_distance_reference", "topk_by_packed_distance",
+           "topk_by_packed_distance_reference", "order_key",
+           "topk_select", "topk_select_reference", "select_split",
+           "PACKED_ROWS", "packed_distance", "packed_distance_reference",
            "fused_topk_packed", "fused_topk_packed_reference", "distance",
            "distance_reference"]
 
@@ -85,6 +97,18 @@ _TILE_N = 128
 _MAX_WINDOW = 384
 #: largest k the kernels support (a window holds at least k rows)
 MAX_K = _MAX_WINDOW
+#: the packed distance kernel's row block: its patterns' rows are a
+#: multiple of it (a packed matrix-route plan pads its gallery to it)
+PACKED_ROWS = _TILE_N
+#: topk_select.cu: the largest k sorted in shared memory (above it the
+#: wrapper allocates the sort's scratch), the bytes of shared memory a
+#: block takes besides that sort buffer, and the most a block may take
+#: for two blocks to share an SM (228 KB, 1 KB reserved each)
+_SELECT_SORT_CAP = 8192
+_SELECT_SMEM = 99_328
+_SM_SMEM_TWO_BLOCKS = 115_712
+#: topk_select.cu's rows a batch: a block splitting a row gets at least one
+_SELECT_BATCH = 8192
 
 _NEG_BIG = -3.0e38
 _POS_BIG = 3.0e38
@@ -95,6 +119,7 @@ LAUNCHES: Dict[str, int] = {"fused_topk": 0, "fused_topk_packed": 0,
                             "acam_match": 0, "range_match": 0,
                             "hdc_encode": 0, "hdc_encode_wide": 0,
                             "distance": 0, "distance_topk": 0,
+                            "topk_select": 0, "packed_distance": 0,
                             "flash_attention": 0}
 _COUNT_LOCK = threading.Lock()
 
@@ -133,8 +158,8 @@ def _sm_count(device: torch.device) -> int:
 
 def packed_route(m: int, n: int, k: int, sms: int) -> str:
     """The route of a packed search on a card with ``sms`` streaming
-    multiprocessors: ``"matrix"`` (:func:`topk_by_distance` on the cells'
-    bits) when ``k`` exceeds :data:`MAX_K`; otherwise
+    multiprocessors: ``"matrix"`` (:func:`topk_by_packed_distance`) when
+    ``k`` exceeds :data:`MAX_K`; otherwise
     :func:`fused_topk_packed`'s ``"mma"`` (int8 tensor cores, 128 queries
     x one 128-row window a block) when the window is 128 rows and that
     grid has a block for every SM, else ``"rows"`` (a warp per (query,
@@ -145,6 +170,23 @@ def packed_route(m: int, n: int, k: int, sms: int) -> str:
     if window == _TILE_N and -(-m // 128) * (n // window) >= sms:
         return "mma"
     return "rows"
+
+
+def select_split(m: int, k: int, n_valid: int, sms: int) -> int:
+    """Blocks :func:`topk_select` spends on one row (a thread block
+    cluster of 1, 2, 4 or 8) for ``m`` rows on a card with ``sms``
+    streaming multiprocessors: one when the rows fill every block slot
+    (two blocks an SM, one past a 1,000-pair sort buffer), else the
+    fewest that do, up to 8, and never fewer than 8,192 live columns a
+    block."""
+    smem = _SELECT_SMEM + (16 * k if k <= _SELECT_SORT_CAP else 0)
+    slots = sms * (2 if smem <= _SM_SMEM_TWO_BLOCKS else 1)
+    c = 1
+    while c < 8 and m * c < slots:
+        c *= 2
+    while c > 1 and n_valid < c * _SELECT_BATCH:
+        c //= 2
+    return c
 
 
 def float_route(k: int) -> str:
@@ -294,6 +336,19 @@ def fused_topk_reference(q: torch.Tensor, p: torch.Tensor, *, metric: str,
 _PACKED_CHUNK_ELEMS = 1 << 26
 
 
+def _packed_dist(q: torch.Tensor, p: torch.Tensor,
+                 care: Optional[torch.Tensor]) -> torch.Tensor:
+    """(M, N) float32 ``popcount(q ^ p [& care])``: the oracle's
+    :func:`~.ref.packed_distances`, chunked over queries."""
+    m, lanes_ = q.shape
+    n = p.shape[0]
+    dist = torch.empty((m, n), dtype=torch.float32, device=q.device)
+    step = max(1, _PACKED_CHUNK_ELEMS // max(1, n * lanes_))
+    for s in range(0, m, step):
+        dist[s:s + step] = packed_distances(q[s:s + step], p, care)
+    return dist
+
+
 def fused_topk_packed_reference(q: torch.Tensor, p: torch.Tensor,
                                 care: Optional[torch.Tensor] = None, *,
                                 k: int, largest: bool, n_valid: int
@@ -302,16 +357,18 @@ def fused_topk_packed_reference(q: torch.Tensor, p: torch.Tensor,
     ``(q ^ p) [& care]`` summed over lanes, chunked over queries, then
     the same window top-k."""
     _check("fused_topk_packed", q, p, care, torch.int32, k, n_valid)
-    m, lanes_ = q.shape
-    n = p.shape[0]
-    dist = torch.empty((m, n), dtype=torch.float32, device=q.device)
-    step = max(1, _PACKED_CHUNK_ELEMS // max(1, n * lanes_))
-    for s in range(0, m, step):
-        x = q[s:s + step, None, :] ^ p[None, :, :]
-        if care is not None:
-            x = x & care[None, :, :]
-        dist[s:s + step] = popcount32(x).sum(-1).to(torch.float32)
-    return _block_topk(dist, k=k, largest=largest, n_valid=n_valid)
+    return _block_topk(_packed_dist(q, p, care), k=k, largest=largest,
+                       n_valid=n_valid)
+
+
+def packed_distance_reference(q: torch.Tensor, p: torch.Tensor,
+                              care: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Plain version of :func:`packed_distance`: the oracle's
+    ``popcount(q ^ p [& care])`` (:func:`~.ref.packed_distances`) over
+    every pattern row, chunked over queries."""
+    _check_packed_distance(q, p, care)
+    return _packed_dist(q, p, care)
 
 
 def distance_reference(q: torch.Tensor, p: torch.Tensor, *, metric: str,
@@ -341,11 +398,13 @@ def order_key(skey: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
     return (ordered.to(torch.int64) << 32) | gid.to(torch.int64)
 
 
-def _select_from_matrix(dist: torch.Tensor, *, k: int, largest: bool,
-                        n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (M, k) best of an (M, N) distance matrix by (value, lowest row
-    id): one int64 key per entry (:func:`order_key`), so ``torch.topk``
-    meets no tie; rows at or beyond ``n_valid`` lose."""
+def topk_select_reference(dist: torch.Tensor, *, k: int, largest: bool,
+                          n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`topk_select`: the (M, k) best of an (M, N)
+    distance matrix by (value, lowest column), from one int64 key per
+    entry (:func:`order_key`), so ``torch.topk`` meets no tie; columns
+    at or beyond ``n_valid`` lose."""
+    _check_select(dist, k, n_valid)
     gid = torch.arange(dist.shape[1], device=dist.device, dtype=torch.int32)
     skey = -dist if largest else dist
     skey = torch.where(gid[None, :] < n_valid, skey, float("inf"))
@@ -354,32 +413,28 @@ def _select_from_matrix(dist: torch.Tensor, *, k: int, largest: bool,
     return torch.gather(dist, -1, pos), pos.to(torch.int32)
 
 
-def _check_matrix_topk(q, p, bias, k: int, n_valid: int) -> None:
-    if bias is not None and (bias.dim() != 1 or bias.shape[0] != p.shape[0]
-                             or bias.dtype != torch.float32
-                             or bias.device != p.device):
-        raise ValueError("topk_by_distance: bias must be a float32 (N,) "
-                         "tensor on the patterns' device")
-    if not 1 <= n_valid <= p.shape[0]:
-        raise ValueError(f"topk_by_distance: n_valid={n_valid} outside "
-                         f"1..{p.shape[0]}")
-    if not 1 <= k <= n_valid:
-        raise ValueError(f"topk_by_distance: k={k} outside 1..{n_valid}")
-
-
-def topk_by_distance_reference(q: torch.Tensor, p: torch.Tensor,
-                               bias: Optional[torch.Tensor] = None, *,
+def topk_by_distance_reference(q: torch.Tensor, p: torch.Tensor, *,
                                metric: str, k: int, largest: bool,
                                n_valid: int
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`topk_by_distance`:
-    :func:`distance_reference` (plus ``bias``), then the same selection."""
+    :func:`distance_reference`, then :func:`topk_select_reference`."""
     _check_distance(q, p, metric)
-    _check_matrix_topk(q, p, bias, k, n_valid)
-    dist = distance_reference(q, p, metric=metric)
-    if bias is not None:
-        dist = dist + bias[None, :]
-    return _select_from_matrix(dist, k=k, largest=largest, n_valid=n_valid)
+    _check_n_valid("topk_by_distance", p.shape[0], n_valid)
+    return topk_select_reference(distance_reference(q, p, metric=metric),
+                                 k=k, largest=largest, n_valid=n_valid)
+
+
+def topk_by_packed_distance_reference(q: torch.Tensor, p: torch.Tensor,
+                                      care: Optional[torch.Tensor] = None, *,
+                                      k: int, largest: bool, n_valid: int
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`topk_by_packed_distance`:
+    :func:`packed_distance_reference`, then
+    :func:`topk_select_reference`."""
+    _check_n_valid("topk_by_packed_distance", p.shape[0], n_valid)
+    return topk_select_reference(packed_distance_reference(q, p, care),
+                                 k=k, largest=largest, n_valid=n_valid)
 
 
 # ---------------------------------------------------------------------------
@@ -570,33 +625,168 @@ def distance(q: torch.Tensor, p: torch.Tensor, *, metric: str
     return _launch_distance(q, p, metric, "distance")
 
 
-def topk_by_distance(q: torch.Tensor, p: torch.Tensor,
-                     bias: Optional[torch.Tensor] = None, *, metric: str,
+def topk_by_distance(q: torch.Tensor, p: torch.Tensor, *, metric: str,
                      k: int, largest: bool, n_valid: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(M, k) best rows by (value, lowest row id), for any ``k`` up to
-    ``n_valid``: the search route where ``k`` exceeds :data:`MAX_K`.
+    ``n_valid``: the float search route where ``k`` exceeds
+    :data:`MAX_K`.
 
     The distance kernel writes the (M, N) matrix of ``metric``'s
-    decomposition (operands as :func:`distance` takes them), ``bias``
-    (N,) is added to every row when given (a ternary search: ``dot``
-    against ``care - 2 p care`` plus ``sum(p care)``), rows at or beyond
-    ``n_valid`` lose, and one selection over an int64 key per entry
-    (:func:`order_key`) takes the top ``k``, sorted.  On {0, 1} and +-1
-    cells every entry is an exact integer, so hamming, dot and ternary
-    results are bit-identical to the reference.  CPU tensors run
-    :func:`topk_by_distance_reference`; CUDA tensors launch the kernel
-    (counted as ``"distance_topk"``).
+    decomposition (operands as :func:`distance` takes them; counted as
+    ``"distance_topk"``) and :func:`topk_select` takes the top ``k``,
+    sorted; rows at or beyond ``n_valid`` lose.  On {0, 1} and +-1 cells
+    every entry is an exact integer, so hamming and dot results are
+    bit-identical to the reference.  CPU tensors run
+    :func:`topk_by_distance_reference`.
     """
     _check_distance(q, p, metric)
-    _check_matrix_topk(q, p, bias, k, n_valid)
+    _check_n_valid("topk_by_distance", p.shape[0], n_valid)
     if q.device.type == "cpu":
-        return topk_by_distance_reference(q, p, bias, metric=metric, k=k,
+        return topk_by_distance_reference(q, p, metric=metric, k=k,
                                           largest=largest, n_valid=n_valid)
     dist = _launch_distance(q, p, metric, "distance_topk")
-    if bias is not None:
-        dist += bias[None, :]
-    return _select_from_matrix(dist, k=k, largest=largest, n_valid=n_valid)
+    return topk_select(dist, k=k, largest=largest, n_valid=n_valid)
+
+
+def topk_by_packed_distance(q: torch.Tensor, p: torch.Tensor,
+                            care: Optional[torch.Tensor] = None, *, k: int,
+                            largest: bool, n_valid: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed search route where ``k`` exceeds :data:`MAX_K`:
+    :func:`packed_distance` writes the (M, N) matrix of
+    ``popcount(q ^ p [& care])`` from the packed lanes and
+    :func:`topk_select` takes the top ``k`` by (value, lowest row id),
+    sorted; rows at or beyond ``n_valid`` lose.  Integers end to end:
+    bit-identical to the reference.  Operands as :func:`packed_distance`
+    takes them; CPU tensors run
+    :func:`topk_by_packed_distance_reference`."""
+    _check_packed_distance(q, p, care)
+    _check_n_valid("topk_by_packed_distance", p.shape[0], n_valid)
+    if q.device.type == "cpu":
+        return topk_by_packed_distance_reference(
+            q, p, care, k=k, largest=largest, n_valid=n_valid)
+    return topk_select(packed_distance(q, p, care), k=k, largest=largest,
+                       n_valid=n_valid)
+
+
+def _check_n_valid(name: str, n: int, n_valid: int) -> None:
+    if not 1 <= n_valid <= n:
+        raise ValueError(f"{name}: n_valid={n_valid} outside 1..{n}")
+
+
+def _check_select(dist: torch.Tensor, k: int, n_valid: int) -> None:
+    if not isinstance(dist, torch.Tensor) or dist.dim() != 2 or \
+            dist.dtype != torch.float32:
+        raise ValueError("topk_select: the matrix must be a 2-D float32 "
+                         "tensor")
+    if not dist.is_contiguous():
+        raise ValueError("topk_select: the matrix must be contiguous")
+    if dist.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"topk_select: unsupported device {dist.device}")
+    _check_n_valid("topk_select", dist.shape[1], n_valid)
+    if not 1 <= k <= n_valid:
+        raise ValueError(f"topk_select: k={k} outside 1..{n_valid}")
+
+
+def topk_select(dist: torch.Tensor, *, k: int, largest: bool,
+                n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (M, k) best entries of each row of the (M, N) float32 matrix
+    ``dist``, sorted by (key, lowest column) with key ``-dist`` for
+    ``largest`` and ``dist`` otherwise (-0.0 ties +0.0); columns at or
+    beyond ``n_valid`` lose; any ``1 <= k <= n_valid``.  Returns the
+    entries' own values (float32) and columns (int32).
+
+    CPU tensors run :func:`topk_select_reference`; CUDA tensors launch
+    the radix-select kernel (``csrc/topk_select.cu``), one block a row or
+    a cluster of :func:`select_split` blocks when the rows are few.
+    """
+    _check_select(dist, k, n_valid)
+    if dist.device.type == "cpu":
+        return topk_select_reference(dist, k=k, largest=largest,
+                                     n_valid=n_valid)
+    m, n = dist.shape
+    out_v = torch.empty((m, k), dtype=torch.float32, device=dist.device)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=dist.device)
+    if m == 0:
+        return out_v, out_i
+    # above the shared-memory sort: two (key, column) pairs of 8 bytes
+    # per candidate and row
+    scratch = torch.empty((m, 4 * k), dtype=torch.int32, device=dist.device) \
+        if k > _SELECT_SORT_CAP else None
+    lib = build.load("topk_select")
+    launch = _bind(lib, "c4cam_topk_select", _args(4, 6))
+    with torch.cuda.device(dist.device):
+        err = launch(dist.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+                     None if scratch is None else scratch.data_ptr(), m, n,
+                     k, n_valid, int(largest),
+                     select_split(m, k, n_valid, _sm_count(dist.device)),
+                     torch.cuda.current_stream(dist.device).cuda_stream)
+    _raise_if_failed(lib, "topk_select", err)
+    _count("topk_select")
+    return out_v, out_i
+
+
+def _check_packed_distance(q: torch.Tensor, p: torch.Tensor,
+                           care: Optional[torch.Tensor]) -> None:
+    name = "packed_distance"
+    ops = {"queries": q, "patterns": p}
+    if care is not None:
+        ops["care"] = care
+    for what, t in ops.items():
+        if not isinstance(t, torch.Tensor) or t.dim() != 2:
+            raise ValueError(f"{name}: {what} must be a 2-D tensor")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: {what} must be torch.int32, got "
+                             f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, queries on "
+                             f"{q.device}")
+        if t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be 16-byte aligned")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    lanes_ = q.shape[1]
+    if p.shape[1] != lanes_ or (care is not None and care.shape != p.shape):
+        raise ValueError(f"{name}: operand widths differ: queries "
+                         f"{tuple(q.shape)}, patterns {tuple(p.shape)}")
+    if lanes_ == 0 or lanes_ % BLOCK_K:
+        raise ValueError(f"{name}: {lanes_} lanes must be a positive "
+                         f"multiple of {BLOCK_K} (pad_to_blocks)")
+    if p.shape[0] == 0 or p.shape[0] % PACKED_ROWS:
+        raise ValueError(f"{name}: {p.shape[0]} pattern rows must be a "
+                         f"positive multiple of {PACKED_ROWS}")
+
+
+def packed_distance(q: torch.Tensor, p: torch.Tensor,
+                    care: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(M, N) float32 ``popcount(q ^ p [& care])`` of packed int32 lanes
+    (``packing.pack_bits``): ``q`` (M, L), ``p`` and the optional TCAM
+    ``care`` mask (N, L), L a multiple of :data:`BLOCK_K`, N a multiple
+    of :data:`PACKED_ROWS` (zero padding is neutral for the lanes; padding
+    rows get their own distances).  Exact integers, bit-identical to the
+    reference.  CPU tensors run :func:`packed_distance_reference`; CUDA
+    tensors launch :func:`fused_topk_packed`'s int8 tensor-core route
+    with its distance epilogue."""
+    _check_packed_distance(q, p, care)
+    if q.device.type == "cpu":
+        return packed_distance_reference(q, p, care)
+    out = torch.empty((q.shape[0], p.shape[0]), dtype=torch.float32,
+                      device=q.device)
+    if q.shape[0] == 0:
+        return out
+    lib = build.load("fused_topk_packed")
+    launch = _bind(lib, "c4cam_packed_distance", _args(4, 3))
+    with torch.cuda.device(q.device):
+        err = launch(q.data_ptr(), p.data_ptr(),
+                     None if care is None else care.data_ptr(),
+                     out.data_ptr(), q.shape[0], p.shape[0], q.shape[1],
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_if_failed(lib, "packed_distance", err)
+    _count("packed_distance")
+    return out
 
 
 def _launch_distance(q: torch.Tensor, p: torch.Tensor, metric: str,

@@ -14,9 +14,10 @@ window in (key desc, index asc) order, so the stable sort resolves ties
 to the lower global row index, matching the reference.
 
 Where ``k`` exceeds the kernels' :data:`~.cam_search.MAX_K` no window
-fits, and :func:`~.cam_search.topk_by_distance` (the distance kernel,
-then one selection by (value, lowest row id)) takes its place; packed lanes
-go to it as their {0, 1} bits (:func:`matrix_operands`).
+fits: :func:`~.cam_search.topk_by_distance` (the distance kernel, then
+the selection kernel by (value, lowest row id)) takes its place, and for
+packed lanes :func:`~.cam_search.topk_by_packed_distance` (the packed
+distance kernel on the lanes, then the same selection).
 
 The range entry points (:func:`acam_match`, :func:`cam_range_match`)
 are one launch each: the kernel writes the boolean match matrix itself.
@@ -34,12 +35,12 @@ import torch
 from . import acam as kacam
 from . import hdc_encode as khdc
 from . import ref as kref
-from . import packing as kpack
-from .cam_search import (BLOCK_K, MAX_K, distance, fused_topk,
-                         fused_topk_packed, topk_by_distance, window_rows)
+from .cam_search import (BLOCK_K, MAX_K, PACKED_ROWS, distance, fused_topk,
+                         fused_topk_packed, topk_by_distance,
+                         topk_by_packed_distance, window_rows)
 
 __all__ = ["pad_to_blocks", "cam_topk_prepadded",
-           "cam_topk_packed_prepadded", "matrix_operands", "cam_topk", "cam_topk_packed",
+           "cam_topk_packed_prepadded", "cam_topk", "cam_topk_packed",
            "acam_match_prepadded", "acam_match",
            "cam_range_match_prepadded", "cam_range_match", "hdc_bind",
            "hdc_bundle", "hdc_permute", "hdc_encode", "cam_distances",
@@ -84,24 +85,6 @@ def cam_topk_packed_prepadded(qp: torch.Tensor, pp: torch.Tensor,
     return _merge(vals, idx, k, largest)
 
 
-def matrix_operands(pbits: torch.Tensor, care: Optional[torch.Tensor] = None
-                    ) -> Tuple[str, torch.Tensor, Optional[torch.Tensor]]:
-    """A packed search's patterns as :func:`~.cam_search.topk_by_distance`
-    takes them, from their {0, 1} cell bits ``pbits`` (N, D) (bool or
-    {0, 1}) and the optional care bits: ``("hamming", bits, None)``, or
-    for a ternary search ``("dot", care - 2 bits care, sum(bits care))``
-    — ``popcount((q ^ p) & c) = q.(c - 2 p c) + sum(p c)`` on {0, 1}
-    cells, every term an exact integer.  Inner dimension padded to
-    :data:`BLOCK_K`."""
-    b = pbits.to(torch.float32)
-    if care is None:
-        return "hamming", pad_to_blocks(b, 1, BLOCK_K), None
-    c = (care != 0).to(torch.float32)
-    pc = b * c
-    return ("dot", pad_to_blocks(c - 2.0 * pc, 1, BLOCK_K),
-            pc.sum(1).contiguous())
-
-
 def cam_topk(queries: torch.Tensor, patterns: torch.Tensor, *, metric: str,
              k: int, largest: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused CAM best-match search through :func:`fused_topk` (through
@@ -128,25 +111,17 @@ def cam_topk_packed(qbits: torch.Tensor, pbits: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused best-match search over bit-packed binary/ternary lanes
     (``packing.pack_bits``); bit-identical to ``cam_topk(metric=
-    "hamming")`` on the unpacked cells."""
+    "hamming")`` on the unpacked cells.  Past :data:`MAX_K` the lanes go
+    to :func:`~.cam_search.topk_by_packed_distance`."""
     n = pbits.shape[0]
     k_eff = min(k, n)
-    if k_eff > MAX_K:
-        cells = qbits.shape[1] * kpack.LANE_BITS
-        metric, pp, bias = matrix_operands(
-            kpack.unpack_bits(pbits, cells),
-            None if care is None else kpack.unpack_bits(care, cells))
-        qp = pad_to_blocks(kpack.unpack_bits(qbits, cells).to(torch.float32),
-                           1, BLOCK_K)
-        vals, idx = topk_by_distance(qp, pp, bias, metric=metric,
-                                     k=k_eff, largest=largest, n_valid=n)
-        return kref.pad_candidates(vals, idx, k, largest)
-    window = window_rows(k_eff)
+    matrix = k_eff > MAX_K
+    rows = PACKED_ROWS if matrix else window_rows(k_eff)
     qp = pad_to_blocks(qbits, 1, BLOCK_K)
-    pp = pad_to_blocks(pbits, window, BLOCK_K)
-    cp = None if care is None else pad_to_blocks(care, window, BLOCK_K)
-    vals, idx = cam_topk_packed_prepadded(qp, pp, cp, k=k_eff,
-                                          largest=largest, n_valid=n)
+    pp = pad_to_blocks(pbits, rows, BLOCK_K)
+    cp = None if care is None else pad_to_blocks(care, rows, BLOCK_K)
+    search = topk_by_packed_distance if matrix else cam_topk_packed_prepadded
+    vals, idx = search(qp, pp, cp, k=k_eff, largest=largest, n_valid=n)
     return kref.pad_candidates(vals, idx, k, largest)
 
 

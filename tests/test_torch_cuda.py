@@ -273,6 +273,7 @@ def test_launch_counts_and_refusals(cuda):
                             "acam_match": 0, "range_match": 0,
                             "hdc_encode": 0, "hdc_encode_wide": 0,
                             "distance": 0, "distance_topk": 0,
+                            "topk_select": 0, "packed_distance": 0,
                             "flash_attention": 0}
     with pytest.raises(ValueError, match="queries on"):
         tcs.fused_topk_packed(q, p.cpu(), k=3, largest=False, n_valid=100)
@@ -1575,32 +1576,138 @@ def test_hier_on_the_card_equals_flat_and_repeats_centroids(cuda, rng):
 # ---------------------------------------------------------------------------
 
 
+def _select_case(rng, m, n, data):
+    """An (m, n) float32 matrix for the selection: ``"random"`` (normal
+    values), ``"equal"`` (every entry the same), ``"specials"`` (few
+    values, so ties straddle every rank: +-inf, +-0.0, negatives) or
+    ``"hamming"`` (binomial integers, as packed distances crowd)."""
+    if data == "random":
+        a = rng.standard_normal((m, n)).astype(np.float32)
+    elif data == "equal":
+        a = np.full((m, n), 3.5, np.float32)
+    elif data == "specials":
+        pool = np.array([np.inf, -np.inf, 0.0, -0.0, -1.5, 2.0, 7.25, -3e38],
+                        np.float32)
+        a = pool[rng.integers(0, pool.size, (m, n))]
+    else:
+        a = rng.binomial(1024, 0.5, (m, n)).astype(np.float32)
+    return torch.from_numpy(a)
+
+
+def _assert_same_bits(got, want):
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("largest", [False, True])
+@pytest.mark.parametrize("data", ["random", "equal", "specials"])
+@pytest.mark.parametrize("k", ["385", "8193", "n_valid"])
+@pytest.mark.parametrize("m", [1, 13, 624])
+def test_topk_select_matches_plain(cuda, m, k, data, largest, rng):
+    """K1s against its plain version, bit for bit: one row, a served
+    micro-batch and the KNN queries (split over clusters at the first
+    two), k past the window, past the shared-memory sort and at
+    ``n_valid``; an odd row width takes the unaligned loads."""
+    n = 20003 if data == "equal" else 20000
+    n_valid = n - 37
+    kk = n_valid if k == "n_valid" else int(k)
+    dist = _select_case(rng, m, n, data)
+    kw = dict(k=kk, largest=largest, n_valid=n_valid)
+    dist = dist.to(cuda)
+    before = tcs.LAUNCHES["topk_select"]
+    got = tcs.topk_select(dist, **kw)
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["topk_select"] == before + 1
+    _assert_same_bits(got, tcs.topk_select_reference(dist, **kw))
+
+
+@pytest.mark.parametrize("data,k,largest", [("hamming", 400, False),
+                                            ("random", 500, False),
+                                            ("hamming", 385, True)])
+@pytest.mark.parametrize("m", [13, 624])
+def test_topk_select_at_the_knn_width(cuda, m, data, k, largest, rng):
+    """K1s at the KNN gallery's 180,000 columns: binomial integers crowd
+    a few bins (the gathered path after two passes), normal values
+    spread (after one)."""
+    n = 180_000
+    dist = _select_case(rng, m, n, data)
+    kw = dict(k=k, largest=largest, n_valid=n - 5)
+    dist = dist.to(cuda)
+    got = tcs.topk_select(dist, **kw)
+    _assert_same_bits(got, tcs.topk_select_reference(dist, **kw))
+    assert tcs.select_split(m, k, n - 5, _sms(cuda)) == (8 if m == 13 else 1)
+
+
+def test_topk_select_refusals(cuda):
+    d = torch.zeros((4, 300), device=cuda)
+    with pytest.raises(ValueError, match="k=301"):
+        tcs.topk_select(d, k=301, largest=False, n_valid=300)
+    with pytest.raises(ValueError, match="contiguous"):
+        tcs.topk_select(d.T, k=3, largest=False, n_valid=4)
+    v, i = tcs.topk_select(d[:0], k=3, largest=False, n_valid=300)
+    assert v.shape == (0, 3) and i.dtype == torch.int32
+
+
+@pytest.mark.parametrize("ternary", [False, True])
+@pytest.mark.parametrize("m,n,lanes", [(1, 128, 8), (13, 180096, 32),
+                                       (300, 1024, 40)])
+def test_packed_distance_matches_plain(cuda, m, n, lanes, ternary, rng):
+    """K1p against ``ref.packed_distances`` (binary and ternary), bit for
+    bit, on lanes with bit 31 set, every pattern row included."""
+    from repro_torch.kernels import ref as tref
+    q, p = _lanes(rng, m, lanes), _lanes(rng, n, lanes)
+    c = _lanes(rng, n, lanes) if ternary else None
+    before = tcs.LAUNCHES["packed_distance"]
+    got = tcs.packed_distance(q.to(cuda), p.to(cuda),
+                              None if c is None else c.to(cuda))
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["packed_distance"] == before + 1
+    want = tcs.packed_distance_reference(q, p, c)
+    assert torch.equal(got.cpu(), want)
+    rows = slice(0, 64)
+    assert torch.equal(want[:, rows], tref.packed_distances(q, p[rows],
+                       None if c is None else c[rows]))
+
+
 @pytest.mark.parametrize("metric,largest", [("hamming", False),
-                                            ("eucl", False), ("dot", True)])
+                                            ("eucl", False), ("dot", True),
+                                            ("packed", False),
+                                            ("ternary", True)])
 @pytest.mark.parametrize("k", [tcs.MAX_K + 1, 700])
 def test_matrix_route_matches_plain(cuda, metric, largest, k, rng):
-    """B6's matrix plus the (value, lowest row id) selection against its
-    plain version: bit-identical on {0, 1} cells, eucl within tolerance
-    with near-tie swaps only; one ``distance_topk`` launch a call."""
+    """The matrix route against its plain version: B6's matrix (or K1p's
+    on packed lanes, binary or ternary) and K1s, bit-identical on
+    {0, 1} cells and lanes, eucl within tolerance with near-tie swaps
+    only; one launch of each kernel a call."""
     m, n, dim = 70, 1500, 72
-    if metric == "eucl":
-        q = torch.from_numpy(rng.standard_normal((m, dim)).astype(np.float32))
-        p = torch.from_numpy(rng.standard_normal((n, dim)).astype(np.float32))
+    if metric in ("packed", "ternary"):
+        n = 1536
+        q, p = _lanes(rng, m, 8), _lanes(rng, n, 8)
+        args = (q, p, _lanes(rng, n, 8) if metric == "ternary" else None)
+        kw = dict(k=k, largest=largest, n_valid=n - 9)
+        route, want_fn = tcs.topk_by_packed_distance, \
+            tcs.topk_by_packed_distance_reference
+        first = "packed_distance"
     else:
-        q = torch.from_numpy((rng.random((m, dim)) > 0.5).astype(np.float32))
-        p = torch.from_numpy((rng.random((n, dim)) > 0.5).astype(np.float32))
-    bias = torch.from_numpy(rng.integers(0, 3, n).astype(np.float32)) \
-        if metric == "dot" else None
-    kw = dict(metric=metric, k=k, largest=largest, n_valid=n - 9)
-    before = tcs.LAUNCHES["distance_topk"]
-    got = tcs.topk_by_distance(q.to(cuda), p.to(cuda),
-                               None if bias is None else bias.to(cuda), **kw)
-    assert tcs.LAUNCHES["distance_topk"] == before + 1
-    want = tcs.topk_by_distance_reference(q, p, bias, **kw)
+        if metric == "eucl":
+            q = rng.standard_normal((m, dim)).astype(np.float32)
+            p = rng.standard_normal((n, dim)).astype(np.float32)
+        else:
+            q = (rng.random((m, dim)) > 0.5).astype(np.float32)
+            p = (rng.random((n, dim)) > 0.5).astype(np.float32)
+        args = (torch.from_numpy(q), torch.from_numpy(p))
+        kw = dict(metric=metric, k=k, largest=largest, n_valid=n - 9)
+        route, want_fn = tcs.topk_by_distance, tcs.topk_by_distance_reference
+        first = "distance_topk"
+    tcs.reset_launch_counts()
+    got = route(*(None if a is None else a.to(cuda) for a in args), **kw)
+    assert tcs.LAUNCHES[first] == 1 and tcs.LAUNCHES["topk_select"] == 1
+    assert sum(tcs.LAUNCHES.values()) == 2
+    want = want_fn(*args, **kw)
     gv, gi = got[0].cpu().numpy(), got[1].cpu().numpy()
     if metric == "eucl":
-        _assert_eucl_close(q.numpy(), p.numpy(), want[0].numpy(),
-                           want[1].numpy(), gv, gi)
+        _assert_eucl_close(args[0].numpy(), args[1].numpy(),
+                           want[0].numpy(), want[1].numpy(), gv, gi)
     else:
         assert np.array_equal(gv, want[0].numpy())
         assert np.array_equal(gi, want[1].numpy())
@@ -1610,8 +1717,9 @@ def test_matrix_route_matches_plain(cuda, metric, largest, k, rng):
 @pytest.mark.parametrize("metric", ["hamming", "ternary", "eucl"])
 def test_matrix_route_main_path_on_the_card(cuda, metric, rng):
     """``compile_module`` with k = 400 on the ``"cuda"`` backend (packed
-    hamming and ternary, eucl): the route is picked by shape, counted,
-    and equal to the ``"torch"`` backend on the card."""
+    hamming and ternary, eucl): the route is picked by shape, launches B6
+    or K1p and then K1s and nothing else, and equals the ``"torch"``
+    backend on the card."""
     m, n, dim, k = 40, 3000, 96, 400
     care = metric == "ternary"
     if metric == "eucl":
@@ -1629,8 +1737,9 @@ def test_matrix_route_main_path_on_the_card(cuda, metric, rng):
                     if care else [])
     tcs.reset_launch_counts()
     got = prog()(*ins)
-    assert tcs.LAUNCHES["distance_topk"] == 1
-    assert sum(tcs.LAUNCHES.values()) == 1
+    first = "distance_topk" if metric == "eucl" else "packed_distance"
+    assert tcs.LAUNCHES[first] == 1 and tcs.LAUNCHES["topk_select"] == 1
+    assert sum(tcs.LAUNCHES.values()) == 2
     want = prog(backend="torch")(*ins)
     gv, gi = got[0].cpu().numpy(), got[1].cpu().numpy()
     wv, wi = want[0].cpu().numpy(), want[1].cpu().numpy()

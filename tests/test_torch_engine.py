@@ -276,9 +276,9 @@ def test_prepared_round_trip(metric, rng):
 @pytest.mark.parametrize("metric", ["eucl", "hamming", "ternary"])
 def test_prepared_round_trip_matrix_route(metric, rng):
     """A ``"pallas"`` plan's prepared operands at k = 400 carried to the
-    ``"cuda"`` plan's matrix route (float cells, or packed lanes as their
-    bits with a ternary's care folded in) equal the port's own prepare,
-    and the plan runs on them."""
+    ``"cuda"`` plan's matrix route (float cells, or packed lanes in rows
+    padded to ``PACKED_ROWS``, a ternary's care mask as lanes too) equal
+    the port's own prepare, and the plan runs on them."""
     m, n, dim, k = 4, 500, 40, 400
     cell = metric if metric != "ternary" else "hamming"
     if metric == "eucl":
