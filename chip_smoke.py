@@ -57,6 +57,22 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        furthest from the plain version equal bit for bit
                        to the replay of the kernel's own arithmetic
                        (``cam_search.tf32x3_kernel_eucl``);
+* ``tune``           — the plan autotuner (``repro_torch.tune``) on the
+                       ``"cuda"`` backend with its default trials and
+                       reps, against a fresh temporary plan store:
+                       ``knn_eucl``'s and ``hamming_packed``'s programs and
+                       ``forest_acam``'s interval range plan, each winner
+                       held to its baseline (bit-identical for hamming and
+                       the interval match, eucl within the tolerance), and
+                       no candidate (each micro-batch, each packing)
+                       rejected or refused; a
+                       torch-only child process rebuilds the data from the
+                       same seeds and warm-starts from the store (no trial,
+                       three config hits, no kernel built, bit-identical
+                       results); a ``CamSearchServer`` and a gateway tenant
+                       built over the heuristic hamming plan serve the
+                       stored winner, ``tuned=False`` keeps the heuristic
+                       plan;
 * ``hier_search``    — the hierarchical two-stage search
                        (``get_hierarchical_plan``, the ``"torch"`` backend:
                        no hand-written kernel on its path): (a) the
@@ -3487,6 +3503,286 @@ def phase_gateway_serve(s: Smoke, data):
          "tenants": tenants, **out})
 
 
+# ---------------------------------------------------------------------------
+# tune: the plan autotuner, the plan store and the served warm start
+# ---------------------------------------------------------------------------
+
+#: the child process's time limit, and the served warm start's request
+#: rows (a gateway request) and requests
+TUNE_CHILD_S = 600
+TUNE_SERVE_ROWS, TUNE_SERVE_REQUESTS = 13, 8
+
+
+def tune_workloads(data):
+    """The tune phase's programs, name -> (partitioned module, inputs on
+    the card): ``knn_eucl``'s (B2, k = 5), ``hamming_packed``'s (B1,
+    k = 10) and ``forest_acam``'s interval range program (B3), from the
+    smoke's seeds, so that a second process rebuilds the same data."""
+    import numpy as np
+    import torch
+    import repro_torch.core as T
+    from repro_torch.core import (ArchSpec, CamType, compile_fn,
+                                  compile_module)
+    from repro_torch.core import cim_dialect as cd
+    from repro_torch.forest import CamForestClassifier, random_forest
+    g, _, q, _ = data
+    gt, qt = torch.from_numpy(g).cuda(), torch.from_numpy(q).cuda()
+    knn = compile_fn(knn_kernel, [q, g], ArchSpec(rows=64, cols=64),
+                     value_bits=8)
+    ham = compile_module(hamming_module(T, cd, q.shape[0], g.shape[0],
+                                        g.shape[1], 10, False),
+                         ArchSpec(rows=64, cols=64), value_bits=1)
+    trees = random_forest(np.random.default_rng(7), **FOREST)
+    clf = CamForestClassifier(trees, dim=FOREST["dim"]).compile(
+        ArchSpec(rows=64, cols=64, cam_type=CamType.ACAM),
+        batch_hint=FOREST_QUERIES)
+    x = np.random.default_rng(8).standard_normal(
+        (FOREST_QUERIES, FOREST["dim"])).astype(np.float32)
+    return {"knn_eucl": (knn.stages["cim_partitioned"], (qt, gt)),
+            "hamming_packed": (ham.stages["cim_partitioned"],
+                               ((qt > 0).float(), (gt > 0).float())),
+            "forest_acam": (clf.stages["cim_partitioned"],
+                            (torch.from_numpy(x).cuda(), clf._lo, clf._hi))}
+
+
+def _host_out(out):
+    """A plan's result as a tuple of host numpy arrays."""
+    outs = out if isinstance(out, tuple) else (out,)
+    return tuple(o.cpu().numpy() for o in outs)
+
+
+def _timed_tune(mod, ins):
+    """``tune_plan`` and the winner's first result, timed together on
+    the host clock (the start-to-first-result a server pays)."""
+    import torch
+    from repro_torch.tune import tune_plan
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tune_plan(mod, *ins)
+    out = res.plan.execute(*ins)
+    torch.cuda.synchronize()
+    return res, out, time.perf_counter() - t0
+
+
+def tune_child(out_dir: str) -> None:
+    """The cold start in a fresh process: the same data from the same
+    seeds, ``tune_plan`` against the parent's store (``REPRO_PLAN_STORE``
+    inherited), each result held bit for bit to the parent's winner in
+    ``out_dir``.  Prints one JSON line."""
+    import numpy as np
+    import repro_torch.kernels.build as kbuild
+    from repro_torch.data import knn_dataset
+    from repro_torch.tune import plan_store_stats, tune_stats
+    t0 = time.perf_counter()
+    built = kbuild.build()
+    work = tune_workloads(knn_dataset(**KNN_DATA))
+    setup_s = time.perf_counter() - t0
+    programs = {}
+    for name, (mod, ins) in work.items():
+        res, out, took = _timed_tune(mod, ins)
+        want = np.load(os.path.join(out_dir, f"{name}.npz"))
+        got = _host_out(out)
+        programs[name] = {
+            "from_store": res.from_store, "trials": res.trials,
+            "config": {k: res.config[k] for k in
+                       ("tile_rows", "dims_per_tile", "batch", "pack")},
+            "start_to_first_result_s": took,
+            "bit_identical": len(got) == len(want.files) and all(
+                np.array_equal(a, want[f"o{j}"])
+                for j, a in enumerate(got))}
+    print(json.dumps({"built": built, "setup_s": setup_s,
+                      "store": plan_store_stats(), "tune": tune_stats(),
+                      "imported": sorted(m for m in sys.modules
+                                         if m.split(".")[0] in
+                                         ("jax", "repro")),
+                      "programs": programs}), flush=True)
+
+
+def _tune_verify(name, ins, base, win):
+    """The winner's result against its baseline's: bit-identical for
+    hamming and the interval match; eucl values within the tolerance and
+    index swaps only at float64 near-ties.  Returns the swaps."""
+    import torch
+    if name != "knn_eucl":
+        if not all(torch.equal(a, b) for a, b in zip(
+                base if isinstance(base, tuple) else (base,),
+                win if isinstance(win, tuple) else (win,))):
+            raise RuntimeError(f"tune {name}: the winner differs from its "
+                               f"baseline")
+        return 0
+    (bv, bi), (wv, wi) = base, win
+    if not bool(((wv - bv).abs() <= EUCL_ATOL + EUCL_RTOL * bv.abs()).all()):
+        raise RuntimeError(f"tune {name}: winner values off the baseline by "
+                           f"{float((wv - bv).abs().max())}")
+    return eucl_index_swaps(ins[0], ins[1], wi, bi, f"tune {name}")
+
+
+def _tune_serve(plan, heuristic, q, g):
+    """(d) a server over the heuristic plan, and a gateway tenant
+    registered with the default ``tuned``: both must serve the stored
+    winner ``plan``, every request bit-identical to its direct call;
+    ``tuned=False`` keeps the heuristic plan."""
+    import numpy as np
+    from repro_torch.serving import CamSearchServer, CamServingGateway
+    rows = TUNE_SERVE_ROWS
+    blocks = [q[j * rows:(j + 1) * rows] for j in range(TUNE_SERVE_REQUESTS)]
+    want = [_host_out(plan.execute(b, g)) for b in blocks]
+
+    def check(what, results):
+        for j, (v, i) in enumerate(results):
+            if not (np.array_equal(v, want[j][0])
+                    and np.array_equal(i, want[j][1])):
+                raise RuntimeError(f"tune {what}: request {j} differs from "
+                                   f"the winner's direct call")
+
+    with CamSearchServer(heuristic, g) as srv:
+        if srv.plan is not plan:
+            raise RuntimeError("tune: the server did not warm-start to the "
+                               "stored winner")
+        check("server", [srv.search(b, timeout=CAM_WAIT_S) for b in blocks])
+        served = {"tile_rows": srv.plan.spec.tile_rows,
+                  "batch": srv.plan.batch}
+        _server_health("tune server", srv)
+    with CamSearchServer(heuristic, g, tuned=False) as srv:
+        if srv.plan is not heuristic:
+            raise RuntimeError("tune: tuned=False did not keep the plan")
+    with CamServingGateway(maint_ms=GW_MAINT_MS) as gw:
+        gw.register_tenant("hamming", heuristic, g, replicas=2)
+        tenant_plan = gw._tenant("hamming").rset.plan
+        if tenant_plan is not plan:
+            raise RuntimeError("tune: the gateway tenant did not "
+                               "warm-start to the stored winner")
+        check("gateway", [gw.search("hamming", b, timeout=CAM_WAIT_S)
+                          for b in blocks])
+    return {"server_plan": served, "requests": len(blocks), "rows": rows,
+            "server_bit_identical": True, "gateway_bit_identical": True,
+            "tuned_false_keeps_heuristic": True}
+
+
+def phase_tune(s: Smoke, data):
+    """The plan autotuner on the ``"cuda"`` backend with its default
+    trials and reps, against a fresh temporary ``REPRO_PLAN_STORE``:
+    (a) ``knn_eucl``'s and ``hamming_packed``'s programs at 624 x 180,000
+    x 1024 and (b) ``forest_acam``'s interval range plan, each winner
+    held to its baseline; (c) a second process warm-starts from the
+    store (no trial, three config hits, nothing built, bit-identical
+    results); (d) a server and a gateway tenant built over the heuristic
+    hamming plan serve the stored winner."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import repro_torch.core as T
+    from repro_torch.kernels import cam_search
+    from repro_torch.tune import (plan_for_config, plan_store_stats,
+                                  reset_plan_store_stats, reset_tune_stats)
+    T.clear_plan_cache()
+    scratch = tempfile.mkdtemp(prefix="chip-smoke-tune-")
+    store = os.path.join(scratch, "store")
+    old = os.environ.get("REPRO_PLAN_STORE")
+    os.environ["REPRO_PLAN_STORE"] = store
+    try:
+        work = tune_workloads(data)
+        reset_tune_stats()
+        reset_plan_store_stats()
+        cam_search.reset_launch_counts()
+        tuned = {name: _timed_tune(mod, ins)
+                 for name, (mod, ins) in work.items()}
+        counts = dict(cam_search.LAUNCHES)
+        for name in ("fused_topk", "fused_topk_packed", "acam_match"):
+            if counts[name] < 1:
+                raise RuntimeError(f"tune: kernel {name} was not launched: "
+                                   f"{counts}")
+        programs = {}
+        for name, (res, out, took) in tuned.items():
+            mod, ins = work[name]
+            if res.from_store or res.trials < 1:
+                raise RuntimeError(f"tune {name}: no search ran")
+            base = plan_for_config(res.plan.spec, res.history[0])
+            swaps = _tune_verify(name, ins, base.execute(*ins), out)
+            np.savez(os.path.join(scratch, f"{name}.npz"),
+                     **{f"o{j}": a for j, a in enumerate(_host_out(out))})
+            programs[name] = {
+                "baseline": {k: res.history[0][k] for k in
+                             ("tile_rows", "dims_per_tile", "batch",
+                              "pack")},
+                "baseline_ms": 1e3 * res.base_s,
+                "winner": {k: res.config[k] for k in
+                           ("tile_rows", "dims_per_tile", "batch", "pack")},
+                "winner_ms": 1e3 * res.best_s, "speedup": res.speedup,
+                "trials": res.trials,
+                "rejected": sum(h.get("verified") is False
+                                for h in res.history),
+                "refused": sum(bool(h.get("error")) for h in res.history),
+                "index_swaps_float64_near_ties": swaps,
+                "cold_start_to_first_result_s": took,
+                "history": [dict({k: v for k, v in h.items()
+                                  if k not in ("backend", "wall_s")},
+                                 ms=None if h["wall_s"] is None
+                                 else 1e3 * h["wall_s"])
+                            for h in res.history]}
+            if programs[name]["rejected"] or programs[name]["refused"]:
+                # every candidate (each batch value: a ragged last
+                # micro-batch at m = 624) must run on the kernels and
+                # give the baseline's answers
+                raise RuntimeError(f"tune {name}: candidates rejected or "
+                                   f"refused: {programs[name]['history']}")
+        parent_store = plan_store_stats()
+
+        # (c) the cold start in a fresh, torch-only process
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c",
+             f"import sys; sys.path[:0] = [{ROOT!r}, "
+             f"{os.path.join(ROOT, 'src')!r}]; import chip_smoke; "
+             f"chip_smoke.tune_child({scratch!r})"],
+            capture_output=True, text=True, timeout=TUNE_CHILD_S)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise RuntimeError(f"tune: the child failed: "
+                               f"{child.stderr[-3000:]}")
+        warm = json.loads(child.stdout.strip().splitlines()[-1])
+        if warm["built"] or warm["imported"] or \
+                warm["store"]["config_hits"] != 3 or \
+                warm["store"]["exec_hits"] != 0 or \
+                warm["tune"]["trials"] != 0 or not all(
+                    p["from_store"] and p["trials"] == 0 and p["bit_identical"]
+                    and p["config"] == programs[n]["winner"]
+                    for n, p in warm["programs"].items()):
+            raise RuntimeError(f"tune: the second process did not "
+                               f"warm-start: {warm}")
+
+        # (d) the served warm start, over the heuristic hamming plan
+        cam_search.reset_launch_counts()
+        mod, (qb, gb) = work["hamming_packed"]
+        winner = tuned["hamming_packed"][0].plan
+        serve = _tune_serve(winner, T.get_plan(mod), qb, gb)
+        serve["launches"] = dict(cam_search.LAUNCHES)
+        kernel = "fused_topk_packed" if winner.packed else "fused_topk"
+        if serve["launches"][kernel] < 1:
+            raise RuntimeError(f"tune: the served warm start did not launch "
+                               f"the winner's {kernel}: {serve['launches']}")
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_PLAN_STORE", None)
+        else:
+            os.environ["REPRO_PLAN_STORE"] = old
+        shutil.rmtree(scratch, ignore_errors=True)
+        T.clear_plan_cache()
+        torch.cuda.empty_cache()
+    for name, src, ref in (
+            ("fused_topk", "fused_topk.cu", "cam_search.py:200"),
+            ("fused_topk_packed", "fused_topk_packed.cu",
+             "cam_search.py:304"),
+            ("acam_match", "acam_match.cu", "acam.py:121")):
+        s.record(name, f"src/repro_torch/kernels/csrc/{src}",
+                 f"src/repro/kernels/{ref}", counts[name], 0.0, None, None,
+                 None, "operations", None)
+    log({"phase": "tune", "ok": True, "launches": counts,
+         "programs": programs, "parent_store": parent_store,
+         "child": dict(warm, wall_s=child_s), "served": serve})
+
+
 def _b7_class(key: str) -> str:
     """Kernel class of a profiler row: B7, a matrix product, or other."""
     low = key.lower()
@@ -3862,6 +4158,7 @@ def main() -> None:
               ("queue_c", lambda: phase_queue_c(s, data)),
               ("cam_serve", lambda: phase_cam_serve(s, data)),
               ("gateway_serve", lambda: phase_gateway_serve(s, data)),
+              ("tune", lambda: phase_tune(s, data)),
               ("hier_search", lambda: phase_hier_search(s, data)),
               ("sharded", lambda: phase_sharded(s, data)),
               ("lm_serve", lambda: phase_lm_serve(s))]

@@ -12,7 +12,8 @@ engines with their ``"torch"`` (eager, reference-tiled) and ``"cuda"``
 (``update_rows``), the IR interpreter, decision forests
 (:mod:`repro_torch.forest`), HDC encoding and classification
 (:mod:`repro_torch.hdc`), the cost model (:mod:`repro_torch.camsim`),
-span tracing (:mod:`repro_torch.obs`), the synthetic datasets
+span tracing (:mod:`repro_torch.obs`), the plan autotuner and its
+plan store (:mod:`repro_torch.tune`), the synthetic datasets
 (:mod:`repro_torch.data`), and the LM side's dense family: configs
 (:mod:`repro_torch.configs`), the model (:mod:`repro_torch.models`) and
 the serving loop (:mod:`repro_torch.launch.serve`).  The CUDA kernels under

@@ -18,7 +18,7 @@ from .engine import (CompositePlan, HierarchicalPlan, HierarchicalSpec,
                      PendingSearch, PlanBase, RangePlan, RangeSpec,
                      SearchPlan, SimilaritySpec, clear_plan_cache,
                      extract_range_spec, get_hierarchical_plan, get_plan,
-                     plan_cache_stats, spec_digest)
+                     plan_cache_stats, spec_digest, workload_digest)
 from .ir import Block, Builder, IRError, Module, Operation, Pass, PassManager, TensorType, Value, verify
 from .torch_dialect import TracedTensor, trace
 
@@ -30,7 +30,7 @@ __all__ = [
     "PendingSearch", "PlanBase", "RangePlan", "RangeSpec", "SearchPlan",
     "SimilaritySpec", "extract_range_spec",
     "clear_plan_cache", "get_hierarchical_plan", "get_plan",
-    "plan_cache_stats", "spec_digest",
+    "plan_cache_stats", "spec_digest", "workload_digest",
     "Block", "Builder", "IRError", "Module", "Operation", "Pass",
     "PassManager", "TensorType", "Value", "verify",
     "TracedTensor", "trace",

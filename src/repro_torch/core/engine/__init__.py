@@ -34,12 +34,13 @@ from .plans import RangePlan, SearchPlan
 from .spec import (RangeSpec, SimilaritySpec, _bits, _check_binary_cells,
                    _encode, _metric_values, _resolve_pack, extract_plan_spec,
                    extract_range_spec, module_for_spec, spec_digest,
-                   spec_fingerprint)
+                   spec_fingerprint, workload_digest)
 
 __all__ = [
     "SimilaritySpec", "RangeSpec", "HierarchicalSpec", "PlanBase",
     "SearchPlan", "RangePlan", "CompositePlan", "HierarchicalPlan",
     "PendingSearch", "extract_plan_spec", "extract_range_spec", "get_plan",
     "get_hierarchical_plan", "resolve_device", "plan_cache_stats",
-    "clear_plan_cache", "spec_digest", "spec_fingerprint", "module_for_spec",
+    "clear_plan_cache", "spec_digest", "spec_fingerprint", "workload_digest",
+    "module_for_spec",
 ]

@@ -222,6 +222,20 @@ def spec_digest(spec) -> str:
     return hashlib.sha256(spec_fingerprint(spec).encode()).hexdigest()
 
 
+def workload_digest(spec) -> str:
+    """Digest of the spec with its tile geometry normalised away (the
+    reference's, hex for hex).
+
+    The autotuner searches over tile geometry, so the plan store keys
+    tuned configs by what the workload is (metric, k or threshold,
+    operand shapes, dtypes, care wiring), not by how one module happened
+    to tile it.
+    """
+    geomless = dataclasses.replace(spec, tile_rows=0, dims_per_tile=0,
+                                   grid_rows=0, grid_cols=0)
+    return spec_digest(geomless)
+
+
 _SIM_OPS = {"cim.similarity", "cim.tiled_similarity"}
 _RANGE_OPS = {"cim.range_search", "cim.tiled_range_search"}
 _TILE_OPS = {"cim.search_tile", "cim.merge_partial", "cim.topk_tile",

@@ -34,9 +34,7 @@ ReplicaSet` of :class:`~repro_torch.serving.CamSearchServer` replicas:
   set's writer-priority lock before returning; any request submitted
   after that sees the new rows regardless of routing.
 
-Results are host numpy arrays, as the servers' are.  The reference's
-``register_tenant(tuned=)`` (the plan-store warm start) is not here: it
-comes with the port's tuning layer.
+Results are host numpy arrays, as the servers' are.
 """
 
 from __future__ import annotations
@@ -215,7 +213,8 @@ class CamServingGateway:
                         unhealthy_k: Optional[int] = None,
                         max_fault_rows: Optional[int] = None,
                         rebuild_fault_model: Optional[Callable] = None,
-                        server_kwargs: Optional[Dict[str, Any]] = None
+                        server_kwargs: Optional[Dict[str, Any]] = None,
+                        tuned: Optional[bool] = None
                         ) -> "CamServingGateway":
         """Register a named tenant.
 
@@ -230,6 +229,12 @@ class CamServingGateway:
         Admission knobs left ``None`` fall back to the strict
         ``REPRO_TENANT_*`` environment defaults (garbage in the
         environment raises here, at registration).
+
+        ``tuned`` (default ``REPRO_TUNE_SERVE``, on) enables the
+        plan-store warm start: with ``REPRO_PLAN_STORE`` configured the
+        tenant's plan is swapped for its stored tuned equivalent before
+        the replica set is built (see ``CamSearchServer``); the replica
+        servers then serve that plan as it is.
         """
         cfg = AdmissionConfig.from_env(
             rate=rate, burst=burst, queue_limit=queue_limit,
@@ -257,7 +262,7 @@ class CamServingGateway:
                         "(or share_with=)")
                 from .server import _resolve_plan
                 rset = ReplicaSet(
-                    _resolve_plan(program), gallery,
+                    _resolve_plan(program, tuned=tuned), gallery,
                     care_mask=care_mask,
                     replicas=replicas, fault_models=fault_models,
                     fault_injectors=fault_injectors,

@@ -288,13 +288,15 @@ class ReplicaSet:
 
     def _make_server(self, r: Replica, gallery=None) -> CamSearchServer:
         """A replica server on the set's stream (the server keeps the
-        stream current at its construction)."""
+        stream current at its construction), serving the set's plan as
+        it is: the tenant resolved any warm start at registration."""
         with self._on_stream():
             return CamSearchServer(
                 self.plan,
                 self._server_gallery() if gallery is None else gallery,
                 care_mask=self._care, fault_model=r.fault_model,
-                fault_injector=r._injector_hook, **self._server_kwargs)
+                fault_injector=r._injector_hook, tuned=False,
+                **self._server_kwargs)
 
     # -- routing -----------------------------------------------------------
 

@@ -102,7 +102,7 @@ import torch
 
 from ..core.compiler import CompiledCamProgram
 from ..core.engine import PlanBase, RangePlan
-from ..core.envcfg import env_float
+from ..core.envcfg import env_flag, env_float
 from ..obs import trace as _trace
 from .batcher import _BatcherMixin
 from .resilience import BREAKER_COOLDOWN_S, BREAKER_THRESHOLD, \
@@ -117,9 +117,17 @@ _RIDS = itertools.count()
 _BATCH_IDS = itertools.count()
 
 
-def _resolve_plan(program: Any) -> PlanBase:
+def _resolve_plan(program: Any, tuned: Optional[bool] = None) -> PlanBase:
     """Accept a :class:`CompiledCamProgram` (with an engine plan) or a
-    bare plan; reject anything else synchronously."""
+    bare plan; reject anything else synchronously.
+
+    ``tuned`` (default ``REPRO_TUNE_SERVE``, on) consults the persistent
+    plan store: when ``REPRO_PLAN_STORE`` is configured and holds a tuned
+    config for this workload, the heuristically-built leaf plan is
+    swapped for its tuned equivalent, so a fresh serving process skips
+    autotuning (see :mod:`repro_torch.tune`).  Without a store this is a
+    no-op.
+    """
     if isinstance(program, CompiledCamProgram):
         plan = program.engine_plan
         if plan is None:
@@ -131,6 +139,16 @@ def _resolve_plan(program: Any) -> PlanBase:
     else:
         raise TypeError(f"expected CompiledCamProgram or an engine "
                         f"plan, got {type(program).__name__}")
+    if tuned is None:
+        tuned = env_flag("REPRO_TUNE_SERVE", True)
+    if tuned:
+        try:
+            from ..tune import warm_start_plan
+            plan = warm_start_plan(plan)
+        except Exception:   # noqa: BLE001
+            # warm start is an optimisation: a corrupt store record must
+            # never block server construction
+            pass
     return plan
 
 
@@ -230,6 +248,11 @@ class CamSearchServer(_BatcherMixin, _ResilienceMixin):
         immediately before every dispatch attempt; raising simulates a
         backend failure at that level and exercises the retry /
         breaker / degraded machinery.
+    tuned:
+        Plan-store warm start (default ``REPRO_TUNE_SERVE``, on): swap
+        the program's plan for its stored tuned equivalent when
+        ``REPRO_PLAN_STORE`` holds one.  ``False`` serves the plan
+        exactly as given.
 
     A failed dispatch is retried :data:`~repro_torch.serving.resilience.
     MAX_RETRIES` times per level with exponential backoff.  After
@@ -246,8 +269,9 @@ class CamSearchServer(_BatcherMixin, _ResilienceMixin):
                  max_inflight: int = 4,
                  fault_model: Any = None,
                  deadline_ms: Optional[float] = None,
-                 fault_injector: Any = None):
-        plan = _resolve_plan(program)
+                 fault_injector: Any = None,
+                 tuned: Optional[bool] = None):
+        plan = _resolve_plan(program, tuned=tuned)
         self.plan = plan
         # the one stream every device operation of the server runs on
         self._stream = torch.cuda.current_stream(plan.device) \

@@ -1864,3 +1864,101 @@ def test_gateway_on_the_card_fails_over(cuda, rng):
         assert all(r["state"] == "serving"
                    for r in gw.health()["tenants"]["t"]["replicas"]
                    ["replicas"])
+
+
+# ---------------------------------------------------------------------------
+# the plan autotuner and the served warm start on the card
+# ---------------------------------------------------------------------------
+
+
+def _tune_program(cuda, metric, m, n, dim, seed):
+    """(partitioned module, queries, gallery on the card) of a hamming
+    top-10 or eucl top-5 program at ``m x n x dim``."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(m, dim, device=cuda, generator=gen)
+    g = torch.randn(n, dim, device=cuda, generator=gen)
+    if metric == "hamming":
+        q, g = (q > 0).float(), (g > 0).float()
+        prog = T.compile_module(_hamming_module(m, n, dim, 10, False),
+                                T.ArchSpec(rows=64, cols=64), value_bits=1)
+    else:
+        prog = T.compile_fn(_knn, [q.cpu().numpy(), g.cpu().numpy()],
+                            T.ArchSpec(rows=64, cols=64), value_bits=8)
+    return prog.stages["cim_partitioned"], q, g
+
+
+@pytest.mark.parametrize("metric", ["hamming", "eucl"])
+@pytest.mark.parametrize("m,n,dim", [(64, 3000, 96), (13, 180000, 1024)])
+def test_tune_plan_on_the_card_verifies_the_winner(cuda, metric, m, n, dim):
+    """``tune_plan`` on the ``"cuda"`` backend, at a small shape and at a
+    gateway request's 13 rows against the KNN gallery: every candidate
+    runs on the kernels (none refused, none rejected), and the winner
+    equals the baseline (hamming bit for bit, eucl within the
+    tolerance)."""
+    from repro_torch.tune import reset_tune_stats, tune_plan, tune_stats
+    T.clear_plan_cache()
+    reset_tune_stats()
+    mod, q, g = _tune_program(cuda, metric, m, n, dim, seed=m + n)
+    tcs.reset_launch_counts()
+    res = tune_plan(mod, q, g, reps=1)
+    kernel = "fused_topk_packed" if metric == "hamming" else "fused_topk"
+    assert tcs.LAUNCHES[kernel] > res.trials > 0
+    assert res.plan.backend == "cuda" and res.plan.device.type == "cuda"
+    assert not any(h.get("error") for h in res.history)
+    assert tune_stats()["rejected"] == 0
+    base = T.get_plan(mod)
+    want = [x.cpu().numpy() for x in base.execute(q, g)]
+    got = [x.cpu().numpy() for x in res.plan.execute(q, g)]
+    if metric == "hamming":
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+    else:
+        _assert_eucl_close(q.cpu().numpy(), g.cpu().numpy(), want[0],
+                           want[1], got[0], got[1])
+    T.clear_plan_cache()
+    torch.cuda.empty_cache()
+
+
+def test_refused_candidate_on_the_card_is_recorded(cuda, rng):
+    """A ternary plan on the card refuses ``pack=False``: the candidate
+    is recorded in the history, the tune goes on, and no plain version
+    answers on the card."""
+    from repro_torch.tune import tune_plan
+    m, n, dim = 24, 2000, 96
+    mod = T.compile_module(_hamming_module(m, n, dim, 5, True),
+                           T.ArchSpec(rows=64, cols=64),
+                           value_bits=1).stages["cim_partitioned"]
+    q = (rng.random((m, dim)) > 0.5).astype(np.float32)
+    g = (rng.random((n, dim)) > 0.5).astype(np.float32)
+    c = (rng.random((n, dim)) > 0.2).astype(np.int8)
+    tcs.reset_launch_counts()
+    res = tune_plan(mod, q, g, c, reps=1)
+    refused = [h for h in res.history if h.get("error")]
+    assert [h["pack"] for h in refused] == [False]
+    assert res.plan.packed and tcs.LAUNCHES["fused_topk_packed_ternary"] > 0
+    want = T.get_plan(mod).execute(q, g, c)
+    for a, b in zip(res.plan.execute(q, g, c), want):
+        assert torch.equal(a, b)
+
+
+def test_served_warm_start_on_the_card(cuda, tmp_path, monkeypatch):
+    """A server built over the heuristic plan serves with the stored
+    winner (its geometry and micro-batch), on the card, bit for bit as
+    the winner's direct call; ``tuned=False`` keeps the heuristic
+    plan."""
+    from repro_torch.serving import CamSearchServer
+    from repro_torch.tune import tune_plan
+    monkeypatch.setenv("REPRO_PLAN_STORE", str(tmp_path))
+    T.clear_plan_cache()
+    mod, q, g = _tune_program(cuda, "hamming", 64, 3000, 96, seed=1)
+    res = tune_plan(mod, q, g, reps=1)
+    heuristic = T.get_plan(mod)
+    with CamSearchServer(heuristic, g) as srv:
+        assert srv.plan is res.plan
+        assert srv.plan.spec.tile_rows == res.config["tile_rows"]
+        assert srv.plan.batch == res.config["batch"]
+        v, i = srv.search(q[:13], timeout=60)
+    want = [x.cpu().numpy() for x in res.plan.execute(q[:13], g)]
+    assert np.array_equal(v, want[0]) and np.array_equal(i, want[1])
+    with CamSearchServer(heuristic, g, tuned=False) as srv:
+        assert srv.plan is heuristic
