@@ -109,7 +109,38 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        (``flash_attention_recurrence``; scaled to the
                        case: at most 0.1 % of the outputs beyond one bf16
                        step), timed beside
-                       ``scaled_dot_product_attention``.
+                       ``scaled_dot_product_attention``;
+* ``moe_serve``      — the moe family: deepseek-moe-16b uncut (28 layers,
+                       16.4e9 parameters, the routed experts float32 as
+                       the reference's init leaves them: 62.6 GB) served
+                       as ``lm_serve`` serves qwen, once with
+                       ``router_offload="cam"`` (every MoE layer's top-k on
+                       kernel ``fused_topk``, dot, ``largest=True``) and
+                       once with ``"dense"``, launches exact, the two
+                       runs' expert choices and tokens compared; B2 on
+                       layer 1's router input at prefill and decode held
+                       to its plain version (every index difference, and
+                       every difference from the ``"dense"`` route, a
+                       float64 near-tie in the order the kernel's own
+                       arithmetic gives, ``tf32x3_kernel_dot``), timed
+                       beside ``x @ W`` + ``topk``; float32 at depth 2
+                       (capacity factor 64: no token drops) on the card
+                       against the same model through the plain versions;
+                       phi3.5-moe at full width, depth cut to 4 of 32
+                       layers (top-2 of 16 experts, LayerNorm, GQA 32/8);
+* ``audio_serve``    — whisper-medium uncut (24 encoder + 24 decoder
+                       layers) served over zero frames (the Server's
+                       stub): 4 prompts of 4 tokens, 64 new tokens each;
+                       B7 non-causal at the encoder (1,500 x 1,500) and
+                       cross-attention (4 and 1 rows over 1,500) shapes
+                       against its plain version and the recurrence;
+                       float32 at depth 2 over seeded random frames
+                       against the plain versions;
+* ``ssm_serve``      — xlstm-125m uncut (6 mLSTM/sLSTM pairs), 4 prompts of
+                       2048 tokens, 32 new tokens each: no kernel on the
+                       path (exactly zero launches); float32 at depth 2,
+                       prefill + decode against forward and the card
+                       against the CPU.
 
 For each phase it sets the kernels' launch counts to 0, runs the path,
 reads the counts (a kernel of the path with no launch fails the run),
@@ -136,6 +167,7 @@ holds only the records they made):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -220,6 +252,35 @@ B7_BF16_ATOL, B7_F32_ATOL = 0.05, 2e-3
 B7_REC_BEYOND, B7_REC_MAX_OF_V = 1e-3, 2.0 ** -8
 #: H100 SXM bf16 tensor-core peak, dense (NVIDIA data sheet)
 BF16_PEAK_FLOPS = 989e12
+#: moe_serve: MOE_ARCH (with MOE_OVERRIDES, none on the card) served as
+#: lm_serve serves its model, once with each router; its float32 check at
+#: depth MOE_CHECK_LAYERS with capacity factor MOE_CHECK_CAPACITY (no
+#: token drops); PHI_ARCH at its full width, depth cut by PHI_OVERRIDES,
+#: PHI_REQUESTS prompts of SERVE_PROMPT tokens, PHI_NEW new tokens each
+MOE_ARCH, MOE_OVERRIDES = "deepseek-moe-16b", {}
+MOE_CHECK_LAYERS, MOE_CHECK_CAPACITY = 2, 64.0
+PHI_ARCH, PHI_OVERRIDES = "phi3.5-moe-42b-a6.6b", dict(n_layers=4)
+PHI_REQUESTS, PHI_NEW = 2, 16
+#: B2's dot values (the router) against the float32 plain version, as a
+#: share of sum |q_i p_i|: 3xTF32 truncates the accumulator toward zero at
+#: each of its 3 D / 8 k-steps, which drifts all-positive sums of 4,096
+#: products by up to 1.5e-5 of the sum (tests/test_torch_cuda.py on the
+#: H100); two dot scores within it are a float64 near-tie
+DOT_RTOL = 1e-4
+#: audio_serve: AUDIO_ARCH (with AUDIO_OVERRIDES) served to
+#: AUDIO_REQUESTS prompts of AUDIO_PROMPT tokens, AUDIO_NEW new tokens
+#: each, over zero frames (the Server's stub); the float32 check at depth
+#: AUDIO_CHECK_LAYERS (encoder and decoder), AUDIO_CHECK_BATCH rows of
+#: seeded random frames, AUDIO_CHECK_DECODE decode steps
+AUDIO_ARCH, AUDIO_OVERRIDES = "whisper-medium", {}
+AUDIO_REQUESTS, AUDIO_PROMPT, AUDIO_NEW = 4, 4, 64
+AUDIO_CHECK_LAYERS, AUDIO_CHECK_BATCH, AUDIO_CHECK_DECODE = 2, 2, 16
+#: ssm_serve: SSM_ARCH (with SSM_OVERRIDES) served as lm_serve serves its
+#: model; the float32 check at depth SSM_CHECK_LAYERS over SSM_CHECK_PREFILL
+#: prompt tokens, within SSM_F32_ATOL (the chunked and the recurrent
+#: mLSTM sum in other orders; the card's and the CPU's BLAS too)
+SSM_ARCH, SSM_OVERRIDES = "xlstm-125m", {}
+SSM_CHECK_LAYERS, SSM_CHECK_PREFILL, SSM_F32_ATOL = 2, 512, 2e-3
 #: cam_serve: CAM_CLIENTS client threads, each submitting CAM_REQUESTS
 #: requests of CAM_ROWS consecutive query rows one after another
 #: (8 x 6 x 13 = the 624 KNN queries); the faulted packed server's model;
@@ -1028,10 +1089,12 @@ def phase_forest_acam(s: Smoke):
          "profile": prof})
 
 
-def b2_order_reproduced(qp, pp, got_v, got_i, want_i, k, largest, what):
+def b2_order_reproduced(qp, pp, got_v, got_i, want_i, k, largest, what,
+                        replay=None):
     """Replay each eucl index swap of B2's "wgmma" route against its plain
     version in the kernel's arithmetic (the pipeline it shares with B4 and
-    B6, so ``cam_search.tf32x3_kernel_eucl``): where the kernel put row
+    B6, so ``cam_search.tf32x3_kernel_eucl``; ``replay``, another metric's
+    replay, such as ``tf32x3_kernel_dot``): where the kernel put row
     ``a`` at a position and the plain version row ``b``, the replayed
     distances must order ``a`` and ``b`` (lower row first on equal
     distances) as the kernel's list does (``b`` later in the same list of
@@ -1040,12 +1103,13 @@ def b2_order_reproduced(qp, pp, got_v, got_i, want_i, k, largest, what):
     exactly)."""
     import torch
     from repro_torch.kernels.cam_search import tf32x3_kernel_eucl
+    replay = replay or tf32x3_kernel_eucl
     rows, cols = (got_i != want_i).nonzero(as_tuple=True)
     if rows.numel() == 0:
         return 0, 0
     a, b = got_i[rows, cols].long(), want_i[rows, cols].long()
-    da = tf32x3_kernel_eucl(qp[rows], pp[a])
-    db = tf32x3_kernel_eucl(qp[rows], pp[b])
+    da = replay(qp[rows], pp[a])
+    db = replay(qp[rows], pp[b])
     seg = (cols // k)[:, None] * k + torch.arange(k, device=cols.device)
     in_list = got_i[rows[:, None], seg] == b[:, None].int()
     pos_b = torch.where(in_list.any(1), in_list.int().argmax(1),
@@ -1058,7 +1122,7 @@ def b2_order_reproduced(qp, pp, got_v, got_i, want_i, k, largest, what):
         j = int(bad[0, 0])
         raise RuntimeError(
             f"{what}: swap at ({int(rows[j])}, {int(cols[j])}) is not what "
-            f"the kernel's own arithmetic gives (tf32x3_kernel_eucl): rows "
+            f"the kernel's own arithmetic gives ({replay.__name__}): rows "
             f"{int(a[j])} {float(da[j])}, {int(b[j])} {float(db[j])}")
     return int(rows.numel()), int((got_v[rows, cols] == da).sum())
 
@@ -3783,11 +3847,14 @@ def phase_tune(s: Smoke, data):
          "child": dict(warm, wall_s=child_s), "served": serve})
 
 
-def _b7_class(key: str) -> str:
-    """Kernel class of a profiler row: B7, a matrix product, or other."""
+def _lm_kernel_class(key: str) -> str:
+    """Kernel class of a profiler row: B7, B2, a matrix product, or
+    other."""
     low = key.lower()
     if "flash_fwd" in low:
         return "b7_flash_attention"
+    if "fused_topk" in low:
+        return "b2_fused_topk"
     if any(w in low for w in ("gemm", "gemv", "cublas", "cutlass", "xmma",
                               "nvjet", "matmul", "splitk")):
         return "gemm"
@@ -3832,6 +3899,200 @@ def sdpa_call(q, k, v, kw):
         qt, kt, vt, is_causal=causal, enable_gqa=True)
 
 
+def b7_check(what, q, k, v, kw):
+    """B7 on one captured call's operands against its plain version (bf16
+    within ``B7_BF16_ATOL``) and against the Pallas recurrence at its
+    route's kv tiles and splits (the 0.05 ceiling is as large as a long
+    decode's outputs, so each case is also held in steps of its own
+    outputs' size), then in float32 on the same shapes, the cache cut to
+    ``F32_CUT_ROWS``, within ``B7_F32_ATOL``.  Returns the record."""
+    from repro_torch.kernels import flash_attention as fa
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_reference(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= B7_BF16_ATOL:
+        raise RuntimeError(f"{what}: B7 off its plain version by {err} "
+                           f"(bf16 bound {B7_BF16_ATOL})")
+    route = fa.flash_route(q.shape, k.shape, q.dtype, **kw)
+    rec = fa.flash_attention_recurrence(
+        q, k, v, block_k=route.block_k, splits=route.splits, **kw).float()
+    off = (got.float() - rec).abs()
+    beyond = float((off > 1e-6 + 2.0 ** -7 * rec.abs()).float().mean())
+    rec_max, v_max = float(off.max()), float(v.float().abs().max())
+    if not (beyond <= B7_REC_BEYOND and rec_max <= B7_REC_MAX_OF_V * v_max):
+        raise RuntimeError(
+            f"{what}: B7 off the Pallas recurrence: {beyond:.2e} of outputs "
+            f"beyond one bf16 step (bound {B7_REC_BEYOND}), max {rec_max} "
+            f"(bound {B7_REC_MAX_OF_V * v_max})")
+    del rec, off
+    cut = min(k.shape[1], F32_CUT_ROWS)
+    kw32 = dict(kw)
+    kw32["kv_len"] = min(kw.get("kv_len") or k.shape[1], cut)
+    kw32["q_start"] = min(kw.get("q_start", 0), kw32["kv_len"] - q.shape[1])
+    q32, k32, v32 = (x.float() for x in (q, k[:, :cut], v[:, :cut]))
+    got32 = fa.flash_attention(q32, k32, v32, **kw32)
+    want32 = fa.flash_attention_reference(q32, k32, v32, **kw32)
+    err32 = float((got32 - want32).abs().max())
+    if not err32 <= B7_F32_ATOL:
+        raise RuntimeError(f"{what}: B7 in float32 off its plain version by "
+                           f"{err32} (bound {B7_F32_ATOL})")
+    return {"q": list(q.shape), "kv": list(k.shape), "kw": kw,
+            "route": route.name, "splits": route.splits,
+            "block_k": route.block_k, "max_abs_err": err,
+            "max_abs_want": float(want.float().abs().max()),
+            "recurrence_max_abs_err": rec_max,
+            "recurrence_beyond_one_step": beyond, "f32_kv_rows": cut,
+            "f32_max_abs_err": err32}
+
+
+def b7_timing(q, k, v, kw):
+    """B7 on one captured call's operands: CUDA-event and host ms, its
+    plain version, its bound and SDPA (with SDPA's distance from the
+    plain version)."""
+    from repro_torch.kernels import flash_attention as fa
+    bound, by = b7_bound_ms(q, k, kw)
+    lib = sdpa_call(q, k, v, kw)
+    lib_err = float((lib().transpose(1, 2).float()
+                     - fa.flash_attention_reference(q, k, v, **kw)
+                     .float()).abs().max())
+    reps = 5 if q.shape[1] > 1 else 20
+    route = fa.flash_route(q.shape, k.shape, q.dtype, **kw)
+    return {"route": route.name, "splits": route.splits,
+            "block_k": route.block_k,
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps),
+            "host_ms": host_ms_per_call(
+                lambda: fa.flash_attention(q, k, v, **kw), reps),
+            "plain_ms": cuda_ms(
+                lambda: fa.flash_attention_reference(q, k, v, **kw), 3),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": cuda_ms(lib, reps), "library_max_abs_err": lib_err}
+
+
+@contextlib.contextmanager
+def intercept(mod, attr, keep):
+    """Within the block every call of ``mod.attr`` goes through, and
+    ``keep(i, args, kwargs, result)`` (``i`` the call's index) is
+    appended to the yielded list unless it returns None."""
+    real = getattr(mod, attr)
+    kept, calls = [], [0]
+
+    def wrapper(*args, **kw):
+        out = real(*args, **kw)
+        item = keep(calls[0], args, kw, out)
+        if item is not None:
+            kept.append(item)
+        calls[0] += 1
+        return out
+
+    setattr(mod, attr, wrapper)
+    try:
+        yield kept
+    finally:
+        setattr(mod, attr, real)
+
+
+def operands(wanted):
+    """An ``intercept`` keep function: (name, (*args, kwargs)) for the
+    calls whose index ``wanted`` names, (None, None) for the others."""
+    return lambda i, a, kw, out: (wanted[i], (*a, dict(kw))) \
+        if i in wanted else (None, None)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block the LM's kernels run their plain versions on the
+    card: B7's ``flash_attention_reference``, and for the ``"cam"``
+    router ``ref.cam_topk_tiled`` exactly as the CPU path calls it."""
+    from repro_torch.kernels import flash_attention as fa, ops, ref
+
+    def cam_plain(q, p, *, metric, k, largest):
+        return ref.cam_topk_tiled(q, p, metric=metric, k=k, largest=largest,
+                                  tile_rows=min(32, p.shape[0]),
+                                  dims_per_tile=min(128, q.shape[1]))
+
+    real = fa.flash_attention, ops.cam_topk
+    fa.flash_attention, ops.cam_topk = fa.flash_attention_reference, \
+        cam_plain
+    try:
+        yield
+    finally:
+        fa.flash_attention, ops.cam_topk = real
+
+
+def lm_params(cfg):
+    """Random parameters on the card from seed 0: (params, init host ms,
+    parameter count, GB)."""
+    from repro_torch.models import model as tm
+    init_ms, params = host_ms(lambda: tm.init_params(cfg, seed=0))
+    leaves = []
+    tm._tree_map(leaves.append, params)
+    return (params, init_ms, sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves) / 1e9)
+
+
+def serve_requests(cfg, params, prompts, max_new, batch, max_len):
+    """Serve ``prompts`` through ``launch.serve.Server`` (greedy), the
+    launch counts at 0 just before: (token lists, stats, counts).  Fails
+    on a missing or out-of-range token."""
+    import torch
+    from repro_torch.kernels import cam_search
+    from repro_torch.launch.serve import Request, Server
+    srv = Server(cfg, params, batch=batch, max_len=max_len, temperature=0)
+    reqs = [Request(rid=r, prompt=p, max_new=max_new)
+            for r, p in enumerate(prompts)]
+    for r in reqs:
+        srv.submit(r)
+    cam_search.reset_launch_counts()
+    torch.cuda.synchronize()
+    stats = srv.run()
+    torch.cuda.synchronize()
+    counts = dict(cam_search.LAUNCHES)
+    if stats["completed"] != len(prompts) or any(
+            len(r.out) != max_new or not all(0 <= x < cfg.vocab
+                                             for x in r.out) for r in reqs):
+        raise RuntimeError(f"{cfg.name}: bad completions {stats}")
+    return [r.out for r in reqs], stats, counts
+
+
+def lm_step_times(s: Smoke, cfg, params, batch, max_len,
+                  profile_prefill=True):
+    """Host ms of three prefills of ``batch`` (each into a fresh cache)
+    and of ``DECODE_TIMED_STEPS`` greedy decode steps after the last, and
+    a profile of one more of each (of the prefill only with
+    ``profile_prefill``).  Fails unless the last position's logits are
+    finite and of the vocabulary's width."""
+    import torch
+    from repro_torch.models import model as tm
+    b = batch["tokens"].shape[0]
+    prefill_ms = []
+    for _ in range(3):
+        cache = tm.init_decode_cache(cfg, b, max_len)
+        ms, (logits, cache) = host_ms(
+            lambda: tm.prefill(params, cfg, batch, cache))
+        prefill_ms.append(ms)
+    if tuple(logits.shape) != (b, 1, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"{cfg.name}: prefill logits "
+                           f"{tuple(logits.shape)} not finite")
+    nxt = torch.argmax(logits[:, -1], -1)[:, None]
+    decode_ms = []
+    for _ in range(DECODE_TIMED_STEPS):
+        ms, (lg, cache) = host_ms(
+            lambda: tm.decode_step(params, cfg, nxt, cache))
+        decode_ms.append(ms)
+        nxt = torch.argmax(lg[:, -1], -1)[:, None]
+    fresh = tm.init_decode_cache(cfg, b, max_len)
+    prof_prefill = s.profile(
+        lambda: tm.prefill(params, cfg, batch, fresh), [],
+        classify=_lm_kernel_class) if profile_prefill else None
+    prof_decode = s.profile(
+        lambda: tm.decode_step(params, cfg, nxt, cache), [],
+        classify=_lm_kernel_class)
+    return {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "decode_ms_median": statistics.median(decode_ms),
+            "profile_prefill": prof_prefill, "profile_decode": prof_decode}
+
+
 def phase_lm_serve(s: Smoke):
     import dataclasses
     import numpy as np
@@ -3839,44 +4100,26 @@ def phase_lm_serve(s: Smoke):
     from repro_torch.configs import get_config
     from repro_torch.kernels import cam_search
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.serve import Request, Server
     from repro_torch.models import model as tm
 
     # (a) serve, full model, bf16 ------------------------------------------
     cfg = dataclasses.replace(get_config(LM_ARCH), **LM_OVERRIDES)
     torch.cuda.reset_peak_memory_stats()
-    init_ms, params = host_ms(lambda: tm.init_params(cfg, seed=0))
-    leaves = []
-    tm._tree_map(leaves.append, params)
-    n_params = sum(t.numel() for t in leaves)
-    params_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
-    dev = leaves[0].device
+    params, init_ms, n_params, params_gb = lm_params(cfg)
+    dev = params["embed"]["tok"].device
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT)
                for _ in range(SERVE_REQUESTS)]
     max_len = SERVE_PROMPT + SERVE_NEW + 1
 
     def serve():
-        srv = Server(cfg, params, batch=SERVE_BATCH, max_len=max_len,
-                     temperature=0)
-        reqs = [Request(rid=r, prompt=p, max_new=SERVE_NEW)
-                for r, p in enumerate(prompts)]
-        for r in reqs:
-            srv.submit(r)
-        cam_search.reset_launch_counts()
-        torch.cuda.synchronize()
-        stats = srv.run()
-        torch.cuda.synchronize()
-        return [r.out for r in reqs], stats, dict(cam_search.LAUNCHES)
+        return serve_requests(cfg, params, prompts, SERVE_NEW, SERVE_BATCH,
+                              max_len)
 
     n_layers = cfg.n_layers
     tokens, stats, counts = serve()
     expect = n_layers * SERVE_REQUESTS * SERVE_NEW
     s.only("lm_serve", counts, "flash_attention", expect)
-    if stats["completed"] != SERVE_REQUESTS or any(
-            len(t) != SERVE_NEW or not all(0 <= x < cfg.vocab for x in t)
-            for t in tokens):
-        raise RuntimeError(f"lm_serve: bad completions {stats}")
     tokens2, stats2, counts2 = serve()
     if tokens2 != tokens:
         raise RuntimeError("lm_serve: a second Server gave other tokens")
@@ -3888,55 +4131,22 @@ def phase_lm_serve(s: Smoke):
     toks = torch.as_tensor(prompts[0], device=dev)[None]
     wanted = {0: "prefill_layer0", n_layers - 1: "prefill_last_layer",
               n_layers: "decode_layer0", 2 * n_layers - 1: "decode_last_layer"}
-    captured, calls = {}, [0]
-    real_fa = fa.flash_attention
-
-    def capture(q, k, v, **kw):
-        if calls[0] in wanted:
-            captured[wanted[calls[0]]] = (q, k, v, dict(kw))
-        calls[0] += 1
-        return real_fa(q, k, v, **kw)
-
-    fa.flash_attention = capture
-    try:
+    with intercept(fa, "flash_attention", operands(wanted)) as kept:
         lg, cache_c = tm.prefill(params, cfg, {"tokens": toks},
                                  tm.init_decode_cache(cfg, 1, max_len))
         tm.decode_step(params, cfg, torch.argmax(lg[:, -1], -1)[:, None],
                        cache_c)
-    finally:
-        fa.flash_attention = real_fa
-    if calls[0] != 2 * n_layers or len(captured) != len(wanted):
+    captured = {name: ops for name, ops in kept if name}
+    if len(kept) != 2 * n_layers or len(captured) != len(wanted):
         raise RuntimeError(f"lm_serve: captured {sorted(captured)} of "
-                           f"{calls[0]} B7 calls")
+                           f"{len(kept)} B7 calls")
     if int(torch.argmax(lg[0, -1])) != tokens[0][0]:
         raise RuntimeError("lm_serve: the capture run's first token is not "
                            "the served one")
     del cache_c
 
     # per-step times, the prefill logits, and where the time goes
-    cache = tm.init_decode_cache(cfg, 1, max_len)
-    prefill_ms = []
-    for _ in range(3):
-        ms, (logits, cache2) = host_ms(
-            lambda: tm.prefill(params, cfg, {"tokens": toks}, cache))
-        prefill_ms.append(ms)
-    if tuple(logits.shape) != (1, 1, cfg.vocab) or \
-            not bool(torch.isfinite(logits).all()):
-        raise RuntimeError(f"lm_serve: prefill logits {tuple(logits.shape)} "
-                           f"not finite")
-    nxt = torch.argmax(logits[:, -1], -1)[:, None]
-    decode_ms = []
-    for _ in range(DECODE_TIMED_STEPS):
-        ms, (lg, cache2) = host_ms(
-            lambda: tm.decode_step(params, cfg, nxt, cache2))
-        decode_ms.append(ms)
-        nxt = torch.argmax(lg[:, -1], -1)[:, None]
-    prof_prefill = s.profile(
-        lambda: tm.prefill(params, cfg, {"tokens": toks}, cache), [],
-        classify=_b7_class)
-    prof_decode = s.profile(
-        lambda: tm.decode_step(params, cfg, nxt, cache2), [],
-        classify=_b7_class)
+    steps = lm_step_times(s, cfg, params, {"tokens": toks}, max_len)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     serve_log = {
         "model": LM_ARCH, "layers": n_layers, "d_model": cfg.d_model,
@@ -3949,11 +4159,8 @@ def phase_lm_serve(s: Smoke):
         "tokens_per_s": [stats["tokens_per_s"], stats2["tokens_per_s"]],
         "stats": {k: stats[k] for k in ("prefills", "decode_steps",
                                         "tokens")},
-        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
-        "decode_ms_median": statistics.median(decode_ms),
-        "peak_gb": peak_gb, "tokens_first_request": tokens[0][:8],
-        "profile_prefill": prof_prefill, "profile_decode": prof_decode}
-    del params, cache, cache2, logits, lg, leaves
+        **steps, "peak_gb": peak_gb, "tokens_first_request": tokens[0][:8]}
+    del params
     torch.cuda.empty_cache()
 
     # (c) B7 against its plain version at the model's shapes -------------
@@ -3970,76 +4177,12 @@ def phase_lm_serve(s: Smoke):
                               rand(1, rows, kvh, dh), rand(1, rows, kvh, dh),
                               dict(causal=True, q_start=rows - 1,
                                    kv_len=rows))
-    checks, err_bf16 = {}, 0.0
-    for name, (q, k, v, kw) in captured.items():
-        got = fa.flash_attention(q, k, v, **kw)
-        want = fa.flash_attention_reference(q, k, v, **kw)
-        err = float((got.float() - want.float()).abs().max())
-        if not err <= B7_BF16_ATOL:
-            raise RuntimeError(f"lm_serve: B7 {name} off its plain version "
-                               f"by {err} (bf16 bound {B7_BF16_ATOL})")
-        err_bf16 = max(err_bf16, err)
-        # the 0.05 ceiling is as large as a long decode's outputs: hold
-        # each case to the Pallas recurrence at its route's kv tiles and
-        # splits, in steps of its own outputs' size
-        route = fa.flash_route(q.shape, k.shape, q.dtype, **kw)
-        rec = fa.flash_attention_recurrence(
-            q, k, v, block_k=route.block_k, splits=route.splits, **kw).float()
-        off = (got.float() - rec).abs()
-        beyond = float((off > 1e-6 + 2.0 ** -7 * rec.abs()).float().mean())
-        rec_max, v_max = float(off.max()), float(v.float().abs().max())
-        if not (beyond <= B7_REC_BEYOND
-                and rec_max <= B7_REC_MAX_OF_V * v_max):
-            raise RuntimeError(
-                f"lm_serve: B7 {name} off the Pallas recurrence: "
-                f"{beyond:.2e} of outputs beyond one bf16 step (bound "
-                f"{B7_REC_BEYOND}), max {rec_max} (bound "
-                f"{B7_REC_MAX_OF_V * v_max})")
-        del rec, off
-        # float32 on the same shapes, the cache cut to F32_CUT_ROWS
-        cut = min(k.shape[1], F32_CUT_ROWS)
-        kw32 = dict(kw)
-        kw32["kv_len"] = min(kw["kv_len"], cut)
-        kw32["q_start"] = min(kw.get("q_start", 0),
-                              kw32["kv_len"] - q.shape[1])
-        q32, k32, v32 = (x.float() for x in (q, k[:, :cut], v[:, :cut]))
-        got32 = fa.flash_attention(q32, k32, v32, **kw32)
-        want32 = fa.flash_attention_reference(q32, k32, v32, **kw32)
-        err32 = float((got32 - want32).abs().max())
-        if not err32 <= B7_F32_ATOL:
-            raise RuntimeError(f"lm_serve: B7 {name} in float32 off its "
-                               f"plain version by {err32} (bound "
-                               f"{B7_F32_ATOL})")
-        checks[name] = {"q": list(q.shape), "kv": list(k.shape),
-                        "kw": kw, "route": route.name,
-                        "splits": route.splits, "block_k": route.block_k,
-                        "max_abs_err": err,
-                        "max_abs_want": float(want.float().abs().max()),
-                        "recurrence_max_abs_err": rec_max,
-                        "recurrence_beyond_one_step": beyond,
-                        "f32_kv_rows": cut, "f32_max_abs_err": err32}
+    checks = {name: b7_check(f"lm_serve {name}", *ops)
+              for name, ops in captured.items()}
+    err_bf16 = max(c["max_abs_err"] for c in checks.values())
     torch.cuda.synchronize()
-    shapes = {}
-    for name in ("prefill_layer0", "decode_layer0", "decode_32k"):
-        q, k, v, kw = captured[name]
-        bound, by = b7_bound_ms(q, k, kw)
-        lib = sdpa_call(q, k, v, kw)
-        lib_err = float((lib().transpose(1, 2).float()
-                         - fa.flash_attention_reference(q, k, v, **kw)
-                         .float()).abs().max())
-        reps = 5 if q.shape[1] > 1 else 20
-        route = fa.flash_route(q.shape, k.shape, q.dtype, **kw)
-        shapes[name] = {
-            "route": route.name, "splits": route.splits,
-            "block_k": route.block_k,
-            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps),
-            "host_ms": host_ms_per_call(
-                lambda: fa.flash_attention(q, k, v, **kw), reps),
-            "plain_ms": cuda_ms(
-                lambda: fa.flash_attention_reference(q, k, v, **kw), 3),
-            "bound_ms": bound, "bound_by": by,
-            "library_ms": cuda_ms(lib, reps),
-            "library_max_abs_err": lib_err}
+    shapes = {name: b7_timing(*captured[name])
+              for name in ("prefill_layer0", "decode_layer0", "decode_32k")}
     pre = shapes["prefill_layer0"]
     s.record("flash_attention",
              "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4094,6 +4237,539 @@ def phase_lm_serve(s: Smoke):
                        "b7_launches": check_launches,
                        "max_abs_diff": float(diff.max()),
                        "argmax_flips_near_ties": flips}})
+
+
+# ---------------------------------------------------------------------------
+# the moe, audio and ssm families
+# ---------------------------------------------------------------------------
+
+
+def dot_index_swaps(q, p, got_i, want_i, what: str) -> int:
+    """Count the positions where two dot top-k index tensors differ,
+    after confirming each as a float64 near-tie: query row ``r``'s exact
+    products with both chosen rows agree within ``DOT_RTOL`` of the
+    larger ``sum |q_i p_i|``.  Raises on any other difference."""
+    import torch
+    rows, cols = (got_i != want_i).nonzero(as_tuple=True)
+    if rows.numel():
+        qr = q[rows].double()
+        pa = qr * p[got_i[rows, cols].long()].double()
+        pb = qr * p[want_i[rows, cols].long()].double()
+        scale = DOT_RTOL * torch.maximum(pa.abs().sum(1),
+                                             pb.abs().sum(1))
+        bad = ((pa.sum(1) - pb.sum(1)).abs() > scale).nonzero()
+        if bad.numel():
+            j = int(bad[0, 0])
+            raise RuntimeError(
+                f"{what}: index difference at ({int(rows[j])}, "
+                f"{int(cols[j])}) is not a float64 near-tie: "
+                f"{float(pa[j].sum())} vs {float(pb[j].sum())}")
+    return int(rows.numel())
+
+
+def router_check(s: Smoke, what, xt, router_w, k):
+    """B2 on one MoE layer's router input (``xt`` (T, D) tokens, the (D,
+    E) router): its candidates against its plain version on the same
+    padded operands (values within ``DOT_RTOL`` of ``sum |q p|``,
+    every index difference a float64 near-tie whose order the kernel's
+    own arithmetic gives, ``tf32x3_kernel_dot``); the ``"cam"`` route's
+    choices against the ``"dense"`` route's, held to the same; the model's
+    call equal to the kernel's.  Times the kernel, its plain version and
+    ``x @ W`` + ``topk``, and bounds it on the E real rows."""
+    import torch
+    from repro_torch.kernels import cam_search as tcs, ops
+    from repro_torch.models import moe as tmoe
+    e = router_w.shape[1]
+    q = xt.float().contiguous()
+    pats = router_w.T.float().contiguous()
+    qp = ops.pad_to_blocks(q, 1, tcs.BLOCK_K)
+    pp = ops.pad_to_blocks(pats, tcs.window_rows(k), tcs.BLOCK_K)
+    kw = dict(metric="dot", k=k, largest=True, n_valid=e)
+    got_v, got_i = tcs.fused_topk(qp, pp, **kw)
+    want_v, want_i = tcs.fused_topk_reference(qp, pp, **kw)
+    torch.cuda.synchronize()
+    err = (got_v - want_v).abs()
+    scale = (q.double().abs() @ pats.double().abs().T).amax(1)
+    if not bool((err.double() <= DOT_RTOL * scale[:, None]).all()):
+        raise RuntimeError(f"{what}: B2 values off the plain version by "
+                           f"{float(err.max())}")
+    # the first token's candidates: the kernel's own arithmetic, bit for bit
+    replayed = tcs.tf32x3_kernel_dot(qp[[0] * k], pp[got_i[0].long()])
+    if not torch.equal(replayed, got_v[0]):
+        raise RuntimeError(f"{what}: B2's values {got_v[0].tolist()} are not "
+                           f"its arithmetic's {replayed.tolist()}")
+    swaps = dot_index_swaps(qp, pp, got_i, want_i, f"{what} B2")
+    _, swaps_exact = b2_order_reproduced(
+        qp, pp, got_v, got_i, want_i, k, True, f"{what} B2",
+        replay=tcs.tf32x3_kernel_dot)
+    _, dense_i = tmoe.router_topk(xt, router_w, k, "dense")
+    route_diff = dot_index_swaps(qp, pp, got_i, dense_i.int(),
+                                 f"{what} cam vs dense")
+    b2_order_reproduced(qp, pp, got_v, got_i, dense_i.int(), k, True,
+                        f"{what} cam vs dense", replay=tcs.tf32x3_kernel_dot)
+    _, cam_i = tmoe.router_topk(xt, router_w, k, "cam")
+    if not torch.equal(cam_i.int(), got_i):
+        raise RuntimeError(f"{what}: the router's B2 call differs from the "
+                           f"kernel's")
+    bound, by = s.float_bound_ms(q, pats, k)
+    xf, wf = xt.float(), router_w.float()
+    reps = 20
+    return {"tokens": q.shape[0], "d": q.shape[1], "experts": e, "k": k,
+            "padded_patterns": list(pp.shape),
+            "max_abs_err": float(err.max()),
+            "index_swaps_float64_near_ties": swaps,
+            "swaps_equal_to_replay": swaps_exact,
+            "cam_vs_dense_index_differences": route_diff,
+            "ms": cuda_ms(lambda: tcs.fused_topk(qp, pp, **kw), reps),
+            "route_ms": cuda_ms(
+                lambda: tmoe.router_topk(xt, router_w, k, "cam"), reps),
+            "dense_route_ms": cuda_ms(
+                lambda: tmoe.router_topk(xt, router_w, k, "dense"), reps),
+            "plain_ms": cuda_ms(
+                lambda: tcs.fused_topk_reference(qp, pp, **kw), 5),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.topk(xf @ wf, k), reps)}
+
+
+def _record_router(s: Smoke, counts, checks):
+    """Add the phase's B2 launches and router shapes to B2's record; a
+    run without ``knn_eucl`` takes the first shape's numbers."""
+    s.record("fused_topk", "src/repro_torch/kernels/csrc/fused_topk.cu",
+             "src/repro/kernels/cam_search.py:200", counts,
+             max(c["max_abs_err"] for c in checks.values()), None, None,
+             None, "operations", None)
+    rec = s.kernels["fused_topk"]
+    rec.setdefault("shapes", {}).update(
+        {f"router_{n}": c for n, c in checks.items()})
+    if rec["ms"] is None:
+        first = next(iter(checks.values()))
+        rec.update({key: first[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")})
+
+
+def _record_b7(s: Smoke, counts, checks, shapes):
+    """Add a phase's B7 launches and timed shapes to B7's record; a run
+    without ``lm_serve`` takes the first shape's numbers."""
+    s.record("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:124", counts,
+             max(c["max_abs_err"] for c in checks.values()), None, None,
+             None, "operations", None)
+    rec = s.kernels["flash_attention"]
+    rec.setdefault("shapes", {}).update(shapes)
+    if rec["ms"] is None and shapes:
+        first = next(iter(shapes.values()))
+        rec.update({key: first[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")})
+
+
+def _logits_close(what, got, want, atol):
+    """Fail unless float32 logits agree within ``atol``; the largest
+    difference."""
+    import torch
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{what}: logits {tuple(got.shape)} against "
+                           f"{tuple(want.shape)}, or not finite")
+    diff = float((got - want).abs().max())
+    if not diff <= atol:
+        raise RuntimeError(f"{what}: logits off the plain versions by {diff} "
+                           f"(bound {atol})")
+    return diff
+
+
+def lm_f32_against_plain(what, cfg, params, batch, n_prefill, n_decode):
+    """``forward`` over ``batch``'s tokens, then ``prefill`` of the first
+    ``n_prefill`` and ``n_decode`` teacher-forced decode steps, on the card
+    with its kernels and again through their plain versions
+    (``plain_kernels``), in float32: each within ``B7_F32_ATOL``.  The
+    decode cache is float32 too: over the default bfloat16 cache B7 rounds
+    the unnormalised probabilities to bf16 where its plain version rounds
+    the normalised ones (up to one bf16 step; the bf16 B7 checks hold
+    that).  Returns the kernels' launches in the card's run and the
+    largest differences."""
+    import torch
+    from repro_torch.kernels import cam_search
+    from repro_torch.models import model as tm
+    toks = batch["tokens"]
+
+    def run():
+        full = tm.forward(params, cfg, batch)
+        cache = tm._tree_map(
+            lambda t: t.float() if isinstance(t, torch.Tensor) else t,
+            tm.init_decode_cache(cfg, toks.shape[0],
+                                 n_prefill + n_decode + 1))
+        lg, cache = tm.prefill(params, cfg,
+                               dict(batch, tokens=toks[:, :n_prefill]), cache)
+        outs = [lg]
+        for i in range(n_prefill, n_prefill + n_decode):
+            lg, cache = tm.decode_step(params, cfg, toks[:, i:i + 1], cache)
+            outs.append(lg)
+        torch.cuda.synchronize()
+        return full, torch.cat(outs, dim=1)
+
+    cam_search.reset_launch_counts()
+    full, served = run()
+    counts = dict(cam_search.LAUNCHES)
+    with plain_kernels():
+        full_p, served_p = run()
+    return counts, {
+        "forward": _logits_close(f"{what} forward", full, full_p,
+                                 B7_F32_ATOL),
+        "prefill_decode": _logits_close(f"{what} prefill+decode", served,
+                                        served_p, B7_F32_ATOL),
+        "max_abs_logit": float(full_p.abs().max())}
+
+
+def _moe_serve_uncut(s: Smoke, cfg, prompts):
+    """(a) and (b): the model served with each router, the choices of
+    both compared; B2 at the router's prefill and decode shapes."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as tm
+    from repro_torch.models import moe as tmoe
+    params, init_ms, n_params, params_gb = lm_params(cfg)
+    dev = params["embed"]["tok"].device
+    max_len = SERVE_PROMPT + SERVE_NEW + 1
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    k = cfg.moe_top_k
+    runs, routes = {}, {}
+    for offload in ("cam", "dense"):
+        c = dataclasses.replace(cfg, router_offload=offload)
+        with intercept(tmoe, "router_topk",
+                       lambda i, a, kw, out: out[1]) as chosen:
+            tokens, stats, counts = serve_requests(
+                c, params, prompts, SERVE_NEW, SERVE_BATCH, max_len)
+        calls = stats["prefills"] + stats["decode_steps"]
+        s.exactly(f"moe_serve {cfg.name} ({offload})", counts, {
+            "flash_attention": cfg.n_layers * calls,
+            "fused_topk": n_moe * calls if offload == "cam" else 0})
+        routes[offload] = chosen
+        toks = torch.as_tensor(prompts[0], device=dev)[None]
+        runs[offload] = {
+            "tokens": tokens, "wall_s": stats["wall_s"],
+            "tokens_per_s": stats["tokens_per_s"], "launches": counts,
+            "stats": {key: stats[key] for key in ("prefills", "decode_steps",
+                                                  "tokens")},
+            **lm_step_times(s, c, params, {"tokens": toks}, max_len)}
+    if len(routes["cam"]) != len(routes["dense"]):
+        raise RuntimeError("moe_serve: the two runs routed different calls")
+    same = sum(int((a == b).sum()) for a, b in zip(routes["cam"],
+                                                   routes["dense"]))
+    total = sum(a.numel() for a in routes["cam"])
+    # the first router call whose choices differ (a near-tie): later calls
+    # see hidden states, and after a differing token contexts, that differ
+    first_diff = next((i for i, (a, b) in enumerate(
+        zip(routes["cam"], routes["dense"])) if not torch.equal(a, b)), None)
+    equal_tokens = sum(x == y for a, b in zip(runs["cam"]["tokens"],
+                                              runs["dense"]["tokens"])
+                       for x, y in zip(a, b))
+    n_calls = len(routes["cam"])
+    del routes
+
+    # (b) B2 at the router: the first MoE layer's input in request 0's
+    # prefill (call 0) and first decode step (call n_moe)
+    # and B7 at the model's attention shapes: layer 0 of the same
+    # prefill (call 0) and decode step (call n_layers)
+    toks = torch.as_tensor(prompts[0], device=dev)[None]
+    c = dataclasses.replace(cfg, router_offload="cam")
+    at = {0: "prefill", n_moe: "decode"}
+    with intercept(tmoe, "router_topk", lambda i, a, kw, out: (
+            at[i], a[:2]) if i in at else None) as routed, \
+            intercept(fa, "flash_attention", operands(
+                {0: "prefill", cfg.n_layers: "decode"})) as attended:
+        lg, cache = tm.prefill(params, c, {"tokens": toks},
+                               tm.init_decode_cache(c, 1, max_len))
+        tm.decode_step(params, c, torch.argmax(lg[:, -1], -1)[:, None],
+                       cache)
+    del cache
+    checks = {f"{cfg.name}_{name}": router_check(
+        s, f"moe_serve {cfg.name} router {name}", xt, w, k)
+        for name, (xt, w) in routed}
+    captured = {name: ops for name, ops in attended if name}
+    b7 = {f"{cfg.name}_{name}": b7_check(f"moe_serve {cfg.name} {name}",
+                                         *ops)
+          for name, ops in captured.items()}
+    b7_shapes = {f"{cfg.name}_{name}": b7_timing(*ops)
+                 for name, ops in captured.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, routed, attended, captured
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": cfg.n_layers,
+            "moe_layers": n_moe, "experts": cfg.n_experts, "top_k": k,
+            "param_count_config": cfg.param_count(), "params": n_params,
+            "params_gb": params_gb, "init_ms": init_ms,
+            "requests": len(prompts), "prompt": SERVE_PROMPT,
+            "max_new": SERVE_NEW, "batch": SERVE_BATCH, "runs": runs,
+            "choices_agreeing": same / total, "choices": total,
+            "first_differing_router_call": first_diff,
+            "router_calls": n_calls,
+            "equal_tokens": equal_tokens,
+            "tokens": sum(len(t) for t in runs["cam"]["tokens"]),
+            "peak_gb": peak_gb, "b7_checks": b7}, checks, b7, b7_shapes
+
+
+def phase_moe_serve(s: Smoke):
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tm
+
+    # (a), (b): deepseek-moe-16b uncut, both routers
+    cfg = dataclasses.replace(get_config(MOE_ARCH), **MOE_OVERRIDES)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT)
+               for _ in range(SERVE_REQUESTS)]
+    torch.cuda.reset_peak_memory_stats()
+    deepseek, checks, b7, b7_shapes = _moe_serve_uncut(s, cfg, prompts)
+    b2_launches = deepseek["runs"]["cam"]["launches"]["fused_topk"]
+    b7_launches = sum(r["launches"]["flash_attention"]
+                      for r in deepseek["runs"].values())
+
+    # (c) float32 at depth MOE_CHECK_LAYERS, no token dropped: the card's
+    # kernels against their plain versions
+    cfg32 = dataclasses.replace(
+        cfg, n_layers=MOE_CHECK_LAYERS, param_dtype="float32",
+        compute_dtype="float32", capacity_factor=MOE_CHECK_CAPACITY,
+        router_offload="cam")
+    p32 = tm.init_params(cfg32, seed=0)
+    t = torch.as_tensor(prompts[0][:CHECK_PREFILL + CHECK_DECODE],
+                        device=p32["embed"]["tok"].device)[None]
+    counts32, diffs32 = lm_f32_against_plain(
+        "moe_serve float32", cfg32, p32, {"tokens": t}, CHECK_PREFILL,
+        CHECK_DECODE)
+    calls = 2 + CHECK_DECODE
+    s.exactly("moe_serve float32", counts32, {
+        "flash_attention": MOE_CHECK_LAYERS * calls,
+        "fused_topk": (MOE_CHECK_LAYERS - cfg.first_dense_layers) * calls})
+    del p32
+    torch.cuda.empty_cache()
+
+    # (d) phi3.5-moe at full width, depth cut, the "cam" router
+    pcfg = dataclasses.replace(get_config(PHI_ARCH), router_offload="cam",
+                               **PHI_OVERRIDES)
+    params, init_ms, n_params, params_gb = lm_params(pcfg)
+    dev = params["embed"]["tok"].device
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(1)
+    pprompts = [rng.integers(1, pcfg.vocab, SERVE_PROMPT)
+                for _ in range(PHI_REQUESTS)]
+    max_len = SERVE_PROMPT + PHI_NEW + 1
+    ptokens, pstats, pcounts = serve_requests(
+        pcfg, params, pprompts, PHI_NEW, SERVE_BATCH, max_len)
+    calls = pstats["prefills"] + pstats["decode_steps"]
+    s.exactly("moe_serve phi3.5", pcounts, {
+        "flash_attention": pcfg.n_layers * calls,
+        "fused_topk": pcfg.n_layers * calls})
+    toks = torch.as_tensor(pprompts[0], device=dev)[None]
+    from repro_torch.models import moe as tmoe
+    with intercept(tmoe, "router_topk",
+                   lambda i, a, kw, out: a[:2] if i == 0 else None) as kept:
+        phi_steps = lm_step_times(s, pcfg, params, {"tokens": toks}, max_len)
+    checks[f"{pcfg.name}_prefill"] = router_check(
+        s, f"moe_serve {pcfg.name} router prefill", *kept[0], pcfg.moe_top_k)
+    phi = {"model": pcfg.name, "layers": pcfg.n_layers,
+           "reduced": {"n_layers": [get_config(PHI_ARCH).n_layers,
+                                    pcfg.n_layers]},
+           "param_count_config": pcfg.param_count(), "params": n_params,
+           "params_gb": params_gb, "init_ms": init_ms,
+           "requests": PHI_REQUESTS, "prompt": SERVE_PROMPT,
+           "max_new": PHI_NEW, "wall_s": pstats["wall_s"],
+           "tokens_per_s": pstats["tokens_per_s"], "launches": pcounts,
+           "tokens_first_request": ptokens[0][:8], **phi_steps,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, kept
+    torch.cuda.empty_cache()
+    b2_launches += pcounts["fused_topk"]
+    b7_launches += pcounts["flash_attention"]
+    _record_router(s, b2_launches, checks)
+    _record_b7(s, b7_launches, b7, b7_shapes)
+    log({"phase": "moe_serve", "ok": True, "deepseek": deepseek,
+         "router_checks": checks,
+         "f32_check": {"layers": MOE_CHECK_LAYERS,
+                       "capacity_factor": MOE_CHECK_CAPACITY,
+                       "prefill": CHECK_PREFILL, "decode_steps": CHECK_DECODE,
+                       "launches": counts32, "max_abs_diff": diffs32},
+         "phi": phi, "b2_launches": b2_launches, "b7_launches": b7_launches})
+
+
+def phase_audio_serve(s: Smoke):
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as tm
+
+    cfg = dataclasses.replace(get_config(AUDIO_ARCH), **AUDIO_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms, n_params, params_gb = lm_params(cfg)
+    dev = params["embed"]["tok"].device
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, AUDIO_PROMPT)
+               for _ in range(AUDIO_REQUESTS)]
+    max_len = AUDIO_PROMPT + AUDIO_NEW + 1
+    tokens, stats, counts = serve_requests(cfg, params, prompts, AUDIO_NEW,
+                                           SERVE_BATCH, max_len)
+    # a prefill: the encoder's layers, then each decoder layer's self- and
+    # cross-attention; a decode step: the decoder's two
+    per_prefill = cfg.n_encoder_layers + 2 * cfg.n_layers
+    s.exactly("audio_serve", counts, {
+        "flash_attention": per_prefill * stats["prefills"]
+        + 2 * cfg.n_layers * stats["decode_steps"]})
+
+    # B7's operands at whisper's non-causal shapes, from an untimed
+    # prefill and decode step of request 0 over the served zero frames:
+    # encoder layer 0 (call 0), the first decoder layer's cross-attention
+    # (call n_enc + 1) and its first decode step's (call per_prefill + 1)
+    toks = torch.as_tensor(prompts[0], device=dev)[None]
+    frames = torch.zeros((1, cfg.encoder_seq, cfg.d_model),
+                         dtype=torch.bfloat16, device=dev)
+    batch = {"tokens": toks, "frames": frames}
+    wanted = {0: "encoder", cfg.n_encoder_layers + 1: "cross_prefill",
+              per_prefill + 1: "cross_decode"}
+    with intercept(fa, "flash_attention", operands(wanted)) as kept:
+        lg, cache = tm.prefill(params, cfg, batch,
+                               tm.init_decode_cache(cfg, 1, max_len))
+        tm.decode_step(params, cfg, torch.argmax(lg[:, -1], -1)[:, None],
+                       cache)
+    captured = {name: ops for name, ops in kept if name}
+    if int(torch.argmax(lg[0, -1])) != tokens[0][0]:
+        raise RuntimeError("audio_serve: the capture run's first token is "
+                           "not the served one")
+    del cache
+    shapes_seen = {n: (list(c[0].shape), list(c[1].shape), c[3])
+                   for n, c in captured.items()}
+    if len(kept) != per_prefill + 2 * cfg.n_layers or any(
+            c[3].get("causal", True) for c in captured.values()) or \
+            captured["cross_decode"][0].shape[1] != 1:
+        raise RuntimeError(f"audio_serve: {len(kept)} B7 calls, captured "
+                           f"{shapes_seen}")
+    steps = lm_step_times(s, cfg, params, batch, max_len)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    checks = {name: b7_check(f"audio_serve {name}", *ops)
+              for name, ops in captured.items()}
+    shapes = {f"whisper_{name}": b7_timing(*ops)
+              for name, ops in captured.items()}
+    del params, captured
+    torch.cuda.empty_cache()
+
+    # float32 at depth AUDIO_CHECK_LAYERS over seeded random frames
+    cfg32 = dataclasses.replace(cfg, n_layers=AUDIO_CHECK_LAYERS,
+                                n_encoder_layers=AUDIO_CHECK_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tm.init_params(cfg32, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    b = AUDIO_CHECK_BATCH
+    t = torch.as_tensor(np.random.default_rng(2).integers(
+        1, cfg.vocab, (b, AUDIO_PROMPT + AUDIO_CHECK_DECODE)), device=dev)
+    fr = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                     device=dev)
+    counts32, diffs32 = lm_f32_against_plain(
+        "audio_serve float32", cfg32, p32, {"tokens": t, "frames": fr},
+        AUDIO_PROMPT, AUDIO_CHECK_DECODE)
+    s.exactly("audio_serve float32", counts32, {"flash_attention": 2 * (
+        AUDIO_CHECK_LAYERS + 2 * AUDIO_CHECK_LAYERS)
+        + 2 * AUDIO_CHECK_LAYERS * AUDIO_CHECK_DECODE})
+    del p32
+    torch.cuda.empty_cache()
+    _record_b7(s, counts["flash_attention"], checks, shapes)
+    log({"phase": "audio_serve", "ok": True, "model": cfg.name,
+         "encoder_layers": cfg.n_encoder_layers, "layers": cfg.n_layers,
+         "encoder_seq": cfg.encoder_seq,
+         "param_count_config": cfg.param_count(), "params": n_params,
+         "params_gb": params_gb, "init_ms": init_ms,
+         "requests": AUDIO_REQUESTS, "prompt": AUDIO_PROMPT,
+         "max_new": AUDIO_NEW, "batch": SERVE_BATCH,
+         "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
+         "stats": {k: stats[k] for k in ("prefills", "decode_steps",
+                                         "tokens")},
+         "b7_launches": counts["flash_attention"],
+         "tokens_first_request": tokens[0][:8], **steps, "peak_gb": peak_gb,
+         "b7_checks": checks, "b7_shapes": shapes,
+         "f32_check": {"layers": AUDIO_CHECK_LAYERS, "batch": b,
+                       "prompt": AUDIO_PROMPT,
+                       "decode_steps": AUDIO_CHECK_DECODE,
+                       "launches": counts32, "max_abs_diff": diffs32}})
+
+
+def phase_ssm_serve(s: Smoke):
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cam_search
+    from repro_torch.models import model as tm
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), **SSM_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms, n_params, params_gb = lm_params(cfg)
+    dev = params["embed"]["tok"].device
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT)
+               for _ in range(SERVE_REQUESTS)]
+    max_len = SERVE_PROMPT + SERVE_NEW + 1
+    tokens, stats, counts = serve_requests(cfg, params, prompts, SERVE_NEW,
+                                           SERVE_BATCH, max_len)
+    s.exactly("ssm_serve", counts, {})        # no kernel on this path
+    # no prefill profile: its 260,000 launches (the sLSTM's loop over the
+    # prompt) take the profiler minutes to sum
+    toks = torch.as_tensor(prompts[0], device=dev)[None]
+    steps = lm_step_times(s, cfg, params, {"tokens": toks}, max_len,
+                          profile_prefill=False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+
+    # float32 at depth SSM_CHECK_LAYERS: the card against the same model
+    # on the CPU, and prefill + decode against forward (the chunked and
+    # recurrent forms)
+    cfg32 = dataclasses.replace(cfg, n_layers=SSM_CHECK_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tm.init_params(cfg32, seed=0)
+    n = SSM_CHECK_PREFILL + CHECK_DECODE
+    t = torch.as_tensor(prompts[0][:n], device=dev)[None]
+    cam_search.reset_launch_counts()
+    full = tm.forward(p32, cfg32, {"tokens": t})
+    cache = tm.init_decode_cache(cfg32, 1, n + 1)
+    lg, cache = tm.prefill(p32, cfg32, {"tokens": t[:, :SSM_CHECK_PREFILL]},
+                           cache)
+    outs = [lg]
+    for i in range(SSM_CHECK_PREFILL, n):
+        lg, cache = tm.decode_step(p32, cfg32, t[:, i:i + 1], cache)
+        outs.append(lg)
+    torch.cuda.synchronize()
+    s.exactly("ssm_serve float32", dict(cam_search.LAUNCHES), {})
+    served = torch.cat(outs, dim=1)
+    decode_vs_forward = _logits_close(
+        "ssm_serve prefill+decode vs forward", served,
+        full[:, SSM_CHECK_PREFILL - 1:], SSM_F32_ATOL)
+    p_cpu = tm._tree_map(lambda x: x.cpu(), p32)
+    cpu_full = tm.forward(p_cpu, cfg32, {"tokens": t.cpu()})
+    card_vs_cpu = _logits_close("ssm_serve card vs CPU", full.cpu(),
+                                cpu_full, SSM_F32_ATOL)
+    del p32, p_cpu, cache
+    torch.cuda.empty_cache()
+    log({"phase": "ssm_serve", "ok": True, "model": cfg.name,
+         "layers": cfg.n_layers, "pairs": cfg.n_layers // 2,
+         "param_count_config": cfg.param_count(), "params": n_params,
+         "params_gb": params_gb, "init_ms": init_ms,
+         "requests": SERVE_REQUESTS, "prompt": SERVE_PROMPT,
+         "max_new": SERVE_NEW, "batch": SERVE_BATCH,
+         "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
+         "stats": {k: stats[k] for k in ("prefills", "decode_steps",
+                                         "tokens")},
+         "launches": counts, "tokens_first_request": tokens[0][:8], **steps,
+         "peak_gb": peak_gb,
+         "f32_check": {"layers": SSM_CHECK_LAYERS,
+                       "prefill": SSM_CHECK_PREFILL,
+                       "decode_steps": CHECK_DECODE,
+                       "decode_vs_forward_max_abs_diff": decode_vs_forward,
+                       "card_vs_cpu_max_abs_diff": card_vs_cpu}})
 
 
 def main() -> None:
@@ -4161,7 +4837,10 @@ def main() -> None:
               ("tune", lambda: phase_tune(s, data)),
               ("hier_search", lambda: phase_hier_search(s, data)),
               ("sharded", lambda: phase_sharded(s, data)),
-              ("lm_serve", lambda: phase_lm_serve(s))]
+              ("lm_serve", lambda: phase_lm_serve(s)),
+              ("moe_serve", lambda: phase_moe_serve(s)),
+              ("audio_serve", lambda: phase_audio_serve(s)),
+              ("ssm_serve", lambda: phase_ssm_serve(s))]
     wanted = sys.argv[1:]
     unknown = set(wanted) - {name for name, _ in phases}
     if unknown:

@@ -128,20 +128,23 @@ def hdc_classifier_from_reference(class_sums: np.ndarray, keys: np.ndarray,
 
 def lm_params_from_reference(params, cfg, *, device=None):
     """The port's LM parameters for the reference's ``init_params``
-    pytree (nested dicts of numpy arrays, or arrays ``np.asarray``
-    takes): the same keys and shapes, in the dtype ``cfg.param_dtype``
-    names, on ``device`` (``None``: the GPU)."""
+    pytree of the model ``cfg`` describes (nested dicts of numpy arrays,
+    or arrays ``np.asarray`` takes): the same keys and shapes, each leaf
+    exact in its own dtype (``cfg.param_dtype`` for most; the MoE
+    experts' weights are float32 in the reference whatever it names), on
+    ``device`` (``None``: the GPU)."""
     from .core.engine.base import resolve_device
-    from .models.layers import pdtype
 
     dev = resolve_device(device)
-    dtype = pdtype(cfg)
 
     def conv(tree):
         if isinstance(tree, dict):
             return {k: conv(v) for k, v in tree.items()}
-        # via float32: numpy has no bfloat16 that torch reads (exact)
-        a = np.array(tree, dtype=np.float32)
-        return torch.from_numpy(a).to(device=dev, dtype=dtype)
+        a = np.asarray(tree)
+        if a.dtype.name == "bfloat16":
+            # via float32: numpy has no bfloat16 that torch reads (exact)
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=dev, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(device=dev)
 
     return conv(params)

@@ -70,7 +70,7 @@ from .ref import packed_distances, row_product
 __all__ = ["METRIC_COEFFS", "BLOCK_K", "MAX_K", "LAUNCHES", "window_rows",
            "packed_route", "float_route", "reset_launch_counts",
            "tf32_round", "tf32_split_product", "tc_accumulate",
-           "tf32x3_kernel_eucl", "fused_topk",
+           "tf32x3_kernel_dot", "tf32x3_kernel_eucl", "fused_topk",
            "fused_topk_reference", "topk_by_distance",
            "topk_by_distance_reference", "topk_by_packed_distance",
            "topk_by_packed_distance_reference", "order_key",
@@ -252,6 +252,22 @@ def tc_accumulate(acc: torch.Tensor, a: torch.Tensor,
     return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
 
 
+def tf32x3_kernel_dot(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The product ``q[i] . p[i]`` of row pairs as the 3xTF32 kernels
+    accumulate it, bit for bit: the split (:func:`tf32_round`), then each
+    k-step's eight products per term (lo.hi, hi.lo, hi.hi) added to the
+    float32 accumulator as the tensor cores add them
+    (:func:`tc_accumulate`).  B2's "wgmma" route returns it as the dot
+    metric's value (no norms)."""
+    qh, ph = tf32_round(q), tf32_round(p)
+    ql, pl = tf32_round(q - qh), tf32_round(p - ph)
+    acc = torch.zeros(q.shape[0], dtype=torch.float32, device=q.device)
+    for k0 in range(0, q.shape[1], 8):
+        for a, b in ((ql, ph), (qh, pl), (qh, ph)):
+            acc = tc_accumulate(acc, a[:, k0:k0 + 8], b[:, k0:k0 + 8])
+    return acc
+
+
 def tf32x3_kernel_eucl(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """The squared eucl distance of row pairs ``(q[i], p[i])`` as the
     3xTF32 kernels (B2's "wgmma" route, B4, B6: ``tf32_wgmma.cuh``) compute
@@ -262,12 +278,7 @@ def tf32x3_kernel_eucl(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     ``(qn - 2 acc) + pn``."""
     f32 = torch.float32
     n, d = q.shape
-    qh, ph = tf32_round(q), tf32_round(p)
-    ql, pl = tf32_round(q - qh), tf32_round(p - ph)
-    acc = torch.zeros(n, dtype=f32, device=q.device)
-    for k0 in range(0, d, 8):
-        for a, b in ((ql, ph), (qh, pl), (qh, ph)):
-            acc = tc_accumulate(acc, a[:, k0:k0 + 8], b[:, k0:k0 + 8])
+    acc = tf32x3_kernel_dot(q, p)
 
     def fma_sum(x, order):                 # pn += x * x, in `order`
         acc_ = torch.zeros(n, dtype=f32, device=q.device)

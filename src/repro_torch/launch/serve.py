@@ -11,8 +11,12 @@ A deliberately small but real serving loop:
   ``torch.Generator`` on the device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --smoke --device cpu --requests 8 --max-new 32
+
+It serves the dense, moe, ssm and audio families (an audio request's
+encoder runs over zero frame embeddings).
 """
 
 from __future__ import annotations
@@ -84,7 +88,14 @@ class Server:
                                device=self.device)[None]
         cache = model_mod.init_decode_cache(self.cfg, 1, self.max_len,
                                             device=self.device)
-        logits, cache = self.prefill_fn(self.params, {"tokens": toks}, cache)
+        batch = {"tokens": toks}
+        if self.cfg.family == "audio":
+            # the conv frontend is a stub: zero frame embeddings, as the
+            # reference serves them
+            batch["frames"] = torch.zeros(
+                (1, self.cfg.encoder_seq, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
+        logits, cache = self.prefill_fn(self.params, batch, cache)
         self.stats["prefills"] += 1
         return int(self._sample(logits[:, -1])[0]), cache
 

@@ -10,8 +10,8 @@ Attention goes through :func:`repro_torch.kernels.flash_attention.
 flash_attention`: on a CUDA tensor every call launches kernel B7, on a
 CPU tensor its plain version runs.  :func:`attn_core` keeps the
 reference's name for that plain version.  Left out here: the sharding
-hooks (``rules``, ``_constrain_attention_layout``), the query-chunk
-option and cross-attention (``kv_source``), which belong to later slices.
+hooks (``rules``, ``_constrain_attention_layout``) and the query-chunk
+option.
 """
 
 from __future__ import annotations
@@ -155,7 +155,8 @@ def attn_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, prefix_len: int = 0,
-              cache: Optional[Dict[str, Any]] = None, causal: bool = True
+              cache: Optional[Dict[str, Any]] = None,
+              kv_source: Optional[torch.Tensor] = None, causal: bool = True
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """GQA attention through kernel B7.
 
@@ -170,15 +171,20 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
       the cache's ``max_len`` rows raises ``ValueError`` before any row
       is written (the reference's ``dynamic_update_slice`` would clamp
       the start and overwrite the last rows).
+    * ``kv_source``: cross-attention source (B, T, D), the encoder
+      states: keys and values come from it, with no RoPE and no causal
+      mask (still kernel B7).
     * ``prefix_len``: bidirectional prefix (prefix-LM).
     """
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_source is None else kv_source
     q = _proj(x, p["wq"], p.get("bq")).reshape(b, s, h, dh)
-    k = _proj(x, p["wk"], p.get("bk")).reshape(b, s, kv, dh)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(b, s, kv, dh)
-    q = apply_rope(q, positions, cfg)
-    k = apply_rope(k, positions, cfg)
+    k = _proj(src, p["wk"], p.get("bk")).reshape(b, src.shape[1], kv, dh)
+    v = _proj(src, p["wv"], p.get("bv")).reshape(b, src.shape[1], kv, dh)
+    if kv_source is None:
+        q = apply_rope(q, positions, cfg)
+        k = apply_rope(k, positions, cfg)
 
     new_cache = None
     kv_len = None
@@ -196,8 +202,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         k, v = cache["k"], cache["v"]
         q_start, kv_len = start, start + s
 
-    out = fa.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len,
-                             kv_len=kv_len, q_start=q_start)
+    out = fa.flash_attention(q, k, v, causal=causal and kv_source is None,
+                             prefix_len=prefix_len, kv_len=kv_len,
+                             q_start=q_start)
     return _proj(out.reshape(b, s, h * dh), p["wo"]), new_cache
 
 

@@ -1,12 +1,20 @@
 """Model assembly (the port of the reference's ``models/model.py``).
 
-The dense family (decoder-only, identical pre-norm blocks) runs here;
+Families run here (``cfg.family``):
+
+* ``dense``  — decoder-only: identical pre-norm blocks.
+* ``moe``    — ``first_dense_layers`` dense blocks, then MoE blocks (the
+  router on kernel B2 with ``router_offload="cam"``); one device.
+* ``ssm``    — xLSTM: (mLSTM, sLSTM) pair blocks; no attention.
+* ``audio``  — whisper: an encoder over precomputed frame embeddings,
+  then a decoder with self- and cross-attention.
+
 ``init_params``, ``init_decode_cache`` and the three entry points raise
-``NotImplementedError`` for the others (moe, hybrid, ssm, vlm, audio),
-which come with ROADMAP Queue A item 8.  Layer stacks keep the
-reference's stacked ``(n_layers, ...)`` tensors, so a layer is a view
-and ``convert.lm_params_from_reference`` is a tree map; the reference's
-``lax.scan`` over layers is a Python loop.
+``NotImplementedError`` for the hybrid and vlm families, which wait for
+kernel B7 at head dims 80 and 256 (ROADMAP Queue A item 8).  Layer
+stacks keep the reference's stacked ``(n_layers, ...)`` tensors, so a
+layer is a view and ``convert.lm_params_from_reference`` is a tree map;
+the reference's ``lax.scan`` over layers is a Python loop.
 
 Three public entry points:
 
@@ -15,25 +23,31 @@ Three public entry points:
 * ``prefill(params, cfg, batch, cache)``       -> (last logits, cache)
 * ``decode_step(params, cfg, tokens, cache)``  -> (logits, cache)
 
-A cache is ``{"k": (n_layers, B, S_max, KV, dh), "v": ..., "len": int}``
-in bfloat16 (the reference's cache dtype, whatever the compute dtype).
-``prefill`` and ``decode_step`` write the new rows into its tensors in
-place and return them with the new ``len``, a host int, so that no step
-reads the device to learn the cache length.
+``batch`` holds ``"tokens"`` (B, S), and for audio ``"frames"`` (B,
+encoder_seq, d_model).  An attention cache is ``{"k": (n_layers, B,
+S_max, KV, dh), "v": ..., "len": int}`` in bfloat16 (the reference's
+cache dtype, whatever the compute dtype); audio's is ``{"self": that,
+"cross": {"k": (n_layers, B, encoder_seq, KV, dh), "v": ...}}``, whose
+cross keys and values ``prefill`` computes once, in the compute dtype,
+as the reference does; ssm's holds the float32 recurrent states of each
+pair.  ``prefill`` and ``decode_step`` write the new rows (or states)
+into the cache tensors in place and return them with the new ``len``, a
+host int, so that no step reads the device to learn the cache length.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..core.engine.base import resolve_device
-from . import blocks
+from ..kernels import flash_attention as fa
+from . import blocks, xlstm
 from .config import ModelConfig
-from .layers import apply_norm, embed, init_embedding, init_norm, \
-    logits as unembed_logits
+from .layers import _proj, apply_norm, attention, cdtype, embed, ffn, \
+    init_embedding, init_norm, logits as unembed_logits
 
 Params = Dict[str, Any]
 
@@ -41,11 +55,17 @@ __all__ = ["init_params", "init_decode_cache", "forward", "prefill",
            "decode_step"]
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+#: the families the port runs
+PORTED_FAMILIES = ("dense", "moe", "ssm", "audio")
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue A item 8); the port runs the dense family")
+            f"(ROADMAP Queue A item 8: it waits for kernel B7 at head dims "
+            f"80 and 256); the port runs the {', '.join(PORTED_FAMILIES)} "
+            f"families")
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +91,7 @@ def _stack_init(init_fn: Callable[[], Params], n: int) -> Params:
         return out
 
     stacked = _tree_map(alloc, first)
+    del first
     for i in range(1, n):
         _copy_layer(stacked, init_fn(), i)
     return stacked
@@ -88,6 +109,19 @@ def _layer(stack: Params, i: int) -> Params:
     return _tree_map(lambda t: t[i], stack)
 
 
+def _depth(stack: Params) -> int:
+    """Layers in a stack (the leading axis of any leaf)."""
+    leaf = stack
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
+
+
+def _pairs(cfg: ModelConfig) -> int:
+    """(mLSTM, sLSTM) pair blocks of an ssm model."""
+    return max(1, cfg.n_layers // 2)
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -95,15 +129,35 @@ def _layer(stack: Params, i: int) -> Params:
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (default: the current CUDA device; raises without CUDA)."""
-    _require_dense(cfg)
+    (default: the current CUDA device; raises without CUDA): the
+    reference's tree, shapes and dtypes, not its numbers."""
+    _require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     p: Params = {"embed": init_embedding(gen, cfg),
                  "final_norm": init_norm(cfg, dev)}
-    p["blocks"] = _stack_init(lambda: blocks.init_dense_block(gen, cfg),
-                              cfg.n_layers)
+    fam = cfg.family
+    if fam == "dense":
+        p["blocks"] = _stack_init(lambda: blocks.init_dense_block(gen, cfg),
+                                  cfg.n_layers)
+    elif fam == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            dff = cfg.dense_d_ff or cfg.d_ff
+            p["dense_blocks"] = _stack_init(
+                lambda: blocks.init_dense_block(gen, cfg, dff), nd)
+        p["moe_blocks"] = _stack_init(lambda: blocks.init_moe_block(gen, cfg),
+                                      cfg.n_layers - nd)
+    elif fam == "ssm":
+        p["blocks"] = _stack_init(lambda: blocks.init_xlstm_pair(gen, cfg),
+                                  _pairs(cfg))
+    else:                                                   # audio
+        p["enc_blocks"] = _stack_init(
+            lambda: blocks.init_encoder_block(gen, cfg), cfg.n_encoder_layers)
+        p["enc_norm"] = init_norm(cfg, dev)
+        p["blocks"] = _stack_init(lambda: blocks.init_xdec_block(gen, cfg),
+                                  cfg.n_layers)
     return p
 
 
@@ -123,13 +177,28 @@ def _attn_cache(cfg: ModelConfig, n_layers: int, b: int, m: int, device,
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                       device=None) -> Params:
-    _require_dense(cfg)
-    return _attn_cache(cfg, cfg.n_layers, batch, max_len,
-                       resolve_device(device))
+    _require_ported(cfg)
+    dev = resolve_device(device)
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        return _attn_cache(cfg, cfg.n_layers, batch, max_len, dev)
+    if fam == "ssm":
+        lp = _pairs(cfg)
+        return {kind: _tree_map(
+            lambda t: t.expand((lp,) + t.shape).contiguous(),
+            xlstm.init_xlstm_state(cfg, batch, kind, device=dev))
+            for kind in ("mlstm", "slstm")}
+    cross = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
+             cfg.head_dim)                                  # audio
+    return {"self": _attn_cache(cfg, cfg.n_layers, batch, max_len, dev),
+            "cross": {"k": torch.zeros(cross, dtype=torch.bfloat16,
+                                       device=dev),
+                      "v": torch.zeros(cross, dtype=torch.bfloat16,
+                                       device=dev)}}
 
 
 # ---------------------------------------------------------------------------
-# the block stack
+# the block stacks, one function per family; the cache threaded through
 # ---------------------------------------------------------------------------
 
 
@@ -137,17 +206,171 @@ def _run_dense_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig, *,
                      positions: torch.Tensor, prefix_len: int = 0,
                      cache: Optional[Params] = None
                      ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """The blocks in order, each with its layer of the cache."""
+    """The blocks in order, each with its layer of the cache; a layer
+    with a ``"moe"`` entry is an MoE block."""
     ln = 0 if cache is None else cache["len"]
-    for i in range(stack["ln1"]["scale"].shape[0]):
+    for i in range(_depth(stack)):
+        p_l = _layer(stack, i)
         cache_l = None if cache is None else \
             {"k": cache["k"][i], "v": cache["v"][i], "len": ln}
-        x, _ = blocks.apply_dense_block(_layer(stack, i), x, cfg,
-                                        positions=positions,
-                                        prefix_len=prefix_len, cache=cache_l)
+        if "moe" in p_l:
+            x, _ = blocks.apply_moe_block(p_l, x, cfg, positions=positions,
+                                          cache=cache_l)
+        else:
+            x, _ = blocks.apply_dense_block(p_l, x, cfg, positions=positions,
+                                            prefix_len=prefix_len,
+                                            cache=cache_l)
     if cache is None:
         return x, None
     return x, {"k": cache["k"], "v": cache["v"], "len": ln + x.shape[1]}
+
+
+def _attn_stacks(params: Params, cfg: ModelConfig) -> List[Params]:
+    """The attention families' stacks in order: dense, or moe's dense
+    blocks then its MoE blocks (one cache over all of them)."""
+    if cfg.family == "moe":
+        return [params[k] for k in ("dense_blocks", "moe_blocks")
+                if k in params]
+    return [params["blocks"]]
+
+
+def _run_attn_stacks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                     positions: torch.Tensor, cache: Optional[Params] = None
+                     ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Each stack over its layers' views of the one cache (the
+    reference splits the cache at ``first_dense_layers`` and
+    concatenates it again)."""
+    ln = 0 if cache is None else cache["len"]
+    first = 0
+    for stack in _attn_stacks(params, cfg):
+        n = _depth(stack)
+        part = None if cache is None else {
+            "k": cache["k"][first:first + n],
+            "v": cache["v"][first:first + n], "len": ln}
+        x, _ = _run_dense_stack(stack, x, cfg, positions=positions,
+                                cache=part)
+        first += n
+    if cache is None:
+        return x, None
+    return x, {"k": cache["k"], "v": cache["v"], "len": ln + x.shape[1]}
+
+
+def _run_ssm(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+             cache: Optional[Params] = None
+             ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """The (mLSTM, sLSTM) pairs; each pair's new state is written into
+    its layer of the cache."""
+    stack = params["blocks"]
+    for i in range(_depth(stack)):
+        state = None if cache is None else _layer(cache, i)
+        x, new_state = blocks.apply_xlstm_pair(_layer(stack, i), x, cfg,
+                                               state=state)
+        if cache is not None:
+            _copy_layer(cache, new_state, i)
+    return x, cache
+
+
+def _run_encoder(params: Params, frames: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    b, t, _ = frames.shape
+    pos = _positions(0, b, t, frames.device)
+    dt = cdtype(cfg)
+    x = frames.to(dt) + _sinusoidal(pos, cfg.d_model).to(dt)
+    stack = params["enc_blocks"]
+    for i in range(_depth(stack)):
+        x, _ = blocks.apply_encoder_block(_layer(stack, i), x, cfg,
+                                          positions=pos)
+    return apply_norm(params["enc_norm"], x, cfg)
+
+
+def _cross_kv(p_attn: Params, enc: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, t, _ = enc.shape
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    k = _proj(enc, p_attn["wk"], p_attn.get("bk")).reshape(b, t, kv, dh)
+    v = _proj(enc, p_attn["wv"], p_attn.get("bv")).reshape(b, t, kv, dh)
+    return k, v
+
+
+def _cross_attend(p_attn: Params, xn: torch.Tensor, cfg: ModelConfig,
+                  ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of the decoder rows ``xn`` over the encoder's keys
+    and values: kernel B7 with no causal mask."""
+    b, s, _ = xn.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    q = _proj(xn, p_attn["wq"], p_attn.get("bq")).reshape(b, s, h, dh)
+    out = fa.flash_attention(q, ck.to(xn.dtype), cv.to(xn.dtype),
+                             causal=False)
+    return _proj(out.reshape(b, s, h * dh), p_attn["wo"])
+
+
+def _cross_cache(params: Params, enc: torch.Tensor, cfg: ModelConfig
+                 ) -> Params:
+    """Every decoder layer's cross keys and values of ``enc``, stacked,
+    in the compute dtype (the reference's prefill replaces the cache's
+    bfloat16 zeros with them)."""
+    stack = params["blocks"]
+    n = _depth(stack)
+    b, t, _ = enc.shape
+    shape = (n, b, t, cfg.n_kv_heads, cfg.head_dim)
+    ck = torch.empty(shape, dtype=enc.dtype, device=enc.device)
+    cv = torch.empty_like(ck)
+    for i in range(n):
+        ck[i], cv[i] = _cross_kv(_layer(stack["cross"], i), enc, cfg)
+    return {"k": ck, "v": cv}
+
+
+def _run_xdec(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, enc: Optional[torch.Tensor] = None,
+              cache: Optional[Params] = None
+              ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """The decoder stack; the cross keys and values come from ``enc``
+    (``forward`` computes them per layer) or from the cache."""
+    stack = params["blocks"]
+    ln = 0 if cache is None else cache["self"]["len"]
+    for i in range(_depth(stack)):
+        blk = _layer(stack, i)
+        self_cache = None if cache is None else {
+            "k": cache["self"]["k"][i], "v": cache["self"]["v"][i],
+            "len": ln}
+        a, _ = attention(blk["self"], apply_norm(blk["ln1"], x, cfg), cfg,
+                         positions=positions, cache=self_cache)
+        x = x + a
+        if cache is None:
+            ck, cv = _cross_kv(blk["cross"], enc, cfg)
+        else:
+            ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
+        x = x + _cross_attend(blk["cross"], apply_norm(blk["ln2"], x, cfg),
+                              cfg, ck, cv)
+        x = x + ffn(blk["ffn"], apply_norm(blk["ln3"], x, cfg), cfg)
+    if cache is None:
+        return x, None
+    return x, {"self": {"k": cache["self"]["k"], "v": cache["self"]["v"],
+                        "len": ln + x.shape[1]},
+               "cross": cache["cross"]}
+
+
+def _run_family(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                positions: torch.Tensor,
+                frames: Optional[torch.Tensor] = None,
+                cache: Optional[Params] = None
+                ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """The family's stack over the embedded tokens.  ``frames`` (audio)
+    run through the encoder: with a cache (a prefill) its cross keys and
+    values go into the cache; without ``frames`` a decode step reads
+    them from it."""
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        return _run_attn_stacks(params, x, cfg, positions=positions,
+                                cache=cache)
+    if fam == "ssm":
+        return _run_ssm(params, x, cfg, cache=cache)
+    enc = None if frames is None else _run_encoder(params, frames, cfg)
+    if cache is not None and enc is not None:
+        cache = {"self": cache["self"],
+                 "cross": _cross_cache(params, enc, cfg)}
+    return _run_xdec(params, x, cfg, positions=positions, enc=enc,
+                     cache=cache)
 
 
 # ---------------------------------------------------------------------------
@@ -170,26 +393,37 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor) -> torch.Tensor:
-    """Token embeddings, plus absolute (sinusoidal) positions for a model
-    configured without RoPE."""
+    """Token embeddings, plus absolute (sinusoidal) positions for the
+    audio decoder and for an attention model configured without RoPE
+    (ssm is position-free)."""
     x = embed(params["embed"], tokens, cfg)
-    if cfg.rope == "none":
+    if cfg.family == "audio" or (cfg.rope == "none"
+                                 and cfg.family in ("dense", "moe")):
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
     return x
+
+
+def _cache_len(cache: Params, cfg: ModelConfig) -> int:
+    """The rows a cache holds (0 for ssm, whose decode ignores position)."""
+    if cfg.family == "audio":
+        return cache["self"]["len"]
+    return cache.get("len", 0)
 
 
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor],
             return_hidden: bool = False) -> torch.Tensor:
     """Full-sequence float32 logits (teacher forcing);
-    ``batch["tokens"]``: (B, S).  ``return_hidden=True`` returns the
-    post-final-norm hidden state (B, S, d_model) instead."""
-    _require_dense(cfg)
+    ``batch["tokens"]``: (B, S) (and ``batch["frames"]`` for audio).
+    ``return_hidden=True`` returns the post-final-norm hidden state
+    (B, S, d_model) instead."""
+    _require_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(0, b, s, tokens.device)
     x = _embed_tokens(params, tokens, cfg, positions)
-    x, _ = _run_dense_stack(params["blocks"], x, cfg, positions=positions)
+    x, _ = _run_family(params, x, cfg, positions=positions,
+                       frames=batch.get("frames"))
     x = apply_norm(params["final_norm"], x, cfg)
     if return_hidden:
         return x
@@ -199,15 +433,16 @@ def forward(params: Params, cfg: ModelConfig,
 def prefill(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], cache: Params
             ) -> Tuple[torch.Tensor, Params]:
-    """Prefill an empty cache with ``batch["tokens"]`` (B, S); returns
-    the last position's logits (B, 1, V) and the cache."""
-    _require_dense(cfg)
+    """Prefill an empty cache with ``batch["tokens"]`` (B, S) (and the
+    encoder over ``batch["frames"]`` for audio); returns the last
+    position's logits (B, 1, V) and the cache."""
+    _require_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(0, b, s, tokens.device)
     x = _embed_tokens(params, tokens, cfg, positions)
-    x, cache = _run_dense_stack(params["blocks"], x, cfg,
-                                positions=positions, cache=cache)
+    x, cache = _run_family(params, x, cfg, positions=positions,
+                           frames=batch.get("frames"), cache=cache)
     x = apply_norm(params["final_norm"], x[:, -1:], cfg)
     return unembed_logits(params["embed"], x, cfg), cache
 
@@ -215,11 +450,10 @@ def prefill(params: Params, cfg: ModelConfig,
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Params) -> Tuple[torch.Tensor, Params]:
     """One decode step: tokens (B, 1) -> logits (B, 1, V), cache."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     b, s = tokens.shape
-    positions = _positions(cache["len"], b, s, tokens.device)
+    positions = _positions(_cache_len(cache, cfg), b, s, tokens.device)
     x = _embed_tokens(params, tokens, cfg, positions)
-    x, cache = _run_dense_stack(params["blocks"], x, cfg,
-                                positions=positions, cache=cache)
+    x, cache = _run_family(params, x, cfg, positions=positions, cache=cache)
     x = apply_norm(params["final_norm"], x, cfg)
     return unembed_logits(params["embed"], x, cfg), cache

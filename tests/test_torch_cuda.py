@@ -1962,3 +1962,135 @@ def test_served_warm_start_on_the_card(cuda, tmp_path, monkeypatch):
     assert np.array_equal(v, want[0]) and np.array_equal(i, want[1])
     with CamSearchServer(heuristic, g, tuned=False) as srv:
         assert srv.plan is heuristic
+
+
+# ---------------------------------------------------------------------------
+# the MoE router on B2, B7 at whisper's non-causal shapes, an MoE block
+# ---------------------------------------------------------------------------
+
+#: (D, E, k) of the two MoE configs' routers (deepseek-moe-16b,
+#: phi3.5-moe-42b-a6.6b)
+ROUTERS = {"deepseek": (2048, 64, 6), "phi3.5": (4096, 16, 2)}
+#: B2's dot values against the float32 plain version, as a share of
+#: sum |q_i p_i|: 3xTF32 truncates the accumulator toward zero at each of
+#: its 3 D / 8 k-steps, which drifts an all-positive sum of 4,096 products
+#: by up to 1.5e-5 of the sum (measured on the H100); two scores within
+#: it are a float64 near-tie
+DOT_RTOL = 1e-4
+
+
+def _bf16_values(rng, shape, scale=1.0):
+    x = rng.standard_normal(shape).astype(np.float32) * scale
+    return torch.from_numpy(x).bfloat16().float()
+
+
+@pytest.mark.parametrize("router", list(ROUTERS))
+@pytest.mark.parametrize("t", [1, 13, 2048])
+def test_b2_at_the_router_shape_matches_plain(cuda, router, t, rng):
+    """``ops.cam_topk`` (dot, ``largest=True``) as the ``"cam"`` router
+    calls it: tokens against the router's E columns (a gallery of one
+    padded 128-row window), bf16-valued as the model's are.  Columns 1
+    and 3 are equal and best for token 0; the last repeats column 0.
+    Values within ``DOT_RTOL`` of the plain version's, token 0's equal to
+    the kernel's own arithmetic (``tf32x3_kernel_dot``) bit for bit;
+    indices equal the plain version's but at float64 near-ties whose
+    order that arithmetic gives; ties go to the lower column."""
+    from repro_torch.kernels import ops as tops
+    from repro_torch.kernels import ref as tref
+    d, e, k = ROUTERS[router]
+    x = _bf16_values(rng, (t, d))
+    w = _bf16_values(rng, (d, e), 1 / np.sqrt(d))
+    w[:, 1] = w[:, 3] = (2.0 * x[0] / x[0].norm()).bfloat16().float()
+    w[:, e - 1] = w[:, 0]
+    q, pats = x.to(cuda), w.T.to(cuda)
+    tcs.reset_launch_counts()
+    v, i = tops.cam_topk(q, pats, metric="dot", k=k, largest=True)
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["fused_topk"] == 1
+    assert tuple(i.shape) == (t, k)
+    want_v, want_i = tref.cam_topk(q, pats.contiguous(), metric="dot", k=k,
+                                   largest=True)
+    assert i[0, :2].tolist() == [1, 3]
+    scale = (q.double().abs() @ pats.double().abs().T)
+    torch.testing.assert_close(
+        v.double(), want_v.double(), rtol=0,
+        atol=float(DOT_RTOL * scale.max()))
+    assert torch.equal(tcs.tf32x3_kernel_dot(q[[0] * k], pats[i[0].long()]),
+                       v[0])
+    rows, cols = (i != want_i.to(i.dtype)).nonzero(as_tuple=True)
+    for r, c in zip(rows.tolist(), cols.tolist()):
+        a, b = int(i[r, c]), int(want_i[r, c])
+        exact = q[r].double() @ pats[[a, b]].double().T
+        assert abs(float(exact[0] - exact[1])) <= \
+            DOT_RTOL * float(scale[r, [a, b]].max())
+        da, db = tcs.tf32x3_kernel_dot(q[[r, r]], pats[[a, b]]).tolist()
+        assert da > db or (da == db and a < b)
+
+
+@pytest.mark.parametrize("s,t", [(1, 1500), (4, 1500), (1500, 1500)])
+@pytest.mark.parametrize("dtypes", list(B7_DTYPES))
+def test_flash_kernel_noncausal_at_whisper_shapes(cuda, s, t, dtypes, rng):
+    """B7 with ``causal=False`` over 1,500 encoder rows at whisper's 16
+    heads and head dim 64: cross-attention at decode (S = 1, split-KV in
+    bf16) and at a 4-token prefill, and the encoder's self-attention
+    (S = 1,500, the ``wgmma`` route in bf16); against the plain version
+    and the Pallas recurrence."""
+    dtype, kv_dtype = B7_DTYPES[dtypes]
+    q, k, v = _qkv(rng, 1, s, t, 16, 16, 64, dtype, kv_dtype, cuda)
+    tcs.reset_launch_counts()
+    got = tfa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["flash_attention"] == 1
+    want = tfa.flash_attention_reference(q, k, v, causal=False)
+    atol = B7_F32_ATOL if dtypes == "f32" else B7_BF16_ATOL
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    rec = _recurrence(q, k, v, causal=False)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, rec, atol=1e-5, rtol=1e-5)
+    else:
+        _assert_follows_recurrence(got, rec, v)
+
+
+@pytest.mark.parametrize("offload", ["cam", "dense"])
+def test_moe_block_on_the_card_matches_cpu(cuda, offload):
+    """One MoE block (deepseek's smoke config in float32: top-2 of 8
+    experts, one shared) on the card against the same block on the CPU,
+    a 12-row prefill into a cache and one decode row: B7 once per call,
+    B2 once per call with ``"cam"`` and never with ``"dense"``; within
+    1e-4 (TF32 off; B7 and B2 sum in other orders)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import blocks as tb
+    from repro_torch.models import layers as tl
+    cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
+                              param_dtype="float32", compute_dtype="float32",
+                              router_offload=offload)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    cpu_p = tb.init_moe_block(gen, cfg)
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.standard_normal((2, n, cfg.d_model))
+                           .astype(np.float32)) for n in (12, 1)]
+
+    def run(dev):
+        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+             for k, v in cpu_p.items()}
+        cache = tl.init_cache(cfg, 2, 16, dev, dtype=torch.float32)
+        outs, launches = [], []
+        for x, start in zip(xs, (0, 12)):
+            pos = torch.arange(start, start + x.shape[1]).expand(
+                2, x.shape[1]).to(dev)
+            tcs.reset_launch_counts()
+            y, cache = tb.apply_moe_block(p, x.to(dev), cfg, positions=pos,
+                                          cache=cache)
+            launches.append((tcs.LAUNCHES["flash_attention"],
+                             tcs.LAUNCHES["fused_topk"]))
+            outs.append(y.cpu())
+        return outs, launches
+
+    got, launches = run(cuda)
+    assert launches == [(1, int(offload == "cam"))] * 2
+    want, cpu_launches = run(torch.device("cpu"))
+    assert cpu_launches == [(0, 0)] * 2
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)

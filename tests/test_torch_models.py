@@ -188,8 +188,7 @@ def test_init_params_shapes_match_reference(lm):
 
 
 def test_other_families_raise_not_implemented():
-    for arch in ("deepseek-moe-16b", "zamba2-2.7b", "xlstm-125m",
-                 "paligemma-3b", "whisper-medium"):
+    for arch in ("zamba2-2.7b", "paligemma-3b"):
         cfg = get_smoke_config(arch)
         with pytest.raises(NotImplementedError, match="Queue A item 8"):
             tm.init_params(cfg, device="cpu")
