@@ -140,7 +140,23 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        2048 tokens, 32 new tokens each: no kernel on the
                        path (exactly zero launches); float32 at depth 2,
                        prefill + decode against forward and the card
-                       against the CPU.
+                       against the CPU;
+* ``hybrid_serve``   — zamba2-2.7b uncut (54 Mamba2 blocks in 9 groups,
+                       each after the one shared attention block: 32
+                       heads of dh 80) served as ``lm_serve`` serves
+                       qwen: B7 exactly 9 x (4 prefills + 124 decode
+                       steps) times, at dh 80 on its ``wgmma`` (prefill)
+                       and split-KV (decode) routes, held to its plain
+                       version and the recurrence and timed beside SDPA;
+                       float32 at depth 12 (two groups) against the
+                       plain versions; one full-width Mamba2 block on the
+                       card against the CPU;
+* ``vlm_serve``      — paligemma-3b uncut (18 layers, 8 heads over 1 kv
+                       head of dh 256) over the Server's 256 zero vision
+                       rows: every prefill a 2,304-row prefix-LM
+                       (``prefix_len`` 256), B7 exactly 18 x 128 times at
+                       dh 256; float32 at depth 2 over random vision rows
+                       against the plain versions.
 
 For each phase it sets the kernels' launch counts to 0, runs the path,
 reads the counts (a kernel of the path with no launch fails the run),
@@ -150,7 +166,11 @@ them (bit-identical for the integer metrics and the interval match;
 eucl: every candidate value within ``EUCL_RTOL``/``EUCL_ATOL``, and every
 candidate and result index swap, or every range-match disagreement,
 confirmed as a float64 near-tie), and times kernel, plain version and
-one PyTorch library call with CUDA events (medians).  B1's record also
+one PyTorch library call with CUDA events (medians).  After each phase
+it logs ``phase_memory`` (the GB allocated at its start, its peak, what
+it leaves and the largest CUDA tensors left) and clears the engine's
+plan cache, whose memos of prepared galleries would otherwise carry
+into later phases (``release_phase_state``).  B1's record also
 holds its two main-path shapes under ``shapes`` (``knn`` and
 ``hdc_predict``: route, event and device times, launches, the bound of
 the route's basis and the earlier popcount basis).  The last two lines
@@ -281,6 +301,19 @@ AUDIO_CHECK_LAYERS, AUDIO_CHECK_BATCH, AUDIO_CHECK_DECODE = 2, 2, 16
 #: mLSTM sum in other orders; the card's and the CPU's BLAS too)
 SSM_ARCH, SSM_OVERRIDES = "xlstm-125m", {}
 SSM_CHECK_LAYERS, SSM_CHECK_PREFILL, SSM_F32_ATOL = 2, 512, 2e-3
+#: hybrid_serve: HYBRID_ARCH (with HYBRID_OVERRIDES) and vlm_serve:
+#: VLM_ARCH (with VLM_OVERRIDES) served as lm_serve serves its model (the
+#: vlm over the Server's zero vision rows); their float32 checks at depth
+#: HYBRID_CHECK_LAYERS (two groups of six Mamba2 blocks) and
+#: VLM_CHECK_LAYERS (random vision rows) against the plain versions; one
+#: Mamba2 block at full width, float32, on the card against the CPU over
+#: MAMBA_CHECK_ROWS prefill rows (a whole 256-row chunk and a padded one)
+#: within MAMBA_F32_ATOL (the card's and the CPU's sums in other orders)
+HYBRID_ARCH, HYBRID_OVERRIDES = "zamba2-2.7b", {}
+HYBRID_CHECK_LAYERS = 12
+MAMBA_CHECK_ROWS, MAMBA_F32_ATOL = 300, 2e-3
+VLM_ARCH, VLM_OVERRIDES = "paligemma-3b", {}
+VLM_CHECK_LAYERS = 2
 #: cam_serve: CAM_CLIENTS client threads, each submitting CAM_REQUESTS
 #: requests of CAM_ROWS consecutive query rows one after another
 #: (8 x 6 x 13 = the 624 KNN queries); the faulted packed server's model;
@@ -505,6 +538,15 @@ class Smoke:
         self.kernels = {}        # name -> record for the final line
         self.failed = []
         self.topk = {}           # phase -> (values, indices) of its result
+        self.phase_peak = 0      # bytes: the phase's peak before its resets
+
+    def reset_peak(self):
+        """Start a new peak-memory reading inside a phase (a model's own
+        peak); the phase's peak keeps the larger of the readings."""
+        torch = self.torch
+        self.phase_peak = max(self.phase_peak,
+                              torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
 
     # -- the main path, counted ---------------------------------------------
 
@@ -1360,7 +1402,7 @@ def phase_hdc_mnist(s: Smoke):
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
     mem0 = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
+    s.reset_peak()
     clf = HdcClassifier(xtr.shape[1], HDC_CLASSES, dim=HDC_DIM,
                         n_levels=HDC_LEVELS, seed=0)
     item = clf.item
@@ -3890,11 +3932,17 @@ def sdpa_call(q, k, v, kw):
     kv_len = kw.get("kv_len") or k.shape[1]
     qt = q.transpose(1, 2)
     kt, vt = k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
-    # one decode row sees every cached row; a prefill is causal from 0
+    # one decode row sees every cached row; a prefill is causal from 0,
+    # a prefix-LM's with its prefix visible to every row (a boolean mask)
     causal = s > 1 and kw.get("causal", True)
-    if causal and (kw.get("q_start", 0) or kv_len != s
-                   or kw.get("prefix_len", 0)):
+    if causal and (kw.get("q_start", 0) or kv_len != s):
         raise ValueError(f"sdpa_call: no yardstick for {kw}")
+    prefix = kw.get("prefix_len", 0) if causal else 0
+    if prefix:
+        ki = torch.arange(kv_len, device=q.device)
+        mask = (ki[None, :] <= ki[:s, None]) | (ki[None, :] < prefix)
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True)
 
@@ -4104,7 +4152,7 @@ def phase_lm_serve(s: Smoke):
 
     # (a) serve, full model, bf16 ------------------------------------------
     cfg = dataclasses.replace(get_config(LM_ARCH), **LM_OVERRIDES)
-    torch.cuda.reset_peak_memory_stats()
+    s.reset_peak()
     params, init_ms, n_params, params_gb = lm_params(cfg)
     dev = params["embed"]["tok"].device
     rng = np.random.default_rng(0)
@@ -4521,7 +4569,7 @@ def phase_moe_serve(s: Smoke):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT)
                for _ in range(SERVE_REQUESTS)]
-    torch.cuda.reset_peak_memory_stats()
+    s.reset_peak()
     deepseek, checks, b7, b7_shapes = _moe_serve_uncut(s, cfg, prompts)
     b2_launches = deepseek["runs"]["cam"]["launches"]["fused_topk"]
     b7_launches = sum(r["launches"]["flash_attention"]
@@ -4551,7 +4599,7 @@ def phase_moe_serve(s: Smoke):
                                **PHI_OVERRIDES)
     params, init_ms, n_params, params_gb = lm_params(pcfg)
     dev = params["embed"]["tok"].device
-    torch.cuda.reset_peak_memory_stats()
+    s.reset_peak()
     rng = np.random.default_rng(1)
     pprompts = [rng.integers(1, pcfg.vocab, SERVE_PROMPT)
                 for _ in range(PHI_REQUESTS)]
@@ -4603,7 +4651,7 @@ def phase_audio_serve(s: Smoke):
     from repro_torch.models import model as tm
 
     cfg = dataclasses.replace(get_config(AUDIO_ARCH), **AUDIO_OVERRIDES)
-    torch.cuda.reset_peak_memory_stats()
+    s.reset_peak()
     params, init_ms, n_params, params_gb = lm_params(cfg)
     dev = params["embed"]["tok"].device
     rng = np.random.default_rng(0)
@@ -4705,7 +4753,7 @@ def phase_ssm_serve(s: Smoke):
     from repro_torch.models import model as tm
 
     cfg = dataclasses.replace(get_config(SSM_ARCH), **SSM_OVERRIDES)
-    torch.cuda.reset_peak_memory_stats()
+    s.reset_peak()
     params, init_ms, n_params, params_gb = lm_params(cfg)
     dev = params["embed"]["tok"].device
     rng = np.random.default_rng(0)
@@ -4770,6 +4818,234 @@ def phase_ssm_serve(s: Smoke):
                        "decode_steps": CHECK_DECODE,
                        "decode_vs_forward_max_abs_diff": decode_vs_forward,
                        "card_vs_cpu_max_abs_diff": card_vs_cpu}})
+
+
+# ---------------------------------------------------------------------------
+# the hybrid and vlm families: B7 at head dims 80 and 256
+# ---------------------------------------------------------------------------
+
+
+def _serve_and_capture(s: Smoke, phase, cfg, prompts, extra, attn_layers):
+    """Serve ``prompts`` (SERVE_NEW new tokens each, decode batch
+    SERVE_BATCH) with launches exact: ``attn_layers`` B7 calls a prefill
+    or decode step.  Then B7's operands of attention layer 0 in an
+    untimed prefill of request 0's prompt (``extra(device)`` beside its
+    tokens) and in its first decode step, each held to its plain version
+    and the recurrence and timed beside SDPA; the step times and
+    profiles; the peak memory of the phase so far.  Returns (log,
+    launches, checks, timed shapes); frees the parameters."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as tm
+    params, init_ms, n_params, params_gb = lm_params(cfg)
+    dev = params["embed"]["tok"].device
+    max_len = SERVE_PROMPT + SERVE_NEW + 1
+    tokens, stats, counts = serve_requests(cfg, params, prompts, SERVE_NEW,
+                                           SERVE_BATCH, max_len)
+    calls = stats["prefills"] + stats["decode_steps"]
+    s.exactly(phase, counts, {"flash_attention": attn_layers * calls})
+    toks = torch.as_tensor(prompts[0], device=dev)[None]
+    batch = {"tokens": toks, **extra(dev)}
+    with intercept(fa, "flash_attention", operands(
+            {0: "prefill", attn_layers: "decode"})) as kept:
+        lg, cache = tm.prefill(params, cfg, batch,
+                               tm.init_decode_cache(cfg, 1, max_len))
+        tm.decode_step(params, cfg, torch.argmax(lg[:, -1], -1)[:, None],
+                       cache)
+    captured = {name: ops for name, ops in kept if name}
+    if len(kept) != 2 * attn_layers or len(captured) != 2:
+        raise RuntimeError(f"{phase}: captured {sorted(captured)} of "
+                           f"{len(kept)} B7 calls")
+    if int(torch.argmax(lg[0, -1])) != tokens[0][0]:
+        raise RuntimeError(f"{phase}: the capture run's first token is not "
+                           f"the served one")
+    del cache
+    steps = lm_step_times(s, cfg, params, batch, max_len)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    short = cfg.name.split("-")[0]
+    checks = {f"{short}_{n}": b7_check(f"{phase} {n}", *ops)
+              for n, ops in captured.items()}
+    shapes = {f"{short}_{n}": b7_timing(*ops) for n, ops in captured.items()}
+    del params, captured, kept
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": cfg.n_heads,
+            "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+            "attention_layers": attn_layers,
+            "param_count_config": cfg.param_count(), "params": n_params,
+            "params_gb": params_gb, "init_ms": init_ms,
+            "requests": len(prompts), "prompt": SERVE_PROMPT,
+            "max_new": SERVE_NEW, "batch": SERVE_BATCH,
+            "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
+            "stats": {k: stats[k] for k in ("prefills", "decode_steps",
+                                            "tokens")},
+            "b7_launches": counts["flash_attention"],
+            "tokens_first_request": tokens[0][:8], **steps,
+            "peak_gb": peak_gb, "b7_checks": checks,
+            "b7_shapes": shapes}, counts, checks, shapes
+
+
+def mamba_block_card_vs_cpu(cfg, seed, card):
+    """One Mamba2 block of ``cfg`` (float32, full width) on the card
+    against the same block on the CPU: a ``MAMBA_CHECK_ROWS``-row prefill
+    (whole chunks and a padded one) from a zero state, then two decode
+    steps; the largest difference of outputs and states, each within
+    ``MAMBA_F32_ATOL``."""
+    import torch
+    from repro_torch.models import blocks as tb
+    from repro_torch.models import mamba2 as tmb
+    from repro_torch.models import model as tm
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    p_cpu = tb.init_mamba_block(gen, cfg)
+    p_cpu["mamba"]["A_log"].uniform_(-1.0, 1.0, generator=gen)
+    p_cpu["mamba"]["dt_bias"].uniform_(-1.0, 1.0, generator=gen)
+    xs = [torch.randn((1, n, cfg.d_model), generator=gen)
+          for n in (MAMBA_CHECK_ROWS, 1, 1)]
+
+    def run(dev):
+        p = tm._tree_map(lambda t: t.to(dev), p_cpu)
+        st = tmb.init_mamba_state(cfg, 1, device=dev)
+        outs = []
+        for x in xs:
+            y, st = tb.apply_mamba_block(p, x.to(dev), cfg, state=st)
+            outs.append(y.cpu())
+        return outs + [st["ssm"].cpu(), st["conv"].cpu()]
+
+    diffs = [float((a - b).abs().max())
+             for a, b in zip(run(card), run(torch.device("cpu")))]
+    if not max(diffs) <= MAMBA_F32_ATOL:
+        raise RuntimeError(f"hybrid_serve: a Mamba2 block on the card is off "
+                           f"the CPU by {diffs} (bound {MAMBA_F32_ATOL})")
+    return max(diffs)
+
+
+def phase_hybrid_serve(s: Smoke):
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tm
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), **HYBRID_OVERRIDES)
+    ng, per = tm._groups(cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT)
+               for _ in range(SERVE_REQUESTS)]
+    served, counts, checks, shapes = _serve_and_capture(
+        s, "hybrid_serve", cfg, prompts, lambda dev: {}, ng)
+
+    # float32 at depth HYBRID_CHECK_LAYERS (two groups): the card's B7
+    # against its plain version, then one Mamba2 block against the CPU
+    cfg32 = dataclasses.replace(cfg, n_layers=HYBRID_CHECK_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tm.init_params(cfg32, seed=0)
+    dev = p32["embed"]["tok"].device
+    t = torch.as_tensor(prompts[0][:CHECK_PREFILL + CHECK_DECODE],
+                        device=dev)[None]
+    counts32, diffs32 = lm_f32_against_plain(
+        "hybrid_serve float32", cfg32, p32, {"tokens": t}, CHECK_PREFILL,
+        CHECK_DECODE)
+    ng32 = tm._groups(cfg32)[0]
+    s.exactly("hybrid_serve float32", counts32,
+              {"flash_attention": ng32 * (2 + CHECK_DECODE)})
+    del p32
+    torch.cuda.empty_cache()
+    block_diff = mamba_block_card_vs_cpu(cfg32, 5, dev)
+    _record_b7(s, counts["flash_attention"], checks, shapes)
+    log({"phase": "hybrid_serve", "ok": True, **served,
+         "groups": ng, "mamba_blocks_per_group": per,
+         "f32_check": {"layers": HYBRID_CHECK_LAYERS, "groups": ng32,
+                       "prefill": CHECK_PREFILL, "decode_steps": CHECK_DECODE,
+                       "launches": counts32, "max_abs_diff": diffs32,
+                       "mamba_block_card_vs_cpu": block_diff,
+                       "mamba_block_rows": MAMBA_CHECK_ROWS}})
+
+
+def phase_vlm_serve(s: Smoke):
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tm
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), **VLM_OVERRIDES)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT)
+               for _ in range(SERVE_REQUESTS)]
+    served, counts, checks, shapes = _serve_and_capture(
+        s, "vlm_serve", cfg, prompts, lambda dev: {"vision": torch.zeros(
+            # the Server's stub: zero patch embeddings
+            (1, cfg.n_vision_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device=dev)}, cfg.n_layers)
+    if checks["paligemma_prefill"]["kw"].get("prefix_len") != \
+            cfg.n_vision_tokens:
+        raise RuntimeError(f"vlm_serve: the prefill's B7 call had "
+                           f"{checks['paligemma_prefill']['kw']}")
+
+    # float32 at depth VLM_CHECK_LAYERS over seeded random vision rows
+    cfg32 = dataclasses.replace(cfg, n_layers=VLM_CHECK_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tm.init_params(cfg32, seed=0)
+    dev = p32["embed"]["tok"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    t = torch.as_tensor(prompts[0][:CHECK_PREFILL + CHECK_DECODE],
+                        device=dev)[None]
+    vis = torch.randn((1, cfg.n_vision_tokens, cfg.d_model), generator=gen,
+                      device=dev)
+    counts32, diffs32 = lm_f32_against_plain(
+        "vlm_serve float32", cfg32, p32, {"tokens": t, "vision": vis},
+        CHECK_PREFILL, CHECK_DECODE)
+    s.exactly("vlm_serve float32", counts32,
+              {"flash_attention": VLM_CHECK_LAYERS * (2 + CHECK_DECODE)})
+    del p32
+    torch.cuda.empty_cache()
+    _record_b7(s, counts["flash_attention"], checks, shapes)
+    log({"phase": "vlm_serve", "ok": True, **served,
+         "vision_tokens": cfg.n_vision_tokens,
+         "f32_check": {"layers": VLM_CHECK_LAYERS, "prefill": CHECK_PREFILL,
+                       "decode_steps": CHECK_DECODE, "launches": counts32,
+                       "max_abs_diff": diffs32}})
+
+
+def release_phase_state(torch, top: int = 6):
+    """What a phase leaves allocated on the card, and its release: the
+    engine's process-wide plan cache (each plan's memo of prepared
+    galleries: 0.74 GB for a float KNN gallery) is cleared, so no phase
+    inherits an earlier one's.  Reports the GB left before and after,
+    the plans that were cached and the largest CUDA tensors still
+    reachable before the release."""
+    import gc
+    import warnings
+    from repro_torch.core import clear_plan_cache, plan_cache_stats
+    gc.collect()
+    left_gb = torch.cuda.memory_allocated() / 1e9
+    sizes = {}
+    with warnings.catch_warnings():      # deprecated names met on the way
+        warnings.simplefilter("ignore")
+        for obj in gc.get_objects():
+            try:
+                if not (isinstance(obj, torch.Tensor) and obj.is_cuda):
+                    continue
+                key = (tuple(obj.shape),
+                       str(obj.dtype).replace("torch.", ""))
+                n, b = sizes.get(key, (0, 0))
+                sizes[key] = (n + 1, b + obj.numel() * obj.element_size())
+            except Exception:   # noqa: BLE001 — a half-built object
+                continue
+    largest = sorted(sizes.items(), key=lambda kv: -kv[1][1])[:top]
+    plans = plan_cache_stats()["plans"]
+    clear_plan_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"left_gb": left_gb, "plans_cached": plans,
+            "largest_left": [{"shape": list(k[0]), "dtype": k[1],
+                              "count": n, "gb": b / 1e9}
+                             for k, (n, b) in largest],
+            "after_release_gb": torch.cuda.memory_allocated() / 1e9}
 
 
 def main() -> None:
@@ -4840,13 +5116,18 @@ def main() -> None:
               ("lm_serve", lambda: phase_lm_serve(s)),
               ("moe_serve", lambda: phase_moe_serve(s)),
               ("audio_serve", lambda: phase_audio_serve(s)),
-              ("ssm_serve", lambda: phase_ssm_serve(s))]
+              ("ssm_serve", lambda: phase_ssm_serve(s)),
+              ("hybrid_serve", lambda: phase_hybrid_serve(s)),
+              ("vlm_serve", lambda: phase_vlm_serve(s))]
     wanted = sys.argv[1:]
     unknown = set(wanted) - {name for name, _ in phases}
     if unknown:
         fail(f"unknown phases {sorted(unknown)}")
     phases = [(n, run) for n, run in phases if not wanted or n in wanted]
     for name, run in phases:
+        torch.cuda.reset_peak_memory_stats()
+        s.phase_peak = 0
+        start_gb = torch.cuda.memory_allocated() / 1e9
         t0 = time.perf_counter()
         try:
             run()
@@ -4855,8 +5136,12 @@ def main() -> None:
             s.failed.append(name)
             log({"phase": name, "ok": False, "error": repr(e)})
         finally:
-            torch.cuda.empty_cache()
+            peak_gb = max(s.phase_peak,
+                          torch.cuda.max_memory_allocated()) / 1e9
+            left = release_phase_state(torch)
         log({"phase_seconds": {name: time.perf_counter() - t0}})
+        log({"phase_memory": {name: {"start_gb": start_gb, "peak_gb": peak_gb,
+                                     **left}}})
     if s.failed:
         fail(f"failed phases: {s.failed}")
     order = ["fused_topk_packed", "fused_topk_packed_ternary", "fused_topk",

@@ -28,13 +28,15 @@
 // * bf16, more than 64 query rows per kv head (S * H / KV): prefill,
 //   flash_fwd_wgmma_kernel.  A block owns 128 query rows of one head, two
 //   consumer warpgroups of 64 rows, and one producer warp that keeps a
-//   3-stage ring of 128-row K / V tiles full by TMA (one mbarrier per
-//   stage for "full", one for "empty"; the tensor maps cover the strided
+//   3-stage ring of 128-row K / V tiles (at dh 256 a 2-stage ring of
+//   64-row tiles: shared memory and registers) full by TMA (one mbarrier
+//   per stage for "full", one for "empty"; the tensor maps cover the strided
 //   (B, T, KV, dh) view with T cut to kv_len, so rows past it read as
 //   zeros and are never fetched) and hands its registers to the consumers
-//   (setmaxnreg).  S = Q K^T is wgmma m64n128k16 with Q and K from
-//   shared memory (K-major, swizzled as TMA wrote them: 128 B rows at
-//   dh >= 64, 64 B at dh 32, 32 B at dh 16); the score accumulators,
+//   (setmaxnreg).  S = Q K^T is wgmma m64n128k16 (n64 at dh 256) with Q
+//   and K from shared memory (K-major, swizzled as TMA wrote them: 128 B
+//   rows at dh 64, 128 and 256, 64 B at dh 32, 32 B at dh 16 and, in five
+//   16-column atoms, at dh 80); the score accumulators,
 //   rounded to bf16, are the A registers of O += P V (wgmma with V
 //   through the transposed-B descriptor).  A tile's softmax runs while the
 //   previous tile's P V is on the tensor cores, and the two warpgroups
@@ -51,11 +53,12 @@
 //   one kv head of one batch row and folds its H / KV query heads times
 //   S rows into the rows of one or four m16 tiles, so every K / V byte is
 //   read once per kv head.  The kv walk is cut into splits of whole
-//   64-row tiles, about two blocks an SM; each split runs the recurrence
-//   from m = -1e30 over its tiles through a 3-stage cp.async ring (no TMA:
-//   a decode call encodes no tensor map) with mma.sync m16n8k16, its 4
-//   warps taking 16 score columns and a quarter of dh each, and writes
-//   (m, l, acc) to float32 scratch.  The combine kernel merges the
+//   64-row tiles, about two blocks an SM (one at dh 256); each split runs
+//   the recurrence from m = -1e30 over its tiles through a 3-stage (dh 256:
+//   2-stage) cp.async ring (no TMA: a decode call encodes no tensor map)
+//   with mma.sync m16n8k16, its 4 warps taking 16 score columns and a
+//   quarter of dh each (whole 8-column tiles: at dh 80, 24, 24, 24, 8),
+//   and writes (m, l, acc) to float32 scratch.  The combine kernel merges the
 //   splits: m* = max m_i, l = sum l_i e^(m_i - m*), acc likewise,
 //   out = acc / max(l, 1e-30).  A split with no visible column for a row
 //   contributes m = -1e30, l = 0, acc = 0.  What bounds it: the bytes of
@@ -63,15 +66,17 @@
 // * float32 q (the parity checks; over a float32 or the float32 model's
 //   bf16 cache): flash_fwd_kernel, 256 threads of float32 FMA on the CUDA
 //   cores (products of bf16 values are exact in float32).  Q, K, V and the
-//   probability tile are staged as float32 (118 KB at dh 128, one block per
-//   SM); thread (ty, tx) holds rows 4ty..4ty+3 against columns tx + 16c of
-//   the scores and tx + 16n of the accumulator; row max and sum reduce
-//   across the 16 threads of a half-warp.
+//   probability tile are staged as float32 (118 KB at dh 128, 212 KB at
+//   dh 256, one block per SM); thread (ty, tx) holds rows 4ty..4ty+3
+//   against columns tx + 16c of the scores and tx + 16n of the
+//   accumulator; row max and sum reduce across the 16 threads of a
+//   half-warp.
 //
-// The kv tile width of each route (128, 64, 64) is the recurrence's
-// block_k: a row's running max, and so the rounding point of its
-// probabilities, moves at tile (and split) boundaries, which the wrapper
-// exposes so that the checks follow the kernel.
+// Head dims: 16, 32, 64, 80, 128, 256.  The kv tile width of each route
+// (128, or 64 at dh 256; 64; 64) is the recurrence's block_k: a row's
+// running max, and so the rounding point of its probabilities, moves at
+// tile (and split) boundaries, which the wrapper exposes so that the
+// checks follow the kernel.
 #include <cuda.h>          // CUtensorMap; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -336,24 +341,35 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 namespace wg {
 
 constexpr int kBlockQ = 128;       // two consumer warpgroups of 64 rows
-constexpr int kBlockK = 128;       // kv rows per tile (the Pallas default)
-constexpr int kStages = 3;         // K / V tiles in flight
 constexpr int kThreads = 384;      // warpgroups 0-1 consume, 2 produces
 constexpr int kConsumerWarps = 8;
 
-// Shared-memory geometry of a [128 rows][DH] bf16 tile as TMA writes it:
-// DH / kAtomCols column atoms, each [128 rows][kSwizzle bytes], swizzled.
+// Shared-memory geometry of the [rows][DH] bf16 tiles as TMA writes them:
+// DH / kAtomCols column atoms, each [rows][kSwizzle bytes], swizzled, with
+// the widest swizzle whose atom divides a row (dh 80: five 32-byte atoms;
+// 128 B and 64 B atoms would cut a row).  Q tiles have kBlockQ rows, K / V
+// tiles kBlockK: 128 (the Pallas default) in a 3-stage ring, but 64 in 2
+// stages at dh 256, where 128-row tiles would neither fit shared memory
+// (7 x 64 KB) nor leave the consumers the registers for their scores next
+// to a 128-register accumulator.
 template <int DH>
 struct Geo {
-  static constexpr int kSwizzle = DH * 2 >= 128 ? 128 : DH * 2;
+  static constexpr int kSwizzle = DH * 2 % 128 == 0 ? 128 : DH * 2 % 64 == 0 ? 64 : 32;
   static constexpr int kAtomCols = kSwizzle / 2;
   static constexpr int kAtoms = DH / kAtomCols;
-  static constexpr int kAtomBytes = 128 * kSwizzle;
-  static constexpr int kTileBytes = kAtoms * kAtomBytes;   // 128 x DH x 2
+  static_assert(kAtoms * kAtomCols == DH, "a head dim of whole 16-column atoms");
+  static constexpr int kBlockK = DH > 128 ? 64 : 128;
+  static constexpr int kStages = DH > 128 ? 2 : 3;
+  static constexpr int kQAtomBytes = kBlockQ * kSwizzle;
+  static constexpr int kKAtomBytes = kBlockK * kSwizzle;
+  static constexpr int kQTileBytes = kAtoms * kQAtomBytes;   // 128 x DH x 2
+  static constexpr int kKTileBytes = kAtoms * kKAtomBytes;   // kBlockK x DH x 2
   // wgmma descriptor layout type: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
   static constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
   // Q, kStages K and V tiles, 1 KB of alignment slack, the barriers
-  static constexpr size_t kSmem = size_t(1 + 2 * kStages) * kTileBytes + 1024 + 64;
+  static constexpr size_t kSmem =
+      size_t(kQTileBytes) + size_t(2 * kStages) * kKTileBytes + 1024 + 64;
+  static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
 // wgmma shared-memory descriptor: start address, leading and stride byte
@@ -453,6 +469,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// The same with a 64-row B (the dh 256 kv tile).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x N, float32) += A B for a bf16 A (64 x 16) in registers (the
 // m16n8k16 A fragment of each warp's 16 rows) and B (16 x N) in shared
 // memory, N-major (transposed; descriptor db).
@@ -501,6 +535,26 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
@@ -526,54 +580,104 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (N == 16) wgmma_rs_n16(d, a, db);
   else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
 }
 
 // S = Q K^T for one warpgroup's 64 rows (at q_rows) and a K tile, over dh
 // in k-steps of 16 columns (32 bytes of an atom row).
 template <int DH>
-__device__ __forceinline__ void start_s(float (&sc)[64], uint32_t q_rows,
-                                        uint32_t kt) {
+__device__ __forceinline__ void start_s(float (&sc)[Geo<DH>::kBlockK / 2],
+                                        uint32_t q_rows, uint32_t kt) {
   using G = Geo<DH>;
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
-    const uint32_t off = (16 * kk / G::kAtomCols) * G::kAtomBytes +
-                         (16 * kk % G::kAtomCols) * 2;
-    wgmma_ss_n128(sc, desc<DH>(q_rows + off, 16, 8 * G::kSwizzle),
-                  desc<DH>(kt + off, 16, 8 * G::kSwizzle), kk > 0);
+    const uint32_t atom = 16 * kk / G::kAtomCols, col = (16 * kk % G::kAtomCols) * 2;
+    wgmma_ss<G::kBlockK>(sc, desc<DH>(q_rows + atom * G::kQAtomBytes + col, 16, 8 * G::kSwizzle),
+                         desc<DH>(kt + atom * G::kKAtomBytes + col, 16, 8 * G::kSwizzle),
+                         kk > 0);
   }
 }
 
 // O += P V: V's rows 16kk..16kk+15 of every atom, N-major.
 template <int DH>
 __device__ __forceinline__ void start_pv(float (&acc)[DH / 2],
-                                         const uint32_t (&pa)[kBlockK / 16][4],
+                                         const uint32_t (&pa)[Geo<DH>::kBlockK / 16][4],
                                          uint32_t vt) {
   using G = Geo<DH>;
 #pragma unroll
-  for (int kk = 0; kk < kBlockK / 16; ++kk)
+  for (int kk = 0; kk < G::kBlockK / 16; ++kk)
     wgmma_rs<DH>(acc, pa[kk],
-                 desc<DH>(vt + kk * 16 * G::kSwizzle, G::kAtomBytes, 8 * G::kSwizzle));
+                 desc<DH>(vt + kk * 16 * G::kSwizzle, G::kKAtomBytes, 8 * G::kSwizzle));
 }
 
 // The probabilities (already e^(S - m), float), rounded to bf16 into the A
 // registers of P V: k-step kk covers score blocks 2kk and 2kk + 1.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBlockK / 16][4],
-                                       const float (&sc)[64]) {
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (&sc)[BK / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < kBlockK / 16; ++kk)
+  for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 }
 
 // One thread's two rows: positions, masks, and the running max and sum
-// (this lane's share of each row's sum).
+// (this lane's share of each row's sum), over kv tiles of BK columns.
+template <int BK>
 struct Rows {
   int p0, p1, full_end, kv_len, prefix_len, causal;
   float m0 = kNegBig, m1 = kNegBig, l0 = 0.f, l1 = 0.f;
@@ -582,12 +686,12 @@ struct Rows {
   // that straddles full_end is masked; hidden scores become -inf), move
   // the running max, and replace each score by e^(score - max); a0, a1
   // are the rows' rescale factors.
-  __device__ __forceinline__ void softmax(float (&sc)[64], int t0, float scale,
+  __device__ __forceinline__ void softmax(float (&sc)[BK / 2], int t0, float scale,
                                           float& a0, float& a1, int t) {
     float mx0 = -INFINITY, mx1 = -INFINITY;
-    if (t0 + kBlockK > full_end) {               // one branch for the tile
+    if (t0 + BK > full_end) {                    // one branch for the tile
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = t0 + 8 * j + 2 * t + e;
@@ -599,10 +703,10 @@ struct Rows {
         }
     } else {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] *= scale;
+      for (int i = 0; i < BK / 2; ++i) sc[i] *= scale;
     }
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
       mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
@@ -618,7 +722,7 @@ struct Rows {
     m1 = n1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         sc[4 * j + e] = expf(sc[4 * j + e] - n0);
@@ -646,12 +750,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        bf16* __restrict__ o, int S, int H, int group, int causal,
                        int prefix_len, int kv_len, int q_start, float scale) {
   using G = Geo<DH>;
+  constexpr int kBlockK = G::kBlockK, kStages = G::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms
   const uint32_t sq = base;
-  const uint32_t sk = base + G::kTileBytes;                     // + stage tile
-  const uint32_t sv = sk + kStages * G::kTileBytes;
-  const uint32_t bars = sv + kStages * G::kTileBytes;
+  const uint32_t sk = base + G::kQTileBytes;                    // + stage tile
+  const uint32_t sv = sk + kStages * G::kKTileBytes;
+  const uint32_t bars = sv + kStages * G::kKTileBytes;
   const uint32_t qbar = bars + 16 * kStages;
   // full[s] = bars + 8 s, empty[s] = bars + 8 (kStages + s)
 
@@ -679,18 +784,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256) {
       const int kvh = h / group;
-      mbar_expect_tx(qbar, G::kTileBytes);
+      mbar_expect_tx(qbar, G::kQTileBytes);
 #pragma unroll
       for (int a = 0; a < G::kAtoms; ++a)
-        tma_load_4d(sq + a * G::kAtomBytes, &tq, qbar, a * G::kAtomCols, h, s0, b);
+        tma_load_4d(sq + a * G::kQAtomBytes, &tq, qbar, a * G::kAtomCols, h, s0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages;
         const uint32_t full = bars + 8 * st;
         mbar_wait(bars + 8 * (kStages + st), ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * G::kTileBytes);
+        mbar_expect_tx(full, 2 * G::kKTileBytes);
 #pragma unroll
         for (int a = 0; a < G::kAtoms; ++a) {
-          const uint32_t off = st * G::kTileBytes + a * G::kAtomBytes;
+          const uint32_t off = st * G::kKTileBytes + a * G::kKAtomBytes;
           tma_load_4d(sk + off, &tk, full, a * G::kAtomCols, kvh, i * kBlockK, b);
           tma_load_4d(sv + off, &tv, full, a * G::kAtomCols, kvh, i * kBlockK, b);
         }
@@ -709,7 +814,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       return;
     }
     const int r0 = 64 * wgi + 16 * warp + g;                // rows r0, r0 + 8
-    Rows rw;
+    Rows<kBlockK> rw;
     rw.p0 = q_start + s0 + r0;                              // their positions
     rw.p1 = rw.p0 + 8;
     // columns visible to every row of this warpgroup: [0, full_end)
@@ -722,7 +827,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     float acc[DH / 2];
 #pragma unroll
     for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
-    float sc[64];
+    float sc[kBlockK / 2];
     uint32_t pa[kBlockK / 16][4];
     const uint32_t q_rows = sq + 64 * wgi * G::kSwizzle;
     mbar_wait(qbar, 0);
@@ -754,7 +859,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(sc);
     float a0, a1;
     rw.softmax(sc, 0, scale, a0, a1, t);
-    pack_p(pa, sc);
+    pack_p<kBlockK>(pa, sc);
     for (int i = 1; i < n_tiles; ++i) {
       const int st = i % kStages, prev = (i - 1) % kStages;
       mbar_wait(bars + 8 * st, (i / kStages) & 1);
@@ -762,9 +867,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(acc);
       turn();
       wgmma_fence();
-      start_s<DH>(sc, q_rows, sk + st * G::kTileBytes);
+      start_s<DH>(sc, q_rows, sk + st * G::kKTileBytes);
       wgmma_commit();
-      start_pv<DH>(acc, pa, sv + prev * G::kTileBytes);
+      start_pv<DH>(acc, pa, sv + prev * G::kKTileBytes);
       wgmma_commit();
       pass(false);
       wgmma_wait<1>();               // S_i is in
@@ -783,14 +888,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           acc[4 * n + 3] *= a1;
         }
       }
-      pack_p(pa, sc);
+      pack_p<kBlockK>(pa, sc);
     }
     {
       const int last = (n_tiles - 1) % kStages;
       fence_regs(acc);
       turn();
       wgmma_fence();
-      start_pv<DH>(acc, pa, sv + last * G::kTileBytes);
+      start_pv<DH>(acc, pa, sv + last * G::kKTileBytes);
       wgmma_commit();
       pass(true);
       wgmma_wait<0>();
@@ -812,7 +917,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     unsigned char* qs = smem_raw + (sq - smem_u32(smem_raw)) + 64 * wgi * G::kSwizzle;
     constexpr int kChunks = G::kSwizzle / 16;        // 16-byte chunks a row
     auto chunk = [&](int r, int c) {                 // row r, 8-column chunk c
-      return qs + (c / kChunks) * G::kAtomBytes + r * G::kSwizzle +
+      return qs + (c / kChunks) * G::kQAtomBytes + r * G::kSwizzle +
              ((c % kChunks) ^ (r % kChunks)) * 16;
     };
 #pragma unroll
@@ -858,11 +963,11 @@ EncodeTiled encoder() {
 }
 
 // A tensor map of a (B, L, NH, DH) bf16 view with strides (sb, sl, sh, 1)
-// elements, boxes of [128 rows][cols] of one head; rows at or past L read
+// elements, boxes of [rows][cols] of one head; rows at or past L read
 // as zeros.  A stride of an extent-1 dimension is never used: it is given
 // a legal value.
 bool encode(CUtensorMap* map, const void* ptr, int B, int L, int NH, int DH,
-            long long sb, long long sl, long long sh, int cols,
+            long long sb, long long sl, long long sh, int cols, int rows,
             CUtensorMapSwizzle swizzle) {
   EncodeTiled enc = encoder();
   if (!enc) return false;
@@ -874,7 +979,7 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int L, int NH, int DH,
     strides[i] = cuuint64_t(2 * (dims[i + 1] == 1 ? contiguous : elem[i]));
     contiguous = (dims[i + 1] == 1 ? contiguous : elem[i]) * (long long)dims[i + 1];
   }
-  cuuint32_t box[4] = {cuuint32_t(cols), 1, 128, 1};
+  cuuint32_t box[4] = {cuuint32_t(cols), 1, cuuint32_t(rows), 1};
   cuuint32_t estride[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
              strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
@@ -891,9 +996,11 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                                 : G::kSwizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                     : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, q, B, S, H, DH, st[0], st[1], st[2], G::kAtomCols, sw) ||
-      !encode(&tk, k, B, kv_len, KV, DH, st[3], st[4], st[5], G::kAtomCols, sw) ||
-      !encode(&tv, v, B, kv_len, KV, DH, st[6], st[7], st[8], G::kAtomCols, sw))
+  if (!encode(&tq, q, B, S, H, DH, st[0], st[1], st[2], G::kAtomCols, wg::kBlockQ, sw) ||
+      !encode(&tk, k, B, kv_len, KV, DH, st[3], st[4], st[5], G::kAtomCols, G::kBlockK,
+              sw) ||
+      !encode(&tv, v, B, kv_len, KV, DH, st[6], st[7], st[8], G::kAtomCols, G::kBlockK,
+              sw))
     return int(cudaErrorInvalidValue);
   auto kernel = wg::flash_fwd_wgmma_kernel<DH>;
   static std::atomic<uint64_t> ready{0};
@@ -915,15 +1022,18 @@ namespace sk {
 
 constexpr int kThreads = 128;      // 4 warps
 constexpr int kBlockK = 64;        // kv rows per tile; 16 score columns a warp
-constexpr int kStages = 3;         // cp.async ring depth: two blocks an SM at dh 128
 constexpr int kLdp = kBlockK + 8;  // padded row of the probability tile
 
+// cp.async ring depth: 3 (two blocks an SM at dh 128), but 2 at dh 256,
+// where three stages of four row tiles (242 KB) would not fit one block.
 template <int DH, int RT>
 struct Smem {
+  static constexpr int kStages = DH > 128 ? 2 : 3;
   static constexpr int kLd = DH + 8;   // padded tile row (bf16): no bank conflicts
   static constexpr size_t kBytes =
       sizeof(bf16) * (RT * 16 * kLd + 2 * kStages * kBlockK * kLd + RT * 16 * kLdp) +
       sizeof(float) * 2 * 4 * RT * 16;
+  static_assert(kBytes <= 232448, "shared memory of one block");
 };
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
@@ -991,7 +1101,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // r = s * group + j being query row s of head kvh * group + j.  RT m16
 // row tiles cover R (rows past R are zero).  Lane (g, t) holds rows
 // 16rt + g and 16rt + g + 8.  Warp w computes the scores of tile columns
-// [16w, 16w + 16) and the output columns [8 kNpw w, 8 kNpw (w + 1)); row
+// [16w, 16w + 16) and the output columns [8 kNpw w, 8 kNpw (w + 1)) below
+// dh (kNpw = ceil(dh / 32) 8-column tiles: at dh 80, 3, 3, 3 and 1); row
 // maxima and sums meet in shared memory, the probabilities too (the A
 // operand of P V).  Writes the split's m, l (float32) and unnormalised acc
 // to `part`: acc [B][KV][splits][R][DH], then m and l [B][KV][splits][R].
@@ -1006,7 +1117,8 @@ flash_fwd_splitkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          float scale) {
   constexpr int kLd = DH + 8;
   constexpr int kRows = 16 * RT;
-  constexpr int kNpw = DH >= 32 ? DH / 32 : 1;     // 8-column output tiles a warp
+  constexpr int kStages = Smem<DH, RT>::kStages;
+  constexpr int kNpw = DH >= 32 ? (DH + 31) / 32 : 1;   // 8-column output tiles a warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kRows][kLd]
   bf16* ks = qs + kRows * kLd;                    // [kStages][kBlockK][kLd]
@@ -1175,14 +1287,16 @@ flash_fwd_splitkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t vb0[kNpw], vb1[kNpw];
 #pragma unroll
         for (int n = 0; n < kNpw; ++n)
-          ldmatrix_x2_trans(vb0[n], vb1[n],
-                            vt + (16 * kk + (lane & 15)) * kLd + col0 + 8 * n);
+          if (col0 + 8 * n < DH)
+            ldmatrix_x2_trans(vb0[n], vb1[n],
+                              vt + (16 * kk + (lane & 15)) * kLd + col0 + 8 * n);
 #pragma unroll
         for (int rt = 0; rt < RT; ++rt) {
           uint32_t a[4];
           load_a(a, ps + 16 * rt * kLdp + 16 * kk, kLdp, g, t);
 #pragma unroll
-          for (int n = 0; n < kNpw; ++n) mma_bf16(acc[rt][n], a, vb0[n], vb1[n]);
+          for (int n = 0; n < kNpw; ++n)
+            if (col0 + 8 * n < DH) mma_bf16(acc[rt][n], a, vb0[n], vb1[n]);
         }
       }
     }
@@ -1200,9 +1314,9 @@ flash_fwd_splitkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int hf = 0; hf < 2; ++hf) {
       const int row = 16 * rt + g + 8 * hf;
       if (row >= R) continue;
-      if (pv)
 #pragma unroll
-        for (int n = 0; n < kNpw; ++n)
+      for (int n = 0; n < kNpw; ++n)
+        if (col0 + 8 * n < DH)
           *reinterpret_cast<float2*>(pacc + int64_t(row) * DH + col0 + 8 * n + 2 * t) =
               make_float2(acc[rt][n][2 * hf], acc[rt][n][2 * hf + 1]);
       if (warp == 0 && t == 0) {
@@ -1271,8 +1385,7 @@ flash_fwd_splitkv_combine(const float* __restrict__ part, bf16* __restrict__ o,
   for (int c = 0; c < kCols; ++c)
     if (lane + 32 * c < DH) sums[warp * DH + lane + 32 * c] = acc[c];
   __syncthreads();
-  if (threadIdx.x < DH) {
-    const int d = threadIdx.x;
+  for (int d = threadIdx.x; d < DH; d += 128) {     // dh 256: two columns a thread
     const float a = (sums[d] + sums[DH + d]) + (sums[2 * DH + d] + sums[3 * DH + d]);
     o[((int64_t(b) * S + r / group) * H + kvh * group + r % group) * DH + d] =
         __float2bfloat16_rn(a / fmaxf(l, 1e-30f));
@@ -1345,7 +1458,9 @@ int by_dim(int dh, int route, const void* q, const void* k, const void* v,
     C4CAM_FLASH_CASE(16)
     C4CAM_FLASH_CASE(32)
     C4CAM_FLASH_CASE(64)
+    C4CAM_FLASH_CASE(80)
     C4CAM_FLASH_CASE(128)
+    C4CAM_FLASH_CASE(256)
     default: return int(cudaErrorInvalidValue);
   }
 #undef C4CAM_FLASH_CASE

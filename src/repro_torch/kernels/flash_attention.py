@@ -58,15 +58,21 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "FLASH_SPLIT_BLOCKS"]
 
 #: head dims the kernel is instantiated for
-FLASH_HEAD_DIMS = (16, 32, 64, 128)
-#: kv rows per tile of each route: the recurrence's ``block_k``
-FLASH_BLOCK_K = {"wgmma": 128, "splitkv": 64, "fma": 64}
+FLASH_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: kv rows per tile of each route: the recurrence's ``block_k``; a
+#: ``(route, dh)`` key overrides the route's width at that head dim (the
+#: ``wgmma`` route's 64-row tiles at dh 256)
+FLASH_BLOCK_K = {"wgmma": 128, "splitkv": 64, "fma": 64, ("wgmma", 256): 64}
 #: bf16 calls with at most this many query rows per kv head (S * H / KV,
 #: the rows the split-KV kernel folds into its tiles) take the split-KV route
 FLASH_SPLITKV_ROWS = 64
 #: blocks the split-KV route aims to launch: two per SM of an H100 SXM
 #: (at dh 128 one m16 row tile and its 3-stage ring take 112 KB)
 FLASH_SPLIT_BLOCKS = 264
+#: head dims at which fewer split-KV blocks fit an SM, and the blocks the
+#: route then aims for: one per SM at dh 256 (one row tile and its 2-stage
+#: ring take 143 KB)
+_SPLIT_BLOCKS_AT = {256: 132}
 _ROUTE_IDS = {"fma": 0, "wgmma": 1, "splitkv": 2}
 _NEG_INF = -1e30
 #: (q dtype, kv dtype) pairs the kernel takes
@@ -161,8 +167,8 @@ class FlashRoute(NamedTuple):
     splits: Optional[int]
 
 
-_FMA = FlashRoute("fma", FLASH_BLOCK_K["fma"], None)
-_WGMMA = FlashRoute("wgmma", FLASH_BLOCK_K["wgmma"], None)
+def _block_k(name: str, dh: int) -> int:
+    return FLASH_BLOCK_K.get((name, dh), FLASH_BLOCK_K[name])
 
 
 def _col_end(s: int, kv_len: int, causal: bool, prefix_len: int,
@@ -179,9 +185,11 @@ def flash_route(q_shape, k_shape, q_dtype: torch.dtype, *,
     """The route :func:`flash_attention` takes on a CUDA device for these
     shapes and masks (a pure function of them).  float32 queries: the
     FMA kernel.  bf16: the split-KV kernel when ``S * H / KV`` is at most
-    :data:`FLASH_SPLITKV_ROWS`, else the ``wgmma`` kernel.  The split
-    count spreads the visible kv tiles over about
-    :data:`FLASH_SPLIT_BLOCKS` blocks, at least one tile a split."""
+    :data:`FLASH_SPLITKV_ROWS`, else the ``wgmma`` kernel.  ``block_k`` is
+    the route's kv tile width at this head dim (:data:`FLASH_BLOCK_K`).
+    The split count spreads the visible kv tiles over about
+    :data:`FLASH_SPLIT_BLOCKS` blocks (132 at dh 256, where one block
+    fills an SM), at least one tile a split."""
     return _route(q_shape, k_shape, q_dtype, causal, prefix_len,
                   k_shape[1] if kv_len is None else kv_len, q_start)[0]
 
@@ -189,15 +197,16 @@ def flash_route(q_shape, k_shape, q_dtype: torch.dtype, *,
 def _route(q_shape, k_shape, q_dtype, causal, prefix_len, kv_len, q_start):
     """:func:`flash_route` and the split's length in tiles (0 unless
     split-KV)."""
-    b, s, h, _ = q_shape
+    b, s, h, dh = q_shape
     kvh = k_shape[2]
     if q_dtype != torch.bfloat16:
-        return _FMA, 0
+        return FlashRoute("fma", _block_k("fma", dh), None), 0
     if s * (h // kvh) > FLASH_SPLITKV_ROWS:
-        return _WGMMA, 0
-    bk = FLASH_BLOCK_K["splitkv"]
+        return FlashRoute("wgmma", _block_k("wgmma", dh), None), 0
+    bk = _block_k("splitkv", dh)
     n_tiles = -(-_col_end(s, kv_len, causal, prefix_len, q_start) // bk)
-    want = max(1, min(n_tiles, FLASH_SPLIT_BLOCKS // max(1, b * kvh)))
+    blocks = _SPLIT_BLOCKS_AT.get(dh, FLASH_SPLIT_BLOCKS)
+    want = max(1, min(n_tiles, blocks // max(1, b * kvh)))
     per = -(-n_tiles // want)
     return FlashRoute("splitkv", bk, -(-n_tiles // per)), per
 

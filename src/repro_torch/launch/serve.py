@@ -12,11 +12,14 @@ A deliberately small but real serving loop:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --smoke --device cpu --requests 8 --max-new 32
 
-It serves the dense, moe, ssm and audio families (an audio request's
-encoder runs over zero frame embeddings).
+It serves all six families (a vlm request's prefix is zero vision
+embeddings, an audio request's encoder runs over zero frame embeddings,
+as the reference serves them).
 """
 
 from __future__ import annotations
@@ -89,6 +92,12 @@ class Server:
         cache = model_mod.init_decode_cache(self.cfg, 1, self.max_len,
                                             device=self.device)
         batch = {"tokens": toks}
+        if self.cfg.family == "vlm":
+            # the vision tower is a stub: zero patch embeddings, as the
+            # reference serves them
+            batch["vision"] = torch.zeros(
+                (1, self.cfg.n_vision_tokens, self.cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
         if self.cfg.family == "audio":
             # the conv frontend is a stub: zero frame embeddings, as the
             # reference serves them

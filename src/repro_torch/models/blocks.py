@@ -4,11 +4,11 @@
 ``init_<kind>(gen, cfg)`` gives one layer's parameters;
 ``apply_<kind>(p, x, cfg, *, ...)`` returns ``(x, new_cache_or_state)``.
 Residual structure is pre-norm everywhere.  Kinds: the dense decoder
-block (dense family, and the first layers of the moe family), the MoE
-block, the xLSTM (mLSTM, sLSTM) pair, the whisper encoder block and the
-decoder block with cross-attention.  The Mamba2 block and zamba2's
-shared attention block come with the hybrid family (ROADMAP Queue A
-item 8).
+block (dense and vlm families, and the first layers of the moe family),
+the MoE block, the Mamba2 block and zamba2's shared attention block (a
+dense block whose one set of weights every group reuses), the xLSTM
+(mLSTM, sLSTM) pair, the whisper encoder block and the decoder block
+with cross-attention.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from . import moe as moe_mod, xlstm
+from . import mamba2, moe as moe_mod, xlstm
 from .config import ModelConfig
 from .layers import apply_norm, attention, ffn, init_attention, init_ffn, \
     init_norm
@@ -25,7 +25,9 @@ from .layers import apply_norm, attention, ffn, init_attention, init_ffn, \
 Params = Dict[str, Any]
 
 __all__ = ["init_dense_block", "apply_dense_block", "init_moe_block",
-           "apply_moe_block", "init_xlstm_pair", "apply_xlstm_pair",
+           "apply_moe_block", "init_mamba_block", "apply_mamba_block",
+           "init_shared_attn_block", "apply_shared_attn_block",
+           "init_xlstm_pair", "apply_xlstm_pair",
            "init_encoder_block", "apply_encoder_block", "init_xdec_block",
            "apply_xdec_block"]
 
@@ -76,6 +78,31 @@ def apply_moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     x = x + a
     x = x + moe_mod.moe_ffn(p["moe"], apply_norm(p["ln2"], x, cfg), cfg)
     return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (zamba2 hybrid)
+# ---------------------------------------------------------------------------
+
+
+def init_mamba_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    return {"ln": init_norm(cfg, gen.device),
+            "mamba": mamba2.init_mamba2(gen, cfg)}
+
+
+def apply_mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                      state: Optional[Params] = None
+                      ) -> Tuple[torch.Tensor, Params]:
+    y, new_state = mamba2.mamba2_forward(p["mamba"],
+                                         apply_norm(p["ln"], x, cfg), cfg,
+                                         state=state)
+    return x + y, new_state
+
+
+# shared attention block (zamba2): full attention + MLP, one set of
+# weights for every invocation (the reference's LoRA-free simplification)
+init_shared_attn_block = init_dense_block
+apply_shared_attn_block = apply_dense_block
 
 
 # ---------------------------------------------------------------------------

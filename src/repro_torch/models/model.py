@@ -1,20 +1,27 @@
 """Model assembly (the port of the reference's ``models/model.py``).
 
-Families run here (``cfg.family``):
+Families (``cfg.family``):
 
 * ``dense``  — decoder-only: identical pre-norm blocks.
 * ``moe``    — ``first_dense_layers`` dense blocks, then MoE blocks (the
   router on kernel B2 with ``router_offload="cam"``); one device.
+* ``hybrid`` — zamba2: groups of ``shared_attn_every`` Mamba2 blocks,
+  each group preceded by the ONE shared attention block (its weights
+  reused by every group; the per-invocation LoRA is omitted, as in the
+  reference).  ``ceil(n_layers / per) * per`` Mamba2 blocks, as the
+  reference builds them.
 * ``ssm``    — xLSTM: (mLSTM, sLSTM) pair blocks; no attention.
+* ``vlm``    — PaliGemma: [vision patch embeddings; text] through dense
+  blocks with a prefix-LM mask over the ``n_vision_tokens`` vision rows;
+  the vision tower is a stub (the inputs are precomputed embeddings).
 * ``audio``  — whisper: an encoder over precomputed frame embeddings,
   then a decoder with self- and cross-attention.
 
-``init_params``, ``init_decode_cache`` and the three entry points raise
-``NotImplementedError`` for the hybrid and vlm families, which wait for
-kernel B7 at head dims 80 and 256 (ROADMAP Queue A item 8).  Layer
-stacks keep the reference's stacked ``(n_layers, ...)`` tensors, so a
-layer is a view and ``convert.lm_params_from_reference`` is a tree map;
-the reference's ``lax.scan`` over layers is a Python loop.
+Another family raises ``ValueError``, as the reference's ``init_params``
+does.  Layer stacks keep the reference's stacked ``(n_layers, ...)``
+tensors, so a layer is a view and ``convert.lm_params_from_reference``
+is a tree map; the reference's ``lax.scan`` over layers is a Python
+loop.
 
 Three public entry points:
 
@@ -23,16 +30,22 @@ Three public entry points:
 * ``prefill(params, cfg, batch, cache)``       -> (last logits, cache)
 * ``decode_step(params, cfg, tokens, cache)``  -> (logits, cache)
 
-``batch`` holds ``"tokens"`` (B, S), and for audio ``"frames"`` (B,
-encoder_seq, d_model).  An attention cache is ``{"k": (n_layers, B,
-S_max, KV, dh), "v": ..., "len": int}`` in bfloat16 (the reference's
-cache dtype, whatever the compute dtype); audio's is ``{"self": that,
-"cross": {"k": (n_layers, B, encoder_seq, KV, dh), "v": ...}}``, whose
-cross keys and values ``prefill`` computes once, in the compute dtype,
-as the reference does; ssm's holds the float32 recurrent states of each
-pair.  ``prefill`` and ``decode_step`` write the new rows (or states)
-into the cache tensors in place and return them with the new ``len``, a
-host int, so that no step reads the device to learn the cache length.
+``batch`` holds ``"tokens"`` (B, S), for vlm ``"vision"`` (B,
+n_vision_tokens, d_model) and for audio ``"frames"`` (B, encoder_seq,
+d_model).  An attention cache is ``{"k": (n_layers, B, S_max, KV, dh),
+"v": ..., "len": int}`` in bfloat16 (the reference's cache dtype,
+whatever the compute dtype); vlm's has ``max_len + n_vision_tokens``
+rows and its ``len`` counts the vision rows; audio's is ``{"self":
+that, "cross": {"k": (n_layers, B, encoder_seq, KV, dh), "v": ...}}``,
+whose cross keys and values ``prefill`` computes once, in the compute
+dtype, as the reference does; hybrid's is ``{"attn": one layer per
+group, "mamba": {"ssm": (groups, per, B, heads, dh, d_state) float32,
+"conv": (groups, per, B, K - 1, d_inner + 2 d_state) bfloat16}}``,
+whose conv states come back in the compute dtype, as the reference's
+do; ssm's holds the float32 recurrent states of each pair.  ``prefill``
+and ``decode_step`` write the new rows (or states) into the cache
+tensors in place and return them with the new ``len``, a host int, so
+that no step reads the device to learn the cache length.
 """
 
 from __future__ import annotations
@@ -44,7 +57,7 @@ import torch
 
 from ..core.engine.base import resolve_device
 from ..kernels import flash_attention as fa
-from . import blocks, xlstm
+from . import blocks, mamba2, xlstm
 from .config import ModelConfig
 from .layers import _proj, apply_norm, attention, cdtype, embed, ffn, \
     init_embedding, init_norm, logits as unembed_logits
@@ -55,17 +68,13 @@ __all__ = ["init_params", "init_decode_cache", "forward", "prefill",
            "decode_step"]
 
 
-#: the families the port runs
-PORTED_FAMILIES = ("dense", "moe", "ssm", "audio")
+_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue A item 8: it waits for kernel B7 at head dims "
-            f"80 and 256); the port runs the {', '.join(PORTED_FAMILIES)} "
-            f"families")
+def _family(cfg: ModelConfig) -> str:
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
+    return cfg.family
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +131,17 @@ def _pairs(cfg: ModelConfig) -> int:
     return max(1, cfg.n_layers // 2)
 
 
+def _groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """A hybrid model's (groups, Mamba2 blocks a group)."""
+    per = max(1, cfg.shared_attn_every)
+    return -(-cfg.n_layers // per), per
+
+
+def _prefix(cfg: ModelConfig) -> int:
+    """The bidirectional prefix: vlm's vision rows."""
+    return cfg.n_vision_tokens if cfg.family == "vlm" else 0
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -131,14 +151,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (default: the current CUDA device; raises without CUDA): the
     reference's tree, shapes and dtypes, not its numbers."""
-    _require_ported(cfg)
+    fam = _family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     p: Params = {"embed": init_embedding(gen, cfg),
                  "final_norm": init_norm(cfg, dev)}
-    fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         p["blocks"] = _stack_init(lambda: blocks.init_dense_block(gen, cfg),
                                   cfg.n_layers)
     elif fam == "moe":
@@ -149,6 +168,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
                 lambda: blocks.init_dense_block(gen, cfg, dff), nd)
         p["moe_blocks"] = _stack_init(lambda: blocks.init_moe_block(gen, cfg),
                                       cfg.n_layers - nd)
+    elif fam == "hybrid":
+        ng, per = _groups(cfg)
+        p["mamba_blocks"] = _stack_init(
+            lambda: blocks.init_mamba_block(gen, cfg), ng * per)
+        p["shared_attn"] = blocks.init_shared_attn_block(gen, cfg)
     elif fam == "ssm":
         p["blocks"] = _stack_init(lambda: blocks.init_xlstm_pair(gen, cfg),
                                   _pairs(cfg))
@@ -177,11 +201,17 @@ def _attn_cache(cfg: ModelConfig, n_layers: int, b: int, m: int, device,
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                       device=None) -> Params:
-    _require_ported(cfg)
+    fam = _family(cfg)
     dev = resolve_device(device)
-    fam = cfg.family
-    if fam in ("dense", "moe"):
-        return _attn_cache(cfg, cfg.n_layers, batch, max_len, dev)
+    if fam in ("dense", "moe", "vlm"):
+        return _attn_cache(cfg, cfg.n_layers, batch,
+                           max_len + _prefix(cfg), dev)
+    if fam == "hybrid":
+        ng, per = _groups(cfg)
+        return {"attn": _attn_cache(cfg, ng, batch, max_len, dev),
+                "mamba": _tree_map(
+                    lambda t: t.expand((ng, per) + t.shape).contiguous(),
+                    mamba2.init_mamba_state(cfg, batch, device=dev))}
     if fam == "ssm":
         lp = _pairs(cfg)
         return {kind: _tree_map(
@@ -239,7 +269,7 @@ def _run_attn_stacks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                      ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Each stack over its layers' views of the one cache (the
     reference splits the cache at ``first_dense_layers`` and
-    concatenates it again)."""
+    concatenates it again); vlm's rows see its vision prefix whole."""
     ln = 0 if cache is None else cache["len"]
     first = 0
     for stack in _attn_stacks(params, cfg):
@@ -248,11 +278,51 @@ def _run_attn_stacks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             "k": cache["k"][first:first + n],
             "v": cache["v"][first:first + n], "len": ln}
         x, _ = _run_dense_stack(stack, x, cfg, positions=positions,
-                                cache=part)
+                                prefix_len=_prefix(cfg), cache=part)
         first += n
     if cache is None:
         return x, None
     return x, {"k": cache["k"], "v": cache["v"], "len": ln + x.shape[1]}
+
+
+def _run_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                positions: torch.Tensor, cache: Optional[Params] = None
+                ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Each group: the shared attention block over the group's layer of
+    the attention cache, then its ``per`` Mamba2 blocks, each state
+    written into its place in the cache.  The reference's states come
+    back in the compute dtype: a conv cache in another dtype (bfloat16
+    from ``init_decode_cache`` under float32 compute) is replaced by its
+    copy in the compute dtype first."""
+    ng, per = _groups(cfg)
+    stack, shared = params["mamba_blocks"], params["shared_attn"]
+    ln = 0 if cache is None else cache["attn"]["len"]
+    states = None
+    if cache is not None:
+        states = cache["mamba"]
+        if states["conv"].dtype != x.dtype:
+            states = {"ssm": states["ssm"],
+                      "conv": states["conv"].to(x.dtype)}
+    for g in range(ng):
+        attn_l = None if cache is None else {
+            "k": cache["attn"]["k"][g], "v": cache["attn"]["v"][g],
+            "len": ln}
+        x, _ = blocks.apply_shared_attn_block(shared, x, cfg,
+                                              positions=positions,
+                                              cache=attn_l)
+        for j in range(per):
+            st = None if states is None else \
+                {k: t[g, j] for k, t in states.items()}
+            x, new = blocks.apply_mamba_block(_layer(stack, g * per + j), x,
+                                              cfg, state=st)
+            if states is not None:
+                for k, t in new.items():
+                    states[k][g, j] = t
+    if cache is None:
+        return x, None
+    return x, {"attn": {"k": cache["attn"]["k"], "v": cache["attn"]["v"],
+                        "len": ln + x.shape[1]},
+               "mamba": states}
 
 
 def _run_ssm(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -360,9 +430,11 @@ def _run_family(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     values go into the cache; without ``frames`` a decode step reads
     them from it."""
     fam = cfg.family
-    if fam in ("dense", "moe"):
+    if fam in ("dense", "moe", "vlm"):
         return _run_attn_stacks(params, x, cfg, positions=positions,
                                 cache=cache)
+    if fam == "hybrid":
+        return _run_hybrid(params, x, cfg, positions=positions, cache=cache)
     if fam == "ssm":
         return _run_ssm(params, x, cfg, cache=cache)
     enc = None if frames is None else _run_encoder(params, frames, cfg)
@@ -395,36 +467,52 @@ def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor) -> torch.Tensor:
     """Token embeddings, plus absolute (sinusoidal) positions for the
     audio decoder and for an attention model configured without RoPE
-    (ssm is position-free)."""
+    (ssm and hybrid are position-free)."""
     x = embed(params["embed"], tokens, cfg)
     if cfg.family == "audio" or (cfg.rope == "none"
-                                 and cfg.family in ("dense", "moe")):
+                                 and cfg.family in ("dense", "moe", "vlm")):
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
     return x
 
 
 def _cache_len(cache: Params, cfg: ModelConfig) -> int:
-    """The rows a cache holds (0 for ssm, whose decode ignores position)."""
+    """The rows a cache holds (0 for ssm, whose decode ignores position;
+    vlm's count its vision rows)."""
     if cfg.family == "audio":
         return cache["self"]["len"]
+    if cfg.family == "hybrid":
+        return cache["attn"]["len"]
     return cache.get("len", 0)
+
+
+def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, positions) of a full sequence: vlm's ``batch["vision"]``, cast
+    to the compute dtype, in front of the embedded text, positions
+    ``0 .. prefix + S``."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    prefix = _prefix(cfg)
+    positions = _positions(0, b, prefix + s, tokens.device)
+    x = _embed_tokens(params, tokens, cfg, positions[:, prefix:])
+    if prefix:
+        x = torch.cat([batch["vision"].to(x.dtype), x], dim=1)
+    return x, positions
 
 
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor],
             return_hidden: bool = False) -> torch.Tensor:
     """Full-sequence float32 logits (teacher forcing);
-    ``batch["tokens"]``: (B, S) (and ``batch["frames"]`` for audio).
+    ``batch["tokens"]``: (B, S) (and ``batch["vision"]`` for vlm,
+    ``batch["frames"]`` for audio); vlm's cover the text positions only.
     ``return_hidden=True`` returns the post-final-norm hidden state
     (B, S, d_model) instead."""
-    _require_ported(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    positions = _positions(0, b, s, tokens.device)
-    x = _embed_tokens(params, tokens, cfg, positions)
+    _family(cfg)
+    x, positions = _embed_inputs(params, batch, cfg)
     x, _ = _run_family(params, x, cfg, positions=positions,
                        frames=batch.get("frames"))
-    x = apply_norm(params["final_norm"], x, cfg)
+    x = apply_norm(params["final_norm"], x[:, _prefix(cfg):], cfg)
     if return_hidden:
         return x
     return unembed_logits(params["embed"], x, cfg)
@@ -433,14 +521,12 @@ def forward(params: Params, cfg: ModelConfig,
 def prefill(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], cache: Params
             ) -> Tuple[torch.Tensor, Params]:
-    """Prefill an empty cache with ``batch["tokens"]`` (B, S) (and the
-    encoder over ``batch["frames"]`` for audio); returns the last
-    position's logits (B, 1, V) and the cache."""
-    _require_ported(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    positions = _positions(0, b, s, tokens.device)
-    x = _embed_tokens(params, tokens, cfg, positions)
+    """Prefill an empty cache with ``batch["tokens"]`` (B, S) (after
+    vlm's ``batch["vision"]``; and the encoder over ``batch["frames"]``
+    for audio); returns the last position's logits (B, 1, V) and the
+    cache."""
+    _family(cfg)
+    x, positions = _embed_inputs(params, batch, cfg)
     x, cache = _run_family(params, x, cfg, positions=positions,
                            frames=batch.get("frames"), cache=cache)
     x = apply_norm(params["final_norm"], x[:, -1:], cfg)
@@ -450,7 +536,7 @@ def prefill(params: Params, cfg: ModelConfig,
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Params) -> Tuple[torch.Tensor, Params]:
     """One decode step: tokens (B, 1) -> logits (B, 1, V), cache."""
-    _require_ported(cfg)
+    _family(cfg)
     b, s = tokens.shape
     positions = _positions(_cache_len(cache, cfg), b, s, tokens.device)
     x = _embed_tokens(params, tokens, cfg, positions)

@@ -1247,6 +1247,96 @@ def test_flash_kernel_routes_and_split_boundaries(cuda, case, dh, rng):
     _assert_follows_recurrence(got, _recurrence(q, k, v, **kw), v)
 
 
+#: (B, S, T, H, KV, kwargs, bf16 route, split-KV row tiles) at the head
+#: dims of zamba2 (80) and paligemma (256): prefix_len, kv_len, MQA, and
+#: both split-KV row tilings (RT 1 up to 16 folded rows, 4 up to 64)
+B7_WIDE_CASES = {
+    "prefill_prefix_mqa": (2, 300, 300, 8, 1, dict(causal=True,
+                                                   prefix_len=100),
+                           "wgmma", None),
+    "prefill_into_cache": (1, 200, 260, 4, 4, dict(causal=True, kv_len=200),
+                           "wgmma", None),
+    "full_kv_len": (2, 70, 133, 4, 2, dict(causal=False, kv_len=100),
+                    "wgmma", None),
+    "decode_mqa": (2, 1, 400, 8, 1, dict(causal=True, q_start=300,
+                                         kv_len=301, prefix_len=64),
+                   "splitkv", 1),
+    "decode_mha": (2, 1, 300, 32, 32, dict(causal=True, q_start=257,
+                                           kv_len=258), "splitkv", 1),
+    "chunk_mqa": (1, 6, 300, 8, 1, dict(causal=True, q_start=250, kv_len=256,
+                                        prefix_len=40), "splitkv", 4),
+    "chunk_gqa": (2, 9, 140, 10, 2, dict(causal=True, q_start=120,
+                                         kv_len=129), "splitkv", 4),
+}
+
+
+@pytest.mark.parametrize("case", list(B7_WIDE_CASES))
+@pytest.mark.parametrize("dtypes", list(B7_DTYPES))
+@pytest.mark.parametrize("dh", [80, 256])
+def test_flash_kernel_at_head_dims_80_and_256(cuda, case, dtypes, dh, rng):
+    """dh 80 (five 32-byte swizzle atoms on the wgmma route, an uneven
+    split of the output columns over split-KV's warps) and dh 256 (64-row
+    kv tiles on a 2-stage wgmma ring, a 2-stage split-KV ring, two output
+    columns a combine thread): one launch of the route flash_route names,
+    within the reference's bound of the plain version and following the
+    Pallas recurrence at the route's tile width and splits: float32
+    within 1e-5; where the probabilities are rounded to a bfloat16 v, the
+    one-bf16-step rule (another float32 summation order can flip a
+    rounding)."""
+    b, s, t, h, kvh, kw, name, rt = B7_WIDE_CASES[case]
+    dtype, kv_dtype = B7_DTYPES[dtypes]
+    q, k, v = _qkv(rng, b, s, t, h, kvh, dh, dtype, kv_dtype, cuda)
+    route = tfa.flash_route(q.shape, k.shape, q.dtype, **kw)
+    if dtype == torch.float32:
+        assert route == ("fma", 64, None)
+    else:
+        assert route.name == name
+        assert route.block_k == (64 if name == "splitkv" or dh == 256
+                                 else 128)
+        if rt is not None:
+            assert s * h // kvh <= 16 * rt
+    tcs.reset_launch_counts()
+    got = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    want = tfa.flash_attention_reference(q, k, v, **kw)
+    atol = B7_F32_ATOL if dtypes == "f32" else B7_BF16_ATOL
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    rec = _recurrence(q, k, v, **kw)
+    if dtypes == "f32":
+        torch.testing.assert_close(got, rec, atol=1e-5, rtol=1e-5)
+    else:
+        _assert_follows_recurrence(got, rec, v)
+
+
+@pytest.mark.parametrize("dh", [80, 256])
+@pytest.mark.parametrize("s", [1, 70])
+def test_flash_kernel_wide_dims_read_a_strided_cache_view(cuda, dh, s, rng):
+    """At dh 80 and 256 both bf16 routes read a layer's strided view of a
+    stacked cache (tensor maps on the prefill route, cp.async rows on
+    split-KV); rows at or past kv_len hold NaN and are never read."""
+    kv_len, s_max = 90, 160
+    q = torch.from_numpy(rng.standard_normal((2, s, 8, dh)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    cache = torch.from_numpy(rng.standard_normal(
+        (2, 3, s_max, 2, 1, dh)).astype(np.float32)).to(cuda, torch.bfloat16)
+    cache[:, :, kv_len:] = float("nan")
+    k, v = cache[0, 1].transpose(0, 1), cache[1, 1].transpose(0, 1)
+    kw = dict(causal=True, q_start=kv_len - s, kv_len=kv_len)
+    assert tfa.flash_route(q.shape, k.shape, q.dtype, **kw).name == \
+        ("splitkv" if s == 1 else "wgmma")
+    got = tfa.flash_attention(q, k, v, **kw)
+    kc, vc = k[:, :kv_len].contiguous(), v[:, :kv_len].contiguous()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(
+        got.float(), tfa.flash_attention_reference(q, kc, vc, **kw).float(),
+        atol=B7_BF16_ATOL, rtol=0)
+    _assert_follows_recurrence(got, _recurrence(q, kc, vc, **kw),
+                               v[:, :kv_len])
+
+
 def test_flash_wgmma_reads_a_strided_cache_view_up_to_kv_len(cuda, rng):
     """The prefill route's tensor maps cover a layer's strided view of a
     stacked cache; rows at or past kv_len hold NaN and are never read."""
@@ -2094,3 +2184,130 @@ def test_moe_block_on_the_card_matches_cpu(cuda, offload):
     assert cpu_launches == [(0, 0)] * 2
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid (zamba2: Mamba2 + a shared attention block at dh 80) and vlm
+# (paligemma: a prefix-LM at dh 256) families on the card
+# ---------------------------------------------------------------------------
+
+#: narrow models at the full models' head dims, depth 2
+WIDE_LMS = {
+    "zamba2-dh80": ("zamba2-2.7b", dict(n_layers=2, shared_attn_every=1,
+                                        d_model=160, n_heads=2, n_kv_heads=2,
+                                        d_head=80)),
+    "paligemma-dh256": ("paligemma-3b", dict(n_layers=2, d_model=128,
+                                             n_heads=2, n_kv_heads=1,
+                                             d_head=256)),
+}
+
+
+def _wide_lm(name, dtype):
+    from repro_torch.configs import get_smoke_config
+    arch, kw = WIDE_LMS[name]
+    return dataclasses.replace(get_smoke_config(arch), param_dtype=dtype,
+                               compute_dtype=dtype, **kw)
+
+
+def test_mamba2_block_on_the_card_matches_cpu(cuda):
+    """One Mamba2 block (float32, d_inner 320: 5 heads of 64) on the card
+    against the same block on the CPU: a 21-row prefill over 3 chunks of
+    8 from a zero state (the conv state bfloat16, as the cache holds it),
+    then two decode rows; outputs and states within 1e-4 (full-precision
+    float32 einsums on the card; sums in other orders).  No kernel runs."""
+    from repro_torch.models import blocks as tb
+    from repro_torch.models import mamba2 as tmb
+    from repro_torch.models import model as tm
+    cfg = _wide_lm("zamba2-dh80", "float32")
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    cpu_p = tb.init_mamba_block(gen, cfg)
+    cpu_p["mamba"]["A_log"].uniform_(-1.0, 1.0, generator=gen)
+    cpu_p["mamba"]["dt_bias"].uniform_(-1.0, 1.0, generator=gen)
+    rng = np.random.default_rng(6)
+    xs = [torch.from_numpy(rng.standard_normal((2, n, cfg.d_model))
+                           .astype(np.float32)) for n in (21, 1, 1)]
+
+    def run(dev):
+        p = tm._tree_map(lambda t: t.to(dev), cpu_p)
+        st = tmb.init_mamba_state(cfg, 2, device=dev)
+        outs = []
+        for x in xs:
+            if x.shape[1] > 1:
+                y, st = tmb.mamba2_forward(p["mamba"], x.to(dev), cfg,
+                                           chunk=8, state=st)
+            else:
+                y, st = tb.apply_mamba_block(p, x.to(dev), cfg, state=st)
+            outs.append(y.cpu())
+        return outs, {k: t.cpu() for k, t in st.items()}
+
+    tcs.reset_launch_counts()
+    got, got_st = run(cuda)
+    assert sum(tcs.LAUNCHES.values()) == 0
+    want, want_st = run(torch.device("cpu"))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    for k in want_st:
+        torch.testing.assert_close(got_st[k], want_st[k], atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", list(WIDE_LMS))
+def test_hybrid_and_vlm_models_on_the_card_match_cpu(cuda, name):
+    """zamba2 (dh 80) and paligemma (dh 256, MQA, 8 vision rows) at depth
+    2 on the card against the same model on the CPU.  Float32: forward,
+    and prefill + decode on a float32 cache (B7's FMA route), within
+    1e-4.  Bfloat16: a 72-token prefill and four decode steps on the
+    default cache (the wgmma route at prefill: more than 64 query rows a
+    kv head; split-KV at decode), finite and within the CPU
+    tests' bf16 logit bound, 0.1.  B7 launches once per attention layer
+    and call: one shared block per group, one per vlm layer."""
+    from repro_torch.models import model as tm
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 76)))
+    vision = torch.from_numpy(rng.standard_normal(
+        (2, 8, WIDE_LMS[name][1]["d_model"])).astype(np.float32))
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = _wide_lm(name, dtype)
+        attn_layers = tm._groups(cfg)[0] if cfg.family == "hybrid" \
+            else cfg.n_layers
+        cpu_params = tm.init_params(cfg, seed=1, device="cpu")
+        for where, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+            params = tm._tree_map(lambda t: t.to(dev), cpu_params)
+            batch = {"tokens": toks.to(dev)}
+            if cfg.family == "vlm":
+                batch["vision"] = vision.to(dev)
+            out, launches = {}, []
+            tcs.reset_launch_counts()
+            if dtype == "float32":
+                out["forward"] = tm.forward(params, cfg, batch).cpu()
+                launches.append(tcs.LAUNCHES["flash_attention"])
+            cache = tm.init_decode_cache(cfg, 2, 80, device=dev)
+            if dtype == "float32":
+                cache = tm._tree_map(
+                    lambda t: t.float() if isinstance(t, torch.Tensor)
+                    and t.is_floating_point() else t, cache)
+            pre = dict(batch, tokens=batch["tokens"][:, :72])
+            lg, cache = tm.prefill(params, cfg, pre, cache)
+            outs = [lg]
+            for i in range(72, 76):
+                lg, cache = tm.decode_step(params, cfg,
+                                           batch["tokens"][:, i:i + 1], cache)
+                outs.append(lg)
+            launches.append(tcs.LAUNCHES["flash_attention"])
+            out["serve"] = torch.cat(outs, dim=1).cpu()
+            results[(dtype, where)] = (out, launches)
+        got, launches = results[(dtype, "card")]
+        want, cpu_launches = results[(dtype, "cpu")]
+        # forward, then (cumulative) one prefill and four decode steps
+        assert launches == ([attn_layers, 6 * attn_layers]
+                            if dtype == "float32" else [5 * attn_layers])
+        assert all(n == 0 for n in cpu_launches)
+        for key, w in want.items():
+            assert bool(torch.isfinite(got[key]).all())
+            if dtype == "float32":
+                torch.testing.assert_close(got[key], w, atol=1e-4,
+                                           rtol=1e-4)
+            else:
+                torch.testing.assert_close(got[key], w, atol=0.1, rtol=0)

@@ -48,6 +48,7 @@ def _core(q, k, v, dtype=jnp.float32, kv_dtype=None, **kw):
     (2, 64, 64, 4, 2, 32), (1, 100, 100, 8, 8, 16),
     (2, 32, 96, 4, 1, 64), (1, 257, 257, 2, 2, 128),
     (1, 16, 512, 4, 4, 32), (1, 70, 90, 10, 2, 16),
+    (2, 40, 72, 4, 1, 80), (1, 36, 36, 2, 1, 256),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_matches_pallas_and_attn_core(shape, causal, rng):
@@ -160,6 +161,8 @@ RECURRENCE_CASES = [
     ((2, 64, 300, 10, 2, 16), dict(causal=False, kv_len=250)),
     ((1, 300, 300, 2, 1, 64), dict(causal=True)),
     ((1, 48, 48, 4, 4, 16), dict(causal=True, prefix_len=20)),
+    ((1, 150, 150, 4, 1, 80), dict(causal=True, prefix_len=30)),
+    ((1, 70, 140, 2, 1, 256), dict(causal=False, kv_len=130)),
 ]
 
 
@@ -249,3 +252,65 @@ def test_route_rule(b, s, h, kvh, t, kw, name):
     assert (route.splits - 1) * per < tiles <= route.splits * per
     assert route.splits == 1 or \
         b * kvh * route.splits <= tfa.FLASH_SPLIT_BLOCKS
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 150, 150, 2, 1, 256), dict(causal=True, prefix_len=40)),
+    ((2, 8, 200, 8, 1, 256), dict(causal=False, kv_len=151)),
+    ((1, 100, 100, 4, 4, 80), dict(causal=True)),
+])
+def test_recurrence_at_64_row_tiles_follows_the_pallas_kernel(shape, kw,
+                                                              rng):
+    """The tile width of the wgmma route at dh 256 and of split-KV at
+    every dim: the recurrence at block_k 64 is the Pallas kernel's at
+    block_k 64 (float32 within 1e-5; bf16 at most 0.1 % of the outputs
+    beyond one bf16 step)."""
+    q, k, v = _data(rng, *shape)
+    for dtype, jdtype in ((torch.float32, jnp.float32),
+                          (torch.bfloat16, jnp.bfloat16)):
+        got = tfa.flash_attention_recurrence(
+            *(torch.from_numpy(x).to(dtype) for x in (q, k, v)),
+            block_k=64, **kw).float().numpy()
+        want = np.asarray(flash_attention_pallas(
+            *(jnp.asarray(x, jdtype) for x in (q, k, v)), block_k=64,
+            interpret=True, **kw), np.float32)
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        else:
+            assert _beyond_one_bf16_step(got, want) <= 1e-3
+
+
+@pytest.mark.parametrize("dh,s,h,kvh,t,kw,name,block_k,max_blocks", [
+    (80, 2048, 32, 32, 2081, dict(kv_len=2048), "wgmma", 128, None),
+    (80, 1, 32, 32, 2081, dict(q_start=2048, kv_len=2049), "splitkv", 64,
+     264),
+    (256, 2304, 8, 1, 2337, dict(kv_len=2304, prefix_len=256), "wgmma", 64,
+     None),
+    (256, 1, 8, 1, 2337, dict(q_start=2304, kv_len=2305, prefix_len=256),
+     "splitkv", 64, 132),
+    (256, 1, 8, 1, 32768, dict(q_start=32767, kv_len=32768), "splitkv", 64,
+     132),
+])
+def test_route_rule_at_head_dims_80_and_256(dh, s, h, kvh, t, kw, name,
+                                            block_k, max_blocks):
+    """The route's block_k follows the kernel's tile at the head dim (the
+    wgmma route's 64-row tiles at dh 256), and split-KV aims for one
+    block an SM at dh 256, where one block fills an SM's shared memory
+    (two elsewhere); float32 queries keep the FMA route's 64."""
+    for b in (1, 2):
+        route = tfa.flash_route((b, s, h, dh), (b, t, kvh, dh),
+                                torch.bfloat16, **kw)
+        assert route.name == name and route.block_k == block_k
+        assert tfa.flash_route((b, s, h, dh), (b, t, kvh, dh),
+                               torch.float32, **kw) == ("fma", 64, None)
+        if name == "wgmma":
+            assert route.splits is None
+            continue
+        end = tfa._col_end(s, kw["kv_len"], True, kw.get("prefix_len", 0),
+                           kw["q_start"])
+        tiles = -(-end // block_k)
+        per = -(-tiles // route.splits)
+        assert (route.splits - 1) * per < tiles <= route.splits * per
+        assert b * kvh * route.splits <= max_blocks
+        assert route.splits == min(tiles, max_blocks // (b * kvh)) or \
+            per > 1

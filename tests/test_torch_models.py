@@ -188,18 +188,32 @@ def test_init_params_shapes_match_reference(lm):
 
 
 def test_other_families_raise_not_implemented():
+    """No family of the reference is refused any more: the hybrid and vlm
+    smoke models run every entry point.  A family the reference does not
+    know raises ``ValueError`` at each of them, as the reference's
+    ``init_params`` does."""
+    toks = torch.zeros((1, 4), dtype=torch.int64)
     for arch in ("zamba2-2.7b", "paligemma-3b"):
         cfg = get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            tm.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            tm.init_decode_cache(cfg, 1, 8, device="cpu")
-        toks = torch.zeros((1, 4), dtype=torch.int64)
-        for call in (lambda: tm.forward({}, cfg, {"tokens": toks}),
-                     lambda: tm.prefill({}, cfg, {"tokens": toks}, {}),
-                     lambda: tm.decode_step({}, cfg, toks[:, :1], {})):
-            with pytest.raises(NotImplementedError, match=cfg.family):
-                call()
+        params = tm.init_params(cfg, device="cpu")
+        cache = tm.init_decode_cache(cfg, 1, 8, device="cpu")
+        batch = {"tokens": toks}
+        if cfg.family == "vlm":
+            batch["vision"] = torch.zeros((1, cfg.n_vision_tokens,
+                                           cfg.d_model))
+        assert tm.forward(params, cfg, batch).shape == (1, 4, cfg.vocab)
+        _, cache = tm.prefill(params, cfg, batch, cache)
+        lg, _ = tm.decode_step(params, cfg, toks[:, :1], cache)
+        assert lg.shape == (1, 1, cfg.vocab)
+    cfg = dataclasses.replace(get_smoke_config("paligemma-3b"),
+                              family="diffusion")
+    for call in (lambda: tm.init_params(cfg, device="cpu"),
+                 lambda: tm.init_decode_cache(cfg, 1, 8, device="cpu"),
+                 lambda: tm.forward({}, cfg, {"tokens": toks}),
+                 lambda: tm.prefill({}, cfg, {"tokens": toks}, {}),
+                 lambda: tm.decode_step({}, cfg, toks[:, :1], {})):
+        with pytest.raises(ValueError, match="unknown family diffusion"):
+            call()
 
 
 # ---------------------------------------------------------------------------
