@@ -156,7 +156,29 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        rows: every prefill a 2,304-row prefix-LM
                        (``prefix_len`` 256), B7 exactly 18 x 128 times at
                        dh 256; float32 at depth 2 over random vision rows
-                       against the plain versions.
+                       against the plain versions;
+* ``lm_train``       — the train path: qwen2.5-14b at full width, depth
+                       cut to 6 of 48 layers (``reduced``: AdamW's state
+                       is 16 bytes a parameter, 51 GB at 6 layers),
+                       ``launch.train.TrainLoop`` for 18 steps of 4 x 2048
+                       ``TokenStream`` tokens (lr 3e-4, warmup 2, remat
+                       ``"full"``, a checkpoint every 9 steps, ``keep=1``:
+                       one on the machine's disk): the last three losses'
+                       mean must fall 0.2 below the first three's and
+                       below their lowest (the loss spikes after warmup
+                       at this lr and width), the peak stay under 75 GB,
+                       B7 launch twice a layer and
+                       step (the forward and remat's recompute) and its
+                       backward (``flash_attention_bwd``) once; one more
+                       step profiled as forward, backward and optimizer;
+                       float32 ``loss_fn`` gradients at depth 2 against the
+                       plain versions; two steps from one state bit for
+                       bit (the second under deterministic algorithms);
+                       B7's forward (output and log-sum-exp) and backward
+                       against their plain versions at qwen's, whisper's
+                       (encoder and cross),
+                       zamba2's and paligemma's shapes and at dh 96 (bf16
+                       and float32), timed beside SDPA's backward.
 
 For each phase it sets the kernels' launch counts to 0, runs the path,
 reads the counts (a kernel of the path with no launch fails the run),
@@ -314,6 +336,44 @@ HYBRID_CHECK_LAYERS = 12
 MAMBA_CHECK_ROWS, MAMBA_F32_ATOL = 300, 2e-3
 VLM_ARCH, VLM_OVERRIDES = "paligemma-3b", {}
 VLM_CHECK_LAYERS = 2
+#: lm_train: TRAIN_ARCH at its full width, depth cut by TRAIN_OVERRIDES
+#: (AdamW's float32 master and moments, the bf16 parameters and their
+#: gradients are about 16 bytes a parameter: 51 GB at 6 of 48 layers),
+#: trained by ``launch.train.TrainLoop`` for TRAIN_STEPS steps of
+#: TRAIN_BATCH x TRAIN_SEQ tokens (lr TRAIN_LR, TRAIN_WARMUP warmup steps,
+#: a checkpoint every TRAIN_CKPT_EVERY, one kept on disk); the mean loss
+#: of the last three steps must sit TRAIN_LOSS_DROP below the first
+#: three's (tests/test_integration.py) and below the lowest of them, and
+#: the peak under TRAIN_PEAK_GB; float32 gradients at depth
+#: GRAD_CHECK_LAYERS over GRAD_CHECK_TOKENS tokens against the plain
+#: versions (the loss within GRAD_LOSS_ATOL, each leaf's |g - g_plain|
+#: within GRAD_RTOL of its |g_plain|); two steps at depth DET_LAYERS from
+#: one state bit for bit
+TRAIN_ARCH, TRAIN_OVERRIDES = "qwen2.5-14b", dict(n_layers=6)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 18
+TRAIN_LR, TRAIN_WARMUP, TRAIN_CKPT_EVERY = 3e-4, 2, 9
+TRAIN_LOSS_DROP, TRAIN_PEAK_GB = 0.2, 75.0
+GRAD_CHECK_LAYERS, GRAD_CHECK_TOKENS = 2, 512
+GRAD_LOSS_ATOL, GRAD_RTOL = 1e-5, 1e-4
+DET_LAYERS = 2
+#: B7's backward against its plain version, as a share of the plain
+#: gradient's largest magnitude (bf16 operands and outputs; float32), and
+#: the forward's log-sum-exp against the plain one (float32 scores of
+#: bf16 or float32 products, summed in other orders)
+B7B_BF16_OF_MAX, B7B_F32_OF_MAX, B7_LSE_ATOL = 2e-2, 2e-4, 1e-3
+#: B7's backward alone: (B, S, T, H, KV, dh) and masks of the families'
+#: attention: qwen2.5-14b's prefill, whisper-medium's encoder and
+#: cross-attention, zamba2-2.7b's shared block, paligemma-3b's prefix-LM
+#: prefill, and a head dim the kernels reach by padding (96 -> 128)
+B7B_SHAPES = {
+    "qwen_causal": ((1, 2048, 2048, 40, 8, 128), dict(causal=True)),
+    "whisper_encoder": ((1, 1500, 1500, 16, 16, 64), dict(causal=False)),
+    "whisper_cross": ((1, 4, 1500, 16, 16, 64), dict(causal=False)),
+    "zamba2_causal": ((1, 2048, 2048, 32, 32, 80), dict(causal=True)),
+    "paligemma_prefix": ((1, 2304, 2304, 8, 1, 256),
+                         dict(causal=True, prefix_len=256)),
+    "c4_dh96": ((1, 1024, 1024, 16, 4, 96), dict(causal=True)),
+}
 #: cam_serve: CAM_CLIENTS client threads, each submitting CAM_REQUESTS
 #: requests of CAM_ROWS consecutive query rows one after another
 #: (8 x 6 x 13 = the 624 KNN queries); the faulted packed server's model;
@@ -5011,6 +5071,401 @@ def phase_vlm_serve(s: Smoke):
                        "max_abs_diff": diffs32}})
 
 
+# ---------------------------------------------------------------------------
+# the train path
+# ---------------------------------------------------------------------------
+
+
+def _train_kernel_class(key: str) -> str:
+    """Kernel class of a profiler row on the train path: B7's forward,
+    its backward, a matrix product, or other."""
+    if "flash_bwd" in key.lower():
+        return "b7_backward"
+    c = _lm_kernel_class(key)
+    return "b7_forward" if c == "b7_flash_attention" else c
+
+
+def _profiled(s: Smoke, fn):
+    """``fn()`` under ``torch.profiler`` and ``s.profile``'s summary, by
+    train kernel class; returns (result, summary)."""
+    out = []
+    summary = s.profile(lambda: out.append(fn()), [],
+                        classify=_train_kernel_class)
+    return out[0], summary
+
+
+def train_step_profile(s: Smoke, cfg, state, batch, lr):
+    """One train step of ``state`` on ``batch`` as ``make_train_step``
+    runs it, its three parts profiled apart: the forward (``loss_fn``),
+    the backward (``torch.autograd.grad``) and the optimizer
+    (``adamw_update``), each with its device time by kernel class, its
+    launches and its idle share, and B7's launches in each."""
+    import torch
+    from repro_torch.kernels import cam_search
+    from repro_torch.models import steps as ts
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.tree import leaves, unflatten
+    parts, b7 = {}, {}
+    flat = leaves(state.params)
+    cam_search.reset_launch_counts()
+    (loss, _), parts["forward"] = _profiled(
+        s, lambda: ts.loss_fn(state.params, cfg, batch))
+    b7["forward"] = dict(cam_search.LAUNCHES)
+    cam_search.reset_launch_counts()
+    grads, parts["backward"] = _profiled(
+        s, lambda: torch.autograd.grad(loss, flat, allow_unused=True))
+    b7["backward"] = dict(cam_search.LAUNCHES)
+    del loss
+    cam_search.reset_launch_counts()
+    _, parts["optimizer"] = _profiled(
+        s, lambda: adamw_update(unflatten(state.params, list(grads)),
+                                state.opt, state.params, lr, AdamWConfig()))
+    b7["optimizer"] = dict(cam_search.LAUNCHES)
+    del grads
+    for name, part in parts.items():
+        part["b7_launches"] = {k: v for k, v in b7[name].items()
+                               if k.startswith("flash") and v}
+    return parts
+
+
+def b7b_bound_ms(q, k, kw):
+    """B7's backward: five products of 2 dh FLOP per visible (row,
+    column) pair and head (S, dP, dV, dK, dQ) at the bf16 tensor-core
+    peak, against the bytes of q, k, v, o, dO, lse and dq, dk, dv read or
+    written once."""
+    b, s, h, dh = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    kv_len = kw.get("kv_len") or t
+    q_start, prefix = kw.get("q_start", 0), kw.get("prefix_len", 0)
+    if kw.get("causal", True):
+        vis = sum(min(kv_len, max(q_start + r + 1, prefix))
+                  for r in range(s))
+    else:
+        vis = s * kv_len
+    flops = 5 * 2.0 * dh * b * h * vis
+    bytes_ = q.element_size() * (4.0 * b * s * h * dh + 4.0 * b * t * kvh
+                                 * dh) + 4.0 * b * h * s
+    t_ops, t_mem = flops / BF16_PEAK_FLOPS, bytes_ / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
+        else "bytes"
+
+
+def sdpa_backward_call(q, k, v, d_out, kw):
+    """The library yardstick for one backward: the gradient of PyTorch's
+    ``scaled_dot_product_attention`` (``enable_gqa``) at the same
+    operands, its graph built once (timed only; the port never calls
+    it)."""
+    import torch
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    s = q.shape[1]
+    causal = kw.get("causal", True)
+    prefix = kw.get("prefix_len", 0)
+    if causal and (kw.get("q_start", 0) or kw.get("kv_len") or
+                   k.shape[1] != s):
+        raise ValueError(f"sdpa_backward_call: no yardstick for {kw}")
+    if causal and prefix:
+        ki = torch.arange(k.shape[1], device=q.device)
+        mask = (ki[None, :] <= ki[:s, None]) | (ki[None, :] < prefix)
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    else:
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+    g = d_out.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), g,
+                                       retain_graph=True)
+
+
+def b7b_check(what, shape, kw, dtype, seed, timed, dev):
+    """B7's forward with its log-sum-exp, and its backward, on seeded
+    operands of ``shape`` (B, S, T, H, KV, dh) against their plain
+    versions: the output within ``B7_BF16_ATOL`` (bf16) or
+    ``B7_F32_ATOL`` (float32), the log-sum-exp within ``B7_LSE_ATOL``,
+    each gradient within
+    ``B7B_BF16_OF_MAX`` (bf16) or ``B7B_F32_OF_MAX`` (float32) of its
+    plain version's largest magnitude.  With ``timed``, the backward's
+    median ms beside its plain version, its bound and SDPA's backward."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    b, s_, t, h, kvh, dh = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rand(*sh):
+        return torch.randn(sh, generator=gen, device=dev).to(dtype)
+
+    q, k, v = rand(b, s_, h, dh), rand(b, t, kvh, dh), rand(b, t, kvh, dh)
+    d_out = rand(b, s_, h, dh)
+    out, lse = fa._forward_cuda(q, k, v, kw.get("causal", True),
+                                kw.get("prefix_len", 0), kw.get("kv_len"),
+                                kw.get("q_start", 0), want_lse=True)
+    out_plain, lse_plain = fa.flash_attention_reference(
+        q, k, v, return_lse=True, **kw)
+    fwd_err = float((out.float() - out_plain.float()).abs().max())
+    fwd_bound = B7_BF16_ATOL if dtype == torch.bfloat16 else B7_F32_ATOL
+    if not fwd_err <= fwd_bound:
+        raise RuntimeError(f"{what}: B7's output beside its log-sum-exp off "
+                           f"its plain version by {fwd_err} (bound "
+                           f"{fwd_bound})")
+    lse_err = float((lse - lse_plain).abs().max())
+    if not lse_err <= B7_LSE_ATOL:
+        raise RuntimeError(f"{what}: B7's log-sum-exp off its plain "
+                           f"version by {lse_err} (bound {B7_LSE_ATOL})")
+    got = fa.flash_attention_backward(q, k, v, out, lse, d_out, **kw)
+    again = fa.flash_attention_backward(q, k, v, out, lse, d_out, **kw)
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, d_out,
+                                                 **kw)
+    bound = B7B_BF16_OF_MAX if dtype == torch.bfloat16 else B7B_F32_OF_MAX
+    errs = {}
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.equal(a, a2):
+            raise RuntimeError(f"{what}: {name} differs between two calls")
+        scale = float(w.float().abs().max())
+        err = float((a.float() - w.float()).abs().max())
+        errs[name] = {"max_abs_err": err, "max_abs_want": scale}
+        if not err <= bound * scale:
+            raise RuntimeError(f"{what}: B7's backward {name} off its plain "
+                               f"version by {err} (bound {bound} x {scale})")
+    rec = {"shape": list(shape), "kw": kw, "dtype": str(dtype),
+           "fwd_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+           "grads": errs,
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values())}
+    if timed:
+        bound_ms, by = b7b_bound_ms(q, k, kw)
+        lib = sdpa_backward_call(q, k, v, d_out, kw)
+        rec.update(
+            ms=cuda_ms(lambda: fa.flash_attention_backward(
+                q, k, v, out, lse, d_out, **kw), 5),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_backward_reference(
+                q, k, v, out, lse, d_out, **kw), 3),
+            bound_ms=bound_ms, bound_by=by, library_ms=cuda_ms(lib, 5),
+            forward_ms=cuda_ms(lambda: fa._forward_cuda(
+                q, k, v, kw.get("causal", True), kw.get("prefix_len", 0),
+                kw.get("kv_len"), kw.get("q_start", 0), want_lse=True), 5))
+    return rec
+
+
+def _host_leaves(tree):
+    from repro_torch.tree import leaves
+    return [t.detach().cpu() for t in leaves(tree)]
+
+
+def train_determinism(cfg, batch):
+    """Two train steps from the same state (``init_train_state`` from one
+    seed, twice) give bit-identical parameters and master weights; the
+    second runs under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``, whose warnings name any operation on the path
+    without a deterministic implementation."""
+    import warnings
+    import torch
+    from repro_torch.models import steps as ts
+    from repro_torch.optim import constant
+    step = ts.make_train_step(cfg, constant(TRAIN_LR))
+    results, caught = [], []
+    for strict in (False, True):
+        state = ts.init_train_state(cfg, seed=1)
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(strict, warn_only=True)
+            try:
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        caught += sorted({str(x.message)[:200] for x in w})
+        results.append(_host_leaves(state.params)
+                       + _host_leaves(state.opt.master))
+        del state
+        torch.cuda.empty_cache()
+    same = all(torch.equal(a, b) for a, b in zip(*results))
+    if not same:
+        raise RuntimeError("lm_train: two steps from the same state differ")
+    return {"layers": cfg.n_layers, "tokens": list(batch["tokens"].shape),
+            "bit_identical": same, "deterministic_mode_warnings": caught}
+
+
+def grads_against_plain(cfg32, batch):
+    """Float32 ``loss_fn`` gradients through the kernels and through the
+    plain versions (``plain_kernels``), on the card: the loss within
+    ``GRAD_LOSS_ATOL``, each leaf's ``|g - g_plain|`` within ``GRAD_RTOL``
+    of ``|g_plain|``.  Returns the record and the kernel run's launch
+    counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cam_search
+    from repro_torch.models import model as tm
+    from repro_torch.models import steps as ts
+    from repro_torch.tree import leaves_with_paths
+    params = tm.init_params(cfg32, seed=0)
+    named = leaves_with_paths(params)
+    for _, p in named:
+        p.requires_grad_(True)
+
+    def run():
+        loss, _ = ts.loss_fn(params, cfg32, batch)
+        g = torch.autograd.grad(loss, [p for _, p in named])
+        return float(loss.detach()), g
+
+    cam_search.reset_launch_counts()
+    loss_k, g_k = run()
+    torch.cuda.synchronize()
+    counts = dict(cam_search.LAUNCHES)
+    cam_search.reset_launch_counts()
+    with plain_kernels():
+        loss_p, g_p = run()
+    plain_counts = dict(cam_search.LAUNCHES)
+    if any(plain_counts.values()):
+        raise RuntimeError(f"lm_train: the plain run launched "
+                           f"{plain_counts}")
+    norms = {path: float(torch.linalg.vector_norm(w))
+             for (path, _), w in zip(named, g_p)}
+    total = float(np.sqrt(sum(n * n for n in norms.values())))
+    rel = {}
+    for (path, _), a, w in zip(named, g_k, g_p):
+        diff = float(torch.linalg.vector_norm(a - w))
+        rel[path] = diff / norms[path] if norms[path] else \
+            (0.0 if diff == 0 else float("inf"))
+    worst = max(rel, key=rel.get)
+    if not abs(loss_k - loss_p) <= GRAD_LOSS_ATOL:
+        raise RuntimeError(f"lm_train: float32 loss {loss_k} off the plain "
+                           f"{loss_p}")
+    if not rel[worst] <= GRAD_RTOL:
+        raise RuntimeError(f"lm_train: float32 gradient {worst} off the "
+                           f"plain version's by {rel[worst]} (relative)")
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    return {"layers": cfg32.n_layers, "tokens": list(batch["tokens"].shape),
+            "loss": loss_k, "loss_plain": loss_p,
+            "loss_abs_diff": abs(loss_k - loss_p),
+            "worst_leaf": worst, "worst_rel_err": rel[worst],
+            "grad_norm": total, "rel_err": rel}, counts
+
+
+def phase_lm_train(s: Smoke):
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cam_search
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), **TRAIN_OVERRIDES)
+    if cfg.remat != "full":
+        raise RuntimeError(f"lm_train: remat {cfg.remat!r}, not 'full'")
+
+    # (a) the training loop, checkpoints included -----------------------
+    s.reset_peak()
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        loop = TrainLoop(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         steps=TRAIN_STEPS, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                         ckpt_dir=ckpt, ckpt_every=TRAIN_CKPT_EVERY, keep=1,
+                         seed=0)
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in leaves(loop.state.params))
+        cam_search.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loop.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = dict(cam_search.LAUNCHES)
+        ckpts = sorted(os.listdir(ckpt))
+        saves = loop.supervisor.ckpt.log
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps_done = len(loop.history)
+    s.exactly("lm_train", counts, {
+        "flash_attention": 2 * cfg.n_layers * steps_done,
+        "flash_attention_bwd": cfg.n_layers * steps_done})
+    losses = [h["loss"] for h in loop.history]
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if not (np.all(np.isfinite(losses)) and last < first - TRAIN_LOSS_DROP
+            and last < min(losses[:3])):
+        raise RuntimeError(f"lm_train: loss {first:.4f} -> {last:.4f} (must "
+                           f"fall by {TRAIN_LOSS_DROP}, and below the first "
+                           f"three's lowest): {losses}")
+    if not peak_gb < TRAIN_PEAK_GB:
+        raise RuntimeError(f"lm_train: peak {peak_gb:.1f} GB (bound "
+                           f"{TRAIN_PEAK_GB})")
+    want_saves = list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1,
+                            TRAIN_CKPT_EVERY))
+    if out["restarts"] or [x["step"] for x in saves] != want_saves or \
+            ckpts != [f"step_{TRAIN_STEPS:09d}"]:
+        raise RuntimeError(f"lm_train: restarts {out['restarts']}, saves "
+                           f"{saves}, checkpoints left {ckpts}")
+    step_ms = [1e3 * h["step_time_s"] for h in loop.history]
+    dev = loop.state.params["embed"]["tok"].device
+
+    # where a step's time goes: forward, backward, optimizer
+    batch = loop.loader.batch(TRAIN_STEPS)
+    parts = train_step_profile(s, cfg, loop.state, batch, TRAIN_LR)
+    profile_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    train_log = {
+        "model": TRAIN_ARCH, "reduced": {"n_layers": [48, cfg.n_layers]},
+        "d_model": cfg.d_model, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "lr": TRAIN_LR, "warmup": TRAIN_WARMUP, "remat": cfg.remat,
+        "init_s": init_s, "run_s": run_s, "losses": losses,
+        "loss_first3": first, "loss_last3": last,
+        "grad_norms": [h["grad_norm"] for h in loop.history],
+        "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3
+        / statistics.median(step_ms),
+        "checkpoint_saves": saves, "launches": counts,
+        "b7_launches_per_step": {k: v / steps_done for k, v in counts.items()
+                                 if v},
+        "peak_gb": peak_gb, "profile_peak_gb": profile_peak_gb,
+        "step_profile": parts}
+    del loop, out, batch
+    torch.cuda.empty_cache()
+
+    # (b) float32 gradients through the kernels and the plain versions --
+    cfg32 = dataclasses.replace(cfg, n_layers=GRAD_CHECK_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab, (1, GRAD_CHECK_TOKENS)),
+                           device=dev)
+    grad_check, grad_counts = grads_against_plain(cfg32, {"tokens": toks})
+    s.exactly("lm_train float32 gradients", grad_counts, {
+        "flash_attention": 2 * GRAD_CHECK_LAYERS,
+        "flash_attention_bwd": GRAD_CHECK_LAYERS})
+
+    # (c) determinism: two steps from one state -------------------------
+    det = train_determinism(dataclasses.replace(cfg, n_layers=DET_LAYERS),
+                            {"tokens": toks})
+
+    # (d) B7's backward alone at the families' shapes -------------------
+    shapes = {}
+    for i, (name, (shape, kw)) in enumerate(B7B_SHAPES.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            rec = b7b_check(f"lm_train {name} {dtype}", shape, kw, dtype,
+                            40 + i, dtype == torch.bfloat16, dev)
+            shapes[name if dtype == torch.bfloat16 else f"{name}_f32"] = rec
+            torch.cuda.empty_cache()
+    qwen = shapes["qwen_causal"]
+    s.record("flash_attention_bwd",
+             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:124 (its backward: the "
+             "reference differentiates src/repro/models/layers.py:167)",
+             counts["flash_attention_bwd"],
+             max(r["max_abs_err"] for r in shapes.values()), qwen["ms"],
+             qwen["plain_ms"], qwen["bound_ms"], qwen["bound_by"],
+             qwen["library_ms"])
+    s.kernels["flash_attention_bwd"]["shapes"] = {
+        k: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "forward_ms")}
+        for k, v in shapes.items() if "ms" in v}
+    _record_b7(s, counts["flash_attention"], {"train": {"max_abs_err": max(
+        r["fwd_max_abs_err"] for r in shapes.values())}}, {})
+    log({"phase": "lm_train", "ok": True, **train_log,
+         "f32_grad_check": grad_check, "determinism": det,
+         "b7b_checks": shapes})
+
+
 def release_phase_state(torch, top: int = 6):
     """What a phase leaves allocated on the card, and its release: the
     engine's process-wide plan cache (each plan's memo of prepared
@@ -5118,7 +5573,8 @@ def main() -> None:
               ("audio_serve", lambda: phase_audio_serve(s)),
               ("ssm_serve", lambda: phase_ssm_serve(s)),
               ("hybrid_serve", lambda: phase_hybrid_serve(s)),
-              ("vlm_serve", lambda: phase_vlm_serve(s))]
+              ("vlm_serve", lambda: phase_vlm_serve(s)),
+              ("lm_train", lambda: phase_lm_train(s))]
     wanted = sys.argv[1:]
     unknown = set(wanted) - {name for name, _ in phases}
     if unknown:
@@ -5147,7 +5603,8 @@ def main() -> None:
     order = ["fused_topk_packed", "fused_topk_packed_ternary", "fused_topk",
              "acam_match", "range_match", "hdc_encode", "hdc_encode_wide",
              "distance", "distance_topk", "distance_topk_packed",
-             "topk_select", "packed_distance", "flash_attention"]
+             "topk_select", "packed_distance", "flash_attention",
+             "flash_attention_bwd"]
     print(smi, flush=True)
     log({"kernels": [s.kernels[n] for n in order
                      if not wanted or n in s.kernels]})

@@ -16,7 +16,13 @@ queries, 180,000 x 1024 gallery) at the shapes the smoke gives them:
   features -> 8192 dims, 16 levels, an ``ItemMemory`` of seed 0, features
   from ``default_rng(3)``), with its median CUDA-event time over 50
   launches (``b5_ms``): two trees timed in one call, in turns, compare
-  the route they share.
+  the route they share;
+* B7 ``flash_attention`` (bf16, no gradient: the serving path) at the
+  smoke's prefill and decode shapes (``B7_SHAPES``), on operands from a
+  seeded generator, with its median CUDA-event time over 50 launches
+  (``ms``: the wrapper's host work included, as the smoke's), the host
+  ms a call of 50 enqueued back to back (``host_ms``) and the device ms
+  a call under ``torch.profiler`` (``device_ms``).
 
 For each it prints the SHA-256 of the output's bytes and, for B4 eucl,
 the disagreements with the plain version.  Equal digests from two trees
@@ -34,12 +40,88 @@ import json
 import os
 import statistics
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def digest(t) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def median_ms(torch, call, reps: int = 50) -> float:
+    """Median CUDA-event ms of ``call`` over ``reps`` launches."""
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        call()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+#: B7's serving calls in the smoke: (B, S, T, H, KV, dh) and masks
+B7_SHAPES = {
+    "qwen_prefill": ((1, 2048, 2048, 40, 8, 128), dict(causal=True)),
+    "qwen_decode": ((1, 1, 2049, 40, 8, 128), dict(causal=True,
+                                                    q_start=2048)),
+    "whisper_encoder": ((1, 1500, 1500, 16, 16, 64), dict(causal=False)),
+    "zamba2_prefill": ((1, 2048, 2048, 32, 32, 80), dict(causal=True)),
+    "paligemma_prefill": ((1, 2304, 2304, 8, 1, 256),
+                          dict(causal=True, prefix_len=256)),
+}
+
+
+def flash_records(torch) -> dict:
+    """B7 at each of ``B7_SHAPES``: digest and median event ms."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    out = {}
+    for name, ((b, s, t, h, kvh, dh), kw) in B7_SHAPES.items():
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .bfloat16() for shape in ((b, s, h, dh), (b, t, kvh, dh),
+                                             (b, t, kvh, dh)))
+
+        def call():
+            return fa.flash_attention(q, k, v, **kw)
+
+        out[name] = {"sha256": digest(call().view(torch.int16)),
+                     "ms": median_ms(torch, call),
+                     "host_ms": host_ms(torch, call),
+                     "device_ms": device_ms(torch, call)}
+    return out
+
+
+def host_ms(torch, call, n: int = 50) -> float:
+    """Host ms a call of ``n`` calls enqueued back to back."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * took / n
+
+
+def device_ms(torch, call, n: int = 20) -> float:
+    """Device ms a call: every kernel's device time under
+    ``torch.profiler`` over ``n`` calls, over ``n``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            total += getattr(e, "self_device_time_total", 0.0)
+    return total / 1e3 / n
 
 
 def hdc_encode_record(torch) -> dict:
@@ -54,17 +136,7 @@ def hdc_encode_record(torch) -> dict:
     def call():
         return khdc.hdc_encode_planes(q, item._planes)
 
-    enc = call()
-    times = []
-    for _ in range(50):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        call()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return {"sha256": digest(enc), "b5_ms": statistics.median(times)}
+    return {"sha256": digest(call()), "b5_ms": median_ms(torch, call)}
 
 
 def main() -> None:
@@ -106,6 +178,7 @@ def main() -> None:
         out[f"distance_{metric}_624"] = {
             "sha256": digest(cam_search.distance(a, b, metric=metric))}
     out["hdc_encode_mnist"] = hdc_encode_record(torch)
+    out["flash_attention"] = flash_records(torch)
     text = json.dumps(out)
     print(text)
     if args.out:

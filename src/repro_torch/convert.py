@@ -9,6 +9,10 @@ same program; these two functions carry the other two.
   ``HdcClassifier`` from its state: class sums, keys and levels.
 * :func:`lm_params_from_reference` turns the reference LM's parameter
   pytree (numpy arrays) into the port's dict, key for key.
+* :func:`train_state_from_reference` turns the reference's
+  ``TrainState`` (parameters, AdamW state, step, compressor residual; as
+  numpy) into the port's, so that one step can start from the same state
+  in both packages.
 * :func:`prepared_from_reference` turns the reference plan's prepared
   operands (``PlanBase._prepared_patterns`` in the reference, as numpy
   arrays) into the port's tensors: uint32 lanes become int32 bit
@@ -38,7 +42,8 @@ from .kernels.cam_search import BLOCK_K, MAX_K, PACKED_ROWS, window_rows
 from .kernels.ops import pad_to_blocks
 
 __all__ = ["arch_from_reference", "prepared_from_reference",
-           "hdc_classifier_from_reference", "lm_params_from_reference"]
+           "hdc_classifier_from_reference", "lm_params_from_reference",
+           "train_state_from_reference"]
 
 
 def arch_from_reference(arch_json: str) -> ArchSpec:
@@ -135,16 +140,51 @@ def lm_params_from_reference(params, cfg, *, device=None):
     ``device`` (``None``: the GPU)."""
     from .core.engine.base import resolve_device
 
+    return _tree_to(params, resolve_device(device))
+
+
+def _tree_to(tree, dev):
+    """Nested dicts of numpy arrays as tensors on ``dev``, each exact in
+    its own dtype."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        # via float32: numpy has no bfloat16 that torch reads (exact)
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device=dev)
+
+
+def train_state_from_reference(state, cfg, *, device=None):
+    """The port's :class:`~repro_torch.models.steps.TrainState` for the
+    reference's (``params``; ``opt``, an ``OptState`` of ``mu``, ``nu``,
+    ``master`` and ``count``; ``step``; ``comp``, ``()`` or a
+    ``CompressionState`` whose ``error`` may be None), its leaves numpy
+    arrays or what ``np.asarray`` takes.  The parameters become leaves
+    that require grad; the counters 0-dim int32 tensors on the host."""
+    from .core.engine.base import resolve_device
+    from .distributed.compression import CompressionState
+    from .models.steps import TrainState
+    from .optim import OptState
+    from .tree import leaves
+
     dev = resolve_device(device)
+    params = lm_params_from_reference(state.params, cfg, device=dev)
+    for leaf in leaves(params):
+        leaf.requires_grad_(True)
+    opt = state.opt
+    comp = state.comp
+    if hasattr(comp, "error"):
+        comp = CompressionState(error=None if comp.error is None
+                                else _tree_to(comp.error, dev))
+    else:
+        comp = ()
+    count = torch.tensor(int(np.asarray(opt.count)), dtype=torch.int32)
+    return TrainState(
+        params=params,
+        opt=OptState(mu=_tree_to(opt.mu, dev), nu=_tree_to(opt.nu, dev),
+                     master=_tree_to(opt.master, dev), count=count),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        comp=comp)
 
-    def conv(tree):
-        if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
-        a = np.asarray(tree)
-        if a.dtype.name == "bfloat16":
-            # via float32: numpy has no bfloat16 that torch reads (exact)
-            return torch.from_numpy(a.astype(np.float32)).to(
-                device=dev, dtype=torch.bfloat16)
-        return torch.from_numpy(np.array(a)).to(device=dev)
-
-    return conv(params)

@@ -38,7 +38,8 @@ SOURCES = {"fused_topk": "fused_topk.cu",
            "hdc_encode": "hdc_encode.cu",
            "distance": "distance.cu",
            "topk_select": "topk_select.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 #: headers every source includes (part of each library's hash)
 _HEADERS = ("fused_topk_common.cuh", "tf32_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -6,7 +6,9 @@
 // forward.  Contract (the reference's layout): q (B, S, H, dh), k / v
 // (B, T, KV, dh) read through their strides, query head h reads kv head
 // h / (H / KV); scores q.k (k taken in q's precision) accumulated in float32
-// and scaled by 1/sqrt(dh); row s is global position q_start + s; column t
+// and scaled by the caller's scale (1/sqrt of its head dim: the wrapper
+// zero-pads other head dims to the next instantiated one, which leaves
+// every score unchanged); row s is global position q_start + s; column t
 // is visible when t < kv_len and, if causal, t <= q_start + s or
 // t < prefix_len; hidden scores are the reference's finite -1e30 (the bf16
 // kernels enter them as -inf, with the running max starting at -1e30: the
@@ -15,7 +17,11 @@
 // probabilities are rounded to v's dtype before the PV product, which
 // accumulates in float32; the output, acc / max(l, 1e-30), is stored in q's
 // dtype.  No kernel reads a K / V row at or past kv_len, and none walks a kv
-// tile past the last column any of its rows can see (`col_end`).
+// tile past the last column any of its rows can see (`col_end`).  When the
+// caller wants a gradient every route also writes each row's float32
+// log-sum-exp m + log(l) of the scaled scores (the prefill and FMA kernels
+// from their own m and l, split-KV from its combine), the input of the
+// backward (flash_attention_bwd.cu); serving passes no buffer.
 //
 // Bound on an H100 SXM: 4 * H * dh * (visible columns summed over rows)
 // FLOP at 989 TFLOP/s (bf16 tensor cores), against the bytes of q, o and
@@ -82,6 +88,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <atomic>
 #include <type_traits>
@@ -164,8 +171,8 @@ __device__ __forceinline__ void stage(float* tile, const T* src, int64_t rs,
 template <int DH, typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                 const TKV* __restrict__ v, TQ* __restrict__ o, int S, int H,
-                 int group, int causal, int prefix_len, int kv_len, int q_start,
+                 const TKV* __restrict__ v, TQ* __restrict__ o,
+                 float* __restrict__ lse, int S, int H, int group, int causal, int prefix_len, int kv_len, int q_start,
                  int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb, int64_t kst,
                  int64_t ksh, int64_t vsb, int64_t vst, int64_t vsh, float scale) {
   constexpr int kLd = DH + 4;       // padded row of the Q/K/V tiles (floats)
@@ -294,6 +301,7 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     const int row = s0 + 4 * ty + i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[(int64_t(b) * H + h) * S + row] = m[i] + logf(l[i]);
     TQ* orow = o + ((int64_t(b) * S + row) * H + h) * DH;
 #pragma unroll
     for (int n = 0; n < kCols; ++n) store(orow + tx + 16 * n, acc[i][n] / denom);
@@ -301,19 +309,18 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 }
 
 template <int DH, typename TQ, typename TKV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KV, int causal, int prefix_len, int kv_len, int q_start,
-           const long long* st, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int KV, int causal, int prefix_len, int kv_len,
+           int q_start, float scale, const long long* st, cudaStream_t stream) {
   constexpr size_t kSmem = sizeof(float) * (3 * 64 * (DH + 4) + kBlockQ * kLdp);
   auto kernel = flash_fwd_kernel<DH, TQ, TKV>;
   static std::atomic<uint64_t> ready{0};
   const cudaError_t err = allow_smem(kernel, kSmem, ready);
   if (err != cudaSuccess) return int(err);
-  const float scale = float(1.0 / sqrt(double(DH)));
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), static_cast<TQ*>(o), S, H, H / KV, causal,
+      static_cast<const TKV*>(v), static_cast<TQ*>(o), lse, S, H, H / KV, causal,
       prefix_len, kv_len, q_start, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], scale);
   return int(cudaGetLastError());
@@ -747,8 +754,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       bf16* __restrict__ o, int S, int H, int group, int causal,
-                       int prefix_len, int kv_len, int q_start, float scale) {
+                       bf16* __restrict__ o, float* __restrict__ lse, int S, int H,
+                       int group, int causal, int prefix_len, int kv_len, int q_start,
+                       float scale) {
   using G = Geo<DH>;
   constexpr int kBlockK = G::kBlockK, kStages = G::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -911,6 +919,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    if (lse != nullptr && t == 0) {   // each row's m + log(l), (B, H, S)
+      float* lrow = lse + (int64_t(blockIdx.y) * H + h) * S + s0 + r0;
+      if (s0 + r0 < S) lrow[0] = rw.m0 + logf(l0);
+      if (s0 + r0 + 8 < S) lrow[8] = rw.m1 + logf(l1);
+    }
     // The output tile goes through this warpgroup's Q rows in shared
     // memory (no wgmma reads them any more), 16-byte chunks XOR-swizzled
     // by row, then out to global memory as whole 16-byte chunks of rows.
@@ -988,9 +1001,9 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int L, int NH, int DH,
 }
 
 template <int DH>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int H, int KV, int causal, int prefix_len, int kv_len,
-                 int q_start, const long long* st, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                 int B, int S, int H, int KV, int causal, int prefix_len, int kv_len,
+                 int q_start, float scale, const long long* st, cudaStream_t stream) {
   using G = wg::Geo<DH>;
   const CUtensorMapSwizzle sw = G::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : G::kSwizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -1006,10 +1019,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   static std::atomic<uint64_t> ready{0};
   const cudaError_t err = allow_smem(kernel, G::kSmem, ready);
   if (err != cudaSuccess) return int(err);
-  const float scale = float(1.0 / sqrt(double(DH)));
   const dim3 grid(H, B, (S + wg::kBlockQ - 1) / wg::kBlockQ);
   kernel<<<grid, wg::kThreads, G::kSmem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), S, H, H / KV, causal, prefix_len,
+      tq, tk, tv, static_cast<bf16*>(o), lse, S, H, H / KV, causal, prefix_len,
       kv_len, q_start, scale);
   return int(cudaGetLastError());
 }
@@ -1334,7 +1346,8 @@ flash_fwd_splitkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DH>
 __global__ void __launch_bounds__(128)
 flash_fwd_splitkv_combine(const float* __restrict__ part, bf16* __restrict__ o,
-                          int S, int H, int KV, int group, int n_splits) {
+                          float* __restrict__ lse, int S, int H, int KV, int group,
+                          int n_splits) {
   constexpr int kCols = (DH + 31) / 32;
   extern __shared__ float wsm[];      // [n_splits] weights, then [4][DH] sums
   __shared__ float red[4];
@@ -1368,6 +1381,8 @@ flash_fwd_splitkv_combine(const float* __restrict__ part, bf16* __restrict__ o,
   if (lane == 0) red[warp] = l;
   __syncthreads();
   l = red[0] + red[1] + red[2] + red[3];
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[(int64_t(b) * H + kvh * group + r % group) * S + r / group] = mx + logf(l);
 
   float acc[kCols];
 #pragma unroll
@@ -1396,15 +1411,15 @@ flash_fwd_splitkv_combine(const float* __restrict__ part, bf16* __restrict__ o,
 
 template <int DH, int RT>
 int launch_splitkv_rt(const void* q, const void* k, const void* v, void* o,
-                      void* part, int B, int S, int H, int KV, int causal,
-                      int prefix_len, int kv_len, int q_start, int split_tiles,
-                      int n_splits, const long long* st, cudaStream_t stream) {
+                      void* part, float* lse, int B, int S, int H, int KV, int causal,
+                      int prefix_len, int kv_len, int q_start, float scale,
+                      int split_tiles, int n_splits, const long long* st,
+                      cudaStream_t stream) {
   constexpr size_t kSmem = sk::Smem<DH, RT>::kBytes;
   auto kernel = sk::flash_fwd_splitkv_kernel<DH, RT>;
   static std::atomic<uint64_t> ready{0};
   cudaError_t err = allow_smem(kernel, kSmem, ready);
   if (err != cudaSuccess) return int(err);
-  const float scale = float(1.0 / sqrt(double(DH)));
   const int group = H / KV;
   kernel<<<dim3(n_splits, KV, B), sk::kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -1415,7 +1430,7 @@ int launch_splitkv_rt(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return int(err);
   sk::flash_fwd_splitkv_combine<DH>
       <<<dim3(S * group, KV, B), 128, sizeof(float) * (n_splits + 4 * DH), stream>>>(
-          static_cast<const float*>(part), static_cast<bf16*>(o), S, H, KV, group,
+          static_cast<const float*>(part), static_cast<bf16*>(o), lse, S, H, KV, group,
           n_splits);
   return int(cudaGetLastError());
 }
@@ -1423,36 +1438,38 @@ int launch_splitkv_rt(const void* q, const void* k, const void* v, void* o,
 // one m16 row tile up to 16 folded rows, four up to 64
 template <int DH>
 int launch_splitkv(const void* q, const void* k, const void* v, void* o,
-                   void* part, int B, int S, int H, int KV, int causal,
-                   int prefix_len, int kv_len, int q_start, int split_tiles,
-                   int n_splits, const long long* st, cudaStream_t stream) {
+                   void* part, float* lse, int B, int S, int H, int KV, int causal,
+                   int prefix_len, int kv_len, int q_start, float scale,
+                   int split_tiles, int n_splits, const long long* st,
+                   cudaStream_t stream) {
   if (S * (H / KV) <= 16)
-    return launch_splitkv_rt<DH, 1>(q, k, v, o, part, B, S, H, KV, causal,
-                                    prefix_len, kv_len, q_start, split_tiles,
+    return launch_splitkv_rt<DH, 1>(q, k, v, o, part, lse, B, S, H, KV, causal,
+                                    prefix_len, kv_len, q_start, scale, split_tiles,
                                     n_splits, st, stream);
-  return launch_splitkv_rt<DH, 4>(q, k, v, o, part, B, S, H, KV, causal,
-                                  prefix_len, kv_len, q_start, split_tiles,
+  return launch_splitkv_rt<DH, 4>(q, k, v, o, part, lse, B, S, H, KV, causal,
+                                  prefix_len, kv_len, q_start, scale, split_tiles,
                                   n_splits, st, stream);
 }
 
 // route 0: launch<DH, TQ, TKV> (FMA); 1: launch_wgmma<DH>; 2: launch_splitkv<DH>
 template <typename TQ, typename TKV>
 int by_dim(int dh, int route, const void* q, const void* k, const void* v,
-           void* o, void* part, int B, int S, int H, int KV, int causal,
-           int prefix_len, int kv_len, int q_start, int split_tiles,
+           void* o, void* part, float* lse, int B, int S, int H, int KV, int causal,
+           int prefix_len, int kv_len, int q_start, float scale, int split_tiles,
            int n_splits, const long long* st, cudaStream_t s) {
   constexpr bool kBf16 = std::is_same_v<TQ, bf16>;
 #define C4CAM_FLASH_CASE(D)                                                         \
   case D:                                                                           \
     if constexpr (kBf16) {                                                          \
       if (route == 1)                                                               \
-        return launch_wgmma<D>(q, k, v, o, B, S, H, KV, causal, prefix_len,         \
-                               kv_len, q_start, st, s);                             \
-      return launch_splitkv<D>(q, k, v, o, part, B, S, H, KV, causal, prefix_len,  \
-                               kv_len, q_start, split_tiles, n_splits, st, s);      \
+        return launch_wgmma<D>(q, k, v, o, lse, B, S, H, KV, causal, prefix_len,    \
+                               kv_len, q_start, scale, st, s);                      \
+      return launch_splitkv<D>(q, k, v, o, part, lse, B, S, H, KV, causal,         \
+                               prefix_len, kv_len, q_start, scale, split_tiles,     \
+                               n_splits, st, s);                                    \
     } else {                                                                        \
-      return launch<D, TQ, TKV>(q, k, v, o, B, S, H, KV, causal, prefix_len,        \
-                                kv_len, q_start, st, s);                            \
+      return launch<D, TQ, TKV>(q, k, v, o, lse, B, S, H, KV, causal, prefix_len,   \
+                                kv_len, q_start, scale, st, s);                     \
     }
   switch (dh) {
     C4CAM_FLASH_CASE(16)
@@ -1476,13 +1493,22 @@ int by_dim(int dh, int route, const void* q, const void* k, const void* v,
 // wgmma, 2 split-KV: both bf16, split-KV for S * H / KV <= 64), the
 // split's length in 64-row tiles and the split count (<= 4096; `part` is
 // float32 scratch of B * KV * splits * S * (H / KV) * (dh + 2) values),
-// then the strides in elements of q (b, s, h), k (b, t, h) and v (b, t, h).
+// then the strides in elements of q (b, s, h), k (b, t, h) and v (b, t, h),
+// then the softmax scale as the bit pattern of a float32 (1/sqrt of the
+// caller's head dim, which the wrapper may have zero-padded to dh).  `lse`,
+// when not null, receives each row's float32 log-sum-exp m + log(l) of the
+// scaled scores, (B, H, S) contiguous: the backward's input.
 // Returns a cudaError_t code.
 extern "C" int c4cam_flash_attention(const void* q, const void* k, const void* v,
-                                     void* o, void* part, const long long* p,
-                                     void* stream) {
+                                     void* o, void* part, float* lse,
+                                     const long long* p, void* stream) {
   for (int i = 0; i < 14; ++i)
     if (p[i] < 0 || p[i] > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  if (p[23] < 0 || p[23] > 0xffffffffLL) return int(cudaErrorInvalidValue);
+  const uint32_t scale_bits = uint32_t(p[23]);
+  float scale;
+  memcpy(&scale, &scale_bits, sizeof scale);
+  if (!(scale > 0.f) || isinf(scale)) return int(cudaErrorInvalidValue);
   const int B = int(p[0]), S = int(p[1]), H = int(p[2]), KV = int(p[3]), dh = int(p[4]);
   const int q_bf16 = int(p[5]), kv_bf16 = int(p[6]), causal = int(p[7]);
   const int prefix_len = int(p[8]), kv_len = int(p[9]), q_start = int(p[10]);
@@ -1497,13 +1523,16 @@ extern "C" int c4cam_flash_attention(const void* q, const void* k, const void* v
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf)
-    return by_dim<bf16, bf16>(dh, route, q, k, v, o, part, B, S, H, KV, causal,
-                              prefix_len, kv_len, q_start, split_tiles, n_splits, st, s);
+    return by_dim<bf16, bf16>(dh, route, q, k, v, o, part, lse, B, S, H, KV, causal,
+                              prefix_len, kv_len, q_start, scale, split_tiles, n_splits,
+                              st, s);
   if (kv_bf16)
-    return by_dim<float, bf16>(dh, route, q, k, v, o, part, B, S, H, KV, causal,
-                               prefix_len, kv_len, q_start, split_tiles, n_splits, st, s);
-  return by_dim<float, float>(dh, route, q, k, v, o, part, B, S, H, KV, causal,
-                              prefix_len, kv_len, q_start, split_tiles, n_splits, st, s);
+    return by_dim<float, bf16>(dh, route, q, k, v, o, part, lse, B, S, H, KV, causal,
+                               prefix_len, kv_len, q_start, scale, split_tiles, n_splits,
+                               st, s);
+  return by_dim<float, float>(dh, route, q, k, v, o, part, lse, B, S, H, KV, causal,
+                              prefix_len, kv_len, q_start, scale, split_tiles, n_splits,
+                              st, s);
 }
 
 extern "C" const char* c4cam_error_string(int err) {

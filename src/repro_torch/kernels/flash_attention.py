@@ -25,13 +25,28 @@ bfloat16 cache.  The kernel reads ``k`` and ``v`` through their strides
 ``kv_len``.
 
 The wrapper runs the plain version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises.  :func:`flash_route` picks the
-kernel from the shape: bf16 calls with more than
+tensors it launches the kernel or raises.  The kernels are built for the
+head dims of :data:`FLASH_HEAD_DIMS`; another head dim up to 256 is
+zero-padded to the next one (zero columns leave every score and the
+kept output columns unchanged; the scale stays ``1/sqrt`` of the
+caller's dim) and the output sliced back, and an operand with a
+non-unit last stride or rows off 16 bytes is first copied to a dense
+one.  :func:`flash_route` picks the kernel from the shape: bf16 calls with more than
 :data:`FLASH_SPLITKV_ROWS` query rows per kv head (``S * H / KV``) run
 the prefill kernel (``wgmma`` on a TMA ring), the others the split-KV
 decode kernel and its combine; float32 queries run the FMA kernel.  Each
 call adds one to :data:`.cam_search.LAUNCHES` (``"flash_attention"``),
 whatever the route.
+
+Gradients: on the card, a call that autograd records (grad mode on and
+an operand that requires grad) goes through :class:`FlashAttentionFn`,
+whose forward also writes each row's float32 log-sum-exp and whose
+backward is :func:`flash_attention_backward`, the hand-written kernels
+of ``csrc/flash_attention_bwd.cu`` (``"flash_attention_bwd"`` in the
+launch counts; deterministic, no atomics).  On the CPU the plain
+version runs under autograd.  :func:`flash_attention_backward_reference`
+is the backward's plain version: the same formulas step by step in
+float32.
 
 :func:`flash_attention_recurrence` is the Pallas kernel's own recurrence
 in eager float32 (the unnormalised probabilities rounded to ``v``'s
@@ -45,7 +60,8 @@ from __future__ import annotations
 import array
 import ctypes
 import math
-from typing import NamedTuple, Optional
+import struct
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,11 +69,13 @@ from . import build
 from .cam_search import _bind, _count, _raise_if_failed
 
 __all__ = ["flash_attention", "flash_attention_reference",
-           "flash_attention_recurrence", "flash_route", "FlashRoute",
-           "FLASH_HEAD_DIMS", "FLASH_BLOCK_K", "FLASH_SPLITKV_ROWS",
-           "FLASH_SPLIT_BLOCKS"]
+           "flash_attention_backward", "flash_attention_backward_reference",
+           "FlashAttentionFn", "flash_attention_recurrence", "flash_route",
+           "FlashRoute", "FLASH_HEAD_DIMS", "FLASH_BLOCK_K",
+           "FLASH_SPLITKV_ROWS", "FLASH_SPLIT_BLOCKS"]
 
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for; the wrapper pads any other
+#: head dim up to the last of them to the next one
 FLASH_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 #: kv rows per tile of each route: the recurrence's ``block_k``; a
 #: ``(route, dh)`` key overrides the route's width at that head dim (the
@@ -121,41 +139,104 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ">= 0")
 
 
+def _scale(dh: int) -> float:
+    """``1/sqrt(dh)`` rounded to float32, the scale of every score."""
+    return struct.unpack("<f", struct.pack("<f", 1.0 / math.sqrt(dh)))[0]
+
+
+def _allow(n: int, t: int, start: int, causal: bool, prefix_len: int,
+           kv_len: Optional[int], q_start: int, device) -> torch.Tensor:
+    """(n, t) visibility of the columns to query rows ``start .. start+n``."""
+    ki = torch.arange(t, device=device)[None, :]
+    allow = torch.ones((n, t), dtype=torch.bool, device=device)
+    if causal:
+        qi = q_start + start + torch.arange(n, device=device)[:, None]
+        allow = ki <= qi
+        if prefix_len:
+            allow = allow | (ki < prefix_len)
+    if kv_len is not None:
+        allow = allow & (ki < kv_len)
+    return allow
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               prefix_len: int = 0,
                               kv_len: Optional[int] = None,
-                              q_start: int = 0) -> torch.Tensor:
+                              q_start: int = 0, return_lse: bool = False):
     """Plain version of :func:`flash_attention`: the reference's
-    ``attn_core`` in eager PyTorch (full softmax per query chunk)."""
+    ``attn_core`` in eager PyTorch (full softmax per query chunk).  With
+    ``return_lse``, also each row's float32 log-sum-exp of the scaled
+    scores, (B, H, S), as the kernels write it for the backward."""
     _check(q, k, v, prefix_len, kv_len, q_start)
     b, s, h, dh = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    scale = float(torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32))
+    scale = _scale(dh)
     qg = q.reshape(b, s, kvh, g, dh).float()
     kf = k.to(q.dtype).float()
     vf = v.float()
-    ki = torch.arange(t, device=q.device)[None, :]
     out = torch.empty((b, s, kvh, g, dh), dtype=torch.float32,
                       device=q.device)
+    lse = torch.empty((b, kvh, g, s), dtype=torch.float32, device=q.device)
     qc = _pick_q_chunk(s, t)
     for start in range(0, s, qc):
         blk = qg[:, start:start + qc]
         n = blk.shape[1]
         scores = torch.einsum("bqkgd,btkd->bkgqt", blk, kf) * scale
-        allow = torch.ones((n, t), dtype=torch.bool, device=q.device)
-        if causal:
-            qi = q_start + start + torch.arange(n, device=q.device)[:, None]
-            allow = ki <= qi
-            if prefix_len:
-                allow = allow | (ki < prefix_len)
-        if kv_len is not None:
-            allow = allow & (ki < kv_len)
-        scores = torch.where(allow, scores, _NEG_INF)
+        scores = torch.where(_allow(n, t, start, causal, prefix_len, kv_len,
+                                    q_start, q.device), scores, _NEG_INF)
+        if return_lse:
+            lse[..., start:start + n] = torch.logsumexp(scores.detach(), -1)
         attn = torch.softmax(scores, dim=-1).to(v.dtype).float()
         out[:, start:start + n] = torch.einsum("bkgqt,btkd->bqkgd", attn, vf)
-    return out.reshape(b, s, h, dh).to(q.dtype)
+    out = out.reshape(b, s, h, dh).to(q.dtype)
+    return (out, lse.reshape(b, h, s)) if return_lse else out
+
+
+def flash_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, d_out: torch.Tensor, *, causal: bool = True,
+        prefix_len: int = 0, kv_len: Optional[int] = None,
+        q_start: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`flash_attention_backward`: from the
+    forward's output and row log-sum-exp ``lse`` (B, H, S), in float32
+    and query chunk by chunk, ``P = exp(S * scale - lse)`` (0 where
+    hidden), ``dV = P^T dO``, ``dS = P (dO V^T - D)`` with ``D =
+    rowsum(dO * O)``, ``dQ = scale dS K``, ``dK = scale dS^T Q``; the
+    group's query heads summed into their kv head.  Returns (dq, dk, dv)
+    in the dtypes of q, k and v."""
+    _check(q, k, v, prefix_len, kv_len, q_start)
+    b, s, h, dh = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = _scale(dh)
+    qg = q.reshape(b, s, kvh, g, dh).float()
+    dog = d_out.reshape(b, s, kvh, g, dh).float()
+    kf = k.to(q.dtype).float()
+    vf = v.float()
+    big_d = (dog * out.reshape(b, s, kvh, g, dh).float()).sum(-1)
+    lse_g = lse.reshape(b, kvh, g, s)
+    dq = torch.empty((b, s, kvh, g, dh), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.zeros((b, t, kvh, dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    qc = _pick_q_chunk(s, t)
+    for start in range(0, s, qc):
+        blk, dob = qg[:, start:start + qc], dog[:, start:start + qc]
+        n = blk.shape[1]
+        scores = torch.einsum("bqkgd,btkd->bkgqt", blk, kf) * scale
+        p = torch.exp(scores - lse_g[..., start:start + n, None])
+        p = torch.where(_allow(n, t, start, causal, prefix_len, kv_len,
+                               q_start, q.device), p, 0.0)
+        dv += torch.einsum("bkgqt,bqkgd->btkd", p, dob)
+        dp = torch.einsum("bqkgd,btkd->bkgqt", dob, vf)
+        ds = p * (dp - big_d[:, start:start + n].permute(0, 2, 3, 1)[..., None])
+        dq[:, start:start + n] = torch.einsum("bkgqt,btkd->bqkgd", ds,
+                                              kf) * scale
+        dk += torch.einsum("bkgqt,bqkgd->btkd", ds, blk) * scale
+    return (dq.reshape(b, s, h, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 class FlashRoute(NamedTuple):
@@ -198,6 +279,7 @@ def _route(q_shape, k_shape, q_dtype, causal, prefix_len, kv_len, q_start):
     """:func:`flash_route` and the split's length in tiles (0 unless
     split-KV)."""
     b, s, h, dh = q_shape
+    dh = _padded_dim(dh)
     kvh = k_shape[2]
     if q_dtype != torch.bfloat16:
         return FlashRoute("fma", _block_k("fma", dh), None), 0
@@ -283,8 +365,116 @@ def flash_attention_recurrence(q: torch.Tensor, k: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
 
 
-#: q, k, v, out, scratch, the int64 parameter array, the stream
-_ARGTYPES = [ctypes.c_void_p] * 7
+#: q, k, v, out, scratch, lse, the int64 parameter array, the stream
+_ARGTYPES = [ctypes.c_void_p] * 8
+#: q, k, v, out, d_out, lse, D scratch, dq, dk, dv, the parameter array,
+#: the stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 12
+
+
+def _padded_dim(dh: int) -> int:
+    """The instantiated head dim the kernels run ``dh`` at: the smallest
+    of :data:`FLASH_HEAD_DIMS` at least ``dh``."""
+    for d in FLASH_HEAD_DIMS:
+        if d >= dh:
+            return d
+    raise ValueError(f"flash_attention: head dim {dh} exceeds the largest "
+                     f"the kernels take, {FLASH_HEAD_DIMS[-1]}")
+
+
+def _aligned(x: torch.Tensor) -> bool:
+    """A unit last stride and 16-byte aligned rows: the base pointer and
+    every other stride (strides are multiples of 16 bytes iff their
+    bitwise or is)."""
+    st = x.stride()
+    return st[3] == 1 and x.data_ptr() % 16 == 0 and \
+        (st[0] | st[1] | st[2]) * x.element_size() % 16 == 0
+
+
+def _kernel_operand(x: torch.Tensor, dp: int, dense: bool) -> torch.Tensor:
+    """``x`` as a kernel takes it: zero-padded to head dim ``dp`` (a new
+    dense tensor), else copied to a dense one when ``dense`` is asked
+    and ``x`` is not, or when its rows are off 16 bytes."""
+    if x.shape[3] != dp:
+        return torch.nn.functional.pad(x, (0, dp - x.shape[3]))
+    if (dense and not x.is_contiguous()) or not _aligned(x):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
+def _launch(lib, fn, argtypes, args, dev) -> int:
+    launch = _bind(lib, fn, argtypes)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if dev == torch.cuda.current_device():
+        return launch(*args, stream)
+    with torch.cuda.device(dev):
+        return launch(*args, stream)
+
+
+def _forward_cuda(q, k, v, causal, prefix_len, kv_len, q_start,
+                  want_lse: bool):
+    """B7 on the card: (out, lse or None)."""
+    b, s, h, dh = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    if h > 65535 or b > 65535:
+        raise ValueError(f"flash_attention: {b} x {h} (batch x heads) "
+                         f"exceeds the launch grid")
+    kv_len = t if kv_len is None else kv_len
+    dp = _padded_dim(dh)
+    if dp != dh:             # the kernels never read a row past kv_len
+        k, v = k[:, :kv_len], v[:, :kv_len]
+    kq, kk, kv_ = (_kernel_operand(x, dp, False) for x in (q, k, v))
+    out = torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
+        if want_lse else None
+    if s == 0 or b == 0:
+        return out[..., :dh], lse
+    route, split_tiles = _route(q.shape, k.shape, q.dtype, causal,
+                                prefix_len, kv_len, q_start)
+    part = None
+    if route.splits is not None:
+        # each split's m, l and unnormalised acc for its folded rows
+        part = torch.empty(b * kvh * route.splits * s * (h // kvh)
+                           * (dp + 2), dtype=torch.float32, device=q.device)
+    lib = build.load("flash_attention")
+    # the scalars travel as one int64 array (one ctypes argument, not 24)
+    params = array.array("q", (
+        b, s, h, kvh, dp, q.dtype == torch.bfloat16,
+        k.dtype == torch.bfloat16, causal, prefix_len, kv_len, q_start,
+        _ROUTE_IDS[route.name], split_tiles, route.splits or 0,
+        *kq.stride()[:3], *kk.stride()[:3], *kv_.stride()[:3],
+        struct.unpack("<I", struct.pack("<f", _scale(dh)))[0]))
+    args = (kq.data_ptr(), kk.data_ptr(), kv_.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if lse is None else lse.data_ptr(), params.buffer_info()[0])
+    err = _launch(lib, "c4cam_flash_attention", _ARGTYPES, args,
+                  q.device.index)
+    _raise_if_failed(lib, "flash_attention", err)
+    _count("flash_attention")
+    return (out if dp == dh else out[..., :dh]), lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """B7 with its gradient on the card: the forward kernel, which also
+    writes each row's log-sum-exp, and :func:`flash_attention_backward`.
+    :func:`flash_attention` applies it to CUDA operands whenever autograd
+    records the call."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, prefix_len, kv_len, q_start):
+        out, lse = _forward_cuda(q, k, v, causal, prefix_len, kv_len,
+                                 q_start, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = dict(causal=causal, prefix_len=prefix_len,
+                         kv_len=kv_len, q_start=q_start)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, d_out,
+                                              **ctx.masks)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -295,59 +485,82 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     see the module docstring for the contract.
 
     CPU tensors run :func:`flash_attention_reference`; CUDA tensors
-    launch the kernel of :func:`flash_route`.  The kernels take a head
-    dim in :data:`FLASH_HEAD_DIMS`, a unit last stride, and 16-byte
-    aligned rows (base pointers and every other stride); the wrapper
-    raises otherwise.
+    launch the kernel of :func:`flash_route` (through
+    :class:`FlashAttentionFn` when autograd records the call).  A head
+    dim outside :data:`FLASH_HEAD_DIMS` (at most 256) is zero-padded,
+    and an operand with a non-unit last stride or rows off 16 bytes
+    copied, before the launch.
     """
     _check(q, k, v, prefix_len, kv_len, q_start)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          prefix_len=prefix_len,
                                          kv_len=kv_len, q_start=q_start)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, prefix_len, kv_len,
+                                      q_start)
+    return _forward_cuda(q, k, v, causal, prefix_len, kv_len, q_start,
+                         want_lse=False)[0]
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, d_out: torch.Tensor, *,
+                             causal: bool = True, prefix_len: int = 0,
+                             kv_len: Optional[int] = None, q_start: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Gradients (dq, dk, dv) of :func:`flash_attention` at ``q, k, v``
+    given its output ``out``, its rows' float32 log-sum-exp ``lse``
+    (B, H, S) and the output's gradient ``d_out``; each in its operand's
+    dtype.
+
+    CPU tensors run :func:`flash_attention_backward_reference`; CUDA
+    tensors launch the kernels of ``csrc/flash_attention_bwd.cu`` (one
+    count of ``"flash_attention_bwd"``) or raise.  They take one dtype:
+    a float32 ``q`` over a bfloat16 cache runs with ``k`` and ``v``
+    widened to float32 (exact), the forward's own precision for the
+    scores.  Other head dims are padded as the forward pads them.
+    """
+    _check(q, k, v, prefix_len, kv_len, q_start)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, out, lse, d_out, causal=causal, prefix_len=prefix_len,
+            kv_len=kv_len, q_start=q_start)
     b, s, h, dh = q.shape
     t, kvh = k.shape[1], k.shape[2]
-    if dh not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} is not one of "
-                         f"{FLASH_HEAD_DIMS}")
-    for what, x in (("q", q), ("k", k), ("v", v)):
-        st = x.stride()
-        # strides are multiples of 16 bytes iff their bitwise or is
-        if st[3] != 1 or x.data_ptr() % 16 or \
-                (st[0] | st[1] | st[2]) * x.element_size() % 16:
-            raise ValueError(f"flash_attention: {what} needs a unit last "
-                             f"stride and 16-byte aligned rows, got strides "
-                             f"{st}")
+    if out.shape != q.shape or d_out.shape != q.shape or \
+            tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_backward: out {tuple(out.shape)}"
+                         f", d_out {tuple(d_out.shape)} and lse "
+                         f"{tuple(lse.shape)} {lse.dtype} do not match q "
+                         f"{tuple(q.shape)}")
     if h > 65535 or b > 65535:
-        raise ValueError(f"flash_attention: {b} x {h} (batch x heads) "
-                         f"exceeds the launch grid")
-    out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
-    if s == 0 or b == 0:
-        return out
-    kv_len = t if kv_len is None else kv_len
-    route, split_tiles = _route(q.shape, k.shape, q.dtype, causal,
-                                prefix_len, kv_len, q_start)
-    part = None
-    if route.splits is not None:
-        # each split's m, l and unnormalised acc for its folded rows
-        part = torch.empty(b * kvh * route.splits * s * (h // kvh)
-                           * (dh + 2), dtype=torch.float32, device=q.device)
-    lib = build.load("flash_attention")
-    launch = _bind(lib, "c4cam_flash_attention", _ARGTYPES)
-    # the scalars travel as one int64 array (one ctypes argument, not 23)
-    params = array.array("q", (
-        b, s, h, kvh, dh, q.dtype == torch.bfloat16,
-        k.dtype == torch.bfloat16, causal, prefix_len, kv_len, q_start,
-        _ROUTE_IDS[route.name], split_tiles, route.splits or 0,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3]))
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(), params.buffer_info()[0])
-    dev = q.device.index
-    if dev == torch.cuda.current_device():
-        err = launch(*args, torch._C._cuda_getCurrentRawStream(dev))
-    else:
-        with torch.cuda.device(dev):
-            err = launch(*args, torch._C._cuda_getCurrentRawStream(dev))
-    _raise_if_failed(lib, "flash_attention", err)
-    _count("flash_attention")
-    return out
+        raise ValueError(f"flash_attention_backward: {b} x {h} (batch x "
+                         f"heads) exceeds the launch grid")
+    dt = q.dtype
+    dp = _padded_dim(dh)
+    kq, kk, kv_, ko, kg = (_kernel_operand(x.to(dt), dp, True)
+                           for x in (q, k, v, out, d_out))
+    lse = lse.contiguous()
+    dq = torch.empty((b, s, h, dp), dtype=dt, device=q.device)
+    dk = torch.empty((b, t, kvh, dp), dtype=dt, device=q.device)
+    dv = torch.empty_like(dk)
+    if s and b and t:
+        dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        lib = build.load("flash_attention_bwd")
+        params = array.array("q", (
+            b, s, t, h, kvh, dp, dt == torch.bfloat16, causal, prefix_len,
+            t if kv_len is None else kv_len, q_start,
+            struct.unpack("<I", struct.pack("<f", _scale(dh)))[0]))
+        args = tuple(x.data_ptr() for x in (kq, kk, kv_, ko, kg, lse, dsum,
+                                            dq, dk, dv)) \
+            + (params.buffer_info()[0],)
+        err = _launch(lib, "c4cam_flash_attention_bwd", _BWD_ARGTYPES, args,
+                      q.device.index)
+        _raise_if_failed(lib, "flash_attention_bwd", err)
+        _count("flash_attention_bwd")
+    if dp != dh:
+        dq, dk, dv = dq[..., :dh], dk[..., :dh], dv[..., :dh]
+    return dq, dk.to(k.dtype), dv.to(v.dtype)

@@ -25,8 +25,11 @@ loop.
 
 Three public entry points:
 
-* ``forward(params, cfg, batch[, return_hidden])`` -> logits (teacher
-  forcing), or the post-final-norm hidden state
+* ``forward(params, cfg, batch[, train, return_hidden])`` -> logits
+  (teacher forcing), or the post-final-norm hidden state; with
+  ``train=True`` each layer body is checkpointed as ``cfg.remat`` asks
+  (the reference's ``_maybe_remat``: ``"full"`` recomputes the whole body
+  in the backward, ``"dots"`` keeps the matrix products' outputs)
 * ``prefill(params, cfg, batch, cache)``       -> (last logits, cache)
 * ``decode_step(params, cfg, tokens, cache)``  -> (logits, cache)
 
@@ -54,6 +57,7 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..core.engine.base import resolve_device
 from ..kernels import flash_attention as fa
@@ -116,6 +120,40 @@ def _copy_layer(stacked: Params, layer: Params, i: int) -> None:
 
 def _layer(stack: Params, i: int) -> Params:
     return _tree_map(lambda t: t[i], stack)
+
+
+def _layers(stack: Params) -> List[Params]:
+    """Every layer of a stack, by one ``unbind`` of each leaf: its
+    gradient is one ``stack`` of the layers' gradients, where a view per
+    layer would add a stack-sized gradient per layer."""
+    if isinstance(stack, dict):
+        parts = {k: _layers(v) for k, v in stack.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(stack))
+
+
+#: the matrix products whose outputs ``remat="dots"`` keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn: Callable, cfg: ModelConfig, train: bool) -> Callable:
+    """``fn`` itself, or under ``train`` its call checkpointed as
+    ``cfg.remat`` says: ``"full"`` keeps only its inputs for the
+    backward, ``"dots"`` its matrix products' outputs too."""
+    if not train or cfg.remat not in ("full", "dots"):
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: ckpt.create_selective_checkpoint_contexts(
+            _save_dots)
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False, **kw)
 
 
 def _depth(stack: Params) -> int:
@@ -234,22 +272,25 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def _run_dense_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig, *,
                      positions: torch.Tensor, prefix_len: int = 0,
-                     cache: Optional[Params] = None
+                     cache: Optional[Params] = None, train: bool = False
                      ) -> Tuple[torch.Tensor, Optional[Params]]:
     """The blocks in order, each with its layer of the cache; a layer
     with a ``"moe"`` entry is an MoE block."""
     ln = 0 if cache is None else cache["len"]
-    for i in range(_depth(stack)):
-        p_l = _layer(stack, i)
+
+    def body(xc, p_l, cache_l):
+        if "moe" in p_l:
+            return blocks.apply_moe_block(p_l, xc, cfg, positions=positions,
+                                          cache=cache_l)[0]
+        return blocks.apply_dense_block(p_l, xc, cfg, positions=positions,
+                                        prefix_len=prefix_len,
+                                        cache=cache_l)[0]
+
+    run = _maybe_remat(body, cfg, train and cache is None)
+    for i, p_l in enumerate(_layers(stack)):
         cache_l = None if cache is None else \
             {"k": cache["k"][i], "v": cache["v"][i], "len": ln}
-        if "moe" in p_l:
-            x, _ = blocks.apply_moe_block(p_l, x, cfg, positions=positions,
-                                          cache=cache_l)
-        else:
-            x, _ = blocks.apply_dense_block(p_l, x, cfg, positions=positions,
-                                            prefix_len=prefix_len,
-                                            cache=cache_l)
+        x = run(x, p_l, cache_l)
     if cache is None:
         return x, None
     return x, {"k": cache["k"], "v": cache["v"], "len": ln + x.shape[1]}
@@ -265,7 +306,8 @@ def _attn_stacks(params: Params, cfg: ModelConfig) -> List[Params]:
 
 
 def _run_attn_stacks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                     positions: torch.Tensor, cache: Optional[Params] = None
+                     positions: torch.Tensor, cache: Optional[Params] = None,
+                     train: bool = False
                      ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Each stack over its layers' views of the one cache (the
     reference splits the cache at ``first_dense_layers`` and
@@ -278,7 +320,8 @@ def _run_attn_stacks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             "k": cache["k"][first:first + n],
             "v": cache["v"][first:first + n], "len": ln}
         x, _ = _run_dense_stack(stack, x, cfg, positions=positions,
-                                prefix_len=_prefix(cfg), cache=part)
+                                prefix_len=_prefix(cfg), cache=part,
+                                train=train)
         first += n
     if cache is None:
         return x, None
@@ -286,7 +329,8 @@ def _run_attn_stacks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _run_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                positions: torch.Tensor, cache: Optional[Params] = None
+                positions: torch.Tensor, cache: Optional[Params] = None,
+                train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Each group: the shared attention block over the group's layer of
     the attention cache, then its ``per`` Mamba2 blocks, each state
@@ -295,61 +339,71 @@ def _run_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     from ``init_decode_cache`` under float32 compute) is replaced by its
     copy in the compute dtype first."""
     ng, per = _groups(cfg)
-    stack, shared = params["mamba_blocks"], params["shared_attn"]
-    ln = 0 if cache is None else cache["attn"]["len"]
-    states = None
-    if cache is not None:
-        states = cache["mamba"]
-        if states["conv"].dtype != x.dtype:
-            states = {"ssm": states["ssm"],
-                      "conv": states["conv"].to(x.dtype)}
+    layers, shared = _layers(params["mamba_blocks"]), params["shared_attn"]
+    if cache is None:
+        def group(xc, mamba):
+            xc, _ = blocks.apply_shared_attn_block(shared, xc, cfg,
+                                                   positions=positions)
+            for blk in mamba:
+                xc, _ = blocks.apply_mamba_block(blk, xc, cfg)
+            return xc
+
+        run = _maybe_remat(group, cfg, train)
+        for g in range(ng):
+            x = run(x, layers[g * per:(g + 1) * per])
+        return x, None
+    ln = cache["attn"]["len"]
+    states = cache["mamba"]
+    if states["conv"].dtype != x.dtype:
+        states = {"ssm": states["ssm"], "conv": states["conv"].to(x.dtype)}
     for g in range(ng):
-        attn_l = None if cache is None else {
-            "k": cache["attn"]["k"][g], "v": cache["attn"]["v"][g],
-            "len": ln}
+        attn_l = {"k": cache["attn"]["k"][g], "v": cache["attn"]["v"][g],
+                  "len": ln}
         x, _ = blocks.apply_shared_attn_block(shared, x, cfg,
                                               positions=positions,
                                               cache=attn_l)
         for j in range(per):
-            st = None if states is None else \
-                {k: t[g, j] for k, t in states.items()}
-            x, new = blocks.apply_mamba_block(_layer(stack, g * per + j), x,
-                                              cfg, state=st)
-            if states is not None:
-                for k, t in new.items():
-                    states[k][g, j] = t
-    if cache is None:
-        return x, None
+            st = {k: t[g, j] for k, t in states.items()}
+            x, new = blocks.apply_mamba_block(layers[g * per + j], x, cfg,
+                                              state=st)
+            for k, t in new.items():
+                states[k][g, j] = t
     return x, {"attn": {"k": cache["attn"]["k"], "v": cache["attn"]["v"],
                         "len": ln + x.shape[1]},
                "mamba": states}
 
 
 def _run_ssm(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
-             cache: Optional[Params] = None
+             cache: Optional[Params] = None, train: bool = False
              ) -> Tuple[torch.Tensor, Optional[Params]]:
     """The (mLSTM, sLSTM) pairs; each pair's new state is written into
     its layer of the cache."""
-    stack = params["blocks"]
-    for i in range(_depth(stack)):
-        state = None if cache is None else _layer(cache, i)
-        x, new_state = blocks.apply_xlstm_pair(_layer(stack, i), x, cfg,
-                                               state=state)
-        if cache is not None:
-            _copy_layer(cache, new_state, i)
+    if cache is None:
+        run = _maybe_remat(
+            lambda xc, p_l: blocks.apply_xlstm_pair(p_l, xc, cfg)[0], cfg,
+            train)
+        for p_l in _layers(params["blocks"]):
+            x = run(x, p_l)
+        return x, None
+    for i, p_l in enumerate(_layers(params["blocks"])):
+        x, new_state = blocks.apply_xlstm_pair(p_l, x, cfg,
+                                               state=_layer(cache, i))
+        _copy_layer(cache, new_state, i)
     return x, cache
 
 
-def _run_encoder(params: Params, frames: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+def _run_encoder(params: Params, frames: torch.Tensor, cfg: ModelConfig,
+                 train: bool = False) -> torch.Tensor:
     b, t, _ = frames.shape
     pos = _positions(0, b, t, frames.device)
     dt = cdtype(cfg)
     x = frames.to(dt) + _sinusoidal(pos, cfg.d_model).to(dt)
-    stack = params["enc_blocks"]
-    for i in range(_depth(stack)):
-        x, _ = blocks.apply_encoder_block(_layer(stack, i), x, cfg,
-                                          positions=pos)
+    run = _maybe_remat(
+        lambda xc, p_l: blocks.apply_encoder_block(p_l, xc, cfg,
+                                                   positions=pos)[0],
+        cfg, train)
+    for p_l in _layers(params["enc_blocks"]):
+        x = run(x, p_l)
     return apply_norm(params["enc_norm"], x, cfg)
 
 
@@ -392,27 +446,30 @@ def _cross_cache(params: Params, enc: torch.Tensor, cfg: ModelConfig
 
 def _run_xdec(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, enc: Optional[torch.Tensor] = None,
-              cache: Optional[Params] = None
+              cache: Optional[Params] = None, train: bool = False
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """The decoder stack; the cross keys and values come from ``enc``
     (``forward`` computes them per layer) or from the cache."""
-    stack = params["blocks"]
     ln = 0 if cache is None else cache["self"]["len"]
-    for i in range(_depth(stack)):
-        blk = _layer(stack, i)
+
+    def body(xc, blk, i):
         self_cache = None if cache is None else {
             "k": cache["self"]["k"][i], "v": cache["self"]["v"][i],
             "len": ln}
-        a, _ = attention(blk["self"], apply_norm(blk["ln1"], x, cfg), cfg,
+        a, _ = attention(blk["self"], apply_norm(blk["ln1"], xc, cfg), cfg,
                          positions=positions, cache=self_cache)
-        x = x + a
+        xc = xc + a
         if cache is None:
             ck, cv = _cross_kv(blk["cross"], enc, cfg)
         else:
             ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
-        x = x + _cross_attend(blk["cross"], apply_norm(blk["ln2"], x, cfg),
-                              cfg, ck, cv)
-        x = x + ffn(blk["ffn"], apply_norm(blk["ln3"], x, cfg), cfg)
+        xc = xc + _cross_attend(blk["cross"],
+                                apply_norm(blk["ln2"], xc, cfg), cfg, ck, cv)
+        return xc + ffn(blk["ffn"], apply_norm(blk["ln3"], xc, cfg), cfg)
+
+    run = _maybe_remat(body, cfg, train and cache is None)
+    for i, blk in enumerate(_layers(params["blocks"])):
+        x = run(x, blk, i)
     if cache is None:
         return x, None
     return x, {"self": {"k": cache["self"]["k"], "v": cache["self"]["v"],
@@ -423,7 +480,7 @@ def _run_xdec(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 def _run_family(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor,
                 frames: Optional[torch.Tensor] = None,
-                cache: Optional[Params] = None
+                cache: Optional[Params] = None, train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """The family's stack over the embedded tokens.  ``frames`` (audio)
     run through the encoder: with a cache (a prefill) its cross keys and
@@ -432,17 +489,19 @@ def _run_family(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
         return _run_attn_stacks(params, x, cfg, positions=positions,
-                                cache=cache)
+                                cache=cache, train=train)
     if fam == "hybrid":
-        return _run_hybrid(params, x, cfg, positions=positions, cache=cache)
+        return _run_hybrid(params, x, cfg, positions=positions, cache=cache,
+                           train=train)
     if fam == "ssm":
-        return _run_ssm(params, x, cfg, cache=cache)
-    enc = None if frames is None else _run_encoder(params, frames, cfg)
+        return _run_ssm(params, x, cfg, cache=cache, train=train)
+    enc = None if frames is None else _run_encoder(params, frames, cfg,
+                                                   train)
     if cache is not None and enc is not None:
         cache = {"self": cache["self"],
                  "cross": _cross_cache(params, enc, cfg)}
     return _run_xdec(params, x, cfg, positions=positions, enc=enc,
-                     cache=cache)
+                     cache=cache, train=train)
 
 
 # ---------------------------------------------------------------------------
@@ -501,17 +560,20 @@ def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
 
 
 def forward(params: Params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor],
+            batch: Dict[str, torch.Tensor], train: bool = False,
             return_hidden: bool = False) -> torch.Tensor:
     """Full-sequence float32 logits (teacher forcing);
     ``batch["tokens"]``: (B, S) (and ``batch["vision"]`` for vlm,
     ``batch["frames"]`` for audio); vlm's cover the text positions only.
-    ``return_hidden=True`` returns the post-final-norm hidden state
-    (B, S, d_model) instead."""
+    ``train=True`` checkpoints each layer body as ``cfg.remat`` asks (the
+    reference's default is ``train=True``; the port's callers that serve
+    or check logits take the default ``False``, where remat changes
+    nothing but memory).  ``return_hidden=True`` returns the
+    post-final-norm hidden state (B, S, d_model) instead."""
     _family(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
     x, _ = _run_family(params, x, cfg, positions=positions,
-                       frames=batch.get("frames"))
+                       frames=batch.get("frames"), train=train)
     x = apply_norm(params["final_norm"], x[:, _prefix(cfg):], cfg)
     if return_hidden:
         return x

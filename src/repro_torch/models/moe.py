@@ -105,7 +105,9 @@ def _moe_routed(router_w: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
 
     scores = xt.float() @ router_w.float()
     gate_all = torch.softmax(scores, dim=-1)
-    _, expert_idx = router_topk(xt, router_w, k, cfg.router_offload)
+    # the choice carries no gradient (the reference's stop_gradient)
+    _, expert_idx = router_topk(xt.detach(), router_w.detach(), k,
+                                cfg.router_offload)
     gates = torch.gather(gate_all, -1, expert_idx)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
@@ -118,10 +120,12 @@ def _moe_routed(router_w: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
     keep = pos < capacity
     slot = eidx * capacity + torch.clamp(pos, max=capacity - 1)
 
-    # dispatch: kept rows to their slots, dropped rows to the spare row
+    # dispatch: kept rows to their slots, dropped rows to the spare row;
+    # each token's k copies by expand, whose gradient is a sum over k in
+    # a fixed order (repeat_interleave's would be an index_add)
     buf = xt.new_zeros((e * capacity + 1, d))
     buf.index_put_((torch.where(keep, slot, e * capacity),),
-                   xt.repeat_interleave(k, dim=0))
+                   xt[:, None].expand(t, k, d).reshape(t * k, d))
     buf = buf[:-1].view(e, capacity, d)
 
     dt = xt.dtype

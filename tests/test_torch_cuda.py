@@ -274,7 +274,7 @@ def test_launch_counts_and_refusals(cuda):
                             "hdc_encode": 0, "hdc_encode_wide": 0,
                             "distance": 0, "distance_topk": 0,
                             "topk_select": 0, "packed_distance": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0}
     with pytest.raises(ValueError, match="queries on"):
         tcs.fused_topk_packed(q, p.cpu(), k=3, largest=False, n_valid=100)
 
@@ -1090,21 +1090,146 @@ def test_flash_kernel_reads_a_strided_cache_view_up_to_kv_len(cuda, dtype,
 
 
 def test_flash_kernel_contract_violations_raise(cuda, rng):
-    q, k, v = _qkv(rng, 1, 8, 8, 4, 2, 48, torch.float32, torch.float32,
-                   cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        tfa.flash_attention(q, k, v)
+    """What the kernels once refused (ROADMAP Queue C, C4) now runs: head
+    dims 48 and 96 (zero-padded to 64 and 128, the scale still
+    1/sqrt(dh)) and operands with a non-unit last stride (copied), each
+    matching the plain version forward and backward, on each route."""
+    cases = [(48, torch.float32, {}), (96, torch.bfloat16, {}),
+             (48, torch.bfloat16, dict(s=2)),        # split-KV
+             (64, torch.float32, dict(strided=True)),
+             (128, torch.bfloat16, dict(strided=True))]
+    for dh, dtype, opt in cases:
+        s = opt.get("s", 72)
+        q, k, v = _qkv(rng, 2, s, 72, 4, 2, dh, dtype, dtype, cuda)
+        if opt.get("strided"):
+            q = q.transpose(1, 3).contiguous().transpose(1, 3)
+            k = k.transpose(1, 3).contiguous().transpose(1, 3)
+            assert q.stride()[3] != 1 and k.stride()[3] != 1
+        kw = dict(causal=True, q_start=72 - s)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        got = tfa.flash_attention(qg, kg, vg, **kw)
+        want, lse = tfa.flash_attention_reference(q, k, v, return_lse=True,
+                                                  **kw)
+        atol = B7_F32_ATOL if dtype == torch.float32 else B7_BF16_ATOL
+        assert got.shape == q.shape and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=0)
+        d_out = torch.randn_like(got)
+        grads = torch.autograd.grad(got, (qg, kg, vg), d_out)
+        plain = tfa.flash_attention_backward_reference(q, k, v, want, lse,
+                                                       d_out, **kw)
+        for a, w in zip(grads, plain):
+            bound = (B7B_F32_OF_MAX if dtype == torch.float32
+                     else B7B_BF16_OF_MAX) * float(w.float().abs().max())
+            assert a.shape == w.shape
+            assert float((a.float() - w.float()).abs().max()) <= bound
+
+
+def test_flash_kernel_contract_checks_still_raise(cuda, rng):
     q, k, v = _qkv(rng, 1, 8, 8, 4, 2, 64, torch.float32, torch.float32,
                    cuda)
-    with pytest.raises(ValueError, match="unit last stride"):
-        tfa.flash_attention(q.transpose(1, 3).contiguous().transpose(1, 3),
-                            k, v)
     with pytest.raises(ValueError, match="dtypes"):
         tfa.flash_attention(q.bfloat16(), k, v)
     with pytest.raises(ValueError, match="is on"):
         tfa.flash_attention(q, k.cpu(), v)
     with pytest.raises(ValueError, match="kv_len"):
         tfa.flash_attention(q, k, v, kv_len=9)
+    with pytest.raises(ValueError, match="disagree"):
+        tfa.flash_attention(q, k[..., :32], v)
+    with pytest.raises(ValueError, match="exceeds the largest"):
+        big = torch.zeros((1, 2, 1, 320), device=cuda)
+        tfa.flash_attention(big, big, big)
+    out, lse = tfa.flash_attention_reference(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="do not match"):
+        tfa.flash_attention_backward(q, k, v, out, lse[:, :, :4], out)
+
+
+#: B7's backward against its plain version, as a share of the plain
+#: gradient's largest magnitude (chip_smoke.py's bounds)
+B7B_BF16_OF_MAX, B7B_F32_OF_MAX = 2e-2, 2e-4
+#: the forward's log-sum-exp against the plain one
+B7_LSE_ATOL = 1e-3
+B7B_CASES = {"causal": (96, 96, dict(causal=True)),
+             "prefix": (96, 96, dict(causal=True, prefix_len=40)),
+             "cross": (7, 150, dict(causal=False)),
+             "cache": (3, 90, dict(causal=True, q_start=70, kv_len=73))}
+
+
+@pytest.mark.parametrize("case", list(B7B_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", list(tfa.FLASH_HEAD_DIMS))
+def test_flash_backward_matches_plain(cuda, case, dtype, dh, rng):
+    """The backward kernels at every instantiated head dim, both dtypes,
+    causal / prefix / cross / cache masks, GQA groups of 3."""
+    s, t, kw = B7B_CASES[case]
+    q, k, v = _qkv(rng, 2, s, t, 6, 2, dh, dtype, dtype, cuda)
+    d_out = _qkv(rng, 2, s, t, 6, 2, dh, dtype, dtype, cuda)[0]
+    out, lse = tfa.flash_attention_reference(q, k, v, return_lse=True, **kw)
+    tcs.reset_launch_counts()
+    got = tfa.flash_attention_backward(q, k, v, out, lse, d_out, **kw)
+    assert tcs.LAUNCHES["flash_attention_bwd"] == 1
+    want = tfa.flash_attention_backward_reference(q, k, v, out, lse, d_out,
+                                                  **kw)
+    share = B7B_F32_OF_MAX if dtype == torch.float32 else B7B_BF16_OF_MAX
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        bound = share * float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) <= bound
+    if kw.get("kv_len"):              # rows no query sees get no gradient
+        assert not bool(got[1][:, kw["kv_len"]:].any())
+
+
+@pytest.mark.parametrize("route", ["wgmma", "splitkv", "fma"])
+@pytest.mark.parametrize("dh", [64, 80, 256])
+def test_flash_forward_log_sum_exp_each_route(cuda, route, dh, rng):
+    s = {"wgmma": 200, "splitkv": 5, "fma": 70}[route]
+    dtype = torch.float32 if route == "fma" else torch.bfloat16
+    q, k, v = _qkv(rng, 2, s, 300, 4, 1, dh, dtype, dtype, cuda)
+    kw = dict(causal=True, q_start=300 - s, prefix_len=20)
+    assert tfa.flash_route(q.shape, k.shape, dtype, **kw).name == route
+    out, lse = tfa._forward_cuda(q, k, v, True, 20, None, 300 - s,
+                                 want_lse=True)
+    want_out, want = tfa.flash_attention_reference(q, k, v, return_lse=True,
+                                                   **kw)
+    torch.testing.assert_close(lse, want, atol=B7_LSE_ATOL, rtol=0)
+    torch.testing.assert_close(out, tfa.flash_attention(q, k, v, **kw),
+                               atol=0, rtol=0)
+
+
+def test_flash_backward_is_deterministic(cuda, rng):
+    """dK and dV (a GQA group of 5 summed in registers) bit for bit over
+    two calls, as dQ."""
+    q, k, v = _qkv(rng, 1, 300, 300, 10, 2, 128, torch.bfloat16,
+                   torch.bfloat16, cuda)
+    d_out = torch.randn_like(q)
+    out, lse = tfa._forward_cuda(q, k, v, True, 0, None, 0, want_lse=True)
+    first = tfa.flash_attention_backward(q, k, v, out, lse, d_out)
+    for _ in range(3):
+        again = tfa.flash_attention_backward(q, k, v, out, lse, d_out)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_one_train_step_is_deterministic_and_launches_b7b(cuda):
+    """One train step of a small bf16 model on the card, twice from the
+    same state: bit-identical parameters; B7's forward twice a layer
+    (remat recomputes it) and its backward once."""
+    from repro_torch.models import steps as ts
+    from repro_torch.optim import constant
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(_small_lm("bfloat16"), remat="full")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 160))).to(cuda)
+    step = ts.make_train_step(cfg, constant(1e-3))
+    outs = []
+    for _ in range(2):
+        state = ts.init_train_state(cfg, seed=3)
+        tcs.reset_launch_counts()
+        state, metrics = step(state, {"tokens": toks})
+        assert tcs.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+        assert tcs.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+        assert np.isfinite(float(metrics["loss"]))
+        outs.append([p.detach().clone() for p in leaves(state.params)])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 def _small_lm(dtype):
