@@ -364,9 +364,11 @@ B7B_BF16_OF_MAX, B7B_F32_OF_MAX, B7_LSE_ATOL = 2e-2, 2e-4, 1e-3
 #: B7's backward alone: (B, S, T, H, KV, dh) and masks of the families'
 #: attention: qwen2.5-14b's prefill, whisper-medium's encoder and
 #: cross-attention, zamba2-2.7b's shared block, paligemma-3b's prefix-LM
-#: prefill, and a head dim the kernels reach by padding (96 -> 128)
+#: prefill, a head dim the kernels reach by padding (96 -> 128), and
+#: qwen2.5-14b at lm_train's batch of 4
 B7B_SHAPES = {
     "qwen_causal": ((1, 2048, 2048, 40, 8, 128), dict(causal=True)),
+    "qwen_train": ((4, 2048, 2048, 40, 8, 128), dict(causal=True)),
     "whisper_encoder": ((1, 1500, 1500, 16, 16, 64), dict(causal=False)),
     "whisper_cross": ((1, 4, 1500, 16, 16, 64), dict(causal=False)),
     "zamba2_causal": ((1, 2048, 2048, 32, 32, 80), dict(causal=True)),
@@ -5150,6 +5152,38 @@ def b7b_bound_ms(q, k, kw):
         else "bytes"
 
 
+def b7b_kernel_ms(fn, n: int = 5) -> dict:
+    """Device ms a call of B7b's three steps under ``torch.profiler`` over
+    ``n`` calls of ``fn``: the pre-pass (``flash_bwd_rows_kernel`` or
+    ``flash_bwd_dot_kernel``), the dK / dV kernel and the dQ kernel, each
+    the mean over the launches the profiler saw (a call launches each
+    once; the profiler can lose device events, and ``seen`` counts what
+    it kept), ``{"not_measured": ...}`` when it saw none of a step."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    steps = ("prepass", "dkdv", "dq")
+    total, seen = dict.fromkeys(steps, 0.0), dict.fromkeys(steps, 0)
+    for ms, name, count in device_rows(prof):
+        part = ("prepass" if "flash_bwd_rows" in name
+                or "flash_bwd_dot" in name else
+                "dkdv" if "flash_bwd_dkdv" in name else
+                "dq" if "flash_bwd_dq" in name else None)
+        if part is not None:
+            total[part] += ms
+            seen[part] += count
+    if not all(seen.values()):
+        return {"not_measured": f"the profiler saw {seen} launches of "
+                                f"{n} calls"}
+    return {**{p: total[p] / seen[p] for p in steps}, "seen": seen}
+
+
 def sdpa_backward_call(q, k, v, d_out, kw):
     """The library yardstick for one backward: the gradient of PyTorch's
     ``scaled_dot_product_attention`` (``enable_gqa``) at the same
@@ -5184,8 +5218,10 @@ def b7b_check(what, shape, kw, dtype, seed, timed, dev):
     ``B7_F32_ATOL`` (float32), the log-sum-exp within ``B7_LSE_ATOL``,
     each gradient within
     ``B7B_BF16_OF_MAX`` (bf16) or ``B7B_F32_OF_MAX`` (float32) of its
-    plain version's largest magnitude.  With ``timed``, the backward's
-    median ms beside its plain version, its bound and SDPA's backward."""
+    plain version's largest magnitude, two calls bit-identical; records
+    the route (``flash_bwd_route``).  With ``timed``, the backward's
+    median ms beside its plain version, its bound and SDPA's backward,
+    and its three steps' device ms (``b7b_kernel_ms``)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     b, s_, t, h, kvh, dh = shape
@@ -5228,6 +5264,7 @@ def b7b_check(what, shape, kw, dtype, seed, timed, dev):
             raise RuntimeError(f"{what}: B7's backward {name} off its plain "
                                f"version by {err} (bound {bound} x {scale})")
     rec = {"shape": list(shape), "kw": kw, "dtype": str(dtype),
+           "route": fa.flash_bwd_route(q.shape, k.shape, dtype, **kw).name,
            "fwd_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
            "grads": errs,
            "max_abs_err": max(e["max_abs_err"] for e in errs.values())}
@@ -5240,6 +5277,8 @@ def b7b_check(what, shape, kw, dtype, seed, timed, dev):
             plain_ms=cuda_ms(lambda: fa.flash_attention_backward_reference(
                 q, k, v, out, lse, d_out, **kw), 3),
             bound_ms=bound_ms, bound_by=by, library_ms=cuda_ms(lib, 5),
+            kernel_ms=b7b_kernel_ms(lambda: fa.flash_attention_backward(
+                q, k, v, out, lse, d_out, **kw)),
             forward_ms=cuda_ms(lambda: fa._forward_cuda(
                 q, k, v, kw.get("causal", True), kw.get("prefix_len", 0),
                 kw.get("kv_len"), kw.get("q_start", 0), want_lse=True), 5))
@@ -5456,8 +5495,9 @@ def phase_lm_train(s: Smoke):
              qwen["plain_ms"], qwen["bound_ms"], qwen["bound_by"],
              qwen["library_ms"])
     s.kernels["flash_attention_bwd"]["shapes"] = {
-        k: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "forward_ms")}
+        k: {key: v[key] for key in ("route", "ms", "kernel_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "forward_ms")}
         for k, v in shapes.items() if "ms" in v}
     _record_b7(s, counts["flash_attention"], {"train": {"max_abs_err": max(
         r["fwd_max_abs_err"] for r in shapes.values())}}, {})

@@ -22,9 +22,14 @@ queries, 180,000 x 1024 gallery) at the shapes the smoke gives them:
   seeded generator, with its median CUDA-event time over 50 launches
   (``ms``: the wrapper's host work included, as the smoke's), the host
   ms a call of 50 enqueued back to back (``host_ms``) and the device ms
-  a call under ``torch.profiler`` (``device_ms``).
+  a call under ``torch.profiler`` (``device_ms``);
+* B7's backward (``flash_attention_backward``, bf16) at ``chip_smoke.py``'s
+  ``B7B_SHAPES``, from the forward's output and log-sum-exp on seeded
+  operands: the digest of (dq, dk, dv), the median CUDA-event ms over 20
+  calls (``ms``), its three steps' device ms (``kernel_ms``: pre-pass,
+  dK / dV, dQ) and the route, where the tree has ``flash_bwd_route``.
 
-For each it prints the SHA-256 of the output's bytes and, for B4 eucl,
+``--b7-only`` runs the last two alone.  For each it prints the SHA-256 of the output's bytes and, for B4 eucl,
 the disagreements with the plain version.  Equal digests from two trees
 mean equal results.  Prints one JSON object (and writes it to ``--out``
 if given); needs one CUDA card:
@@ -96,6 +101,40 @@ def flash_records(torch) -> dict:
     return out
 
 
+def flash_backward_records(torch) -> dict:
+    """B7b at each of ``chip_smoke.B7B_SHAPES`` in bf16: digest, median
+    event ms, device ms by step, route."""
+    from chip_smoke import B7B_SHAPES, b7b_kernel_ms
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    out = {}
+    for name, ((b, s, t, h, kvh, dh), kw) in B7B_SHAPES.items():
+        q, k, v, d_out = (torch.randn(shape, generator=gen, device="cuda")
+                          .bfloat16() for shape in (
+                              (b, s, h, dh), (b, t, kvh, dh), (b, t, kvh, dh),
+                              (b, s, h, dh)))
+        o, lse = fa._forward_cuda(q, k, v, kw.get("causal", True),
+                                  kw.get("prefix_len", 0), kw.get("kv_len"),
+                                  kw.get("q_start", 0), want_lse=True)
+
+        def call():
+            return fa.flash_attention_backward(q, k, v, o, lse, d_out, **kw)
+
+        grads = call()
+        rec = {"sha256": digest(torch.cat([g.reshape(-1) for g in grads])
+                                .view(torch.int16)),
+               "ms": median_ms(torch, call, 20),
+               "kernel_ms": b7b_kernel_ms(call)}
+        if hasattr(fa, "flash_bwd_route"):
+            rec["route"] = fa.flash_bwd_route(q.shape, k.shape, q.dtype,
+                                              **kw).name
+        out[name] = rec
+        del q, k, v, d_out, o, lse, grads
+        torch.cuda.empty_cache()
+    return out
+
+
 def host_ms(torch, call, n: int = 50) -> float:
     """Host ms a call of ``n`` calls enqueued back to back."""
     torch.cuda.synchronize()
@@ -143,15 +182,34 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--out")
+    ap.add_argument("--b7-only", action="store_true",
+                    help="only B7's forward and backward records")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("kernel_digest: needs a CUDA device")
     sys.path.insert(0, os.path.join(os.path.abspath(args.tree), "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.data import knn_dataset
-    from repro_torch.kernels import acam, build, cam_search, ops
+    from repro_torch.kernels import build
     build.build()
+    out = {"tree": os.path.abspath(args.tree),
+           "device": torch.cuda.get_device_name(0)}
+    if not args.b7_only:
+        out.update(cam_records(torch))
+    out["flash_attention"] = flash_records(torch)
+    out["flash_attention_bwd"] = flash_backward_records(torch)
+    text = json.dumps(out)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(text + "\n")
+
+
+def cam_records(torch) -> dict:
+    """B4, B6 and B5 on the smoke's KNN and HDC data: digests (B4's
+    disagreements with its plain version, B5's median ms)."""
+    from repro_torch.data import knn_dataset
+    from repro_torch.kernels import acam, cam_search, ops
     g, _, q, _ = knn_dataset()
     gt, qt = torch.from_numpy(g).cuda(), torch.from_numpy(q).cuda()
     d64 = ((qt.double() ** 2).sum(1, keepdim=True) - 2 * qt.double()
@@ -163,8 +221,7 @@ def main() -> None:
     qpad = torch.nn.functional.pad(qp, (0, 0, 0, 1024 - qp.shape[0]))
     kw = dict(metric="eucl", threshold=tau, below=True,
               to_logical="identity", dim=gt.shape[1], n_valid=gt.shape[0])
-    out = {"tree": os.path.abspath(args.tree), "tau": tau,
-           "device": torch.cuda.get_device_name(0)}
+    out = {"tau": tau}
     for name, qx in (("range_eucl_624", qp), ("range_eucl_1024", qpad)):
         got = acam.range_match(qx, pp, **kw)
         want = acam.range_match_reference(qx, pp, **kw)
@@ -178,12 +235,7 @@ def main() -> None:
         out[f"distance_{metric}_624"] = {
             "sha256": digest(cam_search.distance(a, b, metric=metric))}
     out["hdc_encode_mnist"] = hdc_encode_record(torch)
-    out["flash_attention"] = flash_records(torch)
-    text = json.dumps(out)
-    print(text)
-    if args.out:
-        with open(args.out, "w") as fh:
-            fh.write(text + "\n")
+    return out
 
 
 if __name__ == "__main__":

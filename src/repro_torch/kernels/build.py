@@ -41,7 +41,7 @@ SOURCES = {"fused_topk": "fused_topk.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu"}
 #: headers every source includes (part of each library's hash)
-_HEADERS = ("fused_topk_common.cuh", "tf32_wgmma.cuh")
+_HEADERS = ("fused_topk_common.cuh", "tf32_wgmma.cuh", "bf16_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")

@@ -17,45 +17,82 @@
 //   dV = P^T dO,   dP = dO V^T,   dS = P * (dP - D),   D = rowsum(dO * O)
 //   dQ = scale * dS K,   dK = scale * dS^T Q
 //
-// in float32 and stores dQ, dK, dV in the input dtype.  Three kernels:
+// in float32 and stores dQ, dK, dV in the input dtype.  Every route runs
+// three steps: a pre-pass for D; a dK / dV kernel in which a block owns kv
+// rows of one kv head and walks, in a fixed order, the kv head's H / KV
+// query heads and, for each, the q tiles that can see them (causal: from
+// the first row at or past the tile's first column; the prefix's tiles
+// from row 0), summing P^T dO and dS^T Q; and a dQ kernel in which a
+// block owns query rows of one head and walks the kv tiles they can see,
+// summing dS K.  The group's query heads meet in one block, so no block
+// writes a dK / dV row another block writes: no atomics, the same sums in
+// the same order on every run.  The dQ kernel recomputes S and dP: seven
+// products of 2 dh FLOP per visible (row, column) pair and head, five of
+// them needed.  P and dS are rounded to bf16 between the products that
+// use them (the forward rounds P so too).  Three routes, picked by the
+// wrapper (flash_attention.py, `flash_bwd_route`) and passed in:
 //
-// * flash_bwd_dot_kernel: D, one warp a row.
-// * flash_bwd_dkdv_kernel (float32; flash_bwd_dkdv_mma_kernel for bf16): a
-//   block owns one (batch row, kv head, kv tile);
-//   it walks, in a fixed order, the kv head's H / KV query heads and, for
-//   each, the 64-row q tiles that can see the tile (causal: from the first
-//   row at or past the tile's first column; the prefix's tiles from row 0),
-//   recomputing S and dP and summing P^T dO and dS^T Q into registers.  The
-//   group's query heads meet in those registers, so no block writes a dK /
-//   dV row another block writes: no atomics, the same sums in the same
-//   order on every run.
-// * flash_bwd_dq_kernel (flash_bwd_dq_mma_kernel): a block owns one
-//   (batch row, head, q tile) and walks
-//   the kv tiles its rows can see, in order, summing dS K.
+// * wgmma (bf16, head dims up to 128: the training path; namespace wb).
+//   flash_bwd_rows_kernel writes each row's (lse log2 e, D) pair, (0, 0)
+//   past S up to a multiple of 128 rows, so a stage's 64 rows are one
+//   512-byte bulk copy.  flash_bwd_dkdv_wgmma_kernel: a block owns 64 kv
+//   rows of one kv head, K and V resident in shared memory; one producer
+//   thread (warpgroup 2, setmaxnreg 24) keeps a 4-stage ring of (Q, dO,
+//   rows) stages of 64 query rows full by TMA (tensor maps over (B, S, H,
+//   dh) and (B, kv_len, KV, dh): rows past S or kv_len read as zeros);
+//   consumer warpgroups 0 and 1 (setmaxnreg 240) take a tile's stages in
+//   turns (stage j to warpgroup j % 2), each computing S^T = K Q^T and
+//   dP^T = V dO^T for all 64 kv rows (wgmma m64n64k16, both operands
+//   K-major in the swizzled tiles), then P^T = exp2(S^T scale log2 e -
+//   lse log2 e) and dS^T = P^T (dP^T - D) in the accumulators, rounded to
+//   bf16 in registers as the A operands of dV += P^T dO and dK += dS^T Q
+//   (wgmma RS at N = dh, dO and Q read N-major through the transposed
+//   descriptor, as the forward reads V).  No P or dS crosses shared
+//   memory.  At a tile's end warpgroup 1 hands its dV, then its dK, to
+//   warpgroup 0 through a 64 x dh float32 buffer (named barriers 1 and 2),
+//   which adds each to its own, always in that order, and stores.  Causal
+//   balance: a block owns kv tiles j and n - 1 - j, which see n + 1 q
+//   tiles between them, so every block carries the same work: at
+//   qwen2.5-14b's causal shape 128 blocks for 132 SMs at B = 1 and 512 (3.9
+//   waves of equal blocks) at B = 4.  Rows past S need no mask (Q and dO
+//   zero, the pair (0, 0): P is 1, dP and D are 0, so dV and dS gain 0);
+//   only stages that straddle kv_len, the diagonal or the prefix are
+//   masked.  flash_bwd_dq_wgmma_kernel: a block owns 128 query rows of one
+//   head (a consumer warpgroup of 64 each), Q and dO resident; the producer
+//   keeps a 3-stage ring of 64-row K and V tiles; each warpgroup computes
+//   S = Q K^T and dP = dO V^T (m64n64k16), dS in registers, and dQ += dS K
+//   (RS, K read N-major), skipping tiles past its rows' last visible
+//   column; the longest causal blocks launch first, as the forward's do.
+//   Q and dO stay SS operands: held as RS A registers across tiles they
+//   are overwritten (ptxas frees a wgmma's A registers once the product
+//   has read them: at dh 64 it packed dS into them), and read anew by
+//   ldmatrix every tile they measured no faster on an H100.
+//   Registers: dK and dV take dh / 2 float32 each a consumer thread, S^T
+//   and dP^T 32 each: 192 at dh 128, under setmaxnreg's 240; dh 256 would
+//   need 256 for dK and dV alone, so it takes the mma route.  Shared
+//   memory at dh 128: 195 KB (dK / dV), 161 KB (dQ): one block an SM.
+// * mma (bf16 at head dim 256; namespace tc): flash_bwd_dkdv_mma_kernel
+//   and flash_bwd_dq_mma_kernel, the same blocks as the float32 kernels on
+//   mma.sync m16n8k16 with float32 accumulators, 8 warps; the tiles in
+//   shared memory as bf16, staged by plain 16-byte copies between the
+//   products (no pipeline); the score tile of a (q tile, kv tile) pair cut
+//   among the warps by m16 tiles and n8 column groups, the outputs
+//   likewise, the P / dS operands taken from shared memory (load_a) and
+//   the dO / Q / K ones through ldmatrix.trans; 32-row kv tiles (with the
+//   two 64-row q tiles they fit 227 KB); D from flash_bwd_dot_kernel, one
+//   warp a row.
+// * fma (float32: the parity checks): flash_bwd_dkdv_kernel and
+//   flash_bwd_dq_kernel on the CUDA cores, staged as float32 as the
+//   forward's FMA route does, thread (ty, tx) holding score rows
+//   4ty..4ty+3 against columns tx + 16c and output columns tx + 16n;
+//   64-row kv tiles (32 at dh 256); D from flash_bwd_dot_kernel.
 //
-// Two routes, one per dtype, the same blocks and walks.  bf16 (training):
-// the tensor cores, mma.sync m16n8k16 with float32 accumulators, 8 warps;
-// the tiles in shared memory as bf16; P and dS rounded to bf16 between
-// the two products that use them (the forward rounds P so too); the
-// score tile of a (q tile, kv tile) pair cut among the warps by m16 tiles
-// and n8 column groups, the outputs likewise, and the P / dS operands
-// taken from shared memory (load_a) and the dO / Q / K ones through
-// ldmatrix.trans.  float32 (the parity checks): the CUDA cores in FMA,
-// staged as float32 as the forward's FMA route does, thread (ty, tx)
-// holding score rows 4ty..4ty+3 against columns tx + 16c and output
-// columns tx + 16n.  The kv tile is 64 rows (32 at dh 256, where the
-// tiles and the two 64-row q tiles must fit 227 KB).  The work is five
-// products of 2 S T dh FLOP a head (S, dP, dV, dK, dQ; halved when
-// causal); the two-kernel split recomputes S and dP in the dQ kernel,
-// seven in all.  Loads are plain 16-byte copies between the products,
-// not a pipeline: the tiles' latency is exposed.
-//
-// Bound on an H100 SXM: that FLOP count at the bf16 tensor-core peak (989
-// TFLOP/s) or the bytes of q, k, v, o, dO, lse and dQ, dK, dV at 3.35 TB/s,
-// the larger; at qwen2.5-14b's (2048, 40 / 8, 128) causal shape 0.109 ms a
-// batch row, compute-bound.  A simple kernel first: wgmma, TMA and a
-// pipelined walk are a later redesign.  Head dims: 16, 32, 64, 80, 128, 256 (the wrapper
-// zero-pads others to the next one, the scale staying the caller's).
+// Bound on an H100 SXM: the five products at the bf16 tensor-core peak
+// (989 TFLOP/s) or the bytes of q, k, v, o, dO, lse and dQ, dK, dV at 3.35
+// TB/s, the larger; at qwen2.5-14b's (2048, 40 / 8, 128) causal shape
+// 0.109 ms a batch row, compute-bound.  Head dims: 16, 32, 64, 80, 128,
+// 256 (the wrapper zero-pads others to the next one, the scale staying
+// the caller's).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,9 +102,12 @@
 #include <atomic>
 #include <type_traits>
 
+#include "bf16_wgmma.cuh"  // mbarriers, TMA, wgmma (shared with the forward)
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using c4cam_bf16::allow_smem;
+using c4cam_bf16::bf16;
 
 constexpr int kThreads = 256;
 constexpr int kBlockQ = 64;
@@ -92,45 +132,17 @@ struct Geo {
   static_assert(DH % 16 == 0 && kBlockK % 16 == 0, "whole 16-column groups");
 };
 
-// cudaFuncSetAttribute(kernel, max dynamic shared memory) once per kernel
-// and device; `done` holds a bit per device.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(bytes));
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return err;
-}
-
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store(bf16* dst, float x) { *dst = __float2bfloat16_rn(x); }
 
-// 16-byte loads converted to float32.
+// 16-byte loads.
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<bf16> { static constexpr int N = 8; };
 
 __device__ __forceinline__ void load16(const float* src, float* dst) {
   const float4 x = *reinterpret_cast<const float4*>(src);
   dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
-}
-
-__device__ __forceinline__ void load16(const bf16* src, float* dst) {
-  const uint4 x = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
 }
 
 // Stage rows [r0, r0 + ROWS) of one head (row stride `rs`, elements) as
@@ -431,10 +443,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the same two kernels on the tensor cores (mma.sync m16n8k16)
+// bf16 at head dim 256: the same two kernels on mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
 namespace tc {
+
+using c4cam_bf16::pack_bf16;
+using c4cam_bf16::smem_u32;
 
 constexpr int kThreads = 256;      // 8 warps
 constexpr int kBlockQ = 64;
@@ -466,15 +481,6 @@ struct Geo {
   static_assert(kOut % 8 == 0 && kOutQ % 8 == 0, "whole n8 output tiles");
   static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "shared memory of one block");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
                                          uint32_t b1) {
@@ -781,6 +787,578 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// bf16 at head dims up to 128: the wgmma route (TMA rings, warp-specialised)
+// ---------------------------------------------------------------------------
+
+namespace wb {
+
+using namespace c4cam_bf16;
+
+constexpr int kThreads = 384;          // warpgroups 0-1 consume, 2 loads
+constexpr int kRows = 64;              // the rows of every tile: wgmma's M
+constexpr int kRowBytes = kRows * 8;   // a stage's (lse log2 e, D) pairs
+constexpr float kLog2e = 1.4426950408889634f;
+
+// [64][DH] bf16 tiles as TMA writes them (bf16_wgmma.cuh, `Atoms`).  The
+// dK / dV kernel keeps K and V, a ring of kStagesKV stages of Q and dO
+// tiles and rows, and a 64 x DH float32 exchange buffer; the dQ kernel
+// the two warpgroups' Q and dO tiles and a ring of kStagesQ K and V tiles.
+template <int DH>
+struct Geo : Atoms<DH> {
+  using Atoms<DH>::kSwizzle;
+  static constexpr int kAtomBytes = kRows * kSwizzle;   // one column atom
+  static constexpr int kTile = kRows * DH * 2;
+  static constexpr int kStagesKV = 4;
+  static constexpr int kStagesQ = 3;
+  // tiles, rows, the exchange buffer, 1 KB of alignment slack, barriers
+  static constexpr size_t kSmemKV = size_t(2 + 2 * kStagesKV) * kTile +
+                                    size_t(kStagesKV) * kRowBytes +
+                                    size_t(kRows) * DH * 4 + 1024 + 128;
+  static constexpr size_t kSmemQ = size_t(4 + 2 * kStagesQ) * kTile + 1024 + 128;
+  static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "shared memory of one block");
+  static_assert(kTile % 1024 == 0, "tiles keep the swizzle atoms aligned");
+};
+
+// rows[(b H + h) S_pad + s] = (lse[b, h, s] log2 e, D[b, h, s]) with D =
+// sum_d dO[b, s, h, d] O[b, s, h, d] in float32, (0, 0) for s in [S,
+// S_pad).  Warp w of block i takes entry 8i + w; lane l < dh / 8 sums the
+// products of columns 8l..8l+7 in order, then the lanes meet by the same
+// shuffle tree every run.
+__global__ void __launch_bounds__(256)
+flash_bwd_rows_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ o,
+                      const float* __restrict__ lse, float2* __restrict__ rows, int S,
+                      int S_pad, int H, int dh, int64_t n) {
+  const int64_t r = int64_t(blockIdx.x) * 8 + threadIdx.x / 32;
+  if (r >= n) return;
+  const int lane = threadIdx.x % 32;
+  const int s = int(r % S_pad);
+  const int64_t bh = r / S_pad;
+  if (s >= S) {
+    if (lane == 0) rows[r] = make_float2(0.f, 0.f);
+    return;
+  }
+  const int64_t b = bh / H, h = bh % H;
+  const int64_t off = ((b * S + s) * H + h) * dh;
+  float acc = 0.f;
+  if (lane < dh / 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(dout + off + 8 * lane);
+    const uint4 y = *reinterpret_cast<const uint4*>(o + off + 8 * lane);
+    const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* c = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 u = __bfloat1622float2(a[i]), w = __bfloat1622float2(c[i]);
+      acc = fmaf(u.x, w.x, acc);
+      acc = fmaf(u.y, w.y, acc);
+    }
+  }
+#pragma unroll
+  for (int sh = 16; sh > 0; sh >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, sh);
+  if (lane == 0) rows[r] = make_float2(lse[bh * S + s] * kLog2e, acc);
+}
+
+// Whether kv column `col` is visible to the query row at position `pos`.
+__device__ __forceinline__ bool visible(int col, int pos, int causal, int prefix_len,
+                                        int kv_len) {
+  return col < kv_len && (!causal || col <= pos || col < prefix_len);
+}
+
+// The first query row of the first q tile some row of which sees a
+// column of the kv tile [t0, t0 + 64); S when no row does.
+__device__ __forceinline__ int first_q_row(int t0, int S, int causal, int prefix_len,
+                                           int kv_len, int q_start) {
+  if (t0 >= kv_len) return S;
+  int s = 0;
+  if (causal && t0 >= prefix_len) s = max(0, t0 - q_start);
+  if (s >= S) return S;
+  return s - s % kRows;
+}
+
+// d = A B^T for 64-row tiles A and B (shared-memory addresses), both
+// K-major: dh in k-steps of 16 columns (32 bytes of an atom row).
+template <int DH>
+__device__ __forceinline__ void start_ss(float (&d)[kRows / 2], uint32_t a, uint32_t b) {
+  using G = Geo<DH>;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t off =
+        16 * kk / G::kAtomCols * G::kAtomBytes + (16 * kk % G::kAtomCols) * 2;
+    wgmma_ss<kRows>(d, desc<DH>(a + off, 16, 8 * G::kSwizzle),
+                    desc<DH>(b + off, 16, 8 * G::kSwizzle), kk > 0);
+  }
+}
+
+// d += A B for A (64 x 64, bf16) in registers, k-step kk holding columns
+// 16kk..16kk+15, and the 64-row tile B read N-major (its rows 16kk on).
+template <int DH>
+__device__ __forceinline__ void start_rs(float (&d)[DH / 2], const uint32_t (&a)[4][4],
+                                         uint32_t b) {
+  using G = Geo<DH>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<DH>(d, a[kk], desc<DH>(b + kk * 16 * G::kSwizzle, G::kAtomBytes, 8 * G::kSwizzle));
+}
+
+// A 64 x 64 accumulator rounded to bf16 as the A registers of an RS
+// product: k-step kk covers column blocks 2kk and 2kk + 1.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[kRows / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// Named barriers of 256 threads (both consumer warpgroups).
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Warpgroup 1's partial sums `acc` into warpgroup 0's through `xbuf`
+// (thread tid's registers at xbuf[e * 128 + tid]): warpgroup 1 waits until
+// warpgroup 0 has read the previous hand-over (`handed` > 0), writes, and
+// arrives at barrier 1; warpgroup 0 waits there, adds, and arrives at 2.
+template <int DH>
+__device__ __forceinline__ void hand_over(float (&acc)[DH / 2], float* xbuf, int tid,
+                                          int wgi, int handed) {
+  if (wgi == 1) {
+    if (handed) bar_sync(2);
+#pragma unroll
+    for (int e = 0; e < DH / 2; ++e) xbuf[e * 128 + tid] = acc[e];
+    bar_arrive(1);
+  } else {
+    bar_sync(1);
+#pragma unroll
+    for (int e = 0; e < DH / 2; ++e) acc[e] += xbuf[e * 128 + tid];
+    bar_arrive(2);
+  }
+}
+
+// One stage of the dK / dV walk for one warpgroup: the tile's 64 kv rows
+// (this thread's r0 and r0 + 8, accumulator registers 4j + {0, 1} and
+// 4j + {2, 3}) against the stage's 64 query rows s0.. (columns 8j + 2t +
+// e).  S^T and dP^T start together; P^T is formed while dP^T finishes.
+template <int DH>
+__device__ __forceinline__ void dkdv_stage(float (&dka)[DH / 2], float (&dva)[DH / 2],
+                                           uint32_t kt, uint32_t vt, uint32_t qt,
+                                           uint32_t gt, const float2* rw, int r0, int s0,
+                                           bool masked, int t, int causal, int prefix_len,
+                                           int kv_len, int q_start, float scale2) {
+  float sc[kRows / 2], dp[kRows / 2];
+  wgmma_fence();
+  start_ss<DH>(sc, kt, qt);
+  wgmma_commit();
+  start_ss<DH>(dp, vt, gt);
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_regs(sc);
+#pragma unroll
+  for (int j = 0; j < kRows / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * j + 2 * t + e;
+      const float l2 = rw[c].x;
+      float p0 = exp2f(fmaf(sc[4 * j + e], scale2, -l2));
+      float p1 = exp2f(fmaf(sc[4 * j + 2 + e], scale2, -l2));
+      if (masked) {
+        const int pos = q_start + s0 + c;
+        if (!visible(r0, pos, causal, prefix_len, kv_len)) p0 = 0.f;
+        if (!visible(r0 + 8, pos, causal, prefix_len, kv_len)) p1 = 0.f;
+      }
+      sc[4 * j + e] = p0;
+      sc[4 * j + 2 + e] = p1;
+    }
+  wgmma_wait<0>();
+  fence_regs(dp);
+#pragma unroll
+  for (int j = 0; j < kRows / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float d = rw[8 * j + 2 * t + e].y;
+      dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - d);
+      dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * (dp[4 * j + 2 + e] - d);
+    }
+  uint32_t pa[4][4], da[4][4];
+  pack_a(pa, sc);
+  pack_a(da, dp);
+  wgmma_fence();
+  start_rs<DH>(dva, pa, gt);
+  start_rs<DH>(dka, da, qt);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dva);
+  fence_regs(dka);
+}
+
+// Block (x, kv head, b): dK and dV of the kv tiles x and, when `paired`,
+// n - 1 - x (n = ceil(Tk / 64)), one after the other.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const float2* __restrict__ rows, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, int S, int S_pad, int Tk, int H,
+                            int KV, int paired, int causal, int prefix_len, int kv_len,
+                            int q_start, float scale) {
+  using G = Geo<DH>;
+  constexpr int kSt = G::kStagesKV;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;         // swizzle atoms
+  const uint32_t sk = base, sv = sk + G::kTile;
+  const uint32_t sq = sv + G::kTile;                   // + slot * kTile
+  const uint32_t sg = sq + kSt * G::kTile;             // dO: + slot * kTile
+  const uint32_t srows = sg + kSt * G::kTile;          // + slot * kRowBytes
+  const uint32_t sx = srows + kSt * kRowBytes;         // exchange buffer
+  const uint32_t bars = sx + kRows * DH * 4;
+  // full[s] = bars + 8 s, empty[s] = bars + 8 (kSt + s); K / V full, empty
+  const uint32_t kv_full = bars + 16 * kSt, kv_empty = kv_full + 8;
+
+  const int kvh = blockIdx.y, b = blockIdx.z, group = H / KV;
+  const int n_tiles = (Tk + kRows - 1) / kRows, x = blockIdx.x;
+  const int n_own = paired && n_tiles - 1 - x != x ? 2 : 1;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kSt + s), 4);             // the consuming warpgroup
+    }
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 8);                           // both warpgroups
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ---- producer: one thread starts every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      int i = 0, loaded = 0;
+      for (int u = 0; u < n_own; ++u) {
+        const int t0 = (u == 0 ? x : n_tiles - 1 - x) * kRows;
+        const int s_first = first_q_row(t0, S, causal, prefix_len, kv_len, q_start);
+        const int nq = (S - s_first + kRows - 1) / kRows;
+        if (nq == 0) continue;
+        if (loaded > 0) mbar_wait(kv_empty, (loaded - 1) & 1);
+        ++loaded;
+        mbar_expect_tx(kv_full, 2 * G::kTile);
+#pragma unroll
+        for (int a = 0; a < G::kAtoms; ++a) {
+          tma_load_4d(sk + a * G::kAtomBytes, &tk, kv_full, a * G::kAtomCols, kvh, t0, b);
+          tma_load_4d(sv + a * G::kAtomBytes, &tv, kv_full, a * G::kAtomCols, kvh, t0, b);
+        }
+        for (int gi = 0; gi < group; ++gi) {
+          const int h = kvh * group + gi;
+          const float2* hrows = rows + (int64_t(b) * H + h) * S_pad;
+          for (int qi = 0; qi < nq; ++qi, ++i) {
+            const int s0 = s_first + qi * kRows, slot = i % kSt;
+            mbar_wait(bars + 8 * (kSt + slot), ((i / kSt) & 1) ^ 1);
+            const uint32_t full = bars + 8 * slot;
+            mbar_expect_tx(full, 2 * G::kTile + kRowBytes);
+#pragma unroll
+            for (int a = 0; a < G::kAtoms; ++a) {
+              const uint32_t off = slot * G::kTile + a * G::kAtomBytes;
+              tma_load_4d(sq + off, &tq, full, a * G::kAtomCols, h, s0, b);
+              tma_load_4d(sg + off, &tdo, full, a * G::kAtomCols, h, s0, b);
+            }
+            bulk_load(srows + slot * kRowBytes, hrows + s0, kRowBytes, full);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int t = lane % 4;
+    const float scale2 = scale * kLog2e;
+    float* xbuf = reinterpret_cast<float*>(smem_raw + (sx - raw));
+    const float2* rbuf = reinterpret_cast<const float2*>(smem_raw + (srows - raw));
+    int handed = 0;                                  // hand-overs so far
+    float dka[DH / 2], dva[DH / 2];
+    int i = 0, loaded = 0;
+    for (int u = 0; u < n_own; ++u) {
+      const int t0 = (u == 0 ? x : n_tiles - 1 - x) * kRows;
+      const int s_first = first_q_row(t0, S, causal, prefix_len, kv_len, q_start);
+      const int nq = (S - s_first + kRows - 1) / kRows;
+      const int n_st = group * nq;                   // the tile's stages
+      const int r0 = t0 + 16 * warp + lane / 4;      // kv rows r0, r0 + 8
+#pragma unroll
+      for (int e = 0; e < DH / 2; ++e) {
+        dka[e] = 0.f;
+        dva[e] = 0.f;
+      }
+      if (n_st > 0) {
+        mbar_wait(kv_full, loaded & 1);
+        ++loaded;
+        for (int j = wgi; j < n_st; j += 2) {        // stage j: warpgroup j % 2
+          const int st = i + j, slot = st % kSt;
+          const int s0 = s_first + (j % nq) * kRows;
+          const bool masked = t0 + kRows > kv_len ||
+                              (causal && t0 + kRows > prefix_len && t0 + kRows - 1 > q_start + s0);
+          mbar_wait(bars + 8 * slot, (st / kSt) & 1);
+          dkdv_stage<DH>(dka, dva, sk, sv, sq + slot * G::kTile, sg + slot * G::kTile,
+                         rbuf + slot * kRows, r0, s0, masked, t, causal, prefix_len,
+                         kv_len, q_start, scale2);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bars + 8 * (kSt + slot));
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(kv_empty);
+      }
+      i += n_st;
+      if (n_st > 1) {
+        hand_over<DH>(dva, xbuf, tid, wgi, handed++);
+        hand_over<DH>(dka, xbuf, tid, wgi, handed++);
+      }
+      if (wgi == 0) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int tr = r0 + 8 * hf;
+          if (tr >= Tk) continue;
+          const int64_t off = ((int64_t(b) * Tk + tr) * KV + kvh) * DH + 2 * t;
+#pragma unroll
+          for (int n = 0; n < DH / 8; ++n) {
+            *reinterpret_cast<uint32_t*>(dk + off + 8 * n) =
+                pack_bf16(dka[4 * n + 2 * hf] * scale, dka[4 * n + 2 * hf + 1] * scale);
+            *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
+                pack_bf16(dva[4 * n + 2 * hf], dva[4 * n + 2 * hf + 1]);
+          }
+        }
+      }
+    }
+    if (wgi == 1 && handed) bar_sync(2);             // the last hand-over read
+  }
+}
+
+// One kv tile of the dQ walk for one warpgroup: its 64 query rows (this
+// thread's rows at registers 4j + {0, 1} and 4j + {2, 3}, positions pa and
+// pb) against the tile's 64 kv columns t0 + 8j + 2t + e.
+template <int DH>
+__device__ __forceinline__ void dq_stage(float (&dqa)[DH / 2], uint32_t qt, uint32_t gt,
+                                         uint32_t kt, uint32_t vt, float2 ra, float2 rb,
+                                         int pa, int pb, int t0, bool masked, int t,
+                                         int causal, int prefix_len, int kv_len,
+                                         float scale2) {
+  float sc[kRows / 2], dp[kRows / 2];
+  wgmma_fence();
+  start_ss<DH>(sc, qt, kt);
+  wgmma_commit();
+  start_ss<DH>(dp, gt, vt);
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_regs(sc);
+#pragma unroll
+  for (int j = 0; j < kRows / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float p0 = exp2f(fmaf(sc[4 * j + e], scale2, -ra.x));
+      float p1 = exp2f(fmaf(sc[4 * j + 2 + e], scale2, -rb.x));
+      if (masked) {
+        const int col = t0 + 8 * j + 2 * t + e;
+        if (!visible(col, pa, causal, prefix_len, kv_len)) p0 = 0.f;
+        if (!visible(col, pb, causal, prefix_len, kv_len)) p1 = 0.f;
+      }
+      sc[4 * j + e] = p0;
+      sc[4 * j + 2 + e] = p1;
+    }
+  wgmma_wait<0>();
+  fence_regs(dp);
+#pragma unroll
+  for (int j = 0; j < kRows / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ra.y);
+      dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * (dp[4 * j + 2 + e] - rb.y);
+    }
+  uint32_t da[4][4];
+  pack_a(da, dp);
+  wgmma_fence();
+  start_rs<DH>(dqa, da, kt);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dqa);
+}
+
+// Block (h, b, z): dQ of query rows [s0, s0 + 128) of head h, z = 0 taking
+// the last block of rows (the longest causal walk) first.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const float2* __restrict__ rows, bf16* __restrict__ dq, int S,
+                          int S_pad, int H, int group, int causal, int prefix_len,
+                          int kv_len, int q_start, float scale) {
+  using G = Geo<DH>;
+  constexpr int kSt = G::kStagesQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base;                            // + warpgroup * kTile
+  const uint32_t sg = sq + 2 * G::kTile;               // dO
+  const uint32_t sk = sg + 2 * G::kTile;               // + slot * kTile
+  const uint32_t sv = sk + kSt * G::kTile;
+  const uint32_t bars = sv + kSt * G::kTile;
+  const uint32_t qbar = bars + 16 * kSt;
+  // full[s] = bars + 8 s, empty[s] = bars + 8 (kSt + s)
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int s0 = (gridDim.z - 1 - blockIdx.z) * 2 * kRows;
+  const int n_rows = min(2 * kRows, S - s0);
+  int col_end = kv_len;            // the last column any row can see, + 1
+  if (causal) col_end = min(col_end, max(q_start + s0 + n_rows, prefix_len));
+  const int n_kv = (col_end + kRows - 1) / kRows;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kSt + s), 8);            // both warpgroups
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      const int kvh = h / group, halves = n_rows > kRows ? 2 : 1;
+      mbar_expect_tx(qbar, 2 * halves * G::kTile);
+      for (int w = 0; w < halves; ++w)
+#pragma unroll
+        for (int a = 0; a < G::kAtoms; ++a) {
+          const uint32_t off = w * G::kTile + a * G::kAtomBytes;
+          tma_load_4d(sq + off, &tq, qbar, a * G::kAtomCols, h, s0 + w * kRows, b);
+          tma_load_4d(sg + off, &tdo, qbar, a * G::kAtomCols, h, s0 + w * kRows, b);
+        }
+      for (int i = 0; i < n_kv; ++i) {
+        const int slot = i % kSt;
+        const uint32_t full = bars + 8 * slot;
+        mbar_wait(bars + 8 * (kSt + slot), ((i / kSt) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * G::kTile);
+#pragma unroll
+        for (int a = 0; a < G::kAtoms; ++a) {
+          const uint32_t off = slot * G::kTile + a * G::kAtomBytes;
+          tma_load_4d(sk + off, &tk, full, a * G::kAtomCols, kvh, i * kRows, b);
+          tma_load_4d(sv + off, &tv, full, a * G::kAtomCols, kvh, i * kRows, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int t = lane % 4;
+    if (kRows * wgi >= n_rows) {     // every row of this warpgroup is past S
+      for (int i = 0; i < n_kv; ++i) {
+        mbar_wait(bars + 8 * (i % kSt), (i / kSt) & 1);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bars + 8 * (kSt + i % kSt));
+      }
+      return;
+    }
+    const int r = s0 + kRows * wgi + 16 * warp + lane / 4;   // rows r, r + 8
+    const float2* hrows = rows + (int64_t(b) * H + h) * S_pad;
+    const float2 ra = hrows[r], rb = hrows[r + 8];            // (0, 0) past S
+    const int first = q_start + s0 + kRows * wgi;             // this warpgroup's
+    int wg_end = kv_len;             // last visible column + 1 of its rows
+    int full_end = kv_len;           // columns every one of its rows sees
+    if (causal) {
+      wg_end = min(kv_len, max(first + kRows, prefix_len));
+      full_end = min(kv_len, max(first + 1, prefix_len));
+    }
+    const float scale2 = scale * kLog2e;
+    float dqa[DH / 2];
+#pragma unroll
+    for (int e = 0; e < DH / 2; ++e) dqa[e] = 0.f;
+    const uint32_t qt = sq + wgi * G::kTile, gt = sg + wgi * G::kTile;
+    mbar_wait(qbar, 0);
+    for (int i = 0; i < n_kv; ++i) {
+      const int slot = i % kSt, t0 = i * kRows;
+      mbar_wait(bars + 8 * slot, (i / kSt) & 1);
+      if (t0 < wg_end)
+        dq_stage<DH>(dqa, qt, gt, sk + slot * G::kTile, sv + slot * G::kTile, ra, rb,
+                     q_start + r, q_start + r + 8, t0, t0 + kRows > full_end, t, causal,
+                     prefix_len, kv_len, scale2);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (kSt + slot));
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = r + 8 * hf;
+      if (row >= S) continue;
+      bf16* out = dq + ((int64_t(b) * S + row) * H + h) * DH + 2 * t;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + 8 * n) =
+            pack_bf16(dqa[4 * n + 2 * hf] * scale, dqa[4 * n + 2 * hf + 1] * scale);
+    }
+  }
+}
+
+}  // namespace wb
+
+// The wgmma route: the rows pre-pass, then the dK / dV and dQ kernels.
+// `scratch` holds B * H * S_pad float2 (S_pad: S rounded up to 128).
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, void* scratch, void* dq, void* dk,
+                 void* dv, int B, int S, int Tk, int H, int KV, int paired, int causal,
+                 int prefix_len, int kv_len, int q_start, float scale,
+                 cudaStream_t stream) {
+  using G = wb::Geo<DH>;
+  using c4cam_bf16::encode;
+  // the tensor maps first: the pre-pass then runs straight into the kernels
+  const long long qs = (long long)H * DH, ks = (long long)KV * DH;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!encode(&tq, q, B, S, H, DH, qs * S, qs, DH, G::kAtomCols, wb::kRows, G::kTmaSwizzle) ||
+      !encode(&tdo, dout, B, S, H, DH, qs * S, qs, DH, G::kAtomCols, wb::kRows,
+              G::kTmaSwizzle) ||
+      !encode(&tk, k, B, kv_len, KV, DH, ks * Tk, ks, DH, G::kAtomCols, wb::kRows,
+              G::kTmaSwizzle) ||
+      !encode(&tv, v, B, kv_len, KV, DH, ks * Tk, ks, DH, G::kAtomCols, wb::kRows,
+              G::kTmaSwizzle))
+    return int(cudaErrorInvalidValue);
+  auto dkdv = wb::flash_bwd_dkdv_wgmma_kernel<DH>;
+  auto dqk = wb::flash_bwd_dq_wgmma_kernel<DH>;
+  static std::atomic<uint64_t> ready_kv{0}, ready_q{0};
+  cudaError_t err = allow_smem(dkdv, G::kSmemKV, ready_kv);
+  if (err == cudaSuccess) err = allow_smem(dqk, G::kSmemQ, ready_q);
+  if (err != cudaSuccess) return int(err);
+
+  const int S_pad = (S + 2 * wb::kRows - 1) / (2 * wb::kRows) * (2 * wb::kRows);
+  float2* rows = static_cast<float2*>(scratch);
+  const int64_t n = int64_t(B) * H * S_pad;
+  wb::flash_bwd_rows_kernel<<<unsigned((n + 7) / 8), 256, 0, stream>>>(
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(o), lse, rows, S, S_pad, H,
+      DH, n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const int n_tiles = (Tk + wb::kRows - 1) / wb::kRows;
+  const dim3 grid_kv(paired ? (n_tiles + 1) / 2 : n_tiles, KV, B);
+  dkdv<<<grid_kv, wb::kThreads, G::kSmemKV, stream>>>(
+      tq, tdo, tk, tv, rows, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, S_pad, Tk,
+      H, KV, paired, causal, prefix_len, kv_len, q_start, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid_q(H, B, (S + 2 * wb::kRows - 1) / (2 * wb::kRows));
+  dqk<<<grid_q, wb::kThreads, G::kSmemQ, stream>>>(
+      tq, tdo, tk, tv, rows, static_cast<bf16*>(dq), S, S_pad, H, H / KV, causal,
+      prefix_len, kv_len, q_start, scale);
+  return int(cudaGetLastError());
+}
+
+// The mma (bf16) and fma (float32) routes: the D pre-pass into the first
+// B * H * S floats of `scratch`, then their dK / dV and dQ kernels.
 template <int DH, typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dsum, void* dq, void* dk,
@@ -841,58 +1419,83 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   }
 }
 
-template <typename T>
-int by_dim(int dh, const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* dsum, void* dq, void* dk,
-           void* dv, int B, int S, int Tk, int H, int KV, int causal, int prefix_len,
-           int kv_len, int q_start, float scale, cudaStream_t s) {
-#define C4CAM_FLASH_BWD_CASE(D)                                                   \
-  case D:                                                                         \
-    return launch<D, T>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Tk, H, KV, \
-                        causal, prefix_len, kv_len, q_start, scale, s);
-  switch (dh) {
-    C4CAM_FLASH_BWD_CASE(16)
-    C4CAM_FLASH_BWD_CASE(32)
-    C4CAM_FLASH_BWD_CASE(64)
-    C4CAM_FLASH_BWD_CASE(80)
-    C4CAM_FLASH_BWD_CASE(128)
-    C4CAM_FLASH_BWD_CASE(256)
-    default: return int(cudaErrorInvalidValue);
+// route: 0 fma (float32, every head dim), 1 mma (bf16, dh 256), 2 wgmma
+// (bf16, dh up to 128); any other pairing is refused.
+int by_route(int route, int dh, const void* q, const void* k, const void* v,
+             const void* o, const void* dout, const float* lse, void* scratch, void* dq,
+             void* dk, void* dv, int B, int S, int Tk, int H, int KV, int paired,
+             int causal, int prefix_len, int kv_len, int q_start, float scale,
+             cudaStream_t s) {
+  float* dsum = static_cast<float*>(scratch);
+#define C4CAM_BWD_WGMMA(D)                                                         \
+  case D:                                                                          \
+    return launch_wgmma<D>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Tk, H, \
+                           KV, paired, causal, prefix_len, kv_len, q_start, scale, s);
+#define C4CAM_BWD_FMA(D)                                                            \
+  case D:                                                                           \
+    return launch<D, float>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Tk, H, KV, \
+                            causal, prefix_len, kv_len, q_start, scale, s);
+  if (route == 2) {
+    switch (dh) {
+      C4CAM_BWD_WGMMA(16)
+      C4CAM_BWD_WGMMA(32)
+      C4CAM_BWD_WGMMA(64)
+      C4CAM_BWD_WGMMA(80)
+      C4CAM_BWD_WGMMA(128)
+      default: break;
+    }
+  } else if (route == 1) {
+    if (dh == 256)
+      return launch<256, bf16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Tk, H, KV,
+                               causal, prefix_len, kv_len, q_start, scale, s);
+  } else if (route == 0) {
+    switch (dh) {
+      C4CAM_BWD_FMA(16)
+      C4CAM_BWD_FMA(32)
+      C4CAM_BWD_FMA(64)
+      C4CAM_BWD_FMA(80)
+      C4CAM_BWD_FMA(128)
+      C4CAM_BWD_FMA(256)
+      default: break;
+    }
   }
-#undef C4CAM_FLASH_BWD_CASE
+#undef C4CAM_BWD_WGMMA
+#undef C4CAM_BWD_FMA
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q, o, dout, dq (B, S, H, dh) and k, v, dk, dv (B, T, KV, dh), contiguous,
-// one dtype, 16-byte aligned; lse (B, H, S) float32 from the forward; dsum
-// float32 scratch of B * H * S values.  p holds, in order: B, S, T, H, KV, dh,
-// bf16 (1) or float32 (0), causal, prefix_len, kv_len (in 1..T), q_start and
-// the softmax scale as the bit pattern of a float32.  Returns a cudaError_t
-// code.
+// one dtype, 16-byte aligned; lse (B, H, S) float32 from the forward;
+// scratch: float32 scratch of 2 B H S_pad values, S_pad = S rounded up to
+// 128 (the wgmma route's (lse log2 e, D) pairs; the others' D uses the
+// first B H S).  p holds, in order: B, S, T, H, KV, dh, bf16 (1) or
+// float32 (0), causal, prefix_len, kv_len (in 1..T), q_start, the softmax
+// scale as the bit pattern of a float32, the route (0 fma, 1 mma, 2 wgmma)
+// and whether the wgmma route pairs kv tiles j and n - 1 - j.  Returns a
+// cudaError_t code.
 extern "C" int c4cam_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout,
-                                         const float* lse, float* dsum, void* dq,
+                                         const float* lse, void* scratch, void* dq,
                                          void* dk, void* dv, const long long* p,
                                          void* stream) {
-  for (int i = 0; i < 11; ++i)
-    if (p[i] < 0 || p[i] > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  for (int i = 0; i < 14; ++i)
+    if (i != 11 && (p[i] < 0 || p[i] > 0x7fffffffLL)) return int(cudaErrorInvalidValue);
   if (p[11] < 0 || p[11] > 0xffffffffLL) return int(cudaErrorInvalidValue);
   const int B = int(p[0]), S = int(p[1]), Tk = int(p[2]), H = int(p[3]);
   const int KV = int(p[4]), dh = int(p[5]), bf = int(p[6]), causal = int(p[7]);
   const int prefix_len = int(p[8]), kv_len = int(p[9]), q_start = int(p[10]);
   const uint32_t scale_bits = uint32_t(p[11]);
+  const int route = int(p[12]), paired = int(p[13]);
   float scale;
   memcpy(&scale, &scale_bits, sizeof scale);
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV || kv_len < 1 || kv_len > Tk ||
-      H > 65535 || B > 65535 || !(scale > 0.f) || isinf(scale))
+      H > 65535 || B > 65535 || !(scale > 0.f) || isinf(scale) || (route == 0) == (bf != 0))
     return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf)
-    return by_dim<bf16>(dh, q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Tk, H, KV,
-                        causal, prefix_len, kv_len, q_start, scale, s);
-  return by_dim<float>(dh, q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Tk, H, KV,
-                       causal, prefix_len, kv_len, q_start, scale, s);
+  return by_route(route, dh, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Tk, H, KV,
+                  paired, causal, prefix_len, kv_len, q_start, scale,
+                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* c4cam_error_string(int err) {

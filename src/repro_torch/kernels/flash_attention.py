@@ -71,8 +71,9 @@ from .cam_search import _bind, _count, _raise_if_failed
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_backward", "flash_attention_backward_reference",
            "FlashAttentionFn", "flash_attention_recurrence", "flash_route",
-           "FlashRoute", "FLASH_HEAD_DIMS", "FLASH_BLOCK_K",
-           "FLASH_SPLITKV_ROWS", "FLASH_SPLIT_BLOCKS"]
+           "FlashRoute", "flash_bwd_route", "FlashBwdRoute",
+           "FLASH_HEAD_DIMS", "FLASH_BLOCK_K", "FLASH_SPLITKV_ROWS",
+           "FLASH_SPLIT_BLOCKS", "FLASH_BWD_WGMMA_MAX_DH"]
 
 #: head dims the kernels are instantiated for; the wrapper pads any other
 #: head dim up to the last of them to the next one
@@ -92,6 +93,14 @@ FLASH_SPLIT_BLOCKS = 264
 #: ring take 143 KB)
 _SPLIT_BLOCKS_AT = {256: 132}
 _ROUTE_IDS = {"fma": 0, "wgmma": 1, "splitkv": 2}
+#: the largest head dim the backward's ``"wgmma"`` route takes: its
+#: consumer threads hold dK and dV in dh float32 registers beside 64 of
+#: scores, and dh 256 would not fit setmaxnreg's 240
+FLASH_BWD_WGMMA_MAX_DH = 128
+_BWD_ROUTE_IDS = {"fma": 0, "mma": 1, "wgmma": 2}
+#: query rows a block of the backward's ``"wgmma"`` dQ kernel owns: the
+#: (lse, D) scratch is padded to a multiple of it
+_BWD_ROWS_PAD = 128
 _NEG_INF = -1e30
 #: (q dtype, kv dtype) pairs the kernel takes
 _DTYPES = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
@@ -293,6 +302,34 @@ def _route(q_shape, k_shape, q_dtype, causal, prefix_len, kv_len, q_start):
     return FlashRoute("splitkv", bk, -(-n_tiles // per)), per
 
 
+class FlashBwdRoute(NamedTuple):
+    """The kernels :func:`flash_attention_backward` launches: ``name``
+    (``"wgmma"``, ``"mma"`` or ``"fma"``), and whether the dK / dV
+    kernel's block owns kv tiles ``j`` and ``n - 1 - j`` (``paired``:
+    causal walks of equal length)."""
+    name: str
+    paired: bool
+
+
+def flash_bwd_route(q_shape, k_shape, dtype: torch.dtype, *,
+                    causal: bool = True, prefix_len: int = 0,
+                    kv_len: Optional[int] = None,
+                    q_start: int = 0) -> FlashBwdRoute:
+    """The route :func:`flash_attention_backward` takes on a CUDA device
+    (a pure function of the shapes, dtype and masks).  float32: the FMA
+    kernels.  bf16 at a padded head dim up to
+    :data:`FLASH_BWD_WGMMA_MAX_DH`: the ``wgmma`` kernels (causal calls
+    pair kv tile ``j`` with ``n - 1 - j``, so every dK / dV block walks
+    the same number of q tiles).  bf16 at dh 256: the ``mma.sync``
+    kernels."""
+    del k_shape, prefix_len, kv_len, q_start     # the route reads none
+    if dtype != torch.bfloat16:
+        return FlashBwdRoute("fma", False)
+    if _padded_dim(q_shape[3]) <= FLASH_BWD_WGMMA_MAX_DH:
+        return FlashBwdRoute("wgmma", bool(causal))
+    return FlashBwdRoute("mma", False)
+
+
 def flash_attention_recurrence(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool = True,
                                prefix_len: int = 0,
@@ -367,8 +404,8 @@ def flash_attention_recurrence(q: torch.Tensor, k: torch.Tensor,
 
 #: q, k, v, out, scratch, lse, the int64 parameter array, the stream
 _ARGTYPES = [ctypes.c_void_p] * 8
-#: q, k, v, out, d_out, lse, D scratch, dq, dk, dv, the parameter array,
-#: the stream
+#: q, k, v, out, d_out, lse, the (lse, D) scratch, dq, dk, dv, the
+#: parameter array, the stream
 _BWD_ARGTYPES = [ctypes.c_void_p] * 12
 
 
@@ -517,8 +554,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dtype.
 
     CPU tensors run :func:`flash_attention_backward_reference`; CUDA
-    tensors launch the kernels of ``csrc/flash_attention_bwd.cu`` (one
-    count of ``"flash_attention_bwd"``) or raise.  They take one dtype:
+    tensors launch the kernels of ``csrc/flash_attention_bwd.cu`` on the
+    route of :func:`flash_bwd_route` (one count of
+    ``"flash_attention_bwd"``) or raise.  They take one dtype:
     a float32 ``q`` over a bfloat16 cache runs with ``k`` and ``v``
     widened to float32 (exact), the forward's own precision for the
     scores.  Other head dims are padded as the forward pads them.
@@ -548,14 +586,20 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dk = torch.empty((b, t, kvh, dp), dtype=dt, device=q.device)
     dv = torch.empty_like(dk)
     if s and b and t:
-        dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        route = flash_bwd_route(q.shape, k.shape, dt, causal=causal)
+        # the wgmma route's (lse log2 e, D) pairs over rows padded to
+        # _BWD_ROWS_PAD; the others' D in the first b * h * s floats
+        s_pad = -(-s // _BWD_ROWS_PAD) * _BWD_ROWS_PAD
+        scratch = torch.empty(2 * b * h * s_pad, dtype=torch.float32,
+                              device=q.device)
         lib = build.load("flash_attention_bwd")
         params = array.array("q", (
             b, s, t, h, kvh, dp, dt == torch.bfloat16, causal, prefix_len,
             t if kv_len is None else kv_len, q_start,
-            struct.unpack("<I", struct.pack("<f", _scale(dh)))[0]))
-        args = tuple(x.data_ptr() for x in (kq, kk, kv_, ko, kg, lse, dsum,
-                                            dq, dk, dv)) \
+            struct.unpack("<I", struct.pack("<f", _scale(dh)))[0],
+            _BWD_ROUTE_IDS[route.name], route.paired))
+        args = tuple(x.data_ptr() for x in (kq, kk, kv_, ko, kg, lse,
+                                            scratch, dq, dk, dv)) \
             + (params.buffer_info()[0],)
         err = _launch(lib, "c4cam_flash_attention_bwd", _BWD_ARGTYPES, args,
                       q.device.index)

@@ -1149,10 +1149,25 @@ def test_flash_kernel_contract_checks_still_raise(cuda, rng):
 B7B_BF16_OF_MAX, B7B_F32_OF_MAX = 2e-2, 2e-4
 #: the forward's log-sum-exp against the plain one
 B7_LSE_ATOL = 1e-3
-B7B_CASES = {"causal": (96, 96, dict(causal=True)),
-             "prefix": (96, 96, dict(causal=True, prefix_len=40)),
-             "cross": (7, 150, dict(causal=False)),
-             "cache": (3, 90, dict(causal=True, q_start=70, kv_len=73))}
+#: (B, S, T, H, KV) and masks.  Beyond the first four (GQA groups of 3):
+#: S and T off the 64-row tiles, a kv-tile count of 1 and odd counts (5,
+#: 3) for the wgmma route's pairing of kv tiles j and n - 1 - j, groups of
+#: 1, 5 and 8, and the causal, prefix, cross and cache masks on them
+B7B_CASES = {"causal": (2, 96, 96, 6, 2, dict(causal=True)),
+             "prefix": (2, 96, 96, 6, 2, dict(causal=True, prefix_len=40)),
+             "cross": (2, 7, 150, 6, 2, dict(causal=False)),
+             "cache": (2, 3, 90, 6, 2, dict(causal=True, q_start=70,
+                                            kv_len=73)),
+             "causal_g5_odd": (2, 200, 300, 10, 2, dict(causal=True,
+                                                        q_start=100)),
+             "causal_g8_one_tile": (2, 40, 50, 8, 1, dict(causal=True,
+                                                          q_start=10)),
+             "prefix_g1_odd": (1, 150, 150, 4, 4, dict(causal=True,
+                                                       prefix_len=70)),
+             "cross_g5": (2, 130, 300, 10, 2, dict(causal=False,
+                                                   kv_len=250)),
+             "cache_g8": (2, 5, 300, 8, 1, dict(causal=True, q_start=290,
+                                                kv_len=295))}
 
 
 @pytest.mark.parametrize("case", list(B7B_CASES))
@@ -1160,10 +1175,17 @@ B7B_CASES = {"causal": (96, 96, dict(causal=True)),
 @pytest.mark.parametrize("dh", list(tfa.FLASH_HEAD_DIMS))
 def test_flash_backward_matches_plain(cuda, case, dtype, dh, rng):
     """The backward kernels at every instantiated head dim, both dtypes,
-    causal / prefix / cross / cache masks, GQA groups of 3."""
-    s, t, kw = B7B_CASES[case]
-    q, k, v = _qkv(rng, 2, s, t, 6, 2, dh, dtype, dtype, cuda)
-    d_out = _qkv(rng, 2, s, t, 6, 2, dh, dtype, dtype, cuda)[0]
+    causal / prefix / cross / cache masks, GQA groups of 1, 3, 5 and 8,
+    each on the route flash_bwd_route names (wgmma: bf16 up to dh 128;
+    mma: bf16 at 256; fma: float32)."""
+    b, s, t, h, kvh, kw = B7B_CASES[case]
+    q, k, v = _qkv(rng, b, s, t, h, kvh, dh, dtype, dtype, cuda)
+    d_out = _qkv(rng, b, s, t, h, kvh, dh, dtype, dtype, cuda)[0]
+    route = tfa.flash_bwd_route(q.shape, k.shape, dtype, **kw)
+    want_route = "fma" if dtype == torch.float32 else \
+        "wgmma" if dh <= 128 else "mma"
+    assert route.name == want_route
+    assert route.paired == (want_route == "wgmma" and kw["causal"])
     out, lse = tfa.flash_attention_reference(q, k, v, return_lse=True, **kw)
     tcs.reset_launch_counts()
     got = tfa.flash_attention_backward(q, k, v, out, lse, d_out, **kw)
@@ -1197,10 +1219,12 @@ def test_flash_forward_log_sum_exp_each_route(cuda, route, dh, rng):
 
 
 def test_flash_backward_is_deterministic(cuda, rng):
-    """dK and dV (a GQA group of 5 summed in registers) bit for bit over
+    """dK and dV (a GQA group of 5 summed in registers, the wgmma route's
+    two warpgroups' partial sums added in a fixed order) bit for bit over
     two calls, as dQ."""
     q, k, v = _qkv(rng, 1, 300, 300, 10, 2, 128, torch.bfloat16,
                    torch.bfloat16, cuda)
+    assert tfa.flash_bwd_route(q.shape, k.shape, q.dtype).name == "wgmma"
     d_out = torch.randn_like(q)
     out, lse = tfa._forward_cuda(q, k, v, True, 0, None, 0, want_lse=True)
     first = tfa.flash_attention_backward(q, k, v, out, lse, d_out)

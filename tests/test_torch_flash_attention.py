@@ -314,3 +314,41 @@ def test_route_rule_at_head_dims_80_and_256(dh, s, h, kvh, t, kw, name,
         assert b * kvh * route.splits <= max_blocks
         assert route.splits == min(tiles, max_blocks // (b * kvh)) or \
             per > 1
+
+
+# ---------------------------------------------------------------------------
+# The backward's route rule (flash_bwd_route)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,t,h,kvh,dh,kw,want", [
+    # qwen2.5-14b's causal prefill and its train step's batch of 4
+    (1, 2048, 2048, 40, 8, 128, dict(causal=True), ("wgmma", True)),
+    (4, 2048, 2048, 40, 8, 128, dict(causal=True), ("wgmma", True)),
+    # whisper's non-causal encoder and cross-attention, zamba2's dh 80
+    (1, 1500, 1500, 16, 16, 64, dict(causal=False),
+     ("wgmma", False)),
+    (1, 4, 1500, 16, 16, 64, dict(causal=False), ("wgmma", False)),
+    (1, 2048, 2048, 32, 32, 80, dict(causal=True), ("wgmma", True)),
+    # a padded head dim (96 -> 128), a cache window
+    (1, 1024, 1024, 16, 4, 96, dict(causal=True), ("wgmma", True)),
+    (2, 3, 90, 6, 2, 16, dict(causal=True, q_start=70, kv_len=73),
+     ("wgmma", True)),
+    # paligemma's dh 256 keeps the mma.sync kernels (registers)
+    (1, 2304, 2304, 8, 1, 256, dict(causal=True, prefix_len=256),
+     ("mma", False)),
+    (1, 100, 100, 4, 2, 200, dict(causal=True), ("mma", False)),
+])
+def test_bwd_route_rule(b, s, t, h, kvh, dh, kw, want):
+    """bf16 takes the wgmma route up to a padded head dim of 128 (causal
+    calls pair their kv tiles), the mma.sync route at 256; float32 the
+    FMA route at every dim.  A pure function: the same arguments give the
+    same route, and no tensor is needed."""
+    q_shape, k_shape = (b, s, h, dh), (b, t, kvh, dh)
+    route = tfa.flash_bwd_route(q_shape, k_shape, torch.bfloat16, **kw)
+    assert tuple(route) == want
+    assert route == tfa.flash_bwd_route(q_shape, k_shape, torch.bfloat16,
+                                        **kw)
+    f32 = tfa.flash_bwd_route(q_shape, k_shape, torch.float32, **kw)
+    assert f32 == ("fma", False)
+    assert (route.name == "wgmma") == \
+        (tfa._padded_dim(dh) <= tfa.FLASH_BWD_WGMMA_MAX_DH)
