@@ -174,11 +174,21 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        float32 ``loss_fn`` gradients at depth 2 against the
                        plain versions; two steps from one state bit for
                        bit (the second under deterministic algorithms);
+                       then, with qwen's state released, paligemma-3b at
+                       full width and depth (18 layers, 1.90e9
+                       parameters) through ``make_train_step``: 3 steps
+                       of 2 x (256 seeded random vision + 2048
+                       ``TokenStream`` text) rows, the first untimed, the
+                       last profiled:
+                       finite losses, B7 twice a layer and step and B7b
+                       once on its dh-256 ``wgmma`` route, B7b's device ms
+                       a step, the step's ms and the peak GB;
                        B7's forward (output and log-sum-exp) and backward
                        against their plain versions at qwen's, whisper's
                        (encoder and cross),
-                       zamba2's and paligemma's shapes and at dh 96 (bf16
-                       and float32), timed beside SDPA's backward.
+                       zamba2's and paligemma's (1 and 4 rows) shapes and
+                       at dh 96 (bf16 and float32), timed beside SDPA's
+                       backward.
 
 For each phase it sets the kernels' launch counts to 0, runs the path,
 reads the counts (a kernel of the path with no launch fails the run),
@@ -365,7 +375,7 @@ B7B_BF16_OF_MAX, B7B_F32_OF_MAX, B7_LSE_ATOL = 2e-2, 2e-4, 1e-3
 #: attention: qwen2.5-14b's prefill, whisper-medium's encoder and
 #: cross-attention, zamba2-2.7b's shared block, paligemma-3b's prefix-LM
 #: prefill, a head dim the kernels reach by padding (96 -> 128), and
-#: qwen2.5-14b at lm_train's batch of 4
+#: qwen2.5-14b and paligemma-3b at a train step's batch of 4
 B7B_SHAPES = {
     "qwen_causal": ((1, 2048, 2048, 40, 8, 128), dict(causal=True)),
     "qwen_train": ((4, 2048, 2048, 40, 8, 128), dict(causal=True)),
@@ -375,7 +385,16 @@ B7B_SHAPES = {
     "paligemma_prefix": ((1, 2304, 2304, 8, 1, 256),
                          dict(causal=True, prefix_len=256)),
     "c4_dh96": ((1, 1024, 1024, 16, 4, 96), dict(causal=True)),
+    "paligemma_train": ((4, 2304, 2304, 8, 1, 256),
+                        dict(causal=True, prefix_len=256)),
 }
+#: lm_train's paligemma-3b train step at full width and depth: batch rows
+#: of the model's 256 vision rows (seeded normal: zero rows stay zero
+#: through every layer, and RMSNorm's gradient at a zero row is
+#: 1 / sqrt(1e-6), so the backward overflows within a few layers) and
+#: VLM_TRAIN_SEQ text tokens, VLM_TRAIN_STEPS steps (the first untimed,
+#: the last profiled)
+VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, VLM_TRAIN_STEPS = 2, 2048, 3
 #: cam_serve: CAM_CLIENTS client threads, each submitting CAM_REQUESTS
 #: requests of CAM_ROWS consecutive query rows one after another
 #: (8 x 6 x 13 = the 624 KNN queries); the faulted packed server's model;
@@ -5152,13 +5171,15 @@ def b7b_bound_ms(q, k, kw):
         else "bytes"
 
 
-def b7b_kernel_ms(fn, n: int = 5) -> dict:
-    """Device ms a call of B7b's three steps under ``torch.profiler`` over
+def b7b_kernel_ms(fn, n: int = 5, sliced: bool = False) -> dict:
+    """Device ms a call of B7b's steps under ``torch.profiler`` over
     ``n`` calls of ``fn``: the pre-pass (``flash_bwd_rows_kernel`` or
-    ``flash_bwd_dot_kernel``), the dK / dV kernel and the dQ kernel, each
-    the mean over the launches the profiler saw (a call launches each
-    once; the profiler can lose device events, and ``seen`` counts what
-    it kept), ``{"not_measured": ...}`` when it saw none of a step."""
+    ``flash_bwd_dot_kernel``), the dK / dV kernel, the dQ kernel and,
+    with ``sliced`` (the bf16 route at a padded dh of 256), the sum of
+    the dK / dV slices (``flash_bwd_sum_kernel``, ``"sum"``), each the
+    mean over the launches the profiler saw (a call launches each once;
+    the profiler can lose device events, and ``seen`` counts what it
+    kept), ``{"not_measured": ...}`` when it saw none of one of them."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -5168,17 +5189,19 @@ def b7b_kernel_ms(fn, n: int = 5) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    steps = ("prepass", "dkdv", "dq")
+    steps = ("prepass", "dkdv", "dq", "sum")
     total, seen = dict.fromkeys(steps, 0.0), dict.fromkeys(steps, 0)
     for ms, name, count in device_rows(prof):
         part = ("prepass" if "flash_bwd_rows" in name
                 or "flash_bwd_dot" in name else
                 "dkdv" if "flash_bwd_dkdv" in name else
-                "dq" if "flash_bwd_dq" in name else None)
+                "dq" if "flash_bwd_dq" in name else
+                "sum" if "flash_bwd_sum" in name else None)
         if part is not None:
             total[part] += ms
             seen[part] += count
-    if not all(seen.values()):
+    steps = steps if sliced else steps[:3]
+    if not all(seen[p] for p in steps):
         return {"not_measured": f"the profiler saw {seen} launches of "
                                 f"{n} calls"}
     return {**{p: total[p] / seen[p] for p in steps}, "seen": seen}
@@ -5263,8 +5286,9 @@ def b7b_check(what, shape, kw, dtype, seed, timed, dev):
         if not err <= bound * scale:
             raise RuntimeError(f"{what}: B7's backward {name} off its plain "
                                f"version by {err} (bound {bound} x {scale})")
+    route = fa.flash_bwd_route(q.shape, k.shape, dtype, **kw).name
     rec = {"shape": list(shape), "kw": kw, "dtype": str(dtype),
-           "route": fa.flash_bwd_route(q.shape, k.shape, dtype, **kw).name,
+           "route": route,
            "fwd_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
            "grads": errs,
            "max_abs_err": max(e["max_abs_err"] for e in errs.values())}
@@ -5277,8 +5301,10 @@ def b7b_check(what, shape, kw, dtype, seed, timed, dev):
             plain_ms=cuda_ms(lambda: fa.flash_attention_backward_reference(
                 q, k, v, out, lse, d_out, **kw), 3),
             bound_ms=bound_ms, bound_by=by, library_ms=cuda_ms(lib, 5),
-            kernel_ms=b7b_kernel_ms(lambda: fa.flash_attention_backward(
-                q, k, v, out, lse, d_out, **kw)),
+            kernel_ms=b7b_kernel_ms(
+                lambda: fa.flash_attention_backward(q, k, v, out, lse, d_out,
+                                                    **kw),
+                sliced=route == "wgmma" and fa._padded_dim(dh) == 256),
             forward_ms=cuda_ms(lambda: fa._forward_cuda(
                 q, k, v, kw.get("causal", True), kw.get("prefix_len", 0),
                 kw.get("kv_len"), kw.get("q_start", 0), want_lse=True), 5))
@@ -5460,6 +5486,8 @@ def phase_lm_train(s: Smoke):
         "step_profile": parts}
     del loop, out, batch
     torch.cuda.empty_cache()
+    vlm_train = vlm_train_steps(s)
+    torch.cuda.empty_cache()
 
     # (b) float32 gradients through the kernels and the plain versions --
     cfg32 = dataclasses.replace(cfg, n_layers=GRAD_CHECK_LAYERS,
@@ -5490,8 +5518,10 @@ def phase_lm_train(s: Smoke):
              "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              "src/repro/kernels/flash_attention.py:124 (its backward: the "
              "reference differentiates src/repro/models/layers.py:167)",
-             counts["flash_attention_bwd"],
-             max(r["max_abs_err"] for r in shapes.values()), qwen["ms"],
+             counts["flash_attention_bwd"] + vlm_train["launches"][
+                 "flash_attention_bwd"],
+             max([r["max_abs_err"] for r in shapes.values()]
+                 + [vlm_train["b7b_check"]["max_abs_err"]]), qwen["ms"],
              qwen["plain_ms"], qwen["bound_ms"], qwen["bound_by"],
              qwen["library_ms"])
     s.kernels["flash_attention_bwd"]["shapes"] = {
@@ -5499,11 +5529,158 @@ def phase_lm_train(s: Smoke):
                                     "bound_ms", "bound_by", "library_ms",
                                     "forward_ms")}
         for k, v in shapes.items() if "ms" in v}
-    _record_b7(s, counts["flash_attention"], {"train": {"max_abs_err": max(
-        r["fwd_max_abs_err"] for r in shapes.values())}}, {})
+    _record_b7(s, counts["flash_attention"]
+               + vlm_train["launches"]["flash_attention"],
+               {"train": {"max_abs_err": max(
+                   r["fwd_max_abs_err"] for r in shapes.values())}}, {})
     log({"phase": "lm_train", "ok": True, **train_log,
-         "f32_grad_check": grad_check, "determinism": det,
-         "b7b_checks": shapes})
+         "vlm_train": vlm_train, "f32_grad_check": grad_check,
+         "determinism": det, "b7b_checks": shapes})
+
+
+def vlm_train_steps(s: Smoke) -> dict:
+    """paligemma-3b at full width and depth through ``make_train_step``:
+    VLM_TRAIN_STEPS steps of VLM_TRAIN_BATCH rows (seeded random vision
+    rows, then ``TokenStream`` text), the first untimed, the
+    second timed, the last under ``torch.profiler``.  Fails unless every
+    loss is finite and every step launches B7 twice a layer (the forward
+    and remat's recompute) and B7b once on its ``wgmma`` route, paired
+    (the 2,304-row prefix-LM attention at dh 256), and unless the first
+    step's first B7b call (the last layer's) holds its plain version on
+    that call's own operands (``vlm_b7b_check``).  Returns the losses,
+    the launches of all steps, that check, the timed step's ms, B7b's
+    device ms in the profiled step and the peak GB."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import cam_search
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import steps as ts
+    from repro_torch.optim import constant
+    from repro_torch.tree import leaves
+    cfg = get_config(VLM_ARCH)
+    b, n_vis = VLM_TRAIN_BATCH, cfg.n_vision_tokens
+    rows = n_vis + VLM_TRAIN_SEQ
+    route = fa.flash_bwd_route((b, rows, cfg.n_heads, cfg.d_head),
+                               (b, rows, cfg.n_kv_heads, cfg.d_head),
+                               torch.bfloat16, causal=True,
+                               prefix_len=n_vis)
+    if tuple(route) != ("wgmma", True):
+        raise RuntimeError(f"lm_train vlm: B7b's route {route}")
+    s.reset_peak()
+    t0 = time.perf_counter()
+    state = ts.init_train_state(cfg, seed=2)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(state.params))
+    dev = state.params["embed"]["tok"].device
+    toks = TokenStream(cfg.vocab, VLM_TRAIN_SEQ, b, seed=3).batch(0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    batch = {"tokens": torch.as_tensor(toks["tokens"], device=dev),
+             "vision": torch.randn((b, n_vis, cfg.d_model), generator=gen,
+                                   device=dev).to(torch.bfloat16)}
+    step = ts.make_train_step(cfg, constant(TRAIN_LR))
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    losses, launches, step_ms, profile = [], dict.fromkeys(want, 0), None, None
+    backward, seen = fa.flash_attention_backward, []
+
+    def keep_first(*args, **kw):
+        """The wrapper, keeping a copy of its first call's operands,
+        masks and gradients (the step may reuse the gradients' memory);
+        it stands in for the module global that ``FlashAttentionFn``
+        calls, for the first step only."""
+        got = backward(*args, **kw)
+        if not seen:
+            seen.append(([a.clone() for a in args], kw,
+                         [g.clone() for g in got]))
+        return got
+
+    for i in range(VLM_TRAIN_STEPS):
+        cam_search.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == VLM_TRAIN_STEPS - 1:
+            out = []
+            profile = s.profile(lambda: out.append(step(state, batch)), [],
+                                classify=_train_kernel_class)
+            state, metrics = out[0]
+        elif i == 0:
+            fa.flash_attention_backward = keep_first
+            try:
+                state, metrics = step(state, batch)
+            finally:
+                fa.flash_attention_backward = backward
+        else:
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        if i == 1:
+            step_ms = 1e3 * (time.perf_counter() - t0)
+        counts = dict(cam_search.LAUNCHES)
+        s.exactly(f"lm_train vlm step {i}", counts, want)
+        for k in want:
+            launches[k] += counts[k]
+        losses.append(float(metrics["loss"]))
+    if not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"lm_train vlm: losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    b7b_ms = profile.get("by_class_ms", {}).get("b7_backward") \
+        if "not_measured" not in profile else None
+    del state, batch, step, out
+    if not seen:      # FlashAttentionFn no longer calls the module global
+        raise RuntimeError("lm_train vlm: the step made no call of "
+                           "flash_attention.flash_attention_backward")
+    b7b = vlm_b7b_check(*seen.pop())
+    if b7b["shape"] != [b, rows, rows, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.d_head] or b7b["kw"].get("prefix_len") != n_vis:
+        raise RuntimeError(f"lm_train vlm: B7b checked at {b7b['shape']} "
+                           f"{b7b['kw']}")
+    return {"model": VLM_ARCH, "layers": cfg.n_layers, "params": n_params,
+            "rows": [b, n_vis, VLM_TRAIN_SEQ], "steps": VLM_TRAIN_STEPS,
+            "route": list(route), "init_s": init_s, "losses": losses,
+            "launches": launches, "b7b_check": b7b, "step_ms": step_ms,
+            "b7b_device_ms_per_step": b7b_ms
+            if b7b_ms is not None else "not measured",
+            "peak_gb": peak_gb, "profile": profile}
+
+
+def vlm_b7b_check(args, kw, got) -> dict:
+    """B7b as a train step called it, held to its plain version: the
+    gradients ``got`` that ``flash_attention_backward(*args, **kw)``
+    returned in the step, one more call on the same operands (bit for
+    bit the same) and ``flash_attention_backward_reference`` (each
+    gradient within ``B7B_BF16_OF_MAX`` of its largest magnitude).  The
+    calls made here are not counted as the step's."""
+    import torch
+    from repro_torch.kernels import cam_search
+    from repro_torch.kernels import flash_attention as fa
+    q, k = args[0], args[1]
+    route = fa.flash_bwd_route(q.shape, k.shape, q.dtype, **kw)
+    before = dict(cam_search.LAUNCHES)
+    again = fa.flash_attention_backward(*args, **kw)
+    want = fa.flash_attention_backward_reference(*args, **kw)
+    cam_search.LAUNCHES.clear()
+    cam_search.LAUNCHES.update(before)
+    errs = {}
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.equal(a, a2):
+            raise RuntimeError(f"lm_train vlm: B7b's {name} differs from "
+                               f"the step's on its own operands")
+        scale = float(w.float().abs().max())
+        err = float((a.float() - w.float()).abs().max())
+        errs[name] = {"max_abs_err": err, "max_abs_want": scale}
+        if not err <= B7B_BF16_OF_MAX * scale:
+            raise RuntimeError(f"lm_train vlm: B7b's {name} off its plain "
+                               f"version by {err} (bound {B7B_BF16_OF_MAX}"
+                               f" x {scale})")
+    b, s_, h, dh = q.shape
+    return {"shape": [b, s_, k.shape[1], h, k.shape[2], dh],
+            "kw": kw, "dtype": str(q.dtype), "route": list(route),
+            "slices": fa.flash_bwd_slices(
+                q.shape, k.shape, sms=fa._sm_count(q.device.index), **kw),
+            "grads": errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values())}
 
 
 def release_phase_state(torch, top: int = 6):

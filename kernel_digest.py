@@ -26,8 +26,9 @@ queries, 180,000 x 1024 gallery) at the shapes the smoke gives them:
 * B7's backward (``flash_attention_backward``, bf16) at ``chip_smoke.py``'s
   ``B7B_SHAPES``, from the forward's output and log-sum-exp on seeded
   operands: the digest of (dq, dk, dv), the median CUDA-event ms over 20
-  calls (``ms``), its three steps' device ms (``kernel_ms``: pre-pass,
-  dK / dV, dQ) and the route, where the tree has ``flash_bwd_route``.
+  calls (``ms``), its steps' device ms (``kernel_ms``: pre-pass, dK / dV,
+  dQ and, at dh 256, the slices' sum) and the route, where the tree has
+  ``flash_bwd_route``.
 
 ``--b7-only`` runs the last two alone.  For each it prints the SHA-256 of the output's bytes and, for B4 eucl,
 the disagreements with the plain version.  Equal digests from two trees
@@ -125,7 +126,8 @@ def flash_backward_records(torch) -> dict:
         rec = {"sha256": digest(torch.cat([g.reshape(-1) for g in grads])
                                 .view(torch.int16)),
                "ms": median_ms(torch, call, 20),
-               "kernel_ms": b7b_kernel_ms(call)}
+               "kernel_ms": b7b_kernel_ms(
+                   call, sliced=fa._padded_dim(dh) == 256)}
         if hasattr(fa, "flash_bwd_route"):
             rec["route"] = fa.flash_bwd_route(q.shape, k.shape, q.dtype,
                                               **kw).name

@@ -3,8 +3,8 @@
 // flash_attention_bwd.cu (B7b's wgmma route): mbarriers, TMA loads (tiles
 // of a 4-D tensor map, and 1-D bulk copies), the tensor maps' run-time
 // encoder, wgmma shared-memory descriptors, the fence / commit / wait, and
-// the wgmma shapes those kernels use (SS at N 64 and 128, RS at N 16 to
-// 256, float32 accumulators).
+// the wgmma shapes those kernels use (SS at N 32, 64 and 128, RS at N 16
+// to 256, float32 accumulators).
 //
 // Tiles as TMA writes them: a [rows][DH] bf16 tile is DH / kAtomCols
 // column atoms, each [rows][kSwizzle bytes] and swizzled, with the widest
@@ -168,6 +168,20 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same with a 32-row B (the dh-256 backward's dQ kv stage).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -336,7 +350,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
   else wgmma_ss_n128(d, da, db, scale_d);
 }
 

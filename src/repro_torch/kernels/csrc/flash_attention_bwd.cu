@@ -7,92 +7,109 @@
 // gradient needs a kernel of its own: this one, behind
 // `flash_attention.FlashAttentionFn`.  Contract (the forward's, see
 // flash_attention.cu): q, o, dO (B, S, H, dh); k, v, dK, dV (B, T, KV, dh),
-// all contiguous, one dtype (bfloat16 or float32); lse and D (B, H, S)
-// float32; query head h reads kv head h / (H / KV); row s sits at q_start + s
-// and sees column t when t < kv_len and, if causal, t <= q_start + s or
-// t < prefix_len.  With the forward's row log-sum-exp lse (of the scaled
+// all contiguous, one dtype (bfloat16 or float32); lse (B, H, S) float32;
+// query head h reads kv head h / (H / KV); row s sits at q_start + s and
+// sees column t when t < kv_len and, if causal, t <= q_start + s or t <
+// prefix_len.  With the forward's row log-sum-exp lse (of the scaled
 // scores) it recomputes, tile by tile,
 //
 //   P = exp(q.k * scale - lse)      (0 where hidden)
 //   dV = P^T dO,   dP = dO V^T,   dS = P * (dP - D),   D = rowsum(dO * O)
 //   dQ = scale * dS K,   dK = scale * dS^T Q
 //
-// in float32 and stores dQ, dK, dV in the input dtype.  Every route runs
-// three steps: a pre-pass for D; a dK / dV kernel in which a block owns kv
-// rows of one kv head and walks, in a fixed order, the kv head's H / KV
-// query heads and, for each, the q tiles that can see them (causal: from
-// the first row at or past the tile's first column; the prefix's tiles
-// from row 0), summing P^T dO and dS^T Q; and a dQ kernel in which a
-// block owns query rows of one head and walks the kv tiles they can see,
-// summing dS K.  The group's query heads meet in one block, so no block
-// writes a dK / dV row another block writes: no atomics, the same sums in
-// the same order on every run.  The dQ kernel recomputes S and dP: seven
-// products of 2 dh FLOP per visible (row, column) pair and head, five of
-// them needed.  P and dS are rounded to bf16 between the products that
-// use them (the forward rounds P so too).  Three routes, picked by the
-// wrapper (flash_attention.py, `flash_bwd_route`) and passed in:
+// in float32 and stores dQ, dK, dV in the input dtype.  Every route runs a
+// pre-pass for D, a dK / dV kernel in which a block owns kv rows of one kv
+// head and walks, in a fixed order, query heads of its group and, for
+// each, the q tiles that can see them (causal: from the first row at or
+// past the tile's first column; the prefix's tiles from row 0), summing
+// P^T dO and dS^T Q, and a dQ kernel in which a block owns query rows of
+// one head and walks the kv tiles they can see, summing dS K.  No block
+// writes a row another block writes and no sum is split by atomics: the
+// same sums in the same order on every run.  The dQ kernel recomputes S
+// and dP: seven products of 2 dh FLOP per visible (row, column) pair and
+// head, five of them needed.  P and dS are rounded to bf16 before the
+// products that use them (the forward rounds P so too).  Two routes,
+// picked by the wrapper (flash_attention.py, `flash_bwd_route`) and passed
+// in:
 //
-// * wgmma (bf16, head dims up to 128: the training path; namespace wb).
-//   flash_bwd_rows_kernel writes each row's (lse log2 e, D) pair, (0, 0)
-//   past S up to a multiple of 128 rows, so a stage's 64 rows are one
-//   512-byte bulk copy.  flash_bwd_dkdv_wgmma_kernel: a block owns 64 kv
-//   rows of one kv head, K and V resident in shared memory; one producer
-//   thread (warpgroup 2, setmaxnreg 24) keeps a 4-stage ring of (Q, dO,
-//   rows) stages of 64 query rows full by TMA (tensor maps over (B, S, H,
-//   dh) and (B, kv_len, KV, dh): rows past S or kv_len read as zeros);
-//   consumer warpgroups 0 and 1 (setmaxnreg 240) take a tile's stages in
-//   turns (stage j to warpgroup j % 2), each computing S^T = K Q^T and
-//   dP^T = V dO^T for all 64 kv rows (wgmma m64n64k16, both operands
-//   K-major in the swizzled tiles), then P^T = exp2(S^T scale log2 e -
-//   lse log2 e) and dS^T = P^T (dP^T - D) in the accumulators, rounded to
-//   bf16 in registers as the A operands of dV += P^T dO and dK += dS^T Q
-//   (wgmma RS at N = dh, dO and Q read N-major through the transposed
-//   descriptor, as the forward reads V).  No P or dS crosses shared
-//   memory.  At a tile's end warpgroup 1 hands its dV, then its dK, to
-//   warpgroup 0 through a 64 x dh float32 buffer (named barriers 1 and 2),
-//   which adds each to its own, always in that order, and stores.  Causal
-//   balance: a block owns kv tiles j and n - 1 - j, which see n + 1 q
-//   tiles between them, so every block carries the same work: at
-//   qwen2.5-14b's causal shape 128 blocks for 132 SMs at B = 1 and 512 (3.9
-//   waves of equal blocks) at B = 4.  Rows past S need no mask (Q and dO
-//   zero, the pair (0, 0): P is 1, dP and D are 0, so dV and dS gain 0);
-//   only stages that straddle kv_len, the diagonal or the prefix are
-//   masked.  flash_bwd_dq_wgmma_kernel: a block owns 128 query rows of one
-//   head (a consumer warpgroup of 64 each), Q and dO resident; the producer
-//   keeps a 3-stage ring of 64-row K and V tiles; each warpgroup computes
-//   S = Q K^T and dP = dO V^T (m64n64k16), dS in registers, and dQ += dS K
-//   (RS, K read N-major), skipping tiles past its rows' last visible
-//   column; the longest causal blocks launch first, as the forward's do.
-//   Q and dO stay SS operands: held as RS A registers across tiles they
-//   are overwritten (ptxas frees a wgmma's A registers once the product
-//   has read them: at dh 64 it packed dS into them), and read anew by
-//   ldmatrix every tile they measured no faster on an H100.
-//   Registers: dK and dV take dh / 2 float32 each a consumer thread, S^T
-//   and dP^T 32 each: 192 at dh 128, under setmaxnreg's 240; dh 256 would
-//   need 256 for dK and dV alone, so it takes the mma route.  Shared
-//   memory at dh 128: 195 KB (dK / dV), 161 KB (dQ): one block an SM.
-// * mma (bf16 at head dim 256; namespace tc): flash_bwd_dkdv_mma_kernel
-//   and flash_bwd_dq_mma_kernel, the same blocks as the float32 kernels on
-//   mma.sync m16n8k16 with float32 accumulators, 8 warps; the tiles in
-//   shared memory as bf16, staged by plain 16-byte copies between the
-//   products (no pipeline); the score tile of a (q tile, kv tile) pair cut
-//   among the warps by m16 tiles and n8 column groups, the outputs
-//   likewise, the P / dS operands taken from shared memory (load_a) and
-//   the dO / Q / K ones through ldmatrix.trans; 32-row kv tiles (with the
-//   two 64-row q tiles they fit 227 KB); D from flash_bwd_dot_kernel, one
-//   warp a row.
+// * wgmma (bf16: the training path).  flash_bwd_rows_kernel writes each
+//   row's (lse log2 e, D) pair, (0, 0) past S up to a multiple of 128
+//   rows, so a stage's 64 rows are one 512-byte bulk copy.  Rows past S
+//   need no mask (Q and dO zero, the pair (0, 0): P is 1, dP and D are 0,
+//   so dV and dS gain 0); only stages that straddle kv_len, the diagonal
+//   or the prefix are masked.  Causal calls pair kv tiles: a dK / dV block
+//   owns kv tiles j and n - 1 - j, which see n + 1 q tiles between them
+//   (the prefix's tiles a few more), so the blocks carry equal work.
+//   Each kernel has a producer warp (warpgroup 2, setmaxnreg 24: one
+//   thread starts every TMA load, tensor maps over (B, S, H, dh) and (B,
+//   kv_len, KV, dh), rows past S or kv_len read as zeros) and two consumer
+//   warpgroups (setmaxnreg 240) on wgmma with the operands in swizzled
+//   shared memory.
+//   - Head dims 16 to 128 (namespace wb).  flash_bwd_dkdv_wgmma_kernel: a
+//     block owns 64 kv rows of one kv head, K and V resident; the producer
+//     keeps a 4-stage ring of (Q, dO, rows) stages of 64 query rows full;
+//     the consumers take a tile's stages in turns (stage j to warpgroup j
+//     % 2), each computing S^T = K Q^T and dP^T = V dO^T for all 64 kv
+//     rows (m64n64k16, both operands K-major), then P^T = exp2(S^T scale
+//     log2 e - lse log2 e) and dS^T = P^T (dP^T - D) in the accumulators,
+//     rounded to bf16 in registers as the A operands of dV += P^T dO and
+//     dK += dS^T Q (RS at N = dh, dO and Q read N-major through the
+//     transposed descriptor, as the forward reads V).  At a tile's end
+//     warpgroup 1 hands its dV, then its dK, to warpgroup 0 through a 64 x
+//     dh float32 buffer (named barriers 1 and 2), which adds each to its
+//     own, always in that order, and stores.  dK and dV take dh / 2
+//     float32 registers each, S^T and dP^T 32 each: 192 at dh 128.  At
+//     qwen2.5-14b's causal shape 128 blocks for 132 SMs at B = 1, 512 at
+//     B = 4.  flash_bwd_dq_wgmma_kernel: a block owns 128 query rows of
+//     one head (a consumer warpgroup of 64 each), Q and dO resident; the
+//     producer keeps a 3-stage ring of 64-row K and V tiles; each
+//     warpgroup computes S = Q K^T and dP = dO V^T (m64n64k16), dS in
+//     registers, and dQ += dS K (RS, K read N-major), skipping tiles past
+//     its rows' last visible column; the longest causal blocks launch
+//     first.  Q and dO stay SS operands: held as RS A registers across
+//     tiles they are overwritten (ptxas frees a wgmma's A registers once
+//     the product has read them: at dh 64 it packed dS into them), and
+//     read anew by ldmatrix every tile they measured no faster on an
+//     H100.  Shared memory at dh 128: 195 KB (dK / dV), 161 KB (dQ).
+//   - Head dim 256 (namespace wh), where one warpgroup cannot hold a kv
+//     tile's float32 dK and dV (256 registers a thread).
+//     flash_bwd_dkdv_wgmma256_kernel: the consumers split dh instead of
+//     the stages.  Per (Q, dO) stage warpgroup 0 computes S^T = K Q^T and
+//     P^T, warpgroup 1 dP^T = V dO^T less D (m64n64k16 over dh 256, one
+//     product each), each hands its 64 x 64 float32 tile to the other
+//     through shared memory (named barriers 1-3), both form dS^T, and
+//     warpgroup w adds P^T dO and dS^T Q over dh columns 128w.. (RS at N
+//     128) to its own dV and dK: 64 + 64 registers, 32 for its score tile
+//     and 32 for the other's.  K and V (32 KB each) stay resident beside
+//     a 2-stage ring of 64 KB (Q, dO) stages and the two 16 KB exchange
+//     buffers: 226 KB.  The group's query heads (and q tiles) are spread
+//     over blocks: a grid of (kv tile pairs, KV x slices, B), slice i
+//     taking the i-th of `slices` contiguous, equal ranges of the pair's
+//     (head, q tile) stages (`flash_attention.flash_bwd_slices` picks the
+//     count for the card's waves).  Each block writes its tiles' float32
+//     partial dK and dV to scratch, and flash_bwd_sum_kernel adds the
+//     slices that touched a row in slice order, scales dK and rounds both
+//     to bf16.  flash_bwd_dq_wgmma256_kernel: a block owns 64 query rows
+//     of one head, Q and dO resident (64 KB); the producer keeps a 5-stage
+//     ring of 32-row K and V stages (32 KB each); warpgroup w takes stages
+//     w, w + 2, ..., each computing S and dP (m64n32k16) and dQ += dS K
+//     (RS at N 256, 128 registers); warpgroup 1 then hands its dQ to
+//     warpgroup 0 through the ring, which adds it and stores; the longest
+//     causal blocks launch first.
 // * fma (float32: the parity checks): flash_bwd_dkdv_kernel and
 //   flash_bwd_dq_kernel on the CUDA cores, staged as float32 as the
 //   forward's FMA route does, thread (ty, tx) holding score rows
 //   4ty..4ty+3 against columns tx + 16c and output columns tx + 16n;
-//   64-row kv tiles (32 at dh 256); D from flash_bwd_dot_kernel.
+//   64-row kv tiles (32 at dh 256); D from flash_bwd_dot_kernel, one warp
+//   a row.
 //
 // Bound on an H100 SXM: the five products at the bf16 tensor-core peak
 // (989 TFLOP/s) or the bytes of q, k, v, o, dO, lse and dQ, dK, dV at 3.35
 // TB/s, the larger; at qwen2.5-14b's (2048, 40 / 8, 128) causal shape
-// 0.109 ms a batch row, compute-bound.  Head dims: 16, 32, 64, 80, 128,
-// 256 (the wrapper zero-pads others to the next one, the scale staying
-// the caller's).
+// 0.109 ms a batch row, at paligemma-3b's (2304, 8 / 1, 256) prefix-LM
+// shape 0.056 ms, both compute-bound.  Head dims: 16, 32, 64, 80, 128, 256
+// (the wrapper zero-pads others to the next one, the scale staying the
+// caller's).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -100,7 +117,6 @@
 #include <string.h>
 
 #include <atomic>
-#include <type_traits>
 
 #include "bf16_wgmma.cuh"  // mbarriers, TMA, wgmma (shared with the forward)
 
@@ -132,56 +148,33 @@ struct Geo {
   static_assert(DH % 16 == 0 && kBlockK % 16 == 0, "whole 16-column groups");
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-
-// 16-byte loads.
-template <typename T> struct Vec;
-template <> struct Vec<float> { static constexpr int N = 4; };
-
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 x = *reinterpret_cast<const float4*>(src);
-  dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
-}
-
-// Stage rows [r0, r0 + ROWS) of one head (row stride `rs`, elements) as
-// float32 into a [ROWS][DH + 4] tile; rows at or past `r_end` are zero.
-template <int DH, int ROWS, typename T>
-__device__ __forceinline__ void stage(float* tile, const T* src, int64_t rs, int r0,
+// Stage rows [r0, r0 + ROWS) of one head (row stride `rs`, elements) into a
+// [ROWS][DH + 4] tile, 16 bytes a load; rows at or past `r_end` are zero.
+template <int DH, int ROWS>
+__device__ __forceinline__ void stage(float* tile, const float* src, int64_t rs, int r0,
                                       int r_end) {
-  constexpr int V = Vec<T>::N;
-  constexpr int kPerRow = DH / V;
+  constexpr int kPerRow = DH / 4;
   for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * V;
-    float x[V];
-    if (r0 + r < r_end) {
-      load16(src + int64_t(r0 + r) * rs + c, x);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) x[j] = 0.f;
-    }
-    float* dst = tile + r * (DH + 4) + c;
-#pragma unroll
-    for (int j = 0; j < V; j += 4)
-      *reinterpret_cast<float4*>(dst + j) = make_float4(x[j], x[j + 1], x[j + 2], x[j + 3]);
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < r_end) x = *reinterpret_cast<const float4*>(src + int64_t(r0 + r) * rs + c);
+    *reinterpret_cast<float4*>(tile + r * (DH + 4) + c) = x;
   }
 }
 
 // D[b, h, s] = sum_d dO[b, s, h, d] * O[b, s, h, d] in float32; warp w of
 // block i takes row 8i + w of the (B, S, H) rows, lanes the columns d = lane
 // + 32j, summed lane by lane and then by the same shuffle tree every run.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dot_kernel(const T* __restrict__ dout, const T* __restrict__ o,
+flash_bwd_dot_kernel(const float* __restrict__ dout, const float* __restrict__ o,
                      float* __restrict__ dsum, int S, int H, int dh, int64_t rows) {
   const int64_t r = int64_t(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
   if (r >= rows) return;
   const int lane = threadIdx.x % 32;
-  const T* a = dout + r * dh;
-  const T* c = o + r * dh;
+  const float* a = dout + r * dh;
+  const float* c = o + r * dh;
   float acc = 0.f;
-  for (int d = lane; d < dh; d += 32) acc = fmaf(to_float(a[d]), to_float(c[d]), acc);
+  for (int d = lane; d < dh; d += 32) acc = fmaf(a[d], c[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
@@ -269,12 +262,12 @@ __device__ __forceinline__ void stage_rows(float* rl, float* rd, const float* ls
 }
 
 // Block (kv tile, kv head, b): dK and dV of kv rows [t0, t0 + kBlockK).
-template <int DH, typename T>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ dsum,
-                      T* __restrict__ dk, T* __restrict__ dv, int S, int Tk, int H,
+                      float* __restrict__ dk, float* __restrict__ dv, int S, int Tk, int H,
                       int KV, int causal, int prefix_len, int kv_len, int q_start,
                       float scale) {
   using G = Geo<DH>;
@@ -310,14 +303,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dva[r][n] = 0.f;
     }
 
-  const T* kb = k + (int64_t(b) * Tk * KV + kvh) * DH;
-  const T* vb = v + (int64_t(b) * Tk * KV + kvh) * DH;
+  const float* kb = k + (int64_t(b) * Tk * KV + kvh) * DH;
+  const float* vb = v + (int64_t(b) * Tk * KV + kvh) * DH;
   stage<DH, kBlockK>(ks, kb, rs_k, t0, kv_len);
   stage<DH, kBlockK>(vs, vb, rs_k, t0, kv_len);
   for (int gi = 0; gi < group; ++gi) {
     const int h = kvh * group + gi;
-    const T* qb = q + (int64_t(b) * S * H + h) * DH;
-    const T* gb = dout + (int64_t(b) * S * H + h) * DH;
+    const float* qb = q + (int64_t(b) * S * H + h) * DH;
+    const float* gb = dout + (int64_t(b) * S * H + h) * DH;
     const int64_t roff = (int64_t(b) * H + h) * S;
     for (int s0 = s_begin; s0 < S; s0 += kBlockQ) {
       __syncthreads();               // the previous q tile's readers are done
@@ -357,19 +350,19 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t off = ((int64_t(b) * Tk + t) * KV + kvh) * DH;
 #pragma unroll
     for (int n = 0; n < kN; ++n) {
-      store(dk + off + tx + 16 * n, dka[r][n] * scale);
-      store(dv + off + tx + 16 * n, dva[r][n]);
+      dk[off + tx + 16 * n] = dka[r][n] * scale;
+      dv[off + tx + 16 * n] = dva[r][n];
     }
   }
 }
 
 // Block (q tile, h, b): dQ of query rows [s0, s0 + 64) of head h.
-template <int DH, typename T>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ dsum,
-                    T* __restrict__ dq, int S, int Tk, int H, int KV, int causal,
+                    float* __restrict__ dq, int S, int Tk, int H, int KV, int causal,
                     int prefix_len, int kv_len, int q_start, float scale) {
   using G = Geo<DH>;
   constexpr int kBlockK = G::kBlockK, kLd = G::kLd, kLdp = G::kLdp, kN = G::kN;
@@ -390,8 +383,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int col_end = kv_len;              // the last column any row can see, + 1
   if (causal) col_end = min(col_end, max(q_start + s0 + rows, prefix_len));
 
-  const T* kb = k + (int64_t(b) * Tk * KV + kvh) * DH;
-  const T* vb = v + (int64_t(b) * Tk * KV + kvh) * DH;
+  const float* kb = k + (int64_t(b) * Tk * KV + kvh) * DH;
+  const float* vb = v + (int64_t(b) * Tk * KV + kvh) * DH;
   stage<DH, kBlockQ>(qs, q + (int64_t(b) * S * H + h) * DH, rs_q, s0, S);
   stage<DH, kBlockQ>(dos, dout + (int64_t(b) * S * H + h) * DH, rs_q, s0, S);
   stage_rows(rl, rd, lse, dsum, (int64_t(b) * H + h) * S, s0, S);
@@ -436,356 +429,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = s0 + 4 * ty + i;
     if (row >= S) continue;
-    T* out = dq + ((int64_t(b) * S + row) * H + h) * DH;
+    float* out = dq + ((int64_t(b) * S + row) * H + h) * DH;
 #pragma unroll
-    for (int n = 0; n < kN; ++n) store(out + tx + 16 * n, dqa[i][n] * scale);
+    for (int n = 0; n < kN; ++n) out[tx + 16 * n] = dqa[i][n] * scale;
   }
 }
-
-// ---------------------------------------------------------------------------
-// bf16 at head dim 256: the same two kernels on mma.sync m16n8k16
-// ---------------------------------------------------------------------------
-
-namespace tc {
-
-using c4cam_bf16::pack_bf16;
-using c4cam_bf16::smem_u32;
-
-constexpr int kThreads = 256;      // 8 warps
-constexpr int kBlockQ = 64;
-
-// Tiles in shared memory are bf16, rows padded by 8 (16 bytes: ldmatrix
-// rows stay aligned, consecutive rows fall in other banks).  In the dK / dV
-// kernel the (kv x q) scores are cut among the warps as kMT m16 tiles of kv
-// rows times kNW column groups of kNT n8 tiles; the (kv x dh) outputs as
-// the same kMT m16 tiles times kNW column slices of kOut columns.
-template <int DH>
-struct Geo {
-  static constexpr int kBlockK = DH > 128 ? 32 : 64;
-  static constexpr int kLd = DH + 8;
-  static constexpr int kLdS = kBlockQ + 8;        // P^T, dS^T: [kBlockK][kLdS]
-  static constexpr int kLdQ = kBlockK + 8;        // dS (dQ kernel): [kBlockQ][kLdQ]
-  static constexpr int kMT = kBlockK / 16;
-  static constexpr int kNW = 8 / kMT;
-  static constexpr int kNT = kBlockQ / 8 / kNW;
-  static constexpr int kOut = DH / kNW;
-  // dQ kernel: 4 m16 tiles of q rows x 2 column groups
-  static constexpr int kNTq = kBlockK / 16;
-  static constexpr int kOutQ = DH / 2;
-  static constexpr size_t kSmemKV =
-      sizeof(bf16) * (size_t(2 * kBlockK + 2 * kBlockQ) * kLd + 2 * kBlockK * kLdS) +
-      sizeof(float) * 2 * kBlockQ;
-  static constexpr size_t kSmemQ =
-      sizeof(bf16) * (size_t(2 * kBlockK + 2 * kBlockQ) * kLd + kBlockQ * kLdQ) +
-      sizeof(float) * 2 * kBlockQ;
-  static_assert(kOut % 8 == 0 && kOutQ % 8 == 0, "whole n8 output tiles");
-  static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "shared memory of one block");
-};
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two bf16 at p (p[0] in the low half), as an mma operand register.
-__device__ __forceinline__ uint32_t ld2(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment of rows [0, 16) and columns [0, 16) of a row-major tile
-// with row stride ld (lane (g, t) reads rows g and g + 8).
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* tile, int ld, int g,
-                                       int t) {
-  const bf16* p = tile + g * ld + 2 * t;
-  a[0] = ld2(p);
-  a[1] = ld2(p + 8 * ld);
-  a[2] = ld2(p + 8);
-  a[3] = ld2(p + 8 * ld + 8);
-}
-
-// B fragments of a 16 (k) x 8 (n) block of a row-major [k][n] tile, read
-// transposed (lanes 0-15 give the 16 row addresses).
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_u32(p)));
-}
-
-// Copy rows [r0, r0 + ROWS) of one head (row stride rs) into a [ROWS][DH + 8]
-// bf16 tile, 16 bytes a load; rows at or past r_end are zero.
-template <int DH, int ROWS>
-__device__ __forceinline__ void stage(bf16* tile, const bf16* src, int64_t rs, int r0,
-                                      int r_end) {
-  constexpr int kPerRow = DH / 8;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r0 + r < r_end) x = *reinterpret_cast<const uint4*>(src + int64_t(r0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(tile + r * (DH + 8) + c) = x;
-  }
-}
-
-// Block (kv tile, kv head, b): dK and dV of kv rows [t0, t0 + kBlockK).
-// Per q tile: S^T = K Q^T and dP^T = V dO^T (warp w: kv rows 16 (w % kMT)
-// on, q columns 8 kNT (w / kMT) on), P^T = exp(S^T scale - lse) and
-// dS^T = P^T (dP^T - D) to shared memory in bf16, then dV += P^T dO and
-// dK += dS^T Q (warp w: the same kv rows, dh columns kOut (w / kMT) on).
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ dsum,
-            bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Tk, int H, int KV,
-            int causal, int prefix_len, int kv_len, int q_start, float scale) {
-  using G = Geo<DH>;
-  constexpr int kBlockK = G::kBlockK, kLd = G::kLd, kLdS = G::kLdS;
-  constexpr int kNT = G::kNT, kON = G::kOut / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [kBlockK][kLd]
-  bf16* vs = ks + kBlockK * kLd;                  // [kBlockK][kLd]
-  bf16* qs = vs + kBlockK * kLd;                  // [kBlockQ][kLd]
-  bf16* dos = qs + kBlockQ * kLd;                 // [kBlockQ][kLd]
-  bf16* pt = dos + kBlockQ * kLd;                 // [kBlockK][kLdS]
-  bf16* dst = pt + kBlockK * kLdS;                // [kBlockK][kLdS]
-  float* rl = reinterpret_cast<float*>(dst + kBlockK * kLdS);   // [kBlockQ]
-  float* rd = rl + kBlockQ;                                      // [kBlockQ]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mt = warp % G::kMT, nw = warp / G::kMT;
-  const int t0 = blockIdx.x * kBlockK, kvh = blockIdx.y, b = blockIdx.z;
-  const int group = H / KV;
-  const int64_t rs_q = int64_t(H) * DH, rs_k = int64_t(KV) * DH;
-
-  int s_begin = 0;
-  if (causal && t0 >= prefix_len) s_begin = min(S, max(0, t0 - q_start));
-  s_begin -= s_begin % kBlockQ;
-  if (t0 >= kv_len) s_begin = S;    // no row sees the tile: dK = dV = 0
-
-  float dka[kON][4], dva[kON][4];
-#pragma unroll
-  for (int n = 0; n < kON; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dka[n][e] = 0.f;
-      dva[n][e] = 0.f;
-    }
-
-  stage<DH, kBlockK>(ks, k + (int64_t(b) * Tk * KV + kvh) * DH, rs_k, t0, kv_len);
-  stage<DH, kBlockK>(vs, v + (int64_t(b) * Tk * KV + kvh) * DH, rs_k, t0, kv_len);
-  const int col0 = nw * G::kOut;                  // this warp's output columns
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;
-    const bf16* qb = q + (int64_t(b) * S * H + h) * DH;
-    const bf16* gb = dout + (int64_t(b) * S * H + h) * DH;
-    const int64_t roff = (int64_t(b) * H + h) * S;
-    for (int s0 = s_begin; s0 < S; s0 += kBlockQ) {
-      __syncthreads();               // the previous q tile's readers are done
-      stage<DH, kBlockQ>(qs, qb, rs_q, s0, S);
-      stage<DH, kBlockQ>(dos, gb, rs_q, s0, S);
-      stage_rows(rl, rd, lse, dsum, roff, s0, S);
-      __syncthreads();
-      {
-        float st[kNT][4], dpt[kNT][4];
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            st[j][e] = 0.f;
-            dpt[j][e] = 0.f;
-          }
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          uint32_t ak[4], av[4];
-          load_a(ak, ks + 16 * mt * kLd + 16 * kk, kLd, g, t);
-          load_a(av, vs + 16 * mt * kLd + 16 * kk, kLd, g, t);
-#pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-            const int row = 8 * (nw * kNT + j) + g;       // a q row: an n index
-            const bf16* qr = qs + row * kLd + 16 * kk + 2 * t;
-            const bf16* gr = dos + row * kLd + 16 * kk + 2 * t;
-            mma_bf16(st[j], ak, ld2(qr), ld2(qr + 8));
-            mma_bf16(dpt[j], av, ld2(gr), ld2(gr + 8));
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int kr = 16 * mt + g + 8 * hf, kvr = t0 + kr;
-            const int qc = 8 * (nw * kNT + j) + 2 * t;
-            float p[2], d[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int row = s0 + qc + e, pos = q_start + row;
-              const bool ok = row < S && kvr < kv_len &&
-                              (!causal || kvr <= pos || kvr < prefix_len);
-              p[e] = ok ? expf(st[j][2 * hf + e] * scale - rl[qc + e]) : 0.f;
-              d[e] = p[e] * (dpt[j][2 * hf + e] - rd[qc + e]);
-            }
-            *reinterpret_cast<uint32_t*>(pt + kr * kLdS + qc) = pack_bf16(p[0], p[1]);
-            *reinterpret_cast<uint32_t*>(dst + kr * kLdS + qc) = pack_bf16(d[0], d[1]);
-          }
-      }
-      __syncthreads();               // P^T and dS^T are complete
-#pragma unroll
-      for (int kk = 0; kk < kBlockQ / 16; ++kk) {
-        uint32_t ap[4], ad[4];
-        load_a(ap, pt + 16 * mt * kLdS + 16 * kk, kLdS, g, t);
-        load_a(ad, dst + 16 * mt * kLdS + 16 * kk, kLdS, g, t);
-        const int r = 16 * kk + (lane & 15);
-#pragma unroll
-        for (int n = 0; n < kON; ++n) {
-          uint32_t b0, b1;
-          ldmatrix_x2_trans(b0, b1, dos + r * kLd + col0 + 8 * n);
-          mma_bf16(dva[n], ap, b0, b1);
-          ldmatrix_x2_trans(b0, b1, qs + r * kLd + col0 + 8 * n);
-          mma_bf16(dka[n], ad, b0, b1);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int tr = t0 + 16 * mt + g + 8 * hf;
-    if (tr >= Tk) continue;
-    const int64_t off = ((int64_t(b) * Tk + tr) * KV + kvh) * DH + col0 + 2 * t;
-#pragma unroll
-    for (int n = 0; n < kON; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * n) =
-          pack_bf16(dka[n][2 * hf] * scale, dka[n][2 * hf + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * n) =
-          pack_bf16(dva[n][2 * hf], dva[n][2 * hf + 1]);
-    }
-  }
-}
-
-// Block (q tile, h, b): dQ of query rows [s0, s0 + 64).  Per kv tile: S =
-// Q K^T and dP = dO V^T (warp w: q rows 16 (w % 4) on, kv columns 8 kNTq
-// (w / 4) on), dS = P (dP - D) to shared memory in bf16, then dQ += dS K
-// (warp w: the same q rows, dh columns kOutQ (w / 4) on).
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ dsum,
-          bf16* __restrict__ dq, int S, int Tk, int H, int KV, int causal,
-          int prefix_len, int kv_len, int q_start, float scale) {
-  using G = Geo<DH>;
-  constexpr int kBlockK = G::kBlockK, kLd = G::kLd, kLdQ = G::kLdQ;
-  constexpr int kNT = G::kNTq, kON = G::kOutQ / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kBlockQ][kLd]
-  bf16* dos = qs + kBlockQ * kLd;                 // [kBlockQ][kLd]
-  bf16* ks = dos + kBlockQ * kLd;                 // [kBlockK][kLd]
-  bf16* vs = ks + kBlockK * kLd;                  // [kBlockK][kLd]
-  bf16* dss = vs + kBlockK * kLd;                 // [kBlockQ][kLdQ]
-  float* rl = reinterpret_cast<float*>(dss + kBlockQ * kLdQ);   // [kBlockQ]
-  float* rd = rl + kBlockQ;                                      // [kBlockQ]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mt = warp % 4, nw = warp / 4;
-  const int s0 = blockIdx.x * kBlockQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int rows = min(kBlockQ, S - s0);
-  const int64_t rs_q = int64_t(H) * DH, rs_k = int64_t(KV) * DH;
-  int col_end = kv_len;              // the last column any row can see, + 1
-  if (causal) col_end = min(col_end, max(q_start + s0 + rows, prefix_len));
-
-  const bf16* kb = k + (int64_t(b) * Tk * KV + kvh) * DH;
-  const bf16* vb = v + (int64_t(b) * Tk * KV + kvh) * DH;
-  stage<DH, kBlockQ>(qs, q + (int64_t(b) * S * H + h) * DH, rs_q, s0, S);
-  stage<DH, kBlockQ>(dos, dout + (int64_t(b) * S * H + h) * DH, rs_q, s0, S);
-  stage_rows(rl, rd, lse, dsum, (int64_t(b) * H + h) * S, s0, S);
-
-  float dqa[kON][4];
-#pragma unroll
-  for (int n = 0; n < kON; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-  const int col0 = nw * G::kOutQ;
-
-  for (int t0 = 0; t0 < col_end; t0 += kBlockK) {
-    __syncthreads();                 // the previous tile's readers are done
-    stage<DH, kBlockK>(ks, kb, rs_k, t0, col_end);
-    stage<DH, kBlockK>(vs, vb, rs_k, t0, col_end);
-    __syncthreads();
-    {
-      float sc[kNT][4], dp[kNT][4];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[j][e] = 0.f;
-          dp[j][e] = 0.f;
-        }
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        uint32_t aq[4], ag[4];
-        load_a(aq, qs + 16 * mt * kLd + 16 * kk, kLd, g, t);
-        load_a(ag, dos + 16 * mt * kLd + 16 * kk, kLd, g, t);
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          const int row = 8 * (nw * kNT + j) + g;         // a kv row: an n index
-          const bf16* kr = ks + row * kLd + 16 * kk + 2 * t;
-          const bf16* vr = vs + row * kLd + 16 * kk + 2 * t;
-          mma_bf16(sc[j], aq, ld2(kr), ld2(kr + 8));
-          mma_bf16(dp[j], ag, ld2(vr), ld2(vr + 8));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int qr = 16 * mt + g + 8 * hf, row = s0 + qr, pos = q_start + row;
-          const int kc = 8 * (nw * kNT + j) + 2 * t;
-          float d[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = t0 + kc + e;
-            const bool ok = row < S && col < kv_len &&
-                            (!causal || col <= pos || col < prefix_len);
-            const float p = ok ? expf(sc[j][2 * hf + e] * scale - rl[qr]) : 0.f;
-            d[e] = p * (dp[j][2 * hf + e] - rd[qr]);
-          }
-          *reinterpret_cast<uint32_t*>(dss + qr * kLdQ + kc) = pack_bf16(d[0], d[1]);
-        }
-    }
-    __syncthreads();                 // dS is complete
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, dss + 16 * mt * kLdQ + 16 * kk, kLdQ, g, t);
-      const int r = 16 * kk + (lane & 15);
-#pragma unroll
-      for (int n = 0; n < kON; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, ks + r * kLd + col0 + 8 * n);
-        mma_bf16(dqa[n], a, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = s0 + 16 * mt + g + 8 * hf;
-    if (row >= S) continue;
-    bf16* out = dq + ((int64_t(b) * S + row) * H + h) * DH + col0 + 2 * t;
-#pragma unroll
-    for (int n = 0; n < kON; ++n)
-      *reinterpret_cast<uint32_t*>(out + 8 * n) =
-          pack_bf16(dqa[n][2 * hf] * scale, dqa[n][2 * hf + 1] * scale);
-  }
-}
-
-}  // namespace tc
 
 // ---------------------------------------------------------------------------
 // bf16 at head dims up to 128: the wgmma route (TMA rings, warp-specialised)
@@ -865,7 +513,8 @@ __device__ __forceinline__ bool visible(int col, int pos, int causal, int prefix
 }
 
 // The first query row of the first q tile some row of which sees a
-// column of the kv tile [t0, t0 + 64); S when no row does.
+// column of the kv tile [t0, t0 + 64); S when no row does
+// (flash_attention.py's _bwd_first_row copies it).
 __device__ __forceinline__ int first_q_row(int t0, int S, int causal, int prefix_len,
                                            int kv_len, int q_start) {
   if (t0 >= kv_len) return S;
@@ -1307,6 +956,531 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 }  // namespace wb
 
+// ---------------------------------------------------------------------------
+// bf16 at head dim 256: the wgmma route's own kernels (namespace wh)
+// ---------------------------------------------------------------------------
+
+namespace wh {
+
+using namespace c4cam_bf16;
+using wb::first_q_row;
+using wb::kLog2e;
+using wb::kRowBytes;
+using wb::kRows;
+using wb::visible;
+
+constexpr int kDh = 256;
+constexpr int kThreads = 384;          // warpgroups 0-1 consume, 2 loads
+constexpr int kHalf = kDh / 2;         // the dK / dV columns a consumer owns
+constexpr int kSwz = 128;              // bytes of a swizzled atom row
+constexpr int kAtom = kRows * kSwz;    // one 64-column atom of a 64-row tile
+constexpr int kTile = kRows * kDh * 2; // a 64-row tile: 32 KB
+constexpr int kStagesKV = 2;
+constexpr int kRowsQ = 32;             // kv rows of a dQ stage
+constexpr int kAtomQ = kRowsQ * kSwz;
+constexpr int kTileQ = kRowsQ * kDh * 2;
+constexpr int kStagesQ = 5;
+constexpr int kXch = kRows * kRows * 4; // a 64 x 64 float32 exchange buffer
+// dK / dV: K, V, kStagesKV (Q, dO, rows) stages, the P and dP - D
+// exchange buffers; dQ: Q, dO and kStagesQ (K, V) stages of 32 rows, the
+// ring doubling as the 64 x 256 float32 hand-over buffer at the end.  Each
+// with 1 KB of alignment slack and the barriers.
+constexpr size_t kSmemKV = size_t(2 + 2 * kStagesKV) * kTile + kStagesKV * kRowBytes +
+                           2 * kXch + 1024 + 128;
+constexpr size_t kSmemQ = 2 * size_t(kTile) + 2 * size_t(kStagesQ) * kTileQ + 1024 + 128;
+static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "shared memory of one block");
+static_assert(2 * kStagesQ * kTileQ >= kRows * kDh * 4, "the ring holds the hand-over");
+
+// The stages of a dK / dV block: kv tiles `tile[u]` (u < n_own), tile u's
+// stages (query head gi of the group, q tile qi: stage gi nq[u] + qi)
+// taken in [lo[u], hi[u]).  The pair's stages, tile 0's then tile 1's,
+// are cut into `slices` contiguous ranges of equal length (one more or
+// less); slice `slice` is this block's.  flash_attention.py's
+// _bwd_unit_stages and _bwd_cut copy the count and the cut, for the
+// slice rule.
+struct Walk {
+  int n_own;
+  int tile[2], s_first[2], nq[2], lo[2], hi[2];
+};
+
+__device__ __forceinline__ Walk walk_of(int x, int slice, int slices, int n_tiles,
+                                        int group, int S, int paired, int causal,
+                                        int prefix_len, int kv_len, int q_start) {
+  Walk w;
+  w.n_own = paired && n_tiles - 1 - x != x ? 2 : 1;
+  int start[2], total = 0;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    w.tile[u] = u == 0 ? x : n_tiles - 1 - x;
+    w.s_first[u] = first_q_row(w.tile[u] * kRows, S, causal, prefix_len, kv_len, q_start);
+    w.nq[u] = (S - w.s_first[u] + kRows - 1) / kRows;
+    start[u] = total;
+    if (u < w.n_own) total += group * w.nq[u];
+  }
+  const int a = int(int64_t(slice) * total / slices);
+  const int b = int(int64_t(slice + 1) * total / slices);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int n = u < w.n_own ? group * w.nq[u] : 0;
+    w.lo[u] = max(a, start[u]) - start[u];
+    w.hi[u] = max(w.lo[u], min(b, start[u] + n) - start[u]);
+  }
+  return w;
+}
+
+// d = A B^T over dh (16 k-steps) for K-major tiles A and B whose 64-column
+// atoms are a_atom and b_atom bytes apart.
+template <int N>
+__device__ __forceinline__ void start_ss(float (&d)[N / 2], uint32_t a, uint32_t b,
+                                         uint32_t a_atom, uint32_t b_atom) {
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk) {
+    const uint32_t c = 16 * kk / 64, o = (16 * kk % 64) * 2;
+    wgmma_ss<N>(d, desc<kDh>(a + c * a_atom + o, 16, 8 * kSwz),
+                desc<kDh>(b + c * b_atom + o, 16, 8 * kSwz), kk > 0);
+  }
+}
+
+// d += A B for A (64 x 16K, bf16) in registers, k-step kk holding columns
+// 16kk..16kk+15, and B's N columns from address b read N-major (rows 16kk
+// on; its 64-column atoms `atom` bytes apart).
+template <int N, int K>
+__device__ __forceinline__ void start_rs(float (&d)[N / 2], const uint32_t (&a)[K][4],
+                                         uint32_t b, uint32_t atom) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+    wgmma_rs<N>(d, a[kk], desc<kDh>(b + kk * 16 * kSwz, atom, 8 * kSwz));
+}
+
+// A 64 x 16K accumulator rounded to bf16 as the A registers of an RS
+// product: k-step kk covers column blocks 2kk and 2kk + 1.
+template <int K>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[K][4], const float (&x)[8 * K]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// One stage of the dK / dV walk for warpgroup wgi: the tile's 64 kv rows
+// (this thread's r0 and r0 + 8) against the stage's 64 query rows s0..
+// (columns 8j + 2t + e).  Warpgroup 0 computes S^T = K Q^T and P^T,
+// warpgroup 1 dP^T = V dO^T less D; each hands its 64 x 64 float32 tile to
+// the other through shared memory (named barrier 1: both written; 2: P^T
+// read, 3: dP^T - D read), both form dS^T = P^T (dP^T - D), and each adds
+// P^T dO and dS^T Q over its 128 columns to dV and dK.
+__device__ __forceinline__ void dkdv_stage(float (&dka)[kHalf / 2], float (&dva)[kHalf / 2],
+                                           int wgi, int tid, uint32_t kt, uint32_t vt,
+                                           uint32_t qt, uint32_t gt, const float2* rw,
+                                           float* xp, float* xd, int exch, int r0, int s0,
+                                           bool masked, int t, int causal, int prefix_len,
+                                           int kv_len, int q_start, float scale2) {
+  float sc[kRows / 2];
+  wgmma_fence();
+  start_ss<kRows>(sc, wgi == 0 ? kt : vt, wgi == 0 ? qt : gt, kAtom, kAtom);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  if (wgi == 0) {
+#pragma unroll
+    for (int j = 0; j < kRows / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e;
+        const float l2 = rw[c].x;
+        float p0 = exp2f(fmaf(sc[4 * j + e], scale2, -l2));
+        float p1 = exp2f(fmaf(sc[4 * j + 2 + e], scale2, -l2));
+        if (masked) {
+          const int pos = q_start + s0 + c;
+          if (!visible(r0, pos, causal, prefix_len, kv_len)) p0 = 0.f;
+          if (!visible(r0 + 8, pos, causal, prefix_len, kv_len)) p1 = 0.f;
+        }
+        sc[4 * j + e] = p0;
+        sc[4 * j + 2 + e] = p1;
+      }
+    if (exch > 0) wb::bar_sync(2);                    // the last P^T was read
+#pragma unroll
+    for (int e = 0; e < kRows / 2; ++e) xp[e * 128 + tid] = sc[e];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRows / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float d = rw[8 * j + 2 * t + e].y;
+        sc[4 * j + e] -= d;
+        sc[4 * j + 2 + e] -= d;
+      }
+    if (exch > 0) wb::bar_sync(3);                    // the last dP^T - D was read
+#pragma unroll
+    for (int e = 0; e < kRows / 2; ++e) xd[e * 128 + tid] = sc[e];
+  }
+  wb::bar_sync(1);                                    // both tiles written
+  float o[kRows / 2];
+  const float* other = wgi == 0 ? xd : xp;
+#pragma unroll
+  for (int e = 0; e < kRows / 2; ++e) o[e] = other[e * 128 + tid];
+  wb::bar_arrive(wgi == 0 ? 3 : 2);                   // done reading it
+  uint32_t pa[4][4], da[4][4];
+  if (wgi == 0) {                                     // sc: P^T, o: dP^T - D
+#pragma unroll
+    for (int e = 0; e < kRows / 2; ++e) o[e] = sc[e] * o[e];
+    pack_a<4>(pa, sc);
+    pack_a<4>(da, o);
+  } else {                                            // o: P^T, sc: dP^T - D
+#pragma unroll
+    for (int e = 0; e < kRows / 2; ++e) sc[e] = o[e] * sc[e];
+    pack_a<4>(pa, o);
+    pack_a<4>(da, sc);
+  }
+  const uint32_t half = 2 * wgi * kAtom;              // columns 128 wgi on
+  wgmma_fence();
+  start_rs<kHalf, 4>(dva, pa, gt + half, kAtom);
+  start_rs<kHalf, 4>(dka, da, qt + half, kAtom);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dva);
+  fence_regs(dka);
+}
+
+// Block (x, kv head * slices + slice, b): slice `slice` of the stages of
+// kv tiles x and, when `paired`, n - 1 - x (n = ceil(Tk / 64)); each
+// tile's float32 partial dK and dV (dK unscaled) to `part`, laid out
+// [slices][B][Tk][KV][256], dV's `pv` floats after dK's.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wgmma256_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const float2* __restrict__ rows, float* __restrict__ part,
+                               int64_t pv, int B, int S, int S_pad, int Tk, int H, int KV,
+                               int slices, int paired, int causal, int prefix_len,
+                               int kv_len, int q_start, float scale) {
+  constexpr int kSt = kStagesKV;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;         // swizzle atoms
+  const uint32_t sk = base, sv = sk + kTile;
+  const uint32_t sq = sv + kTile;                      // + slot * kTile
+  const uint32_t sg = sq + kSt * kTile;                // dO: + slot * kTile
+  const uint32_t srows = sg + kSt * kTile;             // + slot * kRowBytes
+  const uint32_t sxp = srows + kSt * kRowBytes, sxd = sxp + kXch;
+  const uint32_t bars = sxd + kXch;
+  // full[s] = bars + 8 s, empty[s] = bars + 8 (kSt + s); K / V full, empty
+  const uint32_t kv_full = bars + 16 * kSt, kv_empty = kv_full + 8;
+
+  const int kvh = blockIdx.y / slices, slice = blockIdx.y % slices, b = blockIdx.z;
+  const int group = H / KV, n_tiles = (Tk + kRows - 1) / kRows;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kSt + s), 8);             // both warpgroups
+    }
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ---- producer: one thread starts every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      const Walk w = walk_of(blockIdx.x, slice, slices, n_tiles, group, S, paired, causal,
+                             prefix_len, kv_len, q_start);
+      int i = 0, loaded = 0;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {              // unrolled: w stays in registers
+        if (u >= w.n_own || w.lo[u] >= w.hi[u]) continue;
+        const int t0 = w.tile[u] * kRows, nq = w.nq[u];
+        if (loaded > 0) mbar_wait(kv_empty, (loaded - 1) & 1);
+        ++loaded;
+        mbar_expect_tx(kv_full, 2 * kTile);
+#pragma unroll
+        for (int a = 0; a < kDh / 64; ++a) {
+          tma_load_4d(sk + a * kAtom, &tk, kv_full, a * 64, kvh, t0, b);
+          tma_load_4d(sv + a * kAtom, &tv, kv_full, a * 64, kvh, t0, b);
+        }
+        for (int st = w.lo[u]; st < w.hi[u]; ++st, ++i) {
+          const int h = kvh * group + st / nq, s0 = w.s_first[u] + (st % nq) * kRows;
+          const int slot = i % kSt;
+          mbar_wait(bars + 8 * (kSt + slot), ((i / kSt) & 1) ^ 1);
+          const uint32_t full = bars + 8 * slot;
+          mbar_expect_tx(full, 2 * kTile + kRowBytes);
+#pragma unroll
+          for (int a = 0; a < kDh / 64; ++a) {
+            const uint32_t off = slot * kTile + a * kAtom;
+            tma_load_4d(sq + off, &tq, full, a * 64, h, s0, b);
+            tma_load_4d(sg + off, &tdo, full, a * 64, h, s0, b);
+          }
+          bulk_load(srows + slot * kRowBytes, rows + (int64_t(b) * H + h) * S_pad + s0,
+                    kRowBytes, full);
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const Walk w = walk_of(blockIdx.x, slice, slices, n_tiles, group, S, paired, causal,
+                           prefix_len, kv_len, q_start);
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int t = lane % 4;
+    const float scale2 = scale * kLog2e;
+    float* xp = reinterpret_cast<float*>(smem_raw + (sxp - raw));
+    float* xd = reinterpret_cast<float*>(smem_raw + (sxd - raw));
+    const float2* rbuf = reinterpret_cast<const float2*>(smem_raw + (srows - raw));
+    float dka[kHalf / 2], dva[kHalf / 2];
+    int i = 0, loaded = 0, exch = 0;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u >= w.n_own || w.lo[u] >= w.hi[u]) continue;
+      const int t0 = w.tile[u] * kRows, nq = w.nq[u];
+      const int r0 = t0 + 16 * warp + lane / 4;      // kv rows r0, r0 + 8
+#pragma unroll
+      for (int e = 0; e < kHalf / 2; ++e) {
+        dka[e] = 0.f;
+        dva[e] = 0.f;
+      }
+      mbar_wait(kv_full, loaded & 1);
+      ++loaded;
+      for (int st = w.lo[u]; st < w.hi[u]; ++st, ++i, ++exch) {
+        const int slot = i % kSt, s0 = w.s_first[u] + (st % nq) * kRows;
+        const bool masked = t0 + kRows > kv_len ||
+                            (causal && t0 + kRows > prefix_len && t0 + kRows - 1 > q_start + s0);
+        mbar_wait(bars + 8 * slot, (i / kSt) & 1);
+        dkdv_stage(dka, dva, wgi, tid, sk, sv, sq + slot * kTile, sg + slot * kTile,
+                   rbuf + slot * kRows, xp, xd, exch, r0, s0, masked, t, causal, prefix_len,
+                   kv_len, q_start, scale2);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bars + 8 * (kSt + slot));
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty);
+      // this warpgroup's 128 columns of the tile's partial dK and dV
+      const int c0 = kHalf * wgi + 2 * t;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int tr = r0 + 8 * hf;
+        if (tr >= Tk) continue;
+        float* pk = part + (((int64_t(slice) * B + b) * Tk + tr) * KV + kvh) * kDh + c0;
+#pragma unroll
+        for (int n = 0; n < kHalf / 8; ++n) {
+          *reinterpret_cast<float2*>(pk + 8 * n) =
+              make_float2(dka[4 * n + 2 * hf], dka[4 * n + 2 * hf + 1]);
+          *reinterpret_cast<float2*>(pk + pv + 8 * n) =
+              make_float2(dva[4 * n + 2 * hf], dva[4 * n + 2 * hf + 1]);
+        }
+      }
+    }
+    if (exch > 0) wb::bar_sync(wgi == 0 ? 2 : 3);    // the last hand-over read
+  }
+}
+
+// dK = scale sum_i part_i and dV = sum_i part_i over the slices i whose
+// stages touched the row's kv tile, in slice order; 0 where none did.
+// Thread: 4 columns of one (b, t, kv head) row.
+__global__ void __launch_bounds__(256)
+flash_bwd_sum_kernel(const float* __restrict__ part, int64_t pv, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int B, int S, int Tk, int H, int KV, int slices,
+                     int paired, int causal, int prefix_len, int kv_len, int q_start,
+                     float scale, int64_t n) {
+  const int64_t idx = int64_t(blockIdx.x) * 256 + threadIdx.x;
+  if (idx >= n) return;
+  const int c = int(idx % (kDh / 4)) * 4;
+  const int64_t row = idx / (kDh / 4);               // (b Tk + t) KV + kvh
+  const int t = int(row / KV % Tk);
+  const int n_tiles = (Tk + kRows - 1) / kRows, tile = t / kRows;
+  const int x = paired ? min(tile, n_tiles - 1 - tile) : tile, u = tile == x ? 0 : 1;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int i = 0; i < slices; ++i) {
+    const Walk w = walk_of(x, i, slices, n_tiles, H / KV, S, paired, causal, prefix_len,
+                           kv_len, q_start);
+    if ((u == 0 ? w.lo[0] : w.lo[1]) >= (u == 0 ? w.hi[0] : w.hi[1])) continue;
+    const int64_t off = (int64_t(i) * B * Tk * KV + row) * kDh + c;
+    const float4 a = *reinterpret_cast<const float4*>(part + off);
+    const float4 g = *reinterpret_cast<const float4*>(part + pv + off);
+    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+    sv.x += g.x; sv.y += g.y; sv.z += g.z; sv.w += g.w;
+  }
+  uint2 ok, ov;
+  ok.x = pack_bf16(sk.x * scale, sk.y * scale);
+  ok.y = pack_bf16(sk.z * scale, sk.w * scale);
+  ov.x = pack_bf16(sv.x, sv.y);
+  ov.y = pack_bf16(sv.z, sv.w);
+  *reinterpret_cast<uint2*>(dk + row * kDh + c) = ok;
+  *reinterpret_cast<uint2*>(dv + row * kDh + c) = ov;
+}
+
+// One 32-row kv stage of the dQ walk for one warpgroup: the block's 64
+// query rows (this thread's rows at registers 4j + {0, 1} and 4j + {2, 3},
+// positions pa and pb) against the stage's columns t0 + 8j + 2t + e.
+__device__ __forceinline__ void dq_stage(float (&dqa)[kDh / 2], uint32_t qt, uint32_t gt,
+                                         uint32_t kt, uint32_t vt, float2 ra, float2 rb,
+                                         int pa, int pb, int t0, bool masked, int t,
+                                         int causal, int prefix_len, int kv_len,
+                                         float scale2) {
+  float sc[kRowsQ / 2], dp[kRowsQ / 2];
+  wgmma_fence();
+  start_ss<kRowsQ>(sc, qt, kt, kAtom, kAtomQ);
+  wgmma_commit();
+  start_ss<kRowsQ>(dp, gt, vt, kAtom, kAtomQ);
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_regs(sc);
+#pragma unroll
+  for (int j = 0; j < kRowsQ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float p0 = exp2f(fmaf(sc[4 * j + e], scale2, -ra.x));
+      float p1 = exp2f(fmaf(sc[4 * j + 2 + e], scale2, -rb.x));
+      if (masked) {
+        const int col = t0 + 8 * j + 2 * t + e;
+        if (!visible(col, pa, causal, prefix_len, kv_len)) p0 = 0.f;
+        if (!visible(col, pb, causal, prefix_len, kv_len)) p1 = 0.f;
+      }
+      sc[4 * j + e] = p0;
+      sc[4 * j + 2 + e] = p1;
+    }
+  wgmma_wait<0>();
+  fence_regs(dp);
+#pragma unroll
+  for (int j = 0; j < kRowsQ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ra.y);
+      dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * (dp[4 * j + 2 + e] - rb.y);
+    }
+  uint32_t da[kRowsQ / 16][4];
+  pack_a<kRowsQ / 16>(da, dp);
+  wgmma_fence();
+  start_rs<kDh, kRowsQ / 16>(dqa, da, kt, kAtomQ);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dqa);
+}
+
+// Block (h, b, z): dQ of query rows [s0, s0 + 64) of head h, z = 0 taking
+// the last rows (the longest causal walk) first.  The producer keeps a
+// ring of 32-row K and V stages full; warpgroup w takes stages w, w + 2,
+// ..., each summing its own dQ; warpgroup 1 then hands its sum to
+// warpgroup 0 through the ring (named barriers 1 and 2), which adds it
+// and stores.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma256_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const float2* __restrict__ rows, bf16* __restrict__ dq, int S,
+                             int S_pad, int H, int group, int causal, int prefix_len,
+                             int kv_len, int q_start, float scale) {
+  constexpr int kSt = kStagesQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sq = base, sg = sq + kTile;
+  const uint32_t sk = sg + kTile;                      // + slot * kTileQ
+  const uint32_t sv = sk + kSt * kTileQ;
+  const uint32_t bars = sv + kSt * kTileQ;
+  const uint32_t qbar = bars + 16 * kSt;
+  // full[s] = bars + 8 s, empty[s] = bars + 8 (kSt + s)
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int s0 = (gridDim.z - 1 - blockIdx.z) * kRows;
+  const int n_rows = min(kRows, S - s0);
+  int col_end = kv_len;              // the last column any row can see, + 1
+  int full_end = kv_len;             // the columns every row sees
+  if (causal) {
+    col_end = min(kv_len, max(q_start + s0 + n_rows, prefix_len));
+    full_end = min(kv_len, max(q_start + s0 + 1, prefix_len));
+  }
+  const int n_kv = (col_end + kRowsQ - 1) / kRowsQ;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kSt + s), 4);             // the consuming warpgroup
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      const int kvh = h / group;
+      mbar_expect_tx(qbar, 2 * kTile);
+#pragma unroll
+      for (int a = 0; a < kDh / 64; ++a) {
+        tma_load_4d(sq + a * kAtom, &tq, qbar, a * 64, h, s0, b);
+        tma_load_4d(sg + a * kAtom, &tdo, qbar, a * 64, h, s0, b);
+      }
+      for (int i = 0; i < n_kv; ++i) {
+        const int slot = i % kSt;
+        const uint32_t full = bars + 8 * slot;
+        mbar_wait(bars + 8 * (kSt + slot), ((i / kSt) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * kTileQ);
+#pragma unroll
+        for (int a = 0; a < kDh / 64; ++a) {
+          const uint32_t off = slot * kTileQ + a * kAtomQ;
+          tma_load_4d(sk + off, &tk, full, a * 64, kvh, i * kRowsQ, b);
+          tma_load_4d(sv + off, &tv, full, a * 64, kvh, i * kRowsQ, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int t = lane % 4;
+    const int r = s0 + 16 * warp + lane / 4;                  // rows r, r + 8
+    const float2* hrows = rows + (int64_t(b) * H + h) * S_pad;
+    const float2 ra = hrows[r], rb = hrows[r + 8];            // (0, 0) past S
+    const float scale2 = scale * kLog2e;
+    float dqa[kDh / 2];
+#pragma unroll
+    for (int e = 0; e < kDh / 2; ++e) dqa[e] = 0.f;
+    mbar_wait(qbar, 0);
+    for (int i = wgi; i < n_kv; i += 2) {
+      const int slot = i % kSt, t0 = i * kRowsQ;
+      mbar_wait(bars + 8 * slot, (i / kSt) & 1);
+      dq_stage(dqa, sq, sg, sk + slot * kTileQ, sv + slot * kTileQ, ra, rb, q_start + r,
+               q_start + r + 8, t0, t0 + kRowsQ > full_end, t, causal, prefix_len, kv_len,
+               scale2);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (kSt + slot));
+    }
+    // warpgroup 1's sum into warpgroup 0's, through the ring (every stage
+    // read: the products waited on)
+    float* xbuf = reinterpret_cast<float*>(smem_raw + (sk - raw));
+    wb::bar_sync(1);
+    if (wgi == 1) {
+#pragma unroll
+      for (int e = 0; e < kDh / 2; ++e) xbuf[e * 128 + tid] = dqa[e];
+      wb::bar_arrive(2);
+    } else {
+      wb::bar_sync(2);
+#pragma unroll
+      for (int e = 0; e < kDh / 2; ++e) dqa[e] += xbuf[e * 128 + tid];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r + 8 * hf;
+        if (row >= S) continue;
+        bf16* out = dq + ((int64_t(b) * S + row) * H + h) * kDh + 2 * t;
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n)
+          *reinterpret_cast<uint32_t*>(out + 8 * n) =
+              pack_bf16(dqa[4 * n + 2 * hf] * scale, dqa[4 * n + 2 * hf + 1] * scale);
+      }
+    }
+  }
+}
+
+}  // namespace wh
+
 // The wgmma route: the rows pre-pass, then the dK / dV and dQ kernels.
 // `scratch` holds B * H * S_pad float2 (S_pad: S rounded up to 128).
 template <int DH>
@@ -1357,84 +1531,117 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   return int(cudaGetLastError());
 }
 
-// The mma (bf16) and fma (float32) routes: the D pre-pass into the first
-// B * H * S floats of `scratch`, then their dK / dV and dQ kernels.
-template <int DH, typename T>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* dsum, void* dq, void* dk,
-           void* dv, int B, int S, int Tk, int H, int KV, int causal, int prefix_len,
-           int kv_len, int q_start, float scale, cudaStream_t stream) {
-  using G = Geo<DH>;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tg = static_cast<const T*>(dout);
-  const int64_t rows = int64_t(B) * S * H;
-  flash_bwd_dot_kernel<T><<<unsigned((rows + 7) / 8), kThreads, 0, stream>>>(
-      tg, static_cast<const T*>(o), dsum, S, H, DH, rows);
-  cudaError_t err = cudaGetLastError();
+// The wgmma route at dh 256: the rows pre-pass, the dK / dV kernel's
+// partial sums, their sum, then the dQ kernel.  `scratch` holds B * H *
+// S_pad float2, then the partial dK and dV: 2 slices B Tk KV 256 float32.
+int launch_wgmma256(const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, const float* lse, void* scratch, void* dq, void* dk,
+                    void* dv, int B, int S, int Tk, int H, int KV, int slices, int paired,
+                    int causal, int prefix_len, int kv_len, int q_start, float scale,
+                    cudaStream_t stream) {
+  using c4cam_bf16::encode;
+  constexpr int D = wh::kDh;
+  constexpr CUtensorMapSwizzle kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const long long qs = (long long)H * D, ks = (long long)KV * D;
+  CUtensorMap tq, tdo, tk, tv, tk32, tv32;
+  if (!encode(&tq, q, B, S, H, D, qs * S, qs, D, 64, wb::kRows, kSw) ||
+      !encode(&tdo, dout, B, S, H, D, qs * S, qs, D, 64, wb::kRows, kSw) ||
+      !encode(&tk, k, B, kv_len, KV, D, ks * Tk, ks, D, 64, wb::kRows, kSw) ||
+      !encode(&tv, v, B, kv_len, KV, D, ks * Tk, ks, D, 64, wb::kRows, kSw) ||
+      !encode(&tk32, k, B, kv_len, KV, D, ks * Tk, ks, D, 64, wh::kRowsQ, kSw) ||
+      !encode(&tv32, v, B, kv_len, KV, D, ks * Tk, ks, D, 64, wh::kRowsQ, kSw))
+    return int(cudaErrorInvalidValue);
+  auto dkdv = wh::flash_bwd_dkdv_wgmma256_kernel;
+  auto dqk = wh::flash_bwd_dq_wgmma256_kernel;
+  static std::atomic<uint64_t> ready_kv{0}, ready_q{0};
+  cudaError_t err = allow_smem(dkdv, wh::kSmemKV, ready_kv);
+  if (err == cudaSuccess) err = allow_smem(dqk, wh::kSmemQ, ready_q);
   if (err != cudaSuccess) return int(err);
 
-  if constexpr (std::is_same_v<T, bf16>) {       // tensor cores
-    using TG = tc::Geo<DH>;
-    auto dkdv = tc::flash_bwd_dkdv_mma_kernel<DH>;
-    static std::atomic<uint64_t> ready_kv{0};
-    err = allow_smem(dkdv, TG::kSmemKV, ready_kv);
-    if (err != cudaSuccess) return int(err);
-    const dim3 grid_kv((Tk + TG::kBlockK - 1) / TG::kBlockK, KV, B);
-    dkdv<<<grid_kv, tc::kThreads, TG::kSmemKV, stream>>>(
-        tq, tk, tv, tg, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), S, Tk, H,
-        KV, causal, prefix_len, kv_len, q_start, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-    auto dqk = tc::flash_bwd_dq_mma_kernel<DH>;
-    static std::atomic<uint64_t> ready_q{0};
-    err = allow_smem(dqk, TG::kSmemQ, ready_q);
-    if (err != cudaSuccess) return int(err);
-    const dim3 grid_q((S + tc::kBlockQ - 1) / tc::kBlockQ, H, B);
-    dqk<<<grid_q, tc::kThreads, TG::kSmemQ, stream>>>(
-        tq, tk, tv, tg, lse, dsum, static_cast<T*>(dq), S, Tk, H, KV, causal,
-        prefix_len, kv_len, q_start, scale);
-    return int(cudaGetLastError());
-  } else {                                        // float32: FMA
-    auto dkdv = flash_bwd_dkdv_kernel<DH, T>;
-    static std::atomic<uint64_t> ready_kv{0};
-    err = allow_smem(dkdv, G::kSmemKV, ready_kv);
-    if (err != cudaSuccess) return int(err);
-    const dim3 grid_kv((Tk + G::kBlockK - 1) / G::kBlockK, KV, B);
-    dkdv<<<grid_kv, kThreads, G::kSmemKV, stream>>>(
-        tq, tk, tv, tg, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), S, Tk, H,
-        KV, causal, prefix_len, kv_len, q_start, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-    auto dqk = flash_bwd_dq_kernel<DH, T>;
-    static std::atomic<uint64_t> ready_q{0};
-    err = allow_smem(dqk, G::kSmemQ, ready_q);
-    if (err != cudaSuccess) return int(err);
-    const dim3 grid_q((S + kBlockQ - 1) / kBlockQ, H, B);
-    dqk<<<grid_q, kThreads, G::kSmemQ, stream>>>(
-        tq, tk, tv, tg, lse, dsum, static_cast<T*>(dq), S, Tk, H, KV, causal,
-        prefix_len, kv_len, q_start, scale);
-    return int(cudaGetLastError());
-  }
+  const int S_pad = (S + 2 * wb::kRows - 1) / (2 * wb::kRows) * (2 * wb::kRows);
+  float2* rows = static_cast<float2*>(scratch);
+  const int64_t n = int64_t(B) * H * S_pad;
+  float* part = reinterpret_cast<float*>(rows + n);
+  const int64_t pv = int64_t(slices) * B * Tk * KV * D;
+  wb::flash_bwd_rows_kernel<<<unsigned((n + 7) / 8), 256, 0, stream>>>(
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(o), lse, rows, S, S_pad, H,
+      D, n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const int n_tiles = (Tk + wb::kRows - 1) / wb::kRows;
+  const dim3 grid_kv(paired ? (n_tiles + 1) / 2 : n_tiles, KV * slices, B);
+  dkdv<<<grid_kv, wh::kThreads, wh::kSmemKV, stream>>>(
+      tq, tdo, tk, tv, rows, part, pv, B, S, S_pad, Tk, H, KV, slices, paired, causal,
+      prefix_len, kv_len, q_start, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const int64_t n_sum = int64_t(B) * Tk * KV * (D / 4);
+  wh::flash_bwd_sum_kernel<<<unsigned((n_sum + 255) / 256), 256, 0, stream>>>(
+      part, pv, static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S, Tk, H, KV, slices,
+      paired, causal, prefix_len, kv_len, q_start, scale, n_sum);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid_q(H, B, (S + wb::kRows - 1) / wb::kRows);
+  dqk<<<grid_q, wh::kThreads, wh::kSmemQ, stream>>>(
+      tq, tdo, tk32, tv32, rows, static_cast<bf16*>(dq), S, S_pad, H, H / KV, causal,
+      prefix_len, kv_len, q_start, scale);
+  return int(cudaGetLastError());
 }
 
-// route: 0 fma (float32, every head dim), 1 mma (bf16, dh 256), 2 wgmma
-// (bf16, dh up to 128); any other pairing is refused.
+// The fma route (float32): the D pre-pass into the first B * H * S floats
+// of `scratch`, then its dK / dV and dQ kernels.
+template <int DH>
+int launch_fma(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* dsum, void* dq, void* dk,
+               void* dv, int B, int S, int Tk, int H, int KV, int causal, int prefix_len,
+               int kv_len, int q_start, float scale, cudaStream_t stream) {
+  using G = Geo<DH>;
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tg = static_cast<const float*>(dout);
+  const int64_t rows = int64_t(B) * S * H;
+  flash_bwd_dot_kernel<<<unsigned((rows + 7) / 8), kThreads, 0, stream>>>(
+      tg, static_cast<const float*>(o), dsum, S, H, DH, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  auto dkdv = flash_bwd_dkdv_kernel<DH>;
+  static std::atomic<uint64_t> ready_kv{0};
+  err = allow_smem(dkdv, G::kSmemKV, ready_kv);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid_kv((Tk + G::kBlockK - 1) / G::kBlockK, KV, B);
+  dkdv<<<grid_kv, kThreads, G::kSmemKV, stream>>>(
+      tq, tk, tv, tg, lse, dsum, static_cast<float*>(dk), static_cast<float*>(dv), S, Tk,
+      H, KV, causal, prefix_len, kv_len, q_start, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  auto dqk = flash_bwd_dq_kernel<DH>;
+  static std::atomic<uint64_t> ready_q{0};
+  err = allow_smem(dqk, G::kSmemQ, ready_q);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid_q((S + kBlockQ - 1) / kBlockQ, H, B);
+  dqk<<<grid_q, kThreads, G::kSmemQ, stream>>>(
+      tq, tk, tv, tg, lse, dsum, static_cast<float*>(dq), S, Tk, H, KV, causal,
+      prefix_len, kv_len, q_start, scale);
+  return int(cudaGetLastError());
+}
+
+// route: 0 fma (float32, every head dim), 2 wgmma (bf16); any other
+// pairing is refused.
 int by_route(int route, int dh, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const float* lse, void* scratch, void* dq,
-             void* dk, void* dv, int B, int S, int Tk, int H, int KV, int paired,
-             int causal, int prefix_len, int kv_len, int q_start, float scale,
+             void* dk, void* dv, int B, int S, int Tk, int H, int KV, int slices,
+             int paired, int causal, int prefix_len, int kv_len, int q_start, float scale,
              cudaStream_t s) {
   float* dsum = static_cast<float*>(scratch);
 #define C4CAM_BWD_WGMMA(D)                                                         \
   case D:                                                                          \
     return launch_wgmma<D>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Tk, H, \
                            KV, paired, causal, prefix_len, kv_len, q_start, scale, s);
-#define C4CAM_BWD_FMA(D)                                                            \
-  case D:                                                                           \
-    return launch<D, float>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Tk, H, KV, \
-                            causal, prefix_len, kv_len, q_start, scale, s);
+#define C4CAM_BWD_FMA(D)                                                          \
+  case D:                                                                         \
+    return launch_fma<D>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Tk, H, KV, \
+                         causal, prefix_len, kv_len, q_start, scale, s);
   if (route == 2) {
     switch (dh) {
       C4CAM_BWD_WGMMA(16)
@@ -1442,12 +1649,12 @@ int by_route(int route, int dh, const void* q, const void* k, const void* v,
       C4CAM_BWD_WGMMA(64)
       C4CAM_BWD_WGMMA(80)
       C4CAM_BWD_WGMMA(128)
+      case 256:
+        return launch_wgmma256(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Tk, H,
+                               KV, slices, paired, causal, prefix_len, kv_len, q_start,
+                               scale, s);
       default: break;
     }
-  } else if (route == 1) {
-    if (dh == 256)
-      return launch<256, bf16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, Tk, H, KV,
-                               causal, prefix_len, kv_len, q_start, scale, s);
   } else if (route == 0) {
     switch (dh) {
       C4CAM_BWD_FMA(16)
@@ -1468,33 +1675,35 @@ int by_route(int route, int dh, const void* q, const void* k, const void* v,
 
 // q, o, dout, dq (B, S, H, dh) and k, v, dk, dv (B, T, KV, dh), contiguous,
 // one dtype, 16-byte aligned; lse (B, H, S) float32 from the forward;
-// scratch: float32 scratch of 2 B H S_pad values, S_pad = S rounded up to
-// 128 (the wgmma route's (lse log2 e, D) pairs; the others' D uses the
-// first B H S).  p holds, in order: B, S, T, H, KV, dh, bf16 (1) or
-// float32 (0), causal, prefix_len, kv_len (in 1..T), q_start, the softmax
-// scale as the bit pattern of a float32, the route (0 fma, 1 mma, 2 wgmma)
-// and whether the wgmma route pairs kv tiles j and n - 1 - j.  Returns a
-// cudaError_t code.
+// scratch: float32, 2 B H S_pad values (S_pad = S rounded up to 128: the
+// wgmma route's (lse log2 e, D) pairs; the fma route's D uses the first B
+// H S), and at dh 256 in bf16 2 slices B T KV 256 more (the partial dK and
+// dV).  p holds, in order: B, S, T, H, KV, dh, bf16 (1) or float32 (0),
+// causal, prefix_len, kv_len (in 1..T), q_start, the softmax scale as the
+// bit pattern of a float32, the route (0 fma, 2 wgmma), whether the wgmma
+// route pairs kv tiles j and n - 1 - j, and the slices each pair's stages
+// are cut into at dh 256 (at least 1).  Returns a cudaError_t code.
 extern "C" int c4cam_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout,
                                          const float* lse, void* scratch, void* dq,
                                          void* dk, void* dv, const long long* p,
                                          void* stream) {
-  for (int i = 0; i < 14; ++i)
+  for (int i = 0; i < 15; ++i)
     if (i != 11 && (p[i] < 0 || p[i] > 0x7fffffffLL)) return int(cudaErrorInvalidValue);
   if (p[11] < 0 || p[11] > 0xffffffffLL) return int(cudaErrorInvalidValue);
   const int B = int(p[0]), S = int(p[1]), Tk = int(p[2]), H = int(p[3]);
   const int KV = int(p[4]), dh = int(p[5]), bf = int(p[6]), causal = int(p[7]);
   const int prefix_len = int(p[8]), kv_len = int(p[9]), q_start = int(p[10]);
   const uint32_t scale_bits = uint32_t(p[11]);
-  const int route = int(p[12]), paired = int(p[13]);
+  const int route = int(p[12]), paired = int(p[13]), slices = int(p[14]);
   float scale;
   memcpy(&scale, &scale_bits, sizeof scale);
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV || kv_len < 1 || kv_len > Tk ||
-      H > 65535 || B > 65535 || !(scale > 0.f) || isinf(scale) || (route == 0) == (bf != 0))
+      H > 65535 || B > 65535 || slices < 1 || int64_t(KV) * slices > 65535 ||
+      !(scale > 0.f) || isinf(scale) || (route == 0) == (bf != 0))
     return int(cudaErrorInvalidValue);
   return by_route(route, dh, q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, Tk, H, KV,
-                  paired, causal, prefix_len, kv_len, q_start, scale,
+                  slices, paired, causal, prefix_len, kv_len, q_start, scale,
                   static_cast<cudaStream_t>(stream));
 }
 

@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import array
 import ctypes
+import functools
 import math
 import struct
 from typing import NamedTuple, Optional, Tuple
@@ -73,7 +74,7 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "FlashAttentionFn", "flash_attention_recurrence", "flash_route",
            "FlashRoute", "flash_bwd_route", "FlashBwdRoute",
            "FLASH_HEAD_DIMS", "FLASH_BLOCK_K", "FLASH_SPLITKV_ROWS",
-           "FLASH_SPLIT_BLOCKS", "FLASH_BWD_WGMMA_MAX_DH"]
+           "FLASH_SPLIT_BLOCKS", "flash_bwd_slices"]
 
 #: head dims the kernels are instantiated for; the wrapper pads any other
 #: head dim up to the last of them to the next one
@@ -93,11 +94,16 @@ FLASH_SPLIT_BLOCKS = 264
 #: ring take 143 KB)
 _SPLIT_BLOCKS_AT = {256: 132}
 _ROUTE_IDS = {"fma": 0, "wgmma": 1, "splitkv": 2}
-#: the largest head dim the backward's ``"wgmma"`` route takes: its
-#: consumer threads hold dK and dV in dh float32 registers beside 64 of
-#: scores, and dh 256 would not fit setmaxnreg's 240
-FLASH_BWD_WGMMA_MAX_DH = 128
-_BWD_ROUTE_IDS = {"fma": 0, "mma": 1, "wgmma": 2}
+_BWD_ROUTE_IDS = {"fma": 0, "wgmma": 2}
+#: the backward's kv and query tile rows (a dK / dV block's kv tile, a
+#: (Q, dO) stage)
+_BWD_ROWS = 64
+#: SMs of an H100 SXM, :func:`flash_bwd_slices`'s default: one dh-256
+#: dK / dV block fills an SM (226 KB of shared memory); the wrapper passes
+#: its card's own count (:func:`_sm_count`)
+_BWD_SMS = 132
+#: the most slices :func:`flash_bwd_slices` cuts a pair's stages into
+_BWD_MAX_SLICES = 32
 #: query rows a block of the backward's ``"wgmma"`` dQ kernel owns: the
 #: (lse, D) scratch is padded to a multiple of it
 _BWD_ROWS_PAD = 128
@@ -304,9 +310,10 @@ def _route(q_shape, k_shape, q_dtype, causal, prefix_len, kv_len, q_start):
 
 class FlashBwdRoute(NamedTuple):
     """The kernels :func:`flash_attention_backward` launches: ``name``
-    (``"wgmma"``, ``"mma"`` or ``"fma"``), and whether the dK / dV
-    kernel's block owns kv tiles ``j`` and ``n - 1 - j`` (``paired``:
-    causal walks of equal length)."""
+    (``"wgmma"``: bf16 on Hopper's tensor cores, fed by TMA; ``"fma"``:
+    float32 on the CUDA cores), and whether the dK / dV kernel's block
+    owns kv tiles ``j`` and ``n - 1 - j`` (``paired``: causal walks of
+    equal length)."""
     name: str
     paired: bool
 
@@ -317,17 +324,105 @@ def flash_bwd_route(q_shape, k_shape, dtype: torch.dtype, *,
                     q_start: int = 0) -> FlashBwdRoute:
     """The route :func:`flash_attention_backward` takes on a CUDA device
     (a pure function of the shapes, dtype and masks).  float32: the FMA
-    kernels.  bf16 at a padded head dim up to
-    :data:`FLASH_BWD_WGMMA_MAX_DH`: the ``wgmma`` kernels (causal calls
+    kernels.  bf16: the ``wgmma`` kernels at every head dim (causal calls
     pair kv tile ``j`` with ``n - 1 - j``, so every dK / dV block walks
-    the same number of q tiles).  bf16 at dh 256: the ``mma.sync``
-    kernels."""
+    about the same number of q tiles).  Up to a padded dh of 128 a dK /
+    dV block holds a kv tile's float32 dK and dV in each consumer
+    warpgroup; at 256 the two warpgroups split dh, and the tile pairs'
+    stages are cut into :func:`flash_bwd_slices` slices whose partial
+    sums a second pass adds."""
     del k_shape, prefix_len, kv_len, q_start     # the route reads none
     if dtype != torch.bfloat16:
         return FlashBwdRoute("fma", False)
-    if _padded_dim(q_shape[3]) <= FLASH_BWD_WGMMA_MAX_DH:
-        return FlashBwdRoute("wgmma", bool(causal))
-    return FlashBwdRoute("mma", False)
+    return FlashBwdRoute("wgmma", bool(causal))
+
+
+def _bwd_first_row(t0: int, s: int, causal: bool, prefix_len: int,
+                   kv_len: int, q_start: int) -> int:
+    """The first row of the first q tile that sees a column of the kv
+    tile at ``t0``; ``s`` when none does (a copy of ``wb::first_q_row``
+    in ``csrc/flash_attention_bwd.cu``, which must stay in step)."""
+    if t0 >= kv_len:
+        return s
+    first = max(0, t0 - q_start) if causal and t0 >= prefix_len else 0
+    return s if first >= s else first - first % _BWD_ROWS
+
+
+def _bwd_unit_stages(s: int, t: int, group: int, causal: bool,
+                     prefix_len: int, kv_len: int, q_start: int) -> list:
+    """The (query head, q tile) stages of each dK / dV unit at dh 256: a
+    kv tile pair ``(x, n - 1 - x)`` when causal (the route pairs causal
+    calls), else one tile (``total`` of ``wh::walk_of`` in
+    ``csrc/flash_attention_bwd.cu``, which must stay in step)."""
+    n = -(-t // _BWD_ROWS)
+    nq = [-(-(s - _bwd_first_row(j * _BWD_ROWS, s, causal, prefix_len,
+                                 kv_len, q_start)) // _BWD_ROWS)
+          for j in range(n)]
+    if not causal:
+        return [group * c for c in nq]
+    return [group * (nq[x] + (nq[n - 1 - x] if n - 1 - x != x else 0))
+            for x in range(-(-n // 2))]
+
+
+def _bwd_cut(stages: int, slices: int) -> list:
+    """The stages each of ``slices`` contiguous slices of a unit's
+    ``stages`` takes, in slice order (a copy of ``wh::walk_of``'s cut
+    ``[a, b)`` in ``csrc/flash_attention_bwd.cu``, which must stay in
+    step): equal, one more or less."""
+    return [(i + 1) * stages // slices - i * stages // slices
+            for i in range(slices)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def flash_bwd_slices(q_shape, k_shape, *, causal: bool = True,
+                     prefix_len: int = 0, kv_len: Optional[int] = None,
+                     q_start: int = 0, sms: int = _BWD_SMS) -> int:
+    """The number of slices the bf16 dh-256 dK / dV kernel cuts each
+    unit's stages into on a card of ``sms`` SMs (a pure function of the
+    shapes, masks and ``sms``; 1 at other head dims, whose kernel does
+    not slice).  A unit is a kv tile pair of one kv head and batch row
+    (one tile unless causal); its stages, the (query head, q tile) pairs
+    that see it, are cut into contiguous slices of equal length
+    (:func:`_bwd_cut`), one block each.  Of 1 to :data:`_BWD_MAX_SLICES`
+    (and no more than a unit's stages), the count with the least
+    modelled time: whole waves of ``sms`` blocks (one a SM) times the
+    longest slice's stages plus 2 for a block's K / V load and its
+    partial sums' stores, plus the partial sums' trip through memory (a
+    kv tile's written and read again: about 1 / 24 of a stage of the
+    whole card), the fewest slices among equals.  The slices fix the
+    order of dK's and dV's float32 sums, so runs are bit-identical on
+    one card, and on cards of one SM count."""
+    b, s, h, dh = q_shape
+    t, kvh = k_shape[1], k_shape[2]
+    return _bwd_slices(int(b), int(s), int(t), int(h), int(kvh), int(dh),
+                       bool(causal), int(prefix_len),
+                       int(t if kv_len is None else kv_len), int(q_start),
+                       int(sms))
+
+
+@functools.lru_cache(maxsize=1024)
+def _bwd_slices(b: int, s: int, t: int, h: int, kvh: int, dh: int,
+                causal: bool, prefix_len: int, kv_len: int,
+                q_start: int, sms: int) -> int:
+    """:func:`flash_bwd_slices` on plain ints, cached: the rule walks
+    every kv tile, tens of microseconds of host time a call."""
+    if _padded_dim(dh) != 256:
+        return 1
+    units = _bwd_unit_stages(s, t, h // kvh, causal, prefix_len, kv_len,
+                             q_start)
+    n_units, most = len(units) * kvh * b, max(units)
+
+    def cost(n: int) -> float:
+        waves = -(-n_units * n // sms)
+        return waves * (max(_bwd_cut(most, n)) + 2) + n_units * (n + 1) / 24
+
+    return min(range(1, max(1, min(most, _BWD_MAX_SLICES)) + 1),
+               key=lambda n: (cost(n), n))
 
 
 def flash_attention_recurrence(q: torch.Tensor, k: torch.Tensor,
@@ -587,17 +682,24 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty_like(dk)
     if s and b and t:
         route = flash_bwd_route(q.shape, k.shape, dt, causal=causal)
+        sliced = route.name == "wgmma" and dp == 256
+        slices = flash_bwd_slices(
+            q.shape, k.shape, causal=causal, prefix_len=prefix_len,
+            kv_len=kv_len, q_start=q_start,
+            sms=_sm_count(q.device.index)) if sliced else 1
         # the wgmma route's (lse log2 e, D) pairs over rows padded to
-        # _BWD_ROWS_PAD; the others' D in the first b * h * s floats
+        # _BWD_ROWS_PAD (the fma route's D in the first b * h * s
+        # floats), then at dh 256 the slices' partial dK and dV
         s_pad = -(-s // _BWD_ROWS_PAD) * _BWD_ROWS_PAD
-        scratch = torch.empty(2 * b * h * s_pad, dtype=torch.float32,
+        part = 2 * slices * b * t * kvh * dp if sliced else 0
+        scratch = torch.empty(2 * b * h * s_pad + part, dtype=torch.float32,
                               device=q.device)
         lib = build.load("flash_attention_bwd")
         params = array.array("q", (
             b, s, t, h, kvh, dp, dt == torch.bfloat16, causal, prefix_len,
             t if kv_len is None else kv_len, q_start,
             struct.unpack("<I", struct.pack("<f", _scale(dh)))[0],
-            _BWD_ROUTE_IDS[route.name], route.paired))
+            _BWD_ROUTE_IDS[route.name], route.paired, slices))
         args = tuple(x.data_ptr() for x in (kq, kk, kv_, ko, kg, lse,
                                             scratch, dq, dk, dv)) \
             + (params.buffer_info()[0],)

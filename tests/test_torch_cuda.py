@@ -1152,7 +1152,9 @@ B7_LSE_ATOL = 1e-3
 #: (B, S, T, H, KV) and masks.  Beyond the first four (GQA groups of 3):
 #: S and T off the 64-row tiles, a kv-tile count of 1 and odd counts (5,
 #: 3) for the wgmma route's pairing of kv tiles j and n - 1 - j, groups of
-#: 1, 5 and 8, and the causal, prefix, cross and cache masks on them
+#: 1, 5 and 8, and the causal, prefix, cross and cache masks on them; the
+#: last, paligemma-3b's geometry at a small size (an MQA group of 8 over
+#: several slices at dh 256, S off the tiles, a prefix)
 B7B_CASES = {"causal": (2, 96, 96, 6, 2, dict(causal=True)),
              "prefix": (2, 96, 96, 6, 2, dict(causal=True, prefix_len=40)),
              "cross": (2, 7, 150, 6, 2, dict(causal=False)),
@@ -1167,7 +1169,9 @@ B7B_CASES = {"causal": (2, 96, 96, 6, 2, dict(causal=True)),
              "cross_g5": (2, 130, 300, 10, 2, dict(causal=False,
                                                    kv_len=250)),
              "cache_g8": (2, 5, 300, 8, 1, dict(causal=True, q_start=290,
-                                                kv_len=295))}
+                                                kv_len=295)),
+             "paligemma_small": (2, 300, 300, 8, 1, dict(causal=True,
+                                                         prefix_len=40))}
 
 
 @pytest.mark.parametrize("case", list(B7B_CASES))
@@ -1176,14 +1180,13 @@ B7B_CASES = {"causal": (2, 96, 96, 6, 2, dict(causal=True)),
 def test_flash_backward_matches_plain(cuda, case, dtype, dh, rng):
     """The backward kernels at every instantiated head dim, both dtypes,
     causal / prefix / cross / cache masks, GQA groups of 1, 3, 5 and 8,
-    each on the route flash_bwd_route names (wgmma: bf16 up to dh 128;
-    mma: bf16 at 256; fma: float32)."""
+    each on the route flash_bwd_route names (wgmma: bf16, at dh 256 with
+    its slices; fma: float32)."""
     b, s, t, h, kvh, kw = B7B_CASES[case]
     q, k, v = _qkv(rng, b, s, t, h, kvh, dh, dtype, dtype, cuda)
     d_out = _qkv(rng, b, s, t, h, kvh, dh, dtype, dtype, cuda)[0]
     route = tfa.flash_bwd_route(q.shape, k.shape, dtype, **kw)
-    want_route = "fma" if dtype == torch.float32 else \
-        "wgmma" if dh <= 128 else "mma"
+    want_route = "fma" if dtype == torch.float32 else "wgmma"
     assert route.name == want_route
     assert route.paired == (want_route == "wgmma" and kw["causal"])
     out, lse = tfa.flash_attention_reference(q, k, v, return_lse=True, **kw)
@@ -1218,13 +1221,17 @@ def test_flash_forward_log_sum_exp_each_route(cuda, route, dh, rng):
                                atol=0, rtol=0)
 
 
-def test_flash_backward_is_deterministic(cuda, rng):
-    """dK and dV (a GQA group of 5 summed in registers, the wgmma route's
-    two warpgroups' partial sums added in a fixed order) bit for bit over
-    two calls, as dQ."""
-    q, k, v = _qkv(rng, 1, 300, 300, 10, 2, 128, torch.bfloat16,
+@pytest.mark.parametrize("dh", [128, 256])
+def test_flash_backward_is_deterministic(cuda, dh, rng):
+    """dK and dV (an MQA group of 8: at dh 128 summed in registers, the
+    two warpgroups' partial sums added in a fixed order; at dh 256 the
+    slices' partial sums added in slice order) bit for bit over four
+    calls, as dQ."""
+    q, k, v = _qkv(rng, 1, 300, 300, 8, 1, dh, torch.bfloat16,
                    torch.bfloat16, cuda)
     assert tfa.flash_bwd_route(q.shape, k.shape, q.dtype).name == "wgmma"
+    if dh == 256:
+        assert tfa.flash_bwd_slices(q.shape, k.shape) > 1
     d_out = torch.randn_like(q)
     out, lse = tfa._forward_cuda(q, k, v, True, 0, None, 0, want_lse=True)
     first = tfa.flash_attention_backward(q, k, v, out, lse, d_out)

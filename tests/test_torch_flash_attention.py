@@ -333,16 +333,16 @@ def test_route_rule_at_head_dims_80_and_256(dh, s, h, kvh, t, kw, name,
     (1, 1024, 1024, 16, 4, 96, dict(causal=True), ("wgmma", True)),
     (2, 3, 90, 6, 2, 16, dict(causal=True, q_start=70, kv_len=73),
      ("wgmma", True)),
-    # paligemma's dh 256 keeps the mma.sync kernels (registers)
+    # paligemma's dh 256 and a dh padded to it take the wgmma route too
     (1, 2304, 2304, 8, 1, 256, dict(causal=True, prefix_len=256),
-     ("mma", False)),
-    (1, 100, 100, 4, 2, 200, dict(causal=True), ("mma", False)),
+     ("wgmma", True)),
+    (1, 100, 100, 4, 2, 200, dict(causal=True), ("wgmma", True)),
 ])
 def test_bwd_route_rule(b, s, t, h, kvh, dh, kw, want):
-    """bf16 takes the wgmma route up to a padded head dim of 128 (causal
-    calls pair their kv tiles), the mma.sync route at 256; float32 the
-    FMA route at every dim.  A pure function: the same arguments give the
-    same route, and no tensor is needed."""
+    """bf16 takes the wgmma route at every head dim (causal calls pair
+    their kv tiles); float32 the FMA route at every dim.  A pure
+    function: the same arguments give the same route, and no tensor is
+    needed."""
     q_shape, k_shape = (b, s, h, dh), (b, t, kvh, dh)
     route = tfa.flash_bwd_route(q_shape, k_shape, torch.bfloat16, **kw)
     assert tuple(route) == want
@@ -350,5 +350,55 @@ def test_bwd_route_rule(b, s, t, h, kvh, dh, kw, want):
                                         **kw)
     f32 = tfa.flash_bwd_route(q_shape, k_shape, torch.float32, **kw)
     assert f32 == ("fma", False)
-    assert (route.name == "wgmma") == \
-        (tfa._padded_dim(dh) <= tfa.FLASH_BWD_WGMMA_MAX_DH)
+    assert route.name == "wgmma"
+
+
+def _slice_walks(b, s, t, h, kvh, kw, slices):
+    """Each dK / dV block's stages at dh 256 as the kernel walks them:
+    slice ``i`` of a unit's stages, the unit's tiles' stages in order
+    (``wh::walk_of``, copied by ``_bwd_cut``), over ``b * kvh`` copies
+    of the units."""
+    units = tfa._bwd_unit_stages(s, t, h // kvh, kw["causal"],
+                                 kw.get("prefix_len", 0),
+                                 kw.get("kv_len") or t, kw.get("q_start", 0))
+    return [n for w in units * (b * kvh) for n in tfa._bwd_cut(w, slices)]
+
+
+@pytest.mark.parametrize("b,s,t,h,kvh,kw,want", [
+    # paligemma-3b's prefix-LM shape: one wave of 126 blocks (144 head
+    # slices would take two), and at the train step's batch of 4
+    (1, 2304, 2304, 8, 1, dict(causal=True, prefix_len=256), 7),
+    (4, 2304, 2304, 8, 1, dict(causal=True, prefix_len=256), 5),
+    # and at the smoke's paligemma-3b train step's batch of 2
+    (2, 2304, 2304, 8, 1, dict(causal=True, prefix_len=256), 7),
+    # small shapes: a slice per stage
+    (2, 96, 96, 6, 2, dict(causal=True), 9),
+    (2, 300, 300, 8, 1, dict(causal=True, prefix_len=40), 12),
+    (2, 5, 300, 8, 1, dict(causal=True, q_start=290, kv_len=295), 8),
+])
+def test_bwd_slices_rule(b, s, t, h, kvh, kw, want):
+    """flash_bwd_slices at dh 256 (1 at every other head dim), and the
+    blocks it gives: each block's stages within one of every other
+    block's of its unit, at paligemma's shape within 3 a kv head's stages
+    (the prefix's 4 tiles see 36 q tiles, so pairs 0-3 walk 37-40 of
+    them, the rest 37) and within one wave of the card's SMs at B = 1
+    (two at 2, three at 4)."""
+    q_shape, k_shape = (b, s, h, 256), (b, t, kvh, 256)
+    n = tfa.flash_bwd_slices(q_shape, k_shape, **kw)
+    assert n == want
+    assert tfa.flash_bwd_slices(q_shape, k_shape, sms=tfa._BWD_SMS,
+                                **kw) == n
+    assert tfa.flash_bwd_slices((b, s, h, 128), (b, t, kvh, 128), **kw) == 1
+    assert tfa.flash_bwd_slices((b, s, h, 200), (b, t, kvh, 200), **kw) == n
+    walks = _slice_walks(b, s, t, h, kvh, kw, n)
+    units = tfa._bwd_unit_stages(s, t, h // kvh, True,
+                                 kw.get("prefix_len", 0),
+                                 kw.get("kv_len") or t, kw.get("q_start", 0))
+    assert sum(walks) == sum(units) * b * kvh       # every stage once
+    for u in range(len(walks) // n):
+        own = walks[u * n:(u + 1) * n]
+        assert max(own) - min(own) <= 1
+    if s == 2304:
+        assert max(units) - min(units) == 3 * h
+        assert len(walks) <= tfa._BWD_SMS or b > 1
+        assert -(-len(walks) // tfa._BWD_SMS) == {1: 1, 2: 2, 4: 3}[b]
