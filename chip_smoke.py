@@ -1913,11 +1913,13 @@ def _select_part(s: Smoke, what, dist, k, largest, n_valid):
     m = dist.shape[0]
     bound, by = s.select_bound_ms(m, n_valid, k)
     live = dist[:, :n_valid]
+    call = lambda: cam_search.topk_select(dist, **kw)  # noqa: E731
     return {"rows": m, "cols": dist.shape[1], "n_valid": n_valid, "k": k,
-            "split": cam_search.select_split(
+            "grid": cam_search.select_grid(
                 m, k, n_valid, s.props.multi_processor_count),
             "bit_identical_to_plain": True,
-            "ms": cuda_ms(lambda: cam_search.topk_select(dist, **kw), 20),
+            "ms": cuda_ms(call, 20),
+            "device_ms": device_ms_per_call(call, 20),
             "plain_ms": cuda_ms(lambda: cam_search.topk_select_reference(
                 dist, **kw), 5),
             "library_ms": cuda_ms(lambda: torch.topk(live, k, largest=largest),
@@ -2004,8 +2006,12 @@ def _queue_c_eucl(s: Smoke, data):
              0.0, sel["ms"], sel["plain_ms"], sel["bound_ms"],
              sel["bound_by"], sel["library_ms"])
     s.kernels["topk_select"].update(
-        kernel_route="radix select, 11-bit digits, then a stable LSD sort "
-                     "of the k pairs; clusters of select_split blocks a row",
+        kernel_route="one launch on select_grid blocks (the card's block "
+                     "slots), equal stretches of the live columns: a sampled "
+                     "bound a piece, one filtering read into per-row "
+                     "candidate lists, the last block of a row selects "
+                     "(8-bit radix) and sorts (bitonic up to 512); radix "
+                     "select over the row where the list overflows",
         bound_basis="the (M, n_valid) float32 read once, the (M, k) output "
                     "written, 3.35 TB/s",
         library_note="torch.topk on the same matrix (its tie order is not "
@@ -2091,6 +2097,10 @@ def _queue_c_packed(s: Smoke, data):
         qpm = 2 * ops_unpack(qr) - 1
         gpm = 2 * ops_unpack(pp) - 1
         dim = float(qpm.shape[1])
+        pd_route = cam_search.packed_distance_route(
+            rows, pp.shape[0], pp.shape[1], s.props.multi_processor_count,
+            cp is not None)
+        pd_call = lambda: cam_search.packed_distance(qr, pp, cp)  # noqa: E731
         parts[rows] = {
             "ms": cuda_ms(lambda: cam_search.topk_by_packed_distance(
                 qr, pp, cp, **kw), 10),
@@ -2101,8 +2111,10 @@ def _queue_c_packed(s: Smoke, data):
                                   3),
             "bound_ms": bound, "bound_by": by,
             "packed_distance": {
-                "ms": cuda_ms(lambda: cam_search.packed_distance(qr, pp, cp),
-                              20),
+                "route": pd_route.name, "query_rows": pd_route.rows,
+                "grid": pd_route.grid,
+                "ms": cuda_ms(pd_call, 20),
+                "device_ms": device_ms_per_call(pd_call, 20),
                 "plain_ms": cuda_ms(
                     lambda: cam_search.packed_distance_reference(qr, pp, cp),
                     3),
@@ -2115,13 +2127,13 @@ def _queue_c_packed(s: Smoke, data):
         torch.cuda.empty_cache()
     big, sm = parts[qp.shape[0]], parts[small]
     s.record("distance_topk_packed",
-             "src/repro_torch/kernels/csrc/fused_topk_packed.cu",
+             "src/repro_torch/kernels/csrc/packed_distance.cu",
              "src/repro/kernels/cam_search.py:304", counts["packed_distance"],
              0.0, big["ms"], big["plain_ms"], big["bound_ms"],
              big["bound_by"], big["library_ms"])
     s.kernels["distance_topk_packed"].update(
-        kernel_route="matrix: K1p (fused_topk_packed.cu, int8 mma.sync on "
-                     "the packed lanes) writes the (M, N) matrix, K1s "
+        kernel_route="matrix: K1p (packed_distance.cu, int8 wgmma on the "
+                     "packed lanes) writes the (M, N) matrix, K1s "
                      "(topk_select.cu) selects",
         bound_basis="int8 tensor cores, 1,979 TOPS, on the packed lanes; "
                     "the output (M, k) values and indices",
@@ -2130,14 +2142,17 @@ def _queue_c_packed(s: Smoke, data):
         shape={"q": list(qp.shape), "p": list(pp.shape), "k": k})
     pd = big["packed_distance"]
     s.record("packed_distance",
-             "src/repro_torch/kernels/csrc/fused_topk_packed.cu",
+             "src/repro_torch/kernels/csrc/packed_distance.cu",
              "src/repro/kernels/cam_search.py:304",
              counts["packed_distance"] + small_counts["packed_distance"],
              0.0, pd["ms"], pd["plain_ms"], pd["bound_ms"], pd["bound_by"],
              pd["library_ms"])
     s.kernels["packed_distance"].update(
-        kernel_route="packed_mma_kernel's int8 mma.sync products, the "
-                     "distance epilogue; the mma grid at every row count",
+        kernel_route="int8 wgmma on lanes unpacked in shared memory, "
+                     "packed_distance_route: 'swapped' (queries as wgmma's N) "
+                     "up to 64 queries, else persistent 128 x 128 tiles, the "
+                     "query tile resident up to 32 lanes, warp-specialised "
+                     "unpacking, the stores overlapping the next tile",
         bound_basis="the larger of the int8 products at 1,979 TOPS and the "
                     "lanes read and (M, N) float32 written at 3.35 TB/s",
         library_note="addmm of the unpacked +-1 cells: (D - q.p) / 2",
@@ -5759,8 +5774,12 @@ def main() -> None:
     regs = {n: [ln.split(":", 1)[1].strip()
                 for ln in kbuild.build_log(n).splitlines()
                 if "registers" in ln] for n in kbuild.SOURCES}
+    spills = {n: [ln.strip() for ln in kbuild.build_log(n).splitlines()
+                  if "spill" in ln and not ln.strip().startswith("0 bytes")]
+              for n in kbuild.SOURCES}
     log({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
-         "built": built, "ptxas": regs})
+         "built": built, "ptxas": regs,
+         "spills": {n: v for n, v in spills.items() if v}})
 
     from repro_torch.data import knn_dataset
     t0 = time.perf_counter()

@@ -30,7 +30,17 @@ queries, 180,000 x 1024 gallery) at the shapes the smoke gives them:
   dQ and, at dh 256, the slices' sum) and the route, where the tree has
   ``flash_bwd_route``.
 
-``--b7-only`` runs the last two alone.  For each it prints the SHA-256 of the output's bytes and, for B4 eucl,
+* K1p ``packed_distance`` (binary and, with a seeded 10 % wildcard care
+  mask, ternary) on the smoke's binarised KNN lanes (180,096 padded rows
+  x 32 lanes) at ``queue_c``'s 624 queries and its 13-row micro-batch;
+  K1s ``topk_select`` on B6's eucl matrix (k = 500) and on K1p's packed
+  matrix (k = 400) at the same rows (``n_valid`` 180,000), with
+  ``torch.topk``'s and, for K1p, ``addmm``'s time on the same inputs; and
+  B1 ``fused_topk_packed`` at the KNN shape (k = 10): each with its
+  median CUDA-event ms over 20 calls and its device ms under
+  ``torch.profiler`` (``--k1-only`` runs these alone).
+
+``--b7-only`` runs the B7 records alone.  For each it prints the SHA-256 of the output's bytes and, for B4 eucl,
 the disagreements with the plain version.  Equal digests from two trees
 mean equal results.  Prints one JSON object (and writes it to ``--out``
 if given); needs one CUDA card:
@@ -186,6 +196,8 @@ def main() -> None:
     ap.add_argument("--out")
     ap.add_argument("--b7-only", action="store_true",
                     help="only B7's forward and backward records")
+    ap.add_argument("--k1-only", action="store_true",
+                    help="only K1p's, K1s's and B1's records")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -196,10 +208,13 @@ def main() -> None:
     build.build()
     out = {"tree": os.path.abspath(args.tree),
            "device": torch.cuda.get_device_name(0)}
-    if not args.b7_only:
-        out.update(cam_records(torch))
-    out["flash_attention"] = flash_records(torch)
-    out["flash_attention_bwd"] = flash_backward_records(torch)
+    if args.k1_only:
+        out["k1"] = k1_records(torch)
+    else:
+        if not args.b7_only:
+            out.update(cam_records(torch))
+        out["flash_attention"] = flash_records(torch)
+        out["flash_attention_bwd"] = flash_backward_records(torch)
     text = json.dumps(out)
     print(text)
     if args.out:
@@ -237,6 +252,63 @@ def cam_records(torch) -> dict:
         out[f"distance_{metric}_624"] = {
             "sha256": digest(cam_search.distance(a, b, metric=metric))}
     out["hdc_encode_mnist"] = hdc_encode_record(torch)
+    return out
+
+
+def k1_records(torch) -> dict:
+    """K1p, K1s and B1 at ``queue_c``'s shapes: digest, median event ms,
+    device ms; ``torch.topk`` and ``addmm`` beside them."""
+    import numpy as np
+    from repro_torch.data import knn_dataset
+    from repro_torch.kernels import cam_search, ops
+    from repro_torch.kernels.packing import pack_bits, unpack_bits
+    g, _, q, _ = knn_dataset()
+    gt, qt = torch.from_numpy(g).cuda(), torch.from_numpy(q).cuda()
+    n = g.shape[0]
+    rows_g, blk = cam_search.PACKED_ROWS, cam_search.BLOCK_K
+    lanes_q = ops.pad_to_blocks(pack_bits(qt > 0), 1, blk)
+    lanes_g = ops.pad_to_blocks(pack_bits(gt > 0), rows_g, blk)
+    wild = torch.from_numpy(np.random.default_rng(5).random(g.shape) > 0.1)
+    care = ops.pad_to_blocks(pack_bits(wild.cuda()), rows_g, blk)
+    del wild
+
+    def rec(call, parts):
+        res = call()
+        flat = torch.cat([t.contiguous().view(torch.int32).reshape(-1)
+                          for t in parts(res)])
+        return {"sha256": digest(flat), "ms": median_ms(torch, call, 20),
+                "device_ms": device_ms(torch, call, 10)}
+
+    out = {}
+    for rows in (qt.shape[0], 13):
+        qr = lanes_q[:rows].contiguous()
+        for name, c in (("binary", None), ("ternary", care)):
+            out[f"k1p_{name}_{rows}"] = rec(
+                lambda: cam_search.packed_distance(qr, lanes_g, c),
+                lambda d: [d])
+        # the library yardstick: (D - q.p) / 2 over the +-1 cells
+        qpm = 2 * unpack_bits(qr, qr.shape[1] * 32).float() - 1
+        gpm = 2 * unpack_bits(lanes_g, lanes_g.shape[1] * 32).float() - 1
+        half = torch.full((1,), qpm.shape[1] / 2, device="cuda")
+        out[f"k1p_binary_{rows}"]["addmm_ms"] = median_ms(
+            torch, lambda: torch.addmm(half, qpm, gpm.T, alpha=-0.5), 5)
+        del qpm, gpm
+        torch.cuda.empty_cache()
+        for kind, k in (("eucl", 500), ("packed", 400)):
+            d = cam_search.distance(qt[:rows].contiguous(), gt, metric="eucl") \
+                if kind == "eucl" else cam_search.packed_distance(qr, lanes_g)
+            r = rec(lambda: cam_search.topk_select(d, k=k, largest=False,
+                                                   n_valid=n),
+                    lambda vi: list(vi))
+            r["topk_ms"] = median_ms(
+                torch, lambda: torch.topk(d[:, :n], k, largest=False), 5)
+            out[f"k1s_{kind}_{rows}"] = r
+            del d
+            torch.cuda.empty_cache()
+    out["b1_knn_k10"] = rec(
+        lambda: cam_search.fused_topk_packed(lanes_q, lanes_g, None, k=10,
+                                             largest=False, n_valid=n),
+        lambda vi: list(vi))
     return out
 
 

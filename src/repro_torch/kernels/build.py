@@ -33,6 +33,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> its translation unit in csrc/
 SOURCES = {"fused_topk": "fused_topk.cu",
            "fused_topk_packed": "fused_topk_packed.cu",
+           "packed_distance": "packed_distance.cu",
            "acam_match": "acam_match.cu",
            "range_match": "range_match.cu",
            "hdc_encode": "hdc_encode.cu",

@@ -27,12 +27,13 @@ periphery — as (value, global row index) candidates:
 * :func:`topk_select` — the (M, k) best entries of each row of an (M, N)
   float32 matrix by (value, lowest column), sorted, for any ``k``: the
   block top-k of ``fused_topk_pallas`` / ``fused_topk_packed_pallas``
-  where no window fits in shared memory (``k > MAX_K``); a radix select
-  (``csrc/topk_select.cu``);
+  where no window fits in shared memory (``k > MAX_K``); a sampled bound,
+  one filtering read of the matrix shared out over the card
+  (:func:`select_grid`) and a radix select (``csrc/topk_select.cu``);
 * :func:`packed_distance` — the (M, N) float32 matrix of
-  ``popcount(q ^ p [& care])``: :func:`fused_topk_packed`'s int8
-  tensor-core products with an epilogue that stores the distances in
-  place of the window top-k;
+  ``popcount(q ^ p [& care])``: int8 ``wgmma`` products over lanes
+  unpacked in shared memory, on the route :func:`packed_distance_route`
+  picks (``csrc/packed_distance.cu``);
 * :func:`topk_by_distance` / :func:`topk_by_packed_distance` — the search
   route for ``k > MAX_K`` (:func:`float_route` / :func:`packed_route`
   return ``"matrix"``): :func:`distance`'s kernel, or
@@ -58,9 +59,10 @@ adds one to :data:`LAUNCHES`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -74,8 +76,10 @@ __all__ = ["METRIC_COEFFS", "BLOCK_K", "MAX_K", "LAUNCHES", "window_rows",
            "fused_topk_reference", "topk_by_distance",
            "topk_by_distance_reference", "topk_by_packed_distance",
            "topk_by_packed_distance_reference", "order_key",
-           "topk_select", "topk_select_reference", "select_split",
-           "PACKED_ROWS", "packed_distance", "packed_distance_reference",
+           "topk_select", "topk_select_reference", "select_grid",
+           "select_stretches", "PACKED_ROWS", "PackedDistanceRoute",
+           "packed_distance_route", "packed_distance",
+           "packed_distance_reference",
            "fused_topk_packed", "fused_topk_packed_reference", "distance",
            "distance_reference"]
 
@@ -105,10 +109,20 @@ PACKED_ROWS = _TILE_N
 #: block takes besides that sort buffer, and the most a block may take
 #: for two blocks to share an SM (228 KB, 1 KB reserved each)
 _SELECT_SORT_CAP = 8192
-_SELECT_SMEM = 99_328
+_SELECT_SMEM = 91_136
 _SM_SMEM_TWO_BLOCKS = 115_712
-#: topk_select.cu's rows a batch: a block splitting a row gets at least one
-_SELECT_BATCH = 8192
+#: topk_select.cu's stretch unit (columns) and the candidates a row's
+#: list holds
+_SELECT_GROUP = 16
+_SELECT_GATHER_CAP = 6144
+#: packed_distance.cu: the widest lanes of a resident 128-query tile, the
+#: most query rows of the swapped route, the bytes its unpacked queries may
+#: take, and its block's shared memory besides them (binary, ternary)
+_PD_RESIDENT_LANES = 32
+_PD_SWAP_ROWS = 64
+_PD_SWAP_Q_BYTES = 131_072
+_PD_SWAP_SMEM = (1024 + 32_768 + 16_384 + 512, 1024 + 32_768 + 32_768 + 512)
+_PD_ROUTES = {"resident": 0, "streamed": 1, "swapped": 2}
 
 _NEG_BIG = -3.0e38
 _POS_BIG = 3.0e38
@@ -172,21 +186,72 @@ def packed_route(m: int, n: int, k: int, sms: int) -> str:
     return "rows"
 
 
-def select_split(m: int, k: int, n_valid: int, sms: int) -> int:
-    """Blocks :func:`topk_select` spends on one row (a thread block
-    cluster of 1, 2, 4 or 8) for ``m`` rows on a card with ``sms``
-    streaming multiprocessors: one when the rows fill every block slot
-    (two blocks an SM, one past a 1,000-pair sort buffer), else the
-    fewest that do, up to 8, and never fewer than 8,192 live columns a
-    block."""
+def select_grid(m: int, k: int, n_valid: int, sms: int) -> int:
+    """Blocks of a :func:`topk_select` launch for ``m`` rows on a card with
+    ``sms`` streaming multiprocessors: every block slot (two blocks an SM
+    while the sort buffer of ``k`` pairs leaves room for two, else one),
+    and never more than the ``m * ceil(n_valid / 16)`` 16-column groups
+    the rows' live columns make, so no block's stretch is empty."""
     smem = _SELECT_SMEM + (16 * k if k <= _SELECT_SORT_CAP else 0)
     slots = sms * (2 if smem <= _SM_SMEM_TWO_BLOCKS else 1)
-    c = 1
-    while c < 8 and m * c < slots:
-        c *= 2
-    while c > 1 and n_valid < c * _SELECT_BATCH:
-        c //= 2
-    return c
+    return max(1, min(slots, m * -(-n_valid // _SELECT_GROUP)))
+
+
+def select_stretches(m: int, n_valid: int, grid: int) -> List[int]:
+    """The live columns each of ``grid`` blocks of :func:`topk_select`
+    reads: the ``m`` rows' live columns, cut into 16-column groups row
+    by row, shared out in contiguous stretches of equal length, one
+    group more or less (``topk_select.cu``'s division; a row's last
+    group may be shorter)."""
+    gpr = -(-n_valid // _SELECT_GROUP)
+    total = m * gpr
+    out = []
+    for b in range(grid):
+        g0, g1 = total * b // grid, total * (b + 1) // grid
+        cols = 0
+        while g0 < g1:
+            row = g0 // gpr
+            end = min(g1, (row + 1) * gpr)
+            cols += min((end - row * gpr) * _SELECT_GROUP, n_valid) - \
+                (g0 - row * gpr) * _SELECT_GROUP
+            g0 = end
+        out.append(cols)
+    return out
+
+
+class PackedDistanceRoute(NamedTuple):
+    """:func:`packed_distance`'s route: ``name`` (``"swapped"``,
+    ``"resident"`` or ``"streamed"``), the query rows a tile holds
+    (``rows``) and the persistent grid (``grid``)."""
+    name: str
+    rows: int
+    grid: int
+
+
+def packed_distance_route(m: int, n: int, lanes: int, sms: int,
+                          ternary: bool = False) -> PackedDistanceRoute:
+    """The route of :func:`packed_distance` for ``m`` queries, ``n``
+    pattern rows of ``lanes`` lanes (with a ``ternary`` care mask or not)
+    on a card with ``sms`` streaming multiprocessors
+    (``csrc/packed_distance.cu``): ``"swapped"`` for at most 64 queries
+    whose unpacked lanes fit 128 KB (the gallery rows take ``wgmma``'s
+    64-row side, the queries its N of 8, 16, 32 or 64 columns; 64-row
+    gallery tiles, two one-warpgroup blocks an SM where their shared
+    memory allows); else 128-query x 128-row tiles on one block an SM,
+    ``"resident"`` (the query tile unpacked once a run) up to 32 lanes and
+    ``"streamed"`` past them.  The grid never exceeds the tiles."""
+    if m <= _PD_SWAP_ROWS:
+        rows = next(r for r in (8, 16, 32, 64) if m <= r)
+        q_bytes = rows * 32 * lanes
+        if q_bytes <= _PD_SWAP_Q_BYTES:
+            per_sm = 2 if _PD_SWAP_SMEM[ternary] + q_bytes <= \
+                _SM_SMEM_TWO_BLOCKS else 1
+            return PackedDistanceRoute("swapped", rows,
+                                       max(1, min(per_sm * sms, n // 64)))
+    tiles = -(-m // 128) * (n // _TILE_N)
+    return PackedDistanceRoute(
+        "resident" if lanes <= _PD_RESIDENT_LANES else "streamed", 128,
+        max(1, min(sms, tiles)))
 
 
 def float_route(k: int) -> str:
@@ -664,13 +729,13 @@ def topk_by_packed_distance(q: torch.Tensor, p: torch.Tensor,
                             care: Optional[torch.Tensor] = None, *, k: int,
                             largest: bool, n_valid: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The packed search route where ``k`` exceeds :data:`MAX_K`:
-    :func:`packed_distance` writes the (M, N) matrix of
-    ``popcount(q ^ p [& care])`` from the packed lanes and
-    :func:`topk_select` takes the top ``k`` by (value, lowest row id),
-    sorted; rows at or beyond ``n_valid`` lose.  Integers end to end:
-    bit-identical to the reference.  Operands as :func:`packed_distance`
-    takes them; CPU tensors run
+    """The packed search route where ``k`` exceeds :data:`MAX_K`: two
+    launches, :func:`packed_distance` (K1p, int8 ``wgmma``) writing the
+    (M, N) matrix of ``popcount(q ^ p [& care])`` from the packed lanes,
+    then :func:`topk_select` (K1s) taking the top ``k`` by (value, lowest
+    row id), sorted; rows at or beyond ``n_valid`` lose.  Integers end to
+    end: bit-identical to the reference.  Operands as
+    :func:`packed_distance` takes them; CPU tensors run
     :func:`topk_by_packed_distance_reference`."""
     _check_packed_distance(q, p, care)
     _check_n_valid("topk_by_packed_distance", p.shape[0], n_valid)
@@ -709,8 +774,11 @@ def topk_select(dist: torch.Tensor, *, k: int, largest: bool,
     entries' own values (float32) and columns (int32).
 
     CPU tensors run :func:`topk_select_reference`; CUDA tensors launch
-    the radix-select kernel (``csrc/topk_select.cu``), one block a row or
-    a cluster of :func:`select_split` blocks when the rows are few.
+    ``csrc/topk_select.cu`` once on :func:`select_grid` blocks, each
+    reading an equal stretch of the live columns (:func:`select_stretches`)
+    past a sampled bound into per-row candidate lists; the last block to
+    read a row selects its k from them (or, when they overflow or fall
+    short, by a radix select over the row) and sorts them.
     """
     _check_select(dist, k, n_valid)
     if dist.device.type == "cpu":
@@ -721,21 +789,63 @@ def topk_select(dist: torch.Tensor, *, k: int, largest: bool,
     out_i = torch.empty((m, k), dtype=torch.int32, device=dist.device)
     if m == 0:
         return out_v, out_i
-    # above the shared-memory sort: two (key, column) pairs of 8 bytes
-    # per candidate and row
+    stream = _raw_stream(dist.device)
+    cand, counters = _select_scratch(dist.device, stream, m)
+    # above the shared-memory sort: two (key, column) pairs of 8 bytes per
+    # selected entry and row
     scratch = torch.empty((m, 4 * k), dtype=torch.int32, device=dist.device) \
         if k > _SELECT_SORT_CAP else None
     lib = build.load("topk_select")
-    launch = _bind(lib, "c4cam_topk_select", _args(4, 6))
-    with torch.cuda.device(dist.device):
+    launch = _bind(lib, "c4cam_topk_select", _args(6, 6))
+    with _on_device(dist.device):
         err = launch(dist.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+                     cand.data_ptr(), counters.data_ptr(),
                      None if scratch is None else scratch.data_ptr(), m, n,
                      k, n_valid, int(largest),
-                     select_split(m, k, n_valid, _sm_count(dist.device)),
-                     torch.cuda.current_stream(dist.device).cuda_stream)
+                     select_grid(m, k, n_valid, _sm_count(dist.device)), stream)
     _raise_if_failed(lib, "topk_select", err)
     _count("topk_select")
     return out_v, out_i
+
+
+#: per (device, stream): each row's candidate list and its slot and
+#: arrival counters for :func:`topk_select`, grown to the most rows seen;
+#: the kernel leaves the counters zero, so they are zeroed once
+_SELECT_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_SCRATCH_LOCK = threading.Lock()
+
+
+def _select_scratch(device: torch.device, stream: int, m: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (device.index, stream)
+    with _SCRATCH_LOCK:
+        have = _SELECT_SCRATCH.get(key)
+        if have is None or have[0].shape[0] < m:
+            # allocated on the current stream, the one the launch runs on
+            have = (torch.empty((m, 2 * _SELECT_GATHER_CAP), dtype=torch.int32,
+                                device=device),
+                    torch.zeros(2 * m, dtype=torch.int32, device=device))
+            _SELECT_SCRATCH[key] = have
+        return have
+
+
+def _raw_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as a pointer-sized int (the
+    raw query where PyTorch has it: a ``Stream`` object costs microseconds
+    a call)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index if device.index is not None
+                   else torch.cuda.current_device())
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _on_device(device: torch.device):
+    """``torch.cuda.device(device)`` where it is not the current device
+    already (a launch goes to the current device's context)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _check_packed_distance(q: torch.Tensor, p: torch.Tensor,
@@ -779,8 +889,9 @@ def packed_distance(q: torch.Tensor, p: torch.Tensor,
     of :data:`PACKED_ROWS` (zero padding is neutral for the lanes; padding
     rows get their own distances).  Exact integers, bit-identical to the
     reference.  CPU tensors run :func:`packed_distance_reference`; CUDA
-    tensors launch :func:`fused_topk_packed`'s int8 tensor-core route
-    with its distance epilogue."""
+    tensors launch ``csrc/packed_distance.cu`` (int8 ``wgmma`` on lanes
+    unpacked in shared memory) on the route and persistent grid that
+    :func:`packed_distance_route` picks."""
     _check_packed_distance(q, p, care)
     if q.device.type == "cpu":
         return packed_distance_reference(q, p, care)
@@ -788,13 +899,15 @@ def packed_distance(q: torch.Tensor, p: torch.Tensor,
                       device=q.device)
     if q.shape[0] == 0:
         return out
-    lib = build.load("fused_topk_packed")
-    launch = _bind(lib, "c4cam_packed_distance", _args(4, 3))
-    with torch.cuda.device(q.device):
+    route = packed_distance_route(q.shape[0], p.shape[0], q.shape[1],
+                                  _sm_count(q.device), care is not None)
+    lib = build.load("packed_distance")
+    launch = _bind(lib, "c4cam_packed_distance", _args(4, 5))
+    with _on_device(q.device):
         err = launch(q.data_ptr(), p.data_ptr(),
                      None if care is None else care.data_ptr(),
                      out.data_ptr(), q.shape[0], p.shape[0], q.shape[1],
-                     torch.cuda.current_stream(q.device).cuda_stream)
+                     _PD_ROUTES[route.name], route.grid, _raw_stream(q.device))
     _raise_if_failed(lib, "packed_distance", err)
     _count("packed_distance")
     return out

@@ -38,16 +38,8 @@
 //   write their losing key and cost nothing else.  The grid is M / 8
 //   blocks per window, 128 at the HDC shape.
 //
-// * "distance" (the packed distance matrix, cam_search.packed_distance):
-//   the "mma" route's products and row term with an epilogue that stores
-//   each (query, row) distance as an exact float32 integer into an (M, N)
-//   matrix in place of the window top-k; every row is computed, padding
-//   included.  The search route for k past the 384-row window
-//   (cam_search.topk_by_packed_distance) selects from that matrix with
-//   topk_select.cu.  Bound: the (M, N) float32 written, 0.134 ms at 624 x
-//   180,000 (the int8 products, 0.116 ms, come second).  The grid is the
-//   "mma" grid at every shape: at a 13-row micro-batch it is still one block
-//   per 128-row window (1,407 at the KNN gallery), so it fills the card.
+// (The search route past a 384-row window writes the (M, N) distance
+// matrix of the same lanes with packed_distance.cu and selects from it.)
 //
 // The window top-k, both routes: each (query, window column) becomes one
 // unique 32-bit key, rank << 9 | column (rank = distance, or 32 L -
@@ -242,7 +234,7 @@ __device__ __forceinline__ int tile_off(int row, int c) {
   return row * kRowBytes + ((c ^ (row & 7)) << 4);
 }
 
-template <bool kCare, bool kDist>
+template <bool kCare>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 packed_mma_kernel(const int* __restrict__ q, const int* __restrict__ p,
                   const int* __restrict__ care, float* __restrict__ out_v,
@@ -347,27 +339,6 @@ packed_mma_kernel(const int* __restrict__ q, const int* __restrict__ p,
   rt_s[128 * uh + ur] = rterm;
   __syncthreads();                        // products done, tiles free
 
-  if constexpr (kDist) {                  // out_v is the (M, n_windows * 128) matrix
-    const size_t ld = size_t(n_windows) * 128;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + 32 * wm + 16 * mi + g + 8 * h;
-        if (m >= M) continue;
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const int col = 64 * wn + 8 * ni + 2 * t;
-          const float2 d = make_float2(
-              float(rt_s[col] + rt_s[128 + col] + acc[mi][ni][2 * h]),
-              float(rt_s[col + 1] + rt_s[128 + col + 1] + acc[mi][ni][2 * h + 1]));
-          *reinterpret_cast<float2*>(out_v + size_t(m) * ld + wbase + col) = d;
-        }
-      }
-    return;
-  }
-
   // keys: key[row][col] at position (col + 8 (row % 8)) % 128 of the row
   uint32_t* keys = reinterpret_cast<uint32_t*>(smem);
   Row r;
@@ -411,17 +382,17 @@ packed_mma_kernel(const int* __restrict__ q, const int* __restrict__ p,
   }
 }
 
-template <bool kCare, bool kDist>
+template <bool kCare>
 int launch_mma(const int* q, const int* p, const int* care, float* out_v, int* out_i,
                int M, int L, int k, int n_windows, int n_valid, int largest,
                cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(packed_mma_kernel<kCare, kDist>,
+  cudaError_t err = cudaFuncSetAttribute(packed_mma_kernel<kCare>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(mma_smem(kCare)));
   if (err != cudaSuccess) return int(err);
   const long long blocks = (long long)((M + 127) / 128) * n_windows;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  packed_mma_kernel<kCare, kDist><<<unsigned(blocks), kMmaThreads, mma_smem(kCare), s>>>(
+  packed_mma_kernel<kCare><<<unsigned(blocks), kMmaThreads, mma_smem(kCare), s>>>(
       q, p, care, out_v, out_i, M, L, k, n_windows, n_valid, largest);
   return int(cudaGetLastError());
 }
@@ -433,8 +404,8 @@ int launch(int route, const int* q, const int* p, const int* care, float* out_v,
   const int n_windows = N / window;
   if (route == 1) {
     if (window != 128 || L % kChunkLanes) return int(cudaErrorInvalidValue);
-    return launch_mma<kCare, false>(q, p, care, out_v, out_i, M, L, k, n_windows,
-                                    n_valid, largest, s);
+    return launch_mma<kCare>(q, p, care, out_v, out_i, M, L, k, n_windows, n_valid,
+                             largest, s);
   }
   if (n_windows > 65535) return int(cudaErrorInvalidValue);
   const dim3 grid((M + kRowWarps - 1) / kRowWarps, n_windows);
@@ -476,19 +447,6 @@ extern "C" int c4cam_fused_topk_packed(const int* q, const int* p,
                          n_valid, largest, s);
   return launch<true>(route, q, p, care, out_v, out_i, M, N, L, k, window, n_valid,
                       largest, s);
-}
-
-// The (M, N) float32 distance matrix, popcount(q ^ p [& care]) per (query,
-// row): q (M, L), p (N, L) int32 lanes, 16-byte aligned, L a multiple of 8,
-// N a multiple of 128; care (N, L) or nullptr.  Returns a cudaError_t code.
-extern "C" int c4cam_packed_distance(const int* q, const int* p, const int* care,
-                                     float* out, int M, int N, int L, void* stream) {
-  if (M <= 0 || N <= 0 || L <= 0 || N % 128 || L % kChunkLanes)
-    return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (care == nullptr)
-    return launch_mma<false, true>(q, p, nullptr, out, nullptr, M, L, 1, N / 128, N, 0, s);
-  return launch_mma<true, true>(q, p, care, out, nullptr, M, L, 1, N / 128, N, 0, s);
 }
 
 extern "C" const char* c4cam_error_string(int err) {

@@ -1822,11 +1822,15 @@ def test_hier_on_the_card_equals_flat_and_repeats_centroids(cuda, rng):
 # ---------------------------------------------------------------------------
 
 
-def _select_case(rng, m, n, data):
+def _select_case(rng, m, n, data, largest=False):
     """An (m, n) float32 matrix for the selection: ``"random"`` (normal
     values), ``"equal"`` (every entry the same), ``"specials"`` (few
-    values, so ties straddle every rank: +-inf, +-0.0, negatives) or
-    ``"hamming"`` (binomial integers, as packed distances crowd)."""
+    values, so ties straddle every rank: +-inf, +-0.0, negatives),
+    ``"hamming"`` (binomial integers, as packed distances crowd),
+    ``"sorted"`` (each row ordered best first, so every winner lies in
+    the row's first stretch) or ``"clustered"`` (40 % of each row tied at
+    the best value: more keys at or below the sampled bound than a row's
+    candidate list holds, so the list overflows)."""
     if data == "random":
         a = rng.standard_normal((m, n)).astype(np.float32)
     elif data == "equal":
@@ -1835,6 +1839,13 @@ def _select_case(rng, m, n, data):
         pool = np.array([np.inf, -np.inf, 0.0, -0.0, -1.5, 2.0, 7.25, -3e38],
                         np.float32)
         a = pool[rng.integers(0, pool.size, (m, n))]
+    elif data == "sorted":
+        a = np.sort(rng.standard_normal((m, n)).astype(np.float32), axis=1)
+        if largest:
+            a = a[:, ::-1].copy()
+    elif data == "clustered":
+        a = rng.standard_normal((m, n)).astype(np.float32)
+        a[rng.random((m, n)) < 0.4] = 10.0 if largest else -10.0
     else:
         a = rng.binomial(1024, 0.5, (m, n)).astype(np.float32)
     return torch.from_numpy(a)
@@ -1846,18 +1857,21 @@ def _assert_same_bits(got, want):
 
 
 @pytest.mark.parametrize("largest", [False, True])
-@pytest.mark.parametrize("data", ["random", "equal", "specials"])
+@pytest.mark.parametrize("data", ["random", "equal", "specials", "sorted",
+                                  "clustered"])
 @pytest.mark.parametrize("k", ["385", "8193", "n_valid"])
 @pytest.mark.parametrize("m", [1, 13, 624])
 def test_topk_select_matches_plain(cuda, m, k, data, largest, rng):
     """K1s against its plain version, bit for bit: one row, a served
-    micro-batch and the KNN queries (split over clusters at the first
-    two), k past the window, past the shared-memory sort and at
+    micro-batch and the KNN queries (a row shared out over many blocks at
+    the first two), k past the window (the sampled candidate lists; the
+    radix select over the row where they overflow, ``"clustered"``, or
+    hold ties everywhere, ``"equal"``), past the shared-memory sort and at
     ``n_valid``; an odd row width takes the unaligned loads."""
     n = 20003 if data == "equal" else 20000
     n_valid = n - 37
     kk = n_valid if k == "n_valid" else int(k)
-    dist = _select_case(rng, m, n, data)
+    dist = _select_case(rng, m, n, data, largest)
     kw = dict(k=kk, largest=largest, n_valid=n_valid)
     dist = dist.to(cuda)
     before = tcs.LAUNCHES["topk_select"]
@@ -1869,19 +1883,40 @@ def test_topk_select_matches_plain(cuda, m, k, data, largest, rng):
 
 @pytest.mark.parametrize("data,k,largest", [("hamming", 400, False),
                                             ("random", 500, False),
-                                            ("hamming", 385, True)])
+                                            ("hamming", 385, True),
+                                            ("sorted", 500, False),
+                                            ("clustered", 400, True)])
 @pytest.mark.parametrize("m", [13, 624])
 def test_topk_select_at_the_knn_width(cuda, m, data, k, largest, rng):
     """K1s at the KNN gallery's 180,000 columns: binomial integers crowd
-    a few bins (the gathered path after two passes), normal values
-    spread (after one)."""
+    a few bins, normal values spread, sorted rows put every winner in
+    the first stretch, clustered rows overflow the candidate lists; the
+    grid fills two blocks an SM at 13 rows and at 624."""
     n = 180_000
-    dist = _select_case(rng, m, n, data)
+    dist = _select_case(rng, m, n, data, largest)
     kw = dict(k=k, largest=largest, n_valid=n - 5)
     dist = dist.to(cuda)
     got = tcs.topk_select(dist, **kw)
     _assert_same_bits(got, tcs.topk_select_reference(dist, **kw))
-    assert tcs.select_split(m, k, n - 5, _sms(cuda)) == (8 if m == 13 else 1)
+    assert tcs.select_grid(m, k, n - 5, _sms(cuda)) == 2 * _sms(cuda)
+
+
+@pytest.mark.parametrize("m", [13, 624])
+def test_k1_repeated_calls_are_bit_identical(cuda, m, rng):
+    """Four calls of K1p (packed lanes at the KNN shape, binary and
+    ternary) and of K1s (on K1p's matrix, k = 400) give the same bits:
+    the candidate lists fill in arrival order, the results do not."""
+    n, lanes = 180_096, 32
+    q, p, c = (_lanes(rng, rows, lanes).to(cuda) for rows in (m, n, n))
+    for care in (None, c):
+        mats = [tcs.packed_distance(q, p, care) for _ in range(4)]
+        assert all(torch.equal(mats[0], x) for x in mats[1:])
+        sel = [tcs.topk_select(mats[0], k=400, largest=False, n_valid=n - 96)
+               for _ in range(4)]
+        for v, i in sel[1:]:
+            _assert_same_bits((v, i), sel[0])
+    _assert_same_bits(sel[0], tcs.topk_select_reference(
+        mats[0], k=400, largest=False, n_valid=n - 96))
 
 
 def test_topk_select_refusals(cuda):
@@ -1895,24 +1930,47 @@ def test_topk_select_refusals(cuda):
 
 
 @pytest.mark.parametrize("ternary", [False, True])
-@pytest.mark.parametrize("m,n,lanes", [(1, 128, 8), (13, 180096, 32),
-                                       (300, 1024, 40)])
-def test_packed_distance_matches_plain(cuda, m, n, lanes, ternary, rng):
-    """K1p against ``ref.packed_distances`` (binary and ternary), bit for
-    bit, on lanes with bit 31 set, every pattern row included."""
+@pytest.mark.parametrize("lanes", [8, 32, 40, 256])
+@pytest.mark.parametrize("m", [1, 13, 64, 65, 129, 624])
+def test_packed_distance_matches_plain(cuda, m, lanes, ternary, rng):
+    """K1p against its plain version run on the card (binary and
+    ternary), bit for bit, on lanes with bit 31 set, every pattern row
+    included, on each route ``packed_distance_route`` picks: swapped up to
+    64 queries whose lanes fit, 128-query tiles resident up to 32 lanes
+    and streamed past them; 8,320 rows end in half a 256-row tile and,
+    at 624 queries, blocks' runs of tiles cross query tiles.  The first
+    64 rows also against ``ref.packed_distances`` on the CPU."""
     from repro_torch.kernels import ref as tref
+    n = 8320
     q, p = _lanes(rng, m, lanes), _lanes(rng, n, lanes)
     c = _lanes(rng, n, lanes) if ternary else None
+    qc, pc = q.to(cuda), p.to(cuda)
+    cc = None if c is None else c.to(cuda)
     before = tcs.LAUNCHES["packed_distance"]
-    got = tcs.packed_distance(q.to(cuda), p.to(cuda),
-                              None if c is None else c.to(cuda))
+    got = tcs.packed_distance(qc, pc, cc)
     torch.cuda.synchronize()
     assert tcs.LAUNCHES["packed_distance"] == before + 1
-    want = tcs.packed_distance_reference(q, p, c)
-    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, tcs.packed_distance_reference(qc, pc, cc))
     rows = slice(0, 64)
-    assert torch.equal(want[:, rows], tref.packed_distances(q, p[rows],
-                       None if c is None else c[rows]))
+    assert torch.equal(got[:, rows].cpu(), tref.packed_distances(
+        q, p[rows], None if c is None else c[rows]))
+
+
+@pytest.mark.parametrize("ternary", [False, True])
+@pytest.mark.parametrize("m", [13, 624])
+def test_packed_distance_at_the_knn_shape(cuda, m, ternary, rng):
+    """K1p at the KNN gallery (180,096 rows x 32 lanes): the swapped route
+    at a 13-row micro-batch (two blocks an SM) and the resident route at
+    624 queries, each a persistent run of many tiles a block, bit for bit
+    against the plain version on the card."""
+    n, lanes = 180_096, 32
+    q, p = (_lanes(rng, rows, lanes).to(cuda) for rows in (m, n))
+    c = _lanes(rng, n, lanes).to(cuda) if ternary else None
+    route = tcs.packed_distance_route(m, n, lanes, _sms(cuda), ternary)
+    assert route.name == ("swapped" if m == 13 else "resident")
+    assert route.grid == (2 if m == 13 else 1) * _sms(cuda)
+    got = tcs.packed_distance(q, p, c)
+    assert torch.equal(got, tcs.packed_distance_reference(q, p, c))
 
 
 @pytest.mark.parametrize("metric,largest", [("hamming", False),

@@ -110,6 +110,55 @@ def test_select_refusals():
                         n_valid=10)
 
 
+@pytest.mark.parametrize("m,k", [(13, 400), (624, 500), (624, 400),
+                                 (1, 385)])
+def test_select_grid_fills_every_block_slot(m, k):
+    """K1s's grid at the KNN width: two blocks an SM on an H100's 132 at
+    13 rows and at 624 alike (the sort buffer of k pairs leaves room for
+    two), one an SM once it does not, never more blocks than 16-column
+    groups."""
+    assert tcs.select_grid(m, k, 180_000, 132) == 264
+    assert tcs.select_grid(m, 2000, 180_000, 132) == 132
+    assert tcs.select_grid(m, 9000, 180_000, 132) == 264
+    assert tcs.select_grid(1, 1, 40, 132) == 3
+
+
+@pytest.mark.parametrize("m,n_valid,grid", [(13, 179_995, 264),
+                                            (624, 180_000, 264),
+                                            (1, 20_000, 264),
+                                            (7, 1_001, 5), (3, 40, 9)])
+def test_select_stretches_are_equal(m, n_valid, grid):
+    """K1s's stretches cover every live column once and differ by at most
+    one 16-column group (a row's shorter last group aside): at 13 rows
+    as at 624, every block reads the same bytes."""
+    cols = tcs.select_stretches(m, n_valid, grid)
+    assert len(cols) == grid and sum(cols) == m * n_valid
+    assert min(cols) > 0
+    short = m * (-n_valid % tcs._SELECT_GROUP)     # the rows' short groups
+    assert max(cols) - min(cols) <= tcs._SELECT_GROUP + min(short, 16)
+
+
+@pytest.mark.parametrize("m,lanes,name,rows,grid", [
+    (1, 32, "swapped", 8, 264), (13, 32, "swapped", 16, 264),
+    (17, 32, "swapped", 32, 264),
+    (13, 256, "swapped", 16, 132), (33, 32, "swapped", 64, 132),
+    (64, 40, "swapped", 64, 132), (64, 256, "streamed", 128, 132),
+    (65, 32, "resident", 128, 132), (624, 8, "resident", 128, 132),
+    (624, 32, "resident", 128, 132), (624, 40, "streamed", 128, 132),
+    (129, 256, "streamed", 128, 132)])
+def test_packed_distance_route_by_shape(m, lanes, name, rows, grid):
+    """K1p's route: the swapped operands at a 13-row micro-batch (16
+    query columns, two blocks an SM while the unpacked queries leave room)
+    and up to 64 queries whose unpacked lanes fit 128 KB, the resident
+    128-query tile at 624 queries up to 32 lanes, streamed past them; the
+    grid never exceeds the tiles."""
+    r = tcs.packed_distance_route(m, 180_096, lanes, 132)
+    assert (r.name, r.rows, r.grid) == (name, rows, grid)
+    assert tcs.packed_distance_route(624, 256, 32, 132).grid == 10
+    assert tcs.packed_distance_route(13, 256, 32, 132).grid == 4
+    assert tcs.packed_distance_route(33, 180_096, 32, 132, True).grid == 132
+
+
 # ---------------------------------------------------------------------------
 # K1p: the packed distance matrix
 # ---------------------------------------------------------------------------
