@@ -374,8 +374,9 @@ B7B_BF16_OF_MAX, B7B_F32_OF_MAX, B7_LSE_ATOL = 2e-2, 2e-4, 1e-3
 #: B7's backward alone: (B, S, T, H, KV, dh) and masks of the families'
 #: attention: qwen2.5-14b's prefill, whisper-medium's encoder and
 #: cross-attention, zamba2-2.7b's shared block, paligemma-3b's prefix-LM
-#: prefill, a head dim the kernels reach by padding (96 -> 128), and
-#: qwen2.5-14b and paligemma-3b at a train step's batch of 4
+#: prefill, a head dim the kernels reach by padding (96 -> 128),
+#: qwen2.5-14b and paligemma-3b at a train step's batch of 4, and
+#: qwen2.5-14b at lm_sharded's batch of SHARD_BATCH (2)
 B7B_SHAPES = {
     "qwen_causal": ((1, 2048, 2048, 40, 8, 128), dict(causal=True)),
     "qwen_train": ((4, 2048, 2048, 40, 8, 128), dict(causal=True)),
@@ -387,6 +388,7 @@ B7B_SHAPES = {
     "c4_dh96": ((1, 1024, 1024, 16, 4, 96), dict(causal=True)),
     "paligemma_train": ((4, 2304, 2304, 8, 1, 256),
                         dict(causal=True, prefix_len=256)),
+    "qwen_sharded": ((2, 2048, 2048, 40, 8, 128), dict(causal=True)),
 }
 #: lm_train's paligemma-3b train step at full width and depth: batch rows
 #: of the model's 256 vision rows (seeded normal: zero rows stay zero
@@ -395,6 +397,17 @@ B7B_SHAPES = {
 #: VLM_TRAIN_SEQ text tokens, VLM_TRAIN_STEPS steps (the first untimed,
 #: the last profiled)
 VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, VLM_TRAIN_STEPS = 2, 2048, 3
+#: lm_sharded (a): qwen2.5-14b at full width, depth SHARD_LAYERS
+#: (reduced), SHARD_STEPS checked steps (and two timed ones) of
+#: SHARD_BATCH x SHARD_SEQ TokenStream tokens through make_train_step,
+#: unsharded and then with ShardingRules
+#: over a (data 1, model 1) DeviceMesh of one NCCL rank (the DTensor
+#: path); each sharded step's loss within SHARD_LOSS_RTOL (relative) of
+#: the unsharded step's, each gradient leaf within SHARD_GRAD_OF_MAX of
+#: the unsharded leaf's largest magnitude (B7b's bf16 rule)
+SHARD_ARCH, SHARD_LAYERS = "qwen2.5-14b", 2
+SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 2, 2048, 3
+SHARD_LOSS_RTOL, SHARD_GRAD_OF_MAX = 1e-3, 2e-2
 #: cam_serve: CAM_CLIENTS client threads, each submitting CAM_REQUESTS
 #: requests of CAM_ROWS consecutive query rows one after another
 #: (8 x 6 x 13 = the 624 KNN queries); the faulted packed server's model;
@@ -5553,6 +5566,198 @@ def phase_lm_train(s: Smoke):
          "determinism": det, "b7b_checks": shapes})
 
 
+class _GradTap:
+    """A pass-through gradient "compressor" for ``make_train_step``: while
+    ``on``, hands each step's gradients (DTensors gathered whole) to
+    ``fn``."""
+
+    def __init__(self, fn):
+        self.fn, self.on = fn, True
+
+    def init(self, params):
+        return ()
+
+    def __call__(self, grads, state):
+        if self.on:
+            self.fn(grads)
+        return grads, state
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _sharded_run(s: Smoke, cfg, loader, rules, tap):
+    """SHARD_STEPS steps from ``init_train_state(seed=0)`` (distributed by
+    ``rules`` when given) whose gradients go to ``tap``, then two more
+    without it, one timed and one profiled: each step's loss and ms, the
+    launches of all of them, the profile (kernels launched a step)."""
+    import torch
+    from repro_torch.kernels import cam_search
+    from repro_torch.launch.train import distribute_state
+    from repro_torch.models import steps as ts
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    state = ts.init_train_state(cfg, seed=0)
+    if rules is not None:
+        state = distribute_state(state, rules, cfg)
+    grads = _GradTap(tap)
+    step = ts.make_train_step(cfg, warmup_cosine(TRAIN_LR, 1,
+                                                 SHARD_STEPS + 2),
+                              AdamWConfig(), rules=rules, compressor=grads)
+    losses, ms, prof = [], [], None
+    cam_search.reset_launch_counts()
+    for i in range(SHARD_STEPS + 2):
+        grads.on = i < SHARD_STEPS
+        batch = loader.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == SHARD_STEPS + 1:
+            out = {}
+            prof = s.profile(lambda: out.update(r=step(state, batch)), ())
+            state, m = out["r"]
+        else:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(_whole(m["loss"])))
+    counts = dict(cam_search.LAUNCHES)
+    del state
+    torch.cuda.empty_cache()
+    return losses, ms, counts, prof
+
+
+def phase_lm_sharded(s: Smoke):
+    """(a) The sharded train step on one NCCL rank: qwen2.5-14b at full
+    width, depth SHARD_LAYERS, through ``make_train_step(rules=)`` over a
+    (data 1, model 1) ``DeviceMesh``: the state as DTensors, the batch
+    sharded by ``ShardingRules``, attention on B7 / B7b under
+    ``local_map``; held step by step to the unsharded step from the same
+    seed.  (b), four gloo ranks on this card, is left out: gloo's
+    all-gather on CUDA tensors kills the rank
+    (``src/repro_torch/distributed/gloo_cuda_probe.py``)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, TokenStream
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = dataclasses.replace(get_config(SHARD_ARCH), n_layers=SHARD_LAYERS)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=SHARD_SEQ,
+                         global_batch=SHARD_BATCH, seed=0)
+    want = []                     # each step's unsharded gradients (host)
+
+    def keep(grads):
+        want.append([(p, g.detach().cpu())
+                     for p, g in leaves_with_paths(grads)])
+
+    s.reset_peak()
+    base_loss, base_ms, base_counts, base_prof = _sharded_run(
+        s, cfg, ShardedLoader(stream, device="cuda"), None, keep)
+    base_peak = torch.cuda.max_memory_allocated() / 1e9
+    worst, bitwise, step_i = {}, [], [0]
+
+    def check(grads):
+        i = step_i[0]
+        same, w = True, 0.0
+        for (path, g), (wpath, gw) in zip(leaves_with_paths(grads),
+                                          want[i]):
+            if path != wpath:
+                raise RuntimeError(f"lm_sharded: leaf {path} vs {wpath}")
+            got = _whole(g).detach()
+            ref = gw.to(got.device)
+            same = same and torch.equal(got, ref)
+            top = float(ref.float().abs().max())
+            err = float((got.float() - ref.float()).abs().max())
+            rel = err / top if top else (0.0 if err == 0 else float("inf"))
+            w = max(w, rel)
+            if rel > SHARD_GRAD_OF_MAX:
+                raise RuntimeError(f"lm_sharded: step {i} gradient {path} "
+                                   f"off the unsharded one by {rel} of its "
+                                   f"largest magnitude")
+        worst[i], step_i[0] = w, i + 1
+        bitwise.append(same)
+
+    s.reset_peak()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = ShardingRules(mesh)
+        loss, ms, counts, prof = _sharded_run(
+            s, cfg, ShardedLoader(stream, device="cuda", sharding=rules),
+            rules, check)
+    finally:
+        dist.destroy_process_group()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = SHARD_STEPS + 2
+    s.exactly("lm_sharded", counts, {
+        "flash_attention": 2 * cfg.n_layers * n_steps,
+        "flash_attention_bwd": cfg.n_layers * n_steps})
+    if base_counts != counts:
+        raise RuntimeError(f"lm_sharded: launches {counts}, unsharded "
+                           f"{base_counts}")
+    for a, b in zip(loss[:SHARD_STEPS], base_loss[:SHARD_STEPS]):
+        if not abs(a - b) <= SHARD_LOSS_RTOL * abs(b):
+            raise RuntimeError(f"lm_sharded: loss {loss} vs unsharded "
+                               f"{base_loss}")
+    if len(worst) != SHARD_STEPS:
+        raise RuntimeError(f"lm_sharded: {len(worst)} gradient checks")
+    n_params = sum(g.numel() for _, g in want[0])
+    # launches only: B7 and B7b are held to their plain versions at this
+    # phase's shape in lm_train (B7B_SHAPES "qwen_sharded")
+    shape = (SHARD_BATCH, SHARD_SEQ, SHARD_SEQ, cfg.n_heads, cfg.n_kv_heads,
+             cfg.head_dim)
+    if B7B_SHAPES["qwen_sharded"] != (shape, dict(causal=True)):
+        raise RuntimeError(f"lm_sharded: B7b runs at {shape}, held at "
+                           f"{B7B_SHAPES['qwen_sharded']}")
+    s.record("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:124",
+             counts["flash_attention"], 0.0, None, None, None, "operations",
+             None)
+    s.record("flash_attention_bwd",
+             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:124 (its backward: the "
+             "reference differentiates src/repro/models/layers.py:167)",
+             counts["flash_attention_bwd"], 0.0, None, None, None,
+             "operations", None)
+
+    def launched(prof_):
+        return prof_.get("device_ops") if isinstance(prof_, dict) else None
+    log({"phase": "lm_sharded", "ok": True, "model": SHARD_ARCH,
+         "reduced": {"n_layers": [48, cfg.n_layers]},
+         "d_model": cfg.d_model, "params": n_params,
+         "mesh": {"data": 1, "model": 1, "backend": "nccl"},
+         "batch": SHARD_BATCH, "seq": SHARD_SEQ, "steps": SHARD_STEPS,
+         "loss": loss, "loss_unsharded": base_loss,
+         "grad_worst_of_max": worst, "bit_identical_grads": bitwise,
+         "bit_identical_loss": loss == base_loss,
+         # the checked steps copy every gradient to or from the host;
+         # the last two do not (the second of them profiled)
+         "step_ms": ms, "step_ms_unsharded": base_ms,
+         "timed_step_ms": ms[SHARD_STEPS],
+         "timed_step_ms_unsharded": base_ms[SHARD_STEPS],
+         "kernels_per_step": launched(prof),
+         "kernels_per_step_unsharded": launched(base_prof),
+         "profile": prof, "profile_unsharded": base_prof,
+         "launches": counts, "peak_gb": peak,
+         "peak_gb_unsharded": base_peak,
+         "gloo_stand_ins": "left out: gloo's all-gather on CUDA tensors "
+                           "kills the rank (src/repro_torch/distributed/"
+                           "gloo_cuda_probe.py)"})
+
+
 def vlm_train_steps(s: Smoke) -> dict:
     """paligemma-3b at full width and depth through ``make_train_step``:
     VLM_TRAIN_STEPS steps of VLM_TRAIN_BATCH rows (seeded random vision
@@ -5810,7 +6015,8 @@ def main() -> None:
               ("ssm_serve", lambda: phase_ssm_serve(s)),
               ("hybrid_serve", lambda: phase_hybrid_serve(s)),
               ("vlm_serve", lambda: phase_vlm_serve(s)),
-              ("lm_train", lambda: phase_lm_train(s))]
+              ("lm_train", lambda: phase_lm_train(s)),
+              ("lm_sharded", lambda: phase_lm_sharded(s))]
     wanted = sys.argv[1:]
     unknown = set(wanted) - {name for name, _ in phases}
     if unknown:

@@ -15,7 +15,10 @@ reference's ``checkpoint/``).
 * **restore into any state**: leaves are matched by path name and placed
   on the template's device and dtype, so a checkpoint restores into a
   freshly built state.  bfloat16 leaves are stored as their raw 16 bits
-  with the dtype named in the manifest (numpy has no bfloat16).
+  with the dtype named in the manifest (numpy has no bfloat16);
+* **sharded states**: DTensor leaves are gathered whole and rank 0 writes
+  them; ``restore_pytree`` places each array onto the template's (or
+  ``shardings=``'s) mesh and placements, whatever mesh wrote it.
 """
 
 from .checkpointer import (AsyncCheckpointer, latest_step, restore_pytree,

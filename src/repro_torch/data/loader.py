@@ -3,8 +3,12 @@ reference's ``data/loader.py``).
 
 The reference slices each global batch by host (``process_index`` /
 ``process_count``) and may place it with a ``NamedSharding``; the port
-runs one process on one device, so ``host_slice`` is the identity and a
-batch is placed on the loader's ``device``.  The state is the integer
+builds the whole global batch in every process (it is a pure function of
+the step, cheap to make), so ``host_slice`` is the identity; a batch is
+placed on the loader's ``device``, and with ``sharding`` (a
+:class:`..models.sharding.ShardingRules` over a ``DeviceMesh``) each
+leaf becomes a DTensor sharded over the batch axes, each rank keeping
+its own rows.  The state is the integer
 ``step``: batch content is a pure function of (seed, step), so a
 restore replays exactly the batches it would have seen.
 """
@@ -29,6 +33,7 @@ class ShardedLoader:
     source: Any
     device: Optional[Any] = None
     step: int = 0
+    sharding: Optional[Any] = None
 
     def host_slice(self, arr: np.ndarray) -> np.ndarray:
         return arr                      # one process holds the whole batch
@@ -42,6 +47,8 @@ class ShardedLoader:
                 if not t.is_floating_point():
                     t = t.long()
                 local = t.to(self.device)
+                if self.sharding is not None:
+                    local = _shard_rows(self.sharding, local)
             out[k] = local
         return out
 
@@ -64,3 +71,12 @@ class ShardedLoader:
 
     def load_state_dict(self, d: Dict[str, int]) -> None:
         self.step = int(d["step"])
+
+
+def _shard_rows(rules, t: torch.Tensor):
+    """``t`` (the whole batch on every rank) as a DTensor sharded over
+    the rules' batch axes (``launch.specs.batch_sharding``)."""
+    from torch.distributed.tensor import distribute_tensor
+    pl = rules.placements(("batch",) + (None,) * (t.dim() - 1),
+                          tuple(t.shape))
+    return distribute_tensor(t, rules.mesh, pl, src_data_rank=None)

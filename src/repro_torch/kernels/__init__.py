@@ -17,6 +17,9 @@
                  call of prefill, decode and the no-cache forward; plain
                  PyTorch version (the reference's ``attn_core``) beside
                  it.
+* `lm_ops`     — B7, B7b and B2 (as the MoE router) as ``torch.library``
+                 custom ops with fake implementations: the LM's call
+                 sites, which trace under ``FakeTensorMode``.
 * `ops`        — padding, the final stable candidate merge, the range
                  entry points, the distance API (`cam_distances`,
                  `cam_exact`, `cam_range`) and the HDC algebra.

@@ -588,24 +588,24 @@ def _forward_cuda(q, k, v, causal, prefix_len, kv_len, q_start,
 
 class FlashAttentionFn(torch.autograd.Function):
     """B7 with its gradient on the card: the forward kernel, which also
-    writes each row's log-sum-exp, and :func:`flash_attention_backward`.
-    :func:`flash_attention` applies it to CUDA operands whenever autograd
-    records the call."""
+    writes each row's log-sum-exp, and B7b (on fake tensors through their
+    custom ops, :mod:`.lm_ops`).  :func:`flash_attention` applies it to
+    CUDA operands whenever autograd records the call."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, prefix_len, kv_len, q_start):
-        out, lse = _forward_cuda(q, k, v, causal, prefix_len, kv_len,
-                                 q_start, want_lse=True)
+        from .lm_ops import flash_fwd
+        kv = -1 if kv_len is None else kv_len
+        out, lse = flash_fwd(q, k, v, causal, prefix_len, kv, q_start, True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.masks = dict(causal=causal, prefix_len=prefix_len,
-                         kv_len=kv_len, q_start=q_start)
+        ctx.masks = (causal, prefix_len, kv, q_start)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
+        from .lm_ops import flash_bwd
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, d_out,
-                                              **ctx.masks)
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, d_out, *ctx.masks)
         return dq, dk, dv, None, None, None, None
 
 
@@ -618,13 +618,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors run :func:`flash_attention_reference`; CUDA tensors
     launch the kernel of :func:`flash_route` (through
-    :class:`FlashAttentionFn` when autograd records the call).  A head
-    dim outside :data:`FLASH_HEAD_DIMS` (at most 256) is zero-padded,
-    and an operand with a non-unit last stride or rows off 16 bytes
-    copied, before the launch.
+    :class:`FlashAttentionFn` when autograd records the call); fake
+    tensors trace through the custom ops of :mod:`.lm_ops`.  A head dim
+    outside :data:`FLASH_HEAD_DIMS` (at most 256) is zero-padded, and an
+    operand with a non-unit last stride or rows off 16 bytes copied,
+    before the launch.
     """
+    from .lm_ops import flash_fwd, is_fake
     _check(q, k, v, prefix_len, kv_len, q_start)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not is_fake(q):
         return flash_attention_reference(q, k, v, causal=causal,
                                          prefix_len=prefix_len,
                                          kv_len=kv_len, q_start=q_start)
@@ -632,8 +634,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, prefix_len, kv_len,
                                       q_start)
-    return _forward_cuda(q, k, v, causal, prefix_len, kv_len, q_start,
-                         want_lse=False)[0]
+    return flash_fwd(q, k, v, causal, prefix_len,
+                     -1 if kv_len is None else kv_len, q_start, False)[0]
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
@@ -710,3 +712,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if dp != dh:
         dq, dk, dv = dq[..., :dh], dk[..., :dh], dv[..., :dh]
     return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+# the custom ops FlashAttentionFn and flash_attention call (registered here,
+# after every name lm_ops reads is defined)
+from . import lm_ops  # noqa: E402,F401

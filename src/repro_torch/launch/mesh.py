@@ -12,6 +12,15 @@ while it is active, the device count of its device type is ``n`` and the
 mesh is ``n`` stand-ins of one physical device (``cpu`` x 8, or
 ``cuda:0`` x 4), so sharded plans run as row-tile ranges on one device.
 It is an explicit context manager, not an environment knob.
+
+The LM's meshes are named ``DeviceMesh``es over a process group with one
+rank per device (``torchrun`` or ``torch.multiprocessing.spawn``):
+:func:`make_local_mesh` ``(data, model)`` over the current group, and
+:func:`make_production_mesh` the 16 x 16 ``(data, model)`` and 2 x 16 x
+16 ``(pod, data, model)`` meshes of the reference's launch spec, as a
+shape-only :class:`..models.sharding.AbstractMesh`, or as a
+``DeviceMesh`` when a group of that size is open (the dry run's fake
+group).
 """
 
 from __future__ import annotations
@@ -22,7 +31,8 @@ from typing import Iterator, List, Optional
 
 import torch
 
-__all__ = ["device_count", "make_data_mesh", "forced_devices"]
+__all__ = ["device_count", "make_data_mesh", "forced_devices",
+           "make_local_mesh", "make_production_mesh"]
 
 _LOCK = threading.Lock()
 #: the active stand-in devices of :func:`forced_devices`, or None
@@ -81,3 +91,42 @@ def forced_devices(n: int, device="cpu") -> Iterator[List[torch.device]]:
     finally:
         with _LOCK:
             _FORCED = None
+
+
+def _device_mesh(shape, names, device_type: str):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=names)
+
+
+def make_local_mesh(data: int = 1, model: int = 1, device="cuda"):
+    """A ``(data, model)`` mesh over the current process group, one rank
+    per device of ``device``'s type.  A request larger than the group
+    clamps to ``(world, 1)``, as the reference's does.  With no group
+    open (one process) it is a shape-only ``AbstractMesh(data=1,
+    model=1)``."""
+    import torch.distributed as dist
+    from ..models.sharding import AbstractMesh
+    if not dist.is_initialized():
+        return AbstractMesh(data=1, model=1)
+    n = dist.get_world_size()
+    if data * model > n:
+        data, model = n, 1
+    return _device_mesh((data, model), ("data", "model"),
+                        torch.device(device).type)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16 x 16 ``(data, model)``, or with ``multi_pod`` 2 x 16 x 16
+    ``(pod, data, model)``: a ``DeviceMesh`` when the open process group
+    has exactly that many ranks (the dry run's fake group, which traces
+    CPU tensors), else an ``AbstractMesh``."""
+    import torch.distributed as dist
+    from ..models.sharding import AbstractMesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for v in shape:
+        n *= v
+    if dist.is_initialized() and dist.get_world_size() == n:
+        return _device_mesh(shape, names, "cpu")
+    return AbstractMesh(**dict(zip(names, shape)))

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import dense_init, pdtype
+from .sharding import is_dtensor, model_replicated_call
 
 Params = Dict[str, Any]
 
@@ -112,11 +113,20 @@ def _chunk_scan(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
 
 def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    chunk: int = 256,
-                   state: Optional[Dict[str, torch.Tensor]] = None
+                   state: Optional[Dict[str, torch.Tensor]] = None,
+                   rules=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) -> (out (B, S, D), {"ssm", "conv"} states).  A
     ``state`` with S == 1 is a decode step; with S > 1 a prefill that
-    starts from ``state["ssm"]`` and ``state["conv"]``."""
+    starts from ``state["ssm"]`` and ``state["conv"]``.  With ``rules``
+    and a DTensor ``x`` the block runs on every ``model`` rank over its
+    data shard with the (``ssm_inner``-sharded) weights gathered
+    (:func:`.sharding.model_replicated_call`); it has no kernel."""
+    if rules is not None and is_dtensor(x):
+        return model_replicated_call(
+            rules, lambda xl, pl, sl: mamba2_forward(pl, xl, cfg,
+                                                     chunk=chunk, state=sl),
+            x, p, state)
     b, s, _ = x.shape
     d_inner, nh, dh, ds = _dims(cfg)
 

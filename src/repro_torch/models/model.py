@@ -4,7 +4,8 @@ Families (``cfg.family``):
 
 * ``dense``  — decoder-only: identical pre-norm blocks.
 * ``moe``    — ``first_dense_layers`` dense blocks, then MoE blocks (the
-  router on kernel B2 with ``router_offload="cam"``); one device.
+  router on kernel B2 with ``router_offload="cam"``; expert-parallel
+  under ``rules``).
 * ``hybrid`` — zamba2: groups of ``shared_attn_every`` Mamba2 blocks,
   each group preceded by the ONE shared attention block (its weights
   reused by every group; the per-invocation LoRA is omitted, as in the
@@ -33,6 +34,12 @@ Three public entry points:
 * ``prefill(params, cfg, batch, cache)``       -> (last logits, cache)
 * ``decode_step(params, cfg, tokens, cache)``  -> (logits, cache)
 
+Each takes ``rules`` (a :class:`.sharding.ShardingRules`): with DTensor
+parameters, batch and cache (placed by ``param_axes`` / ``cache_axes``
+and the rules) it runs sharded, block-boundary activations in the
+sequence-parallel layout and the sequence gathered inside each layer
+and before the unembedding, and returns DTensors.
+
 ``batch`` holds ``"tokens"`` (B, S), for vlm ``"vision"`` (B,
 n_vision_tokens, d_model) and for audio ``"frames"`` (B, encoder_seq,
 d_model).  An attention cache is ``{"k": (n_layers, B, S_max, KV, dh),
@@ -53,6 +60,7 @@ that no step reads the device to learn the cache length.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -62,14 +70,17 @@ from torch.utils import checkpoint as ckpt
 from ..core.engine.base import resolve_device
 from ..kernels import flash_attention as fa
 from . import blocks, mamba2, xlstm
+from .blocks import shard_act
 from .config import ModelConfig
-from .layers import _proj, apply_norm, attention, cdtype, embed, ffn, \
-    init_embedding, init_norm, logits as unembed_logits
+from .layers import _flat_heads, _heads, _proj, _sharded_attention, \
+    apply_norm, attention, cdtype, embed, ffn, init_embedding, init_norm, \
+    logits as unembed_logits
+from .sharding import is_dtensor, set_block
 
 Params = Dict[str, Any]
 
-__all__ = ["init_params", "init_decode_cache", "forward", "prefill",
-           "decode_step"]
+__all__ = ["init_params", "param_axes", "init_decode_cache", "cache_axes",
+           "forward", "prefill", "decode_step"]
 
 
 _FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
@@ -111,11 +122,13 @@ def _stack_init(init_fn: Callable[[], Params], n: int) -> Params:
 
 
 def _copy_layer(stacked: Params, layer: Params, i: int) -> None:
+    """``stacked[...][i] = layer[...]`` leaf by leaf, in place (a DTensor
+    stack block by block)."""
     for k, v in layer.items():
         if isinstance(v, dict):
             _copy_layer(stacked[k], v, i)
         else:
-            stacked[k][i] = v
+            set_block(stacked[k], i, v)
 
 
 def _layer(stack: Params, i: int) -> Params:
@@ -143,12 +156,20 @@ def _save_dots(ctx, op, *args, **kwargs):
         ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _maybe_remat(fn: Callable, cfg: ModelConfig, train: bool) -> Callable:
+def _maybe_remat(fn: Callable, cfg: ModelConfig, train: bool,
+                 rules=None) -> Callable:
     """``fn`` itself, or under ``train`` its call checkpointed as
     ``cfg.remat`` says: ``"full"`` keeps only its inputs for the
-    backward, ``"dots"`` its matrix products' outputs too."""
+    backward, ``"dots"`` its matrix products' outputs too.  Under
+    ``rules`` the recomputation in the backward runs sharded too."""
     if not train or cfg.remat not in ("full", "dots"):
         return fn
+    if rules is not None:
+        inner = fn
+
+        def fn(*a):
+            with _sharded(rules):
+                return inner(*a)
     kw = {}
     if cfg.remat == "dots":
         kw["context_fn"] = lambda: ckpt.create_selective_checkpoint_contexts(
@@ -223,6 +244,38 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     return p
 
 
+def _with_layers(axes_tree):
+    if isinstance(axes_tree, dict):
+        return {k: _with_layers(v) for k, v in axes_tree.items()}
+    return ("layers",) + tuple(axes_tree)
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The parameters' tree of logical-axis tuples (the reference's,
+    leaf for leaf)."""
+    emb = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        emb["unembed"] = ("embed", "vocab")
+    a: Params = {"embed": emb, "final_norm": blocks._norm_axes(cfg)}
+    fam = _family(cfg)
+    if fam in ("dense", "vlm"):
+        a["blocks"] = _with_layers(blocks.dense_block_axes(cfg))
+    elif fam == "moe":
+        if cfg.first_dense_layers:
+            a["dense_blocks"] = _with_layers(blocks.dense_block_axes(cfg))
+        a["moe_blocks"] = _with_layers(blocks.moe_block_axes(cfg))
+    elif fam == "hybrid":
+        a["mamba_blocks"] = _with_layers(blocks.mamba_block_axes(cfg))
+        a["shared_attn"] = blocks.shared_attn_block_axes(cfg)
+    elif fam == "ssm":
+        a["blocks"] = _with_layers(blocks.xlstm_pair_axes(cfg))
+    else:                                                   # audio
+        a["enc_blocks"] = _with_layers(blocks.encoder_block_axes(cfg))
+        a["enc_norm"] = blocks._norm_axes(cfg)
+        a["blocks"] = _with_layers(blocks.xdec_block_axes(cfg))
+    return a
+
+
 # ---------------------------------------------------------------------------
 # decode caches
 # ---------------------------------------------------------------------------
@@ -265,6 +318,33 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                        device=dev)}}
 
 
+_ATTN_CACHE_AX = ("layers", "cache_batch", "cache_seq", "cache_kv",
+                  "cache_dim")
+
+
+def cache_axes(cfg: ModelConfig) -> Params:
+    """The decode cache's tree of logical-axis tuples (the reference's;
+    ``len`` is a host int with axes ``()``)."""
+    ac = {"k": _ATTN_CACHE_AX, "v": _ATTN_CACHE_AX, "len": ()}
+    fam = _family(cfg)
+    if fam in ("dense", "moe", "vlm"):
+        return dict(ac)
+    if fam == "hybrid":
+        return {"attn": dict(ac),
+                "mamba": {"ssm": (None, None, "cache_batch", "heads", None,
+                                  None),
+                          "conv": (None, None, "cache_batch", None,
+                                   "ssm_inner")}}
+    if fam == "ssm":
+        return {"mlstm": {"C": (None, "cache_batch", "heads", None, None),
+                          "n": (None, "cache_batch", "heads", None),
+                          "m": (None, "cache_batch", None)},
+                "slstm": {k: (None, "cache_batch", "embed_act")
+                          for k in ("h", "c", "n", "m")}}
+    return {"self": dict(ac),
+            "cross": {"k": _ATTN_CACHE_AX, "v": _ATTN_CACHE_AX}}
+
+
 # ---------------------------------------------------------------------------
 # the block stacks, one function per family; the cache threaded through
 # ---------------------------------------------------------------------------
@@ -272,8 +352,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def _run_dense_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig, *,
                      positions: torch.Tensor, prefix_len: int = 0,
-                     cache: Optional[Params] = None, train: bool = False
-                     ) -> Tuple[torch.Tensor, Optional[Params]]:
+                     cache: Optional[Params] = None, train: bool = False,
+                     rules=None) -> Tuple[torch.Tensor, Optional[Params]]:
     """The blocks in order, each with its layer of the cache; a layer
     with a ``"moe"`` entry is an MoE block."""
     ln = 0 if cache is None else cache["len"]
@@ -281,12 +361,12 @@ def _run_dense_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig, *,
     def body(xc, p_l, cache_l):
         if "moe" in p_l:
             return blocks.apply_moe_block(p_l, xc, cfg, positions=positions,
-                                          cache=cache_l)[0]
+                                          cache=cache_l, rules=rules)[0]
         return blocks.apply_dense_block(p_l, xc, cfg, positions=positions,
                                         prefix_len=prefix_len,
-                                        cache=cache_l)[0]
+                                        cache=cache_l, rules=rules)[0]
 
-    run = _maybe_remat(body, cfg, train and cache is None)
+    run = _maybe_remat(body, cfg, train and cache is None, rules)
     for i, p_l in enumerate(_layers(stack)):
         cache_l = None if cache is None else \
             {"k": cache["k"][i], "v": cache["v"][i], "len": ln}
@@ -307,7 +387,7 @@ def _attn_stacks(params: Params, cfg: ModelConfig) -> List[Params]:
 
 def _run_attn_stacks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                      positions: torch.Tensor, cache: Optional[Params] = None,
-                     train: bool = False
+                     train: bool = False, rules=None
                      ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Each stack over its layers' views of the one cache (the
     reference splits the cache at ``first_dense_layers`` and
@@ -321,7 +401,7 @@ def _run_attn_stacks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             "v": cache["v"][first:first + n], "len": ln}
         x, _ = _run_dense_stack(stack, x, cfg, positions=positions,
                                 prefix_len=_prefix(cfg), cache=part,
-                                train=train)
+                                train=train, rules=rules)
         first += n
     if cache is None:
         return x, None
@@ -330,7 +410,7 @@ def _run_attn_stacks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 def _run_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, cache: Optional[Params] = None,
-                train: bool = False
+                train: bool = False, rules=None
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Each group: the shared attention block over the group's layer of
     the attention cache, then its ``per`` Mamba2 blocks, each state
@@ -343,12 +423,13 @@ def _run_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if cache is None:
         def group(xc, mamba):
             xc, _ = blocks.apply_shared_attn_block(shared, xc, cfg,
-                                                   positions=positions)
+                                                   positions=positions,
+                                                   rules=rules)
             for blk in mamba:
-                xc, _ = blocks.apply_mamba_block(blk, xc, cfg)
+                xc, _ = blocks.apply_mamba_block(blk, xc, cfg, rules=rules)
             return xc
 
-        run = _maybe_remat(group, cfg, train)
+        run = _maybe_remat(group, cfg, train, rules)
         for g in range(ng):
             x = run(x, layers[g * per:(g + 1) * per])
         return x, None
@@ -361,70 +442,83 @@ def _run_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   "len": ln}
         x, _ = blocks.apply_shared_attn_block(shared, x, cfg,
                                               positions=positions,
-                                              cache=attn_l)
+                                              cache=attn_l, rules=rules)
         for j in range(per):
             st = {k: t[g, j] for k, t in states.items()}
             x, new = blocks.apply_mamba_block(layers[g * per + j], x, cfg,
-                                              state=st)
+                                              state=st, rules=rules)
             for k, t in new.items():
-                states[k][g, j] = t
+                set_block(states[k], (g, j), t)
     return x, {"attn": {"k": cache["attn"]["k"], "v": cache["attn"]["v"],
                         "len": ln + x.shape[1]},
                "mamba": states}
 
 
 def _run_ssm(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
-             cache: Optional[Params] = None, train: bool = False
-             ) -> Tuple[torch.Tensor, Optional[Params]]:
+             cache: Optional[Params] = None, train: bool = False,
+             rules=None) -> Tuple[torch.Tensor, Optional[Params]]:
     """The (mLSTM, sLSTM) pairs; each pair's new state is written into
     its layer of the cache."""
     if cache is None:
         run = _maybe_remat(
-            lambda xc, p_l: blocks.apply_xlstm_pair(p_l, xc, cfg)[0], cfg,
-            train)
+            lambda xc, p_l: blocks.apply_xlstm_pair(p_l, xc, cfg,
+                                                    rules=rules)[0], cfg,
+            train, rules)
         for p_l in _layers(params["blocks"]):
             x = run(x, p_l)
         return x, None
     for i, p_l in enumerate(_layers(params["blocks"])):
         x, new_state = blocks.apply_xlstm_pair(p_l, x, cfg,
-                                               state=_layer(cache, i))
+                                               state=_layer(cache, i),
+                                               rules=rules)
         _copy_layer(cache, new_state, i)
     return x, cache
 
 
 def _run_encoder(params: Params, frames: torch.Tensor, cfg: ModelConfig,
-                 train: bool = False) -> torch.Tensor:
+                 train: bool = False, rules=None) -> torch.Tensor:
     b, t, _ = frames.shape
     pos = _positions(0, b, t, frames.device)
     dt = cdtype(cfg)
     x = frames.to(dt) + _sinusoidal(pos, cfg.d_model).to(dt)
     run = _maybe_remat(
         lambda xc, p_l: blocks.apply_encoder_block(p_l, xc, cfg,
-                                                   positions=pos)[0],
-        cfg, train)
+                                                   positions=pos,
+                                                   rules=rules)[0],
+        cfg, train, rules)
     for p_l in _layers(params["enc_blocks"]):
         x = run(x, p_l)
-    return apply_norm(params["enc_norm"], x, cfg)
+    # every decoder layer's cross keys and values read the whole sequence
+    return shard_act(apply_norm(params["enc_norm"], x, cfg), rules,
+                     ("batch", "seq", None))
 
 
 def _cross_kv(p_attn: Params, enc: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, t, _ = enc.shape
     kv, dh = cfg.n_kv_heads, cfg.head_dim
-    k = _proj(enc, p_attn["wk"], p_attn.get("bk")).reshape(b, t, kv, dh)
-    v = _proj(enc, p_attn["wv"], p_attn.get("bv")).reshape(b, t, kv, dh)
+    k = _heads(_proj(enc, p_attn["wk"], p_attn.get("bk")), (b, t, kv, dh))
+    v = _heads(_proj(enc, p_attn["wv"], p_attn.get("bv")), (b, t, kv, dh))
     return k, v
 
 
 def _cross_attend(p_attn: Params, xn: torch.Tensor, cfg: ModelConfig,
-                  ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+                  ck: torch.Tensor, cv: torch.Tensor, rules=None
+                  ) -> torch.Tensor:
     """Cross-attention of the decoder rows ``xn`` over the encoder's keys
-    and values: kernel B7 with no causal mask."""
+    and values: kernel B7 with no causal mask (under ``rules``, on each
+    rank's block)."""
     b, s, _ = xn.shape
     h, dh = cfg.n_heads, cfg.head_dim
-    q = _proj(xn, p_attn["wq"], p_attn.get("bq")).reshape(b, s, h, dh)
-    out = fa.flash_attention(q, ck.to(xn.dtype), cv.to(xn.dtype),
-                             causal=False)
+    q = _heads(_proj(xn, p_attn["wq"], p_attn.get("bq")), (b, s, h, dh))
+    if rules is not None and is_dtensor(q):
+        out = _flat_heads(_sharded_attention(
+            q, ck.to(xn.dtype), cv.to(xn.dtype), rules, causal=False,
+            prefix_len=0, kv_len=None, q_start=0), rules)
+        return _proj(out, p_attn["wo"])
+    else:
+        out = fa.flash_attention(q, ck.to(xn.dtype), cv.to(xn.dtype),
+                                 causal=False)
     return _proj(out.reshape(b, s, h * dh), p_attn["wo"])
 
 
@@ -435,6 +529,11 @@ def _cross_cache(params: Params, enc: torch.Tensor, cfg: ModelConfig
     bfloat16 zeros with them)."""
     stack = params["blocks"]
     n = _depth(stack)
+    if is_dtensor(enc):
+        kvs = [_cross_kv(_layer(stack["cross"], i), enc, cfg)
+               for i in range(n)]
+        return {"k": torch.stack([k for k, _ in kvs]),
+                "v": torch.stack([v for _, v in kvs])}
     b, t, _ = enc.shape
     shape = (n, b, t, cfg.n_kv_heads, cfg.head_dim)
     ck = torch.empty(shape, dtype=enc.dtype, device=enc.device)
@@ -446,8 +545,8 @@ def _cross_cache(params: Params, enc: torch.Tensor, cfg: ModelConfig
 
 def _run_xdec(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, enc: Optional[torch.Tensor] = None,
-              cache: Optional[Params] = None, train: bool = False
-              ) -> Tuple[torch.Tensor, Optional[Params]]:
+              cache: Optional[Params] = None, train: bool = False,
+              rules=None) -> Tuple[torch.Tensor, Optional[Params]]:
     """The decoder stack; the cross keys and values come from ``enc``
     (``forward`` computes them per layer) or from the cache."""
     ln = 0 if cache is None else cache["self"]["len"]
@@ -456,18 +555,24 @@ def _run_xdec(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         self_cache = None if cache is None else {
             "k": cache["self"]["k"][i], "v": cache["self"]["v"][i],
             "len": ln}
-        a, _ = attention(blk["self"], apply_norm(blk["ln1"], xc, cfg), cfg,
-                         positions=positions, cache=self_cache)
-        xc = xc + a
+        xc = shard_act(xc, rules)
+        a, _ = attention(blk["self"],
+                         blocks._in_layer(apply_norm(blk["ln1"], xc, cfg),
+                                          rules),
+                         cfg, positions=positions, cache=self_cache,
+                         rules=rules)
+        xc = xc + blocks._out_layer(a, rules)
         if cache is None:
             ck, cv = _cross_kv(blk["cross"], enc, cfg)
         else:
             ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
-        xc = xc + _cross_attend(blk["cross"],
-                                apply_norm(blk["ln2"], xc, cfg), cfg, ck, cv)
-        return xc + ffn(blk["ffn"], apply_norm(blk["ln3"], xc, cfg), cfg)
+        xc = xc + blocks._out_layer(_cross_attend(blk["cross"], blocks._in_layer(
+            apply_norm(blk["ln2"], xc, cfg), rules), cfg, ck, cv, rules), rules)
+        xc = xc + blocks._out_layer(ffn(blk["ffn"], blocks._in_layer(
+            apply_norm(blk["ln3"], xc, cfg), rules), cfg), rules)
+        return shard_act(xc, rules)
 
-    run = _maybe_remat(body, cfg, train and cache is None)
+    run = _maybe_remat(body, cfg, train and cache is None, rules)
     for i, blk in enumerate(_layers(params["blocks"])):
         x = run(x, blk, i)
     if cache is None:
@@ -480,28 +585,31 @@ def _run_xdec(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 def _run_family(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor,
                 frames: Optional[torch.Tensor] = None,
-                cache: Optional[Params] = None, train: bool = False
-                ) -> Tuple[torch.Tensor, Optional[Params]]:
+                cache: Optional[Params] = None, train: bool = False,
+                rules=None) -> Tuple[torch.Tensor, Optional[Params]]:
     """The family's stack over the embedded tokens.  ``frames`` (audio)
     run through the encoder: with a cache (a prefill) its cross keys and
     values go into the cache; without ``frames`` a decode step reads
     them from it."""
     fam = cfg.family
+    x = shard_act(x, rules, ("batch", "seq_act", None) if cache is None
+                  or x.shape[1] > 1 else ("batch", None, None))
     if fam in ("dense", "moe", "vlm"):
         return _run_attn_stacks(params, x, cfg, positions=positions,
-                                cache=cache, train=train)
+                                cache=cache, train=train, rules=rules)
     if fam == "hybrid":
         return _run_hybrid(params, x, cfg, positions=positions, cache=cache,
-                           train=train)
+                           train=train, rules=rules)
     if fam == "ssm":
-        return _run_ssm(params, x, cfg, cache=cache, train=train)
+        return _run_ssm(params, x, cfg, cache=cache, train=train,
+                        rules=rules)
     enc = None if frames is None else _run_encoder(params, frames, cfg,
-                                                   train)
+                                                   train, rules)
     if cache is not None and enc is not None:
         cache = {"self": cache["self"],
                  "cross": _cross_cache(params, enc, cfg)}
     return _run_xdec(params, x, cfg, positions=positions, enc=enc,
-                     cache=cache, train=train)
+                     cache=cache, train=train, rules=rules)
 
 
 # ---------------------------------------------------------------------------
@@ -559,9 +667,37 @@ def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
     return x, positions
 
 
+_SHARDED_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def _sharded(rules):
+    """DTensor operations under ``rules`` treat plain tensors made inside
+    the model (positions, masks, and what autograd saved of them) as
+    replicated.  Nests: only the outermost entry switches DTensor's
+    (process-wide) implicit replication on and off."""
+    if rules is None:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    if _SHARDED_DEPTH[0]:
+        _SHARDED_DEPTH[0] += 1
+        try:
+            yield
+        finally:
+            _SHARDED_DEPTH[0] -= 1
+        return
+    _SHARDED_DEPTH[0] += 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _SHARDED_DEPTH[0] -= 1
+
+
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], train: bool = False,
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False, rules=None) -> torch.Tensor:
     """Full-sequence float32 logits (teacher forcing);
     ``batch["tokens"]``: (B, S) (and ``batch["vision"]`` for vlm,
     ``batch["frames"]`` for audio); vlm's cover the text positions only.
@@ -569,39 +705,50 @@ def forward(params: Params, cfg: ModelConfig,
     reference's default is ``train=True``; the port's callers that serve
     or check logits take the default ``False``, where remat changes
     nothing but memory).  ``return_hidden=True`` returns the
-    post-final-norm hidden state (B, S, d_model) instead."""
+    post-final-norm hidden state (B, S, d_model) instead.  ``rules``
+    (DTensor parameters and batch): the sharded forward, a DTensor out."""
     _family(cfg)
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, _ = _run_family(params, x, cfg, positions=positions,
-                       frames=batch.get("frames"), train=train)
-    x = apply_norm(params["final_norm"], x[:, _prefix(cfg):], cfg)
-    if return_hidden:
-        return x
-    return unembed_logits(params["embed"], x, cfg)
+    with _sharded(rules):
+        x, positions = _embed_inputs(params, batch, cfg)
+        x, _ = _run_family(params, x, cfg, positions=positions,
+                           frames=batch.get("frames"), train=train,
+                           rules=rules)
+        # the sequence gathered for the slice and the unembedding
+        x = shard_act(x, rules, ("batch", "seq", None))
+        x = apply_norm(params["final_norm"], x[:, _prefix(cfg):], cfg)
+        if return_hidden:
+            return x
+        return unembed_logits(params["embed"], x, cfg)
 
 
 def prefill(params: Params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor], cache: Params
+            batch: Dict[str, torch.Tensor], cache: Params, rules=None
             ) -> Tuple[torch.Tensor, Params]:
     """Prefill an empty cache with ``batch["tokens"]`` (B, S) (after
     vlm's ``batch["vision"]``; and the encoder over ``batch["frames"]``
     for audio); returns the last position's logits (B, 1, V) and the
     cache."""
     _family(cfg)
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, cache = _run_family(params, x, cfg, positions=positions,
-                           frames=batch.get("frames"), cache=cache)
-    x = apply_norm(params["final_norm"], x[:, -1:], cfg)
-    return unembed_logits(params["embed"], x, cfg), cache
+    with _sharded(rules):
+        x, positions = _embed_inputs(params, batch, cfg)
+        x, cache = _run_family(params, x, cfg, positions=positions,
+                               frames=batch.get("frames"), cache=cache,
+                               rules=rules)
+        x = shard_act(x, rules, ("batch", "seq", None))
+        x = apply_norm(params["final_norm"], x[:, -1:], cfg)
+        return unembed_logits(params["embed"], x, cfg), cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Params) -> Tuple[torch.Tensor, Params]:
+                cache: Params, rules=None) -> Tuple[torch.Tensor, Params]:
     """One decode step: tokens (B, 1) -> logits (B, 1, V), cache."""
     _family(cfg)
     b, s = tokens.shape
-    positions = _positions(_cache_len(cache, cfg), b, s, tokens.device)
-    x = _embed_tokens(params, tokens, cfg, positions)
-    x, cache = _run_family(params, x, cfg, positions=positions, cache=cache)
-    x = apply_norm(params["final_norm"], x, cfg)
-    return unembed_logits(params["embed"], x, cfg), cache
+    with _sharded(rules):
+        positions = _positions(_cache_len(cache, cfg), b, s, tokens.device)
+        x = _embed_tokens(params, tokens, cfg, positions)
+        x, cache = _run_family(params, x, cfg, positions=positions,
+                               cache=cache, rules=rules)
+        x = shard_act(x, rules, ("batch", "seq", None))
+        x = apply_norm(params["final_norm"], x, cfg)
+        return unembed_logits(params["embed"], x, cfg), cache

@@ -11,13 +11,21 @@ so the whole ``(B, S, V)`` logits never exist.  Where the reference's
 step is a pure function that ``jit`` compiles, the port's updates the
 state's tensors in place (see :mod:`..optim.adamw`) and returns the
 state.  ``make_prefill_step`` / ``make_decode_step`` wrap the serve
-entry points.  Left out here: the reference's ``rules`` (sharding
-constraints on the gradients), which come with ``models/sharding.py``
-(ROADMAP Queue A item 8e).
+entry points.
+
+With ``rules`` (a :class:`.sharding.ShardingRules` over a ``DeviceMesh``)
+the state's tensors are DTensors placed as ``launch.specs.state_sharding``
+says and the batch is sharded over the batch axes: the forward runs
+sharded (:mod:`.model`), each gradient is redistributed to its
+parameter's placements (the reference's ``constrain_grads``: a
+reduce-scatter onto the FSDP shard, where a plain data-parallel step
+would all-reduce the whole tensor), and AdamW updates each rank's
+blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
@@ -26,6 +34,8 @@ from torch.utils import checkpoint as ckpt
 from . import model as model_mod
 from .config import ModelConfig
 from .layers import cdtype, logits as unembed
+from ..kernels.lm_ops import is_fake
+from .sharding import is_dtensor
 from ..optim import AdamWConfig, OptState, Schedule, adamw_init, adamw_update
 from ..tree import leaves, tree_map, unflatten
 
@@ -64,13 +74,35 @@ def init_train_state(cfg: ModelConfig, *, seed: int = 0, device=None,
 
 def _xent_block(logits: torch.Tensor, labels: torch.Tensor,
                 mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sum of masked token losses + correct-token count for one block."""
+    """Sum of masked token losses + correct-token count for one block.
+    A DTensor block runs on each rank's rows with the whole vocab (the
+    label gather and argmax read whole rows): partial sums over the
+    batch axes."""
+    if is_dtensor(logits):
+        return _xent_block_sharded(logits, labels, mask)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None])[..., 0]
     loss = (lse - ll) * mask
     acc = (torch.argmax(logits, -1) == labels).float() * mask
     return loss.sum(), acc.sum()
+
+
+def _xent_block_sharded(logits, labels, mask):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = labels.device_mesh
+    rows = tuple(Shard(0) if isinstance(p, Shard) else Replicate()
+                 for p in labels.placements)
+    logits = logits.redistribute(mesh, rows)
+    labels = labels.redistribute(mesh, rows)
+    mask = mask.redistribute(mesh, rows)
+    sums = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in rows)
+    return local_map(_xent_block, out_placements=(sums, sums),
+                     in_placements=(rows, rows, rows),
+                     in_grad_placements=(rows, rows, rows),
+                     device_mesh=mesh)(logits, labels, mask)
 
 
 def blockwise_xent(hidden: torch.Tensor, labels: torch.Tensor,
@@ -109,30 +141,43 @@ def blockwise_xent(hidden: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: Params, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor]
+            batch: Dict[str, torch.Tensor], rules=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token LM loss.  ``batch["tokens"]`` (B, S); labels are the
     tokens shifted left; the final position is masked out (and where
     ``batch["mask"]`` is 0).  Extra modality inputs (vision / frames)
-    pass through to the model."""
-    tokens = batch["tokens"]
-    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
-    mask = torch.ones(tokens.shape, dtype=torch.float32,
-                      device=tokens.device)
-    mask[:, -1] = 0.0
-    if "mask" in batch:
-        mask = mask * batch["mask"].float()
-    hidden = forward_hidden(params, cfg, batch)
-    loss, acc = blockwise_xent(hidden, labels, mask, params, cfg)
+    pass through to the model.  Under ``rules`` the loss and metrics are
+    replicated DTensor scalars."""
+    with model_mod._sharded(rules):
+        tokens = batch["tokens"]
+        labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=tokens.device)
+        mask[:, -1] = 0.0
+        if is_dtensor(tokens):
+            mask = _like_batch(mask, tokens)
+        if "mask" in batch:
+            mask = mask * batch["mask"].float()
+        hidden = forward_hidden(params, cfg, batch, rules)
+        loss, acc = blockwise_xent(hidden, labels, mask, params, cfg)
     return loss, {"loss": loss, "accuracy": acc}
 
 
+def _like_batch(t: torch.Tensor, like) -> Any:
+    """A plain tensor of the whole batch as a DTensor placed as ``like``
+    (each rank keeps its own block)."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, like.device_mesh, like.placements,
+                             src_data_rank=None)
+
+
 def forward_hidden(params: Params, cfg: ModelConfig,
-                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+                   batch: Dict[str, torch.Tensor], rules=None
+                   ) -> torch.Tensor:
     """``model.forward`` minus the unembedding, with the train path's
     remat: the post-final-norm hidden state."""
     return model_mod.forward(params, cfg, batch, train=True,
-                             return_hidden=True)
+                             return_hidden=True, rules=rules)
 
 
 # ---------------------------------------------------------------------------
@@ -141,21 +186,58 @@ def forward_hidden(params: Params, cfg: ModelConfig,
 
 
 def _grad_of(params: Params, cfg: ModelConfig,
-             batch: Dict[str, torch.Tensor]):
+             batch: Dict[str, torch.Tensor], rules=None):
     """((loss, metrics), gradient tree): a parameter the loss does not
-    reach gets a zero gradient, as ``jax.grad`` gives it."""
+    reach gets a zero gradient, as ``jax.grad`` gives it.  Under
+    ``rules`` each gradient is redistributed to its parameter's
+    placements (the reference's ``constrain_grads``)."""
     flat = leaves(params)
-    loss, metrics = loss_fn(params, cfg, batch)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    loss, metrics = loss_fn(params, cfg, batch, rules)
+    with model_mod._sharded(rules):
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
+    if rules is not None:
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if is_dtensor(p) else g for p, g in zip(flat, grads)]
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
             unflatten(params, grads))
 
 
+def _repeated(n: int):
+    if n == 1:
+        return contextlib.nullcontext()
+    from ..launch.roofline import repeated
+    return repeated(n)
+
+
+def _microbatches(batch: Dict[str, torch.Tensor], k: int):
+    """``get(i)``: the ``i``-th of ``k`` row slices of a batch, global rows
+    ``[i * B / k, (i + 1) * B / k)`` as the reference slices them (each
+    microbatch's loss is the mean over its own masked tokens, so the
+    rows must be the reference's).  A DTensor leaf is gathered whole once
+    (an all-gather of its rows over the data axes) and each slice is
+    placed as the leaf was."""
+    from torch.distributed.tensor import distribute_tensor
+    whole = {n: x.full_tensor() if is_dtensor(x) else x
+             for n, x in batch.items()}
+
+    def get(i: int) -> Dict[str, torch.Tensor]:
+        out = {}
+        for n, x in batch.items():
+            m = whole[n].shape[0] // k
+            part = whole[n][i * m:(i + 1) * m]
+            out[n] = distribute_tensor(part, x.device_mesh, x.placements,
+                                       src_data_rank=None) \
+                if is_dtensor(x) else part
+        return out
+    return get
+
+
 def make_train_step(cfg: ModelConfig, schedule: Schedule,
-                    opt_cfg: AdamWConfig = AdamWConfig(), compressor=None,
-                    microbatches: int = 1, acc_dtype: str = "float32"):
+                    opt_cfg: AdamWConfig = AdamWConfig(), rules=None,
+                    compressor=None, microbatches: int = 1,
+                    acc_dtype: str = "float32"):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``compressor``: an error-feedback gradient compressor
@@ -163,28 +245,35 @@ def make_train_step(cfg: ModelConfig, schedule: Schedule,
     ``state.comp``.  ``microbatches > 1``: gradient accumulation over
     ``k`` sequential slices of the batch's rows, summed as
     ``(acc + g / k)`` in ``acc_dtype`` (float32 arithmetic, as the
-    reference's), dividing the live activations by ``k``."""
+    reference's), dividing the live activations by ``k``.  ``rules``:
+    the sharded step (the state and batch DTensors; see the module
+    docstring)."""
     acc_dt = getattr(torch, acc_dtype)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if microbatches == 1:
-            (loss, metrics), grads = _grad_of(state.params, cfg, batch)
+            (loss, metrics), grads = _grad_of(state.params, cfg, batch,
+                                              rules)
         else:
             k = microbatches
-            b = batch["tokens"].shape[0]
+            tok = batch["tokens"]
+            b = (tok.to_local() if is_dtensor(tok) else tok).shape[0]
             if b % k:
                 raise ValueError(f"train_step: batch {b} is not a multiple "
                                  f"of {k} microbatches")
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                                   device=p.device),
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dt),
                              state.params)
             loss = acc = 0.0
-            for i in range(k):
-                mb = {n: x[i * (b // k):(i + 1) * (b // k)]
-                      for n, x in batch.items()}
-                (l_i, m_i), g = _grad_of(state.params, cfg, mb)
-                for a, gi in zip(leaves(grads), leaves(g)):
-                    a.copy_(a.float() + gi.float() / k)
+            # a trace on fake tensors runs one microbatch for all k
+            fake = is_fake(tok.to_local() if is_dtensor(tok) else tok)
+            microbatch = _microbatches(batch, k)
+            for i in range(1 if fake else k):
+                mb = microbatch(i)
+                with _repeated(k if fake else 1):
+                    (l_i, m_i), g = _grad_of(state.params, cfg, mb, rules)
+                    with torch.no_grad():
+                        for a, gi in zip(leaves(grads), leaves(g)):
+                            a.copy_(a.float() + gi.float() / k)
                 del g
                 loss = loss + l_i / k
                 acc = acc + m_i["accuracy"] / k
@@ -210,14 +299,15 @@ def make_train_step(cfg: ModelConfig, schedule: Schedule,
 # ---------------------------------------------------------------------------
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, rules=None):
     def prefill_step(params: Params, batch: Dict[str, torch.Tensor],
                      cache: Params):
-        return model_mod.prefill(params, cfg, batch, cache)
+        return model_mod.prefill(params, cfg, batch, cache, rules=rules)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, rules=None):
     def decode_step(params: Params, tokens: torch.Tensor, cache: Params):
-        return model_mod.decode_step(params, cfg, tokens, cache)
+        return model_mod.decode_step(params, cfg, tokens, cache,
+                                     rules=rules)
     return decode_step

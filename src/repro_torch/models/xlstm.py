@@ -23,6 +23,8 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import dense_init, pdtype
+from ..kernels.lm_ops import is_fake
+from .sharding import is_dtensor, model_replicated_call
 
 Params = Dict[str, Any]
 
@@ -105,11 +107,18 @@ def _mlstm_chunk(carry, qc, kc, vc, igc, lfc, tril):
 
 def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   state: Optional[Dict[str, torch.Tensor]] = None,
-                  chunk: int = 256
+                  chunk: int = 256, rules=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D); state {"C": (B, nh, dh, dh), "n": (B, nh, dh),
     "m": (B, nh)}.  Returns (out (B, S, D), new state).  The chunked form
-    carries the same running-max stabiliser as the recurrence."""
+    carries the same running-max stabiliser as the recurrence.  With
+    ``rules`` and a DTensor ``x``: every ``model`` rank over its data
+    shard (:func:`.sharding.model_replicated_call`)."""
+    if rules is not None and is_dtensor(x):
+        return model_replicated_call(
+            rules, lambda xl, pl, sl: mlstm_forward(pl, xl, cfg, state=sl,
+                                                    chunk=chunk),
+            x, p, state)
     b, s, d = x.shape
     nh, dh = _dims(cfg)
     dt = x.dtype
@@ -168,15 +177,23 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                  state: Optional[Dict[str, torch.Tensor]] = None
+                  state: Optional[Dict[str, torch.Tensor]] = None,
+                  rules=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """A loop over time.  state: {"h", "c", "n", "m"}, each (B, D)."""
+    """A loop over time.  state: {"h", "c", "n", "m"}, each (B, D).
+    ``rules``: as :func:`mlstm_forward`'s."""
+    if rules is not None and is_dtensor(x):
+        return model_replicated_call(
+            rules, lambda xl, pl, sl: slstm_forward(pl, xl, cfg, state=sl),
+            x, p, state)
     b, s, d = x.shape
     pre = (x @ p["wx"].to(x.dtype)).float()                 # (B, S, 4D)
     wh = p["wh"].float()
     if state is None:
         state = init_xlstm_state(cfg, b, "slstm", device=x.device)
     h, c, n, m = (state[key] for key in ("h", "c", "n", "m"))
+    if is_fake(x) and s > 1:
+        return _slstm_surrogate(p, pre, wh, (h, c, n, m), x.dtype)
     hs = []
     for i in range(s):
         g = pre[:, i] + h @ wh
@@ -192,6 +209,28 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         hs.append(h)
     out = torch.stack(hs, dim=1).to(x.dtype) @ p["wo"].to(x.dtype)
     return out, {"h": h, "c": c, "n": n, "m": m}
+
+
+def _slstm_surrogate(p: Params, pre, wh, state, dtype):
+    """The sLSTM recurrence's work over all S steps at once, for a trace
+    on fake tensors (the dry run): the same matrix products and
+    elementwise operations as the loop, over (B, S, .) operands, with a
+    stand-in for each step's previous ``h`` (fake tensors carry no
+    values; the recurrent weight is counted read once).  A Python loop
+    over a 32,768-token prefill would take the tracer minutes."""
+    h, c, n, m = (t[:, None] for t in state)
+    g = pre + torch.tanh(pre[..., :pre.shape[-1] // 4]) @ wh
+    z, ig, fg, og = torch.chunk(g, 4, dim=-1)
+    logf = F.logsigmoid(fg)
+    m_t = torch.maximum(logf + m, ig)
+    isc = torch.exp(ig - m_t)
+    fsc = torch.exp(logf + m - m_t)
+    c = fsc * c + isc * torch.tanh(z)
+    n = fsc * n + isc
+    h = torch.sigmoid(og) * c / torch.clamp(n.abs(), min=1.0)
+    out = h.to(dtype) @ p["wo"].to(dtype)
+    return out, {"h": h[:, -1], "c": c[:, -1], "n": n[:, -1],
+                 "m": m_t[:, -1]}
 
 
 def init_xlstm_state(cfg: ModelConfig, batch: int, kind: str, *,

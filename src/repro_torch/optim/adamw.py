@@ -19,6 +19,12 @@ is 12 bytes a parameter has no room for a second copy.  For the same
 reason the gradient is never copied whole to float32 for clipping: the
 global norm is taken leaf by leaf, and each leaf is scaled inside its
 own update.
+
+The leaves may be DTensors (the sharded train step): moments and
+master weights sit on their parameter's placements (the factored
+``vr`` / ``vc`` on theirs, as ``launch.specs.state_sharding`` places
+them), each rank updates its own blocks, and :func:`global_norm` sums
+every shard's squares over the mesh.
 """
 
 from __future__ import annotations
@@ -87,7 +93,10 @@ def _leaf_norm(g: torch.Tensor) -> torch.Tensor:
     """A leaf's 2-norm as a float32 scalar.  On the CPU ``vector_norm``
     adds the squares one after another, 0.6 % low over 7e7 float32
     elements, so there they are summed in float64; the card's reduction
-    is a tree and sums in float32."""
+    is a tree and sums in float32.  A DTensor's norm is its shards'
+    norms combined over the mesh, a plain (replicated) scalar."""
+    if _is_dt(g):
+        return _leaf_norm_dt(g)
     if g.device.type == "cpu":
         return torch.linalg.vector_norm(g, dtype=torch.float64).float()
     return torch.linalg.vector_norm(g, dtype=torch.float32)
@@ -98,6 +107,32 @@ def global_norm(grads: Any) -> torch.Tensor:
     scalar; no float32 copy of a leaf on the card)."""
     return torch.linalg.vector_norm(torch.stack(
         [_leaf_norm(g) for g in leaves(grads)]))
+
+
+def _is_dt(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _leaf_norm_dt(g) -> torch.Tensor:
+    """The 2-norm of a DTensor leaf: its local block's squares summed as
+    :func:`_leaf_norm` sums them, then over the mesh dimensions that
+    shard it (an all-reduce each); replicated dimensions add nothing.  A
+    ``Partial`` leaf is reduced first (the squares of partial sums do not
+    add up to the square of their sum)."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = g.device_mesh
+    if any(isinstance(pl, Partial) for pl in g.placements):
+        g = g.redistribute(mesh, [Replicate() if isinstance(pl, Partial)
+                                  else pl for pl in g.placements])
+    loc = g.to_local()
+    sq = (_leaf_norm(loc).double() ** 2 if loc.device.type == "cpu"
+          else _leaf_norm(loc) ** 2)
+    for i, pl in enumerate(g.placements):
+        if isinstance(pl, Shard):
+            sq = funcol.all_reduce(sq, "sum", (mesh, i))
+    return torch.sqrt(sq).float()
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -123,7 +158,14 @@ def _update_leaf(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu,
                  lr: float, c1: float, c2: float, cfg: AdamWConfig) -> None:
     """One leaf's AdamW step, in place: the gradient scaled by the clip
     factor in float32, the moments, the master weight and the
-    parameter."""
+    parameter.  DTensor leaves update their local blocks (a factored
+    ``nu`` through DTensor reductions: its statistics span shards)."""
+    if _is_dt(p):
+        g = g.redistribute(p.device_mesh, p.placements)
+        if isinstance(nu, dict):
+            return _update_leaf_factored_dt(p, g, mu, nu, w, decay, scale,
+                                            lr, c1, c2, cfg)
+        p, g, mu, nu, w = (t.to_local() for t in (p, g, mu, nu, w))
     gf = g.float() * scale
     if mu.dtype == torch.float32:
         mu.mul_(cfg.b1).add_(gf, alpha=1 - cfg.b1)
@@ -151,6 +193,42 @@ def _update_leaf(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu,
         upd.add_(w, alpha=cfg.weight_decay)
     w.sub_(upd.mul_(lr))
     p.copy_(w)
+
+
+def _update_leaf_factored_dt(p, g, mu, nu, w, decay: bool, scale, lr: float,
+                             c1: float, c2: float, cfg: AdamWConfig) -> None:
+    """:func:`_update_leaf` of a DTensor leaf with a factored ``nu``: the
+    row and column means are DTensor reductions redistributed onto
+    ``vr`` / ``vc``'s placements; the rest updates local blocks."""
+    mesh, pl = p.device_mesh, p.placements
+    gl = g.to_local().float() * scale
+    ml = mu.to_local()
+    if ml.dtype == torch.float32:
+        ml.mul_(cfg.b1).add_(gl, alpha=1 - cfg.b1)
+        m = ml
+    else:
+        m = ml.float().mul_(cfg.b1).add_(gl, alpha=1 - cfg.b1)
+        ml.copy_(m)
+        m = ml.float()
+    from torch.distributed.tensor import DTensor
+    g2 = DTensor.from_local(gl.square_().add_(1e-30), mesh, pl,
+                            run_check=False)
+    for key, red in (("vr", g2.mean(-1)), ("vc", g2.mean(-2))):
+        v = nu[key]
+        v.to_local().mul_(cfg.b2).add_(
+            red.redistribute(mesh, v.placements).to_local(),
+            alpha=1 - cfg.b2)
+    del g2, gl
+    vr, vc = nu["vr"] / c2, nu["vc"] / c2
+    vhat = (vr / torch.clamp(vr.mean(-1, keepdim=True), min=1e-30)
+            )[..., None] * vc[..., None, :]
+    denom = vhat.redistribute(mesh, pl).to_local().sqrt_().add_(cfg.eps)
+    upd = torch.div(m, c1).div_(denom)
+    wl = w.to_local()
+    if decay:
+        upd.add_(wl, alpha=cfg.weight_decay)
+    wl.sub_(upd.mul_(lr))
+    p.to_local().copy_(wl)
 
 
 def adamw_update(grads: Any, state: OptState, params: Any, lr: float,

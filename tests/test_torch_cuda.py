@@ -2525,3 +2525,68 @@ def test_hybrid_and_vlm_models_on_the_card_match_cpu(cuda, name):
                                            rtol=1e-4)
             else:
                 torch.testing.assert_close(got[key], w, atol=0.1, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "deepseek-moe-16b"])
+def test_size_one_mesh_sharded_train_step_equals_unsharded(cuda, arch,
+                                                           tmp_path):
+    """``make_train_step(rules=)`` over a (data 1, model 1) ``DeviceMesh``
+    of one NCCL rank (the DTensor path: state, batch and gradients as
+    DTensors, attention on B7 / B7b under ``local_map``, the MoE router
+    on B2) against the unsharded step from the same seed, at a small
+    width in float32: loss within 1e-5, each gradient leaf within 1e-4
+    of its norm, the same kernel launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.loader import _shard_rows
+    from repro_torch.launch.train import distribute_state
+    from repro_torch.models import steps as ts
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.optim import AdamWConfig, constant
+    from repro_torch.tree import leaves_with_paths
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
+                              compute_dtype="float32",
+                              router_offload="cam")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (4, 64))).to(cuda)}
+    grads = []
+
+    class Tap:
+        def init(self, params):
+            return ()
+
+        def __call__(self, g, st):
+            grads.append({p: (x.full_tensor() if hasattr(x, "full_tensor")
+                              else x).detach().clone()
+                          for p, x in leaves_with_paths(g)})
+            return g, st
+
+    def run(rules, b):
+        state = ts.init_train_state(cfg, seed=0, device=cuda)
+        if rules is not None:
+            state = distribute_state(state, rules, cfg)
+        tcs.reset_launch_counts()
+        _, m = ts.make_train_step(cfg, constant(1e-3), AdamWConfig(),
+                                  rules=rules, compressor=Tap())(state, b)
+        torch.cuda.synchronize()
+        loss = m["loss"]
+        return float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                     else loss), dict(tcs.LAUNCHES)
+
+    loss, counts = run(None, batch)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        rules = ShardingRules(init_device_mesh(
+            "cuda", (1, 1), mesh_dim_names=("data", "model")))
+        d_loss, d_counts = run(rules, {k: _shard_rows(rules, v)
+                                       for k, v in batch.items()})
+    finally:
+        dist.destroy_process_group()
+    assert d_counts == counts and counts["flash_attention_bwd"] > 0
+    assert abs(d_loss - loss) <= 1e-5
+    for path, g in grads[0].items():
+        err = float((grads[1][path] - g).abs().max())
+        assert err <= 1e-4 * float(g.norm()) + 1e-6, (path, err)

@@ -387,7 +387,10 @@ def test_moe_cam_offload_end_to_end(tmp_path):
 
 
 def test_multi_device_mesh_raises(tmp_path):
-    with pytest.raises(ValueError, match="Queue A item 8e"):
+    """A mesh of more than one device that is no DeviceMesh (here a bare
+    count, which names no process group) is refused; sharded training
+    over a DeviceMesh is tests/test_torch_sharded_lm.py's."""
+    with pytest.raises(ValueError, match="must be a DeviceMesh"):
         TrainLoop(get_smoke_config("xlstm-125m"), batch=2, seq=8, steps=1,
                   ckpt_dir=str(tmp_path), device="cpu", mesh=2)
 
