@@ -95,9 +95,23 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        qwen2.5-14b at full width and depth in bf16 (random
                        weights from a seed), 4 prompts of 2048 tokens, 32
                        new tokens each, decode batch 2, every attention
-                       call on kernel ``flash_attention`` (exactly
-                       48 x (4 prefills + 124 decode steps) launches), a
-                       second Server giving the same tokens; then the
+                       call on kernel ``flash_attention``; the Server
+                       prefills through one captured CUDA graph a prompt
+                       length and decodes through one a slot (the
+                       wrappers count at each graph's warm-up and capture:
+                       exactly 2 x 48 x (1 + 2) launches; a replay's
+                       device kernels from the profiler), every request's
+                       tokens equal to the eager steps' and the first
+                       prefill's and four decode steps' logits
+                       bit-identical to them, ms a prefill and a decode
+                       token (median, p90) graphed and eager, capture
+                       seconds and the graphs' pool bytes printed (every
+                       serve phase does the same), B7 reading its start
+                       from the device held at kv_len 1, 63, 64, 65, a
+                       split boundary and the capacity to the host call
+                       and the recurrence (here, ``hybrid_serve`` and
+                       ``vlm_serve``), a second Server giving the same
+                       tokens; then the
                        reference's prefill-then-decode contract in float32
                        at full width and depth 4, and B7 against its plain
                        version on the operands of layers 0 and 47 (from
@@ -162,8 +176,8 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        is 16 bytes a parameter, 51 GB at 6 layers),
                        ``launch.train.TrainLoop`` for 18 steps of 4 x 2048
                        ``TokenStream`` tokens (lr 3e-4, warmup 2, remat
-                       ``"full"``, a checkpoint every 9 steps, ``keep=1``:
-                       one on the machine's disk): the last three losses'
+                       ``"full"``, one checkpoint at the last step,
+                       ``keep=1``): the last three losses'
                        mean must fall 0.2 below the first three's and
                        below their lowest (the loss spikes after warmup
                        at this lr and width), the peak stay under 75 GB,
@@ -293,6 +307,10 @@ LOP_PER_CLOCK_PER_SM = 64
 #: against at most F32_CUT_ROWS rows
 LM_ARCH, LM_OVERRIDES = "qwen2.5-14b", {}
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2, 2048, 32
+#: a graphed Server's second run: prompts of several lengths well below
+#: its max_len (live kv tile counts 2 to 29 of the 33 a 2,081-row cache
+#: holds), SERVE_MIXED_NEW tokens each, held to the eager steps
+SERVE_MIXED_PROMPTS, SERVE_MIXED_NEW = (100, 460, 950, 1400, 1800), 16
 DECODE_TIMED_STEPS = 16
 CHECK_LAYERS, CHECK_PREFILL, CHECK_DECODE = 4, 512, 16
 DECODE_32K_ROWS, F32_CUT_ROWS = 32768, 4096
@@ -351,7 +369,9 @@ VLM_CHECK_LAYERS = 2
 #: gradients are about 16 bytes a parameter: 51 GB at 6 of 48 layers),
 #: trained by ``launch.train.TrainLoop`` for TRAIN_STEPS steps of
 #: TRAIN_BATCH x TRAIN_SEQ tokens (lr TRAIN_LR, TRAIN_WARMUP warmup steps,
-#: a checkpoint every TRAIN_CKPT_EVERY, one kept on disk); the mean loss
+#: a checkpoint every TRAIN_CKPT_EVERY, one kept on disk: one 45 GB
+#: checkpoint at the last step, cut from two to keep the smoke within
+#: half its time limit beside the graphed serve phases); the mean loss
 #: of the last three steps must sit TRAIN_LOSS_DROP below the first
 #: three's (tests/test_integration.py) and below the lowest of them, and
 #: the peak under TRAIN_PEAK_GB; float32 gradients at depth
@@ -361,7 +381,7 @@ VLM_CHECK_LAYERS = 2
 #: one state bit for bit
 TRAIN_ARCH, TRAIN_OVERRIDES = "qwen2.5-14b", dict(n_layers=6)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 18
-TRAIN_LR, TRAIN_WARMUP, TRAIN_CKPT_EVERY = 3e-4, 2, 9
+TRAIN_LR, TRAIN_WARMUP, TRAIN_CKPT_EVERY = 3e-4, 2, 18
 TRAIN_LOSS_DROP, TRAIN_PEAK_GB = 0.2, 75.0
 GRAD_CHECK_LAYERS, GRAD_CHECK_TOKENS = 2, 512
 GRAD_LOSS_ATOL, GRAD_RTOL = 1e-5, 1e-4
@@ -4148,10 +4168,23 @@ def intercept(mod, attr, keep):
         setattr(mod, attr, real)
 
 
+def host_masks(kw):
+    """B7's keyword arguments with a device ``start`` folded into host
+    ``q_start`` and ``kv_len`` (the same call with ints)."""
+    kw = dict(kw)
+    start = kw.pop("start", None)
+    if start is not None:
+        n = int(start)
+        kw["q_start"] = kw.get("q_start", 0) + n
+        kw["kv_len"] = kw["kv_len"] + n
+    return kw
+
+
 def operands(wanted):
     """An ``intercept`` keep function: (name, (*args, kwargs)) for the
-    calls whose index ``wanted`` names, (None, None) for the others."""
-    return lambda i, a, kw, out: (wanted[i], (*a, dict(kw))) \
+    calls whose index ``wanted`` names, (None, None) for the others; a
+    device start is folded into the kwargs' ints."""
+    return lambda i, a, kw, out: (wanted[i], (*a, host_masks(kw))) \
         if i in wanted else (None, None)
 
 
@@ -4187,10 +4220,66 @@ def lm_params(cfg):
             sum(t.numel() * t.element_size() for t in leaves) / 1e9)
 
 
-def serve_requests(cfg, params, prompts, max_new, batch, max_len):
-    """Serve ``prompts`` through ``launch.serve.Server`` (greedy), the
-    launch counts at 0 just before: (token lists, stats, counts).  Fails
-    on a missing or out-of-range token."""
+def _ms_stats(ms):
+    """Median and p90 of a list of milliseconds (None for none)."""
+    if not ms:
+        return {"n": 0, "median": None, "p90": None}
+    xs = sorted(ms)
+    return {"n": len(xs), "median": statistics.median(xs),
+            "p90": xs[min(len(xs) - 1, int(round(0.9 * (len(xs) - 1))))]}
+
+
+def eager_request(cfg, params, prompt, max_new, max_len, device):
+    """One request through the step functions (``steps.make_prefill_step``
+    / ``make_decode_step``), eagerly, from a fresh cache, greedy: (tokens,
+    the first five steps' last-position logits, prefill ms, decode ms a
+    token), each step timed on the host to a synchronise."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as tm
+    from repro_torch.models import steps as ts
+    batch = {"tokens": torch.as_tensor(np.asarray(prompt, np.int64),
+                                       device=device)[None]}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.zeros((1, cfg.n_vision_tokens, cfg.d_model),
+                                      dtype=torch.bfloat16, device=device)
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((1, cfg.encoder_seq, cfg.d_model),
+                                      dtype=torch.bfloat16, device=device)
+    cache = tm.init_decode_cache(cfg, 1, max_len, device=device)
+    prefill_ms, (logits, cache) = host_ms(
+        lambda: ts.make_prefill_step(cfg)(params, batch, cache))
+    seen = [logits[:, -1].clone()]
+    out = [int(torch.argmax(logits[0, -1]))]
+    decode, decode_ms = ts.make_decode_step(cfg), []
+    while len(out) < max_new:
+        tok = torch.tensor([[out[-1]]], device=device)
+        ms, (logits, cache) = host_ms(lambda: decode(params, tok, cache))
+        decode_ms.append(ms)
+        if len(seen) < 5:
+            seen.append(logits[:, -1].clone())
+        out.append(int(torch.argmax(logits[0, -1])))
+    return out, seen, prefill_ms, decode_ms
+
+
+def serve_requests(cfg, params, prompts, max_new, batch, max_len,
+                   eager_ctx=contextlib.nullcontext, profile=None,
+                   profile_prefill=True, eager=True):
+    """Serve ``prompts`` through ``launch.serve.Server`` (greedy): each
+    prefill the replay of its prompt length's captured CUDA graph, each
+    decode step the replay of its slot's, the launch counts at 0 just
+    before.  Those counts are the wrappers' calls at each graph's warm-up
+    and capture: a replay launches the captured kernels without a call
+    (``graphed_launches``).  Then every request again through the eager
+    steps from a fresh cache (within ``eager_ctx()``; skipped with
+    ``eager=False``): the greedy tokens must be equal and request 0's
+    prefill and first four decode steps' logits bit-identical.  Returns (token lists, stats, counts); stats
+    gains ``graphs`` (``Server.graph_stats`` and ``pool_bytes``),
+    ``graphed`` and ``eager``
+    ms a prefill and a decode token (median, p90; the graphed ones
+    without the steps that captured), and, with ``profile`` (a
+    ``Smoke``), the device kernels of one replay of each graph.  Fails
+    on a missing or out-of-range token or any mismatch."""
     import torch
     from repro_torch.kernels import cam_search
     from repro_torch.launch.serve import Request, Server
@@ -4199,6 +4288,24 @@ def serve_requests(cfg, params, prompts, max_new, batch, max_len):
             for r, p in enumerate(prompts)]
     for r in reqs:
         srv.submit(r)
+    seen, times = {}, {"prefill": [], "decode": []}
+    real = {"prefill": srv._prefill_slot, "decode": srv._decode_slot}
+
+    def timed(kind):
+        def step(i, arg):
+            n = srv.graph_stats()
+            t0 = time.perf_counter()
+            lg = real[kind](i, arg)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            rid = arg.rid if kind == "prefill" else srv.slots[i].rid
+            if rid == 0 and len(seen.setdefault(0, [])) < 5:
+                seen[0].append(lg[:, -1].clone())
+            if srv.graph_stats() == n:        # a replay, not a capture
+                times[kind].append(ms)
+            return lg
+        return step
+    srv._prefill_slot, srv._decode_slot = timed("prefill"), timed("decode")
     cam_search.reset_launch_counts()
     torch.cuda.synchronize()
     stats = srv.run()
@@ -4208,7 +4315,182 @@ def serve_requests(cfg, params, prompts, max_new, batch, max_len):
             len(r.out) != max_new or not all(0 <= x < cfg.vocab
                                              for x in r.out) for r in reqs):
         raise RuntimeError(f"{cfg.name}: bad completions {stats}")
+    graphs = dict(srv.graph_stats(), pool_bytes=srv.pool_bytes())
+    if graphs["prefill_graphs"] < 1 or graphs["decode_graphs"] < 1:
+        raise RuntimeError(f"{cfg.name}: the Server captured no graph "
+                           f"{graphs}")
+    dev = params["embed"]["tok"].device
+    replay = {}
+    if profile is not None:
+        # kernels a replay: one decode step of slot 0 (its cache has room
+        # for it) and, unless skipped, one prefill
+        replay["decode"] = profile.profile(srv._decode_steps[0], [])
+        if profile_prefill:
+            replay["prefill"] = profile.profile(
+                next(iter(srv._prefill_steps.values()))[1], [])
+    del srv
+    eager_ms = {"prefill": [], "decode": []}
+    with eager_ctx():
+        for r in (reqs if eager else []):
+            toks, logits, pre, dec = eager_request(cfg, params, r.prompt,
+                                                   max_new, max_len, dev)
+            if toks != r.out:
+                raise RuntimeError(f"{cfg.name}: request {r.rid}'s graphed "
+                                   f"tokens differ from the eager steps'")
+            if r.rid == 0:
+                same = [bool(torch.equal(a, b))
+                        for a, b in zip(seen[0], logits)]
+                if len(same) != min(5, max_new) or not all(same):
+                    raise RuntimeError(f"{cfg.name}: graphed logits not "
+                                       f"bit-identical to eager: {same}")
+            eager_ms["prefill"].append(pre)
+            eager_ms["decode"] += dec
+    stats.update(
+        graphs=graphs, bit_identical_steps=len(seen[0]) if eager else 0,
+        graphed={k: _ms_stats(v) for k, v in times.items()},
+        eager={k: _ms_stats(v) for k, v in eager_ms.items()},
+        replay_kernels={k: v.get("device_ops") for k, v in replay.items()},
+        replay_profile=replay)
     return [r.out for r in reqs], stats, counts
+
+
+def print_graphed(phase, stats):
+    """One line: a graphed serve run's ms a prefill and a decode token
+    (median, p90) beside the eager steps', the device kernels of one
+    replay (the profiler's count: the wrappers count at capture), the
+    capture seconds and the graphs' pool bytes."""
+    g, gr, ea = stats["graphs"], stats["graphed"], stats["eager"]
+    print(f"serve graphed {phase}: prefill ms median {gr['prefill']['median']}"
+          f" p90 {gr['prefill']['p90']} (eager {ea['prefill']['median']} / "
+          f"{ea['prefill']['p90']}); decode ms a token median "
+          f"{gr['decode']['median']} p90 {gr['decode']['p90']} (eager "
+          f"{ea['decode']['median']} / {ea['decode']['p90']}); device "
+          f"kernels a replay {stats['replay_kernels']} (profiler); "
+          f"{g['prefill_graphs']} prefill and {g['decode_graphs']} decode "
+          f"graphs, capture {g['capture_s']:.3f} s (prefill, per prompt "
+          f"length: {g['prefill_capture_s']}), pool {g['pool_bytes']} "
+          f"bytes; logits bit-identical over {stats['bit_identical_steps']} "
+          f"steps", flush=True)
+
+
+def graphed_record(stats):
+    """The graphed run's numbers for a phase's log."""
+    return {k: stats[k] for k in ("graphs", "graphed", "eager",
+                                  "replay_kernels", "bit_identical_steps")}
+
+
+def graphed_launches(stats, per_prefill, per_decode):
+    """The launch counts a graphed ``serve_requests`` run leaves: each
+    captured graph's body is called twice (its warm-up and its capture),
+    a prefill's with ``per_prefill`` launches, a decode step's with
+    ``per_decode``."""
+    g = stats["graphs"]
+    return 2 * (per_prefill * g["prefill_graphs"]
+                + per_decode * g["decode_graphs"])
+
+
+def b7_device_len_check(what, q, k, v, kw):
+    """B7 reading its start from the device (``start``: the cache's rows
+    before the call, kv_len = start + S): captured once in a CUDA graph
+    over the decode operands ``q`` (B, S, H, dh) and the cache views ``k``
+    / ``v`` (B, T, KV, dh), then replayed with the start rewritten so
+    that kv_len is 1 (or S), one tile less one, one tile, one tile plus
+    one, the first split boundary at the capacity's cut, T, and every
+    whole tile count between (every split count the grid must hold: the
+    kernel's cut is not monotone in the tiles).  Each replay is
+    bit-identical to the host-int call and within one bf16 step of a
+    probability times max|v| of the Pallas recurrence at the live
+    length's tiles and splits.  At most ``B7_REC_BEYOND`` of the outputs
+    lie beyond one bf16 step of it: of each call at the edge lengths, and
+    of the whole-tile lengths' outputs together (a rate: one decode row
+    of zamba2's has 2,560 outputs, and three flipped roundings there are
+    0.12 %)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    s, t = q.shape[1], k.shape[1]
+    prefix = kw.get("prefix_len", 0)
+    cap = fa.flash_route(q.shape, k.shape, q.dtype, causal=True,
+                         prefix_len=prefix, kv_len=t, q_start=t - s)
+    bk = cap.block_k
+    n_tiles = -(-t // bk)
+    boundary = -(-n_tiles // (cap.splits or 1)) * bk
+    edges = {max(s, n) for n in (1, bk - 1, bk, bk + 1, boundary, t)
+             if max(s, n) <= t}
+    tiles = {n for n in range(2 * bk, t, bk) if n >= s} - edges
+    start = torch.zeros((), dtype=torch.int32, device=q.device)
+    call = dict(causal=True, prefix_len=prefix, kv_len=s, start=start)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.flash_attention(q, k, v, **call)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.flash_attention(q, k, v, **call)
+    worst, beyond, pooled = 0.0, 0.0, [0, 0]
+    for n in sorted(edges | tiles):
+        host = dict(causal=True, prefix_len=prefix, kv_len=n, q_start=n - s)
+        start.fill_(n - s)
+        graph.replay()
+        want = fa.flash_attention(q, k, v, **host)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise RuntimeError(f"{what}: B7 at device kv_len {n} is not the "
+                               f"host call's output")
+        route = fa.flash_route(q.shape, k.shape, q.dtype, **host)
+        rec = fa.flash_attention_recurrence(
+            q, k, v, block_k=route.block_k, splits=route.splits,
+            **host).float()
+        off = (out.float() - rec).abs()
+        n_beyond = int((off > 1e-6 + 2.0 ** -7 * rec.abs()).sum())
+        share = n_beyond / off.numel()
+        top, v_max = float(off.max()), float(v[:, :n].float().abs().max())
+        if n in tiles:
+            pooled[0] += n_beyond
+            pooled[1] += off.numel()
+        if not ((n in tiles or share <= B7_REC_BEYOND)
+                and top <= B7_REC_MAX_OF_V * v_max):
+            raise RuntimeError(f"{what}: B7 at device kv_len {n} off the "
+                               f"recurrence: {share:.2e} beyond one bf16 "
+                               f"step, max {top}")
+        worst, beyond = max(worst, top), max(beyond, share)
+    tiles_share = pooled[0] / max(pooled[1], 1)
+    if tiles_share > B7_REC_BEYOND:
+        raise RuntimeError(f"{what}: B7 over the whole-tile lengths off the "
+                           f"recurrence: {tiles_share:.2e} beyond one bf16 "
+                           f"step")
+    del graph
+    return {"lengths": sorted(edges | tiles), "capacity": t, "block_k": bk,
+            "capacity_splits": cap.splits,
+            "grid_splits": fa.device_start_splits(
+                q.shape, k.shape, q.dtype, causal=True, prefix_len=prefix),
+            "bit_identical_to_host": True,
+            "recurrence_max_abs_err": worst,
+            "recurrence_beyond_one_step_worst_call": beyond,
+            "recurrence_beyond_one_step_whole_tiles": tiles_share}
+
+
+#: B7 at a device start over decode shapes no serve phase's captured
+#: operands give (B, S, T, H, KV, dh): deepseek-moe-16b's 16 kv heads
+#: (the split-KV route aims for 16 splits) and a decode batch of 2
+B7_DEVICE_LEN_SHAPES = {"deepseek_decode": (1, 1, 2081, 16, 16, 128),
+                        "batch2_decode": (2, 1, 2100, 40, 8, 128)}
+
+
+def b7_device_len_shapes(dev):
+    """``b7_device_len_check`` at each of ``B7_DEVICE_LEN_SHAPES``, on
+    operands from a seeded generator."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    out = {}
+    for name, (b, s, t, h, kvh, dh) in B7_DEVICE_LEN_SHAPES.items():
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((b, s, h, dh), (b, t, kvh, dh),
+                                          (b, t, kvh, dh)))
+        out[name] = b7_device_len_check(f"lm_serve {name}", q, k, v,
+                                        {"causal": True})
+    return out
 
 
 def lm_step_times(s: Smoke, cfg, params, batch, max_len,
@@ -4269,18 +4551,18 @@ def phase_lm_serve(s: Smoke):
                for _ in range(SERVE_REQUESTS)]
     max_len = SERVE_PROMPT + SERVE_NEW + 1
 
-    def serve():
-        return serve_requests(cfg, params, prompts, SERVE_NEW, SERVE_BATCH,
-                              max_len)
-
     n_layers = cfg.n_layers
-    tokens, stats, counts = serve()
-    expect = n_layers * SERVE_REQUESTS * SERVE_NEW
-    s.only("lm_serve", counts, "flash_attention", expect)
-    tokens2, stats2, counts2 = serve()
-    if tokens2 != tokens:
-        raise RuntimeError("lm_serve: a second Server gave other tokens")
-    s.only("lm_serve (second server)", counts2, "flash_attention", expect)
+    tokens, stats, counts = serve_requests(cfg, params, prompts, SERVE_NEW,
+                                           SERVE_BATCH, max_len, profile=s)
+    s.only("lm_serve", counts, "flash_attention",
+           graphed_launches(stats, n_layers, n_layers))
+    print_graphed("lm_serve", stats)
+    mixed = [rng.integers(1, cfg.vocab, n) for n in SERVE_MIXED_PROMPTS]
+    _, stats2, counts2 = serve_requests(cfg, params, mixed, SERVE_MIXED_NEW,
+                                        SERVE_BATCH, max_len)
+    s.only("lm_serve (mixed lengths)", counts2, "flash_attention",
+           graphed_launches(stats2, n_layers, n_layers))
+    print_graphed("lm_serve mixed lengths", stats2)
 
     # B7's operands at the model's shapes: layers 0 and L-1 of an untimed
     # prefill of request 0's prompt (calls 0 and L-1) and of its first
@@ -4312,6 +4594,13 @@ def phase_lm_serve(s: Smoke):
         "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
         "prompt": SERVE_PROMPT, "max_new": SERVE_NEW,
         "b7_launches": counts["flash_attention"],
+        **graphed_record(stats),
+        "mixed_lengths": {"prompts": list(SERVE_MIXED_PROMPTS),
+                          "max_new": SERVE_MIXED_NEW,
+                          **graphed_record(stats2)},
+        "device_len_b7": b7_device_len_check(
+            "lm_serve decode", *captured["decode_layer0"]),
+        "device_len_b7_shapes": b7_device_len_shapes(dev),
         "run_wall_s": [stats["wall_s"], stats2["wall_s"]],
         "tokens_per_s": [stats["tokens_per_s"], stats2["tokens_per_s"]],
         "stats": {k: stats[k] for k in ("prefills", "decode_steps",
@@ -4552,7 +4841,8 @@ def lm_f32_against_plain(what, cfg, params, batch, n_prefill, n_decode):
     def run():
         full = tm.forward(params, cfg, batch)
         cache = tm._tree_map(
-            lambda t: t.float() if isinstance(t, torch.Tensor) else t,
+            lambda t: t.float() if isinstance(t, torch.Tensor)
+            and t.is_floating_point() else t,
             tm.init_decode_cache(cfg, toks.shape[0],
                                  n_prefill + n_decode + 1))
         lg, cache = tm.prefill(params, cfg,
@@ -4593,19 +4883,30 @@ def _moe_serve_uncut(s: Smoke, cfg, prompts):
     runs, routes = {}, {}
     for offload in ("cam", "dense"):
         c = dataclasses.replace(cfg, router_offload=offload)
-        with intercept(tmoe, "router_topk",
-                       lambda i, a, kw, out: out[1]) as chosen:
-            tokens, stats, counts = serve_requests(
-                c, params, prompts, SERVE_NEW, SERVE_BATCH, max_len)
-        calls = stats["prefills"] + stats["decode_steps"]
+        chosen = []
+
+        @contextlib.contextmanager
+        def routed():
+            """The eager steps' router choices, call by call."""
+            with intercept(tmoe, "router_topk",
+                           lambda i, a, kw, out: out[1]) as kept:
+                yield
+            chosen.extend(kept)
+        tokens, stats, counts = serve_requests(
+            c, params, prompts, SERVE_NEW, SERVE_BATCH, max_len,
+            eager_ctx=routed, profile=s)
         s.exactly(f"moe_serve {cfg.name} ({offload})", counts, {
-            "flash_attention": cfg.n_layers * calls,
-            "fused_topk": n_moe * calls if offload == "cam" else 0})
+            "flash_attention": graphed_launches(stats, cfg.n_layers,
+                                                cfg.n_layers),
+            "fused_topk": graphed_launches(stats, n_moe, n_moe)
+            if offload == "cam" else 0})
+        print_graphed(f"moe_serve {cfg.name} ({offload})", stats)
         routes[offload] = chosen
         toks = torch.as_tensor(prompts[0], device=dev)[None]
         runs[offload] = {
             "tokens": tokens, "wall_s": stats["wall_s"],
             "tokens_per_s": stats["tokens_per_s"], "launches": counts,
+            **graphed_record(stats),
             "stats": {key: stats[key] for key in ("prefills", "decode_steps",
                                                   "tokens")},
             **lm_step_times(s, c, params, {"tokens": toks}, max_len)}
@@ -4714,11 +5015,11 @@ def phase_moe_serve(s: Smoke):
                 for _ in range(PHI_REQUESTS)]
     max_len = SERVE_PROMPT + PHI_NEW + 1
     ptokens, pstats, pcounts = serve_requests(
-        pcfg, params, pprompts, PHI_NEW, SERVE_BATCH, max_len)
-    calls = pstats["prefills"] + pstats["decode_steps"]
-    s.exactly("moe_serve phi3.5", pcounts, {
-        "flash_attention": pcfg.n_layers * calls,
-        "fused_topk": pcfg.n_layers * calls})
+        pcfg, params, pprompts, PHI_NEW, SERVE_BATCH, max_len, profile=s)
+    calls = graphed_launches(pstats, pcfg.n_layers, pcfg.n_layers)
+    s.exactly("moe_serve phi3.5", pcounts, {"flash_attention": calls,
+                                            "fused_topk": calls})
+    print_graphed("moe_serve phi3.5", pstats)
     toks = torch.as_tensor(pprompts[0], device=dev)[None]
     from repro_torch.models import moe as tmoe
     with intercept(tmoe, "router_topk",
@@ -4734,6 +5035,7 @@ def phase_moe_serve(s: Smoke):
            "requests": PHI_REQUESTS, "prompt": SERVE_PROMPT,
            "max_new": PHI_NEW, "wall_s": pstats["wall_s"],
            "tokens_per_s": pstats["tokens_per_s"], "launches": pcounts,
+           **graphed_record(pstats),
            "tokens_first_request": ptokens[0][:8], **phi_steps,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     del params, kept
@@ -4768,13 +5070,14 @@ def phase_audio_serve(s: Smoke):
                for _ in range(AUDIO_REQUESTS)]
     max_len = AUDIO_PROMPT + AUDIO_NEW + 1
     tokens, stats, counts = serve_requests(cfg, params, prompts, AUDIO_NEW,
-                                           SERVE_BATCH, max_len)
+                                           SERVE_BATCH, max_len, profile=s)
     # a prefill: the encoder's layers, then each decoder layer's self- and
     # cross-attention; a decode step: the decoder's two
     per_prefill = cfg.n_encoder_layers + 2 * cfg.n_layers
     s.exactly("audio_serve", counts, {
-        "flash_attention": per_prefill * stats["prefills"]
-        + 2 * cfg.n_layers * stats["decode_steps"]})
+        "flash_attention": graphed_launches(stats, per_prefill,
+                                            2 * cfg.n_layers)})
+    print_graphed("audio_serve", stats)
 
     # B7's operands at whisper's non-causal shapes, from an untimed
     # prefill and decode step of request 0 over the served zero frames:
@@ -4842,6 +5145,7 @@ def phase_audio_serve(s: Smoke):
          "requests": AUDIO_REQUESTS, "prompt": AUDIO_PROMPT,
          "max_new": AUDIO_NEW, "batch": SERVE_BATCH,
          "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
+         **graphed_record(stats),
          "stats": {k: stats[k] for k in ("prefills", "decode_steps",
                                          "tokens")},
          "b7_launches": counts["flash_attention"],
@@ -4870,8 +5174,10 @@ def phase_ssm_serve(s: Smoke):
                for _ in range(SERVE_REQUESTS)]
     max_len = SERVE_PROMPT + SERVE_NEW + 1
     tokens, stats, counts = serve_requests(cfg, params, prompts, SERVE_NEW,
-                                           SERVE_BATCH, max_len)
+                                           SERVE_BATCH, max_len, profile=s,
+                                           profile_prefill=False)
     s.exactly("ssm_serve", counts, {})        # no kernel on this path
+    print_graphed("ssm_serve", stats)
     # no prefill profile: its 260,000 launches (the sLSTM's loop over the
     # prompt) take the profiler minutes to sum
     toks = torch.as_tensor(prompts[0], device=dev)[None]
@@ -4918,6 +5224,7 @@ def phase_ssm_serve(s: Smoke):
          "requests": SERVE_REQUESTS, "prompt": SERVE_PROMPT,
          "max_new": SERVE_NEW, "batch": SERVE_BATCH,
          "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
+         **graphed_record(stats),
          "stats": {k: stats[k] for k in ("prefills", "decode_steps",
                                          "tokens")},
          "launches": counts, "tokens_first_request": tokens[0][:8], **steps,
@@ -4937,12 +5244,14 @@ def phase_ssm_serve(s: Smoke):
 def _serve_and_capture(s: Smoke, phase, cfg, prompts, extra, attn_layers):
     """Serve ``prompts`` (SERVE_NEW new tokens each, decode batch
     SERVE_BATCH) with launches exact: ``attn_layers`` B7 calls a prefill
-    or decode step.  Then B7's operands of attention layer 0 in an
+    or decode step; then, on a second Server, prompts of
+    ``SERVE_MIXED_PROMPTS`` lengths, held to the eager steps.  Then B7's operands of attention layer 0 in an
     untimed prefill of request 0's prompt (``extra(device)`` beside its
     tokens) and in its first decode step, each held to its plain version
     and the recurrence and timed beside SDPA; the step times and
     profiles; the peak memory of the phase so far.  Returns (log,
     launches, checks, timed shapes); frees the parameters."""
+    import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as tm
@@ -4950,9 +5259,19 @@ def _serve_and_capture(s: Smoke, phase, cfg, prompts, extra, attn_layers):
     dev = params["embed"]["tok"].device
     max_len = SERVE_PROMPT + SERVE_NEW + 1
     tokens, stats, counts = serve_requests(cfg, params, prompts, SERVE_NEW,
-                                           SERVE_BATCH, max_len)
-    calls = stats["prefills"] + stats["decode_steps"]
-    s.exactly(phase, counts, {"flash_attention": attn_layers * calls})
+                                           SERVE_BATCH, max_len, profile=s)
+    s.exactly(phase, counts, {"flash_attention": graphed_launches(
+        stats, attn_layers, attn_layers)})
+    print_graphed(phase, stats)
+    rng = np.random.default_rng(1)
+    _, mixed, counts2 = serve_requests(
+        cfg, params, [rng.integers(1, cfg.vocab, n)
+                      for n in SERVE_MIXED_PROMPTS],
+        SERVE_MIXED_NEW, SERVE_BATCH, max_len)
+    s.exactly(f"{phase} (mixed lengths)", counts2, {
+        "flash_attention": graphed_launches(mixed, attn_layers,
+                                            attn_layers)})
+    print_graphed(f"{phase} mixed lengths", mixed)
     toks = torch.as_tensor(prompts[0], device=dev)[None]
     batch = {"tokens": toks, **extra(dev)}
     with intercept(fa, "flash_attention", operands(
@@ -4974,6 +5293,7 @@ def _serve_and_capture(s: Smoke, phase, cfg, prompts, extra, attn_layers):
     short = cfg.name.split("-")[0]
     checks = {f"{short}_{n}": b7_check(f"{phase} {n}", *ops)
               for n, ops in captured.items()}
+    device_len = b7_device_len_check(f"{phase} decode", *captured["decode"])
     shapes = {f"{short}_{n}": b7_timing(*ops) for n, ops in captured.items()}
     del params, captured, kept
     torch.cuda.empty_cache()
@@ -4989,6 +5309,10 @@ def _serve_and_capture(s: Smoke, phase, cfg, prompts, extra, attn_layers):
             "stats": {k: stats[k] for k in ("prefills", "decode_steps",
                                             "tokens")},
             "b7_launches": counts["flash_attention"],
+            **graphed_record(stats), "device_len_b7": device_len,
+            "mixed_lengths": {"prompts": list(SERVE_MIXED_PROMPTS),
+                              "max_new": SERVE_MIXED_NEW,
+                              **graphed_record(mixed)},
             "tokens_first_request": tokens[0][:8], **steps,
             "peak_gb": peak_gb, "b7_checks": checks,
             "b7_shapes": shapes}, counts, checks, shapes

@@ -84,6 +84,11 @@ B7_SHAPES = {
     "qwen_prefill": ((1, 2048, 2048, 40, 8, 128), dict(causal=True)),
     "qwen_decode": ((1, 1, 2049, 40, 8, 128), dict(causal=True,
                                                     q_start=2048)),
+    # lm_serve's own calls: a layer's view of a 2,081-row cache
+    "qwen_serve_prefill": ((1, 2048, 2081, 40, 8, 128),
+                           dict(causal=True, kv_len=2048)),
+    "qwen_serve_decode": ((1, 1, 2081, 40, 8, 128),
+                          dict(causal=True, kv_len=2049, q_start=2048)),
     "whisper_encoder": ((1, 1500, 1500, 16, 16, 64), dict(causal=False)),
     "zamba2_prefill": ((1, 2048, 2048, 32, 32, 80), dict(causal=True)),
     "paligemma_prefill": ((1, 2304, 2304, 8, 1, 256),

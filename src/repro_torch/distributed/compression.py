@@ -10,6 +10,14 @@ which keeps the long-run gradient unbiased although every step's message
 is lossy.  State is one float32 residual per parameter leaf.  The
 transform is applied to the gradient tree before ``adamw_update``
 (``models.steps.make_train_step(compressor=)``).
+
+A sharded gradient (a DTensor leaf) is compressed as the reference
+compresses its global array: the leaf is taken whole (``full_tensor``),
+so int8 has one scale per whole tensor and top-k one threshold over the
+whole flattened tensor, and the compressed leaf goes back into the
+gradient's placements (each rank keeps its own block; no more
+communication).  The residual stays whole on every rank: replicated, as
+the reference's ``P()`` state.
 """
 
 from __future__ import annotations
@@ -35,9 +43,24 @@ def init_state(params: Any) -> CompressionState:
         params))
 
 
+def _whole(g: torch.Tensor):
+    """``(g taken whole, put)``: ``put(t)`` places a whole tensor as ``g``
+    is placed (a DTensor gradient; a partial sum's placement becomes
+    replicated), else returns it."""
+    from ..models.sharding import is_dtensor
+    if not is_dtensor(g):
+        return g, lambda t: t
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    places = [Replicate() if pl.is_partial() else pl for pl in g.placements]
+    return g.full_tensor(), lambda t: distribute_tensor(
+        t, g.device_mesh, places, src_data_rank=None)
+
+
 def _apply(fn, grads, error) -> Tuple[Any, Any]:
     """``fn(g, e) -> (compressed, residual)`` at each leaf of a gradient
-    tree (dicts and lists): the tree of each."""
+    tree (dicts and lists): the tree of each.  A DTensor leaf reaches
+    ``fn`` whole, and its compressed leaf goes back into its
+    placements."""
     if isinstance(grads, dict):
         parts = {k: _apply(fn, v, error[k]) for k, v in grads.items()}
         return ({k: c for k, (c, _) in parts.items()},
@@ -45,7 +68,9 @@ def _apply(fn, grads, error) -> Tuple[Any, Any]:
     if isinstance(grads, (list, tuple)):
         parts = [_apply(fn, v, e) for v, e in zip(grads, error)]
         return ([c for c, _ in parts], [r for _, r in parts])
-    return fn(grads, error)
+    whole, put = _whole(grads)
+    comp, residual = fn(whole, error)
+    return put(comp), residual
 
 
 @dataclass(frozen=True)

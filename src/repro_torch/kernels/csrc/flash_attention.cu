@@ -38,7 +38,9 @@
 //   64-row tiles: shared memory and registers) full by TMA (one mbarrier
 //   per stage for "full", one for "empty"; the tensor maps cover the strided
 //   (B, T, KV, dh) view with T cut to kv_len, so rows past it read as
-//   zeros and are never fetched) and hands its registers to the consumers
+//   zeros and are never fetched; with kv_len read on the device they cover
+//   the whole view, and the tile that straddles kv_len is masked as ever)
+//   and hands its registers to the consumers
 //   (setmaxnreg).  S = Q K^T is wgmma m64n128k16 (n64 at dh 256) with Q
 //   and K from shared memory (K-major, swizzled as TMA wrote them: 128 B
 //   rows at dh 64, 128 and 256, 64 B at dh 32, 32 B at dh 16 and, in five
@@ -107,6 +109,20 @@ constexpr int kBlockK = 64;
 constexpr int kLdp = kBlockK + 4;   // padded row of the probability tile
 constexpr float kNegBig = -1e30f;
 
+// A device start (the rows a cache held before this call, which a CUDA
+// graph's replay reads where a host int would be frozen at capture): query
+// row s then sits at start + q_start + s and the columns below
+// min(start + kv_len, extent) are visible; extent is the rows the K / V
+// views hold.  Every bound a kernel walks follows from these two.
+__device__ __forceinline__ void from_device(const int* start, int extent, int& q_start,
+                                            int& kv_len) {
+  if (start != nullptr) {
+    const int s0 = *start;
+    q_start += s0;
+    kv_len = min(kv_len + s0, extent);
+  }
+}
+
 // 16-byte loads converted to float32.
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
@@ -164,7 +180,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                  const TKV* __restrict__ v, TQ* __restrict__ o,
                  float* __restrict__ lse, int S, int H, int group, int causal, int prefix_len, int kv_len, int q_start,
-                 int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb, int64_t kst,
+                 const int* __restrict__ start, int extent, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb, int64_t kst,
                  int64_t ksh, int64_t vsb, int64_t vst, int64_t vsh, float scale) {
   constexpr int kLd = DH + 4;       // padded row of the Q/K/V tiles (floats)
   constexpr int kCols = DH / 16;    // accumulator columns per thread
@@ -174,6 +190,7 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   float* vs = ks + kBlockK * kLd;   // [kBlockK][kLd]
   float* ps = vs + kBlockK * kLd;   // [kBlockQ][kLdp]
 
+  from_device(start, extent, q_start, kv_len);
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.z, h = blockIdx.y;
@@ -302,7 +319,8 @@ flash_fwd_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 template <int DH, typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int S, int H, int KV, int causal, int prefix_len, int kv_len,
-           int q_start, float scale, const long long* st, cudaStream_t stream) {
+           int q_start, const int* start, int extent, float scale, const long long* st,
+           cudaStream_t stream) {
   constexpr size_t kSmem = sizeof(float) * (3 * 64 * (DH + 4) + kBlockQ * kLdp);
   auto kernel = flash_fwd_kernel<DH, TQ, TKV>;
   static std::atomic<uint64_t> ready{0};
@@ -312,8 +330,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<TQ*>(o), lse, S, H, H / KV, causal,
-      prefix_len, kv_len, q_start, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], scale);
+      prefix_len, kv_len, q_start, start, extent, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], scale);
   return int(cudaGetLastError());
 }
 
@@ -462,7 +480,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tv,
                        bf16* __restrict__ o, float* __restrict__ lse, int S, int H,
                        int group, int causal, int prefix_len, int kv_len, int q_start,
-                       float scale) {
+                       const int* __restrict__ start, int extent, float scale) {
   using G = Geo<DH>;
   constexpr int kBlockK = G::kBlockK, kStages = G::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -474,6 +492,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t qbar = bars + 16 * kStages;
   // full[s] = bars + 8 s, empty[s] = bars + 8 (kStages + s)
 
+  from_device(start, extent, q_start, kv_len);
   const int h = blockIdx.x, b = blockIdx.y;
   const int s0 = (gridDim.z - 1 - blockIdx.z) * kBlockQ;
   const int rows = min(kBlockQ, S - s0);
@@ -664,15 +683,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 template <int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
                  int B, int S, int H, int KV, int causal, int prefix_len, int kv_len,
-                 int q_start, float scale, const long long* st, cudaStream_t stream) {
+                 int q_start, const int* start, int extent, float scale,
+                 const long long* st, cudaStream_t stream) {
   using G = wg::Geo<DH>;
   using c4cam_bf16::encode;
   const CUtensorMapSwizzle sw = G::kTmaSwizzle;
   CUtensorMap tq, tk, tv;
   if (!encode(&tq, q, B, S, H, DH, st[0], st[1], st[2], G::kAtomCols, wg::kBlockQ, sw) ||
-      !encode(&tk, k, B, kv_len, KV, DH, st[3], st[4], st[5], G::kAtomCols, G::kBlockK,
+      !encode(&tk, k, B, extent, KV, DH, st[3], st[4], st[5], G::kAtomCols, G::kBlockK,
               sw) ||
-      !encode(&tv, v, B, kv_len, KV, DH, st[6], st[7], st[8], G::kAtomCols, G::kBlockK,
+      !encode(&tv, v, B, extent, KV, DH, st[6], st[7], st[8], G::kAtomCols, G::kBlockK,
               sw))
     return int(cudaErrorInvalidValue);
   auto kernel = wg::flash_fwd_wgmma_kernel<DH>;
@@ -682,7 +702,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   const dim3 grid(H, B, (S + wg::kBlockQ - 1) / wg::kBlockQ);
   kernel<<<grid, wg::kThreads, G::kSmem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), lse, S, H, H / KV, causal, prefix_len,
-      kv_len, q_start, scale);
+      kv_len, q_start, start, extent, scale);
   return int(cudaGetLastError());
 }
 
@@ -768,7 +788,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Block (split, kvh, b): kv tiles [split * split_tiles, + split_tiles) of
+// Block (split, kvh, b): kv tiles [split * per, + per) of
 // kv head kvh in batch row b, for its R = S * group query rows, row
 // r = s * group + j being query row s of head kvh * group + j.  RT m16
 // row tiles cover R (rows past R are zero).  Lane (g, t) holds rows
@@ -783,7 +803,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_splitkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, float* __restrict__ part,
                          int S, int KV, int group, int causal, int prefix_len,
-                         int kv_len, int q_start, int split_tiles, int64_t qsb,
+                         int kv_len, int q_start, const int* __restrict__ start,
+                         int extent, int split_target, int64_t qsb,
                          int64_t qss, int64_t qsh, int64_t ksb, int64_t kst,
                          int64_t ksh, int64_t vsb, int64_t vst, int64_t vsh,
                          float scale) {
@@ -803,11 +824,18 @@ flash_fwd_splitkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int R = S * group;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  from_device(start, extent, q_start, kv_len);
   int col_end = kv_len;
   if (causal) col_end = min(col_end, max(q_start + S, prefix_len));
   const int n_tiles = (col_end + kBlockK - 1) / kBlockK;
-  const int tile0 = min(split * split_tiles, n_tiles);
-  const int n_here = min(tile0 + split_tiles, n_tiles) - tile0;
+  // the visible tiles spread over up to split_target splits of per tiles
+  // (flash_attention.py, `_route`); the grid may hold more splits (sized
+  // for a cache's capacity), and those past the last tile write m = -1e30,
+  // l = 0, acc = 0, which the combine weighs 0
+  const int per = (n_tiles + max(1, min(n_tiles, split_target)) - 1) /
+                  max(1, min(n_tiles, split_target));
+  const int tile0 = min(split * per, n_tiles);
+  const int n_here = min(tile0 + per, n_tiles) - tile0;
 
   const bf16* kb = k + b * ksb + kvh * ksh;
   const bf16* vb = v + b * vsb + kvh * vsh;
@@ -1072,9 +1100,9 @@ flash_fwd_splitkv_combine(const float* __restrict__ part, bf16* __restrict__ o,
 template <int DH, int RT>
 int launch_splitkv_rt(const void* q, const void* k, const void* v, void* o,
                       void* part, float* lse, int B, int S, int H, int KV, int causal,
-                      int prefix_len, int kv_len, int q_start, float scale,
-                      int split_tiles, int n_splits, const long long* st,
-                      cudaStream_t stream) {
+                      int prefix_len, int kv_len, int q_start, const int* start,
+                      int extent, float scale, int split_target, int n_splits,
+                      const long long* st, cudaStream_t stream) {
   constexpr size_t kSmem = sk::Smem<DH, RT>::kBytes;
   auto kernel = sk::flash_fwd_splitkv_kernel<DH, RT>;
   static std::atomic<uint64_t> ready{0};
@@ -1084,7 +1112,7 @@ int launch_splitkv_rt(const void* q, const void* k, const void* v, void* o,
   kernel<<<dim3(n_splits, KV, B), sk::kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<float*>(part), S, KV, group,
-      causal, prefix_len, kv_len, q_start, split_tiles, st[0], st[1], st[2],
+      causal, prefix_len, kv_len, q_start, start, extent, split_target, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
@@ -1099,37 +1127,38 @@ int launch_splitkv_rt(const void* q, const void* k, const void* v, void* o,
 template <int DH>
 int launch_splitkv(const void* q, const void* k, const void* v, void* o,
                    void* part, float* lse, int B, int S, int H, int KV, int causal,
-                   int prefix_len, int kv_len, int q_start, float scale,
-                   int split_tiles, int n_splits, const long long* st,
-                   cudaStream_t stream) {
+                   int prefix_len, int kv_len, int q_start, const int* start,
+                   int extent, float scale, int split_target, int n_splits,
+                   const long long* st, cudaStream_t stream) {
   if (S * (H / KV) <= 16)
     return launch_splitkv_rt<DH, 1>(q, k, v, o, part, lse, B, S, H, KV, causal,
-                                    prefix_len, kv_len, q_start, scale, split_tiles,
-                                    n_splits, st, stream);
+                                    prefix_len, kv_len, q_start, start, extent, scale,
+                                    split_target, n_splits, st, stream);
   return launch_splitkv_rt<DH, 4>(q, k, v, o, part, lse, B, S, H, KV, causal,
-                                  prefix_len, kv_len, q_start, scale, split_tiles,
-                                  n_splits, st, stream);
+                                  prefix_len, kv_len, q_start, start, extent, scale,
+                                  split_target, n_splits, st, stream);
 }
 
 // route 0: launch<DH, TQ, TKV> (FMA); 1: launch_wgmma<DH>; 2: launch_splitkv<DH>
 template <typename TQ, typename TKV>
 int by_dim(int dh, int route, const void* q, const void* k, const void* v,
            void* o, void* part, float* lse, int B, int S, int H, int KV, int causal,
-           int prefix_len, int kv_len, int q_start, float scale, int split_tiles,
-           int n_splits, const long long* st, cudaStream_t s) {
+           int prefix_len, int kv_len, int q_start, const int* start, int extent,
+           float scale, int split_target, int n_splits, const long long* st,
+           cudaStream_t s) {
   constexpr bool kBf16 = std::is_same_v<TQ, bf16>;
 #define C4CAM_FLASH_CASE(D)                                                         \
   case D:                                                                           \
     if constexpr (kBf16) {                                                          \
       if (route == 1)                                                               \
         return launch_wgmma<D>(q, k, v, o, lse, B, S, H, KV, causal, prefix_len,    \
-                               kv_len, q_start, scale, st, s);                      \
+                               kv_len, q_start, start, extent, scale, st, s);       \
       return launch_splitkv<D>(q, k, v, o, part, lse, B, S, H, KV, causal,         \
-                               prefix_len, kv_len, q_start, scale, split_tiles,     \
-                               n_splits, st, s);                                    \
+                               prefix_len, kv_len, q_start, start, extent, scale,   \
+                               split_target, n_splits, st, s);                      \
     } else {                                                                        \
       return launch<D, TQ, TKV>(q, k, v, o, lse, B, S, H, KV, causal, prefix_len,   \
-                                kv_len, q_start, scale, st, s);                     \
+                                kv_len, q_start, start, extent, scale, st, s);      \
     }
   switch (dh) {
     C4CAM_FLASH_CASE(16)
@@ -1151,20 +1180,28 @@ int by_dim(int dh, int route, const void* q, const void* k, const void* v,
 // float32; a bfloat16 q takes a bfloat16 k / v only), causal, prefix_len,
 // kv_len (in 1..T), q_start, route (0 float32 FMA for a float32 q, 1
 // wgmma, 2 split-KV: both bf16, split-KV for S * H / KV <= 64), the
-// split's length in 64-row tiles and the split count (<= 4096; `part` is
-// float32 scratch of B * KV * splits * S * (H / KV) * (dh + 2) values),
-// then the strides in elements of q (b, s, h), k (b, t, h) and v (b, t, h),
-// then the softmax scale as the bit pattern of a float32 (1/sqrt of the
-// caller's head dim, which the wrapper may have zero-padded to dh).  `lse`,
-// when not null, receives each row's float32 log-sum-exp m + log(l) of the
-// scaled scores, (B, H, S) contiguous: the backward's input.
-// Returns a cudaError_t code.
+// splits a (b, kv head) pair aims for (>= 1: the visible tiles are cut
+// into splits of ceil(tiles / min(tiles, that)) tiles) and the grid's
+// split count (<= 4096; with `start`, at least the cut of any live
+// length: the wrapper passes min(T's tiles, the aim), since the cut is not
+// monotone in the tiles; `part` is float32 scratch of B * KV * splits *
+// S * (H / KV) * (dh + 2) values), then the strides in elements of q
+// (b, s, h), k (b, t, h) and v (b, t, h), then the softmax scale as the
+// bit pattern of a float32 (1/sqrt of the caller's head dim, which the
+// wrapper may have zero-padded to dh), then T, the rows of the k / v
+// views.  `start`, when not null, is a device int32 added to q_start and
+// kv_len by the kernels (kv_len then capped at T): a call captured in a
+// CUDA graph reads it at every replay.  `lse`, when not null, receives each
+// row's float32 log-sum-exp m + log(l) of the scaled scores, (B, H, S)
+// contiguous: the backward's input.  Returns a cudaError_t code.
 extern "C" int c4cam_flash_attention(const void* q, const void* k, const void* v,
                                      void* o, void* part, float* lse,
-                                     const long long* p, void* stream) {
+                                     const int* start, const long long* p,
+                                     void* stream) {
   for (int i = 0; i < 14; ++i)
     if (p[i] < 0 || p[i] > 0x7fffffffLL) return int(cudaErrorInvalidValue);
   if (p[23] < 0 || p[23] > 0xffffffffLL) return int(cudaErrorInvalidValue);
+  if (p[24] < 1 || p[24] > 0x7fffffffLL) return int(cudaErrorInvalidValue);
   const uint32_t scale_bits = uint32_t(p[23]);
   float scale;
   memcpy(&scale, &scale_bits, sizeof scale);
@@ -1172,27 +1209,29 @@ extern "C" int c4cam_flash_attention(const void* q, const void* k, const void* v
   const int B = int(p[0]), S = int(p[1]), H = int(p[2]), KV = int(p[3]), dh = int(p[4]);
   const int q_bf16 = int(p[5]), kv_bf16 = int(p[6]), causal = int(p[7]);
   const int prefix_len = int(p[8]), kv_len = int(p[9]), q_start = int(p[10]);
-  const int route = int(p[11]), split_tiles = int(p[12]), n_splits = int(p[13]);
+  const int route = int(p[11]), split_target = int(p[12]), n_splits = int(p[13]);
+  const int extent = int(p[24]);
   const long long* st = p + 14;
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV || kv_len < 1 || H > 65535 || B > 65535)
+  if (B <= 0 || S <= 0 || KV <= 0 || H % KV || kv_len < 1 || kv_len > extent ||
+      H > 65535 || B > 65535)
     return int(cudaErrorInvalidValue);
   const bool bf = q_bf16 && kv_bf16;
   if (route > 2 || (route == 0) == bool(q_bf16) || (route && !bf) ||
-      (route == 2 && (S * (H / KV) > 64 || split_tiles < 1 || n_splits < 1 ||
+      (route == 2 && (S * (H / KV) > 64 || split_target < 1 || n_splits < 1 ||
                       n_splits > 4096 || part == nullptr)))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf)
     return by_dim<bf16, bf16>(dh, route, q, k, v, o, part, lse, B, S, H, KV, causal,
-                              prefix_len, kv_len, q_start, scale, split_tiles, n_splits,
-                              st, s);
+                              prefix_len, kv_len, q_start, start, extent, scale,
+                              split_target, n_splits, st, s);
   if (kv_bf16)
     return by_dim<float, bf16>(dh, route, q, k, v, o, part, lse, B, S, H, KV, causal,
-                               prefix_len, kv_len, q_start, scale, split_tiles, n_splits,
-                               st, s);
+                               prefix_len, kv_len, q_start, start, extent, scale,
+                               split_target, n_splits, st, s);
   return by_dim<float, float>(dh, route, q, k, v, o, part, lse, B, S, H, KV, causal,
-                              prefix_len, kv_len, q_start, scale, split_tiles, n_splits,
-                              st, s);
+                              prefix_len, kv_len, q_start, start, extent, scale,
+                              split_target, n_splits, st, s);
 }
 
 extern "C" const char* c4cam_error_string(int err) {

@@ -24,6 +24,19 @@ bfloat16 cache.  The kernel reads ``k`` and ``v`` through their strides
 (a layer's view of the stacked cache) and never reads a row at or past
 ``kv_len``.
 
+``start`` (a 0-dim int32 tensor on ``q``'s device, or None) is the rows a
+decode cache held before this call, read on the device: query row ``s``
+then sits at ``start + q_start + s`` and the columns below ``start +
+kv_len`` are visible.  A call captured in a CUDA graph reads it at every
+replay, where a host ``kv_len`` would stay what it was at capture.  The
+split-KV grid is then :func:`device_start_splits` splits, the most any
+live length's cut can give, and the kernel cuts the visible tiles as
+:func:`flash_route` would cut them at the live length (the splits past
+them weigh 0); the prefill route's tensor maps
+then cover all ``T`` rows, and the rows past ``kv_len`` that its last
+tile fetches (masked, probability 0) must be finite, as a decode cache's
+zeros and earlier rows are.
+
 The wrapper runs the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  The kernels are built for the
 head dims of :data:`FLASH_HEAD_DIMS`; another head dim up to 256 is
@@ -62,7 +75,7 @@ import ctypes
 import functools
 import math
 import struct
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,7 +87,7 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "FlashAttentionFn", "flash_attention_recurrence", "flash_route",
            "FlashRoute", "flash_bwd_route", "FlashBwdRoute",
            "FLASH_HEAD_DIMS", "FLASH_BLOCK_K", "FLASH_SPLITKV_ROWS",
-           "FLASH_SPLIT_BLOCKS", "flash_bwd_slices"]
+           "FLASH_SPLIT_BLOCKS", "flash_bwd_slices", "device_start_splits"]
 
 #: head dims the kernels are instantiated for; the wrapper pads any other
 #: head dim up to the last of them to the next one
@@ -124,7 +137,8 @@ def _pick_q_chunk(s: int, t: int) -> int:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           prefix_len: int, kv_len: Optional[int], q_start: int) -> None:
+           prefix_len: int, kv_len: Optional[int], q_start: int,
+           start: Optional[torch.Tensor] = None) -> None:
     for what, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"flash_attention: {what} must be a 4-D tensor")
@@ -152,6 +166,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if prefix_len < 0 or q_start < 0:
         raise ValueError("flash_attention: prefix_len and q_start must be "
                          ">= 0")
+    if start is not None and (
+            not isinstance(start, torch.Tensor) or start.dim() != 0
+            or start.dtype != torch.int32 or start.device != dev
+            or kv_len is None):
+        raise ValueError("flash_attention: start must be a 0-dim int32 "
+                         "tensor on q's device, with kv_len given")
 
 
 def _scale(dh: int) -> float:
@@ -178,12 +198,16 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               prefix_len: int = 0,
                               kv_len: Optional[int] = None,
-                              q_start: int = 0, return_lse: bool = False):
+                              q_start: int = 0, return_lse: bool = False,
+                              start: Optional[torch.Tensor] = None):
     """Plain version of :func:`flash_attention`: the reference's
     ``attn_core`` in eager PyTorch (full softmax per query chunk).  With
     ``return_lse``, also each row's float32 log-sum-exp of the scaled
-    scores, (B, H, S), as the kernels write it for the backward."""
-    _check(q, k, v, prefix_len, kv_len, q_start)
+    scores, (B, H, S), as the kernels write it for the backward.  A
+    device ``start`` enters the masks as a tensor (no host read)."""
+    _check(q, k, v, prefix_len, kv_len, q_start, start)
+    if start is not None:
+        q_start, kv_len = start + q_start, start + kv_len
     b, s, h, dh = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -291,8 +315,9 @@ def flash_route(q_shape, k_shape, q_dtype: torch.dtype, *,
 
 
 def _route(q_shape, k_shape, q_dtype, causal, prefix_len, kv_len, q_start):
-    """:func:`flash_route` and the split's length in tiles (0 unless
-    split-KV)."""
+    """:func:`flash_route` and the splits a (batch row, kv head) pair aims
+    for (0 unless split-KV): the kernel cuts the visible tiles into
+    splits of ``ceil(tiles / min(tiles, aim))`` tiles."""
     b, s, h, dh = q_shape
     dh = _padded_dim(dh)
     kvh = k_shape[2]
@@ -303,9 +328,38 @@ def _route(q_shape, k_shape, q_dtype, causal, prefix_len, kv_len, q_start):
     bk = _block_k("splitkv", dh)
     n_tiles = -(-_col_end(s, kv_len, causal, prefix_len, q_start) // bk)
     blocks = _SPLIT_BLOCKS_AT.get(dh, FLASH_SPLIT_BLOCKS)
-    want = max(1, min(n_tiles, blocks // max(1, b * kvh)))
-    per = -(-n_tiles // want)
-    return FlashRoute("splitkv", bk, -(-n_tiles // per)), per
+    aim = max(1, blocks // max(1, b * kvh))
+    return FlashRoute("splitkv", bk, _split_count(n_tiles, aim)), aim
+
+
+def _split_count(n_tiles: int, aim: int) -> int:
+    """The splits the split-KV kernel cuts ``n_tiles`` visible tiles into
+    when it aims for ``aim``: ``ceil(n / per)`` of ``per = ceil(n /
+    min(n, aim))`` tiles (the kernel's own arithmetic)."""
+    per = -(-n_tiles // max(1, min(n_tiles, aim)))
+    return -(-n_tiles // per)
+
+
+def device_start_splits(q_shape, k_shape, q_dtype: torch.dtype, *,
+                        causal: bool = True, prefix_len: int = 0
+                        ) -> Optional[int]:
+    """The split-KV grid's splits for a call with a device ``start`` over a
+    view of ``k_shape[1]`` rows (None off the split-KV route):
+    ``min(capacity tiles, aim)``.  The live length is not known on the
+    host, and the kernel's cut of ``n`` tiles, ``ceil(n / ceil(n /
+    min(n, aim)))``, is not monotone in ``n`` (at ``aim`` 8, 33 tiles
+    give 7 splits and 8 tiles 8), so the grid holds the most any
+    ``n`` up to the capacity can give: ``ceil(n / ceil(n / m)) <= m``
+    for ``m = min(n, aim)``."""
+    t = k_shape[1]
+    return _start_grid(*_route(q_shape, k_shape, q_dtype, causal,
+                               prefix_len, t, max(t - q_shape[1], 0)), t)
+
+
+def _start_grid(route: FlashRoute, aim: int, t: int) -> Optional[int]:
+    """:func:`device_start_splits` from the route at a view of ``t`` rows
+    and its aim."""
+    return None if route.splits is None else min(-(-t // route.block_k), aim)
 
 
 class FlashBwdRoute(NamedTuple):
@@ -430,7 +484,8 @@ def flash_attention_recurrence(q: torch.Tensor, k: torch.Tensor,
                                prefix_len: int = 0,
                                kv_len: Optional[int] = None,
                                q_start: int = 0, block_k: int = 64,
-                               splits: Optional[int] = None
+                               splits: Optional[int] = None,
+                               bounds: Optional[Sequence[int]] = None
                                ) -> torch.Tensor:
     """The Pallas kernel's online softmax, in eager float32, over kv tiles
     of ``block_k`` rows from column 0 up to the last visible one: the
@@ -441,7 +496,11 @@ def flash_attention_recurrence(q: torch.Tensor, k: torch.Tensor,
     a float32 score is summed in float32.
 
     With ``splits``, the tiles are cut as the split-KV kernel cuts them
-    (``ceil(tiles / splits)`` a split); each split runs the recurrence
+    (``ceil(tiles / min(tiles, splits))`` a split: ``splits`` may be
+    :func:`flash_route`'s count or the splits the kernel aims for, the cut
+    is the same); with ``bounds``, the splits start at those columns (the
+    first 0) and each is cut into tiles from its own start: the key
+    slices of KV-parallel attention.  Each split runs the recurrence
     from ``m = -1e30`` and the splits are combined in float32 as its
     combine kernel does: ``m* = max m_i``, ``l = sum l_i e^(m_i - m*)``,
     ``acc`` likewise, ``out = acc / max(l, 1e-30)``.  Hidden scores enter
@@ -453,7 +512,15 @@ def flash_attention_recurrence(q: torch.Tensor, k: torch.Tensor,
     end = _col_end(s, t if kv_len is None else kv_len, causal, prefix_len,
                    q_start)
     n_tiles = -(-end // block_k)
-    per = n_tiles if splits is None else -(-n_tiles // splits)
+    if bounds is None:
+        per = n_tiles if splits is None else \
+            -(-n_tiles // max(1, min(n_tiles, splits)))
+        n_split = -(-n_tiles // per) if splits is not None else 1
+        bounds = [i * per * block_k for i in range(max(n_split, 1))]
+    elif list(bounds)[:1] != [0] or sorted(bounds) != list(bounds):
+        raise ValueError(f"flash_attention_recurrence: bounds {bounds} must "
+                         f"rise from 0")
+    edges = list(bounds) + [max(end, bounds[-1])]
     scale = float(torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32))
     # bf16 products are exact in float32: sum them exactly (float64) and
     # round once, the value any float32 accumulation order approximates;
@@ -462,12 +529,12 @@ def flash_attention_recurrence(q: torch.Tensor, k: torch.Tensor,
     qf = q.to(acc_t).reshape(b, s, kvh, h // kvh, dh)
     qi = q_start + torch.arange(s, device=q.device)[:, None]
     parts = []
-    for first in range(0, (1 if splits is None else splits) * per, per):
+    for lo, hi in zip(edges[:-1], edges[1:]):
         m = torch.full((b, kvh, h // kvh, s, 1), _NEG_INF, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros((b, kvh, h // kvh, s, dh), device=q.device)
-        for tile in range(first, min(first + per, n_tiles)):
-            t0, t1 = tile * block_k, min(tile * block_k + block_k, end)
+        for t0 in range(lo, min(hi, end), block_k):
+            t1 = min(t0 + block_k, hi, end)
             kt = k[:, t0:t1].to(q.dtype).to(acc_t)
             ki = torch.arange(t0, t1, device=q.device)[None, :]
             sc = torch.einsum("bqkgd,btkd->bkgqt", qf, kt).float() * scale
@@ -482,7 +549,7 @@ def flash_attention_recurrence(q: torch.Tensor, k: torch.Tensor,
                 v[:, t0:t1].float())
             m = m_new
         parts.append((m, l, acc))
-    if splits is None:
+    if len(parts) == 1:
         _, l, acc = parts[0]
     else:
         mx = parts[0][0]
@@ -497,8 +564,9 @@ def flash_attention_recurrence(q: torch.Tensor, k: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
 
 
-#: q, k, v, out, scratch, lse, the int64 parameter array, the stream
-_ARGTYPES = [ctypes.c_void_p] * 8
+#: q, k, v, out, scratch, lse, the device start, the int64 parameter
+#: array, the stream
+_ARGTYPES = [ctypes.c_void_p] * 9
 #: q, k, v, out, d_out, lse, the (lse, D) scratch, dq, dk, dv, the
 #: parameter array, the stream
 _BWD_ARGTYPES = [ctypes.c_void_p] * 12
@@ -544,8 +612,9 @@ def _launch(lib, fn, argtypes, args, dev) -> int:
 
 
 def _forward_cuda(q, k, v, causal, prefix_len, kv_len, q_start,
-                  want_lse: bool):
-    """B7 on the card: (out, lse or None)."""
+                  want_lse: bool, start: Optional[torch.Tensor] = None):
+    """B7 on the card: (out, lse or None); with a device ``start`` the
+    kernels add it to ``q_start`` and ``kv_len``."""
     b, s, h, dh = q.shape
     t, kvh = k.shape[1], k.shape[2]
     if h > 65535 or b > 65535:
@@ -553,32 +622,43 @@ def _forward_cuda(q, k, v, causal, prefix_len, kv_len, q_start,
                          f"exceeds the launch grid")
     kv_len = t if kv_len is None else kv_len
     dp = _padded_dim(dh)
-    if dp != dh:             # the kernels never read a row past kv_len
+    if dp != dh and start is None:   # no kernel reads a row past kv_len
         k, v = k[:, :kv_len], v[:, :kv_len]
+    # the rows the prefill route's tensor maps cover: up to kv_len, or the
+    # whole view when kv_len is read on the device (the rows past it in
+    # the tile that straddles it are then fetched, masked, and must be
+    # finite: a decode cache's zeros or earlier rows)
+    extent = kv_len if start is None else k.shape[1]
     kq, kk, kv_ = (_kernel_operand(x, dp, False) for x in (q, k, v))
     out = torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
         if want_lse else None
     if s == 0 or b == 0:
         return out[..., :dh], lse
-    route, split_tiles = _route(q.shape, k.shape, q.dtype, causal,
-                                prefix_len, kv_len, q_start)
+    route, aim = _route(q.shape, k.shape, q.dtype, causal, prefix_len,
+                        *((kv_len, q_start) if start is None
+                          else (extent, max(extent - s, 0))))
+    # a device start: the grid for any live length the view can hold
+    n_splits = route.splits if start is None else \
+        _start_grid(route, aim, extent)
     part = None
-    if route.splits is not None:
+    if n_splits is not None:
         # each split's m, l and unnormalised acc for its folded rows
-        part = torch.empty(b * kvh * route.splits * s * (h // kvh)
+        part = torch.empty(b * kvh * n_splits * s * (h // kvh)
                            * (dp + 2), dtype=torch.float32, device=q.device)
     lib = build.load("flash_attention")
     # the scalars travel as one int64 array (one ctypes argument, not 24)
     params = array.array("q", (
         b, s, h, kvh, dp, q.dtype == torch.bfloat16,
         k.dtype == torch.bfloat16, causal, prefix_len, kv_len, q_start,
-        _ROUTE_IDS[route.name], split_tiles, route.splits or 0,
+        _ROUTE_IDS[route.name], aim, n_splits or 0,
         *kq.stride()[:3], *kk.stride()[:3], *kv_.stride()[:3],
-        struct.unpack("<I", struct.pack("<f", _scale(dh)))[0]))
+        struct.unpack("<I", struct.pack("<f", _scale(dh)))[0], extent))
     args = (kq.data_ptr(), kk.data_ptr(), kv_.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),
-            None if lse is None else lse.data_ptr(), params.buffer_info()[0])
+            None if lse is None else lse.data_ptr(),
+            None if start is None else start.data_ptr(),
+            params.buffer_info()[0])
     err = _launch(lib, "c4cam_flash_attention", _ARGTYPES, args,
                   q.device.index)
     _raise_if_failed(lib, "flash_attention", err)
@@ -612,9 +692,11 @@ class FlashAttentionFn(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, prefix_len: int = 0,
                     kv_len: Optional[int] = None,
-                    q_start: int = 0) -> torch.Tensor:
+                    q_start: int = 0,
+                    start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, S, H, dh) attention of ``q`` over ``k`` / ``v`` (B, T, KV, dh);
-    see the module docstring for the contract.
+    see the module docstring for the contract (and for ``start``, the
+    device length a captured decode step reads: inference only).
 
     CPU tensors run :func:`flash_attention_reference`; CUDA tensors
     launch the kernel of :func:`flash_route` (through
@@ -625,11 +707,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     before the launch.
     """
     from .lm_ops import flash_fwd, is_fake
-    _check(q, k, v, prefix_len, kv_len, q_start)
+    _check(q, k, v, prefix_len, kv_len, q_start, start)
     if q.device.type == "cpu" and not is_fake(q):
         return flash_attention_reference(q, k, v, causal=causal,
                                          prefix_len=prefix_len,
-                                         kv_len=kv_len, q_start=q_start)
+                                         kv_len=kv_len, q_start=q_start,
+                                         start=start)
+    if start is not None:
+        if is_fake(q) or (torch.is_grad_enabled() and (
+                q.requires_grad or k.requires_grad or v.requires_grad)):
+            raise ValueError("flash_attention: a device start serves "
+                             "inference on real tensors only")
+        out, _ = _forward_cuda(q, k, v, causal, prefix_len, kv_len, q_start,
+                               False, start)
+        return out
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, prefix_len, kv_len,

@@ -14,18 +14,21 @@ For each cell the dry run:
    inside :func:`.roofline.analyze_step`: the sharding propagation, every
    redistribution's collectives and each kernel call are exercised with
    nothing allocated on any device;
-4. records the per-device bytes of the state, batch and cache and whether
-   they fit in the card's 80 GB, the gradient-accumulation factor, and
-   the roofline terms (analytic seconds at the H100's data-sheet peaks,
-   not measurements), into a JSON artifact.
+4. records the per-device bytes of the state, batch and cache, the peak
+   of live bytes through the traced step (``peak_bytes``: those plus the
+   most bytes of the step's own tensors live at once, the temporaries
+   the reference's ``memory_analysis`` counts; tallied by
+   :func:`.roofline.analyze_step`) and whether that peak fits in the
+   card's 80 GB, the gradient-accumulation factor, and the roofline terms
+   (analytic seconds at the H100's data-sheet peaks, not measurements),
+   into a JSON artifact.
 
 This is the one entry point of the port that allocates nothing on any
 device, by design: it traces fake tensors, as the reference compiles
 for 512 placeholder host devices.  The fake process group is private
 PyTorch API (``torch.testing._internal.distributed.fake_pg``); only this
 module imports it, inside :func:`run_cell`, which opens the group and
-destroys it after the cell.  Activations and temporaries are not in the
-bytes (the reference's ``memory_analysis`` counts them).
+destroys it after the cell.
 
 Usage::
 
@@ -176,6 +179,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
                 if kind == "prefill":
                     inp = _distribute(rules, mesh, specs["batch"],
                                       batch_axes_tree(cfg))
+                    _set_len(cache, 0)            # an empty cache
                 else:
                     inp = _distribute(rules, mesh, specs["tokens"],
                                       ("batch", None))
@@ -191,14 +195,19 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
                 _, rep = rl.analyze_step(step, *args, n_devices=n_dev)
             t_trace = time.time() - t1
     total = sum(mem.values())
+    peak = total + rep.temp_peak_bytes
     mf = rl.model_flops(cfg, sp)
     per_dev_mf = mf / n_dev
     rec.update(
         t_setup_s=round(t1 - t0, 2), t_trace_s=round(t_trace, 2),
         memory=dict(mem, total_bytes=total,
-                    fits=total <= rl.HBM_BYTES,
-                    note="state, batch and cache per device; activations "
-                         "not counted"),
+                    temp_peak_bytes=rep.temp_peak_bytes, peak_bytes=peak,
+                    fits=peak <= rl.HBM_BYTES,
+                    note="per device: state, batch and cache (total), and "
+                         "peak_bytes = total + the most bytes of the "
+                         "step's own tensors live at once (activations, "
+                         "gradients, the updated state); fits on the "
+                         "peak"),
         roofline=rep.as_dict(), card=rl.CARD,
         advice=rl.bottleneck_advice(rep.bottleneck, kind, cfg.family),
         model_flops_global=mf, model_flops_per_device=per_dev_mf,
@@ -281,6 +290,7 @@ def main(argv=None) -> int:
                     m = rec["memory"]
                     extra = (f" state+batch+cache="
                              f"{m['total_bytes'] / 2**30:.2f}GiB "
+                             f"peak={m['peak_bytes'] / 2**30:.2f}GiB "
                              f"fits={m['fits']} "
                              f"bottleneck={rec['roofline']['bottleneck']} "
                              f"trace={rec['t_trace_s']}s")

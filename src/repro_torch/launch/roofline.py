@@ -48,8 +48,9 @@ seconds are analytic, not measured.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from dataclasses import asdict, dataclass, field
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +84,10 @@ class RooflineReport:
     kernel_calls: Dict[str, int] = field(default_factory=dict)
     kernel_flops: Dict[str, float] = field(default_factory=dict)
     op_counts: Dict[str, int] = field(default_factory=dict)
+    # the most bytes of the tensors the call made that were live at once
+    # (per device: storages of the local blocks; the call's arguments
+    # are not counted)
+    temp_peak_bytes: int = 0
 
     # -- derived -----------------------------------------------------------
     @property
@@ -198,12 +203,60 @@ def _group(args, n_devices: int) -> Tuple[int, bool]:
     return n, n > NODE_GPUS
 
 
+def _storage(t):
+    """(key, bytes) of ``t``'s storage (a DTensor's local block's); None
+    for a tensor without one."""
+    t = getattr(t, "_local_tensor", t)
+    try:
+        st = t.untyped_storage()
+    except (RuntimeError, NotImplementedError):
+        return None
+    return st._cdata, st.nbytes()
+
+
+class _Live:
+    """The bytes of the storages a call makes, live at once: each storage
+    counts from the first tensor on it that an operation returns until
+    the last such tensor is freed (a view or an in-place result holds
+    it too).  Storages of the call's arguments are not counted."""
+
+    def __init__(self, args):
+        self.known = {st[0] for st in map(_storage, _tensors(args))
+                      if st is not None}
+        self.refs: Dict[int, List[int]] = {}
+        self.live = self.peak = 0
+
+    def hold(self, out) -> None:
+        for t in _tensors(out):
+            st = _storage(t)
+            if st is None or st[0] in self.known:
+                continue
+            key, nbytes = st
+            ref = self.refs.get(key)
+            if ref is None:
+                ref = self.refs[key] = [nbytes, 0]
+                self.live += nbytes
+                self.peak = max(self.peak, self.live)
+            ref[1] += 1
+            weakref.finalize(t, self._drop, key)
+
+    def _drop(self, key: int) -> None:
+        ref = self.refs.get(key)
+        if ref is not None:
+            ref[1] -= 1
+            if ref[1] == 0:
+                self.live -= ref[0]
+                del self.refs[key]
+
+
 class _Tally(TorchDispatchMode):
-    def __init__(self, rep: RooflineReport, n_devices: int):
+    def __init__(self, rep: RooflineReport, n_devices: int,
+                 live: Optional[_Live] = None):
         super().__init__()
         self.rep = rep
         self.n = n_devices
         self.shadow = 0             # inside DTensor's shape propagation
+        self.live = live
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -213,6 +266,8 @@ class _Tally(TorchDispatchMode):
         out = func(*args, **kwargs)
         if self.shadow:
             return out
+        if self.live is not None:
+            self.live.hold(out)
         ns = func.namespace
         name = func.__name__.split(".")[0]
         if ns == "prim" or name in _VIEWS:
@@ -304,7 +359,8 @@ def analyze_step(fn: Callable, *args, n_devices: int = 1,
     charged to a collective whose group the tally cannot resolve."""
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
     rep = RooflineReport()
-    tally = _Tally(rep, n_devices)
+    live = _Live((args, kwargs))
+    tally = _Tally(rep, n_devices, live)
     old = ShardingPropagator._fake_mode_lock
 
     @contextlib.contextmanager
@@ -322,6 +378,7 @@ def analyze_step(fn: Callable, *args, n_devices: int = 1,
             out = fn(*args, **kwargs)
     finally:
         ShardingPropagator._fake_mode_lock = old
+    rep.temp_peak_bytes = live.peak
     return out, rep
 
 

@@ -9,7 +9,9 @@ cpu``.  Given a mesh of more than one device (a ``DeviceMesh`` over a
 process group with one rank per device), it trains sharded: the rules
 of :mod:`..models.sharding`, the state distributed as
 :func:`.specs.state_sharding` says, each step's batch sharded over the
-batch axes.  Under ``torchrun`` the CLI opens that group itself (NCCL on
+batch axes; a gradient compressor's residual stays whole on every rank
+(the reference's replicated ``P()`` state).  Under ``torchrun`` the CLI
+opens that group itself (NCCL on
 the cards, gloo on the CPU) with ``--data`` x ``--model`` ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
@@ -110,10 +112,6 @@ class TrainLoop:
         self.compressor = COMPRESSORS[compression]()
         if isinstance(self.compressor, NoCompression):
             self.compressor = None
-        if self.rules is not None and self.compressor is not None:
-            raise ValueError("TrainLoop: gradient compression of a sharded "
-                             "state is not ported; use compression='none' "
-                             "with a mesh")
 
         self.stream = TokenStream(vocab=cfg.vocab, seq_len=seq,
                                   global_batch=batch, seed=seed)

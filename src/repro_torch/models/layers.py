@@ -203,17 +203,23 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """GQA attention through kernel B7.
 
-    * ``cache``: {"k": (B, S_max, kv, dh), "v": ..., "len": int} — one
-      layer's views of the stacked cache.  The new k/v are written at
-      rows ``len .. len+S`` in place (the reference's
+    * ``cache``: {"k": (B, S_max, kv, dh), "v": ..., "len": int or 0-dim
+      int32 tensor} — one layer's views of the stacked cache (with a
+      device ``len``, optionally ``"rows"``, ``len + arange(S)``, and
+      ``"end"``, ``len + S``: the model makes them once a step).  The new
+      k/v are written at rows ``len .. len+S`` in place (the reference's
       ``dynamic_update_slice`` returns a new array instead), and
       attention spans the cache tensor with ``kv_len = len + S`` and
       ``q_start = len``: S > 1 is a prefill, S == 1 a decode step.
-      Returns the same tensors with ``len + S``; ``len`` is a host int,
-      so the kernel gets ``kv_len`` without a device sync.  A write past
-      the cache's ``max_len`` rows raises ``ValueError`` before any row
-      is written (the reference's ``dynamic_update_slice`` would clamp
-      the start and overwrite the last rows).
+      Returns the same tensors with ``len + S``.  A host int ``len``
+      reaches the kernel as ints; a device ``len`` (the decode cache's,
+      as the reference's traced ``len``) is read by the write's index
+      and by B7 on the device, so a captured step replays at any length.
+      A write past the cache's ``max_len`` rows raises ``ValueError``
+      before any row is written (the reference's
+      ``dynamic_update_slice`` would clamp the start and overwrite the
+      last rows): here for a host ``len``, once a step at the model's
+      entry points for a device one (``model.check_room``).
     * ``kv_source``: cross-attention source (B, T, D), the encoder
       states: keys and values come from it, with no RoPE and no causal
       mask (still kernel B7).
@@ -233,18 +239,25 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     new_cache = None
     kv_len = None
     q_start = 0
+    dev_start = None
     if cache is not None:
         start = cache["len"]
-        max_len = cache["k"].shape[1]
-        if start + s > max_len:
-            raise ValueError(
-                f"attention: the KV cache holds len={start} rows and S={s} "
-                f"new ones would pass max_len={max_len}")
-        _cache_write(cache["k"], start, k)
-        _cache_write(cache["v"], start, v)
-        new_cache = {"k": cache["k"], "v": cache["v"], "len": start + s}
+        if isinstance(start, torch.Tensor):
+            # the step's write rows and new length, made once a step by
+            # the model (model._with_rows) or here for a lone layer
+            rows = cache["rows"] if "rows" in cache else \
+                start + torch.arange(s, device=start.device)
+            _cache_write_rows(cache["k"], rows, k)
+            _cache_write_rows(cache["v"], rows, v)
+            dev_start, kv_len = start, s
+        else:
+            check_rows(start, s, cache["k"].shape[1])
+            _cache_write(cache["k"], start, k)
+            _cache_write(cache["v"], start, v)
+            q_start, kv_len = start, start + s
+        new_cache = {"k": cache["k"], "v": cache["v"],
+                     "len": cache["end"] if "end" in cache else start + s}
         k, v = cache["k"], cache["v"]
-        q_start, kv_len = start, start + s
 
     causal = causal and kv_source is None
     if rules is not None and is_dtensor(q):
@@ -255,8 +268,24 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         out = fa.flash_attention(q, k, v, causal=causal,
                                  prefix_len=prefix_len, kv_len=kv_len,
-                                 q_start=q_start)
+                                 q_start=q_start, start=dev_start)
     return _proj(out.reshape(b, s, h * dh), p["wo"]), new_cache
+
+
+def check_rows(start: int, s: int, max_len: int) -> None:
+    """Raise ``ValueError`` when ``s`` rows written at ``start`` would pass
+    a cache of ``max_len`` rows."""
+    if start + s > max_len:
+        raise ValueError(
+            f"attention: the KV cache holds len={start} rows and S={s} "
+            f"new ones would pass max_len={max_len}")
+
+
+def _cache_write_rows(cache_t, rows: torch.Tensor, new) -> None:
+    """Write ``new`` (B, S, KV, dh) at the rows ``rows`` (an int64 device
+    index) of one layer's cache tensor, in place."""
+    with torch.no_grad():
+        cache_t.index_copy_(1, rows, new.to(cache_t.dtype))
 
 
 def _cache_write(cache_t, start: int, new) -> None:
@@ -435,7 +464,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                              device=device),
             "v": torch.zeros((batch, max_len, kv, dh), dtype=dtype,
                              device=device),
-            "len": 0}
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 # ---------------------------------------------------------------------------

@@ -74,7 +74,7 @@ from .blocks import shard_act
 from .config import ModelConfig
 from .layers import _flat_heads, _heads, _proj, _sharded_attention, \
     apply_norm, attention, cdtype, embed, ffn, init_embedding, init_norm, \
-    logits as unembed_logits
+    check_rows, logits as unembed_logits
 from .sharding import is_dtensor, set_block
 
 Params = Dict[str, Any]
@@ -287,7 +287,7 @@ def _attn_cache(cfg: ModelConfig, n_layers: int, b: int, m: int, device,
     shape = (n_layers, b, m, kv, dh)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "len": 0}
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -318,13 +318,39 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                        device=dev)}}
 
 
+def reset_decode_cache(cache: Params, cfg: ModelConfig) -> Params:
+    """``cache`` as :func:`init_decode_cache` made it, in place: ``len`` 0
+    (a device ``len`` set on the device) and every recurrent state its
+    initial value.  The attention rows are left as they are: no kernel
+    and no plain version reads a row at or past ``len``, so a slot's
+    cache serves request after request (``launch.serve.Server``)."""
+    fam = _family(cfg)
+    holder = _len_holder(cache, cfg)
+    with torch.no_grad():
+        if holder is not None and isinstance(holder["len"], torch.Tensor):
+            holder["len"].zero_()
+        elif holder is not None:
+            holder["len"] = 0
+        if fam == "hybrid":                # init_mamba_state's zeros
+            for t in cache["mamba"].values():
+                t.zero_()
+        elif fam == "ssm":
+            h = cache["slstm"]["h"]
+            for kind, part in cache.items():
+                fresh = xlstm.init_xlstm_state(cfg, h.shape[1], kind,
+                                               device=h.device)
+                for key, t in part.items():
+                    t.copy_(fresh[key].expand_as(t))
+    return cache
+
+
 _ATTN_CACHE_AX = ("layers", "cache_batch", "cache_seq", "cache_kv",
                   "cache_dim")
 
 
 def cache_axes(cfg: ModelConfig) -> Params:
     """The decode cache's tree of logical-axis tuples (the reference's;
-    ``len`` is a host int with axes ``()``)."""
+    ``len`` is a 0-dim int32 with axes ``()``)."""
     ac = {"k": _ATTN_CACHE_AX, "v": _ATTN_CACHE_AX, "len": ()}
     fam = _family(cfg)
     if fam in ("dense", "moe", "vlm"):
@@ -350,14 +376,48 @@ def cache_axes(cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 
+_STEP_KEYS = ("len", "rows", "end")
+
+
+def _with_rows(cache: Params, cfg: ModelConfig, s: int) -> Params:
+    """``cache`` whose attention part (the one holding ``len``) carries,
+    for a device ``len``, the step's write rows ``len + arange(s)`` and
+    its new length ``len + s``: made once a step, every layer's attention
+    reads them (a host ``len`` needs neither)."""
+    holder = _len_holder(cache, cfg)
+    if holder is None or not isinstance(holder["len"], torch.Tensor) or \
+            "rows" in holder:
+        return cache
+    ln = holder["len"]
+    holder = dict(holder, rows=ln + torch.arange(s, device=ln.device),
+                  end=ln + s)
+    if cfg.family == "audio":
+        return dict(cache, self=holder)
+    if cfg.family == "hybrid":
+        return dict(cache, attn=holder)
+    return holder
+
+
+def _view(holder: Params, k: torch.Tensor, v: torch.Tensor) -> Params:
+    """A layer's (or a stack's) part of an attention cache: ``k`` and
+    ``v`` with the holder's ``len`` and step rows."""
+    return {"k": k, "v": v, **{key: holder[key] for key in _STEP_KEYS
+                               if key in holder}}
+
+
+def _advanced(holder: Params, s: int) -> Params:
+    """The attention cache after a step of ``s`` rows: the whole ``k`` and
+    ``v`` with ``len + s``."""
+    end = holder["end"] if "end" in holder else holder["len"] + s
+    return {"k": holder["k"], "v": holder["v"], "len": end}
+
+
 def _run_dense_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig, *,
                      positions: torch.Tensor, prefix_len: int = 0,
                      cache: Optional[Params] = None, train: bool = False,
                      rules=None) -> Tuple[torch.Tensor, Optional[Params]]:
     """The blocks in order, each with its layer of the cache; a layer
     with a ``"moe"`` entry is an MoE block."""
-    ln = 0 if cache is None else cache["len"]
-
     def body(xc, p_l, cache_l):
         if "moe" in p_l:
             return blocks.apply_moe_block(p_l, xc, cfg, positions=positions,
@@ -369,11 +429,11 @@ def _run_dense_stack(stack: Params, x: torch.Tensor, cfg: ModelConfig, *,
     run = _maybe_remat(body, cfg, train and cache is None, rules)
     for i, p_l in enumerate(_layers(stack)):
         cache_l = None if cache is None else \
-            {"k": cache["k"][i], "v": cache["v"][i], "len": ln}
+            _view(cache, cache["k"][i], cache["v"][i])
         x = run(x, p_l, cache_l)
     if cache is None:
         return x, None
-    return x, {"k": cache["k"], "v": cache["v"], "len": ln + x.shape[1]}
+    return x, _advanced(cache, x.shape[1])
 
 
 def _attn_stacks(params: Params, cfg: ModelConfig) -> List[Params]:
@@ -392,20 +452,18 @@ def _run_attn_stacks(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """Each stack over its layers' views of the one cache (the
     reference splits the cache at ``first_dense_layers`` and
     concatenates it again); vlm's rows see its vision prefix whole."""
-    ln = 0 if cache is None else cache["len"]
     first = 0
     for stack in _attn_stacks(params, cfg):
         n = _depth(stack)
-        part = None if cache is None else {
-            "k": cache["k"][first:first + n],
-            "v": cache["v"][first:first + n], "len": ln}
+        part = None if cache is None else _view(
+            cache, cache["k"][first:first + n], cache["v"][first:first + n])
         x, _ = _run_dense_stack(stack, x, cfg, positions=positions,
                                 prefix_len=_prefix(cfg), cache=part,
                                 train=train, rules=rules)
         first += n
     if cache is None:
         return x, None
-    return x, {"k": cache["k"], "v": cache["v"], "len": ln + x.shape[1]}
+    return x, _advanced(cache, x.shape[1])
 
 
 def _run_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -433,13 +491,12 @@ def _run_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         for g in range(ng):
             x = run(x, layers[g * per:(g + 1) * per])
         return x, None
-    ln = cache["attn"]["len"]
+    attn = cache["attn"]
     states = cache["mamba"]
     if states["conv"].dtype != x.dtype:
         states = {"ssm": states["ssm"], "conv": states["conv"].to(x.dtype)}
     for g in range(ng):
-        attn_l = {"k": cache["attn"]["k"][g], "v": cache["attn"]["v"][g],
-                  "len": ln}
+        attn_l = _view(attn, attn["k"][g], attn["v"][g])
         x, _ = blocks.apply_shared_attn_block(shared, x, cfg,
                                               positions=positions,
                                               cache=attn_l, rules=rules)
@@ -449,9 +506,7 @@ def _run_hybrid(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                               state=st, rules=rules)
             for k, t in new.items():
                 set_block(states[k], (g, j), t)
-    return x, {"attn": {"k": cache["attn"]["k"], "v": cache["attn"]["v"],
-                        "len": ln + x.shape[1]},
-               "mamba": states}
+    return x, {"attn": _advanced(attn, x.shape[1]), "mamba": states}
 
 
 def _run_ssm(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -549,12 +604,9 @@ def _run_xdec(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
               rules=None) -> Tuple[torch.Tensor, Optional[Params]]:
     """The decoder stack; the cross keys and values come from ``enc``
     (``forward`` computes them per layer) or from the cache."""
-    ln = 0 if cache is None else cache["self"]["len"]
-
     def body(xc, blk, i):
-        self_cache = None if cache is None else {
-            "k": cache["self"]["k"][i], "v": cache["self"]["v"][i],
-            "len": ln}
+        self_cache = None if cache is None else _view(
+            cache["self"], cache["self"]["k"][i], cache["self"]["v"][i])
         xc = shard_act(xc, rules)
         a, _ = attention(blk["self"],
                          blocks._in_layer(apply_norm(blk["ln1"], xc, cfg),
@@ -577,8 +629,7 @@ def _run_xdec(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         x = run(x, blk, i)
     if cache is None:
         return x, None
-    return x, {"self": {"k": cache["self"]["k"], "v": cache["self"]["v"],
-                        "len": ln + x.shape[1]},
+    return x, {"self": _advanced(cache["self"], x.shape[1]),
                "cross": cache["cross"]}
 
 
@@ -594,6 +645,8 @@ def _run_family(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     fam = cfg.family
     x = shard_act(x, rules, ("batch", "seq_act", None) if cache is None
                   or x.shape[1] > 1 else ("batch", None, None))
+    if cache is not None:
+        cache = _with_rows(cache, cfg, x.shape[1])
     if fam in ("dense", "moe", "vlm"):
         return _run_attn_stacks(params, x, cfg, positions=positions,
                                 cache=cache, train=train, rules=rules)
@@ -617,7 +670,11 @@ def _run_family(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 
-def _positions(start: int, b: int, s: int, device) -> torch.Tensor:
+def _positions(start, b: int, s: int, device) -> torch.Tensor:
+    """Rows ``start .. start + s`` for each of ``b`` rows; ``start`` an int
+    or a 0-dim device tensor (read on the device)."""
+    if isinstance(start, torch.Tensor):
+        return (start + torch.arange(s, device=device)).expand(b, s)
     return torch.arange(start, start + s, device=device).expand(b, s)
 
 
@@ -642,14 +699,50 @@ def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def _cache_len(cache: Params, cfg: ModelConfig) -> int:
-    """The rows a cache holds (0 for ssm, whose decode ignores position;
-    vlm's count its vision rows)."""
+def _len_holder(cache: Params, cfg: ModelConfig) -> Optional[Params]:
+    """The attention cache that holds ``len`` (None for ssm)."""
     if cfg.family == "audio":
-        return cache["self"]["len"]
+        return cache["self"]
     if cfg.family == "hybrid":
-        return cache["attn"]["len"]
-    return cache.get("len", 0)
+        return cache["attn"]
+    return cache if "len" in cache else None
+
+
+def _cache_len(cache: Params, cfg: ModelConfig):
+    """The rows a cache holds (0 for ssm, whose decode ignores position;
+    vlm's count its vision rows): an int or a 0-dim int32 tensor."""
+    holder = _len_holder(cache, cfg)
+    return 0 if holder is None else holder["len"]
+
+
+def check_room(cache: Params, cfg: ModelConfig, rows: int, rules=None
+               ) -> Params:
+    """Raise ``ValueError`` before any row is written when ``rows`` new
+    rows would pass the cache's capacity.  A device ``len`` is read on the
+    host for it (one sync a step), except inside a CUDA graph capture,
+    where the caller checks its own host count (``launch.serve.Server``),
+    and on fake tensors.  Under ``rules`` the cache comes back with its
+    ``len`` as a host int: the sharded path runs on host lengths."""
+    holder = _len_holder(cache, cfg)
+    if holder is None:
+        return cache
+    ln = holder["len"]
+    if isinstance(ln, torch.Tensor):
+        from ..kernels.lm_ops import is_fake
+        if is_fake(ln) or (ln.device.type == "cuda"
+                           and torch.cuda.is_current_stream_capturing()):
+            return cache
+        ln = int(ln)
+        if rules is not None:
+            holder = dict(holder, len=ln)
+            if cfg.family == "audio":
+                cache = dict(cache, self=holder)
+            elif cfg.family == "hybrid":
+                cache = dict(cache, attn=holder)
+            else:
+                cache = holder
+    check_rows(ln, rows, holder["k"].shape[-3])
+    return cache
 
 
 def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
@@ -729,6 +822,8 @@ def prefill(params: Params, cfg: ModelConfig,
     for audio); returns the last position's logits (B, 1, V) and the
     cache."""
     _family(cfg)
+    cache = check_room(cache, cfg, _prefix(cfg) + batch["tokens"].shape[1],
+                       rules)
     with _sharded(rules):
         x, positions = _embed_inputs(params, batch, cfg)
         x, cache = _run_family(params, x, cfg, positions=positions,
@@ -744,6 +839,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step: tokens (B, 1) -> logits (B, 1, V), cache."""
     _family(cfg)
     b, s = tokens.shape
+    cache = check_room(cache, cfg, s, rules)
     with _sharded(rules):
         positions = _positions(_cache_len(cache, cfg), b, s, tokens.device)
         x = _embed_tokens(params, tokens, cfg, positions)

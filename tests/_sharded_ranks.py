@@ -11,6 +11,7 @@ hide the others.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -202,6 +203,154 @@ def run_moe_drop(rules, tmp):
     return {"y": y.full_tensor(), "placements": str(y.placements)}
 
 
+#: greedy decode steps after the prefill in the serve cases
+DECODE_STEPS = 3
+
+
+def _distribute(rules, tree, axes):
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.sharding import _walk
+
+    def place(t, ax):
+        if not isinstance(t, torch.Tensor) or t.dim() == 0:
+            return t
+        return distribute_tensor(t.detach(), rules.mesh,
+                                 rules.placements(ax, tuple(t.shape)),
+                                 src_data_rank=None)
+    return _walk(place, tree, axes)
+
+
+@contextlib.contextmanager
+def _routes(into):
+    """Within the block every MoE router call appends its (scores,
+    choices) to ``into``: this rank's rows, whole tensors."""
+    real = moe.router_topk
+
+    def router(xt, w, k, offload):
+        sc, idx = real(xt, w, k, offload)
+        xt, w, idx = (x.full_tensor() if hasattr(x, "full_tensor") else x
+                      for x in (xt, w, idx))
+        into.append((xt.float() @ w.float(), idx))
+        return sc, idx
+    moe.router_topk = router
+    try:
+        yield
+    finally:
+        moe.router_topk = real
+
+
+def run_serve(name, rules, cache_dtype=None):
+    """``prefill`` of the case's batch (B 4, S 16) into the decode cache
+    ``init_decode_cache`` makes (bf16 keys and values, the Server's),
+    then ``DECODE_STEPS`` greedy decode steps, unsharded and under
+    ``rules``: every step's logits, the MoE router's scores and choices
+    and the caches' keys and values at the end.  Both decode the
+    unsharded run's tokens; the sharded run's own greedy tokens are kept
+    beside them.  ``cache_dtype`` recasts the cache's keys and values."""
+    from repro_torch.data.loader import _shard_rows
+    from repro_torch.tree import tree_map
+    cfg = case_cfg(name)
+    batch = case_batch(cfg)
+    params = model.init_params(cfg, seed=0, device="cpu")
+
+    def cache():
+        c = model.init_decode_cache(cfg, B, S + DECODE_STEPS + 1,
+                                    device="cpu")
+        return c if cache_dtype is None else tree_map(
+            lambda t: t.to(cache_dtype) if t.dtype == torch.bfloat16 else t,
+            c)
+
+    out = {"logits": [], "d_logits": [], "tokens": [], "d_tokens": [],
+           "routes": [], "d_routes": []}
+    with torch.no_grad(), _routes(out["routes"]):
+        lg, c = model.prefill(params, cfg, batch, cache())
+        out["logits"].append(lg)
+        for _ in range(DECODE_STEPS):
+            nxt = lg[:, -1].argmax(-1)[:, None]
+            out["tokens"].append(nxt)
+            lg, c = model.decode_step(params, cfg, nxt, c)
+            out["logits"].append(lg)
+    with torch.no_grad(), _routes(out["d_routes"]):
+        dparams = _distribute(rules, params, model.param_axes(cfg))
+        dc = _distribute(rules, cache(), model.cache_axes(cfg))
+        lg, dc = model.prefill(dparams, cfg, _shard_batch(rules, batch), dc,
+                               rules=rules)
+        out["d_logits"].append(lg.full_tensor())
+        for nxt in out["tokens"]:
+            out["d_tokens"].append(out["d_logits"][-1][:, -1].argmax(-1))
+            lg, dc = model.decode_step(dparams, cfg, _shard_rows(rules, nxt),
+                                       dc, rules=rules)
+            out["d_logits"].append(lg.full_tensor())
+    out["cache"], out["d_cache"] = _full(c), _full(dc)
+    # a router call that saw one data shard's rows: the data shards' rows
+    # in order (model rank 0 of each)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, out["d_routes"])
+    shards = ranks[::rules.model_size()]
+    out["d_routes"] = [
+        parts[0] if parts[0][1].shape[0] == whole[1].shape[0] else
+        tuple(torch.cat(x) for x in zip(*parts))
+        for whole, parts in zip(out["routes"], zip(*shards))]
+    return out
+
+
+def run_kv_slices(rules):
+    """KV-parallel attention (``layers._sharded_attention`` on its
+    ``"kv"`` route: 5 query heads over one kv head, the model axis 2)
+    against ``flash_attention_recurrence`` with the two key slices as its
+    splits, over a float32 and a bf16 cache, at a prefill (S 16 of T 16)
+    and a decode (S 1 at q_start 18 of T 20)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import _constrain_attention_layout, \
+        _sharded_attention
+    rng = np.random.default_rng(11)
+    out = {}
+    for tag, s, t, kw in (("prefill", S, S, dict(kv_len=S, q_start=0)),
+                          ("decode", 1, 20, dict(kv_len=19, q_start=18))):
+        q = torch.from_numpy(rng.standard_normal((B, s, 5, 16)).astype(
+            np.float32))
+        k, v = (torch.from_numpy(rng.standard_normal((B, t, 1, 16)).astype(
+            np.float32)) for _ in range(2))
+        for dt in (torch.float32, torch.bfloat16):
+            kd, vd = k.to(dt), v.to(dt)
+            dq, dk, dv = (_distribute(rules, x, ("batch", None, None, None))
+                          for x in (q, kd, vd))
+            route = _constrain_attention_layout(dq, dk, dv, rules)[0]
+            with torch.no_grad():
+                got = _sharded_attention(dq, dk, dv, rules, causal=True,
+                                         prefix_len=0, **kw).full_tensor()
+            half = t // 2
+            out[f"{tag}_{str(dt)[6:]}"] = {
+                "route": route, "got": got, "v": vd,
+                "want": fa.flash_attention_recurrence(
+                    q, kd, vd, causal=True, block_k=half,
+                    bounds=[0, half], **kw),
+                "whole": fa.flash_attention_reference(q, kd, vd, causal=True,
+                                                      **kw)}
+    return out
+
+
+def run_compressed_loop(mesh, tmp, compression):
+    """``TrainLoop`` for 2 steps with ``compression``, unsharded and at
+    2 x 2: losses and the final parameters."""
+    from repro_torch.launch.train import TrainLoop
+    cfg = case_cfg("dense")
+    out = {}
+    for tag, m in (("plain", None), ("sharded", mesh)):
+        loop = TrainLoop(cfg, batch=B, seq=S, steps=2, lr=1e-3, warmup=1,
+                         ckpt_dir=os.path.join(tmp, f"ckpt_{compression}_"
+                                                    f"{tag}"),
+                         ckpt_every=100, compression=compression, mesh=m,
+                         device="cpu")
+        res = loop.run()
+        out[tag] = {"losses": [h["loss"] for h in res["history"]],
+                    "params": _full(loop.state.params),
+                    "error": _full(loop.state.comp.error)}
+    out["old"] = _full(steps.init_train_state(cfg, seed=0,
+                                              device="cpu").params)
+    return out
+
+
 def run_train_loop(mesh, tmp):
     """TrainLoop at 2 x 2 for 3 steps, with and without a failure at
     step 2, and the final state written at 2 x 2."""
@@ -261,6 +410,14 @@ def main(rank: int, world: int, tmp: str) -> None:
     # as state_sharding places them, their means over shards
     jobs += [("dense_factored", lambda: run_family(
         "dense", rules, AdamWConfig(factored_nu=True, mu_dtype="bfloat16")))]
+    jobs += [(f"serve_{name}", lambda n=name: run_serve(n, rules))
+             for name in ARCHS]
+    jobs += [(f"serve_f32_{name}", lambda n=name: run_serve(
+        n, rules, cache_dtype=torch.float32)) for name in ARCHS]
+    jobs += [("kv_slices", lambda: run_kv_slices(rules))]
+    jobs += [(f"compressed_{c}", lambda c=c: run_compressed_loop(mesh, tmp,
+                                                                 c))
+             for c in ("int8", "topk")]
     jobs += [("accum", lambda: run_accum(rules)),
              ("moe_drop", lambda: run_moe_drop(rules, tmp)),
              ("train_loop", lambda: run_train_loop(mesh, tmp))]

@@ -1514,6 +1514,180 @@ def test_flash_wgmma_reads_a_strided_cache_view_up_to_kv_len(cuda, rng):
     _assert_follows_recurrence(got, _recurrence(q, kc, vc, **kw), v[:, :kv_len])
 
 
+#: (B, S, T, H, KV, dtypes, prefix_len) of B7 calls whose start a decode
+#: cache holds on the device: qwen2.5-14b's, zamba2-2.7b's and
+#: paligemma-3b's decode (split-KV) and a prefill into an empty cache
+#: (``wgmma``), and a float32 query over a bf16 cache (FMA)
+B7_DEVICE_START_CASES = {
+    "qwen_decode": (1, 1, 300, 40, 8, "bf16", 0, 128),
+    "zamba2_decode": (1, 1, 300, 32, 32, "bf16", 0, 80),
+    "paligemma_decode": (1, 1, 400, 8, 1, "bf16", 64, 256),
+    "batch_decode": (2, 1, 2100, 40, 8, "bf16", 0, 128),
+    "zamba2_serve": (1, 1, 2081, 32, 32, "bf16", 0, 80),
+    "deepseek_serve": (1, 1, 2081, 16, 16, "bf16", 0, 128),
+    "prefill": (1, 150, 300, 10, 2, "bf16", 0, 128),
+    "f32_decode": (2, 1, 200, 10, 2, "f32_bf16_cache", 0, 64),
+}
+
+
+def _device_start_lengths(s, t, bk):
+    """kv_len values (the rows after the call): the edges, 1 (or S), one
+    tile less one, one tile, one tile plus one, a split boundary and the
+    capacity; and every other whole tile count up to the capacity (which
+    holds every split count the grid must cover: the kernel's cut is not
+    monotone in the tiles)."""
+    edges = {max(s, n) for n in (1, bk - 1, bk, bk + 1, 2 * bk, 3 * bk, t)
+             if max(s, n) <= t}
+    return sorted(edges), sorted({n for n in range(4 * bk, t, bk)
+                                  if n >= s} - edges)
+
+
+@pytest.mark.parametrize("case", list(B7_DEVICE_START_CASES))
+def test_flash_kernel_reads_its_start_on_the_device(cuda, case, rng):
+    """B7 with ``start`` a device int32 (kv_len = start + S, q_start =
+    start) gives the host-int call's output bit for bit at every length,
+    eagerly and from one CUDA graph captured once and replayed with the
+    start rewritten, over stale finite rows past kv_len; and it follows
+    the Pallas recurrence at the live length's tiles and splits: each
+    call at the edge lengths, and the whole-tile lengths' outputs
+    together for the share beyond one bf16 step (a rate: a decode row of
+    zamba2's has 2,560 outputs, three flipped roundings 0.12 %)."""
+    b, s, t, h, kvh, dtypes, prefix, dh = B7_DEVICE_START_CASES[case]
+    dtype, kv_dtype = B7_DTYPES[dtypes]
+    q, k, v = _qkv(rng, b, s, t, h, kvh, dh, dtype, kv_dtype, cuda)
+    start = torch.zeros((), dtype=torch.int32, device=cuda)
+    kw = dict(causal=True, prefix_len=prefix)
+    bk = tfa.flash_route(q.shape, k.shape, dtype, kv_len=s,
+                         **kw).block_k
+    static_q = q.clone()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfa.flash_attention(static_q, k, v, kv_len=s, start=start, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = tfa.flash_attention(static_q, k, v, kv_len=s, start=start,
+                                  **kw)
+    edges, tiles = _device_start_lengths(s, t, bk)
+    pooled = [0, 0]
+    for n in sorted(edges + tiles):
+        host = dict(kw, kv_len=n, q_start=n - s)
+        start.fill_(n - s)
+        want = tfa.flash_attention(q, k, v, **host)
+        eager = tfa.flash_attention(q, k, v, kv_len=s, start=start, **kw)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(eager, want), (case, n)
+        assert torch.equal(out, want), (case, n)
+        want = _recurrence(q, k, v, **host)
+        if dtype != torch.bfloat16:
+            torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+        elif n in edges:
+            _assert_follows_recurrence(out, want, v)
+        else:
+            off = (out.float() - want.float()).abs()
+            assert float(off.max()) <= 2 ** -8 * float(v.float().abs().max())
+            pooled[0] += int((off > 1e-6 + 2 ** -7 * want.float().abs()).sum())
+            pooled[1] += off.numel()
+    assert pooled[0] <= 1e-3 * pooled[1], pooled
+
+
+def test_flash_kernel_device_start_contract(cuda, rng):
+    """A device start is a 0-dim int32 on q's device, with kv_len given;
+    it serves inference only (no autograd, no fake tensors)."""
+    q, k, v = _qkv(rng, 1, 1, 64, 4, 2, 64, torch.bfloat16, torch.bfloat16,
+                   cuda)
+    start = torch.zeros((), dtype=torch.int32, device=cuda)
+    for bad in (start.long(), start.cpu(), start[None]):
+        with pytest.raises(ValueError, match="start"):
+            tfa.flash_attention(q, k, v, kv_len=1, start=bad)
+    with pytest.raises(ValueError, match="start"):
+        tfa.flash_attention(q, k, v, start=start)
+    with pytest.raises(ValueError, match="inference"):
+        tfa.flash_attention(q.float().requires_grad_(), k, v, kv_len=1,
+                            start=start)
+
+
+GRAPHED_FAMILIES = ["qwen2.5-14b", "deepseek-moe-16b", "whisper-medium",
+                    "xlstm-125m", "zamba2-2.7b", "paligemma-3b"]
+
+
+def _eager_stream(cfg, params, prompt, max_new, max_len, device):
+    """One request through the step functions, eagerly, from a fresh
+    cache: (tokens, each step's last-position logits)."""
+    from repro_torch.models import model as tm
+    from repro_torch.models import steps
+    batch = {"tokens": torch.as_tensor(np.asarray(prompt, np.int64),
+                                       device=device)[None]}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.zeros((1, cfg.n_vision_tokens, cfg.d_model),
+                                      dtype=torch.bfloat16, device=device)
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((1, cfg.encoder_seq, cfg.d_model),
+                                      dtype=torch.bfloat16, device=device)
+    cache = tm.init_decode_cache(cfg, 1, max_len, device=device)
+    logits, cache = steps.make_prefill_step(cfg)(params, batch, cache)
+    seen = [logits[:, -1].clone()]
+    out = [int(torch.argmax(logits[0, -1]))]
+    decode = steps.make_decode_step(cfg)
+    while len(out) < max_new:
+        tok = torch.tensor([[out[-1]]], device=device)
+        logits, cache = decode(params, tok, cache)
+        seen.append(logits[:, -1].clone())
+        out.append(int(torch.argmax(logits[0, -1])))
+    return out, seen
+
+
+@pytest.mark.parametrize("arch", GRAPHED_FAMILIES)
+def test_graphed_server_equals_the_eager_steps(cuda, arch):
+    """On the card the Server prefills through one captured CUDA graph a
+    prompt length and decodes through one a slot: six requests of four
+    prompt lengths well below ``max_len`` (live kv tiles 1 to 3 of the
+    4 its 200 rows hold) over two slots give the eager steps' greedy
+    tokens, and the first request's prefill logits and first four decode
+    steps' logits are bit-identical to the eager calls' (each smoke
+    config, random weights from seed 0)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import model as tm
+    cfg = get_smoke_config(arch)
+    params = tm.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(2)
+    max_new, max_len = 6, 200
+    reqs = [tserve.Request(rid=r, prompt=rng.integers(1, cfg.vocab,
+                                                      (12, 7, 70, 130)[r % 4]),
+                           max_new=max_new) for r in range(6)]
+    srv = tserve.Server(cfg, params, batch=2, max_len=max_len, device=cuda)
+    seen = {}
+    prefill, decode = srv._prefill_slot, srv._decode_slot
+
+    def prefill_slot(i, req):
+        lg = prefill(i, req)
+        seen.setdefault(req.rid, []).append(lg[:, -1].clone())
+        return lg
+
+    def decode_slot(i, token):
+        lg = decode(i, token)
+        seen[srv.slots[i].rid].append(lg[:, -1].clone())
+        return lg
+    srv._prefill_slot, srv._decode_slot = prefill_slot, decode_slot
+    for r in reqs:
+        srv.submit(r)
+    assert srv.run()["completed"] == 6
+    g = srv.graph_stats()
+    assert g["prefill_graphs"] == 4 and g["decode_graphs"] == 2
+    assert [n for n, _ in g["prefill_capture_s"]] == [12, 7, 70, 130]
+    assert srv.pool_bytes() > 0
+    for r in reqs:
+        want, logits = _eager_stream(cfg, params, r.prompt, max_new, max_len,
+                                     cuda)
+        assert r.out == want, r.rid
+        if r.rid == 0:
+            for i in range(5):
+                assert torch.equal(seen[0][i], logits[i]), i
+
+
 def test_server_on_the_card_matches_cpu(cuda):
     from repro_torch.launch import serve as tserve
     from repro_torch.models import model as tm
@@ -1530,13 +1704,16 @@ def test_server_on_the_card_matches_cpu(cuda):
             srv.submit(r)
         tcs.reset_launch_counts()
         stats = srv.run()
-        return [r.out for r in reqs], stats, tcs.LAUNCHES["flash_attention"]
+        return ([r.out for r in reqs], srv.graph_stats(),
+                tcs.LAUNCHES["flash_attention"])
 
-    got, stats, launches = serve(params, cuda)
+    got, graphs, launches = serve(params, cuda)
     want, _, _ = serve(cpu_params, "cpu")
     assert got == want
-    assert launches == cfg.n_layers * (stats["prefills"]
-                                       + stats["decode_steps"]) == 3 * 15
+    # on the card each layer's B7 is called at each graph's warm-up and
+    # capture (one prefill graph, a decode graph a slot), not at replay
+    assert graphs["prefill_graphs"] == 1 and graphs["decode_graphs"] == 2
+    assert launches == 2 * cfg.n_layers * 3
 
 
 # ---------------------------------------------------------------------------

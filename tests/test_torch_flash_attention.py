@@ -316,6 +316,44 @@ def test_route_rule_at_head_dims_80_and_256(dh, s, h, kvh, t, kw, name,
             per > 1
 
 
+@pytest.mark.parametrize("b,h,kvh,dh,t,prefix", [
+    (1, 40, 8, 128, 2081, 0),      # qwen2.5-14b decode
+    (2, 40, 8, 128, 2100, 0),      # its batch of 2
+    (1, 40, 8, 128, 4200, 0),      # past 64 tiles
+    (1, 32, 32, 80, 2081, 0),      # zamba2-2.7b (aim 8)
+    (1, 16, 16, 128, 2081, 0),     # deepseek-moe-16b (aim 16)
+    (1, 8, 1, 256, 2337, 256),     # paligemma-3b, its vision prefix
+])
+def test_device_start_grid_holds_every_live_length(b, h, kvh, dh, t, prefix):
+    """A call with a device start sizes the split-KV grid before the live
+    length is known: for every live tile count up to the view's capacity
+    the kernel's cut (``flash_route``'s splits at that length) fits the
+    grid, so no split of live tiles goes unlaunched.  The cut is not
+    monotone in the tile count, so the capacity's own cut would not do:
+    at zamba2's aim of 8, 33 tiles cut into 7 splits and 8 tiles into 8."""
+    q_shape, k_shape = (b, 1, h, dh), (b, t, kvh, dh)
+    grid = tfa.device_start_splits(q_shape, k_shape, torch.bfloat16,
+                                   causal=True, prefix_len=prefix)
+    cap = tfa.flash_route(q_shape, k_shape, torch.bfloat16,
+                          prefix_len=prefix, kv_len=t, q_start=t - 1)
+    bk, n_cap = cap.block_k, -(-t // cap.block_k)
+    assert grid * b * kvh <= max(tfa.FLASH_SPLIT_BLOCKS, b * kvh)
+    cuts = []
+    for n in range(1, n_cap + 1):
+        kv_len = max(min(n * bk, t), prefix + 1)
+        route = tfa.flash_route(q_shape, k_shape, torch.bfloat16,
+                                prefix_len=prefix, kv_len=kv_len,
+                                q_start=kv_len - 1)
+        cuts.append(route.splits)
+    assert max(cuts) <= grid
+    assert max(cuts) == grid
+    if (kvh, dh) == (32, 80):
+        assert cap.splits == 7 and cuts[7] == 8 == grid
+    assert tfa.device_start_splits(
+        (b, 65, h, dh), k_shape, torch.bfloat16) is None
+    assert tfa.device_start_splits(q_shape, k_shape, torch.float32) is None
+
+
 # ---------------------------------------------------------------------------
 # The backward's route rule (flash_bwd_route)
 # ---------------------------------------------------------------------------

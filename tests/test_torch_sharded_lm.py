@@ -34,6 +34,32 @@ module), against the port's unsharded path and the reference.
   mesh block for block (into a sharded template, and into a plain one
   by ``shardings=``).
 
+* Serving: ``prefill(rules=)`` (B 4, S 16) and three greedy
+  ``decode_step(rules=)`` calls of every family against the unsharded
+  port on the same tokens, over the decode cache ``init_decode_cache``
+  makes (bf16 keys and values under float32 compute, the Server's) and
+  over the same cache in float32.  Float32 cache: every step's logits
+  within 1e-5 of the largest (at least 1), all eight cases.  Bf16 cache:
+  the same for dense, moe, audio, hybrid and ssm; vlm and moe_whole are
+  off by 1.6e-5 and 2.9e-4 where the float32 cache agrees, so their
+  residue is bf16 rounding near-ties (a cache entry or a probability
+  within float32 summation noise of a bf16 rounding boundary: one bf16
+  step of the entry; vlm's differing cache entries are checked to be
+  exactly that), held to the repo's rule for float32 queries over a bf16
+  cache (5e-3, ``test_torch_lm_families.py``); dense_kv, KV-parallel, is
+  off by 0.021 by design: each key slice's B7 call rounds its
+  probabilities against its own row statistics, as split-KV decode's
+  splits do, so it is held to one bf16 step of the logits (2^-7 of the
+  largest).  The greedy tokens are equal in every case.
+* KV-parallel attention (``_sharded_attention``'s ``"kv"`` route) held to
+  ``flash_attention_recurrence`` with the two key slices as its splits
+  (``bounds``): within 1e-5 over a float32 cache, and within one bf16
+  step of a probability times max|v| over a bf16 one.
+* ``TrainLoop(mesh=, compression=)`` at 2 x 2 with ``"int8"`` and
+  ``"topk"``: two steps against the unsharded compressed loop, losses
+  within 1e-5 and each parameter's change within 1e-4 of its norm; the
+  residual is replicated (whole on every rank).
+
 (Gradient accumulation against the reference: ``test_torch_accumulation.py``.)
 
 ``python tests/test_torch_sharded_lm.py --ref-moe DIR`` is the child:
@@ -144,6 +170,99 @@ def test_sharded_microbatches_with_ragged_masks_equal_the_unsharded(ranks):
     for path, g in out["grads"].items():
         err = (out["d_grads"][path] - g).abs().max()
         assert err <= 1e-4 * g.norm() + 1e-6, (path, float(err))
+
+
+SERVE_CASES = ["dense", "dense_kv", "moe", "moe_whole", "vlm", "audio",
+               "hybrid", "ssm"]
+#: cases whose bf16-cache residue is bf16 rounding near-ties (the float32
+#: cache agrees within 1e-5): the repo's float32-over-bf16-cache bound
+BF16_NEAR_TIE = {"moe_whole", "vlm"}
+BF16_CACHE_ATOL = 5e-3
+
+
+def _serve_errors(out):
+    assert len(out["logits"]) == len(out["d_logits"]) == 4
+    errs = [float((b - a).abs().max())
+            for a, b in zip(out["logits"], out["d_logits"])]
+    top = max(float(a.abs().max()) for a in out["logits"])
+    for a, b in zip(out["tokens"], out["d_tokens"]):
+        assert torch.equal(a[:, 0], b)
+    return errs, top
+
+
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_sharded_serve_steps_over_a_float32_cache(ranks, case):
+    errs, top = _serve_errors(_ok(ranks[0], f"serve_f32_{case}"))
+    assert max(errs) <= 1e-5 * max(1.0, top), errs
+
+
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_sharded_serve_steps_over_the_servers_bf16_cache(ranks, case):
+    out = _ok(ranks[0], f"serve_{case}")
+    # the self-attention caches (audio's cross keys and values come back
+    # in the compute dtype, as the reference's prefill writes them)
+    kv = [p for p in out["cache"] if p.split("/")[-1] in ("k", "v")
+          and not p.startswith("cross")]
+    assert all(out["cache"][p].dtype == torch.bfloat16 for p in kv)
+    assert kv or case == "ssm"
+    errs, top = _serve_errors(out)
+    if case == "dense_kv":
+        # by design: each key slice rounds against its own row statistics
+        assert max(errs) <= 2.0 ** -7 * top, errs
+        assert max(errs) > 1e-5 * top
+    elif case in BF16_NEAR_TIE:
+        assert max(errs) <= BF16_CACHE_ATOL, errs
+    else:
+        assert max(errs) <= 1e-5 * max(1.0, top), errs
+    if case == "vlm":
+        # its few differing cache entries: one bf16 step of the entry
+        # apart, or (near zero) float32 summation noise of the tensor
+        for path in ("k", "v"):
+            a, b = out["cache"][path].float(), out["d_cache"][path].float()
+            diff = (a != b).nonzero(as_tuple=True)
+            assert 0 < diff[0].numel() <= 4, path
+            step = torch.maximum(a[diff].abs(), b[diff].abs())
+            ulp = torch.exp2(torch.floor(torch.log2(step)) - 7)
+            noise = 1e-6 * float(a.abs().max())
+            assert bool(((a[diff] - b[diff]).abs()
+                         <= torch.clamp(ulp, min=noise)).all()), path
+    if case in ("moe", "moe_whole"):
+        # the router picked the same experts for every token
+        assert len(out["routes"]) == len(out["d_routes"])
+        for (_, want), (_, got) in zip(out["routes"], out["d_routes"]):
+            assert torch.equal(got, want)
+
+
+def test_kv_parallel_attention_follows_the_sliced_recurrence(ranks):
+    out = _ok(ranks[0], "kv_slices")
+    for tag in ("prefill", "decode"):
+        f32, bf = out[f"{tag}_float32"], out[f"{tag}_bfloat16"]
+        assert f32["route"] == bf["route"] == "kv"
+        torch.testing.assert_close(f32["got"], f32["want"], atol=1e-5,
+                                   rtol=1e-5)
+        off = float((bf["got"] - bf["want"]).abs().max())
+        assert off <= 2.0 ** -8 * float(bf["v"].float().abs().max()), off
+
+
+@pytest.mark.parametrize("compression", ["int8", "topk"])
+def test_compressed_train_loop_at_2x2_equals_the_unsharded(ranks,
+                                                           compression):
+    out = _ok(ranks[0], f"compressed_{compression}")
+    plain, sharded = out["plain"], out["sharded"]
+    assert len(plain["losses"]) == len(sharded["losses"]) == 2
+    for a, b in zip(plain["losses"], sharded["losses"]):
+        assert abs(a - b) <= 1e-5
+    assert set(sharded["params"]) == set(plain["params"])
+    for path, want in plain["params"].items():
+        old = out["old"][path]
+        change, got = want - old, sharded["params"][path] - old
+        assert change.norm() > 0, path
+        err = (got - change).abs().max()
+        assert err <= 1e-4 * change.norm(), (path, float(err))
+    assert set(sharded["error"]) == set(plain["error"])
+    for path, want in plain["error"].items():
+        got = sharded["error"][path]
+        assert got.shape == want.shape and not hasattr(got, "placements")
 
 
 def test_heads_the_model_axis_does_not_divide_take_the_kv_route(ranks):
