@@ -171,13 +171,30 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        (``prefix_len`` 256), B7 exactly 18 x 128 times at
                        dh 256; float32 at depth 2 over random vision rows
                        against the plain versions;
+* ``dense_configs_serve`` — the dense configurations no other phase
+                       serves, one at a time at full width: chatglm3-6b
+                       (28 layers; half-rotary RoPE, QKV bias, 32 heads
+                       over 2: 16 folded rows a kv head at decode),
+                       qwen1.5-32b (64 layers, MHA 40 over 40, 70.4 GB)
+                       and mistral-large-123b (96 over 8, depth cut to 24
+                       of 88 layers, ``reduced``), each through the
+                       graphed Server over four prompts (one at B7's
+                       split-KV limit, one a token past it, 700 and 500
+                       tokens; 16 new each, batch 2) held to the eager
+                       steps, B7 at both prefill routes and at decode
+                       held to its plain version and timed, B7 reading
+                       its start from the device over the decode cache,
+                       float32 at depth 2 against the plain versions; and
+                       chatglm3-6b over two prompts of 32,704 tokens, 64
+                       new each (``decode_32k``'s length at batch 2,
+                       ``reduced``), B7 held at that prefill and decode;
 * ``lm_train``       — the train path: qwen2.5-14b at full width, depth
                        cut to 6 of 48 layers (``reduced``: AdamW's state
                        is 16 bytes a parameter, 51 GB at 6 layers),
                        ``launch.train.TrainLoop`` for 18 steps of 4 x 2048
                        ``TokenStream`` tokens (lr 3e-4, warmup 2, remat
-                       ``"full"``, one checkpoint at the last step,
-                       ``keep=1``): the last three losses'
+                       ``"full"``, no checkpoint: ``examples`` checkpoints
+                       and restores): the last three losses'
                        mean must fall 0.2 below the first three's and
                        below their lowest (the loss spikes after warmup
                        at this lr and width), the peak stay under 75 GB,
@@ -202,7 +219,15 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        (encoder and cross),
                        zamba2's and paligemma's (1 and 4 rows) shapes and
                        at dh 96 (bf16 and float32), timed beside SDPA's
-                       backward.
+                       backward;
+* ``examples``       — the twins of the reference's examples
+                       (``examples/port_*.py``) in process at the
+                       reference's defaults, each failing the phase on
+                       its own asserts and on a kernel of its path not
+                       launched (or one outside it launched);
+                       ``port_train_lm.py`` at 30 steps with a failure at
+                       20 and a checkpoint every 10, plain (xlstm-125m)
+                       and ``--moe`` (B7, B7b and B2 as the router).
 
 For each phase it sets the kernels' launch counts to 0, runs the path,
 reads the counts (a kernel of the path with no launch fails the run),
@@ -364,14 +389,70 @@ HYBRID_CHECK_LAYERS = 12
 MAMBA_CHECK_ROWS, MAMBA_F32_ATOL = 300, 2e-3
 VLM_ARCH, VLM_OVERRIDES = "paligemma-3b", {}
 VLM_CHECK_LAYERS = 2
+#: dense_configs_serve: each of DENSE_ARCHS (with its overrides) served
+#: through the graphed Server, one at a time: SERVE_BATCH slots, greedy,
+#: DENSE_NEW new tokens for each of four prompts: one at B7's split-KV
+#: limit (FLASH_SPLITKV_ROWS rows a kv head over the GQA group: its
+#: prefill takes split-KV with causal rows), one a token past it (the
+#: wgmma kernel) and two of DENSE_PROMPT tokens (the second replays the
+#: first's captured graph, so the graphed prefill is timed at that
+#: length); the float32 check at depth
+#: DENSE_CHECK_LAYERS over CHECK_PREFILL + CHECK_DECODE tokens.
+#: mistral-large-123b's depth is cut (reduced: 88 layers are 244 GB in
+#: bf16, 24 are 68 GB); the others are whole.  DENSE_LONG_ARCH also
+#: serves DENSE_LONG_REQUESTS prompts of DENSE_LONG_PROMPT tokens,
+#: DENSE_LONG_NEW new tokens each: launch/specs.py decode_32k's 32,768
+#: rows, its batch cut from 128 to 2 (reduced: 128 slots of chatglm3-6b's
+#: cache are 120 GB)
+DENSE_ARCHS = {"chatglm3-6b": {}, "qwen1.5-32b": {},
+               "mistral-large-123b": dict(n_layers=24)}
+DENSE_PROMPT, DENSE_NEW, DENSE_CHECK_LAYERS = 700, 16, 2
+DENSE_LONG_ARCH = "chatglm3-6b"
+DENSE_LONG_REQUESTS, DENSE_LONG_PROMPT, DENSE_LONG_NEW = 2, 32704, 64
+#: examples: the twins of the reference's examples (examples/port_*.py)
+#: run in process at the reference's defaults, each with the kernels it
+#: must launch; each kernel's first call in the run (B7's first prefill
+#: and first decode) is kept and held to its plain version after it
+#: (``example_checks``), and each twin checks its own results.
+#: port_train_lm at EXAMPLE_TRAIN_ARGS, the CPU test's cut: 14 steps
+#: (xlstm-125m's eager sLSTM loop takes about 6 s a step), the failure at
+#: 8, a checkpoint every 4 (with the reference's 50 no checkpoint precedes
+#: the failure, and the restore finds none)
+EXAMPLE_TRAIN_ARGS = ["--steps", "14", "--fail-at", "8", "--ckpt-every",
+                      "4"]
+EXAMPLES = (("dse_sweep", [], ()),
+            ("forest_inference", [], ("acam_match",)),
+            ("hdc_mnist", [], ("hdc_encode", "fused_topk_packed")),
+            ("moe_router_offload", [], ("fused_topk",)),
+            ("serve_lm", [], ("flash_attention",)),
+            ("tcam_wildcard", [], ("fused_topk_packed_ternary",)),
+            ("train_lm", EXAMPLE_TRAIN_ARGS, ()),
+            ("train_lm", ["--moe"] + EXAMPLE_TRAIN_ARGS,
+             ("flash_attention", "flash_attention_bwd", "fused_topk")))
+#: each kernel a twin launches: its source under kernels/csrc/ and the
+#: reference kernel it replaces under src/repro/kernels/
+EXAMPLE_KERNELS = {
+    "acam_match": ("acam_match.cu", "acam.py:121"),
+    "hdc_encode": ("hdc_encode.cu", "hdc_encode.py:87"),
+    "fused_topk_packed": ("fused_topk_packed.cu", "cam_search.py:304"),
+    "fused_topk_packed_ternary": ("fused_topk_packed.cu",
+                                  "cam_search.py:304"),
+    "fused_topk": ("fused_topk.cu", "cam_search.py:200"),
+    "flash_attention": ("flash_attention.cu", "flash_attention.py:124"),
+    "flash_attention_bwd": ("flash_attention_bwd.cu",
+                            "flash_attention.py:124 (its backward: the "
+                            "reference differentiates "
+                            "src/repro/models/layers.py:167)")}
 #: lm_train: TRAIN_ARCH at its full width, depth cut by TRAIN_OVERRIDES
 #: (AdamW's float32 master and moments, the bf16 parameters and their
 #: gradients are about 16 bytes a parameter: 51 GB at 6 of 48 layers),
 #: trained by ``launch.train.TrainLoop`` for TRAIN_STEPS steps of
 #: TRAIN_BATCH x TRAIN_SEQ tokens (lr TRAIN_LR, TRAIN_WARMUP warmup steps,
-#: a checkpoint every TRAIN_CKPT_EVERY, one kept on disk: one 45 GB
-#: checkpoint at the last step, cut from two to keep the smoke within
-#: half its time limit beside the graphed serve phases); the mean loss
+#: a checkpoint every TRAIN_CKPT_EVERY, one kept on disk: past the last
+#: step, so none is written; the 45 GB checkpoints, two and then one,
+#: were cut to keep the smoke within its time limit beside the graphed
+#: serve phases, the dense configurations and the examples, whose
+#: port_train_lm run checkpoints and restores); the mean loss
 #: of the last three steps must sit TRAIN_LOSS_DROP below the first
 #: three's (tests/test_integration.py) and below the lowest of them, and
 #: the peak under TRAIN_PEAK_GB; float32 gradients at depth
@@ -381,7 +462,7 @@ VLM_CHECK_LAYERS = 2
 #: one state bit for bit
 TRAIN_ARCH, TRAIN_OVERRIDES = "qwen2.5-14b", dict(n_layers=6)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 18
-TRAIN_LR, TRAIN_WARMUP, TRAIN_CKPT_EVERY = 3e-4, 2, 18
+TRAIN_LR, TRAIN_WARMUP, TRAIN_CKPT_EVERY = 3e-4, 2, TRAIN_STEPS + 1
 TRAIN_LOSS_DROP, TRAIN_PEAK_GB = 0.2, 75.0
 GRAD_CHECK_LAYERS, GRAD_CHECK_TOKENS = 2, 512
 GRAD_LOSS_ATOL, GRAD_RTOL = 1e-5, 1e-4
@@ -4082,7 +4163,9 @@ def b7_check(what, q, k, v, kw):
     route's kv tiles and splits (the 0.05 ceiling is as large as a long
     decode's outputs, so each case is also held in steps of its own
     outputs' size), then in float32 on the same shapes, the cache cut to
-    ``F32_CUT_ROWS``, within ``B7_F32_ATOL``.  Returns the record."""
+    ``F32_CUT_ROWS`` (and a longer causal prefill's query rows with it: its
+    first rows see no column past the cut), within ``B7_F32_ATOL``.
+    Returns the record."""
     from repro_torch.kernels import flash_attention as fa
     got = fa.flash_attention(q, k, v, **kw)
     want = fa.flash_attention_reference(q, k, v, **kw)
@@ -4103,10 +4186,12 @@ def b7_check(what, q, k, v, kw):
             f"(bound {B7_REC_MAX_OF_V * v_max})")
     del rec, off
     cut = min(k.shape[1], F32_CUT_ROWS)
+    rows = min(q.shape[1], cut)
     kw32 = dict(kw)
     kw32["kv_len"] = min(kw.get("kv_len") or k.shape[1], cut)
-    kw32["q_start"] = min(kw.get("q_start", 0), kw32["kv_len"] - q.shape[1])
-    q32, k32, v32 = (x.float() for x in (q, k[:, :cut], v[:, :cut]))
+    kw32["q_start"] = min(kw.get("q_start", 0), kw32["kv_len"] - rows)
+    q32, k32, v32 = (x.float() for x in (q[:, :rows], k[:, :cut],
+                                         v[:, :cut]))
     got32 = fa.flash_attention(q32, k32, v32, **kw32)
     want32 = fa.flash_attention_reference(q32, k32, v32, **kw32)
     err32 = float((got32 - want32).abs().max())
@@ -4119,7 +4204,7 @@ def b7_check(what, q, k, v, kw):
             "max_abs_want": float(want.float().abs().max()),
             "recurrence_max_abs_err": rec_max,
             "recurrence_beyond_one_step": beyond, "f32_kv_rows": cut,
-            "f32_max_abs_err": err32}
+            "f32_q_rows": rows, "f32_max_abs_err": err32}
 
 
 def b7_timing(q, k, v, kw):
@@ -4273,13 +4358,17 @@ def serve_requests(cfg, params, prompts, max_new, batch, max_len,
     (``graphed_launches``).  Then every request again through the eager
     steps from a fresh cache (within ``eager_ctx()``; skipped with
     ``eager=False``): the greedy tokens must be equal and request 0's
-    prefill and first four decode steps' logits bit-identical.  Returns (token lists, stats, counts); stats
-    gains ``graphs`` (``Server.graph_stats`` and ``pool_bytes``),
-    ``graphed`` and ``eager``
-    ms a prefill and a decode token (median, p90; the graphed ones
-    without the steps that captured), and, with ``profile`` (a
+    prefill and first four decode steps' logits bit-identical.  Returns
+    (token lists, stats, counts); stats gains ``graphs``
+    (``Server.graph_stats`` and ``pool_bytes``), ``graphed`` and
+    ``eager`` ms a prefill and a decode token (median, p90; the graphed
+    ones without the steps that captured), the same for a prefill by
+    prompt length (``prefill_by_len``: a length's graphed time needs a
+    second prompt of that length, the first captures), and, with
+    ``profile`` (a
     ``Smoke``), the device kernels of one replay of each graph.  Fails
     on a missing or out-of-range token or any mismatch."""
+    import gc
     import torch
     from repro_torch.kernels import cam_search
     from repro_torch.launch.serve import Request, Server
@@ -4288,7 +4377,7 @@ def serve_requests(cfg, params, prompts, max_new, batch, max_len,
             for r, p in enumerate(prompts)]
     for r in reqs:
         srv.submit(r)
-    seen, times = {}, {"prefill": [], "decode": []}
+    seen, times, by_len = {}, {"prefill": [], "decode": []}, {}
     real = {"prefill": srv._prefill_slot, "decode": srv._decode_slot}
 
     def timed(kind):
@@ -4303,6 +4392,8 @@ def serve_requests(cfg, params, prompts, max_new, batch, max_len,
                 seen[0].append(lg[:, -1].clone())
             if srv.graph_stats() == n:        # a replay, not a capture
                 times[kind].append(ms)
+                if kind == "prefill":
+                    by_len.setdefault(len(arg.prompt), []).append(ms)
             return lg
         return step
     srv._prefill_slot, srv._decode_slot = timed("prefill"), timed("decode")
@@ -4328,8 +4419,11 @@ def serve_requests(cfg, params, prompts, max_new, batch, max_len,
         if profile_prefill:
             replay["prefill"] = profile.profile(
                 next(iter(srv._prefill_steps.values()))[1], [])
-    del srv
-    eager_ms = {"prefill": [], "decode": []}
+    # the timed wrappers close over the Server's own methods: collect the
+    # cycle, so its caches and graph pool go back before the eager run
+    del srv, real
+    gc.collect()
+    eager_ms, eager_by_len = {"prefill": [], "decode": []}, {}
     with eager_ctx():
         for r in (reqs if eager else []):
             toks, logits, pre, dec = eager_request(cfg, params, r.prompt,
@@ -4344,11 +4438,15 @@ def serve_requests(cfg, params, prompts, max_new, batch, max_len,
                     raise RuntimeError(f"{cfg.name}: graphed logits not "
                                        f"bit-identical to eager: {same}")
             eager_ms["prefill"].append(pre)
+            eager_by_len.setdefault(len(r.prompt), []).append(pre)
             eager_ms["decode"] += dec
     stats.update(
         graphs=graphs, bit_identical_steps=len(seen[0]) if eager else 0,
         graphed={k: _ms_stats(v) for k, v in times.items()},
         eager={k: _ms_stats(v) for k, v in eager_ms.items()},
+        prefill_by_len={n: {"graphed": _ms_stats(by_len.get(n, [])),
+                            "eager": _ms_stats(eager_by_len.get(n, []))}
+                        for n in sorted({len(r.prompt) for r in reqs})},
         replay_kernels={k: v.get("device_ops") for k, v in replay.items()},
         replay_profile=replay)
     return [r.out for r in reqs], stats, counts
@@ -4358,11 +4456,16 @@ def print_graphed(phase, stats):
     """One line: a graphed serve run's ms a prefill and a decode token
     (median, p90) beside the eager steps', the device kernels of one
     replay (the profiler's count: the wrappers count at capture), the
-    capture seconds and the graphs' pool bytes."""
+    capture seconds and the graphs' pool bytes; then the median prefill
+    ms by prompt length, graphed (None: that length only captured) and
+    eager."""
     g, gr, ea = stats["graphs"], stats["graphed"], stats["eager"]
+    by_len = {n: (t["graphed"]["median"], t["eager"]["median"])
+              for n, t in stats["prefill_by_len"].items()}
     print(f"serve graphed {phase}: prefill ms median {gr['prefill']['median']}"
           f" p90 {gr['prefill']['p90']} (eager {ea['prefill']['median']} / "
-          f"{ea['prefill']['p90']}); decode ms a token median "
+          f"{ea['prefill']['p90']}); by prompt length (graphed, eager): "
+          f"{by_len}; decode ms a token median "
           f"{gr['decode']['median']} p90 {gr['decode']['p90']} (eager "
           f"{ea['decode']['median']} / {ea['decode']['p90']}); device "
           f"kernels a replay {stats['replay_kernels']} (profiler); "
@@ -4376,7 +4479,8 @@ def print_graphed(phase, stats):
 def graphed_record(stats):
     """The graphed run's numbers for a phase's log."""
     return {k: stats[k] for k in ("graphs", "graphed", "eager",
-                                  "replay_kernels", "bit_identical_steps")}
+                                  "prefill_by_len", "replay_kernels",
+                                  "bit_identical_steps")}
 
 
 def graphed_launches(stats, per_prefill, per_decode):
@@ -4389,15 +4493,17 @@ def graphed_launches(stats, per_prefill, per_decode):
                 + per_decode * g["decode_graphs"])
 
 
-def b7_device_len_check(what, q, k, v, kw):
+def b7_device_len_check(what, q, k, v, kw, whole_tiles=True):
     """B7 reading its start from the device (``start``: the cache's rows
     before the call, kv_len = start + S): captured once in a CUDA graph
     over the decode operands ``q`` (B, S, H, dh) and the cache views ``k``
     / ``v`` (B, T, KV, dh), then replayed with the start rewritten so
     that kv_len is 1 (or S), one tile less one, one tile, one tile plus
-    one, the first split boundary at the capacity's cut, T, and every
-    whole tile count between (every split count the grid must hold: the
-    kernel's cut is not monotone in the tiles).  Each replay is
+    one, the first split boundary at the capacity's cut, T, and, with
+    ``whole_tiles``, every whole tile count between (every split count
+    the grid must hold: the kernel's cut is not monotone in the tiles;
+    the CPU test ``test_device_start_grid_holds_every_live_length``
+    covers them at any capacity).  Each replay is
     bit-identical to the host-int call and within one bf16 step of a
     probability times max|v| of the Pallas recurrence at the live
     length's tiles and splits.  At most ``B7_REC_BEYOND`` of the outputs
@@ -4416,7 +4522,8 @@ def b7_device_len_check(what, q, k, v, kw):
     boundary = -(-n_tiles // (cap.splits or 1)) * bk
     edges = {max(s, n) for n in (1, bk - 1, bk, bk + 1, boundary, t)
              if max(s, n) <= t}
-    tiles = {n for n in range(2 * bk, t, bk) if n >= s} - edges
+    tiles = {n for n in range(2 * bk, t, bk) if n >= s and whole_tiles} \
+        - edges
     start = torch.zeros((), dtype=torch.int32, device=q.device)
     call = dict(causal=True, prefix_len=prefix, kv_len=s, start=start)
     side = torch.cuda.Stream()
@@ -5445,6 +5552,204 @@ def phase_vlm_serve(s: Smoke):
 
 
 # ---------------------------------------------------------------------------
+# the dense configurations no other phase serves
+# ---------------------------------------------------------------------------
+
+
+def _dense_b7_operands(cfg, params, named_prompts, max_len):
+    """B7's operands of attention layer 0 in an untimed prefill of each
+    ``(name, prompt, decode_name)`` of ``named_prompts`` into a fresh cache
+    of ``max_len`` rows, and, where ``decode_name`` is given, in the first
+    decode step after it; a device start folded into the kwargs' ints."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as tm
+    dev = params["embed"]["tok"].device
+    out = {}
+    for name, prompt, decode in named_prompts:
+        wanted = {0: name}
+        if decode:
+            wanted[cfg.n_layers] = decode
+        toks = torch.as_tensor(prompt, device=dev)[None]
+        with intercept(fa, "flash_attention", operands(wanted)) as kept:
+            lg, cache = tm.prefill(params, cfg, {"tokens": toks},
+                                   tm.init_decode_cache(cfg, 1, max_len))
+            if decode:
+                tm.decode_step(params, cfg,
+                               torch.argmax(lg[:, -1], -1)[:, None], cache)
+        got = {n: ops for n, ops in kept if n}
+        if len(got) != len(wanted):
+            raise RuntimeError(f"{cfg.name}: captured {sorted(got)} of "
+                               f"{len(kept)} B7 calls")
+        out.update(got)
+        del cache, kept
+    return out
+
+
+def _dense_b7(what, cfg, captured, routes):
+    """Each captured call held to its plain version and the recurrence
+    (``b7_check``), timed beside SDPA (``b7_timing``), its route the one
+    ``routes`` names.  Returns (checks, timed shapes), keyed
+    ``<model>_<call>``."""
+    short = cfg.name.split("-")[0]
+    checks, shapes = {}, {}
+    for name, ops in captured.items():
+        rec = b7_check(f"{what} {name}", *ops)
+        if rec["route"] != routes[name]:
+            raise RuntimeError(f"{what} {name}: B7 took {rec['route']}, "
+                               f"not {routes[name]}: {rec['q']} {rec['kw']}")
+        checks[f"{short}_{name}"] = rec
+        shapes[f"{short}_{name}"] = b7_timing(*ops)
+    return checks, shapes
+
+
+def _dense_config(s: Smoke, arch, overrides):
+    """One configuration of ``DENSE_ARCHS`` at full width: served through
+    the graphed Server against the eager steps (launches exact), B7 at
+    both prefill routes and at decode held to its plain version and timed,
+    B7 read at a device start over the decode cache, and, for
+    ``DENSE_LONG_ARCH``, the long requests with B7 held at their prefill
+    and decode; then float32 at depth ``DENSE_CHECK_LAYERS`` against the
+    plain versions.  Returns (log, B7 launches, checks, timed shapes)."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as tm
+
+    what = f"dense_configs_serve {arch}"
+    cfg = dataclasses.replace(get_config(arch), **overrides)
+    n_layers = cfg.n_layers
+    s.reset_peak()
+    params, init_ms, n_params, params_gb = lm_params(cfg)
+    dev = params["embed"]["tok"].device
+    limit = fa.FLASH_SPLITKV_ROWS // (cfg.n_heads // cfg.n_kv_heads)
+    lengths = (limit, limit + 1, DENSE_PROMPT, DENSE_PROMPT)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, n) for n in lengths]
+    max_len = max(lengths) + DENSE_NEW + 1
+    tokens, stats, counts = serve_requests(cfg, params, prompts, DENSE_NEW,
+                                           SERVE_BATCH, max_len, profile=s)
+    s.exactly(what, counts, {"flash_attention": graphed_launches(
+        stats, n_layers, n_layers)})
+    print_graphed(what, stats)
+    launches = counts["flash_attention"]
+
+    captured = _dense_b7_operands(
+        cfg, params, [("prefill_splitkv", prompts[0], "decode"),
+                      ("prefill_wgmma", prompts[1], None),
+                      (f"prefill_{DENSE_PROMPT}", prompts[2], None)],
+        max_len)
+    device_len = b7_device_len_check(f"{what} decode", *captured["decode"])
+    checks, shapes = _dense_b7(what, cfg, captured,
+                               {"prefill_splitkv": "splitkv",
+                                "prefill_wgmma": "wgmma",
+                                f"prefill_{DENSE_PROMPT}": "wgmma",
+                                "decode": "splitkv"})
+    del captured
+    torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"model": cfg.name, "layers": n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.head_dim, "rope": cfg.rope,
+           "rope_theta": cfg.rope_theta, "qkv_bias": cfg.qkv_bias,
+           "reduced": {k: [getattr(get_config(arch), k), v]
+                       for k, v in overrides.items()},
+           "param_count_config": cfg.param_count(), "params": n_params,
+           "params_gb": params_gb, "init_s": init_ms / 1e3,
+           "prompts": list(lengths), "max_new": DENSE_NEW,
+           "batch": SERVE_BATCH, "max_len": max_len,
+           "splitkv_prefill_limit": limit, "b7_launches": launches,
+           **graphed_record(stats), "wall_s": stats["wall_s"],
+           "tokens_per_s": stats["tokens_per_s"],
+           "tokens_first_request": tokens[0][:8],
+           "device_len_b7": device_len, "peak_gb": peak_gb}
+    print(f"{what}: {n_layers} layers, {n_params} parameters "
+          f"({params_gb:.2f} GB), init {init_ms / 1e3:.2f} s, B7 launches "
+          f"{launches} (graphed: at warm-up and capture), peak "
+          f"{peak_gb:.2f} GB", flush=True)
+
+    if arch == DENSE_LONG_ARCH:
+        s.reset_peak()
+        long_prompts = [rng.integers(1, cfg.vocab, DENSE_LONG_PROMPT)
+                        for _ in range(DENSE_LONG_REQUESTS)]
+        long_len = DENSE_LONG_PROMPT + DENSE_LONG_NEW + 1
+        _, lstats, lcounts = serve_requests(
+            cfg, params, long_prompts, DENSE_LONG_NEW, SERVE_BATCH, long_len)
+        s.exactly(f"{what} long", lcounts, {"flash_attention":
+                  graphed_launches(lstats, n_layers, n_layers)})
+        print_graphed(f"{what} long", lstats)
+        launches += lcounts["flash_attention"]
+        captured = _dense_b7_operands(
+            cfg, params, [("prefill_32k", long_prompts[0], "decode_32k")],
+            long_len)
+        # the served decode reads its start from the device, on the grid
+        # device_start_splits sizes: that grid at the long cache's edges
+        long_device_len = b7_device_len_check(
+            f"{what} long decode", *captured["decode_32k"],
+            whole_tiles=False)
+        lchecks, lshapes = _dense_b7(
+            f"{what} long", cfg, captured,
+            {"prefill_32k": "wgmma", "decode_32k": "splitkv"})
+        checks.update(lchecks)
+        shapes.update(lshapes)
+        del captured
+        torch.cuda.empty_cache()
+        long_peak = torch.cuda.max_memory_allocated() / 1e9
+        rec["long"] = {
+            "requests": DENSE_LONG_REQUESTS, "prompt": DENSE_LONG_PROMPT,
+            "max_new": DENSE_LONG_NEW, "max_len": long_len,
+            "reduced": {"batch": [128, SERVE_BATCH]},
+            "cache_bytes_per_token_slot": 2 * n_layers * cfg.n_kv_heads
+            * cfg.head_dim * 2,
+            "b7_launches": lcounts["flash_attention"],
+            **graphed_record(lstats), "wall_s": lstats["wall_s"],
+            "peak_gb": long_peak, "device_len_b7": long_device_len}
+        print(f"{what} long: {DENSE_LONG_REQUESTS} x {DENSE_LONG_PROMPT} + "
+              f"{DENSE_LONG_NEW} tokens, B7 launches "
+              f"{lcounts['flash_attention']}, peak {long_peak:.2f} GB",
+              flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, n_layers=DENSE_CHECK_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tm.init_params(cfg32, seed=0)
+    t = torch.as_tensor(prompts[2][:CHECK_PREFILL + CHECK_DECODE],
+                        device=dev)[None]
+    counts32, diffs32 = lm_f32_against_plain(
+        f"{what} float32", cfg32, p32, {"tokens": t}, CHECK_PREFILL,
+        CHECK_DECODE)
+    s.exactly(f"{what} float32", counts32,
+              {"flash_attention": DENSE_CHECK_LAYERS * (2 + CHECK_DECODE)})
+    del p32
+    torch.cuda.empty_cache()
+    rec["f32_check"] = {"layers": DENSE_CHECK_LAYERS, "prefill": CHECK_PREFILL,
+                        "decode_steps": CHECK_DECODE, "launches": counts32,
+                        "max_abs_diff": diffs32}
+    rec.update(b7_checks=checks, b7_shapes=shapes)
+    return rec, launches, checks, shapes
+
+
+def phase_dense_configs_serve(s: Smoke):
+    import torch
+    served, launches, checks, shapes = {}, 0, {}, {}
+    for arch, overrides in DENSE_ARCHS.items():
+        rec, n, c, sh = _dense_config(s, arch, overrides)
+        rec["released"] = release_phase_state(torch)
+        served[arch] = rec
+        launches += n
+        checks.update(c)
+        shapes.update(sh)
+    _record_b7(s, launches, checks, shapes)
+    log({"phase": "dense_configs_serve", "ok": True, "configs": served})
+
+
+# ---------------------------------------------------------------------------
 # the train path
 # ---------------------------------------------------------------------------
 
@@ -5810,7 +6115,7 @@ def phase_lm_train(s: Smoke):
     want_saves = list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1,
                             TRAIN_CKPT_EVERY))
     if out["restarts"] or [x["step"] for x in saves] != want_saves or \
-            ckpts != [f"step_{TRAIN_STEPS:09d}"]:
+            ckpts != [f"step_{n:09d}" for n in want_saves[-1:]]:
         raise RuntimeError(f"lm_train: restarts {out['restarts']}, saves "
                            f"{saves}, checkpoints left {ckpts}")
     step_ms = [1e3 * h["step_time_s"] for h in loop.history]
@@ -6189,7 +6494,7 @@ def vlm_train_steps(s: Smoke) -> dict:
             "peak_gb": peak_gb, "profile": profile}
 
 
-def vlm_b7b_check(args, kw, got) -> dict:
+def vlm_b7b_check(args, kw, got, what="lm_train vlm") -> dict:
     """B7b as a train step called it, held to its plain version: the
     gradients ``got`` that ``flash_attention_backward(*args, **kw)``
     returned in the step, one more call on the same operands (bit for
@@ -6209,13 +6514,13 @@ def vlm_b7b_check(args, kw, got) -> dict:
     errs = {}
     for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
         if not torch.equal(a, a2):
-            raise RuntimeError(f"lm_train vlm: B7b's {name} differs from "
+            raise RuntimeError(f"{what}: B7b's {name} differs from "
                                f"the step's on its own operands")
         scale = float(w.float().abs().max())
         err = float((a.float() - w.float()).abs().max())
         errs[name] = {"max_abs_err": err, "max_abs_want": scale}
         if not err <= B7B_BF16_OF_MAX * scale:
-            raise RuntimeError(f"lm_train vlm: B7b's {name} off its plain "
+            raise RuntimeError(f"{what}: B7b's {name} off its plain "
                                f"version by {err} (bound {B7B_BF16_OF_MAX}"
                                f" x {scale})")
     b, s_, h, dh = q.shape
@@ -6225,6 +6530,280 @@ def vlm_b7b_check(args, kw, got) -> dict:
                 q.shape, k.shape, sms=fa._sm_count(q.device.index), **kw),
             "grads": errs,
             "max_abs_err": max(e["max_abs_err"] for e in errs.values())}
+
+
+# ---------------------------------------------------------------------------
+# the reference's examples, through their twins
+# ---------------------------------------------------------------------------
+
+
+def _example_module(name):
+    """``examples/port_<name>.py`` beside this script, imported afresh."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", f"port_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"port_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _clone(x):
+    """``x`` with its tensors cloned, out of autograd (tuples and lists
+    walked)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(a) for a in x)
+    return x
+
+
+#: where each kernel's launch goes through a module global the twins'
+#: paths look up at call time: (module, attribute); B1's two counts share
+#: one wrapper
+EXAMPLE_WRAPPERS = {
+    "acam_match": ("repro_torch.kernels.acam", "acam_match"),
+    "hdc_encode": ("repro_torch.kernels.hdc_encode", "hdc_encode_planes"),
+    "fused_topk_packed": ("repro_torch.kernels.ops", "fused_topk_packed"),
+    "fused_topk_packed_ternary": ("repro_torch.kernels.ops",
+                                  "fused_topk_packed"),
+    "fused_topk": ("repro_torch.kernels.ops", "fused_topk"),
+    "flash_attention": ("repro_torch.kernels.flash_attention",
+                        "_forward_cuda"),
+    "flash_attention_bwd": ("repro_torch.kernels.flash_attention",
+                            "flash_attention_backward")}
+
+
+def _example_key(kernel, args, kw):
+    """Which of a kernel's first calls a call is: B1 binary or ternary by
+    its care mask, B7 a decode (one query row) or a prefill."""
+    if kernel.startswith("fused_topk_packed"):
+        care = args[2] if len(args) > 2 else kw.get("care")
+        return "fused_topk_packed" if care is None \
+            else "fused_topk_packed_ternary"
+    if kernel == "flash_attention":
+        return "flash_attention decode" if args[0].shape[1] == 1 \
+            else "flash_attention prefill"
+    return kernel
+
+
+@contextlib.contextmanager
+def example_calls(kernels):
+    """Within the block, the first call of each of ``kernels``' wrappers
+    (``EXAMPLE_WRAPPERS``, through ``intercept``; B7's first prefill and
+    first decode) outside a CUDA graph capture keeps a copy of its
+    operands and of its result: the yielded dict, key -> (args, kwargs,
+    result).  A graph's warm-up call is kept, its capture is not."""
+    import importlib
+    import threading
+    import torch
+    kept, lock = {}, threading.Lock()
+
+    def keep(kernel):
+        def first(i, args, kw, out):
+            if not torch.cuda.is_current_stream_capturing():
+                key = _example_key(kernel, args, kw)
+                with lock:       # the serving twins call from their threads
+                    if key not in kept:
+                        kept[key] = (_clone(args), dict(kw), _clone(out))
+        return first
+
+    targets = {EXAMPLE_WRAPPERS[n]: n for n in kernels}
+    with contextlib.ExitStack() as stack:
+        for (mod, attr), kernel in targets.items():
+            stack.enter_context(intercept(importlib.import_module(mod), attr,
+                                          keep(kernel)))
+        yield kept
+
+
+def _example_b7_kw(args, kw):
+    """B7's host masks from a ``_forward_cuda`` call's arguments."""
+    names = ("q", "k", "v", "causal", "prefix_len", "kv_len", "q_start",
+             "want_lse", "start")
+    call = dict(zip(names, args), **kw)
+    return host_masks({"causal": call["causal"],
+                       "prefix_len": call["prefix_len"],
+                       "kv_len": call["kv_len"], "q_start": call["q_start"],
+                       "start": call.get("start")})
+
+
+def b2_scale(q, p, metric):
+    """Each query row's largest sum of magnitudes over B2's terms,
+    ``|alpha| sum |q_i p_i| + |beta| sum |f(q)| + |gamma| sum |f(p)|``
+    (float64): ``DOT_RTOL`` of it bounds B2's float32 error."""
+    from repro_torch.kernels import cam_search as tcs
+    alpha, beta, gamma, qk, pk = tcs.METRIC_COEFFS[metric]
+    q64, p64 = q.double().abs(), p.double().abs()
+    scale = abs(alpha) * (q64 @ p64.T)
+    if beta:
+        scale = scale + abs(beta) * (q64 if qk == "x" else q64 * q64).sum(
+            1, keepdim=True)
+    if gamma:
+        scale = scale + abs(gamma) * (p64 if pk == "x" else p64 * p64).sum(
+            1)[None, :]
+    return scale.amax(1)
+
+
+def b2_index_swaps(q, p, metric, scale, got_i, want_i, what) -> int:
+    """``dot_index_swaps`` for any of B2's metrics: each position where the
+    two index tensors differ must be a float64 near-tie, the exact
+    distances of query row ``r`` to both chosen rows within
+    ``DOT_RTOL`` of ``scale[r]`` (``b2_scale``).  Returns their count."""
+    import torch
+    from repro_torch.kernels import cam_search as tcs
+    alpha, _, gamma, _, pk = tcs.METRIC_COEFFS[metric]
+    rows, cols = (got_i != want_i).nonzero(as_tuple=True)
+    if rows.numel():
+        qr = q[rows].double()
+        pa = p[got_i[rows, cols].long()].double()
+        pb = p[want_i[rows, cols].long()].double()
+        # the query's own term is the same for both rows
+        gap = alpha * (qr * (pa - pb)).sum(1)
+        if gamma:
+            fa_, fb = (pa, pb) if pk == "x" else (pa * pa, pb * pb)
+            gap = gap + gamma * (fa_.sum(1) - fb.sum(1))
+        bad = (gap.abs() > DOT_RTOL * scale[rows]).nonzero()
+        if bad.numel():
+            j = int(bad[0, 0])
+            raise RuntimeError(f"{what}: index difference at ({int(rows[j])}"
+                               f", {int(cols[j])}) is not a float64 "
+                               f"near-tie: gap {float(gap[j])}")
+    return int(rows.numel())
+
+
+def example_check(s: Smoke, what, key, args, kw, out):
+    """One kept call of a twin's run held to its plain version on the same
+    operands, as the phases above hold the kernel: B1, B3 and B5 bit for
+    bit (and the call again equal to the run's own result), B2 as
+    ``router_check`` holds its values (within ``DOT_RTOL`` of its terms'
+    magnitudes, ``b2_scale``; index differences float64 near-ties), B7 by
+    ``b7_check``, B7b by ``vlm_b7b_check``.  Returns the record (``max_abs_err``)."""
+    import torch
+    from repro_torch.kernels import acam as kacam
+    from repro_torch.kernels import cam_search as tcs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hdc_encode as khdc
+    if key.startswith("flash_attention "):
+        q, k, v = args[:3]
+        return b7_check(f"{what} B7 {key.split()[1]}", q, k, v,
+                        _example_b7_kw(args, kw))
+    if key == "flash_attention_bwd":
+        return vlm_b7b_check(list(args), kw, list(out), what=what)
+    if key == "acam_match":
+        got, want = kacam.acam_match(*args, **kw), \
+            kacam.acam_match_reference(*args, **kw)
+        same = torch.equal(got, want) and torch.equal(got, out)
+        err = float((got.int() - want.int()).abs().max()) if got.numel() \
+            else 0.0
+        shape = {"q": list(args[0].shape), "rows": list(args[1].shape)}
+    elif key == "hdc_encode":
+        level_idx, planes = args
+        got = khdc.hdc_encode_planes(level_idx, planes)
+        want = khdc.hdc_encode_reference(level_idx, planes.keys,
+                                         planes.levels)
+        same = torch.equal(got, want) and torch.equal(got, out)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        shape = {"level_idx": list(level_idx.shape),
+                 "keys": list(planes.keys.shape)}
+    elif key.startswith("fused_topk_packed"):
+        got = tcs.fused_topk_packed(*args, **kw)
+        want = tcs.fused_topk_packed_reference(*args, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(got, want)) and \
+            all(torch.equal(a, b) for a, b in zip(got, out))
+        err = float((got[0] - want[0]).abs().max()) if got[0].numel() \
+            else 0.0
+        shape = {"q": list(args[0].shape), "p": list(args[1].shape),
+                 "k": kw["k"]}
+    elif key == "fused_topk":
+        qp, pp = args
+        got = tcs.fused_topk(qp, pp, **kw)
+        want = tcs.fused_topk_reference(qp, pp, **kw)
+        torch.cuda.synchronize()
+        diff = (got[0] - want[0]).abs()
+        scale = b2_scale(qp, pp, kw["metric"])
+        if not bool((diff.double() <= DOT_RTOL * scale[:, None]).all()):
+            raise RuntimeError(f"{what}: B2 values off the plain version by "
+                               f"{float(diff.max())}")
+        swaps = b2_index_swaps(qp, pp, kw["metric"], scale, got[1],
+                               want[1], f"{what} B2")
+        same = all(torch.equal(a, b) for a, b in zip(got, out))
+        err = float(diff.max()) if diff.numel() else 0.0
+        shape = {"q": list(qp.shape), "p": list(pp.shape), "k": kw["k"],
+                 "n_valid": kw["n_valid"],
+                 "index_swaps_float64_near_ties": swaps}
+    else:
+        raise RuntimeError(f"{what}: no check for {key}")
+    torch.cuda.synchronize()
+    if not same:
+        raise RuntimeError(f"{what}: {key} differs from its plain version "
+                           f"or from the run's own call")
+    return dict(shape, max_abs_err=err)
+
+
+def phase_examples(s: Smoke):
+    """Each twin of ``EXAMPLES`` in process on the card (its own asserts
+    fail the phase), its printed lines kept in the log, with the launch
+    counts at 0 before it: each kernel it must reach launched at least
+    once and no other kernel at all.  Each kernel's first call in the
+    run (``example_calls``) is then held to its plain version
+    (``example_check``); those calls are not counted as the run's."""
+    import io
+    import tempfile
+    import torch
+    from repro_torch.kernels import cam_search
+    runs, total, checks = [], {}, {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name, argv, kernels in EXAMPLES:
+            if name == "train_lm":
+                argv = argv + ["--ckpt-dir", os.path.join(
+                    ckpt, str(len(runs)))]
+            out = io.StringIO()
+            cam_search.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with example_calls(kernels) as kept, \
+                    contextlib.redirect_stdout(out):
+                result = _example_module(name).main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = {k: v for k, v in cam_search.LAUNCHES.items() if v}
+            missing = [k for k in kernels if not counts.get(k)]
+            other = sorted(set(counts) - set(kernels))
+            if missing or other:
+                raise RuntimeError(f"examples {name} {argv}: launches "
+                                   f"{counts}, expected {list(kernels)}")
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            tag = f"example_{name}" + ("_moe" if "--moe" in argv else "")
+            held = {key: example_check(s, f"examples {tag}", key, *call)
+                    for key, call in sorted(kept.items())}
+            if {key.split()[0] for key in held} != set(kernels):
+                raise RuntimeError(f"examples {name} {argv}: kept calls of "
+                                   f"{sorted(held)}, expected "
+                                   f"{list(kernels)}")
+            for key, rec in held.items():
+                checks.setdefault(key.split()[0], {})[
+                    f"{tag}_{key.split()[-1]}"
+                    if key.startswith("flash_attention ") else tag] = rec
+            lines = out.getvalue().splitlines()
+            print(f"examples: port_{name}.py {' '.join(argv)}: "
+                  f"{seconds:.2f} s, launches {counts}, held to the plain "
+                  f"versions: { {k: r['max_abs_err'] for k, r in held.items()} }",
+                  flush=True)
+            runs.append({"example": f"examples/port_{name}.py",
+                         "argv": argv, "seconds": seconds,
+                         "launches": counts, "checks": held,
+                         "last_lines": lines[-4:],
+                         "result": {k: v for k, v in (result or {}).items()
+                                    if isinstance(v, (int, float, str))}})
+    for name, n in total.items():
+        src, ref = EXAMPLE_KERNELS[name]
+        s.record(name, f"src/repro_torch/kernels/csrc/{src}",
+                 f"src/repro/kernels/{ref}", n,
+                 max(c["max_abs_err"] for c in checks[name].values()), None,
+                 None, None, "operations", None)
+        s.kernels[name].setdefault("shapes", {}).update(checks[name])
+    log({"phase": "examples", "ok": True, "runs": runs, "launches": total})
 
 
 def release_phase_state(torch, top: int = 6):
@@ -6339,8 +6918,10 @@ def main() -> None:
               ("ssm_serve", lambda: phase_ssm_serve(s)),
               ("hybrid_serve", lambda: phase_hybrid_serve(s)),
               ("vlm_serve", lambda: phase_vlm_serve(s)),
+              ("dense_configs_serve", lambda: phase_dense_configs_serve(s)),
               ("lm_train", lambda: phase_lm_train(s)),
-              ("lm_sharded", lambda: phase_lm_sharded(s))]
+              ("lm_sharded", lambda: phase_lm_sharded(s)),
+              ("examples", lambda: phase_examples(s))]
     wanted = sys.argv[1:]
     unknown = set(wanted) - {name for name, _ in phases}
     if unknown:

@@ -1514,10 +1514,12 @@ def test_flash_wgmma_reads_a_strided_cache_view_up_to_kv_len(cuda, rng):
     _assert_follows_recurrence(got, _recurrence(q, kc, vc, **kw), v[:, :kv_len])
 
 
-#: (B, S, T, H, KV, dtypes, prefix_len) of B7 calls whose start a decode
-#: cache holds on the device: qwen2.5-14b's, zamba2-2.7b's and
-#: paligemma-3b's decode (split-KV) and a prefill into an empty cache
-#: (``wgmma``), and a float32 query over a bf16 cache (FMA)
+#: (B, S, T, H, KV, dtypes, prefix_len, dh) of B7 calls whose start a
+#: decode cache holds on the device: qwen2.5-14b's, zamba2-2.7b's and
+#: paligemma-3b's decode (split-KV), chatglm3-6b's (16 folded rows a kv
+#: head), qwen1.5-32b's (MHA) and mistral-large-123b's (12 folded rows)
+#: over the dense serve phase's 717-row caches, a prefill into an empty
+#: cache (``wgmma``), and a float32 query over a bf16 cache (FMA)
 B7_DEVICE_START_CASES = {
     "qwen_decode": (1, 1, 300, 40, 8, "bf16", 0, 128),
     "zamba2_decode": (1, 1, 300, 32, 32, "bf16", 0, 80),
@@ -1525,6 +1527,9 @@ B7_DEVICE_START_CASES = {
     "batch_decode": (2, 1, 2100, 40, 8, "bf16", 0, 128),
     "zamba2_serve": (1, 1, 2081, 32, 32, "bf16", 0, 80),
     "deepseek_serve": (1, 1, 2081, 16, 16, "bf16", 0, 128),
+    "chatglm_serve": (1, 1, 717, 32, 2, "bf16", 0, 128),
+    "qwen15_serve": (1, 1, 717, 40, 40, "bf16", 0, 128),
+    "mistral_serve": (1, 1, 717, 96, 8, "bf16", 0, 128),
     "prefill": (1, 150, 300, 10, 2, "bf16", 0, 128),
     "f32_decode": (2, 1, 200, 10, 2, "f32_bf16_cache", 0, 64),
 }
@@ -1591,6 +1596,27 @@ def test_flash_kernel_reads_its_start_on_the_device(cuda, case, rng):
             pooled[0] += int((off > 1e-6 + 2 ** -7 * want.float().abs()).sum())
             pooled[1] += off.numel()
     assert pooled[0] <= 1e-3 * pooled[1], pooled
+
+
+@pytest.mark.parametrize("kv_len", [1, 17, 63, 64])
+def test_flash_splitkv_takes_causal_prefill_rows_at_mha(cuda, kv_len, rng):
+    """An MHA prefill of up to ``FLASH_SPLITKV_ROWS`` tokens (qwen1.5-32b's
+    40 heads over 40 kv heads, dh 128) takes the split-KV route with
+    causal rows, over a cache view longer than the prompt: the plain
+    version within the bf16 bound, and the Pallas recurrence at the
+    route's tiles and splits."""
+    q, k, v = _qkv(rng, 1, kv_len, 717, 40, 40, 128, torch.bfloat16,
+                   torch.bfloat16, cuda)
+    kw = dict(causal=True, kv_len=kv_len)
+    route = tfa.flash_route(q.shape, k.shape, q.dtype, **kw)
+    assert route.name == "splitkv"
+    got = tfa.flash_attention(q, k, v, **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(
+        got.float(), tfa.flash_attention_reference(q, k, v, **kw).float(),
+        atol=B7_BF16_ATOL, rtol=0)
+    _assert_follows_recurrence(got, _recurrence(q, k, v, **kw),
+                               v[:, :kv_len])
 
 
 def test_flash_kernel_device_start_contract(cuda, rng):

@@ -323,6 +323,10 @@ def test_route_rule_at_head_dims_80_and_256(dh, s, h, kvh, t, kw, name,
     (1, 32, 32, 80, 2081, 0),      # zamba2-2.7b (aim 8)
     (1, 16, 16, 128, 2081, 0),     # deepseek-moe-16b (aim 16)
     (1, 8, 1, 256, 2337, 256),     # paligemma-3b, its vision prefix
+    (1, 32, 2, 128, 717, 0),       # chatglm3-6b (16 folded rows)
+    (1, 40, 40, 128, 717, 0),      # qwen1.5-32b (MHA)
+    (1, 96, 8, 128, 717, 0),       # mistral-large-123b (12 folded rows)
+    (1, 32, 2, 128, 32769, 0),     # chatglm3-6b at decode_32k's length
 ])
 def test_device_start_grid_holds_every_live_length(b, h, kvh, dh, t, prefix):
     """A call with a device start sizes the split-KV grid before the live
