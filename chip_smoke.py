@@ -151,10 +151,15 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        float32 at depth 2 over seeded random frames
                        against the plain versions;
 * ``ssm_serve``      — xlstm-125m uncut (6 mLSTM/sLSTM pairs), 4 prompts of
-                       2048 tokens, 32 new tokens each: no kernel on the
-                       path (exactly zero launches); float32 at depth 2,
-                       prefill + decode against forward and the card
-                       against the CPU;
+                       2048 tokens, 32 new tokens each: kernel
+                       ``slstm_scan`` (X1, the sLSTM recurrence in one
+                       cooperative launch) exactly once a sLSTM layer,
+                       prefill and decode step, held to its plain loop on
+                       the first and last layer's operands of a prefill
+                       and timed beside its bound and its serial bound
+                       (S grid barriers); float32 at depth 2, prefill +
+                       decode against forward and the card against the
+                       CPU;
 * ``hybrid_serve``   — zamba2-2.7b uncut (54 Mamba2 blocks in 9 groups,
                        each after the one shared attention block: 32
                        heads of dh 80) served as ``lm_serve`` serves
@@ -164,7 +169,26 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        version and the recurrence and timed beside SDPA;
                        float32 at depth 12 (two groups) against the
                        plain versions; one full-width Mamba2 block on the
-                       card against the CPU;
+                       card against the CPU; kernel ``ssd_scan`` (M1, the
+                       Mamba2 chunked scan) exactly 54 times a prefill,
+                       held to its plain version on block 0's operands;
+* ``long_500k``      — launch/specs.py's long_500k shape (524,288 rows of
+                       cache, batch 1) for zamba2-2.7b and xlstm-125m,
+                       uncut: a 524,288-token prompt (zamba2 by
+                       ``prefill`` of 32,768 and 15 ``decode_step`` pieces
+                       of 32,768: 48.3 GB of cache; xlstm by one
+                       ``prefill``), 16 greedy decode steps through one
+                       captured CUDA graph and eagerly (tokens equal,
+                       logits bit-identical), launches exact (M1 54 and B7
+                       9 a piece, X1 6 a call); M1 on the last block of
+                       the last piece, X1 over the last 512 positions of
+                       each sLSTM layer from the state the kernel carried,
+                       B7 at the last piece (its last 64 query rows) and
+                       at decode over 524,289 keys (host ints and a device
+                       start), each against its plain version; M1 alone at
+                       524,288 rows; prefill seconds, decode ms a token,
+                       peak GB (under 80) and each kernel's ms beside its
+                       bound printed;
 * ``vlm_serve``      — paligemma-3b uncut (18 layers, 8 heads over 1 kv
                        head of dh 256) over the Server's 256 zero vision
                        rows: every prefill a 2,304-row prefix-LM
@@ -226,8 +250,11 @@ and backend (``"cuda"``) — on the paper's two workloads at full size:
                        its own asserts and on a kernel of its path not
                        launched (or one outside it launched);
                        ``port_train_lm.py`` at 30 steps with a failure at
-                       20 and a checkpoint every 10, plain (xlstm-125m)
-                       and ``--moe`` (B7, B7b and B2 as the router).
+                       20 and a checkpoint every 10, plain (xlstm-125m:
+                       its train steps on X1's plain route, no launch)
+                       and ``--moe`` (B7, B7b and B2 as the router);
+                       ``port_serve_lm.py`` (zamba2's smoke config) on B7
+                       and M1.
 
 For each phase it sets the kernels' launch counts to 0, runs the path,
 reads the counts (a kernel of the path with no launch fails the run),
@@ -389,6 +416,44 @@ HYBRID_CHECK_LAYERS = 12
 MAMBA_CHECK_ROWS, MAMBA_F32_ATOL = 300, 2e-3
 VLM_ARCH, VLM_OVERRIDES = "paligemma-3b", {}
 VLM_CHECK_LAYERS = 2
+#: M1 (the Mamba2 chunked scan) and X1 (the sLSTM recurrence): each held to
+#: its plain version on the path's own operands.  M1's y within one step
+#: of its dtype (2**-7 |y| in bf16: the float32 sums before the cast agree
+#: to about 1e-6, so a rounding flips at most one bf16 step) plus
+#: M1_OF_MAX of max|y|, its state likewise in float32; X1's hs within
+#: X1_TOL (|h| <= 1; c and n relative to max(|n|, 1), m to max(|m|, 1)):
+#: float32 sums of D products in other orders, carried through the
+#: recurrence (1e-7 to 5e-7 at 256 to 16,384 positions,
+#: tests/test_torch_cuda.py on an H100 80GB HBM3 at 700 W)
+M1_OF_MAX, X1_TOL = 1e-5, 1e-4
+#: each scan kernel's source and the reference code it replaces (no TPU
+#: kernel: the reference's lax.scan), and why no library call stands beside
+#: them
+SCAN_KERNELS = {
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/models/mamba2.py:151 (no TPU kernel: the "
+                 "reference's lax.scan of chunk_body, :115)"),
+    "slstm_scan": ("src/repro_torch/kernels/csrc/slstm_scan.cu",
+                   "src/repro/models/xlstm.py:213 (no TPU kernel: the "
+                   "reference's lax.scan of step, :197)")}
+SCAN_LIBRARY = ("none: no PyTorch call computes an SSD scan, and cuDNN's "
+                "LSTM is a different cell")
+#: long_500k: launch/specs.py's long_500k shape (524,288 rows of cache,
+#: batch 1, decode) for the two families it is emitted for, each uncut
+#: (full width, depth and bf16): a LONG_PROMPT-token prompt from
+#: default_rng(0), then LONG_NEW greedy decode steps through one captured
+#: CUDA graph and eagerly.  zamba2-2.7b prefills its first LONG_PIECE
+#: tokens with ``prefill`` and the rest in pieces of LONG_PIECE with
+#: ``decode_step`` (the reference's S > 1 decode; one prefill would need
+#: tens of GB of float32 temporaries a Mamba2 block beside the 48.3 GB
+#: cache); xlstm-125m in one ``prefill``.  X1 held over the last
+#: LONG_X1_ROWS positions of each sLSTM layer from the state the kernel
+#: carried there; B7 at the last piece on its last LONG_B7_ROWS query rows
+#: (the plain scores of 32,768 x 524,288 do not fit); the peak under
+#: LONG_PEAK_GB
+LONG_ARCHS = ("zamba2-2.7b", "xlstm-125m")
+LONG_PROMPT, LONG_NEW, LONG_PIECE = 524_288, 16, 32_768
+LONG_X1_ROWS, LONG_B7_ROWS, LONG_PEAK_GB = 512, 64, 80.0
 #: dense_configs_serve: each of DENSE_ARCHS (with its overrides) served
 #: through the graphed Server, one at a time: SERVE_BATCH slots, greedy,
 #: DENSE_NEW new tokens for each of four prompts: one at B7's split-KV
@@ -424,25 +489,29 @@ EXAMPLES = (("dse_sweep", [], ()),
             ("forest_inference", [], ("acam_match",)),
             ("hdc_mnist", [], ("hdc_encode", "fused_topk_packed")),
             ("moe_router_offload", [], ("fused_topk",)),
-            ("serve_lm", [], ("flash_attention",)),
+            ("serve_lm", [], ("flash_attention", "ssd_scan")),
             ("tcam_wildcard", [], ("fused_topk_packed_ternary",)),
             ("train_lm", EXAMPLE_TRAIN_ARGS, ()),
             ("train_lm", ["--moe"] + EXAMPLE_TRAIN_ARGS,
              ("flash_attention", "flash_attention_bwd", "fused_topk")))
 #: each kernel a twin launches: its source under kernels/csrc/ and the
-#: reference kernel it replaces under src/repro/kernels/
+#: reference kernel it replaces under src/repro/kernels/ (the scans': the
+#: reference code they replace, SCAN_KERNELS)
 EXAMPLE_KERNELS = {
-    "acam_match": ("acam_match.cu", "acam.py:121"),
-    "hdc_encode": ("hdc_encode.cu", "hdc_encode.py:87"),
-    "fused_topk_packed": ("fused_topk_packed.cu", "cam_search.py:304"),
-    "fused_topk_packed_ternary": ("fused_topk_packed.cu",
-                                  "cam_search.py:304"),
-    "fused_topk": ("fused_topk.cu", "cam_search.py:200"),
-    "flash_attention": ("flash_attention.cu", "flash_attention.py:124"),
-    "flash_attention_bwd": ("flash_attention_bwd.cu",
-                            "flash_attention.py:124 (its backward: the "
-                            "reference differentiates "
-                            "src/repro/models/layers.py:167)")}
+    name: (f"src/repro_torch/kernels/csrc/{src}", f"src/repro/kernels/{ref}")
+    for name, (src, ref) in {
+        "acam_match": ("acam_match.cu", "acam.py:121"),
+        "hdc_encode": ("hdc_encode.cu", "hdc_encode.py:87"),
+        "fused_topk_packed": ("fused_topk_packed.cu", "cam_search.py:304"),
+        "fused_topk_packed_ternary": ("fused_topk_packed.cu",
+                                      "cam_search.py:304"),
+        "fused_topk": ("fused_topk.cu", "cam_search.py:200"),
+        "flash_attention": ("flash_attention.cu", "flash_attention.py:124"),
+        "flash_attention_bwd": ("flash_attention_bwd.cu",
+                                "flash_attention.py:124 (its backward: the "
+                                "reference differentiates "
+                                "src/repro/models/layers.py:167)")}.items()}
+EXAMPLE_KERNELS.update(SCAN_KERNELS)
 #: lm_train: TRAIN_ARCH at its full width, depth cut by TRAIN_OVERRIDES
 #: (AdamW's float32 master and moments, the bf16 parameters and their
 #: gradients are about 16 bytes a parameter: 51 GB at 6 of 48 layers),
@@ -4234,13 +4303,20 @@ def b7_timing(q, k, v, kw):
 def intercept(mod, attr, keep):
     """Within the block every call of ``mod.attr`` goes through, and
     ``keep(i, args, kwargs, result)`` (``i`` the call's index) is
-    appended to the yielded list unless it returns None."""
+    appended to the yielded list unless it returns None.  The calls
+    ``keep`` itself makes pass straight through, unnumbered."""
     real = getattr(mod, attr)
-    kept, calls = [], [0]
+    kept, calls, busy = [], [0], [False]
 
     def wrapper(*args, **kw):
         out = real(*args, **kw)
-        item = keep(calls[0], args, kw, out)
+        if busy[0]:
+            return out
+        busy[0] = True
+        try:
+            item = keep(calls[0], args, kw, out)
+        finally:
+            busy[0] = False
         if item is not None:
             kept.append(item)
         calls[0] += 1
@@ -4276,22 +4352,27 @@ def operands(wanted):
 @contextlib.contextmanager
 def plain_kernels():
     """Within the block the LM's kernels run their plain versions on the
-    card: B7's ``flash_attention_reference``, and for the ``"cam"``
-    router ``ref.cam_topk_tiled`` exactly as the CPU path calls it."""
+    card: B7's ``flash_attention_reference``, for the ``"cam"`` router
+    ``ref.cam_topk_tiled`` exactly as the CPU path calls it, M1's
+    ``ssd_scan_reference`` and X1's ``slstm_scan_reference``."""
     from repro_torch.kernels import flash_attention as fa, ops, ref
+    from repro_torch.kernels import slstm_scan as ksl, ssd_scan as kss
 
     def cam_plain(q, p, *, metric, k, largest):
         return ref.cam_topk_tiled(q, p, metric=metric, k=k, largest=largest,
                                   tile_rows=min(32, p.shape[0]),
                                   dims_per_tile=min(128, q.shape[1]))
 
-    real = fa.flash_attention, ops.cam_topk
+    real = fa.flash_attention, ops.cam_topk, kss.ssd_scan, ksl.slstm_scan
     fa.flash_attention, ops.cam_topk = fa.flash_attention_reference, \
         cam_plain
+    kss.ssd_scan, ksl.slstm_scan = kss.ssd_scan_reference, \
+        ksl.slstm_scan_reference
     try:
         yield
     finally:
-        fa.flash_attention, ops.cam_topk = real
+        fa.flash_attention, ops.cam_topk, kss.ssd_scan, ksl.slstm_scan = \
+            real
 
 
 def lm_params(cfg):
@@ -5264,12 +5345,206 @@ def phase_audio_serve(s: Smoke):
                        "launches": counts32, "max_abs_diff": diffs32}})
 
 
+# ---------------------------------------------------------------------------
+# M1 (the Mamba2 chunked scan) and X1 (the sLSTM recurrence): checks,
+# bounds, records
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Within the block kernel launches leave the launch counts as they
+    were: the calls a check makes inside a counted run."""
+    from repro_torch.kernels import cam_search
+    saved = dict(cam_search.LAUNCHES)
+    try:
+        yield
+    finally:
+        cam_search.LAUNCHES.update(saved)
+
+
+def m1_bound_ms(xh, B_, chunk):
+    """M1's bound: the float32 FMAs its function needs, counted over the
+    rows this call holds (each chunk's causal C.B^T, once for its heads,
+    and per head its causal intra-chunk product, the entering state's term,
+    its own state contribution and the state update), at the float32 peak,
+    against the bytes of xh, B_, C_, dt and y and the two states."""
+    b, s, nh, dh = xh.shape
+    ds = B_.shape[-1]
+    macs = 0.0
+    for c0 in range(0, s, chunk):
+        r = min(chunk, s - c0)
+        tri = r * (r + 1) / 2.0
+        macs += tri * ds + nh * (tri * dh + 2.0 * r * dh * ds + dh * ds)
+    flops = 2.0 * b * macs
+    el = xh.element_size()
+    bytes_ = (el * b * s * (2 * nh * dh + 2 * ds) + 4.0 * b * s * nh
+              + 8.0 * b * nh * dh * ds)
+    t_ops, t_mem = flops / FP32_PEAK_FLOPS, bytes_ / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
+        else "bytes"
+
+
+def event_ms(fn):
+    """Device milliseconds of one call of ``fn`` (CUDA events, no warm-up)
+    and its result: a long call timed once."""
+    import torch
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1), out
+
+
+def within_rows(got, want, rtol, of_max, rows=16384):
+    """(largest |got - want|, whether each lies within rtol |want| +
+    of_max max|want|, max|want|), compared in float32 blocks of ``rows``
+    along dim 1 (a 524,288-row y in float32 is 10.7 GB a copy)."""
+    spans = range(0, want.shape[1], rows)
+    top = max(float(want[:, i:i + rows].float().abs().max()) for i in spans)
+    worst, ok = 0.0, True
+    for i in spans:
+        g, w = got[:, i:i + rows].float(), want[:, i:i + rows].float()
+        diff = (g - w).abs()
+        worst = max(worst, float(diff.max()))
+        ok = ok and bool((diff <= rtol * w.abs() + of_max * top).all())
+    return worst, ok, top
+
+
+def m1_check(what, args, kw, out=None, timed=True):
+    """M1 (``kss.ssd_scan``) on one call's operands against its plain
+    version (``ssd_scan_reference``): y within one step of its dtype
+    (2**-7 |y| in bf16, 1e-4 |y| in float32) plus ``M1_OF_MAX`` of max|y|,
+    the final state within 1e-4 |h| plus ``M1_OF_MAX`` of max|h| (float32
+    sums in other orders); the kernel again bit-identical to ``out`` (the
+    path's own result) where given.  With ``timed``, the kernel's device
+    ms (median of 3), the plain version's (its checking call, timed once)
+    and the bound.  Returns the record."""
+    import torch
+    from repro_torch.kernels import ssd_scan as kss
+    got = kss.ssd_scan(*args, **kw)
+    plain_ms, want = event_ms(lambda: kss.ssd_scan_reference(*args, **kw))
+    rtol = 2.0 ** -7 if args[0].dtype == torch.bfloat16 else 1e-4
+    errs, tops = {}, {}
+    for name, g, w, rt in (("y", got[0], want[0], rtol),
+                           ("state", got[1], want[1], 1e-4)):
+        errs[name], ok, tops[name] = within_rows(g, w, rt, M1_OF_MAX)
+        if not ok:
+            raise RuntimeError(f"{what}: M1's {name} off its plain version by "
+                               f"{errs[name]}")
+    if out is not None and not (torch.equal(got[0], out[0])
+                                and torch.equal(got[1], out[1])):
+        raise RuntimeError(f"{what}: M1 again is not the path's own result")
+    xh = args[0]
+    chunk = kw.get("chunk", args[7] if len(args) > 7 else 256)
+    rec = {"xh": list(xh.shape), "ds": args[1].shape[-1], "chunk": chunk,
+           "dtype": str(xh.dtype).replace("torch.", ""),
+           "max_abs_err": errs["y"], "state_max_abs_err": errs["state"],
+           "max_abs_want": tops["y"], "same_as_path": out is not None}
+    if timed:
+        bound, by = m1_bound_ms(xh, args[1], chunk)
+        rec.update(ms=cuda_ms(lambda: kss.ssd_scan(*args, **kw), 3),
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=None)
+    return rec
+
+
+def x1_bound_ms(pre):
+    """X1's bound: its float32 FMAs (the recurrent product, 8 B D^2 S
+    FLOP, and about 20 operations a unit and step) at the float32 peak,
+    against the bytes of pre, wh, hs and the states."""
+    b, s, d4 = pre.shape
+    d = d4 // 4
+    flops = 2.0 * b * s * d * d4 + 20.0 * b * s * d
+    bytes_ = 4.0 * (b * s * d4 + d * d4 + b * s * d + 8 * b * d)
+    t_ops, t_mem = flops / FP32_PEAK_FLOPS, bytes_ / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
+        else "bytes"
+
+
+def x1_errors(got, want):
+    """X1 against its plain version: hs and h absolutely (|h| <= 1), c
+    and n relative to max(|n|, 1), m to max(|m|, 1); each within
+    ``X1_TOL``."""
+    import torch
+    (hs, st), (w_hs, w_st) = got, want
+    n_scale = torch.clamp(w_st[2].abs(), min=1.0)
+    m_scale = torch.clamp(w_st[3].abs(), min=1.0)
+    return {"hs": float((hs - w_hs).abs().max()),
+            "h": float((st[0] - w_st[0]).abs().max()),
+            "c": float(((st[1] - w_st[1]).abs() / n_scale).max()),
+            "n": float(((st[2] - w_st[2]).abs() / n_scale).max()),
+            "m": float(((st[3] - w_st[3]).abs() / m_scale).max())}
+
+
+def x1_check(what, args, out=None, timed=True):
+    """X1 (``ksl.slstm_scan``) on one call's operands (pre, wh, h, c, n,
+    m) against its plain loop, within ``X1_TOL`` (``x1_errors``); the
+    kernel again bit-identical to ``out`` (the path's own result) where
+    given.  With ``timed``: the kernel's device ms (median of 3), the
+    plain loop's (its checking call, timed once), the bound and the serial
+    bound (S grid barriers, each timed alone by ``barrier_step_ms``).
+    Returns the record."""
+    import torch
+    from repro_torch.kernels import slstm_scan as ksl
+    got = ksl.slstm_scan(*args)
+    plain_ms, want = event_ms(lambda: ksl.slstm_scan_reference(*args))
+    errs = x1_errors(got, want)
+    if not max(errs.values()) <= X1_TOL:
+        raise RuntimeError(f"{what}: X1 off its plain loop: {errs}")
+    if out is not None and not (torch.equal(got[0], out[0]) and all(
+            torch.equal(a, b) for a, b in zip(got[1], out[1]))):
+        raise RuntimeError(f"{what}: X1 again is not the path's own result")
+    pre = args[0]
+    rec = {"pre": list(pre.shape), "max_abs_err": errs["hs"],
+           "errors": errs, "same_as_path": out is not None}
+    if timed:
+        b, s, d4 = pre.shape
+        step = ksl.barrier_step_ms(b, d4 // 4, 4096, pre.device)
+        bound, by = x1_bound_ms(pre)
+        rec.update(ms=cuda_ms(lambda: ksl.slstm_scan(*args), 3),
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=None,
+                   barrier_step_ms=step, serial_bound_ms=s * step)
+    return rec
+
+
+def _record_scan(s: Smoke, name, launches, checks):
+    """Add a phase's M1 or X1 launches and checks to the kernel's record;
+    the first timed check gives its ms, plain ms and bounds."""
+    source, replaces = SCAN_KERNELS[name]
+    s.record(name, source, replaces, launches,
+             max(c["max_abs_err"] for c in checks.values()), None, None,
+             None, "operations", None)
+    rec = s.kernels[name]
+    rec["library"] = SCAN_LIBRARY
+    rec.setdefault("shapes", {}).update(checks)
+    if rec["ms"] is None:
+        first = next((c for c in checks.values() if "ms" in c), None)
+        if first is not None:
+            rec.update({key: first[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            if "serial_bound_ms" in first:
+                rec["serial_bound_ms"] = first["serial_bound_ms"]
+
+
+def keep_call(index):
+    """An ``intercept`` keep function: the call numbered ``index`` (or each
+    of a set of them) as ((args cloned), kwargs, result cloned)."""
+    wanted = {index} if isinstance(index, int) else set(index)
+    return lambda i, a, kw, out: (_clone(a), dict(kw), _clone(out)) \
+        if i in wanted else None
+
+
 def phase_ssm_serve(s: Smoke):
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import cam_search
+    from repro_torch.kernels import slstm_scan as ksl
     from repro_torch.models import model as tm
 
     cfg = dataclasses.replace(get_config(SSM_ARCH), **SSM_OVERRIDES)
@@ -5280,16 +5555,23 @@ def phase_ssm_serve(s: Smoke):
     prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT)
                for _ in range(SERVE_REQUESTS)]
     max_len = SERVE_PROMPT + SERVE_NEW + 1
+    pairs = tm._pairs(cfg)
     tokens, stats, counts = serve_requests(cfg, params, prompts, SERVE_NEW,
-                                           SERVE_BATCH, max_len, profile=s,
-                                           profile_prefill=False)
-    s.exactly("ssm_serve", counts, {})        # no kernel on this path
+                                           SERVE_BATCH, max_len, profile=s)
+    # X1 once per sLSTM layer and call, prefill and decode step alike
+    s.exactly("ssm_serve", counts,
+              {"slstm_scan": graphed_launches(stats, pairs, pairs)})
     print_graphed("ssm_serve", stats)
-    # no prefill profile: its 260,000 launches (the sLSTM's loop over the
-    # prompt) take the profiler minutes to sum
     toks = torch.as_tensor(prompts[0], device=dev)[None]
-    steps = lm_step_times(s, cfg, params, {"tokens": toks}, max_len,
-                          profile_prefill=False)
+    # X1 on the first and the last sLSTM layer's operands of an untimed
+    # prefill of request 0's prompt, against its plain loop
+    with intercept(ksl, "slstm_scan", keep_call({0, pairs - 1})) as kept:
+        tm.prefill(params, cfg, {"tokens": toks},
+                   tm.init_decode_cache(cfg, 1, max_len))
+    x1 = {f"xlstm_prefill_layer{i}": x1_check(
+        f"ssm_serve X1 layer {i}", args, out, timed=i == 0)
+        for i, (args, _, out) in zip((0, pairs - 1), kept)}
+    steps = lm_step_times(s, cfg, params, {"tokens": toks}, max_len)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del params
     torch.cuda.empty_cache()
@@ -5313,7 +5595,8 @@ def phase_ssm_serve(s: Smoke):
         lg, cache = tm.decode_step(p32, cfg32, t[:, i:i + 1], cache)
         outs.append(lg)
     torch.cuda.synchronize()
-    s.exactly("ssm_serve float32", dict(cam_search.LAUNCHES), {})
+    s.exactly("ssm_serve float32", dict(cam_search.LAUNCHES), {
+        "slstm_scan": (2 + CHECK_DECODE) * tm._pairs(cfg32)})
     served = torch.cat(outs, dim=1)
     decode_vs_forward = _logits_close(
         "ssm_serve prefill+decode vs forward", served,
@@ -5324,6 +5607,7 @@ def phase_ssm_serve(s: Smoke):
                                 cpu_full, SSM_F32_ATOL)
     del p32, p_cpu, cache
     torch.cuda.empty_cache()
+    _record_scan(s, "slstm_scan", counts["slstm_scan"], x1)
     log({"phase": "ssm_serve", "ok": True, "model": cfg.name,
          "layers": cfg.n_layers, "pairs": cfg.n_layers // 2,
          "param_count_config": cfg.param_count(), "params": n_params,
@@ -5335,7 +5619,7 @@ def phase_ssm_serve(s: Smoke):
          "stats": {k: stats[k] for k in ("prefills", "decode_steps",
                                          "tokens")},
          "launches": counts, "tokens_first_request": tokens[0][:8], **steps,
-         "peak_gb": peak_gb,
+         "peak_gb": peak_gb, "x1_checks": x1,
          "f32_check": {"layers": SSM_CHECK_LAYERS,
                        "prefill": SSM_CHECK_PREFILL,
                        "decode_steps": CHECK_DECODE,
@@ -5348,45 +5632,61 @@ def phase_ssm_serve(s: Smoke):
 # ---------------------------------------------------------------------------
 
 
-def _serve_and_capture(s: Smoke, phase, cfg, prompts, extra, attn_layers):
+def _serve_and_capture(s: Smoke, phase, cfg, prompts, extra, attn_layers,
+                       scans=None):
     """Serve ``prompts`` (SERVE_NEW new tokens each, decode batch
     SERVE_BATCH) with launches exact: ``attn_layers`` B7 calls a prefill
-    or decode step; then, on a second Server, prompts of
-    ``SERVE_MIXED_PROMPTS`` lengths, held to the eager steps.  Then B7's operands of attention layer 0 in an
-    untimed prefill of request 0's prompt (``extra(device)`` beside its
-    tokens) and in its first decode step, each held to its plain version
-    and the recurrence and timed beside SDPA; the step times and
-    profiles; the peak memory of the phase so far.  Returns (log,
-    launches, checks, timed shapes); frees the parameters."""
+    or decode step, and for each kernel of ``scans`` (name -> launches a
+    prefill and a decode step) as many; then, on a second Server, prompts
+    of ``SERVE_MIXED_PROMPTS`` lengths, held to the eager steps.  Then
+    B7's operands of attention layer 0 in an untimed prefill of request
+    0's prompt (``extra(device)`` beside its tokens) and in its first
+    decode step, each held to its plain version and the recurrence and
+    timed beside SDPA; with ``"ssd_scan"`` among ``scans``, M1 on the first
+    Mamba2 block's operands of that prefill held to its plain version and
+    timed (the log's ``m1_checks``); the step times and profiles; the peak
+    memory of the phase so far.  Returns (log, launches, checks, timed
+    shapes); frees the parameters."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as kss
     from repro_torch.models import model as tm
+    scans = scans or {}
+
+    def expected(stats):
+        per = dict(scans, flash_attention=(attn_layers, attn_layers))
+        return {k: graphed_launches(stats, *n) for k, n in per.items()}
+
     params, init_ms, n_params, params_gb = lm_params(cfg)
     dev = params["embed"]["tok"].device
     max_len = SERVE_PROMPT + SERVE_NEW + 1
     tokens, stats, counts = serve_requests(cfg, params, prompts, SERVE_NEW,
                                            SERVE_BATCH, max_len, profile=s)
-    s.exactly(phase, counts, {"flash_attention": graphed_launches(
-        stats, attn_layers, attn_layers)})
+    s.exactly(phase, counts, expected(stats))
     print_graphed(phase, stats)
     rng = np.random.default_rng(1)
     _, mixed, counts2 = serve_requests(
         cfg, params, [rng.integers(1, cfg.vocab, n)
                       for n in SERVE_MIXED_PROMPTS],
         SERVE_MIXED_NEW, SERVE_BATCH, max_len)
-    s.exactly(f"{phase} (mixed lengths)", counts2, {
-        "flash_attention": graphed_launches(mixed, attn_layers,
-                                            attn_layers)})
+    s.exactly(f"{phase} (mixed lengths)", counts2, expected(mixed))
     print_graphed(f"{phase} mixed lengths", mixed)
     toks = torch.as_tensor(prompts[0], device=dev)[None]
     batch = {"tokens": toks, **extra(dev)}
     with intercept(fa, "flash_attention", operands(
-            {0: "prefill", attn_layers: "decode"})) as kept:
+            {0: "prefill", attn_layers: "decode"})) as kept, \
+            intercept(kss, "ssd_scan", keep_call(0)) as kept_m1:
         lg, cache = tm.prefill(params, cfg, batch,
                                tm.init_decode_cache(cfg, 1, max_len))
         tm.decode_step(params, cfg, torch.argmax(lg[:, -1], -1)[:, None],
                        cache)
+    m1 = {f"{cfg.name.split('-')[0]}_prefill_block0": m1_check(
+        f"{phase} M1 block 0", *call) for call in kept_m1}
+    if ("ssd_scan" in scans) != bool(m1):
+        raise RuntimeError(f"{phase}: M1 calls {len(kept_m1)} in the "
+                           f"capture prefill")
+    del kept_m1
     captured = {name: ops for name, ops in kept if name}
     if len(kept) != 2 * attn_layers or len(captured) != 2:
         raise RuntimeError(f"{phase}: captured {sorted(captured)} of "
@@ -5422,7 +5722,7 @@ def _serve_and_capture(s: Smoke, phase, cfg, prompts, extra, attn_layers):
                               **graphed_record(mixed)},
             "tokens_first_request": tokens[0][:8], **steps,
             "peak_gb": peak_gb, "b7_checks": checks,
-            "b7_shapes": shapes}, counts, checks, shapes
+            "b7_shapes": shapes, "m1_checks": m1}, counts, checks, shapes
 
 
 def mamba_block_card_vs_cpu(cfg, seed, card):
@@ -5473,7 +5773,8 @@ def phase_hybrid_serve(s: Smoke):
     prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT)
                for _ in range(SERVE_REQUESTS)]
     served, counts, checks, shapes = _serve_and_capture(
-        s, "hybrid_serve", cfg, prompts, lambda dev: {}, ng)
+        s, "hybrid_serve", cfg, prompts, lambda dev: {}, ng,
+        scans={"ssd_scan": (ng * per, 0)})     # decode: the O(1) step
 
     # float32 at depth HYBRID_CHECK_LAYERS (two groups): the card's B7
     # against its plain version, then one Mamba2 block against the CPU
@@ -5487,13 +5788,15 @@ def phase_hybrid_serve(s: Smoke):
     counts32, diffs32 = lm_f32_against_plain(
         "hybrid_serve float32", cfg32, p32, {"tokens": t}, CHECK_PREFILL,
         CHECK_DECODE)
-    ng32 = tm._groups(cfg32)[0]
+    ng32, per32 = tm._groups(cfg32)
     s.exactly("hybrid_serve float32", counts32,
-              {"flash_attention": ng32 * (2 + CHECK_DECODE)})
+              {"flash_attention": ng32 * (2 + CHECK_DECODE),
+               "ssd_scan": 2 * ng32 * per32})   # forward and prefill
     del p32
     torch.cuda.empty_cache()
     block_diff = mamba_block_card_vs_cpu(cfg32, 5, dev)
     _record_b7(s, counts["flash_attention"], checks, shapes)
+    _record_scan(s, "ssd_scan", counts["ssd_scan"], served["m1_checks"])
     log({"phase": "hybrid_serve", "ok": True, **served,
          "groups": ng, "mamba_blocks_per_group": per,
          "f32_check": {"layers": HYBRID_CHECK_LAYERS, "groups": ng32,
@@ -5501,6 +5804,383 @@ def phase_hybrid_serve(s: Smoke):
                        "launches": counts32, "max_abs_diff": diffs32,
                        "mamba_block_card_vs_cpu": block_diff,
                        "mamba_block_rows": MAMBA_CHECK_ROWS}})
+
+
+# ---------------------------------------------------------------------------
+# long_500k: the reference's 524,288-row decode shape on the sub-quadratic
+# families, on M1, X1 and B7
+# ---------------------------------------------------------------------------
+
+
+def _recurrent_state(cache):
+    """Every tensor of a decode cache but its attention rows (``k``,
+    ``v``): the length and the recurrent states a decode step rewrites."""
+    import torch
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for key in sorted(t):
+                if key not in ("k", "v"):
+                    walk(t[key])
+        elif isinstance(t, torch.Tensor):
+            out.append(t)
+    walk(cache)
+    return out
+
+
+def long_decode(cfg, params, cache, first):
+    """``LONG_NEW`` greedy decode steps after token ``first`` from the
+    prefilled ``cache``: eagerly (the Server's decode body: the step, its
+    output copied into the cache's buffers), then from the same state
+    (the length and recurrent states restored; the rows the steps write
+    are written again alike) through one captured CUDA graph of the same
+    body (``launch.serve._Graphed``, its warm-up undone), replayed a step.
+    Fails unless the tokens are equal and every step's logits
+    bit-identical.  Returns (tokens, eager ms a step, graphed ms a step,
+    capture s)."""
+    import torch
+    from repro_torch.launch.serve import _Graphed, _copy_into
+    from repro_torch.models import steps as ts
+    decode = ts.make_decode_step(cfg)
+    state = _recurrent_state(cache)
+    dev = state[0].device
+    saved = [t.clone() for t in state]
+    tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+
+    def restore():
+        for t, v in zip(state, saved):
+            t.copy_(v)
+
+    def body():
+        lg, out = decode(params, tok, cache)
+        _copy_into(cache, out)
+        return lg
+
+    def run(step):
+        toks, seen, ms = [first], [], []
+        for _ in range(LONG_NEW):
+            tok.fill_(toks[-1])
+            t, lg = host_ms(step)
+            ms.append(t)
+            seen.append(lg[:, -1].clone())
+            toks.append(int(torch.argmax(lg[0, -1])))
+        return toks, seen, ms
+
+    eager = run(body)
+    restore()
+    graph = _Graphed(body, lambda: (body(), restore()),
+                     torch.cuda.graph_pool_handle(), dev)
+    graphed = run(graph)
+    same = [bool(torch.equal(a, b)) for a, b in zip(eager[1], graphed[1])]
+    if graphed[0] != eager[0] or not all(same):
+        raise RuntimeError(f"{cfg.name}: long_500k graphed decode differs "
+                           f"from eager: tokens {graphed[0]} vs {eager[0]}, "
+                           f"logits equal {same}")
+    capture_s = graph.capture_s
+    del graph
+    return eager[0], eager[2], graphed[2], capture_s
+
+
+def b7_long_prefill_check(what, q, k, v, kw, out):
+    """B7 at a long prefill piece: the path's own output on its last
+    ``LONG_B7_ROWS`` query rows (the rows that see the most keys) against
+    the plain version and the recurrence at the route's kv tiles on those
+    rows (``b7_check``'s bounds); the kernel's device ms on the whole
+    piece beside its bound.  Returns (check, timed shape)."""
+    from repro_torch.kernels import flash_attention as fa
+    rows = min(LONG_B7_ROWS, q.shape[1])
+    kwc = dict(kw, q_start=kw.get("q_start", 0) + q.shape[1] - rows)
+    qc, got = q[:, -rows:], out[:, -rows:].float()
+    want = fa.flash_attention_reference(qc, k, v, **kwc).float()
+    err = float((got - want).abs().max())
+    if not err <= B7_BF16_ATOL:
+        raise RuntimeError(f"{what}: B7 off its plain version by {err}")
+    del want
+    route = fa.flash_route(q.shape, k.shape, q.dtype, **kw)
+    rec = fa.flash_attention_recurrence(
+        qc, k, v, block_k=route.block_k, splits=route.splits, **kwc).float()
+    off = (got - rec).abs()
+    beyond = float((off > 1e-6 + 2.0 ** -7 * rec.abs()).float().mean())
+    rec_max, v_max = float(off.max()), float(v.float().abs().max())
+    if not (beyond <= B7_REC_BEYOND and rec_max <= B7_REC_MAX_OF_V * v_max):
+        raise RuntimeError(f"{what}: B7 off the recurrence: {beyond:.2e} "
+                           f"beyond one bf16 step, max {rec_max}")
+    bound, by = b7_bound_ms(q, k, kw)
+    check = {"q": list(q.shape), "kv": list(k.shape), "kw": kw,
+             "route": route.name, "block_k": route.block_k,
+             "checked_rows": rows, "max_abs_err": err,
+             "recurrence_max_abs_err": rec_max,
+             "recurrence_beyond_one_step": beyond}
+    shape = {"route": route.name, "splits": route.splits,
+             "block_k": route.block_k,
+             "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), 2),
+             "plain_ms": None, "bound_ms": bound, "bound_by": by,
+             "library_ms": None,
+             "not_measured": "plain_ms and library_ms: the plain scores "
+                             "and SDPA's mask of 32,768 x 524,288 do not "
+                             "fit beside the cache"}
+    return check, shape
+
+
+def m1_long_operands(dev, rows):
+    """M1's operands at zamba2-2.7b's widths over ``rows`` rows, bf16 views
+    of one convolution output as ``mamba2_forward`` hands them over, from
+    a seeded generator on the card: (args, kwargs)."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    nh, dh, ds = 80, 64, 64
+    conv = torch.randn((1, rows, nh * dh + 2 * ds), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(
+        torch.randn((1, rows, nh), generator=gen, device=dev) - 1.0)
+    a = -torch.exp(torch.rand((nh,), generator=gen, device=dev) * 2 - 1)
+    d = torch.rand((nh,), generator=gen, device=dev) * 2
+    h0 = torch.randn((1, nh, dh, ds), generator=gen, device=dev)
+    return (conv[..., :nh * dh].reshape(1, rows, nh, dh),
+            conv[..., nh * dh:nh * dh + ds], conv[..., nh * dh + ds:], dt,
+            a, d, h0, 256), {}
+
+
+def _long_zamba2(s: Smoke, cfg, params, toks):
+    """zamba2-2.7b at long_500k: ``prefill`` of the first ``LONG_PIECE``
+    tokens, ``decode_step`` over the other pieces (exactly one B7 launch a
+    group and one M1 launch a Mamba2 block each), then ``long_decode``;
+    M1 held on the last block of the last piece, B7 at that piece and at
+    decode (host ints and a device start), M1 alone at 524,288 rows."""
+    import torch
+    from repro_torch.kernels import cam_search
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as kss
+    from repro_torch.models import model as tm
+    ng, per = tm._groups(cfg)
+    n = toks.shape[1]
+    cache = tm.init_decode_cache(cfg, 1, n + LONG_NEW + 1)
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in (cache["attn"]["k"], cache["attn"]["v"])) / 1e9
+    pieces = [(a, min(n, a + LONG_PIECE)) for a in range(0, n, LONG_PIECE)]
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    piece_ms = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j, (a, b) in enumerate(pieces):
+        last = j == len(pieces) - 1
+        cam_search.reset_launch_counts()
+        with (intercept(fa, "flash_attention",
+                        lambda i, args, kw, out: (args, host_masks(kw), out)
+                        if i == ng - 1 else None) if last
+              else contextlib.nullcontext([])) as kept_b7, \
+                (intercept(kss, "ssd_scan", keep_call(ng * per - 1)) if last
+                 else contextlib.nullcontext([])) as kept_m1:
+            if j == 0:
+                ms, (lg, cache) = host_ms(lambda: tm.prefill(
+                    params, cfg, {"tokens": toks[:, a:b]}, cache))
+            else:
+                ms, (lg, cache) = host_ms(lambda: tm.decode_step(
+                    params, cfg, toks[:, a:b], cache))
+            lg = lg[:, -1:]
+        piece_ms.append(ms)
+        counts = dict(cam_search.LAUNCHES)
+        s.exactly(f"long_500k zamba2 piece {j}", counts,
+                  {"flash_attention": ng, "ssd_scan": ng * per})
+        for key in launches:
+            launches[key] += counts[key]
+    prefill_s = time.perf_counter() - t0
+    if tuple(lg.shape) != (1, 1, cfg.vocab) or \
+            not bool(torch.isfinite(lg).all()):
+        raise RuntimeError(f"long_500k zamba2: last logits "
+                           f"{tuple(lg.shape)} not finite")
+    first = int(torch.argmax(lg[0, -1]))
+    del lg
+    # M1 on the last block's operands of the last piece (from the state
+    # its earlier pieces carried), against its plain version
+    (m1_args, m1_kw, m1_out), = kept_m1
+    m1 = {"zamba2_long_500k_last_piece": m1_check(
+        "long_500k zamba2 M1", m1_args, m1_kw, m1_out)}
+    del m1_args, m1_out, kept_m1
+    # decode: B7's operands of the last group's first eager step kept
+    cam_search.reset_launch_counts()
+    with intercept(fa, "flash_attention", operands({ng - 1: "decode"})) \
+            as kept_dec:
+        tokens, eager_ms, graphed_ms, capture_s = long_decode(
+            cfg, params, cache, first)
+    dec_counts = dict(cam_search.LAUNCHES)
+    s.exactly("long_500k zamba2 decode", dec_counts,
+              {"flash_attention": ng * (LONG_NEW + 2)})
+    # B7's checks need the plain scores beside the last group's cache
+    # rows: keep those rows, free the rest of the cache
+    (pq, pk, pv), pkw, pout = kept_b7[0][0][:3], kept_b7[0][1], \
+        kept_b7[0][2]
+    dq, dk, dv, dkw = next(ops for name, ops in kept_dec if name)
+    k_rows, v_rows = pk.clone(), pv.clone()
+    del kept_b7, kept_dec, cache, pk, pv, dk, dv
+    torch.cuda.empty_cache()
+    b7_prefill, b7_prefill_shape = b7_long_prefill_check(
+        "long_500k zamba2 prefill", pq, k_rows, v_rows, pkw, pout)
+    b7_decode = b7_check("long_500k zamba2 decode", dq, k_rows, v_rows, dkw)
+    b7_decode_shape = b7_timing(dq, k_rows, v_rows, dkw)
+    device_len = b7_device_len_check("long_500k zamba2 decode", dq, k_rows,
+                                     v_rows, dkw, whole_tiles=False)
+    del pq, pout, dq, k_rows, v_rows
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "how": f"prefill of {LONG_PIECE} tokens, "
+            f"then {len(pieces) - 1} decode_step pieces of {LONG_PIECE}",
+            "cache_gb": cache_gb, "prefill_s": prefill_s,
+            "piece_ms": piece_ms, "launches_prefill": launches,
+            "launches_decode": dec_counts, "tokens": tokens,
+            "decode_ms_eager": _ms_stats(eager_ms),
+            "decode_ms_graphed": _ms_stats(graphed_ms),
+            "capture_s": capture_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "m1_checks": m1, "b7_checks": {"zamba2_long_prefill": b7_prefill,
+                                           "zamba2_long_decode": b7_decode},
+            "b7_shapes": {"zamba2_long_prefill": b7_prefill_shape,
+                          "zamba2_long_decode": b7_decode_shape},
+            "device_len_b7": device_len}
+
+
+def _long_xlstm(s: Smoke, cfg, params, toks):
+    """xlstm-125m at long_500k: one ``prefill`` of the whole prompt
+    (exactly one X1 launch a sLSTM layer), each layer's launch also
+    keeping the state it carried into the last ``LONG_X1_ROWS``
+    positions (``snapshot_at``), from which X1 is held to its plain loop
+    over those positions and bit-identical to the launch's own hs (the
+    checks uncounted and timed apart from the prefill); layer 0's whole
+    launch timed again; then ``long_decode``."""
+    import torch
+    from repro_torch.kernels import cam_search
+    from repro_torch.kernels import slstm_scan as ksl
+    from repro_torch.models import model as tm
+    pairs = tm._pairs(cfg)
+    n = toks.shape[1]
+    cache = tm.init_decode_cache(cfg, 1, n + LONG_NEW + 1)
+    x1, check_s, busy = {}, [0.0], [False]
+    real = ksl.slstm_scan
+
+    def scan(pre, wh, *st, **kw):
+        if busy[0]:                  # a check's own call
+            return real(pre, wh, *st, **kw)
+        cut = pre.shape[1] - LONG_X1_ROWS
+        hs, fin, mid = real(pre, wh, *st, snapshot_at=cut)
+        torch.cuda.synchronize()
+        t_check, i = time.perf_counter(), len(x1)
+        busy[0] = True
+        try:
+            with uncounted():
+                rec = x1_check(f"long_500k xlstm X1 layer {i}",
+                               (pre[:, cut:], wh, *mid),
+                               (hs[:, cut:], fin), timed=i == 0)
+                if i == 0:
+                    whole, _ = event_ms(lambda: real(pre, wh, *st))
+                    step = ksl.barrier_step_ms(pre.shape[0], wh.shape[0],
+                                               4096, pre.device)
+                    bound, by = x1_bound_ms(pre)
+                    rec["long_500k"] = {
+                        "positions": pre.shape[1], "ms": whole,
+                        "ms_per_position": whole / pre.shape[1],
+                        "bound_ms": bound, "bound_by": by,
+                        "barrier_step_ms": step,
+                        "serial_bound_ms": pre.shape[1] * step}
+        finally:
+            busy[0] = False
+        x1[f"xlstm_long_500k_layer{i}"] = rec
+        torch.cuda.synchronize()
+        check_s[0] += time.perf_counter() - t_check
+        return hs, fin
+
+    cam_search.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ksl.slstm_scan = scan
+    try:
+        lg, cache = tm.prefill(params, cfg, {"tokens": toks}, cache)
+    finally:
+        ksl.slstm_scan = real
+    torch.cuda.synchronize()
+    # the checks ran inside the prefill, each after a synchronise
+    prefill_s = time.perf_counter() - t0 - check_s[0]
+    counts = dict(cam_search.LAUNCHES)
+    s.exactly("long_500k xlstm prefill", counts, {"slstm_scan": pairs})
+    if tuple(lg.shape) != (1, 1, cfg.vocab) or \
+            not bool(torch.isfinite(lg).all()):
+        raise RuntimeError(f"long_500k xlstm: prefill logits "
+                           f"{tuple(lg.shape)} not finite")
+    cam_search.reset_launch_counts()
+    tokens, eager_ms, graphed_ms, capture_s = long_decode(
+        cfg, params, cache, int(torch.argmax(lg[0, -1])))
+    dec_counts = dict(cam_search.LAUNCHES)
+    s.exactly("long_500k xlstm decode", dec_counts,
+              {"slstm_scan": pairs * (LONG_NEW + 2)})
+    return {"model": cfg.name, "how": f"one prefill of {n} tokens",
+            "prefill_s": prefill_s, "x1_checks_s": check_s[0],
+            "launches_prefill": counts, "launches_decode": dec_counts,
+            "tokens": tokens, "decode_ms_eager": _ms_stats(eager_ms),
+            "decode_ms_graphed": _ms_stats(graphed_ms),
+            "capture_s": capture_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "x1_checks": x1}
+
+
+def phase_long_500k(s: Smoke):
+    """launch/specs.py's long_500k shape (524,288 rows of cache, batch 1)
+    for its two families, uncut: zamba2-2.7b (hybrid) and xlstm-125m
+    (ssm), one after the other (``_long_zamba2``, ``_long_xlstm``); then
+    M1 alone at 524,288 rows of zamba2's widths against its plain
+    version.  Each model's peak must stay under ``LONG_PEAK_GB``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    runs, t_phase = {}, time.perf_counter()
+    for arch, run in zip(LONG_ARCHS, (_long_zamba2, _long_xlstm)):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        s.reset_peak()
+        params, init_ms, n_params, params_gb = lm_params(cfg)
+        dev = params["embed"]["tok"].device
+        prompt = np.random.default_rng(0).integers(1, cfg.vocab, LONG_PROMPT)
+        toks = torch.as_tensor(prompt, device=dev)[None]
+        rec = run(s, cfg, params, toks)
+        del params, toks
+        torch.cuda.empty_cache()
+        rec.update(params=n_params, params_gb=params_gb, init_ms=init_ms,
+                   seconds=time.perf_counter() - t0)
+        if not rec["peak_gb"] < LONG_PEAK_GB:
+            raise RuntimeError(f"long_500k {arch}: peak {rec['peak_gb']} GB")
+        print(f"long_500k {arch}: {rec['how']}: prefill "
+              f"{rec['prefill_s']:.3f} s, decode ms a token graphed "
+              f"{rec['decode_ms_graphed']} eager {rec['decode_ms_eager']}, "
+              f"peak {rec['peak_gb']:.2f} GB, {rec['seconds']:.1f} s",
+              flush=True)
+        runs[arch] = rec
+    args, kw = m1_long_operands(torch.device("cuda"), LONG_PROMPT)
+    m1_whole = m1_check("long_500k M1 at 524,288 rows", args, kw)
+    del args
+    torch.cuda.empty_cache()
+    z, x = runs[LONG_ARCHS[0]], runs[LONG_ARCHS[1]]
+    _record_scan(s, "ssd_scan", z["launches_prefill"]["ssd_scan"],
+                 dict(z["m1_checks"], zamba2_524288_rows=m1_whole))
+    _record_scan(s, "slstm_scan", x["launches_prefill"]["slstm_scan"]
+                 + x["launches_decode"]["slstm_scan"], x["x1_checks"])
+    _record_b7(s, z["launches_prefill"]["flash_attention"]
+               + z["launches_decode"]["flash_attention"], z["b7_checks"],
+               z["b7_shapes"])
+    for name, rec in (("M1 at one 32,768-row piece",
+                       z["m1_checks"]["zamba2_long_500k_last_piece"]),
+                      ("M1 at 524,288 rows", m1_whole),
+                      ("X1 at 524,288 positions", x["x1_checks"][
+                          "xlstm_long_500k_layer0"]["long_500k"]),
+                      ("B7 at the last piece",
+                       z["b7_shapes"]["zamba2_long_prefill"]),
+                      ("B7 at decode", z["b7_shapes"]["zamba2_long_decode"])):
+        print(f"long_500k kernel {name}: ms {rec['ms']}, bound "
+              f"{rec['bound_ms']} ({rec['bound_by']})"
+              + (f", serial bound {rec['serial_bound_ms']}"
+                 if "serial_bound_ms" in rec else ""), flush=True)
+    log({"phase": "long_500k", "ok": True, "shape": "long_500k",
+         "prompt": LONG_PROMPT, "max_new": LONG_NEW, "batch": 1,
+         "runs": runs, "m1_524288_rows": m1_whole,
+         "phase_s": time.perf_counter() - t_phase})
 
 
 def phase_vlm_serve(s: Smoke):
@@ -6571,7 +7251,9 @@ EXAMPLE_WRAPPERS = {
     "flash_attention": ("repro_torch.kernels.flash_attention",
                         "_forward_cuda"),
     "flash_attention_bwd": ("repro_torch.kernels.flash_attention",
-                            "flash_attention_backward")}
+                            "flash_attention_backward"),
+    "ssd_scan": ("repro_torch.kernels.ssd_scan", "ssd_scan"),
+    "slstm_scan": ("repro_torch.kernels.slstm_scan", "slstm_scan")}
 
 
 def _example_key(kernel, args, kw):
@@ -6689,6 +7371,10 @@ def example_check(s: Smoke, what, key, args, kw, out):
                         _example_b7_kw(args, kw))
     if key == "flash_attention_bwd":
         return vlm_b7b_check(list(args), kw, list(out), what=what)
+    if key == "ssd_scan":
+        return m1_check(f"{what} M1", args, kw, out, timed=False)
+    if key == "slstm_scan":
+        return x1_check(f"{what} X1", args, out, timed=False)
     if key == "acam_match":
         got, want = kacam.acam_match(*args, **kw), \
             kacam.acam_match_reference(*args, **kw)
@@ -6798,8 +7484,7 @@ def phase_examples(s: Smoke):
                                     if isinstance(v, (int, float, str))}})
     for name, n in total.items():
         src, ref = EXAMPLE_KERNELS[name]
-        s.record(name, f"src/repro_torch/kernels/csrc/{src}",
-                 f"src/repro/kernels/{ref}", n,
+        s.record(name, src, ref, n,
                  max(c["max_abs_err"] for c in checks[name].values()), None,
                  None, None, "operations", None)
         s.kernels[name].setdefault("shapes", {}).update(checks[name])
@@ -6917,6 +7602,7 @@ def main() -> None:
               ("audio_serve", lambda: phase_audio_serve(s)),
               ("ssm_serve", lambda: phase_ssm_serve(s)),
               ("hybrid_serve", lambda: phase_hybrid_serve(s)),
+              ("long_500k", lambda: phase_long_500k(s)),
               ("vlm_serve", lambda: phase_vlm_serve(s)),
               ("dense_configs_serve", lambda: phase_dense_configs_serve(s)),
               ("lm_train", lambda: phase_lm_train(s)),
@@ -6951,7 +7637,7 @@ def main() -> None:
              "acam_match", "range_match", "hdc_encode", "hdc_encode_wide",
              "distance", "distance_topk", "distance_topk_packed",
              "topk_select", "packed_distance", "flash_attention",
-             "flash_attention_bwd"]
+             "flash_attention_bwd", "ssd_scan", "slstm_scan"]
     print(smi, flush=True)
     log({"kernels": [s.kernels[n] for n in order
                      if not wanted or n in s.kernels]})

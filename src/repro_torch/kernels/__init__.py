@@ -17,6 +17,12 @@
                  call of prefill, decode and the no-cache forward; plain
                  PyTorch version (the reference's ``attn_core``) beside
                  it.
+* `ssd_scan`   — M1: the Mamba2 chunked SSD scan of a prefill (three
+                 launches a call, no TPU counterpart: the reference's
+                 ``lax.scan``); plain PyTorch version beside it.
+* `slstm_scan` — X1: the sLSTM recurrence over a whole sequence in one
+                 cooperative launch (the reference's ``lax.scan``);
+                 plain PyTorch version beside it.
 * `lm_ops`     — B7, B7b and B2 (as the MoE router) as ``torch.library``
                  custom ops with fake implementations: the LM's call
                  sites, which trace under ``FakeTensorMode``.

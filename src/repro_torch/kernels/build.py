@@ -40,7 +40,9 @@ SOURCES = {"fused_topk": "fused_topk.cu",
            "distance": "distance.cu",
            "topk_select": "topk_select.cu",
            "flash_attention": "flash_attention.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu"}
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "ssd_scan": "ssd_scan.cu",
+           "slstm_scan": "slstm_scan.cu"}
 #: headers every source includes (part of each library's hash)
 _HEADERS = ("fused_topk_common.cuh", "tf32_wgmma.cuh", "bf16_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

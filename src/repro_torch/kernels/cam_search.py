@@ -134,7 +134,8 @@ LAUNCHES: Dict[str, int] = {"fused_topk": 0, "fused_topk_packed": 0,
                             "hdc_encode": 0, "hdc_encode_wide": 0,
                             "distance": 0, "distance_topk": 0,
                             "topk_select": 0, "packed_distance": 0,
-                            "flash_attention": 0, "flash_attention_bwd": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0,
+                            "ssd_scan": 0, "slstm_scan": 0}
 _COUNT_LOCK = threading.Lock()
 
 

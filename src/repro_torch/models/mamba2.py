@@ -3,16 +3,19 @@
 
 Multi-head state-space duality form (Dao & Gu 2024) with a chunked
 scan: inside a chunk the quadratic (attention-like) form, across chunks
-the state ``h: (B, heads, d_head, d_state)`` carried by a Python loop
-(the reference's ``lax.scan``).  A decode step (a state given and
+the state ``h: (B, heads, d_head, d_state)`` carried chunk to chunk (the
+reference's ``lax.scan``).  A decode step (a state given and
 S == 1) runs the O(1) recurrent update on the carried state.
 
-The reference has no kernel here: this is torch operations on any
-device, every einsum in float32 with the reference's clips (float32
-products on the card run without TF32, PyTorch's default, as the
-reference's "highest" precision asks).  The ssm state is float32; the
-conv state starts in bfloat16 (the reference's cache dtype) and comes
-back in the compute dtype, as the reference's does.
+The reference has no kernel here.  The prefill's chunked scan runs on
+M1 (:func:`..kernels.ssd_scan.ssd_scan`: the hand-written kernels on the
+card when autograd records nothing, the reference's einsums in float32
+with its clips otherwise, :func:`..kernels.ssd_scan.ssd_route`); the rest
+is torch operations on any device (float32 products on the card run
+without TF32, PyTorch's default, as the reference's "highest" precision
+asks).  The ssm state is float32; the conv state starts in bfloat16 (the
+reference's cache dtype) and comes back in the compute dtype, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ssd_scan as kss
 from .config import ModelConfig
 from .layers import dense_init, pdtype
 from .sharding import is_dtensor, model_replicated_call
@@ -75,42 +79,6 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out), new_state
 
 
-def _chunk_scan(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
-                dt: torch.Tensor, A: torch.Tensor, h: torch.Tensor,
-                chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chunked SSD scan over S (padded to whole chunks by the
-    caller): xh (b, S, nh, dh), B_ / C_ (b, S, ds), dt (b, S, nh)
-    float32, A (nh,), h (b, nh, dh, ds) the carried state.  Returns
-    (y (b, S, nh, dh) float32, the final state)."""
-    b, s, nh, dh = xh.shape
-    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
-                                 device=xh.device))
-    ys = []
-    for c0 in range(0, s, chunk):
-        xck = xh[:, c0:c0 + chunk].float()
-        bck = B_[:, c0:c0 + chunk].float()
-        cck = C_[:, c0:c0 + chunk].float()
-        dtk = dt[:, c0:c0 + chunk]
-        la = dtk * A[None, None, :]                      # log a_t (b,c,nh)
-        cum = torch.cumsum(la, dim=1)                    # L_t
-        # intra-chunk: S_ij = exp(L_i - L_j) dt_j (C_i . B_j) x_j, j <= i
-        ci, cj = cum[:, :, None, :], cum[:, None, :, :]
-        decay = torch.exp(torch.clamp(ci - cj, -60.0, 0.0)) \
-            * tril[None, :, :, None]
-        cb = torch.einsum("bis,bjs->bij", cck, bck)
-        w = decay * cb[:, :, :, None] * dtk[:, None, :, :]  # (b,i,j,nh)
-        y_intra = torch.einsum("bijh,bjhd->bihd", w, xck)
-        # inter-chunk: the carried state's contribution
-        y_inter = torch.einsum("bis,bhds,bih->bihd", cck, h, torch.exp(cum))
-        # h' = exp(L_chunk) h + sum_j exp(L_c - L_j) dt_j x_j B_j
-        tot = cum[:, -1:, :]
-        decay_j = torch.exp(torch.clamp(tot - cum, min=-60.0))
-        contrib = torch.einsum("bjh,bjhd,bjs->bhds", decay_j * dtk, xck, bck)
-        h = torch.exp(tot[:, 0, :, None, None]) * h + contrib
-        ys.append(y_intra + y_inter)
-    return torch.cat(ys, dim=1), h
-
-
 def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    chunk: int = 256,
                    state: Optional[Dict[str, torch.Tensor]] = None,
@@ -121,7 +89,8 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     starts from ``state["ssm"]`` and ``state["conv"]``.  With ``rules``
     and a DTensor ``x`` the block runs on every ``model`` rank over its
     data shard with the (``ssm_inner``-sharded) weights gathered
-    (:func:`.sharding.model_replicated_call`); it has no kernel."""
+    (:func:`.sharding.model_replicated_call`), M1 on each rank's local
+    tensors by the same route."""
     if rules is not None and is_dtensor(x):
         return model_replicated_call(
             rules, lambda xl, pl, sl: mamba2_forward(pl, xl, cfg,
@@ -156,17 +125,10 @@ def mamba2_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         y = y + D[None, :, None] * xh[:, 0].float()
         y = y.reshape(b, 1, d_inner).to(x.dtype)
     else:
-        pad = (-s) % chunk
-        if pad:
-            xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-            B_ = F.pad(B_, (0, 0, 0, pad))
-            C_ = F.pad(C_, (0, 0, 0, pad))
-            dt = F.pad(dt, (0, 0, 0, pad))
+        # M1 on the card (kernels/ssd_scan.py), its plain version else
         h0 = state["ssm"] if state is not None else torch.zeros(
             (b, nh, dh, ds), dtype=torch.float32, device=x.device)
-        y, h = _chunk_scan(xh, B_, C_, dt, A, h0, chunk)
-        y = y[:, :s] + D[None, None, :, None] * xh[:, :s].float()
-        y = y.reshape(b, s, d_inner).to(x.dtype)
+        y, h = kss.ssd_scan(xh, B_, C_, dt, A, D, h0, chunk)
     new_state = {"ssm": h, "conv": conv_state}
 
     # gated RMSNorm + output projection

@@ -6,10 +6,13 @@ out as ``h_t = (C_t q_t) / max(|n_t . q_t|, 1)``, with exponential gating
 and a log-domain stabiliser ``m_t``.  A prefill runs the chunked
 parallel form (gated linear attention inside a chunk, the matrix state
 carried across chunks); a decode step (S == 1 with a state) runs the
-recurrent update.  sLSTM: scalar-memory LSTM, a loop over time.
+recurrent update.  sLSTM: scalar-memory LSTM, a recurrence over time:
+kernel X1 (:func:`..kernels.slstm_scan.slstm_scan`, one launch a call)
+on the card when autograd records nothing, a loop over positions
+otherwise (:func:`..kernels.slstm_scan.slstm_route`).
 
-The reference has no kernel here: this is torch operations on any
-device.  States are float32; the sLSTM's ``m`` starts at -1e30, the
+The reference has no kernel here; apart from X1 this is torch operations
+on any device.  States are float32; the sLSTM's ``m`` starts at -1e30, the
 mLSTM's at 0, as the reference's do.
 """
 
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 from .config import ModelConfig
 from .layers import dense_init, pdtype
 from ..kernels.lm_ops import is_fake
+from ..kernels import slstm_scan as ksl
 from .sharding import is_dtensor, model_replicated_call
 
 Params = Dict[str, Any]
@@ -180,8 +184,8 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   state: Optional[Dict[str, torch.Tensor]] = None,
                   rules=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """A loop over time.  state: {"h", "c", "n", "m"}, each (B, D).
-    ``rules``: as :func:`mlstm_forward`'s."""
+    """The recurrence over time (X1's route).  state: {"h", "c", "n",
+    "m"}, each (B, D).  ``rules``: as :func:`mlstm_forward`'s."""
     if rules is not None and is_dtensor(x):
         return model_replicated_call(
             rules, lambda xl, pl, sl: slstm_forward(pl, xl, cfg, state=sl),
@@ -194,20 +198,9 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     h, c, n, m = (state[key] for key in ("h", "c", "n", "m"))
     if is_fake(x) and s > 1:
         return _slstm_surrogate(p, pre, wh, (h, c, n, m), x.dtype)
-    hs = []
-    for i in range(s):
-        g = pre[:, i] + h @ wh
-        z, ig, fg, og = torch.chunk(g, 4, dim=-1)
-        logf = F.logsigmoid(fg)
-        m_t = torch.maximum(logf + m, ig)
-        isc = torch.exp(ig - m_t)
-        fsc = torch.exp(logf + m - m_t)
-        c = fsc * c + isc * torch.tanh(z)
-        n = fsc * n + isc
-        h = torch.sigmoid(og) * c / torch.clamp(n.abs(), min=1.0)
-        m = m_t
-        hs.append(h)
-    out = torch.stack(hs, dim=1).to(x.dtype) @ p["wo"].to(x.dtype)
+    # X1 on the card (kernels/slstm_scan.py), its plain loop else
+    hs, (h, c, n, m) = ksl.slstm_scan(pre, wh, h, c, n, m)
+    out = hs.to(x.dtype) @ p["wo"].to(x.dtype)
     return out, {"h": h, "c": c, "n": n, "m": m}
 
 

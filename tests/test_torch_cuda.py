@@ -274,7 +274,8 @@ def test_launch_counts_and_refusals(cuda):
                             "hdc_encode": 0, "hdc_encode_wide": 0,
                             "distance": 0, "distance_topk": 0,
                             "topk_select": 0, "packed_distance": 0,
-                            "flash_attention": 0, "flash_attention_bwd": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0,
+                            "ssd_scan": 0, "slstm_scan": 0}
     with pytest.raises(ValueError, match="queries on"):
         tcs.fused_topk_packed(q, p.cpu(), k=3, largest=False, n_valid=100)
 
@@ -2631,7 +2632,9 @@ def test_mamba2_block_on_the_card_matches_cpu(cuda):
     against the same block on the CPU: a 21-row prefill over 3 chunks of
     8 from a zero state (the conv state bfloat16, as the cache holds it),
     then two decode rows; outputs and states within 1e-4 (full-precision
-    float32 einsums on the card; sums in other orders).  No kernel runs."""
+    float32 einsums and M1's float32 FMAs on the card; sums in other
+    orders).  M1 runs once, for the prefill (the decode rows take the O(1)
+    recurrence)."""
     from repro_torch.models import blocks as tb
     from repro_torch.models import mamba2 as tmb
     from repro_torch.models import model as tm
@@ -2660,7 +2663,7 @@ def test_mamba2_block_on_the_card_matches_cpu(cuda):
 
     tcs.reset_launch_counts()
     got, got_st = run(cuda)
-    assert sum(tcs.LAUNCHES.values()) == 0
+    assert {k: n for k, n in tcs.LAUNCHES.items() if n} == {"ssd_scan": 1}
     want, want_st = run(torch.device("cpu"))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
@@ -2793,3 +2796,217 @@ def test_size_one_mesh_sharded_train_step_equals_unsharded(cuda, arch,
     for path, g in grads[0].items():
         err = float((grads[1][path] - g).abs().max())
         assert err <= 1e-4 * float(g.norm()) + 1e-6, (path, err)
+
+
+# ---------------------------------------------------------------------------
+# M1 (the Mamba2 chunked scan) and X1 (the sLSTM recurrence) against their
+# plain versions
+# ---------------------------------------------------------------------------
+
+#: zamba2-2.7b's Mamba2 widths: heads, head dim, state dim, chunk
+SSD_WIDTHS = dict(nh=80, dh=64, ds=64, chunk=256)
+
+
+def _ssd_operands(rng, b, s, dtype, cuda, nh, dh, ds):
+    """M1's operands as ``mamba2_forward`` hands them over: xh, B_ and C_
+    views of one (b, s, nh dh + 2 ds) convolution output (unit last
+    stride, row stride nh dh + 2 ds), dt = softplus(N(0, 1) - 1) float32,
+    A = -exp(U(-1, 1)), D ~ U(0, 2), a nonzero entering state."""
+    d_inner = nh * dh
+    conv = torch.from_numpy(rng.standard_normal(
+        (b, s, d_inner + 2 * ds)).astype(np.float32)).to(cuda, dtype)
+    xh = conv[..., :d_inner].reshape(b, s, nh, dh)
+    B_, C_ = conv[..., d_inner:d_inner + ds], conv[..., d_inner + ds:]
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, s, nh)).astype(np.float32) - 1.0)).to(cuda)
+    A = -torch.exp(torch.from_numpy(rng.uniform(-1, 1, nh).astype(
+        np.float32))).to(cuda)
+    D = torch.from_numpy(rng.uniform(0, 2, nh).astype(np.float32)).to(cuda)
+    h0 = torch.from_numpy(rng.standard_normal((b, nh, dh, ds)).astype(
+        np.float32)).to(cuda)
+    return xh, B_, C_, dt, A, D, h0
+
+
+def _within(got, want, rtol, of_max):
+    """Each |got - want| within rtol |want| + of_max max|want|."""
+    got, want = got.float(), want.float()
+    bound = rtol * want.abs() + of_max * float(want.abs().max())
+    return float((got - want).abs().max()), bool(((got - want).abs()
+                                                   <= bound).all())
+
+
+@pytest.mark.parametrize("s", [256, 300, 2048, 32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(cuda, s, dtype, rng):
+    """M1 at zamba2-2.7b's widths (80 heads of 64, state 64, chunk 256)
+    from a nonzero state, over one chunk, a padded second chunk, 2,048 and
+    32,768 rows, against ``ssd_scan_reference`` on the same operands.
+    Float32 sums in other orders: y and the state within 1e-5 of the
+    largest |value| (and 1e-4 relative).  bf16 outputs: each y within one
+    bf16 step (2**-7 |y|) of the plain version's rounding, plus the same
+    float32 bound; the state as in float32."""
+    from repro_torch.kernels import ssd_scan as kss
+    ops = _ssd_operands(rng, 1, s, dtype, cuda, SSD_WIDTHS["nh"],
+                        SSD_WIDTHS["dh"], SSD_WIDTHS["ds"])
+    tcs.reset_launch_counts()
+    y, h = kss.ssd_scan(*ops, chunk=SSD_WIDTHS["chunk"])
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["ssd_scan"] == 1
+    want_y, want_h = kss.ssd_scan_reference(*ops, chunk=SSD_WIDTHS["chunk"])
+    assert y.dtype == dtype and y.shape == want_y.shape
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+    err_y, ok_y = _within(y, want_y, rtol, 1e-5)
+    err_h, ok_h = _within(h, want_h, 1e-4, 1e-5)
+    assert ok_y and ok_h, (err_y, err_h)
+
+
+def test_ssd_scan_kernel_small_widths_and_batch(cuda, rng):
+    """M1 at the smoke config's widths (2 heads of 64, state 16) and a
+    chunk of 8 over 3 batch rows of 21 rows (a ragged last chunk), float32,
+    within the float32 bound above."""
+    from repro_torch.kernels import ssd_scan as kss
+    ops = _ssd_operands(rng, 3, 21, torch.float32, cuda, 2, 64, 16)
+    y, h = kss.ssd_scan(*ops, chunk=8)
+    want_y, want_h = kss.ssd_scan_reference(*ops, chunk=8)
+    for got, want in ((y, want_y), (h, want_h)):
+        err, ok = _within(got, want, 1e-4, 1e-5)
+        assert ok, err
+
+
+def test_scan_routes_on_the_card(cuda, rng):
+    """M1 and X1 launch only where autograd records nothing: operands that
+    require grad take the plain versions (and differentiate), the same
+    operands under ``torch.no_grad`` take the kernels; a head dim past 64
+    raises rather than running the plain version."""
+    from repro_torch.kernels import slstm_scan as ksl
+    from repro_torch.kernels import ssd_scan as kss
+    ops = list(_ssd_operands(rng, 1, 40, torch.float32, cuda, 2, 64, 16))
+    ops[0] = ops[0].detach().requires_grad_()
+    assert kss.ssd_route(*ops) == "plain"
+    tcs.reset_launch_counts()
+    y, _ = kss.ssd_scan(*ops, chunk=16)
+    y.sum().backward()
+    assert ops[0].grad is not None and tcs.LAUNCHES["ssd_scan"] == 0
+    with torch.no_grad():
+        assert kss.ssd_route(*ops) == "kernel"
+        kss.ssd_scan(*ops, chunk=16)
+    assert tcs.LAUNCHES["ssd_scan"] == 1
+    wide = _ssd_operands(rng, 1, 8, torch.float32, cuda, 1, 80, 16)
+    with pytest.raises(ValueError, match="dh and ds up to 64"):
+        kss.ssd_scan(*wide, chunk=8)
+    pre, wh, *state = _slstm_operands(rng, 1, 5, 64, cuda)
+    wh.requires_grad_()
+    hs, _ = ksl.slstm_scan(pre, wh, *state)
+    hs.sum().backward()
+    assert wh.grad is not None and tcs.LAUNCHES["slstm_scan"] == 0
+
+
+def _slstm_operands(rng, b, s, d, cuda):
+    """X1's operands: pre-activations N(0, 1), the recurrent weight
+    N(0, 1 / D) (the model's ``dense_init``), a nonzero state: h in
+    (-1, 1), n and |c| up to 3, m N(0, 1) with every third entry -1e30
+    (a fresh state's)."""
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    pre = t(rng.standard_normal((b, s, 4 * d)))
+    wh = t(rng.standard_normal((d, 4 * d)) / np.sqrt(d))
+    h = t(rng.uniform(-1, 1, (b, d)))
+    n = t(rng.uniform(1, 3, (b, d)))
+    c = t(rng.uniform(-1, 1, (b, d))) * n
+    m = rng.standard_normal((b, d))
+    m.reshape(-1)[::3] = -1e30
+    return pre, wh, h, c, n, t(m)
+
+
+def _slstm_errors(got, want):
+    """The largest difference of hs and each state part, ``n`` and ``c``
+    relative to max(|n|, 1), ``m`` relative to max(|m|, 1) (m -1e30 must
+    match exactly)."""
+    (hs, st), (want_hs, want_st) = got, want
+    n_scale = torch.clamp(want_st[2].abs(), min=1.0)
+    m_scale = torch.clamp(want_st[3].abs(), min=1.0)
+    return {"hs": float((hs - want_hs).abs().max()),
+            "h": float((st[0] - want_st[0]).abs().max()),
+            "c": float(((st[1] - want_st[1]).abs() / n_scale).max()),
+            "n": float(((st[2] - want_st[2]).abs() / n_scale).max()),
+            "m": float(((st[3] - want_st[3]).abs() / m_scale).max())}
+
+
+#: X1 against its plain loop: |h| <= 1, so hs and h absolutely; c and n
+#: relative to max(|n|, 1), m to max(|m|, 1) (float32 sums of 768
+#: products in other orders, carried through the recurrence)
+SLSTM_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b", [1, 4, 8])
+@pytest.mark.parametrize("s", [2, 257, 2048])
+def test_slstm_scan_kernel_matches_plain(cuda, b, s, rng):
+    """X1 at xlstm-125m's width (D 768) from a nonzero state against the
+    plain loop on the same operands, within ``SLSTM_TOL``; one launch."""
+    from repro_torch.kernels import slstm_scan as ksl
+    ops = _slstm_operands(rng, b, s, 768, cuda)
+    tcs.reset_launch_counts()
+    got = ksl.slstm_scan(*ops)
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["slstm_scan"] == 1
+    want = ksl.slstm_scan_reference(*ops)
+    errs = _slstm_errors(got, want)
+    assert max(errs.values()) <= SLSTM_TOL, errs
+
+
+def test_slstm_scan_error_growth(cuda, rng):
+    """How X1's difference from the plain loop grows with S (256, 2,048,
+    16,384 positions, batch 1, D 768): printed (run with ``-s``) and each
+    within ``SLSTM_TOL``."""
+    from repro_torch.kernels import slstm_scan as ksl
+    pre, wh, *state = _slstm_operands(rng, 1, 16384, 768, cuda)
+    rows = {}
+    for s in (256, 2048, 16384):
+        ops = (pre[:, :s].contiguous(), wh, *state)
+        rows[s] = _slstm_errors(ksl.slstm_scan(*ops),
+                                ksl.slstm_scan_reference(*ops))
+    print(f"slstm_scan error growth: {rows}")
+    assert all(max(e.values()) <= SLSTM_TOL for e in rows.values()), rows
+
+
+def test_slstm_scan_in_a_cuda_graph(cuda, rng):
+    """X1 captured in a CUDA graph (its cooperative launch and its
+    counter's fill) and replayed over new operands copied into the
+    captured ones: bit-identical to the uncaptured launch on the same
+    operands."""
+    from repro_torch.kernels import slstm_scan as ksl
+    ops = _slstm_operands(rng, 2, 300, 768, cuda)
+    static = [t.clone() for t in ops]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ksl.slstm_scan(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_hs, out_st = ksl.slstm_scan(*static)
+    fresh = _slstm_operands(np.random.default_rng(9), 2, 300, 768, cuda)
+    for dst, src in zip(static, fresh):
+        dst.copy_(src)
+    graph.replay()
+    want_hs, want_st = ksl.slstm_scan(*fresh)
+    torch.cuda.synchronize()
+    assert torch.equal(out_hs, want_hs)
+    assert all(torch.equal(a, b) for a, b in zip(out_st, want_st))
+
+
+def test_slstm_scan_snapshot_is_the_carried_state(cuda, rng):
+    """X1 with ``snapshot_at`` writes, during its own launch, the state
+    entering that position: X1 from it over the rest of the sequence is
+    bit-identical to the whole launch's hs and final state, which the
+    snapshot leaves as they are without it."""
+    from repro_torch.kernels import slstm_scan as ksl
+    pre, wh, *state = _slstm_operands(rng, 2, 600, 768, cuda)
+    hs, fin, mid = ksl.slstm_scan(pre, wh, *state, snapshot_at=400)
+    plain_hs, plain_fin = ksl.slstm_scan(pre, wh, *state)
+    assert torch.equal(hs, plain_hs)
+    assert all(torch.equal(a, b) for a, b in zip(fin, plain_fin))
+    tail_hs, tail_fin = ksl.slstm_scan(pre[:, 400:].contiguous(), wh, *mid)
+    assert torch.equal(tail_hs, hs[:, 400:])
+    assert all(torch.equal(a, b) for a, b in zip(tail_fin, fin))
+    assert torch.equal(mid[0], hs[:, 399])
