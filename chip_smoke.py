@@ -426,6 +426,10 @@ VLM_CHECK_LAYERS = 2
 #: recurrence (1e-7 to 5e-7 at 256 to 16,384 positions,
 #: tests/test_torch_cuda.py on an H100 80GB HBM3 at 700 W)
 M1_OF_MAX, X1_TOL = 1e-5, 1e-4
+#: ssm_serve holds X1's batched kernel at the served decode's shape: a
+#: prefill of X1_BATCH_PROMPT tokens of SERVE_BATCH prompts, one eager
+#: decode step and X1_REPLAYS replays of its captured graph
+X1_BATCH_PROMPT, X1_REPLAYS = 64, 3
 #: each scan kernel's source and the reference code it replaces (no TPU
 #: kernel: the reference's lax.scan), and why no library call stands beside
 #: them
@@ -5364,25 +5368,41 @@ def uncounted():
 
 
 def m1_bound_ms(xh, B_, chunk):
-    """M1's bound: the float32 FMAs its function needs, counted over the
+    """M1's bound: the multiply-adds its function needs, counted over the
     rows this call holds (each chunk's causal C.B^T, once for its heads,
     and per head its causal intra-chunk product, the entering state's term,
-    its own state contribution and the state update), at the float32 peak,
-    against the bytes of xh, B_, C_, dt and y and the two states."""
+    its own state contribution and the state update), on the tensor cores
+    (C.B^T in bf16 at 989 TFLOP/s for bf16 operands, 3xTF32 at 495
+    TFLOP/s for float32 ones; W x, C h^T and (w x)^T B as the TF32
+    passes the design runs, two in bf16, three in float32; the state
+    update a float32 FMA), against the bytes of xh, B_, C_, dt and y and
+    the two states.  The design forms C.B^T again for every head, on
+    TF32 (``m1_slices.py`` times what that costs); the bound counts it
+    once a chunk.  Returns (ms, what bounds it, the float32-FMA figure of
+    the same multiply-adds at 67 TFLOP/s: the bound of the earlier FMA
+    design)."""
+    import torch
     b, s, nh, dh = xh.shape
     ds = B_.shape[-1]
-    macs = 0.0
+    cb = prod = upd = 0.0
     for c0 in range(0, s, chunk):
         r = min(chunk, s - c0)
         tri = r * (r + 1) / 2.0
-        macs += tri * ds + nh * (tri * dh + 2.0 * r * dh * ds + dh * ds)
-    flops = 2.0 * b * macs
+        cb += tri * ds
+        prod += nh * (tri * dh + 2.0 * r * dh * ds)
+        upd += nh * dh * ds
+    bf16 = xh.dtype == torch.bfloat16
+    t_cb = 2.0 * b * cb / BF16_PEAK_FLOPS if bf16 \
+        else 3 * 2.0 * b * cb / TF32_PEAK_FLOPS
+    t_tc = t_cb + (2 if bf16 else 3) * 2.0 * b * prod / TF32_PEAK_FLOPS \
+        + 2.0 * b * upd / FP32_PEAK_FLOPS
+    t_fp32 = 2.0 * b * (cb + prod + upd) / FP32_PEAK_FLOPS
     el = xh.element_size()
     bytes_ = (el * b * s * (2 * nh * dh + 2 * ds) + 4.0 * b * s * nh
               + 8.0 * b * nh * dh * ds)
-    t_ops, t_mem = flops / FP32_PEAK_FLOPS, bytes_ / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem \
-        else "bytes"
+    t_mem = bytes_ / HBM_BYTES_PER_S
+    return 1e3 * max(t_tc, t_mem), "operations" if t_tc >= t_mem \
+        else "bytes", 1e3 * max(t_fp32, t_mem)
 
 
 def event_ms(fn):
@@ -5444,10 +5464,17 @@ def m1_check(what, args, kw, out=None, timed=True):
            "max_abs_err": errs["y"], "state_max_abs_err": errs["state"],
            "max_abs_want": tops["y"], "same_as_path": out is not None}
     if timed:
-        bound, by = m1_bound_ms(xh, args[1], chunk)
+        bound, by, fp32 = m1_bound_ms(xh, args[1], chunk)
         rec.update(ms=cuda_ms(lambda: kss.ssd_scan(*args, **kw), 3),
                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                   library_ms=None)
+                   fp32_bound_ms=fp32, library_ms=None,
+                   bound_basis="tensor cores: "
+                               + ("C.B^T once a chunk in bf16 at 989 "
+                                  "TFLOP/s, the other products two TF32 "
+                                  "passes at 495 (bf16 operands)"
+                                  if xh.dtype == torch.bfloat16
+                                  else "3xTF32 at 495 TFLOP/s")
+                               + "; fp32_bound_ms: float32 FMAs, 67 TFLOP/s")
     return rec
 
 
@@ -5484,9 +5511,11 @@ def x1_check(what, args, out=None, timed=True):
     m) against its plain loop, within ``X1_TOL`` (``x1_errors``); the
     kernel again bit-identical to ``out`` (the path's own result) where
     given.  With ``timed``: the kernel's device ms (median of 3), the
-    plain loop's (its checking call, timed once), the bound and the serial
-    bound (S grid barriers, each timed alone by ``barrier_step_ms``).
-    Returns the record."""
+    plain loop's (its checking call, timed once), the bound, the serial
+    bound of the earlier barrier design (S grid barriers, each timed alone by
+    ``barrier_step_ms``) and the hand-off design's own serial floor (S
+    flagged hand-offs, each timed alone by ``handoff_step_ms``).  Returns
+    the record."""
     import torch
     from repro_torch.kernels import slstm_scan as ksl
     got = ksl.slstm_scan(*args)
@@ -5503,11 +5532,13 @@ def x1_check(what, args, out=None, timed=True):
     if timed:
         b, s, d4 = pre.shape
         step = ksl.barrier_step_ms(b, d4 // 4, 4096, pre.device)
+        hand = ksl.handoff_step_ms(b, d4 // 4, 4096, pre.device)
         bound, by = x1_bound_ms(pre)
         rec.update(ms=cuda_ms(lambda: ksl.slstm_scan(*args), 3),
                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                    library_ms=None,
-                   barrier_step_ms=step, serial_bound_ms=s * step)
+                   barrier_step_ms=step, serial_bound_ms=s * step,
+                   handoff_step_ms=hand, handoff_serial_bound_ms=s * hand)
     return rec
 
 
@@ -5526,8 +5557,10 @@ def _record_scan(s: Smoke, name, launches, checks):
         if first is not None:
             rec.update({key: first[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-            if "serial_bound_ms" in first:
-                rec["serial_bound_ms"] = first["serial_bound_ms"]
+            for key in ("serial_bound_ms", "handoff_serial_bound_ms",
+                        "fp32_bound_ms", "bound_basis"):
+                if key in first:
+                    rec[key] = first[key]
 
 
 def keep_call(index):
@@ -5536,6 +5569,79 @@ def keep_call(index):
     wanted = {index} if isinstance(index, int) else set(index)
     return lambda i, a, kw, out: (_clone(a), dict(kw), _clone(out)) \
         if i in wanted else None
+
+
+def x1_batched_checks(cfg, params, prompts, max_len):
+    """X1 at the batch the Server decodes (``SERVE_BATCH``; batch 1 runs
+    another kernel body), its launches uncounted: a prefill of the first
+    ``X1_BATCH_PROMPT`` tokens of ``SERVE_BATCH`` prompts, one step of
+    the Server's decode body (one position) run eagerly, then
+    ``X1_REPLAYS`` replays of one captured graph of that body, each from
+    new tokens and the state the one before left.  X1 on the first and
+    the last sLSTM layer of each is held to its plain loop by
+    ``x1_check`` and bit-identical to the path's own result; for a replay
+    that is the operands and result the replay itself rewrote (the clones
+    ``keep_call`` makes inside the capture are part of the graph).
+    Returns the records."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import slstm_scan as ksl
+    from repro_torch.launch.serve import _Graphed, _copy_into
+    from repro_torch.models import model as tm, steps as ts
+    pairs = tm._pairs(cfg)
+    layers = (0, pairs - 1)
+    dev = params["embed"]["tok"].device
+    rng = np.random.default_rng(1)
+    decode = ts.make_decode_step(cfg)
+    tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int64, device=dev)
+    cache = tm.init_decode_cache(cfg, SERVE_BATCH, max_len)
+    records = {}
+
+    def body():
+        lg, out = decode(params, tok, cache)
+        _copy_into(cache, out)
+        return lg
+
+    def hold(what, kept, rows):
+        if len(kept) != len(layers):
+            raise RuntimeError(f"ssm_serve X1 {what}: kept {len(kept)} "
+                               f"calls, wanted {len(layers)}")
+        for i, (args, _, out) in zip(layers, kept):
+            if tuple(args[0].shape[:2]) != (SERVE_BATCH, rows):
+                raise RuntimeError(f"ssm_serve X1 {what}: pre "
+                                   f"{tuple(args[0].shape)}")
+            records[f"xlstm_{what}_layer{i}"] = x1_check(
+                f"ssm_serve X1 {what} layer {i}", args, out, timed=False)
+
+    with uncounted():
+        toks = torch.as_tensor(np.stack(
+            [p[:X1_BATCH_PROMPT] for p in prompts[:SERVE_BATCH]]), device=dev)
+        with intercept(ksl, "slstm_scan", keep_call(set(layers))) as kept:
+            lg, cache = tm.prefill(params, cfg, {"tokens": toks}, cache)
+        hold(f"batch{SERVE_BATCH}_prefill", kept, X1_BATCH_PROMPT)
+        tok.copy_(torch.argmax(lg[:, -1], dim=-1, keepdim=True))
+        with intercept(ksl, "slstm_scan", keep_call(set(layers))) as kept:
+            body()
+        hold("decode", kept, 1)
+        state = _recurrent_state(cache)
+        saved = [t.clone() for t in state]
+
+        def warm():
+            body()
+            for t, v in zip(state, saved):
+                t.copy_(v)
+        # the warm-up's calls are 0 .. pairs - 1, the capture's follow
+        with intercept(ksl, "slstm_scan",
+                       keep_call({pairs + i for i in layers})) as kept:
+            graph = _Graphed(body, warm, torch.cuda.graph_pool_handle(), dev)
+        for r in range(X1_REPLAYS):
+            tok.copy_(torch.as_tensor(
+                rng.integers(1, cfg.vocab, (SERVE_BATCH, 1)), device=dev))
+            graph()
+            torch.cuda.synchronize()
+            hold(f"decode_replay{r}", kept, 1)
+        del graph
+    return records
 
 
 def phase_ssm_serve(s: Smoke):
@@ -5571,6 +5677,7 @@ def phase_ssm_serve(s: Smoke):
     x1 = {f"xlstm_prefill_layer{i}": x1_check(
         f"ssm_serve X1 layer {i}", args, out, timed=i == 0)
         for i, (args, _, out) in zip((0, pairs - 1), kept)}
+    x1.update(x1_batched_checks(cfg, params, prompts, max_len))
     steps = lm_step_times(s, cfg, params, {"tokens": toks}, max_len)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del params
@@ -6075,13 +6182,17 @@ def _long_xlstm(s: Smoke, cfg, params, toks):
                     whole, _ = event_ms(lambda: real(pre, wh, *st))
                     step = ksl.barrier_step_ms(pre.shape[0], wh.shape[0],
                                                4096, pre.device)
+                    hand = ksl.handoff_step_ms(pre.shape[0], wh.shape[0],
+                                               4096, pre.device)
                     bound, by = x1_bound_ms(pre)
                     rec["long_500k"] = {
                         "positions": pre.shape[1], "ms": whole,
                         "ms_per_position": whole / pre.shape[1],
                         "bound_ms": bound, "bound_by": by,
                         "barrier_step_ms": step,
-                        "serial_bound_ms": pre.shape[1] * step}
+                        "serial_bound_ms": pre.shape[1] * step,
+                        "handoff_step_ms": hand,
+                        "handoff_serial_bound_ms": pre.shape[1] * hand}
         finally:
             busy[0] = False
         x1[f"xlstm_long_500k_layer{i}"] = rec
@@ -6175,8 +6286,11 @@ def phase_long_500k(s: Smoke):
                       ("B7 at decode", z["b7_shapes"]["zamba2_long_decode"])):
         print(f"long_500k kernel {name}: ms {rec['ms']}, bound "
               f"{rec['bound_ms']} ({rec['bound_by']})"
-              + (f", serial bound {rec['serial_bound_ms']}"
-                 if "serial_bound_ms" in rec else ""), flush=True)
+              + (f", serial bound {rec['serial_bound_ms']} (barriers), "
+                 f"{rec['handoff_serial_bound_ms']} (hand-offs)"
+                 if "serial_bound_ms" in rec else "")
+              + (f", float32-FMA bound {rec['fp32_bound_ms']}"
+                 if "fp32_bound_ms" in rec else ""), flush=True)
     log({"phase": "long_500k", "ok": True, "shape": "long_500k",
          "prompt": LONG_PROMPT, "max_new": LONG_NEW, "batch": 1,
          "runs": runs, "m1_524288_rows": m1_whole,

@@ -40,6 +40,13 @@ queries, 180,000 x 1024 gallery) at the shapes the smoke gives them:
   median CUDA-event ms over 20 calls and its device ms under
   ``torch.profiler`` (``--k1-only`` runs these alone).
 
+* M1 ``ssd_scan`` at zamba2-2.7b's widths (bf16, ``chip_smoke.
+  m1_long_operands``: a carried state, chunk 256) over 2,048 rows, a
+  32,768-row piece and 524,288 rows, and X1 ``slstm_scan`` at batch 1,
+  D 768 over 2,048, 16,384 and 524,288 positions on seeded operands:
+  each with its digest and median CUDA-event ms over 3 calls after one
+  warm-up (``--scan-only`` runs these alone).
+
 ``--b7-only`` runs the B7 records alone.  For each it prints the SHA-256 of the output's bytes and, for B4 eucl,
 the disagreements with the plain version.  Equal digests from two trees
 mean equal results.  Prints one JSON object (and writes it to ``--out``
@@ -62,7 +69,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def digest(t) -> str:
-    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+    import torch       # the output's bytes, bf16 included (numpy has none)
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
 
 
 def median_ms(torch, call, reps: int = 50) -> float:
@@ -203,6 +212,8 @@ def main() -> None:
                     help="only B7's forward and backward records")
     ap.add_argument("--k1-only", action="store_true",
                     help="only K1p's, K1s's and B1's records")
+    ap.add_argument("--scan-only", action="store_true",
+                    help="only M1's and X1's records")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -213,7 +224,9 @@ def main() -> None:
     build.build()
     out = {"tree": os.path.abspath(args.tree),
            "device": torch.cuda.get_device_name(0)}
-    if args.k1_only:
+    if args.scan_only:
+        out["scans"] = scan_records(torch)
+    elif args.k1_only:
         out["k1"] = k1_records(torch)
     else:
         if not args.b7_only:
@@ -225,6 +238,46 @@ def main() -> None:
     if args.out:
         with open(args.out, "w") as fh:
             fh.write(text + "\n")
+
+
+#: the scans' shapes: M1's rows at zamba2-2.7b's widths, X1's positions
+M1_ROWS, X1_POSITIONS, X1_D = (2048, 32768, 524288), (2048, 16384, 524288), 768
+
+
+def scan_records(torch) -> dict:
+    """M1 and X1 at the smoke's shapes: digests and median ms of 3."""
+    from chip_smoke import m1_long_operands
+    from repro_torch.kernels import slstm_scan as ksl, ssd_scan as kss
+    out = {}
+    for rows in M1_ROWS:
+        args, kw = m1_long_operands(torch.device("cuda"), rows)
+        def call():
+            return kss.ssd_scan(*args, **kw)
+        y, h = call()
+        out[f"m1_{rows}"] = {"sha256": digest(y), "state_sha256": digest(h),
+                             "ms": median_ms(torch, call, 3)}
+        del args, y, h
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    d = X1_D
+    pre_all = torch.randn((1, max(X1_POSITIONS), 4 * d), generator=gen,
+                          device="cuda")
+    wh = torch.randn((d, 4 * d), generator=gen, device="cuda") / d ** 0.5
+    n0 = torch.rand((1, d), generator=gen, device="cuda") * 2 + 1
+    state = (torch.rand((1, d), generator=gen, device="cuda") * 2 - 1,
+             (torch.rand((1, d), generator=gen, device="cuda") * 2 - 1) * n0,
+             n0, torch.randn((1, d), generator=gen, device="cuda"))
+    for s in X1_POSITIONS:
+        pre = pre_all[:, :s].contiguous()
+        def call():
+            return ksl.slstm_scan(pre, wh, *state)
+        hs, _ = call()
+        ms = median_ms(torch, call, 3)
+        out[f"x1_{s}"] = {"sha256": digest(hs), "ms": ms,
+                          "us_per_position": 1e3 * ms / s}
+        del pre, hs
+    return out
 
 
 def cam_records(torch) -> dict:

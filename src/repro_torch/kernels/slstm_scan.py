@@ -20,10 +20,13 @@ product), ``logf = logsigmoid(f)``, ``m_t = max(logf + m, i)``,
 :data:`SLSTM_MAX_D`; a batch past :data:`SLSTM_MAX_BATCH` rows runs as
 one launch per slice of that many rows.
 
-The launch is cooperative: a grid of ``ceil(D / 8)`` blocks, all resident
-at once, walks the positions in order with one grid-wide barrier a step.
-It runs inside a CUDA graph capture (the Server captures prefill): the
-barrier's counter is zeroed by a fill the graph records.
+The launch is cooperative: a grid of ``ceil(D / 8)`` blocks of eight
+warps, a warp a hidden unit with its four columns of ``wh`` in registers,
+all resident at once, walks the positions in order; each new h leaves as
+one 64-bit (value, step tag) word that the other blocks poll for (a
+flagged hand-off, no grid barrier).  It runs inside a CUDA graph capture
+(the Server captures prefill): the words are zeroed by a fill the graph
+records, so no tag of an earlier launch or replay matches.
 
 :func:`slstm_route` names the route, as :func:`.ssd_scan.ssd_route` does:
 the kernel for CUDA tensors that are not fake when autograd records
@@ -48,21 +51,22 @@ from .flash_attention import _launch
 from .ssd_scan import ssd_route
 
 __all__ = ["slstm_scan", "slstm_scan_reference", "slstm_route",
-           "barrier_step_ms", "SLSTM_MAX_D", "SLSTM_MAX_BATCH"]
+           "barrier_step_ms", "handoff_step_ms", "SLSTM_MAX_D",
+           "SLSTM_MAX_BATCH"]
 
-#: the widest hidden state the kernel takes (the block's D x 32 columns of
-#: the recurrent weight and 8 rows of h in shared memory)
+#: the widest hidden state the kernel takes (a lane holds 4 x 32 values of
+#: the recurrent weight in registers)
 SLSTM_MAX_D = 1024
-#: batch rows a launch takes (the pre-activations a thread prefetches)
+#: batch rows a launch takes (the pre-activations a lane prefetches)
 SLSTM_MAX_BATCH = 64
-#: pre, wh, h0, c0, n0, m0, hs, h, c, n, m, the h double buffer, the
-#: barrier counter, the snapshot, its position, batch, seq, D, the stream
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_longlong, ctypes.c_int,
+#: pre, wh, h0, c0, n0, m0, hs, h, c, n, m, the hand-off words, the
+#: snapshot, its position, batch, seq, D, the stream
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_void_p]
-#: the barrier probe's counter, steps, batch, D, the stream
-_BARRIER_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_void_p]
+#: a probe's counter or words, steps, batch, D, the stream
+_PROBE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
@@ -146,14 +150,13 @@ def _slstm_scan_cuda(pre, wh, h, c, n, m, snapshot_at=None):
     for b0 in range(0, b, SLSTM_MAX_BATCH):
         rows = slice(b0, min(b, b0 + SLSTM_MAX_BATCH))
         nb = rows.stop - b0
-        hbuf = torch.empty((2, nb, d), dtype=torch.float32, device=dev)
-        counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+        words = torch.zeros((2, nb, d), dtype=torch.int64, device=dev)
         part = None if snap is None else \
             torch.empty((4, nb, d), dtype=torch.float32, device=dev)
         args = (pre[rows].data_ptr(), wh.data_ptr(),
                 *(t[rows].data_ptr() for t in state), hs[rows].data_ptr(),
-                *(t[rows].data_ptr() for t in out), hbuf.data_ptr(),
-                counter.data_ptr(), None if part is None else part.data_ptr(),
+                *(t[rows].data_ptr() for t in out), words.data_ptr(),
+                None if part is None else part.data_ptr(),
                 snapshot_at or 0, nb, s, d)
         err = _launch(lib, "c4cam_slstm_scan", _ARGTYPES, args, dev.index)
         _raise_if_failed(lib, "slstm_scan", err)
@@ -163,25 +166,41 @@ def _slstm_scan_cuda(pre, wh, h, c, n, m, snapshot_at=None):
     return (hs, out) if snap is None else (hs, out, tuple(snap))
 
 
-def barrier_step_ms(batch: int, d: int, steps: int, device) -> float:
-    """The device ms of one grid-wide barrier of X1's grid at (``batch``,
-    ``d``): a probe kernel that runs only the barrier, ``steps`` times,
-    over the scan's grid and shared-memory footprint, timed with CUDA
-    events (after one warm-up launch).  The scan's serial bound is S of
-    these; it is not a launch of X1 and counts none."""
+def _probe_step_ms(fn, scratch, what, batch, d, steps, device) -> float:
     dev = torch.device(device)
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
     lib = build.load("slstm_scan")
     times = []
     for _ in range(2):
-        counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+        buf = torch.zeros(scratch, dtype=torch.int64, device=dev)
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         e0.record()
-        err = _launch(lib, "c4cam_slstm_barrier", _BARRIER_ARGTYPES,
-                      (counter.data_ptr(), steps, batch, d), index)
+        err = _launch(lib, fn, _PROBE_ARGTYPES,
+                      (buf.data_ptr(), steps, batch, d), index)
         e1.record()
-        _raise_if_failed(lib, "slstm_scan barrier", err)
+        _raise_if_failed(lib, what, err)
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return times[-1] / steps
+
+
+def barrier_step_ms(batch: int, d: int, steps: int, device) -> float:
+    """The device ms of one grid-wide barrier (the earlier design's: a release
+    increment and acquire polling of one counter) over X1's grid at
+    (``batch``, ``d``): a probe kernel that runs only the barrier,
+    ``steps`` times, timed with CUDA events (after one warm-up launch).
+    S of these were the serial bound of the barrier design; it is not a
+    launch of X1 and counts none."""
+    return _probe_step_ms("c4cam_slstm_barrier", (1,), "slstm_scan barrier",
+                          batch, d, steps, device)
+
+
+def handoff_step_ms(batch: int, d: int, steps: int, device) -> float:
+    """The device ms of one flagged hand-off of X1's design at (``batch``,
+    ``d``): a probe kernel over the scan's grid in which each unit
+    publishes its h words and every block polls all of them, ``steps``
+    times, timed as :func:`barrier_step_ms`.  S of these are the scan's
+    serial bound; it is not a launch of X1 and counts none."""
+    return _probe_step_ms("c4cam_slstm_handoff", (2, batch, d),
+                          "slstm_scan hand-off", batch, d, steps, device)

@@ -16,9 +16,12 @@ stride (a view of the block's convolution output); ``dt`` (b, S, nh),
 ``A`` (nh,), ``D`` (nh,) and the carried state ``h`` (b, nh, dh, ds)
 float32 -> (``y`` (b, S, nh * dh) in ``xh``'s dtype, the final state
 float32).  The kernels take ``dh`` and ``ds`` up to
-:data:`SSD_MAX_DIM` and a chunk up to :data:`SSD_MAX_CHUNK`, every product
-a float32 FMA; rows past S read as the zeros the plain version pads
-with.
+:data:`SSD_MAX_DIM` and a chunk up to :data:`SSD_MAX_CHUNK`; rows past S
+read as the zeros the plain version pads with.  Every product runs on the
+tensor cores (TF32 ``wgmma``) with each float32 operand split into a TF32
+hi and lo half (3xTF32, the lo.lo term dropped); a bf16 operand is exact
+in TF32 and is not split.  The sums run in other orders than the plain
+version's, within the tolerances ``chip_smoke.py`` states.
 
 :func:`ssd_route` names the route: the kernel for CUDA tensors that are
 not fake when autograd records nothing (grad mode off, or no operand

@@ -3010,3 +3010,112 @@ def test_slstm_scan_snapshot_is_the_carried_state(cuda, rng):
     assert torch.equal(tail_hs, hs[:, 400:])
     assert all(torch.equal(a, b) for a, b in zip(tail_fin, fin))
     assert torch.equal(mid[0], hs[:, 399])
+
+
+@pytest.mark.parametrize("chunk", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,dh,ds", [(80, 64, 64), (8, 32, 32)])
+def test_ssd_scan_tensor_core_shapes(cuda, chunk, dtype, nh, dh, ds, rng):
+    """M1's tensor-core design at S = 1,000 rows (a multiple of neither
+    chunk: a ragged last chunk and row tile), chunk 64 and 256, bf16 and
+    float32, at zamba2-2.7b's head widths and at dh = ds = 32 (tiles half
+    zero-padded), from a carried state: one call over the 1,000 rows, and
+    the same rows as two calls of 600 and 400, the second from the
+    first's final state.  Each against ``ssd_scan_reference`` within the
+    tolerances of ``test_ssd_scan_kernel_matches_plain``."""
+    from repro_torch.kernels import ssd_scan as kss
+    ops = _ssd_operands(rng, 1, 1000, dtype, cuda, nh, dh, ds)
+    xh, B_, C_, dt, A, D, h0 = ops
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+    want_y, want_h = kss.ssd_scan_reference(*ops, chunk=chunk)
+    tcs.reset_launch_counts()
+    y, h = kss.ssd_scan(*ops, chunk=chunk)
+    y1, h1 = kss.ssd_scan(xh[:, :600], B_[:, :600], C_[:, :600], dt[:, :600],
+                          A, D, h0, chunk=chunk)
+    y2, h2 = kss.ssd_scan(xh[:, 600:], B_[:, 600:], C_[:, 600:], dt[:, 600:],
+                          A, D, h1, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tcs.LAUNCHES["ssd_scan"] == 3
+    # the plain version over the same two calls (its chunks restart at 600)
+    p1, q1 = kss.ssd_scan_reference(xh[:, :600], B_[:, :600], C_[:, :600],
+                                    dt[:, :600], A, D, h0, chunk=chunk)
+    p2, q2 = kss.ssd_scan_reference(xh[:, 600:], B_[:, 600:], C_[:, 600:],
+                                    dt[:, 600:], A, D, q1, chunk=chunk)
+    for got, want, rt in ((y, want_y, rtol), (h, want_h, 1e-4),
+                          (torch.cat([y1, y2], 1), torch.cat([p1, p2], 1),
+                           rtol), (h2, q2, 1e-4)):
+        err, ok = _within(got, want, rt, 1e-5)
+        assert ok, err
+
+
+@pytest.mark.parametrize("b", [1, 3, 9, 64])
+@pytest.mark.parametrize("d", [768, 1000])
+@pytest.mark.parametrize("s", [1, 300])
+def test_slstm_scan_batches_and_widths(cuda, b, d, s, rng):
+    """X1's hand-off design at batch 1 (a pass of one row), 3, 9 and 64
+    (passes of 8 rows, the last ragged), D 768 and D 1000 (not a multiple
+    of 8: the last block's units past D idle; 32 rows of wh a lane), over
+    1 and 300 positions, against the plain loop within ``SLSTM_TOL``."""
+    from repro_torch.kernels import slstm_scan as ksl
+    ops = _slstm_operands(rng, b, s, d, cuda)
+    errs = _slstm_errors(ksl.slstm_scan(*ops), ksl.slstm_scan_reference(*ops))
+    assert max(errs.values()) <= SLSTM_TOL, errs
+
+
+@pytest.mark.parametrize("b,d", [(1, 1000), (3, 768)])
+def test_slstm_scan_long_sequences(cuda, b, d, rng):
+    """X1 over 16,384 positions at batch 1, D 1000 and batch 3, D 768
+    against the plain loop within ``SLSTM_TOL``."""
+    from repro_torch.kernels import slstm_scan as ksl
+    ops = _slstm_operands(rng, b, 16384, d, cuda)
+    errs = _slstm_errors(ksl.slstm_scan(*ops), ksl.slstm_scan_reference(*ops))
+    assert max(errs.values()) <= SLSTM_TOL, errs
+
+
+def test_slstm_scan_is_deterministic(cuda, rng):
+    """Two launches of X1 on the same operands are bit-identical (the
+    warp reduction adds in a fixed order; no atomics)."""
+    from repro_torch.kernels import slstm_scan as ksl
+    for b in (1, 9):
+        ops = _slstm_operands(rng, b, 513, 768, cuda)
+        (hs1, st1), (hs2, st2) = ksl.slstm_scan(*ops), ksl.slstm_scan(*ops)
+        assert torch.equal(hs1, hs2)
+        assert all(torch.equal(a, c) for a, c in zip(st1, st2))
+
+
+def test_slstm_scan_new_inputs_back_to_back_and_replayed(cuda):
+    """X1's hand-off words never let a tag of an earlier launch or replay
+    through: three launches back to back on different operands, and three
+    replays of one captured graph with different operands copied in, each
+    bit-identical to a launch on those operands alone (after a
+    synchronize) and within ``SLSTM_TOL`` of the plain loop."""
+    from repro_torch.kernels import slstm_scan as ksl
+    sets = [_slstm_operands(np.random.default_rng(20 + i), 2, 300, 768, cuda)
+            for i in range(3)]
+    alone = []
+    for ops in sets:
+        alone.append(ksl.slstm_scan(*ops))
+        torch.cuda.synchronize()
+    back = [ksl.slstm_scan(*ops) for ops in sets]     # no sync between
+    torch.cuda.synchronize()
+    for (hs, st), (w_hs, w_st), ops in zip(back, alone, sets):
+        assert torch.equal(hs, w_hs)
+        assert all(torch.equal(a, c) for a, c in zip(st, w_st))
+        errs = _slstm_errors((hs, st), ksl.slstm_scan_reference(*ops))
+        assert max(errs.values()) <= SLSTM_TOL, errs
+    static = [t.clone() for t in sets[0]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ksl.slstm_scan(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_hs, out_st = ksl.slstm_scan(*static)
+    for ops, (w_hs, w_st) in zip(sets[::-1], alone[::-1]):
+        for dst, src in zip(static, ops):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out_hs, w_hs)
+        assert all(torch.equal(a, c) for a, c in zip(out_st, w_st))
